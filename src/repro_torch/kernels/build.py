@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``kernels/csrc/*.cu`` file is one shared library with a plain C
+interface, compiled at first use for ``sm_90a``::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
+
+into ``build/kernels/`` at the repository root, named by a hash of the
+source, so an edited source rebuilds and an unchanged one loads at once.
+``build_all()`` starts one ``nvcc`` per source, all together.  A missing
+``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: C signature of each library's entry point: (argtypes, restype).
+SIGNATURES = {
+    "decode_attention": ("flash_decode",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _I, _P]),
+    "cache_update": ("cache_update",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the port's CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start compiling ``name``; returns the process, or None if cached."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, proc) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    out = _target(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                           f"{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> list[Path]:
+    """Compile every kernel source that is not built yet, one ``nvcc``
+    per source running in parallel.  Returns the libraries' paths."""
+    procs = {name: _start(name) for name in SIGNATURES}
+    try:
+        for name, proc in procs.items():
+            _finish(name, proc)
+    finally:
+        for proc in procs.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [_target(name) for name in SIGNATURES]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use),
+    with its entry point's argtypes and restype declared."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    _finish(name, _start(name))
+    lib = ctypes.CDLL(str(_target(name)))
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,126 @@
+"""Wrappers of the hand-written CUDA kernels that replace the Pallas TPU
+kernels of ``repro/kernels/flash_attention.py`` on the serving path.
+
+  flash_decode   csrc/decode_attention.cu   (TPU: flash_decode, _decode_kernel)
+  cache_update   csrc/cache_update.cu       (TPU: cache_update, _cache_update_kernel)
+
+A wrapper given CPU tensors runs the kernel's plain PyTorch version from
+``kernels/ref.py``; given CUDA tensors it checks device, dtype, shape and
+contiguity, allocates the output, launches the kernel on the current
+stream and raises if the launch returns a CUDA error.  There is no other
+path.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_cuda(name: str, device, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.dtype != torch.int32 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError_t {err}")
+
+
+def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
+                 local_window=None, scale=None):
+    """q: (B, Sq, H, D); caches: (B, S, K, D); kv_len: (B,) int32 valid
+    length INCLUDING the Sq new tokens, per slot (ragged; a done lane's
+    S + 1 reads the S cache rows and nothing past them).  Returns
+    (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    if not q.is_cuda:
+        return ref.decode_attention_ref(q, k_cache, v_cache, kv_len,
+                                        scale=scale, softcap=softcap,
+                                        local_window=local_window)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_decode: dtype {q.dtype} not supported")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError("flash_decode: caches must have q's dtype")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
+        raise TypeError("flash_decode: kv_len must be int32 of shape (B,)")
+    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
+            or k_cache.shape[3] != D or H % K):
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
+                         f"caches {tuple(k_cache.shape)}")
+    if D not in (32, 128):
+        raise ValueError(f"flash_decode: head_dim {D} not in (32, 128)")
+    _check_cuda("flash_decode", q.device, q=q, k_cache=k_cache,
+                v_cache=v_cache, kv_len=kv_len)
+    out = torch.empty_like(q)
+    lib = build.library("decode_attention")
+    err = lib.flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), B, Sq, H, S, K, D,
+        _DTYPE_CODE[q.dtype], float(scale),
+        float(softcap) if softcap is not None else 0.0,
+        int(local_window) if local_window is not None else 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("flash_decode", err)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, index):
+    """Write k/v_new (B, Sn, K, D) into the caches (B, S, K, D) IN PLACE at
+    per-slot offsets ``index`` (B,) int32, cast to the cache dtype.  A slot
+    with index < 0 or index + Sn > S is dropped whole (done-slot
+    semantics).  Returns (k_cache, v_cache)."""
+    if not k_cache.is_cuda:
+        return ref.kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index)
+    B, Sn, K, D = k_new.shape
+    S = k_cache.shape[1]
+    if k_cache.dtype not in _DTYPE_CODE or k_new.dtype not in _DTYPE_CODE:
+        raise TypeError(f"cache_update: dtypes {k_new.dtype} -> "
+                        f"{k_cache.dtype} not supported")
+    if v_cache.dtype != k_cache.dtype or v_new.dtype != k_new.dtype:
+        raise TypeError("cache_update: k and v dtypes differ")
+    if index.dtype != torch.int32 or tuple(index.shape) != (B,):
+        raise TypeError("cache_update: index must be int32 of shape (B,)")
+    if (v_new.shape != k_new.shape or k_cache.shape != v_cache.shape
+            or tuple(k_cache.shape) != (B, S, K, D)):
+        raise ValueError(f"cache_update: shapes new {tuple(k_new.shape)}, "
+                         f"caches {tuple(k_cache.shape)}")
+    if (K * D) % 8:
+        raise ValueError("cache_update: K * D must be a multiple of 8")
+    _check_cuda("cache_update", k_cache.device, k_cache=k_cache,
+                v_cache=v_cache, k_new=k_new, v_new=v_new, index=index)
+    lib = build.library("cache_update")
+    err = lib.cache_update(
+        k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), index.data_ptr(), B, Sn, S, K * D,
+        _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[k_cache.dtype],
+        torch.cuda.current_stream(k_cache.device).cuda_stream)
+    _raise_on("cache_update", err)
+    cache_update.launches += 1
+    return k_cache, v_cache
+
+
+cache_update.launches = 0
+
+#: The wrappers whose kernels serve the main path (for launch counting).
+KERNELS = (flash_decode, cache_update)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

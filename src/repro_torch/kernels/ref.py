@@ -1,0 +1,89 @@
+"""Plain PyTorch versions of the kernels on the port's path.
+
+Each function mirrors its oracle in ``repro/kernels/ref.py`` line for
+line.  The CPU path of every kernel wrapper runs these, the CPU tests
+hold them against the JAX package, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.  The CUDA path never calls them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softcap(x, cap):
+    return cap * torch.tanh(x / cap) if cap is not None else x
+
+
+def _mask(q_pos, k_pos, causal: bool, local_window):
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if local_window is not None:
+        m &= q_pos[:, None] - k_pos[None, :] < local_window
+    return m
+
+
+def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
+                    scale=None, kv_len=None):
+    """Full-matrix GQA attention.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0.
+    kv_len: optional (B,) active cache length (decode); when given, q
+    positions are laid at the END of the kv window.
+    """
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, Sq, K, G, D)
+    kf = k.float()
+    vf = v.float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    logits = _softcap(logits, softcap)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    if kv_len is not None:
+        q_pos = q_pos[None, :] + kv_len.long()[:, None] - Sq    # (B, Sq)
+        mask = q_pos[:, :, None] >= k_pos[None, None, :]
+        if local_window is not None:
+            mask &= q_pos[:, :, None] - k_pos[None, None, :] < local_window
+        mask = mask[:, None, None, :, :]
+    else:
+        mask = _mask(q_pos, k_pos, causal, local_window)[None, None, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, kv_len, *, scale=None,
+                         softcap=None, local_window=None):
+    """Decode/chunked-prefill attention: q (B, Sq, H, D) laid at the END of
+    the valid kv window, cache (B, S, K, D), kv_len (B,) valid lengths
+    INCLUDING the Sq current tokens (per-slot ragged).  A done lane's
+    kv_len = S + 1 sees all S rows, like the kernel."""
+    return attention_naive(q, k_cache, v_cache, causal=True,
+                           local_window=local_window, softcap=softcap,
+                           scale=scale, kv_len=kv_len)
+
+
+def kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index):
+    """Per-slot-offset cache write: scatter k/v_new (B, Sn, K, D) into
+    (B, S, K, D) at row offsets ``index`` (B,).  A slot whose write would
+    cross the cache end (or start before it) is dropped WHOLE, not
+    element-wise clipped.  Unlike the functional JAX oracle this writes
+    IN PLACE, as the port's caches are updated in place; it returns the
+    two caches."""
+    Sn = k_new.shape[1]
+    S = k_cache.shape[1]
+    index = index.long()
+    ok = (index >= 0) & (index + Sn <= S)
+    rows = torch.nonzero(ok).flatten()
+    pos = index[rows][:, None] + torch.arange(Sn, device=index.device)[None]
+    k_cache[rows[:, None], pos] = k_new[rows].to(k_cache.dtype)
+    v_cache[rows[:, None], pos] = v_new[rows].to(v_cache.dtype)
+    return k_cache, v_cache

@@ -1,0 +1,174 @@
+"""LM assembly, dense family, ported from ``repro/models/lm.py``.
+
+One declarative parameter tree (the reference's keys and shapes, so the
+JAX package's weights load unchanged) and one forward: a pre-norm decoder
+whose layers run in a Python loop over the stacked ``layers`` leaves
+(the reference's ``lax.scan``).  Other families and the gemma2
+local/global pattern raise, naming the ROADMAP item that ports them.
+
+Forward modes:
+  forward(...)                     full-sequence hidden states (no cache)
+  forward(..., cache, cache_index) prefill chunk or decode step; the cache
+                                   is updated in place
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        item = {"moe": "7", "ssm": "8", "hybrid": "8", "vlm": "12",
+                "audio": "12"}.get(cfg.family, "?")
+        raise NotImplementedError(
+            f"{cfg.family} family: ROADMAP queue 1 item {item}")
+    if cfg.layer_pattern != "global" or cfg.post_norms:
+        raise NotImplementedError("gemma2 local/global layers and post-norms: "
+                                  "ROADMAP queue 1 item 11")
+
+
+# ===========================================================================
+# declarations
+# ===========================================================================
+
+def model_decls(cfg: ModelConfig) -> dict:
+    _require_dense(cfg)
+    n = cfg.n_layers
+    d: dict[str, Any] = {
+        "embed": L.embed_decls(cfg),
+        "layers": {
+            "ln1": L.norm_decls(cfg, layers=n),
+            "attn": L.attention_decls(cfg, layers=n),
+            "ln2": L.norm_decls(cfg, layers=n),
+            "mlp": L.mlp_decls(cfg, layers=n),
+        },
+        "final_norm": L.norm_decls(cfg),
+    }
+    ue = L.unembed_decls(cfg)
+    if ue:
+        d["unembed"] = ue
+    return d
+
+
+def prepare_params(ctx: L.Ctx, params):
+    """The params on ``ctx.device`` with the matrices and the embedding
+    table cast ONCE to the compute dtype.  The reference casts its f32
+    masters at every use; casting once rounds identically.  Norm scales
+    stay float32 (norm maths is float32)."""
+    c, dev = ctx.cdtype, torch.device(ctx.device)
+
+    def cast(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, k) for k, v in tree.items()}
+        if key in ("scale", "bias"):
+            return tree.to(dev)
+        return tree.to(device=dev, dtype=c)
+
+    return cast(params)
+
+
+# ===========================================================================
+# forward
+# ===========================================================================
+
+def _tf_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin, *,
+              local_window=None, cache=None, cache_index=None):
+    """One transformer block; returns (h, cache)."""
+    a_in = L.apply_norm(cfg, p["ln1"], h)
+    attn_out, cache = L.apply_attention(
+        ctx, cfg, p["attn"], a_in, cos, sin, local_window=local_window,
+        cache=cache, cache_index=cache_index)
+    h = h + attn_out
+    m_in = L.apply_norm(cfg, p["ln2"], h)
+    return h + L.apply_mlp(ctx, cfg, p["mlp"], m_in), cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of the stacked layer params, as views."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _positions_default(batch: int, seq: int, device, cache_index=None):
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    if cache_index is not None:
+        if torch.is_tensor(cache_index) and cache_index.ndim == 1:
+            # (B,) index: per-slot offsets (continuous batching)
+            pos = pos + cache_index.to(torch.int32)[:, None]
+        else:
+            pos = pos + int(cache_index)   # scalar: shared offset
+    return pos.expand(batch, seq)
+
+
+def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
+            cache=None, cache_index=None):
+    """Returns (hidden (B,S,D), aux_loss, cache).  ``cache`` is the
+    ``init_cache`` dict (or one slot's views of it) and is written in
+    place; the same dict comes back."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = L.apply_embed(ctx, cfg, params["embed"], tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _positions_default(B, S, tokens.device, cache_index)
+    cos, sin = (L.rope_cos_sin(cfg, positions) if cfg.use_rope
+                else (None, None))
+    kv = cache["kv"] if cache is not None else None
+    for i in range(cfg.n_layers):
+        layer_cache = ({"k": kv["k"][i], "v": kv["v"][i]}
+                       if kv is not None else None)
+        h, _ = _tf_block(ctx, cfg, _layer(params["layers"], i), h, cos, sin,
+                         cache=layer_cache, cache_index=cache_index)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux, cache
+
+
+# ===========================================================================
+# logits / caches
+# ===========================================================================
+
+def unembed_matrix(cfg: ModelConfig, params, dtype):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].to(dtype).T
+    return params["unembed"]["w"].to(dtype)
+
+
+def logits_for(ctx: L.Ctx, cfg: ModelConfig, params, h):
+    """Full float32 logits (decode path; small S).  Pad-vocab columns
+    masked."""
+    w = unembed_matrix(cfg, params, ctx.cdtype)
+    logits = (h @ w).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
+    """Decode state: stacked (L, B, max_seq, K, hd) k/v zeros in the
+    compute dtype on ``ctx.device``."""
+    _require_dense(cfg)
+    return {"kv": L.empty_kv_cache(cfg, batch, max_seq, ctx.cdtype,
+                                   layers=cfg.n_layers, device=ctx.device)}
+
+
+#: Slot semantics of a cache kind (as the reference): "rows" leaves carry
+#: sequence rows on axis 2, valid up to the slot's kv_len.
+SLOT_ROWS = "rows"
+
+
+def cache_slot_spec(cfg: ModelConfig) -> dict[str, str]:
+    """Per-top-level-key slot schema of ``init_cache``'s dict."""
+    _require_dense(cfg)
+    return {"kv": SLOT_ROWS}

@@ -1,0 +1,390 @@
+"""Serving: continuous-batching runtime over per-slot cache state, ported
+from ``repro/serving/engine.py`` (dense mode).
+
+Three device programs make up the runtime:
+
+  * ``make_prefill_chunk_step``: one power-of-two prompt chunk prefills
+    into ONE slot's cache rows, at batch 1, through that slot's views of
+    the stacked cache; every other slot's state is untouched.
+  * ``make_decode_chunk_step``: K decode steps for the WHOLE batch with a
+    per-slot cache-index vector ``(B,)`` and per-slot done flags.  The
+    reference's ``lax.while_loop`` exits early once every slot is done;
+    here the loop runs all K iterations, masked by ``done``, so the host
+    never reads ``done``: done lanes emit -1 and their cache writes drop
+    (index = max_seq), so the token streams are the same.  One host sync
+    per K-token chunk.
+  * an admission step that arms a freshly prefilled slot's decode lane.
+
+State lives on ``ctx.device`` and is updated IN PLACE: the per-slot cache
+views are written by the kernels directly, so the reference's
+``_merge_slot`` has no counterpart.
+
+With a power manager attached (anything with ``phase(name, calls=)``,
+e.g. ``repro.power.PowerManager``), prefill and decode run under their
+own phase caps, entered once per admitted request / decode chunk.
+
+Not ported yet, each raising ``NotImplementedError``: drain / restore /
+checkpoint / abandon (ROADMAP queue 1 item 9), paged mode (item 4), ``serve_phase_tasks`` (item 5).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import lm
+from repro_torch.models.layers import Ctx
+from repro_torch.models.params import resolve_device
+from repro_torch.obs.tracer import NULL_TRACER
+from repro_torch.serving.scheduler import Request, SlotScheduler, chunk_plan
+
+__all__ = ["Request", "ServeEngine", "make_prefill_step", "make_decode_step",
+           "make_prefill_chunk_step", "make_decode_chunk_step"]
+
+_SNAPSHOTS = "slot snapshots (drain/restore/checkpoint): ROADMAP queue 1 item 9"
+_PAGED = "paged KV cache and prefix sharing: ROADMAP queue 1 item 4"
+
+
+def serve_phase_tasks(*args, **kwargs):
+    raise NotImplementedError(
+        "serve_phase_tasks needs the power/hardware models: ROADMAP queue 1 "
+        "item 5")
+
+
+# ===========================================================================
+# single-shot whole-batch programs
+# ===========================================================================
+
+def make_prefill_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
+                      max_seq: int):
+    """prefill(params, batch) -> (cache, last_logits (B, 1, V))."""
+
+    def prefill(params, batch):
+        B = batch["tokens"].shape[0]
+        cache = lm.init_cache(ctx, cfg, B, max_seq)
+        h, _, cache = lm.forward(ctx, cfg, params, batch, cache=cache,
+                                 cache_index=0)
+        return cache, lm.logits_for(ctx, cfg, params, h[:, -1:, :])
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
+    """decode(params, cache, tokens (B,1), index) -> (cache, logits (B, V)).
+    ``index`` is a scalar (shared offset) or a (B,) per-slot tensor."""
+
+    def decode(params, cache, tokens, index):
+        h, _, cache = lm.forward(ctx, cfg, params, {"tokens": tokens},
+                                 cache=cache, cache_index=index)
+        return cache, lm.logits_for(ctx, cfg, params, h)[:, 0]
+
+    return decode
+
+
+# ===========================================================================
+# continuous-batching device programs
+# ===========================================================================
+
+def _slot_views(cache, slot: int):
+    """One slot's lane of the stacked cache, as views (batch axis = 1):
+    writes through them land in the full cache."""
+    return {"kv": {k: a[:, slot:slot + 1] for k, a in cache["kv"].items()}}
+
+
+def make_prefill_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
+    """prefill_chunk(params, cache, tokens (1,chunk), slot, index)
+    -> (cache, logits (1,V)).  Writes the chunk's KV rows into ONE slot of
+    the batch cache, in place."""
+
+    def prefill_chunk(params, cache, tokens, slot: int, index: int):
+        h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
+                             cache=_slot_views(cache, slot),
+                             cache_index=index)
+        logits = lm.logits_for(ctx, cfg, params, h[:, -1:, :])
+        return cache, logits[:, 0]
+
+    return prefill_chunk
+
+
+def make_decode_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
+                           chunk: int, max_seq: int):
+    """decode_chunk(params, cache, cur, index, rem, done) ->
+    (cache, cur, index, rem, done, out (B,chunk), steps).
+
+    ``chunk`` iterations with per-slot state vectors (B,): ``cur`` is each
+    slot's newest not-yet-delivered token, ``index`` its cache write
+    offset, ``rem`` tokens still owed, ``done`` the mask for finished or
+    empty slots.  ``out`` collects emitted tokens (-1 where a slot was
+    done), the only value the host needs per chunk.  Nothing here reads
+    a device value on the host."""
+
+    def decode_chunk(params, cache, cur, index, rem, done):
+        B = cur.shape[0]
+        out = torch.full((B, chunk), -1, dtype=torch.int32, device=cur.device)
+        cur, index, rem = cur.int(), index.int(), rem.int()
+        for t in range(chunk):
+            # deliver each live slot's pending token into the out buffer
+            out[:, t] = torch.where(done, -1, cur)
+            rem = torch.where(done, rem, rem - 1)
+            done = done | (rem <= 0)
+            # done slots write at max_seq: the per-slot cache write drops
+            # them, so retired lanes cost no state
+            widx = torch.where(done, max_seq, index)
+            h, _, cache = lm.forward(ctx, cfg, params, {"tokens": cur[:, None]},
+                                     cache=cache, cache_index=widx)
+            logits = lm.logits_for(ctx, cfg, params, h)
+            nxt = torch.argmax(logits[:, 0], dim=-1).int()
+            cur = torch.where(done, 0, nxt)
+            index = torch.where(done, index, index + 1)
+        return cache, cur, index, rem, done, out, chunk
+
+    return decode_chunk
+
+
+def _install_step(cur, index, rem, done, tok, slot: int, offset: int,
+                  budget: int):
+    """Arm one slot's decode lane, in place: ``tok`` is the pending (not
+    yet delivered, not yet cache-written) token, ``offset`` the slot's
+    cache write position, ``budget`` the tokens still owed."""
+    cur[slot] = tok
+    index[slot] = offset
+    rem[slot] = budget
+    done[slot] = budget <= 0
+    return cur, index, rem, done
+
+
+def _admit_step(cur, index, rem, done, logits, slot: int, plen: int,
+                max_new: int):
+    """Install a freshly prefilled request into its slot's decode lane:
+    first generated token from the prefill logits (first maximum, as
+    ``jnp.argmax``), cache offset at the prompt length, budget armed."""
+    first = torch.argmax(logits[0]).int()
+    return _install_step(cur, index, rem, done, first, slot, plen, max_new)
+
+
+def _to_host(x):
+    return x.cpu().numpy()
+
+
+class ServeEngine:
+    """Continuous-batching serving runtime (greedy decoding), dense mode.
+
+    ``batch_size`` device-resident slots each hold one in-flight request
+    at its own cache offset.  Admission happens at any step regardless of
+    prompt length (chunked per-slot prefill); decode runs in
+    ``decode_chunk``-token chunks with ONE host sync per chunk; a slot is
+    recycled the moment its request finishes, at chunk granularity.
+
+    Driving: ``generate(requests)`` runs to drain; ``start(requests)`` +
+    ``step()`` while ``pending`` runs one admission round plus one decode
+    chunk at a time; ``submit`` queues more onto a running stream.
+
+    The engine runs on ``ctx.device`` (``cuda`` by default; raises when
+    there is no card, unless the Ctx names the CPU).
+    """
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig, ctx: Ctx, params,
+                 batch_size: int = 4, max_seq: int = 256, power=None,
+                 prefill_chunk: int = 32, decode_chunk: int = 8,
+                 tracer=None, trace_track: str = "engine",
+                 paged: bool = False):
+        if paged:
+            raise NotImplementedError(_PAGED)
+        prefill_chunk = min(prefill_chunk, max_seq)
+        if prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1):
+            raise ValueError(f"prefill_chunk must be a power of two, "
+                             f"got {prefill_chunk}")
+        if decode_chunk < 1:
+            raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
+        self.device = resolve_device(ctx.device)
+        self.cfg, self.run, self.ctx = cfg, run, ctx
+        self.params = lm.prepare_params(ctx, params)
+        self.batch_size, self.max_seq = batch_size, max_seq
+        self.power = power
+        self.prefill_chunk = prefill_chunk
+        self.decode_chunk = decode_chunk
+        # observability: spans/instants on a modeled virtual timebase
+        # (``_vt`` advances by the modeled phase runtime when a power
+        # session is attached, by 1.0 per phase otherwise)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.trace_track = trace_track
+        self._vt = 0.0
+        self._prefill_step = make_prefill_chunk_step(cfg, run, ctx)
+        self._decode_fn = make_decode_chunk_step(cfg, run, ctx, decode_chunk,
+                                                 max_seq)
+        self._sched = None
+        # transfer seam: tests swap this for a counting double to assert
+        # the one-sync-per-chunk contract
+        self._fetch = _to_host
+        self.sync_count = 0
+        self.finished: list[Request] = []
+
+    # -- internals ---------------------------------------------------------
+    def _phase(self, name: str, calls: int | None = None):
+        if self.power is None:
+            return contextlib.nullcontext()
+        return self.power.phase(name, calls=calls)
+
+    def _tokens(self, toks: list[int]):
+        # non_blocking: the runtime stages pageable memory, so the host
+        # does not wait for the device's queue
+        return torch.tensor([toks], dtype=torch.int32).to(self.device,
+                                                          non_blocking=True)
+
+    def _prefill_into_slot(self, req: Request, sid: int):
+        """Chunked prefill of one request into slot ``sid``; returns the
+        last-token logits (1, V)."""
+        idx, logits = 0, None
+        for size in chunk_plan(len(req.prompt), self.prefill_chunk):
+            toks = self._tokens(req.prompt[idx:idx + size])
+            self._cache, logits = self._prefill_step(
+                self.params, self._cache, toks, sid, idx)
+            idx += size
+        return logits
+
+    def _ensure_stream(self) -> None:
+        """Bring up the device-resident stream state if none is active."""
+        if self._sched is not None:
+            return
+        self._sched = SlotScheduler(self.batch_size)
+        B, dev = self.batch_size, self.device
+        self._cache = lm.init_cache(self.ctx, self.cfg, B, self.max_seq)
+        self._cur = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._index = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._rem = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._done = torch.ones((B,), dtype=torch.bool, device=dev)
+
+    def _validate_requests(self, requests) -> None:
+        for req in requests:
+            total = len(req.prompt) + req.max_new_tokens
+            if total > self.max_seq:
+                raise ValueError(
+                    f"request {req.uid}: prompt {len(req.prompt)} + "
+                    f"max_new_tokens {req.max_new_tokens} exceeds "
+                    f"max_seq {self.max_seq}")
+
+    def _trace_submit(self, requests) -> None:
+        if self.tracer.enabled:
+            for req in requests:
+                self.tracer.instant("submit", self._vt, self.trace_track,
+                                    cat="serving", args={"uid": req.uid})
+
+    # -- serving loop ------------------------------------------------------
+    def start(self, requests: list[Request]) -> None:
+        """Install a FRESH request stream (any previous stream state is
+        reset); then drive ``step()`` until ``pending`` is False."""
+        self._validate_requests(requests)
+        self._sched = None
+        self.finished = []
+        self._ensure_stream()
+        self._sched.submit(requests)
+        self._trace_submit(requests)
+
+    def submit(self, requests: list[Request]) -> None:
+        """Queue MORE requests onto the stream without resetting it."""
+        self._validate_requests(requests)
+        self._ensure_stream()
+        self._sched.submit(requests)
+        self._trace_submit(requests)
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a slot."""
+        return len(self._sched.queue) if self._sched is not None else 0
+
+    @property
+    def active_slots(self) -> int:
+        """Slots currently occupied by an in-flight request."""
+        return len(self._sched.active()) if self._sched is not None else 0
+
+    @property
+    def pending(self) -> bool:
+        """Whether the stream still has queued or in-flight requests."""
+        return self._sched.has_work if self._sched is not None else False
+
+    def step(self) -> list[Request]:
+        """One engine step: admit whatever fits the free slots, run one
+        decode chunk, deliver the chunk's tokens.  Returns the requests
+        that finished THIS step (also appended to ``self.finished``)."""
+        if not self.pending:
+            return []
+        sched = self._sched
+        tr = self.tracer if self.tracer.enabled else None
+        chunk_t0 = self._vt
+        for slot in sched.admit_ready():
+            req = slot.request
+            n_calls = len(chunk_plan(len(req.prompt), self.prefill_chunk))
+            with self._phase("prefill", calls=n_calls) as rec:
+                logits = self._prefill_into_slot(req, slot.sid)
+            _admit_step(self._cur, self._index, self._rem, self._done,
+                        logits, slot.sid, len(req.prompt),
+                        req.max_new_tokens)
+            if tr is not None:
+                m = getattr(rec, "modeled", None)
+                dt = m.runtime if m is not None else 1.0
+                tr.span("prefill", self._vt, self._vt + dt,
+                        self.trace_track, cat="phase",
+                        args={"uid": req.uid,
+                              "energy_j": m.energy if m is not None
+                              else 0.0})
+                self._vt += dt
+        uids = [s.request.uid for s in sched.active()] \
+            if tr is not None else None
+        with self._phase("decode", calls=self.decode_chunk) as rec:
+            (self._cache, self._cur, self._index, self._rem, self._done,
+             out, _) = self._decode_fn(
+                self.params, self._cache, self._cur, self._index,
+                self._rem, self._done)
+        if tr is not None:
+            m = getattr(rec, "modeled", None)
+            dt = m.runtime if m is not None else 1.0
+            tr.span("decode", self._vt, self._vt + dt, self.trace_track,
+                    cat="phase",
+                    args={"uids": uids,
+                          "energy_j": m.energy if m is not None else 0.0})
+            self._vt += dt
+            tr.span("engine.chunk", chunk_t0, self._vt, self.trace_track,
+                    cat="chunk", args={"active": len(uids)})
+        out_host = self._fetch(out)           # the chunk's ONE sync
+        self.sync_count += 1
+        newly: list[Request] = []
+        for slot in sched.active():
+            row = out_host[slot.sid]
+            fresh = [int(t) for t in row[:_valid_len(row)]]
+            slot.request.generated.extend(fresh)
+            slot.emitted += len(fresh)
+            if slot.emitted >= slot.request.max_new_tokens:
+                newly.append(sched.release(slot))
+        self.finished.extend(newly)
+        return newly
+
+    def generate(self, requests: list[Request]) -> list[Request]:
+        self.start(requests)
+        while self.pending:
+            self.step()
+        return self.finished
+
+    # -- not ported yet ----------------------------------------------------
+    def drain(self, slots=None):
+        raise NotImplementedError(_SNAPSHOTS)
+
+    def restore(self, snaps):
+        raise NotImplementedError(_SNAPSHOTS)
+
+    def checkpoint(self):
+        raise NotImplementedError(_SNAPSHOTS)
+
+    def abandon(self):
+        raise NotImplementedError(_SNAPSHOTS)
+
+
+def _valid_len(row) -> int:
+    """Emitted tokens are a -1-terminated prefix of the chunk buffer."""
+    n = 0
+    for t in row:
+        if t < 0:
+            break
+        n += 1
+    return n
