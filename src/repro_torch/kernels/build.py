@@ -7,7 +7,8 @@ interface, compiled at first use for ``sm_90a``::
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
 
 into ``build/kernels/`` at the repository root, named by a hash of the
-source, so an edited source rebuilds and an unchanged one loads at once.
+source and every local header it includes (``#include "x.cuh"``), so an
+edit to either rebuilds and an unchanged source loads at once.
 ``build_all()`` starts one ``nvcc`` per source, all together.  A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,9 +35,17 @@ SIGNATURES = {
     "decode_attention": ("flash_decode",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _F, _F, _I, _P]),
+    "decode_attention_paged": ("flash_decode_paged",
+                               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _F, _I, _P]),
     "cache_update": ("cache_update",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "cache_update_paged": ("cache_update_paged",
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P]),
 }
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -52,10 +62,27 @@ def nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, recursively,
+    in a fixed order."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

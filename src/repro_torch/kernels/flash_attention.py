@@ -1,8 +1,14 @@
 """Wrappers of the hand-written CUDA kernels that replace the Pallas TPU
 kernels of ``repro/kernels/flash_attention.py`` on the serving path.
 
-  flash_decode   csrc/decode_attention.cu   (TPU: flash_decode, _decode_kernel)
-  cache_update   csrc/cache_update.cu       (TPU: cache_update, _cache_update_kernel)
+  flash_decode        csrc/decode_attention.cu
+                      (TPU: flash_decode, _decode_kernel)
+  flash_decode_paged  csrc/decode_attention_paged.cu
+                      (TPU: flash_decode_paged, _decode_paged_kernel)
+  cache_update        csrc/cache_update.cu
+                      (TPU: cache_update, _cache_update_kernel)
+  cache_update_paged  csrc/cache_update_paged.cu
+                      (TPU: cache_update_paged, _cache_update_paged_kernel)
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version from
 ``kernels/ref.py``; given CUDA tensors it checks device, dtype, shape and
@@ -80,6 +86,56 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
 flash_decode.launches = 0
 
 
+def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
+                       softcap=None, local_window=None, scale=None):
+    """q: (B, Sq, H, D); pools: (n_blocks, bs, K, D); kv_len: (B,) int32
+    valid length INCLUDING the Sq new tokens; block_tables: (B, max_blocks)
+    int32, slot b's logical rows [i*bs, (i+1)*bs) living in pool block
+    ``block_tables[b, i]`` (clipped into the pool).  Returns (B, Sq, H, D)
+    in q's dtype, equal to ``flash_decode`` over the gathered cache."""
+    B, Sq, H, D = q.shape
+    n_blocks, bs, K = k_pool.shape[:3]
+    scale = scale if scale is not None else D ** -0.5
+    if not q.is_cuda:
+        return ref.decode_attention_paged_ref(q, k_pool, v_pool, kv_len,
+                                              block_tables, scale=scale,
+                                              softcap=softcap,
+                                              local_window=local_window)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_decode_paged: dtype {q.dtype} not supported")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("flash_decode_paged: pools must have q's dtype")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (B,):
+        raise TypeError("flash_decode_paged: kv_len must be int32 of shape "
+                        "(B,)")
+    if (block_tables.dtype != torch.int32 or block_tables.ndim != 2
+            or block_tables.shape[0] != B):
+        raise TypeError("flash_decode_paged: block_tables must be int32 of "
+                        "shape (B, max_blocks)")
+    if k_pool.shape != v_pool.shape or k_pool.shape[3] != D or H % K:
+        raise ValueError(f"flash_decode_paged: shapes q {tuple(q.shape)}, "
+                         f"pools {tuple(k_pool.shape)}")
+    if D not in (32, 128):
+        raise ValueError(f"flash_decode_paged: head_dim {D} not in (32, 128)")
+    _check_cuda("flash_decode_paged", q.device, q=q, k_pool=k_pool,
+                v_pool=v_pool, kv_len=kv_len, block_tables=block_tables)
+    out = torch.empty_like(q)
+    lib = build.library("decode_attention_paged")
+    err = lib.flash_decode_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        kv_len.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Sq,
+        H, K, D, bs, block_tables.shape[1], n_blocks, _DTYPE_CODE[q.dtype],
+        float(scale), float(softcap) if softcap is not None else 0.0,
+        int(local_window) if local_window is not None else 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("flash_decode_paged", err)
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0
+
+
 def cache_update(k_cache, v_cache, k_new, v_new, index):
     """Write k/v_new (B, Sn, K, D) into the caches (B, S, K, D) IN PLACE at
     per-slot offsets ``index`` (B,) int32, cast to the cache dtype.  A slot
@@ -117,8 +173,55 @@ def cache_update(k_cache, v_cache, k_new, v_new, index):
 
 cache_update.launches = 0
 
+
+def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
+    """Write k/v_new (B, Sn, K, D) into the pools (n_blocks, bs, K, D) IN
+    PLACE: row j of slot b lands at block ``block_tables[b, (index[b]+j)
+    // bs]``, offset ``(index[b]+j) % bs``, cast to the pool dtype.  A slot
+    with index < 0 or index + Sn > max_blocks * bs is dropped whole; a row
+    whose block id lies outside the pool is dropped.  Returns the pools."""
+    if not k_pool.is_cuda:
+        return ref.kv_cache_update_paged_ref(k_pool, v_pool, k_new, v_new,
+                                             index, block_tables)
+    B, Sn, K, D = k_new.shape
+    n_blocks, bs = k_pool.shape[:2]
+    if k_pool.dtype not in _DTYPE_CODE or k_new.dtype not in _DTYPE_CODE:
+        raise TypeError(f"cache_update_paged: dtypes {k_new.dtype} -> "
+                        f"{k_pool.dtype} not supported")
+    if v_pool.dtype != k_pool.dtype or v_new.dtype != k_new.dtype:
+        raise TypeError("cache_update_paged: k and v dtypes differ")
+    if index.dtype != torch.int32 or tuple(index.shape) != (B,):
+        raise TypeError("cache_update_paged: index must be int32 of shape "
+                        "(B,)")
+    if (block_tables.dtype != torch.int32 or block_tables.ndim != 2
+            or block_tables.shape[0] != B):
+        raise TypeError("cache_update_paged: block_tables must be int32 of "
+                        "shape (B, max_blocks)")
+    if (v_new.shape != k_new.shape or k_pool.shape != v_pool.shape
+            or tuple(k_pool.shape[2:]) != (K, D)):
+        raise ValueError(f"cache_update_paged: shapes new "
+                         f"{tuple(k_new.shape)}, pools {tuple(k_pool.shape)}")
+    if (K * D) % 8:
+        raise ValueError("cache_update_paged: K * D must be a multiple of 8")
+    _check_cuda("cache_update_paged", k_pool.device, k_pool=k_pool,
+                v_pool=v_pool, k_new=k_new, v_new=v_new, index=index,
+                block_tables=block_tables)
+    lib = build.library("cache_update_paged")
+    err = lib.cache_update_paged(
+        k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), index.data_ptr(), block_tables.data_ptr(), B, Sn,
+        bs, block_tables.shape[1], n_blocks, K * D,
+        _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[k_pool.dtype],
+        torch.cuda.current_stream(k_pool.device).cuda_stream)
+    _raise_on("cache_update_paged", err)
+    cache_update_paged.launches += 1
+    return k_pool, v_pool
+
+
+cache_update_paged.launches = 0
+
 #: The wrappers whose kernels serve the main path (for launch counting).
-KERNELS = (flash_decode, cache_update)
+KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged)
 
 
 def reset_launch_counts() -> None:

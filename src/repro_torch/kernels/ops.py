@@ -39,3 +39,26 @@ def kv_cache_update(k_cache, v_cache, k_new, v_new, index):
     are dropped whole (done-slot semantics).  Returns the caches."""
     return flash_attention.cache_update(k_cache, v_cache, k_new, v_new,
                                         index)
+
+
+def decode_attention_paged(q, k_pool, v_pool, kv_len, block_tables, *,
+                           softcap=None, local_window=None, scale=None):
+    """Decode-step / chunked-prefill attention over a PAGED cache: the
+    pools (n_blocks, bs, K, D) hold fixed-size blocks and each slot reads
+    its rows through its ``block_tables`` row ((B, max_blocks) int32),
+    ragged up to kv_len (B,)."""
+    return flash_attention.flash_decode_paged(q, k_pool, v_pool, kv_len,
+                                              block_tables, softcap=softcap,
+                                              local_window=local_window,
+                                              scale=scale)
+
+
+def kv_cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
+    """Write k/v_new (B, Sn, K, D) into the paged pools IN PLACE at the
+    (block, offset) destinations each slot's table maps rows
+    [index, index + Sn) to; a slot whose write crosses its table's logical
+    end is dropped whole (done-slot semantics, index = max_seq).  The
+    engine keeps write destinations private (copy-on-write at admission),
+    so no two slots write the same row.  Returns the pools."""
+    return flash_attention.cache_update_paged(k_pool, v_pool, k_new, v_new,
+                                              index, block_tables)

@@ -87,3 +87,49 @@ def kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index):
     k_cache[rows[:, None], pos] = k_new[rows].to(k_cache.dtype)
     v_cache[rows[:, None], pos] = v_new[rows].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def paged_gather_ref(pool, block_tables):
+    """The dense (B, max_blocks * bs, K, D) view of a paged pool
+    (n_blocks, bs, K, D) that each slot's ``block_tables`` row
+    ((B, max_blocks) int) describes.  Block ids are clipped into the pool,
+    as the reference's ``mode="clip"``."""
+    n_blocks, bs = pool.shape[:2]
+    B, max_blocks = block_tables.shape
+    ids = block_tables.long().clamp(0, n_blocks - 1).reshape(-1)
+    return pool[ids].reshape((B, max_blocks * bs) + tuple(pool.shape[2:]))
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, kv_len, block_tables, *,
+                               scale=None, softcap=None, local_window=None):
+    """Paged decode/chunked-prefill attention: gather each slot's blocks
+    into the dense view, then ``decode_attention_ref`` -- so the result is
+    bit-identical to the dense plain path over the gathered cache."""
+    return decode_attention_ref(q, paged_gather_ref(k_pool, block_tables),
+                                paged_gather_ref(v_pool, block_tables),
+                                kv_len, scale=scale, softcap=softcap,
+                                local_window=local_window)
+
+
+def kv_cache_update_paged_ref(k_pool, v_pool, k_new, v_new, index,
+                              block_tables):
+    """Paged per-slot cache write: scatter k/v_new (B, Sn, K, D) into the
+    pools (n_blocks, bs, K, D) at the (block, offset) each slot's table
+    maps its rows [index, index + Sn) to.  A slot whose write would cross
+    its table's logical end (max_blocks * bs rows) or start below 0 is
+    dropped WHOLE; a row whose block id lies outside the pool is dropped,
+    as the reference's ``mode="drop"``.  Writes IN PLACE (the reference is
+    functional); returns the two pools."""
+    Sn = k_new.shape[1]
+    n_blocks, bs = k_pool.shape[:2]
+    S = block_tables.shape[1] * bs
+    index = index.long()
+    ok = (index >= 0) & (index + Sn <= S)
+    rows = torch.nonzero(ok).flatten()
+    pos = index[rows][:, None] + torch.arange(Sn, device=index.device)[None]
+    blk = block_tables.long()[rows[:, None], pos // bs]
+    keep = (blk >= 0) & (blk < n_blocks)
+    blk, off = blk[keep], (pos % bs)[keep]
+    k_pool[blk, off] = k_new[rows][keep].to(k_pool.dtype)
+    v_pool[blk, off] = v_new[rows][keep].to(v_pool.dtype)
+    return k_pool, v_pool

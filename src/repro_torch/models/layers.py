@@ -128,13 +128,17 @@ def attention_decls(cfg: ModelConfig, layers: int = 0,
 
 
 def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
-                    local_window=None, cache=None, cache_index=None):
+                    local_window=None, cache=None, cache_index=None,
+                    block_tables=None):
     """x: (B, S, d).  With ``cache`` (dict k/v (B, Smax, K, hd), one
     layer's views of the stacked cache) the new k/v rows are written IN
     PLACE and attention reads the cache: a (B,) ``cache_index`` tensor is
     the per-slot decode write (the ``cache_update`` kernel, done slots
     dropped), a scalar index the batch-1 prefill write (a slice copy).
-    Returns (y, cache)."""
+    With ``block_tables`` ((B, max_blocks) int32) the cache leaves are
+    PAGED pools (n_blocks, bs, K, hd): every write and read goes through
+    the table (``cache_update_paged``, ``flash_decode_paged``), and a
+    scalar prefill cursor is broadcast to (B,).  Returns (y, cache)."""
     c = ctx.cdtype
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -147,7 +151,21 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     scale = (cfg.query_scale ** -0.5 if cfg.query_scale is not None
              else cfg.head_dim ** -0.5)
 
-    if cache is not None:
+    if cache is not None and block_tables is not None:
+        ck, cv = cache["k"], cache["v"]
+        if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
+            idx = cache_index.to(torch.int32)
+        else:
+            idx = torch.full((B,), int(cache_index), dtype=torch.int32,
+                             device=x.device)
+        ops.kv_cache_update_paged(ck, cv, k.contiguous(), v.contiguous(),
+                                  idx, block_tables)
+        out = ops.decode_attention_paged(q.contiguous(), ck.to(c), cv.to(c),
+                                         idx + S, block_tables,
+                                         softcap=cfg.attn_softcap,
+                                         local_window=local_window,
+                                         scale=scale)
+    elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
             idx = cache_index.to(torch.int32)
@@ -176,6 +194,16 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
 def empty_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                    layers: int = 0, device="cpu"):
     shape = _stack((batch, max_seq, cfg.n_kv_heads, cfg.head_dim), layers)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def empty_paged_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                         dtype, layers: int = 0, device="cpu"):
+    """Block pools (layers, n_blocks, block_size, K, hd) shared by all
+    slots."""
+    shape = _stack((n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim),
+                   layers)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -9,7 +9,8 @@ local/global pattern raise, naming the ROADMAP item that ports them.
 Forward modes:
   forward(...)                     full-sequence hidden states (no cache)
   forward(..., cache, cache_index) prefill chunk or decode step; the cache
-                                   is updated in place
+                                   (dense ``init_cache`` or paged
+                                   ``init_paged_cache``) is updated in place
 """
 
 from __future__ import annotations
@@ -78,12 +79,13 @@ def prepare_params(ctx: L.Ctx, params):
 # ===========================================================================
 
 def _tf_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin, *,
-              local_window=None, cache=None, cache_index=None):
+              local_window=None, cache=None, cache_index=None,
+              block_tables=None):
     """One transformer block; returns (h, cache)."""
     a_in = L.apply_norm(cfg, p["ln1"], h)
     attn_out, cache = L.apply_attention(
         ctx, cfg, p["attn"], a_in, cos, sin, local_window=local_window,
-        cache=cache, cache_index=cache_index)
+        cache=cache, cache_index=cache_index, block_tables=block_tables)
     h = h + attn_out
     m_in = L.apply_norm(cfg, p["ln2"], h)
     return h + L.apply_mlp(ctx, cfg, p["mlp"], m_in), cache
@@ -110,8 +112,11 @@ def _positions_default(batch: int, seq: int, device, cache_index=None):
 def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
             cache=None, cache_index=None):
     """Returns (hidden (B,S,D), aux_loss, cache).  ``cache`` is the
-    ``init_cache`` dict (or one slot's views of it) and is written in
-    place; the same dict comes back."""
+    ``init_cache`` dict (or one slot's views of it), or the
+    ``init_paged_cache`` dict (pools passed whole, possibly with one
+    slot's table row), and is written in place; the same dict comes back.
+    A paged cache's top-level ``block_tables`` addresses every layer's
+    pools; the model never remaps blocks."""
     _require_dense(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -122,11 +127,13 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     cos, sin = (L.rope_cos_sin(cfg, positions) if cfg.use_rope
                 else (None, None))
     kv = cache["kv"] if cache is not None else None
+    block_tables = cache.get("block_tables") if cache is not None else None
     for i in range(cfg.n_layers):
         layer_cache = ({"k": kv["k"][i], "v": kv["v"][i]}
                        if kv is not None else None)
         h, _ = _tf_block(ctx, cfg, _layer(params["layers"], i), h, cos, sin,
-                         cache=layer_cache, cache_index=cache_index)
+                         cache=layer_cache, cache_index=cache_index,
+                         block_tables=block_tables)
     h = L.apply_norm(cfg, params["final_norm"], h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux, cache
@@ -161,6 +168,30 @@ def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
     _require_dense(cfg)
     return {"kv": L.empty_kv_cache(cfg, batch, max_seq, ctx.cdtype,
                                    layers=cfg.n_layers, device=ctx.device)}
+
+
+def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
+                     block_size: int, n_blocks: int | None = None):
+    """Paged decode state on ``ctx.device``: the rows become block POOLS
+    (L, n_blocks, block_size, K, hd) shared by all slots, plus one
+    top-level ``block_tables`` ((batch, max_seq // block_size) int32)
+    mapping each slot's logical rows to pool blocks.  Tables start at zero,
+    as the reference's: an unmapped entry aliases block 0, harmless since
+    reads past kv_len are masked and writes only reach mapped entries.
+    ``n_blocks`` defaults to ``batch * max_blocks`` (the dense capacity)."""
+    _require_dense(cfg)
+    if max_seq % block_size:
+        raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                         f"block_size {block_size}")
+    max_blocks = max_seq // block_size
+    if n_blocks is None:
+        n_blocks = batch * max_blocks
+    return {"kv": L.empty_paged_kv_cache(cfg, n_blocks, block_size,
+                                         ctx.cdtype, layers=cfg.n_layers,
+                                         device=ctx.device),
+            "block_tables": torch.zeros((batch, max_blocks),
+                                        dtype=torch.int32,
+                                        device=ctx.device)}
 
 
 #: Slot semantics of a cache kind (as the reference): "rows" leaves carry

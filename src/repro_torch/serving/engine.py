@@ -1,5 +1,5 @@
 """Serving: continuous-batching runtime over per-slot cache state, ported
-from ``repro/serving/engine.py`` (dense mode).
+from ``repro/serving/engine.py`` (dense and paged modes).
 
 Three device programs make up the runtime:
 
@@ -19,12 +19,20 @@ State lives on ``ctx.device`` and is updated IN PLACE: the per-slot cache
 views are written by the kernels directly, so the reference's
 ``_merge_slot`` has no counterpart.
 
+``paged=True`` replaces the per-slot cache with a block pool addressed
+through per-slot block tables (``make_prefill_chunk_step_paged``; the
+host-side ``BlockAllocator`` reserves each request's blocks at admission
+and a ``PrefixRegistry`` shares registered prompt prefixes, copying a
+partly shared tail block on write).  Table rows are set from the host with
+non-blocking copies, so paged mode keeps one host sync per decode chunk.
+
 With a power manager attached (anything with ``phase(name, calls=)``,
 e.g. ``repro.power.PowerManager``), prefill and decode run under their
 own phase caps, entered once per admitted request / decode chunk.
 
 Not ported yet, each raising ``NotImplementedError``: drain / restore /
-checkpoint / abandon (ROADMAP queue 1 item 9), paged mode (item 4), ``serve_phase_tasks`` (item 5).
+checkpoint / abandon (ROADMAP queue 1 item 9), ``serve_phase_tasks``
+(item 5).
 """
 
 from __future__ import annotations
@@ -38,13 +46,14 @@ from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import resolve_device
 from repro_torch.obs.tracer import NULL_TRACER
-from repro_torch.serving.scheduler import Request, SlotScheduler, chunk_plan
+from repro_torch.serving.scheduler import (BlockAllocator, PrefixRegistry,
+                                           Request, SlotScheduler, chunk_plan)
 
 __all__ = ["Request", "ServeEngine", "make_prefill_step", "make_decode_step",
-           "make_prefill_chunk_step", "make_decode_chunk_step"]
+           "make_prefill_chunk_step", "make_prefill_chunk_step_paged",
+           "make_decode_chunk_step", "BlockAllocator", "PrefixRegistry"]
 
 _SNAPSHOTS = "slot snapshots (drain/restore/checkpoint): ROADMAP queue 1 item 9"
-_PAGED = "paged KV cache and prefix sharing: ROADMAP queue 1 item 4"
 
 
 def serve_phase_tasks(*args, **kwargs):
@@ -102,6 +111,25 @@ def make_prefill_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
         h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
                              cache=_slot_views(cache, slot),
                              cache_index=index)
+        logits = lm.logits_for(ctx, cfg, params, h[:, -1:, :])
+        return cache, logits[:, 0]
+
+    return prefill_chunk
+
+
+def make_prefill_chunk_step_paged(cfg: ModelConfig, run: RunConfig,
+                                  ctx: Ctx):
+    """Paged variant of ``make_prefill_chunk_step``.  Pools have no batch
+    axis, so they are passed WHOLE with only the slot's table row (the view
+    ``block_tables[slot:slot+1]``): the paged write reaches only blocks
+    that row maps, so every other slot's blocks are untouched -- the same
+    isolation, enforced by block ownership instead of lane slicing."""
+
+    def prefill_chunk(params, cache, tokens, slot: int, index: int):
+        sub = {"kv": cache["kv"],
+               "block_tables": cache["block_tables"][slot:slot + 1]}
+        h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
+                             cache=sub, cache_index=index)
         logits = lm.logits_for(ctx, cfg, params, h[:, -1:, :])
         return cache, logits[:, 0]
 
@@ -169,7 +197,7 @@ def _to_host(x):
 
 
 class ServeEngine:
-    """Continuous-batching serving runtime (greedy decoding), dense mode.
+    """Continuous-batching serving runtime (greedy decoding).
 
     ``batch_size`` device-resident slots each hold one in-flight request
     at its own cache offset.  Admission happens at any step regardless of
@@ -181,6 +209,16 @@ class ServeEngine:
     ``step()`` while ``pending`` runs one admission round plus one decode
     chunk at a time; ``submit`` queues more onto a running stream.
 
+    ``paged=True`` swaps the dense per-slot cache for a refcounted block
+    pool (``block_size`` rows per block, ``n_blocks`` blocks; default =
+    dense capacity).  Every slot reserves its blocks UP FRONT at admission
+    (prompt + max_new_tokens rows), so a running request never meets an
+    exhausted pool; admission is gated instead (FCFS).  Token streams
+    equal the dense engine's.  ``prefix_sharing=True`` also registers each
+    request's ``prefix_len`` leading rows after prefill; later admissions
+    whose prompts start with the same tokens map the cached blocks
+    (copy-on-write on the partial tail block) and skip prefilling them.
+
     The engine runs on ``ctx.device`` (``cuda`` by default; raises when
     there is no card, unless the Ctx names the CPU).
     """
@@ -189,9 +227,13 @@ class ServeEngine:
                  batch_size: int = 4, max_seq: int = 256, power=None,
                  prefill_chunk: int = 32, decode_chunk: int = 8,
                  tracer=None, trace_track: str = "engine",
-                 paged: bool = False):
-        if paged:
-            raise NotImplementedError(_PAGED)
+                 paged: bool = False, block_size: int = 16,
+                 n_blocks: int | None = None, prefix_sharing: bool = False):
+        if prefix_sharing and not paged:
+            raise ValueError("prefix_sharing requires paged=True")
+        if paged and max_seq % block_size:
+            raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                             f"block_size {block_size}")
         prefill_chunk = min(prefill_chunk, max_seq)
         if prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1):
             raise ValueError(f"prefill_chunk must be a power of two, "
@@ -205,13 +247,23 @@ class ServeEngine:
         self.power = power
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
+        self.paged, self.block_size = paged, block_size
+        self.prefix_sharing = prefix_sharing
+        self.max_blocks = max_seq // block_size if paged else 0
+        self.n_blocks = (n_blocks if n_blocks is not None
+                         else batch_size * self.max_blocks) if paged else 0
+        # paged-mode counters
+        self.prefill_tokens_skipped = 0
+        self.cow_copies = 0
+        self.peak_used_blocks = 0
         # observability: spans/instants on a modeled virtual timebase
         # (``_vt`` advances by the modeled phase runtime when a power
         # session is attached, by 1.0 per phase otherwise)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.trace_track = trace_track
         self._vt = 0.0
-        self._prefill_step = make_prefill_chunk_step(cfg, run, ctx)
+        self._prefill_step = (make_prefill_chunk_step_paged if paged
+                              else make_prefill_chunk_step)(cfg, run, ctx)
         self._decode_fn = make_decode_chunk_step(cfg, run, ctx, decode_chunk,
                                                  max_seq)
         self._sched = None
@@ -233,16 +285,122 @@ class ServeEngine:
         return torch.tensor([toks], dtype=torch.int32).to(self.device,
                                                           non_blocking=True)
 
-    def _prefill_into_slot(self, req: Request, sid: int):
-        """Chunked prefill of one request into slot ``sid``; returns the
-        last-token logits (1, V)."""
-        idx, logits = 0, None
-        for size in chunk_plan(len(req.prompt), self.prefill_chunk):
-            toks = self._tokens(req.prompt[idx:idx + size])
+    def _prefill_rows(self, tokens, sid: int, idx0: int):
+        """Chunked prefill of ``tokens`` into rows [idx0, idx0 + len) of
+        slot ``sid``; returns the last-token logits (1, V).  ``idx0 > 0``
+        is the prefix-shared suffix prefill."""
+        idx, logits = idx0, None
+        for size in chunk_plan(len(tokens), self.prefill_chunk):
+            o = idx - idx0
+            toks = self._tokens(tokens[o:o + size])
             self._cache, logits = self._prefill_step(
                 self.params, self._cache, toks, sid, idx)
             idx += size
         return logits
+
+    # -- paged-mode block bookkeeping (host only) ----------------------------
+
+    def _shared_credit(self, prompt, prefix_cap: int) -> int:
+        """Rows a registry hit would supply for ``prompt`` right now --
+        side-effect-free (the admission gate's capacity estimate)."""
+        if self._registry is None or prefix_cap <= 0:
+            return 0
+        rows, _ = self._registry.lookup(prompt, prefix_cap, peek=True)
+        return rows
+
+    def _fits_blocks(self, prompt, total_rows: int, prefix_cap: int) -> bool:
+        """Whether the pool can cover a ``total_rows``-row reservation for
+        ``prompt`` -- counting full shared prefix blocks as free credit and
+        evicting LRU registry prefixes when the free list falls short."""
+        need_full = self._alloc.blocks_for(total_rows)
+        credit = self._shared_credit(prompt, prefix_cap) // self.block_size
+        if self._alloc.free_blocks >= need_full - credit:
+            return True
+        if self._registry is not None:
+            # eviction may drop the very prefix the credit counted on --
+            # re-probe after, never before, trusting the stale credit
+            self._registry.evict_for(need_full)
+            credit = self._shared_credit(prompt, prefix_cap) \
+                // self.block_size
+        return self._alloc.free_blocks >= need_full - credit
+
+    def _can_admit(self, req: Request) -> bool:
+        return self._fits_blocks(
+            req.prompt, len(req.prompt) + req.max_new_tokens,
+            min(req.prefix_len, len(req.prompt) - 1))
+
+    def _set_table_row(self, sid: int, blocks) -> None:
+        """Map slot ``sid``'s table row to ``blocks``, the rest of the row
+        to the parking block.  non_blocking: the runtime stages the host
+        row, so the host does not wait for the device's queue."""
+        row = list(blocks) + [self._parking] * (self.max_blocks - len(blocks))
+        self._cache["block_tables"][sid].copy_(
+            torch.tensor(row, dtype=torch.int32), non_blocking=True)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """CoW: duplicate pool block ``src`` into ``dst`` in every layer's
+        k and v pools (a plain tensor copy, on the device's queue)."""
+        for pool in self._cache["kv"].values():
+            pool[:, dst] = pool[:, src]
+
+    def _map_slot_blocks(self, sid: int, total_rows: int, shared_rows: int,
+                         shared_blocks) -> list[int]:
+        """Reserve and table-map slot ``sid``'s blocks for a
+        ``total_rows``-row lifetime: full shared prefix blocks are
+        reference-mapped, a partially shared tail block is copy-on-write
+        duplicated (its first write, the suffix prefill, is imminent), and
+        the remainder is allocated fresh.  Returns the logical-order block
+        list (also recorded in ``_slot_blocks``)."""
+        bs = self.block_size
+        full = shared_rows // bs
+        blocks: list[int] = []
+        if shared_rows:
+            self._alloc.share(shared_blocks[:full])
+            blocks += shared_blocks[:full]
+            if shared_rows % bs:
+                tail = shared_blocks[full]
+                self._alloc.share([tail])           # our reference...
+                priv, copied = self._alloc.ensure_private(tail)  # ...pivots
+                if copied:
+                    self._copy_block(tail, priv)
+                    self.cow_copies += 1
+                blocks.append(priv)
+        blocks += self._alloc.alloc(
+            self._alloc.blocks_for(total_rows) - len(blocks))
+        self._slot_blocks[sid] = blocks
+        self._set_table_row(sid, blocks)
+        self.peak_used_blocks = max(self.peak_used_blocks,
+                                    self._alloc.used_blocks)
+        return blocks
+
+    def _release_slot_blocks(self, sid: int) -> None:
+        """Return slot ``sid``'s block references to the pool and park its
+        table row (shared prefix blocks survive through their other
+        holders)."""
+        self._alloc.release(self._slot_blocks.pop(sid))
+        self._set_table_row(sid, [])
+
+    def _admit_paged(self, req: Request, sid: int):
+        """Paged admission: map blocks (sharing any registered prefix),
+        prefill only the unshared suffix, then register the prefix for
+        later admissions.  Returns the last-token logits (1, V)."""
+        plen = len(req.prompt)
+        cap = min(req.prefix_len, plen - 1)   # >= 1 suffix token ALWAYS
+        shared_rows, shared_blocks = 0, []
+        if self._registry is not None and cap > 0:
+            shared_rows, shared_blocks = self._registry.lookup(
+                req.prompt, cap)
+        blocks = self._map_slot_blocks(sid, plen + req.max_new_tokens,
+                                       shared_rows, shared_blocks)
+        logits = self._prefill_rows(req.prompt[shared_rows:], sid,
+                                    shared_rows)
+        self.prefill_tokens_skipped += shared_rows
+        if self._registry is not None and cap > 0:
+            self._registry.register(req.prompt, cap,
+                                    blocks[:self._alloc.blocks_for(cap)])
+        return logits
+
+    # -- stream state --------------------------------------------------------
 
     def _ensure_stream(self) -> None:
         """Bring up the device-resident stream state if none is active."""
@@ -250,13 +408,31 @@ class ServeEngine:
             return
         self._sched = SlotScheduler(self.batch_size)
         B, dev = self.batch_size, self.device
-        self._cache = lm.init_cache(self.ctx, self.cfg, B, self.max_seq)
+        if self.paged:
+            # the pool holds one PARKING block beyond the allocator's
+            # arena: free and released table entries point at it, never at
+            # an allocatable block
+            self._parking = self.n_blocks
+            self._cache = lm.init_paged_cache(
+                self.ctx, self.cfg, B, self.max_seq, self.block_size,
+                n_blocks=self.n_blocks + 1)
+            self._cache["block_tables"].fill_(self._parking)
+            self._alloc = BlockAllocator(self.n_blocks, self.block_size)
+            self._registry = (PrefixRegistry(self._alloc)
+                              if self.prefix_sharing else None)
+            self._slot_blocks: dict[int, list[int]] = {}
+        else:
+            self._cache = lm.init_cache(self.ctx, self.cfg, B, self.max_seq)
+            self._alloc = self._registry = None
         self._cur = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._index = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._rem = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._done = torch.ones((B,), dtype=torch.bool, device=dev)
 
     def _validate_requests(self, requests) -> None:
+        """Reject unservable requests before any device work: rows beyond
+        ``max_seq``, or (paged) a block reservation no empty pool could
+        cover, which would deadlock the FCFS admission gate."""
         for req in requests:
             total = len(req.prompt) + req.max_new_tokens
             if total > self.max_seq:
@@ -264,6 +440,11 @@ class ServeEngine:
                     f"request {req.uid}: prompt {len(req.prompt)} + "
                     f"max_new_tokens {req.max_new_tokens} exceeds "
                     f"max_seq {self.max_seq}")
+            if self.paged and -(-total // self.block_size) > self.n_blocks:
+                raise ValueError(
+                    f"request {req.uid}: needs "
+                    f"{-(-total // self.block_size)} blocks but the pool "
+                    f"holds {self.n_blocks}")
 
     def _trace_submit(self, requests) -> None:
         if self.tracer.enabled:
@@ -313,11 +494,21 @@ class ServeEngine:
         sched = self._sched
         tr = self.tracer if self.tracer.enabled else None
         chunk_t0 = self._vt
-        for slot in sched.admit_ready():
+        can_admit = self._can_admit if self.paged else None
+        for slot in sched.admit_ready(can_admit=can_admit):
             req = slot.request
-            n_calls = len(chunk_plan(len(req.prompt), self.prefill_chunk))
+            plen = len(req.prompt)
+            # phase cost in chunk programs actually run: a shared prefix
+            # skips its chunks
+            skip = self._shared_credit(
+                req.prompt, min(req.prefix_len, plen - 1)) if self.paged \
+                else 0
+            n_calls = len(chunk_plan(plen - skip, self.prefill_chunk))
             with self._phase("prefill", calls=n_calls) as rec:
-                logits = self._prefill_into_slot(req, slot.sid)
+                if self.paged:
+                    logits = self._admit_paged(req, slot.sid)
+                else:
+                    logits = self._prefill_rows(req.prompt, slot.sid, 0)
             _admit_step(self._cur, self._index, self._rem, self._done,
                         logits, slot.sid, len(req.prompt),
                         req.max_new_tokens)
@@ -357,6 +548,8 @@ class ServeEngine:
             slot.emitted += len(fresh)
             if slot.emitted >= slot.request.max_new_tokens:
                 newly.append(sched.release(slot))
+                if self.paged:
+                    self._release_slot_blocks(slot.sid)
         self.finished.extend(newly)
         return newly
 

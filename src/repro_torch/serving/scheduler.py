@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
+from collections.abc import Iterator
 
 
 @dataclasses.dataclass
@@ -124,28 +125,33 @@ class SlotScheduler:
     def active(self) -> list[Slot]:
         return [s for s in self.slots if not s.free]
 
-    def admit_ready(self, can_admit=None) -> list[Slot]:
-        """Fill free slots from the queue (FCFS) up to ``limit``; returns
-        the slots admitted this round.  Callable at any step — admission
+    def admit_ready(self, can_admit=None) -> Iterator[Slot]:
+        """Fill free slots from the queue (FCFS) up to ``limit``, yielding
+        each slot as it is admitted.  Callable at any step — admission
         never waits for the rest of the batch.
 
         ``can_admit(request) -> bool`` gates each admission on an external
         resource (the paged engine's block-pool headroom).  Admission
         stops at the FIRST refused request — skipping past it would break
-        FCFS ordering and starve large requests behind small ones."""
-        admitted = []
+        FCFS ordering and starve large requests behind small ones.
+
+        Unlike the reference, which returns the round's list, this yields:
+        the caller takes each admission's resources before the next gate
+        check, so the gate sees them.  (The reference checks the whole
+        round first, and its paged engine then raises "block pool
+        exhausted" when one round's demand exceeds the pool.)"""
         n_active = len(self.active())
-        free = (s for s in self.slots if s.free)
-        for slot in free:
+        for slot in self.slots:
             if not self.queue or n_active >= self.limit:
-                break
+                return
+            if not slot.free:
+                continue
             if can_admit is not None and not can_admit(self.queue[0]):
-                break
+                return
             slot.request = self.queue.popleft()
             slot.emitted = 0
             n_active += 1
-            admitted.append(slot)
-        return admitted
+            yield slot
 
     def occupy(self, request: Request) -> Slot | None:
         """Place ``request`` directly into a free slot, bypassing the

@@ -162,12 +162,11 @@ def test_submit_queue_depth_and_active_slots(port):
 
 def test_unported_modes_name_their_roadmap_item(port):
     cfg, run, ctx, params = port
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        ServeEngine(cfg, run, ctx, params, paged=True)
-    eng = ServeEngine(cfg, run, ctx, params)
-    for call in (eng.drain, eng.checkpoint, eng.abandon):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            call()
+    for paged in (False, True):
+        eng = ServeEngine(cfg, run, ctx, params, paged=paged)
+        for call in (eng.drain, eng.checkpoint, eng.abandon):
+            with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+                call()
 
 
 def test_default_device_entry_points_raise_without_cuda(port,
