@@ -16,7 +16,13 @@ caught):
      attention also against the dense kernel over the gathered cache (must
      be equal, bit for bit); then kernel (device time, from a CUDA graph),
      plain-version and library times beside the card's least possible time
-     (the bound), at decode and at a 256-row prefill chunk;
+     (the bound), at decode and at a 256-row prefill chunk; the
+     cache-free attention forward and backward against
+     ``attention_naive`` (with its lse) and ``attention_bwd_ref`` entry by
+     entry (the training shape B=2, S=2048, and D=32; causal, window +
+     softcap, bidirectional, odd lengths, Sq != Sk; bf16 and f32), the
+     same checks shown to reject kernels that drop one 64-row tile, then
+     timed at the training shape beside SDPA and its autograd backward;
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times:
@@ -39,9 +45,21 @@ caught):
      then a torch.profiler window of steady decode, dense and paged (last:
      launches slow down once the profiler has run);
   4. logits parity at full width and 2 layers: the card (bf16, kernels)
-     against a float32 CPU forward of the same weights (plain path).
+     against a float32 CPU forward of the same weights (plain path);
+  5. training, the second main path, after the serving arms have
+     released their weights: full-width, full-depth llama3.2-3b (seeded
+     f32 masters, bf16 compute, AdamW, remat="full", batch 2 x 2048)
+     trained TRAIN_STEPS steps on one repeated batch through
+     ``make_train_step``: finite losses, the last below the first, and
+     exactly 2 x 28 ``flash_attention`` and 28 ``flash_attention_bwd``
+     launches per step; seconds per step, tokens/s, peak memory and the
+     share of the bf16 peak;
+  6. training parity: one f32 step at full width and 2 layers on the card
+     (kernels) against the CPU (plain versions) from the same weights and
+     batch: loss, grad norm and the parameter update.
 
-It prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and as
+It prints one ``{"kernels": [...]}`` line (six kernels), the nvidia-smi
+line, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
 prints no result.
@@ -72,6 +90,36 @@ BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak
 DECODE_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PARITY_TOL = 0.15   # bf16 card vs f32 CPU logits: the reference's bf16
 #                     bound (tests/test_serving.py:63)
+# cache-free attention kernels (out, dq, dk, dv) vs their plain versions
+# on the card, entry by entry:
+#   |got - want| <= ATTN_RTOL[dtype] * |want| + ATTN_ATOL * max|want|.
+# Both sides compute in f32 from the same inputs and differ only in the
+# order of their sums.  A bf16 output is then rounded; two f32 values less
+# than one bf16 ulp apart round to the same or adjacent bf16 values, at
+# most 2^-7 |want| apart (8-bit significand).  ATTN_ATOL covers the f32
+# order error of entries that cancel to near zero (measured ~1e-6 at
+# max|want| 1-10 in f32 on an H100).  A limit per entry, not per tensor:
+# at S=2048 causal the largest gradients (the first keys') are ~200 times
+# a typical one, so a whole-tensor limit would pass a wrong typical entry.
+ATTN_RTOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+ATTN_ATOL = 1e-5
+# lse is f32 in both, from the same inputs, so only the order differs
+LSE_TOL = 1e-4
+_ATTN_TOL_TEXT = (f"per entry {ATTN_RTOL['bfloat16']} |want| + "
+                  f"{ATTN_ATOL} max|want| (bf16)")
+TRAIN_STEPS = 6
+#: kernel-name fragments of the train step's device time by kind
+TRAIN_PROFILE_GROUPS = {
+    "flash_attention": ("attn_fwd_kernel",),
+    "flash_attention_bwd": ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
+                            "attn_delta_kernel"),
+    "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
+}
+# [train:parity], f32 card (kernels, TF32 off) vs f32 CPU (plain), one
+# step: loss and grad norm differ by summation order only; the AdamW
+# update g / (|g| + eps) flips for a gradient within rounding of zero
+# (2 lr for that entry), so the updates are compared as a relative norm
+TRAIN_PARITY_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-2}
 ARCH = "llama3.2-3b"
 
 
@@ -100,19 +148,22 @@ def _time_eager_ms(calls, rounds: int) -> float:
     return start.elapsed_time(end) / (rounds * len(calls))
 
 
-def _time_graph_ms(calls, min_calls: int = 64, replays: int = 10) -> float:
+def _time_graph_ms(calls, min_calls: int = 64, replays: int = 10,
+                   stream=None) -> float:
     """Device time per call: the calls are captured once into a CUDA graph
-    and replayed, so the host's per-call work is left out."""
+    and replayed, so the host's per-call work is left out.  ``stream``:
+    warm up and capture on it (autograd runs each backward op on the
+    stream its forward op ran on, so a backward is captured on that one)."""
     import torch
     calls = calls * max(1, math.ceil(min_calls / len(calls)))
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):           # warm up off the capture
         for c in calls[:4]:
             c()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for c in calls:
             c()
     graph.replay()
@@ -522,6 +573,209 @@ def time_cache_update_paged(tfa, ref, B, Sn, index):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _attention_case(B, Sq, Sk, H, K, D, dtype, seed):
+    """q, k, v and an output cotangent, seeded on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D),
+                          (B, Sq, H, D))]
+
+
+def _attn_ratio(name, got, want):
+    """|got - want| over its limit (ATTN_RTOL, ATTN_ATOL), entry by entry:
+    an entry passes at <= 1."""
+    got, want = got.float(), want.float()
+    limit = ATTN_RTOL[name] * want.abs() + ATTN_ATOL * want.abs().max()
+    return (got - want).abs() / limit.clamp(min=1e-30)
+
+
+def check_flash_attention(tfa, ref):
+    """Forward (out and lse) and backward (dq, dk, dv) kernels against
+    ``attention_naive`` (with its lse) and ``attention_bwd_ref`` on the
+    same inputs, entry by entry; the backward on the plain forward's out
+    and lse.  The
+    training shape and the reduced configs' D=32; causal, window +
+    softcap, bidirectional (+ softcap), an odd length, Sq != Sk both ways;
+    bf16 and f32.  Every row sees at least one key (the reference's two
+    plain versions disagree on rows that see none)."""
+    import torch
+    checks = []
+    train = (2, 24, 8, 128)
+    small = (2, 4, 2, 32)
+    cases = [(train, 2048, 2048, True, None, None),
+             (train, 2048, 2048, True, 512, 30.0),
+             (train, 1000, 1000, False, None, 30.0),
+             (train, 1000, 1000, True, None, None),
+             (train, 300, 1000, True, None, None),
+             (train, 1000, 300, True, None, None),
+             (small, 256, 256, True, None, None),
+             (small, 130, 77, False, 100, 20.0)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for (B, H, K, D), Sq, Sk, causal, window, cap in cases:
+            q, k, v, do = _attention_case(B, Sq, Sk, H, K, D, dtype,
+                                          500 + len(checks))
+            kw = dict(causal=causal, local_window=window, softcap=cap)
+            out, lse = tfa.flash_attention(q, k, v, **kw)
+            want_out, want_lse = ref.attention_naive(q, k, v,
+                                                     return_lse=True, **kw)
+            grads = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do,
+                                            **kw)
+            want = ref.attention_bwd_ref(q, k, v, want_out, want_lse, do,
+                                         **kw)
+            torch.cuda.synchronize()
+            for t in (out, lse, *grads):
+                if not torch.isfinite(t).all():
+                    raise AssertionError("flash_attention: non-finite output")
+            err = {"lse": (lse - want_lse).abs().max().item()}
+            # the worst entry's error over its limit (lse: over LSE_TOL)
+            ratio = {"lse": err["lse"] / LSE_TOL}
+            for n, got, w in (("out", out, want_out),
+                              *zip(("dq", "dk", "dv"), grads, want)):
+                err[n] = (got.float() - w.float()).abs().max().item()
+                ratio[n] = _attn_ratio(name, got, w).max().item()
+            checks.append({"dtype": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
+                           "K": K, "D": D, "causal": causal,
+                           "window": window, "softcap": cap,
+                           "max_abs_err": err, "worst_over_limit": ratio})
+            print(f"[check] flash_attention {name} B={B} Sq={Sq} Sk={Sk} "
+                  f"H={H} K={K} D={D} causal={causal} window={window} "
+                  f"softcap={cap}: max|err| (worst entry / its limit) "
+                  + ", ".join(f"{n} {err[n]:.3e} ({ratio[n]:.3f})"
+                              for n in err), flush=True)
+            bad = [n for n in ratio if not ratio[n] <= 1.0]
+            if bad:
+                raise AssertionError(f"flash_attention disagrees on {bad}: "
+                                     f"{ratio}")
+    return checks
+
+
+def check_planted_faults(tfa, ref):
+    """The attention checks must reject kernels that drop one 64-row tile
+    (the kernels' tile).  At the training shape (bf16, causal), against the
+    plain version of the intact inputs: the forward with the last key
+    tile's v zeroed (that tile's contribution to the last query rows
+    dropped), and the backward with the last query tile's dout zeroed
+    (that tile's contribution to every dk and dv dropped, its dq rows
+    zero).  Raises if a check passes a fault.  Reports, per tensor, the
+    share of entries beyond their limit and max|err| / max|want| (what a
+    limit on the whole tensor would see); for dv both also over the keys
+    before the last tile, whose dv the fault only shortens."""
+    import torch
+    B, S, H, K, D, T = 2, 2048, 24, 8, 128, 64
+    q, k, v, do = _attention_case(B, S, S, H, K, D, torch.bfloat16, 700)
+    want_out, want_lse = ref.attention_naive(q, k, v, return_lse=True)
+    want = ref.attention_bwd_ref(q, k, v, want_out, want_lse, do)
+    v_cut, do_cut = v.clone(), do.clone()
+    v_cut[:, -T:] = 0
+    do_cut[:, -T:] = 0
+    out, _ = tfa.flash_attention(q, k, v_cut)
+    grads = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do_cut)
+    faults = {}
+    for n, got, w in (("out", out, want_out),
+                      *zip(("dq", "dk", "dv"), grads, want)):
+        ratio = _attn_ratio("bfloat16", got, w)
+        faults[n] = {
+            "flagged_share": (ratio > 1).float().mean().item(),
+            "max_err_over_max_want": ((got.float() - w.float()).abs().max()
+                                      / w.float().abs().max()).item()}
+        if n == "dv":
+            faults[n]["flagged_share_before_last_tile"] = (
+                ratio[:, :-T] > 1).float().mean().item()
+            faults[n]["max_err_over_max_want_before_last_tile"] = (
+                (got[:, :-T].float() - w[:, :-T].float()).abs().max()
+                / w.float().abs().max()).item()
+        if not (ratio > 1).any():
+            raise AssertionError(f"flash_attention: the {n} check passes a "
+                                 "kernel that drops a tile")
+    print(f"[check] flash_attention planted faults B={B} S={S} H={H} K={K} "
+          f"D={D} causal bf16 (out: last key tile's v zeroed; dq/dk/dv: last "
+          "query tile's dout zeroed): share of entries beyond their limit, "
+          "max|err|/max|want|: " + ", ".join(
+              f"{n} {f['flagged_share']:.4f}, {f['max_err_over_max_want']:.3e}"
+              for n, f in faults.items())
+          + "; dv before the last key tile {:.4f}, {:.3e}".format(
+              faults["dv"]["flagged_share_before_last_tile"],
+              faults["dv"]["max_err_over_max_want_before_last_tile"]),
+          flush=True)
+    return faults
+
+
+def time_flash_attention(tfa, ref):
+    """Forward and backward kernel, plain and library times at the
+    training shape (bf16, causal), two input sets in turn (~67 MB each,
+    beyond the 50 MB L2).  Library yardsticks, never called by the port:
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and
+    its autograd backward."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, K, D = 2, 2048, 24, 8, 128
+    esz = 2
+    cases = [_attention_case(B, S, S, H, K, D, torch.bfloat16, 900 + i)
+             for i in range(2)]
+    saved = [tfa.flash_attention(q, k, v) for q, k, v, _ in cases]
+    fwd = [functools.partial(tfa.flash_attention, *c[:3]) for c in cases]
+    bwd = [functools.partial(tfa.flash_attention_bwd, *c[:3], o, l, c[3])
+           for c, (o, l) in zip(cases, saved)]
+
+    def plain_fwd(q, k, v):
+        return ref.attention_naive(q, k, v, return_lse=True)
+
+    lib_in = [[t.transpose(1, 2).contiguous().requires_grad_()
+               for t in c[:3]] for c in cases]
+    lib_do = [c[3].transpose(1, 2).contiguous() for c in cases]
+
+    def lib_fwd(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        lib_f = [functools.partial(lib_fwd, *[t.detach() for t in c])
+                 for c in lib_in]
+        t_fwd = {"ms": _time_graph_ms(fwd, min_calls=16),
+                 "host_ms": _time_eager_ms(fwd, 4),
+                 "plain_ms": _time_eager_ms(
+                     [functools.partial(plain_fwd, *c[:3]) for c in cases], 1),
+                 "library_ms": _time_graph_ms(lib_f, min_calls=16)}
+    # SDPA's forward runs on the stream its backward is captured on
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        lib_out = [lib_fwd(*c) for c in lib_in]
+    lib_b = [functools.partial(torch.autograd.grad, o, c, g,
+                               retain_graph=True)
+             for o, c, g in zip(lib_out, lib_in, lib_do)]
+    t_bwd = {"ms": _time_graph_ms(bwd, min_calls=16),
+             "host_ms": _time_eager_ms(bwd, 4),
+             "plain_ms": _time_eager_ms(
+                 [functools.partial(ref.attention_bwd_ref, *c[:3], o, l, c[3])
+                  for c, (o, l) in zip(cases, saved)], 1),
+             "library_ms": _time_graph_ms(lib_b, min_calls=16,
+                                          stream=lib_stream)}
+    pairs = B * H * S * (S + 1) // 2                  # causal (q, k) pairs
+    q_bytes, kv_bytes = B * S * H * D * esz, B * S * K * D * esz
+    lse_bytes = 4 * B * H * S
+    # forward: reads q, k, v; writes out, lse
+    t_fwd["bound_ms"], t_fwd["bound_by"] = _bound(
+        2 * q_bytes + 2 * kv_bytes + lse_bytes, 4.0 * D * pairs,
+        BF16_OPS_PER_S)
+    # backward: reads q, k, v, out, dout, lse; writes dq, dk, dv
+    t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
+        4 * q_bytes + 4 * kv_bytes + lse_bytes, 10.0 * D * pairs,
+        BF16_OPS_PER_S)
+    shape = f"B={B} S={S} H={H} K={K} D={D} causal bf16"
+    t_fwd.update(shape=shape, ops=4.0 * D * pairs,
+                 library="F.scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) on (B,H,S,D) copies",
+                 plain="ref.attention_naive(return_lse=True)")
+    t_bwd.update(shape=shape, ops=10.0 * D * pairs,
+                 library="torch.autograd.grad through the same SDPA call "
+                         "(CUDA graph, as the kernel)",
+                 plain="ref.attention_bwd_ref")
+    return {"fwd": t_fwd, "bwd": t_bwd}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -584,6 +838,10 @@ def _serve(tfa, engine, clock, cfg, specs):
         if not all(0 <= t < cfg.vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: token outside vocab")
     return done, wall, launches
+
+
+#: serving runs no cache-free attention: the training kernels stay at 0
+NO_TRAINING_KERNELS = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def _check_launches(arm, launches, want):
@@ -669,7 +927,8 @@ def serve_full_width(tfa):
     chunks = _plain_chunks(specs)
     _check_launches("dense", launches, {
         "flash_decode": L * (steps + chunks), "flash_decode_paged": 0,
-        "cache_update": L * steps, "cache_update_paged": 0})
+        "cache_update": L * steps, "cache_update_paged": 0,
+        **NO_TRAINING_KERNELS})
     _print_arm("dense", stats, launches)
     shared = (cfg, run, engine.params, specs,
               {r.uid: r.generated for r in done})
@@ -713,7 +972,7 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged):
         "flash_decode": 0 if paged else n,
         "flash_decode_paged": n if paged else 0,
         "cache_update": 0 if paged else L * steps,
-        "cache_update_paged": n if paged else 0})
+        "cache_update_paged": n if paged else 0, **NO_TRAINING_KERNELS})
     if paged and engine._alloc.used_blocks:
         raise AssertionError(f"{name} arm: the pool did not drain")
     del engine
@@ -792,15 +1051,58 @@ def serve_prefix_sharing(tfa, cfg, run, params):
     return out
 
 
+def _profile_window(name, label, steps, run, groups=None, top_n=8):
+    """Run ``run()`` (``steps`` steps, ending in a synchronise) under
+    torch.profiler and print where the device time went: device busy
+    share = the kernels' summed device time over the window's wall time,
+    the top kernels, and the summed time of each of ``groups`` ({label:
+    name fragments}) per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    dev = [(e.key, e.device_time_total, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy_s = sum(t for _, t, _ in dev) / 1e6
+    dev.sort(key=lambda r: -r[1])
+    top = [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
+            "launches_per_step": n / steps} for k, t, n in dev[:top_n]]
+    by_group = {g: sum(t for k, t, _ in dev
+                       if any(f in k for f in frags)) / 1e3 / steps
+                for g, frags in (groups or {}).items()}
+    if dev:
+        print(f"[profile:{name}] {label}: {wall / steps * 1e3:.2f} ms per "
+              f"step, device busy {busy_s / steps * 1e3:.2f} ms per step "
+              f"({100 * busy_s / wall:.1f}% busy, "
+              f"{100 * (1 - busy_s / wall):.1f}% idle)", flush=True)
+        for row in top:
+            print(f"[profile:{name}]   {row['ms_per_step']:.3f} ms/step "
+                  f"x{row['launches_per_step']:.0f}  {row['kernel']}",
+                  flush=True)
+        for g, ms in by_group.items():
+            print(f"[profile:{name}]   group {g}: {ms:.3f} ms/step",
+                  flush=True)
+    else:
+        print(f"[profile:{name}] the profiler saw no device events: device "
+              "busy share not measured", flush=True)
+    return {"profile_ms_per_step": wall / steps * 1e3,
+            "profile_device_busy_ms_per_step":
+                busy_s / steps * 1e3 if dev else None,
+            "profile_top_kernels": top,
+            "profile_group_ms_per_step": by_group if dev else None}
+
+
 def profile_decode(cfg, run, params, name, **kw):
     """Where a steady decode step's time goes: two decode chunks of 8
     full lanes of a fresh engine under torch.profiler.  It runs after
     every serving arm, as the launches slow down once the profiler has
-    run.  Device busy share = the kernels' summed device time over the
-    window's wall time."""
+    run."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(7)
@@ -810,38 +1112,14 @@ def profile_decode(cfg, run, params, name, **kw):
                           max_new_tokens=24) for i in range(8)])
     engine.step()                             # admission + first chunk
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run_window():
         engine.step()
         engine.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    steps = 2 * engine.decode_chunk
-    dev = [(e.key, e.device_time_total, e.count)
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    busy_s = sum(t for _, t, _ in dev) / 1e6
-    dev.sort(key=lambda r: -r[1])
-    top = [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
-            "launches_per_step": n / steps} for k, t, n in dev[:8]]
-    if dev:
-        print(f"[profile:{name}] steady decode, 8 lanes: "
-              f"{wall / steps * 1e3:.2f} ms "
-              f"per step, device busy {busy_s / steps * 1e3:.2f} ms per step "
-              f"({100 * busy_s / wall:.1f}% busy, "
-              f"{100 * (1 - busy_s / wall):.1f}% idle)", flush=True)
-        for row in top:
-            print(f"[profile:{name}]   {row['ms_per_step']:.3f} ms/step "
-                  f"x{row['launches_per_step']:.0f}  {row['kernel']}",
-                  flush=True)
-    else:
-        print(f"[profile:{name}] the profiler saw no device events: device "
-              "busy share not measured", flush=True)
-    return {"profile_ms_per_step": wall / steps * 1e3,
-            "profile_device_busy_ms_per_step":
-                busy_s / steps * 1e3 if dev else None,
-            "profile_top_kernels": top}
+
+    return _profile_window(name, "steady decode, 8 lanes",
+                           2 * engine.decode_chunk, run_window)
 
 
 # ---------------------------------------------------------------------------
@@ -901,6 +1179,168 @@ def logits_parity():
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training at full width
+# ---------------------------------------------------------------------------
+
+def _release_card():
+    """Free what earlier phases left cached and start a new peak."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_full_width(tfa):
+    """Phase 5, the training main path: full-width, full-depth
+    llama3.2-3b (seeded f32 masters on the card, bf16 compute, AdamW,
+    remat="full", batch 2 x 2048, logits_chunk 1024, 2 warmup steps)
+    through ``make_train_step``, TRAIN_STEPS steps on one repeated
+    TokenSource batch.  Every loss finite, the last below the first, and
+    exactly 2 forward launches (the forward and its recompute) and one
+    backward launch per layer and step."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import param_count
+    from repro_torch.train.step import init_state, make_train_step
+
+    B, S = 2, 2048
+    cfg = get_model_config(ARCH)
+    run = get_run_config(ARCH, remat="full", logits_chunk=1024,
+                         warmup_steps=2, total_steps=TRAIN_STEPS)
+    _release_card()
+    t0 = time.perf_counter()
+    state = init_state(cfg, run, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda").tree()
+    torch.cuda.synchronize()
+    n_params = param_count(lm.model_decls(cfg))
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"params; f32 masters + AdamW state ready in "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    data = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=B, seq_len=S))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    step_fn = make_train_step(cfg, run, Ctx(run, "cuda"))
+    tfa.reset_launch_counts()
+    losses, gnorms, secs = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        print(f"[train] step {i} loss={losses[-1]:.4f} "
+              f"grad_norm={gnorms[-1]:.4f} {secs[-1]:.3f}s", flush=True)
+    launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_decode": 0, "flash_decode_paged": 0, "cache_update": 0,
+            "cache_update_paged": 0,
+            "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    step_s = float(np.median(secs[1:]))
+    tokens = B * S
+    attn_fwd_ops = 4.0 * cfg.head_dim * B * cfg.n_heads * S * (S + 1) / 2
+    # 6 N per token (forward 2, backward 4) plus the attention's forward
+    # and its 2.5x backward, per layer; the remat recompute is not counted
+    model_ops = 6.0 * n_params * tokens + 3.5 * attn_fwd_ops * cfg.n_layers
+    stats = {"steps": TRAIN_STEPS, "batch": B, "seq": S, "losses": losses,
+             "grad_norms": gnorms, "step_s": secs,
+             "median_step_s_after_first": step_s,
+             "tokens_per_s": tokens / step_s,
+             "peak_allocated_gb": peak / 1e9, "launches": launches,
+             "model_ops_per_step": model_ops,
+             "bf16_peak_share": model_ops / (step_s * BF16_OPS_PER_S)}
+    print(f"[train] {TRAIN_STEPS} steps of {B} x {S} tokens: "
+          f"{step_s:.3f} s per step (median after the first; first "
+          f"{secs[0]:.3f} s), {stats['tokens_per_s']:.0f} tokens/s, peak "
+          f"allocated {peak / 1e9:.2f} GB, {100 * stats['bf16_peak_share']:.1f}"
+          f"% of the bf16 peak ({model_ops:.3e} model operations per step); "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"[train] non-finite loss or grad norm: "
+                             f"{losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] loss did not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"[train] launches {launches}, expected {want}")
+
+    def one_step():
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+
+    # one more step after the counted ones (and after the serving
+    # profiles: the profiler slows later launches)
+    stats["profile"] = _profile_window(
+        "train", "one train step", 1, one_step, top_n=12,
+        groups=TRAIN_PROFILE_GROUPS)
+    del state, batch
+    _release_card()
+    return launches, stats
+
+
+def train_parity(tfa):
+    """Phase 6: one train step at full width and 2 layers in f32 from the
+    same seeded weights and batch, on the card (kernels) and on the CPU
+    (plain versions): loss, grad norm and the parameter update agree."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.models.layers import Ctx
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_model_config(ARCH), n_layers=2)
+    run = get_run_config(ARCH, remat="full", compute_dtype="float32",
+                         logits_chunk=256, warmup_steps=0, total_steps=1)
+    cpu = init_state(cfg, run, torch.Generator().manual_seed(2), "cpu").tree()
+    p0 = [p.clone() for p in leaves(cpu["params"])]
+    card = {"params": tree_map(lambda t: t.cuda(), cpu["params"]),
+            "opt_state": tree_map(lambda t: t.cuda(), cpu["opt_state"]),
+            "step": cpu["step"].clone()}
+    host = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=1,
+                                  seq_len=256, seed=3)).batch(0)
+    tfa.reset_launch_counts()
+    card, m_card = make_train_step(cfg, run, Ctx(run, "cuda"))(
+        card, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+    torch.cuda.synchronize()
+    launches = {"flash_attention": tfa.flash_attention.launches,
+                "flash_attention_bwd": tfa.flash_attention_bwd.launches}
+    cpu, m_cpu = make_train_step(cfg, run, Ctx(run, "cpu"))(
+        cpu, {k: torch.from_numpy(v) for k, v in host.items()})
+    err = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+           for k in ("loss", "grad_norm")}
+    du2 = u2 = 0.0
+    for a, b, p in zip(leaves(card["params"]), leaves(cpu["params"]), p0):
+        u_cpu = b.detach() - p
+        du2 += float(((a.detach().cpu() - p) - u_cpu).double().square().sum())
+        u2 += float(u_cpu.double().square().sum())
+    err["update"] = math.sqrt(du2 / u2)
+    print(f"[train:parity] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 "
+          f"layers, f32, one AdamW step on 1 x 256 tokens: card (kernels, "
+          f"launches {launches}) vs CPU (plain): loss "
+          f"{float(m_card['loss']):.6f} vs {float(m_cpu['loss']):.6f}, "
+          f"grad_norm {float(m_card['grad_norm']):.6f} vs "
+          f"{float(m_cpu['grad_norm']):.6f}; relative errors "
+          + ", ".join(f"{k} {v:.2e} (tol {TRAIN_PARITY_TOL[k]})"
+                      for k, v in err.items()), flush=True)
+    if launches != {"flash_attention": 4, "flash_attention_bwd": 2}:
+        raise AssertionError(f"[train:parity] launches {launches}")
+    bad = [k for k, v in err.items() if not v <= TRAIN_PARITY_TOL[k]]
+    if bad:
+        raise AssertionError(f"[train:parity] disagrees on {bad}: {err}")
+    del card
+    _release_card()
+    return err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -945,6 +1385,11 @@ def main() -> int:
         "cache_update_paged prefill": time_cache_update_paged(
             tfa, ref, 1, 256, [512]),
     }
+    fa_checks = check_flash_attention(tfa, ref)
+    fa_faults = check_planted_faults(tfa, ref)
+    fa_times = time_flash_attention(tfa, ref)
+    times["flash_attention training"] = fa_times["fwd"]
+    times["flash_attention_bwd training"] = fa_times["bwd"]
     for name, t in times.items():
         print(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms "
               f"(eager with its host work {t['host_ms']:.4f} ms), plain "
@@ -971,6 +1416,8 @@ def main() -> int:
                                         block_size=16))
     del shared
     parity = logits_parity()
+    train_launches, training = train_full_width(tfa)
+    training["parity_rel_err"] = train_parity(tfa)
 
     def bf16_err(checks):
         return max(c["max_abs_err"] for c in checks
@@ -1010,8 +1457,41 @@ def main() -> int:
             times["cache_update_paged decode"],
             times["cache_update_paged prefill"], cup_checks, "paged"),
     ]
+    train_src = "src/repro/kernels/ref.py"
+
+    def train_row(name, source, replaces, t, checks, **extra):
+        worst = max(max(v for n, v in c["max_abs_err"].items()
+                        if n != "lse") for c in checks
+                    if c["dtype"] == "bfloat16")
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=train_launches[name],
+                    max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"], library=t["library"],
+                    plain=t["plain"], shape=t["shape"], host_ms=t["host_ms"],
+                    launches_arm="train", checks=checks, **extra)
+
+    kernels += [
+        train_row("flash_attention", csrc + "flash_attention.cu",
+                  fa + ":107", fa_times["fwd"],
+                  [dict(c, max_abs_err={n: c["max_abs_err"][n]
+                                        for n in ("out", "lse")})
+                   for c in fa_checks],
+                  tolerance=_ATTN_TOL_TEXT, planted_fault=fa_faults["out"]),
+        train_row("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
+                  train_src + ":37", fa_times["bwd"],
+                  [dict(c, max_abs_err={n: c["max_abs_err"][n]
+                                        for n in ("dq", "dk", "dv")})
+                   for c in fa_checks],
+                  tolerance=_ATTN_TOL_TEXT,
+                  planted_fault={n: fa_faults[n] for n in ("dq", "dk", "dv")},
+                  replaces_note="XLA autodiff of ref.attention_naive / "
+                                "attention_blockwise: the Pallas "
+                                "flash_attention has no VJP"),
+    ]
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
     print(json.dumps({"kernels": kernels, "serving": serving,
+                      "training": training,
                       "parity_max_abs_diff": parity,
                       "total_s": time.perf_counter() - t_start}))
     print(smi)

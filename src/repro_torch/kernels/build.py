@@ -43,6 +43,12 @@ SIGNATURES = {
     "cache_update_paged": ("cache_update_paged",
                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P]),
+    "flash_attention": ("flash_attention_fwd",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _I, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

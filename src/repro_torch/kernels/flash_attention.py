@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels that replace the Pallas TPU
-kernels of ``repro/kernels/flash_attention.py`` on the serving path.
+kernels of ``repro/kernels/flash_attention.py`` on the serving and
+training paths.
 
   flash_decode        csrc/decode_attention.cu
                       (TPU: flash_decode, _decode_kernel)
@@ -9,6 +10,11 @@ kernels of ``repro/kernels/flash_attention.py`` on the serving path.
                       (TPU: cache_update, _cache_update_kernel)
   cache_update_paged  csrc/cache_update_paged.cu
                       (TPU: cache_update_paged, _cache_update_paged_kernel)
+  flash_attention     csrc/flash_attention.cu
+                      (TPU: flash_attention, _attn_kernel)
+  flash_attention_bwd csrc/flash_attention_bwd.cu
+                      (XLA's autodiff of the plain attention: the Pallas
+                      kernel has no VJP)
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version from
 ``kernels/ref.py``; given CUDA tensors it checks device, dtype, shape and
@@ -220,8 +226,99 @@ def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
 
 cache_update_paged.launches = 0
 
-#: The wrappers whose kernels serve the main path (for launch counting).
-KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged)
+
+def _check_attention(name, q, k, v):
+    B, Sq, H, D = q.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: k and v must have q's dtype")
+    if (k.shape != v.shape or k.ndim != 4 or k.shape[0] != B
+            or k.shape[3] != D or H % k.shape[2]):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}")
+    if D not in (32, 64, 128):
+        raise ValueError(f"{name}: head_dim {D} not in (32, 64, 128)")
+
+
+def _flags(causal, local_window, softcap):
+    return (int(bool(causal)), float(softcap) if softcap is not None else 0.0,
+            int(local_window) if local_window is not None else 0)
+
+
+def flash_attention(q, k, v, *, causal=True, local_window=None, softcap=None,
+                    scale=None):
+    """Cache-free GQA attention forward.  q: (B, Sq, H, D); k/v: (B, Sk, K,
+    D).  Returns ``out`` (B, Sq, H, D) in q's dtype and the f32 log-sum-exp
+    ``lse`` (B, H, Sq) of each query row's visible logits (the statistic
+    ``flash_attention_bwd`` needs)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    if not q.is_cuda:
+        kw = dict(causal=causal, local_window=local_window, softcap=softcap,
+                  scale=scale)
+        return ref.attention_naive(q, k, v, return_lse=True, **kw)
+    _check_attention("flash_attention", q, k, v)
+    _check_cuda("flash_attention", q.device, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    causal_i, cap, window = _flags(causal, local_window, softcap)
+    err = build.library("flash_attention").flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, Sq, Sk, H, K, D, _DTYPE_CODE[q.dtype], causal_i,
+        float(scale), cap, window,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("flash_attention", err)
+    flash_attention.launches += 1
+    return out, lse
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
+                        local_window=None, softcap=None, scale=None):
+    """Gradient of ``flash_attention`` from its saved ``out`` and ``lse``
+    and the output's cotangent ``dout`` (q's shape and dtype).  Returns
+    (dq, dk, dv) shaped and typed like q, k, v; dk and dv sum over the
+    query heads of each kv head, in a fixed order (no atomics)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    if not q.is_cuda:
+        return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                     local_window=local_window,
+                                     softcap=softcap, scale=scale)
+    _check_attention("flash_attention_bwd", q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError("flash_attention_bwd: out and dout must have q's "
+                        "shape and dtype")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq):
+        raise TypeError("flash_attention_bwd: lse must be float32 of shape "
+                        "(B, H, Sq)")
+    _check_cuda("flash_attention_bwd", q.device, q=q, k=k, v=v, out=out,
+                lse=lse, dout=dout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    causal_i, cap, window = _flags(causal, local_window, softcap)
+    err = build.library("flash_attention_bwd").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, K, D,
+        _DTYPE_CODE[q.dtype], causal_i, float(scale), cap, window,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+#: The wrappers whose kernels serve the main paths (for launch counting).
+KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged,
+           flash_attention, flash_attention_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -8,19 +8,54 @@ take raises.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention, ref
 
 
+class FlashAttention(torch.autograd.Function):
+    """Cache-free attention with its gradient.  The forward saves q, k, v,
+    out and the f32 log-sum-exp; the backward is ``flash_attention_bwd``
+    on them.  Under ``torch.utils.checkpoint`` the forward runs again in
+    the backward pass, and autograd holds that recompute's ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, local_window, softcap, scale,
+                naive_below):
+        kw = dict(causal=causal, local_window=local_window, softcap=softcap,
+                  scale=scale)
+        if q.is_cuda:
+            out, lse = flash_attention.flash_attention(q, k, v, **kw)
+        else:
+            # the reference's plain split (repro/kernels/ops.py:29-36)
+            if q.shape[1] < naive_below and k.shape[1] < naive_below:
+                out, lse = ref.attention_naive(q, k, v, return_lse=True, **kw)
+            else:
+                out, lse = ref.attention_blockwise(q, k, v, return_lse=True,
+                                                   **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention.flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def attention(q, k, v, *, causal=True, local_window=None, softcap=None,
-              scale=None):
-    """Cache-free GQA attention. q: (B,S,H,D); k/v: (B,S,K,D).  On the CPU
-    the full-matrix plain version; its kernel (the TPU's
-    ``flash_attention``) is not ported yet."""
-    if q.is_cuda:
-        raise NotImplementedError("flash_attention: ROADMAP queue 2 item 5")
-    return ref.attention_naive(q, k, v, causal=causal,
-                               local_window=local_window, softcap=softcap,
-                               scale=scale)
+              scale=None, naive_below=2049):
+    """Cache-free GQA attention, differentiable. q: (B,S,H,D); k/v:
+    (B,S,K,D).  On CUDA the ``flash_attention`` kernel (and
+    ``flash_attention_bwd`` for the gradient); on the CPU the plain
+    versions, full-matrix below ``naive_below`` rows and blockwise
+    above."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, local_window,
+                                softcap, scale, naive_below)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap=None,

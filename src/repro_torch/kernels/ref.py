@@ -28,12 +28,14 @@ def _mask(q_pos, k_pos, causal: bool, local_window):
 
 
 def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
-                    scale=None, kv_len=None):
+                    scale=None, kv_len=None, return_lse=False):
     """Full-matrix GQA attention.
 
     q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0.
     kv_len: optional (B,) active cache length (decode); when given, q
     positions are laid at the END of the kv window.
+    return_lse: also return the f32 log-sum-exp (B, H, Sq) of each row's
+    visible logits, the statistic the backward recomputes P from.
     """
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -57,7 +59,98 @@ def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
+    return out
+
+
+def attention_blockwise(q, k, v, *, causal=True, local_window=None,
+                        softcap=None, scale=None, block_kv=1024,
+                        return_lse=False):
+    """Online-softmax attention over kv blocks of ``block_kv`` rows: the
+    reference's memory-safe path for long sequences (O(Sq * block_kv)
+    logits instead of O(Sq * Sk)).  ``return_lse`` as ``attention_naive``
+    (m + log l of the online softmax)."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else D ** -0.5
+    block_kv = min(block_kv, Sk)
+    nkv = (Sk + block_kv - 1) // block_kv
+    pad = nkv * block_kv - Sk
+    qf = (q.float() * scale).reshape(B, Sq, K, G, D)
+    kb = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vb = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    q_pos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, K, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, K, G, Sq), device=q.device)
+    acc = torch.zeros((B, K, G, Sq, D), device=q.device)
+    for j in range(nkv):
+        kc = kb[:, j * block_kv:(j + 1) * block_kv]
+        vc = vb[:, j * block_kv:(j + 1) * block_kv]
+        logits = _softcap(torch.einsum("bqkgd,bskd->bkgqs", qf, kc), softcap)
+        k_pos = j * block_kv + torch.arange(block_kv, device=q.device)
+        msk = _mask(q_pos, k_pos, causal, local_window) & (k_pos < Sk)[None]
+        logits = torch.where(msk, logits, torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, H, Sq)
+    return out
+
+
+def _logits(q, k, causal, local_window, softcap, scale):
+    """(B, K, G, Sq, Sk) f32 logits after scale and softcap, the raw
+    tanh(s / softcap) (for the softcap's derivative) and the mask: what
+    ``attention_bwd_ref`` recomputes P from."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, K, H // K, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
+    t = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    mask = _mask(torch.arange(Sq, device=q.device),
+                 torch.arange(Sk, device=q.device), causal, local_window)
+    return s, t, mask
+
+
+def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
+                      local_window=None, softcap=None, scale=None):
+    """Gradient of the cache-free attention, by the FlashAttention
+    formulas: P = exp(S - lse) on the visible keys, dV = P^T dO,
+    dP = dO V^T, dS = P * (dP - rowsum(dO * O)), times the softcap's
+    1 - tanh^2(s / c), dQ = dS K * scale, dK = dS^T Q * scale; dK and dV
+    sum over the G query heads of each kv head.  f32 maths; each gradient
+    in its input's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else D ** -0.5
+    s, t, mask = _logits(q, k, causal, local_window, softcap, scale)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, K, G, Sq, 1)),
+                    torch.zeros_like(s))
+    of = out.float().reshape(B, Sq, K, G, D)
+    dof = dout.float().reshape(B, Sq, K, G, D)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)          # (B, K, G, Sq)
+    ds = p * (dp - delta[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    qf = q.float().reshape(B, Sq, K, G, D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_len, *, scale=None,

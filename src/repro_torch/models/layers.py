@@ -4,7 +4,10 @@ Every ``*_decls`` returns a nested dict of PD declarations with the
 reference's keys and shapes; the matching ``apply_*`` consumes the
 materialized tensors.  ``Ctx`` holds the run config and the device; the
 port has no sharding.  Weights are cast to the compute dtype at use with
-``.to(c)``, a no-op once ``lm.prepare_params`` has cast them at load.
+``.to(c)``, a no-op once ``lm.prepare_params`` has cast them at load.  In
+training the parameters stay f32 masters with ``requires_grad``: the cast
+at use is differentiable, so autograd returns f32 gradients, as JAX
+does.
 """
 
 from __future__ import annotations
@@ -186,7 +189,8 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     else:
         out = ops.attention(q, k, v, causal=cfg.causal,
                             local_window=local_window,
-                            softcap=cfg.attn_softcap, scale=scale)
+                            softcap=cfg.attn_softcap, scale=scale,
+                            naive_below=ctx.run.naive_attn_below)
     y = out.reshape(B, S, H * hd) @ p["wo"].to(c)
     return y, cache
 

@@ -7,7 +7,9 @@ whose layers run in a Python loop over the stacked ``layers`` leaves
 local/global pattern raise, naming the ROADMAP item that ports them.
 
 Forward modes:
-  forward(...)                     full-sequence hidden states (no cache)
+  forward(...)                     full-sequence hidden states (no cache);
+                                   with grad enabled each layer is
+                                   checkpointed under ``run.remat="full"``
   forward(..., cache, cache_index) prefill chunk or decode step; the cache
                                    (dense ``init_cache`` or paged
                                    ``init_paged_cache``) is updated in place
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -91,11 +94,27 @@ def _tf_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin, *,
     return h + L.apply_mlp(ctx, cfg, p["mlp"], m_in), cache
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of the stacked layer params, as views."""
+def _remat(ctx: L.Ctx):
+    """The reference's ``remat`` (``repro/models/lm.py:127-133``) for a
+    training forward: ``"full"`` keeps only each layer's input and runs
+    the layer again in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant), ``"none"`` keeps every activation.  Returns True for
+    a checkpointed forward."""
+    if ctx.run.remat == "dots":
+        raise NotImplementedError('remat="dots": ROADMAP queue 1 item 15')
+    return ctx.run.remat == "full"
+
+
+def _unstack(tree, n: int) -> list:
+    """The stacked layer params as ``n`` per-layer trees of views, by one
+    ``torch.unbind`` per leaf.  Indexing ``leaf[i]`` per layer would cost
+    a training step dearly: each ``select`` backward zero-fills a
+    gradient of the whole stacked leaf and adds it into ``.grad``, once
+    per layer; ``unbind``'s backward stacks the layers' gradients once."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _positions_default(batch: int, seq: int, device, cache_index=None):
@@ -128,10 +147,16 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
                 else (None, None))
     kv = cache["kv"] if cache is not None else None
     block_tables = cache.get("block_tables") if cache is not None else None
-    for i in range(cfg.n_layers):
+    remat = cache is None and torch.is_grad_enabled() and _remat(ctx)
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                lambda p, h, cos, sin: _tf_block(ctx, cfg, p, h, cos, sin)[0],
+                p, h, cos, sin, use_reentrant=False)
+            continue
         layer_cache = ({"k": kv["k"][i], "v": kv["v"][i]}
                        if kv is not None else None)
-        h, _ = _tf_block(ctx, cfg, _layer(params["layers"], i), h, cos, sin,
+        h, _ = _tf_block(ctx, cfg, p, h, cos, sin,
                          cache=layer_cache, cache_index=cache_index,
                          block_tables=block_tables)
     h = L.apply_norm(cfg, params["final_norm"], h)

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.tree import leaves_with_paths as _leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class PD:
@@ -49,15 +51,6 @@ def _fan_in(shape: tuple[int, ...]) -> int:
     for d in shape[:-1]:
         fan *= d
     return max(fan, 1)
-
-
-def _leaves(tree, path=()):
-    """(path, leaf) pairs in sorted-key order (jax.tree's dict order)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
-    else:
-        yield path, tree
 
 
 def _set(tree: dict, path, value) -> None:
@@ -109,4 +102,17 @@ def load_numpy_params(tree, device):
     out: dict = {}
     for path, a in _leaves(tree):
         _set(out, path, torch.from_numpy(np.array(a)).to(dev))   # owned copy
+    return out
+
+
+def load_numpy_state(tree, device):
+    """The JAX package's train state ``{"params", "opt_state", "step"}``,
+    converted leaf by leaf with ``np.asarray``, as the port's state tree:
+    parameters and optimizer state on ``device``, ``step`` a 0-d int32
+    tensor on the host (as ``repro_torch.train.step.init_state`` keeps
+    it)."""
+    out = load_numpy_params({k: v for k, v in tree.items() if k != "step"},
+                            device)
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32)
     return out

@@ -36,13 +36,14 @@ def test_port_sources_found():
     names = {p.relative_to(REPO / "src").as_posix() for p in SOURCES[:-1]}
     assert "repro_torch/serving/engine.py" in names
     assert "repro_torch/kernels/flash_attention.py" in names
+    assert "repro_torch/train/step.py" in names
     assert (REPO / "chip_smoke.py").exists()
 
 
 def test_importing_the_engine_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     code = ("import sys, repro_torch.serving.engine, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")

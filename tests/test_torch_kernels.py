@@ -138,9 +138,18 @@ class _OnCuda(torch.Tensor):
         return True
 
 
-def test_cuda_attention_path_names_its_roadmap_item():
-    x = torch.zeros((1, 2, 2, 8)).as_subclass(_OnCuda)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+def test_cuda_attention_path_names_its_roadmap_item(monkeypatch):
+    """Queue 2 item 5 is ported: a CUDA tensor reaching the cache-free
+    attention goes to the ``flash_attention`` kernel (here: raises, as
+    nvcc is missing), never to the plain version."""
+    x = torch.zeros((1, 2, 2, 32)).as_subclass(_OnCuda)
+
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc not found building {name}")
+
+    monkeypatch.setattr(tfa.build, "library", no_nvcc)
+    monkeypatch.setattr(ref, "attention_naive", None)
+    with pytest.raises(RuntimeError, match="flash_attention"):
         ops.attention(x, x, x)
 
 
