@@ -23,6 +23,13 @@ caught):
      softcap, bidirectional, odd lengths, Sq != Sk; bf16 and f32), the
      same checks shown to reject kernels that drop one 64-row tile, then
      timed at the training shape beside SDPA and its autograd backward;
+     the four decode and cache kernels also at olmoe's H = K = 16 (one
+     query head per kv head), checked and timed; ``grouped_matmul``
+     against ``ref.grouped_matmul`` entry by entry at the olmoe path's
+     shapes (G=64; capacity 2 at decode, 40 at a 256-row chunk; odd
+     capacities 1, 3, 5, 100) and the reduced configs', bf16 and f32,
+     the check shown to reject a kernel that drops the last 64-wide
+     K-slice or the last group, then timed beside ``torch.bmm``;
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times:
@@ -42,10 +49,30 @@ caught):
           stay in the pool (stream equality with the dense engine is
           counted, not required: the suffix prefill's GEMMs have other row
           counts, so bf16 bits may differ);
-     then a torch.profiler window of steady decode, dense and paged (last:
-     launches slow down once the profiler has run);
+       d. after llama's weights are released: full-width, full-depth
+          olmoe-1b-7b (16 layers, 64 experts top-8, seeded random
+          weights, bf16 compute, the f32 router) on the same engine
+          settings and 16 seeded requests, dense and then paged: every
+          request gets exactly its tokens and the launches are exact (3 x
+          16 ``grouped_matmul`` and 16 attention launches per decode step
+          and prefill chunk); the paged streams equal to the dense arm's
+          are counted, not required (done lanes take part in routing and
+          read stale rows, which differ between the two caches, as in the
+          reference); then an untimed replay that must give the dense
+          arm's streams again, files every synchronising call by phase
+          (one fetch per decode chunk and no other sync) and counts
+          the capacity drops of live and done lanes; then, untimed, the
+          same requests at capacity factor 8.0, where nothing is dropped
+          and done lanes cannot reach live ones: dense and paged, 16/16
+          streams equal bit for bit;
+     then torch.profiler windows of steady decode, olmoe dense, llama
+     dense and paged (last: launches slow down once the profiler has
+     run);
   4. logits parity at full width and 2 layers: the card (bf16, kernels)
-     against a float32 CPU forward of the same weights (plain path);
+     against a float32 CPU forward of the same weights (plain path); for
+     olmoe the same prefill chunks and decode step on both sides, the
+     card in f32 routing exactly as the CPU in f32 with logits within
+     MOE_PARITY_TOL, and the card in bf16 printed beside them;
   5. training, the second main path, after the serving arms have
      released their weights: full-width, full-depth llama3.2-3b (seeded
      f32 masters, bf16 compute, AdamW, remat="full", batch 2 x 2048)
@@ -58,9 +85,8 @@ caught):
      (kernels) against the CPU (plain versions) from the same weights and
      batch: loss, grad norm and the parameter update.
 
-It prints one ``{"kernels": [...]}`` line (six kernels), the nvidia-smi
-line, and as
-its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+It prints one ``{"kernels": [...]}`` line (seven kernels), the
+nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
 prints no result.
 """
@@ -70,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import subprocess
@@ -107,6 +134,19 @@ ATTN_ATOL = 1e-5
 LSE_TOL = 1e-4
 _ATTN_TOL_TEXT = (f"per entry {ATTN_RTOL['bfloat16']} |want| + "
                   f"{ATTN_ATOL} max|want| (bf16)")
+# grouped_matmul vs its plain version is held to the same rule per entry:
+# both sides sum the same f32 products (K = 1024 or 2048 of them) in
+# another order, and a bf16 output is then rounded once, so the two are
+# equal or one bf16 ulp apart (ratio <= 1 / (1 + 2^-7) at worst); ATTN_ATOL
+# covers the f32 order error of sums that cancel to near zero, which grows
+# as sqrt(K) (~1e-4 at K = 2048, entries of size ~45, the largest ~200).
+# A wrong K-slice or group changes an entry by far more than one ulp.
+GMM_SHAPES = [(64, 2, 2048, 1024), (64, 2, 1024, 2048),      # decode
+              (64, 40, 2048, 1024), (64, 40, 1024, 2048),    # 256-row chunk
+              (64, 1, 2048, 1024), (64, 3, 2048, 1024),      # odd capacity
+              (64, 5, 1024, 2048), (64, 100, 2048, 1024),
+              (8, 2, 128, 256), (8, 5, 256, 128),            # reduced configs
+              (8, 17, 128, 256)]
 TRAIN_STEPS = 6
 #: kernel-name fragments of the train step's device time by kind
 TRAIN_PROFILE_GROUPS = {
@@ -121,6 +161,14 @@ TRAIN_PROFILE_GROUPS = {
 # (2 lr for that entry), so the updates are compared as a relative norm
 TRAIN_PARITY_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-2}
 ARCH = "llama3.2-3b"
+MOE_ARCH = "olmoe-1b-7b"
+#: kernel-name fragments of an olmoe decode step's device time by kind
+MOE_PROFILE_GROUPS = {
+    "grouped_matmul": ("grouped_matmul_kernel",),
+    "flash_decode": ("decode_attention_kernel",),
+    "cache_update": ("cache_update_kernel",),
+    "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
+}
 
 
 def _smi_line() -> str:
@@ -199,13 +247,14 @@ def _decode_case(B, S, H, K, D, Sq, dtype, kv_len, seed):
 
 def check_flash_decode(tfa, ref):
     """Kernel vs plain version over dtypes, chunk sizes (Sq 5: a partial
-    block of query rows), softcap/window, and the reduced configs'
-    head_dim 32."""
+    block of query rows), softcap/window, the reduced configs' head_dim
+    32, and olmoe's H = K = 16 (one query head per kv head)."""
     import torch
     rng = np.random.default_rng(0)
     checks = []
     shapes = [((8, 2048, 24, 8, 128), Sq) for Sq in (1, 5, 256)] \
-        + [((3, 64, 4, 2, 32), Sq) for Sq in (1, 4)]
+        + [((3, 64, 4, 2, 32), Sq) for Sq in (1, 4)] \
+        + [((8, 2048, 16, 16, 128), Sq) for Sq in (1, 5, 256)]   # olmoe
     for dtype in (torch.bfloat16, torch.float32):
         for (B, S, H, K, D), Sq in shapes:
             kv_len = rng.integers(Sq, S + 1, B)
@@ -238,13 +287,14 @@ def check_flash_decode(tfa, ref):
 
 
 def check_cache_update(tfa, ref):
-    """Kernel vs plain version, bit-exact, including dropped slots."""
+    """Kernel vs plain version, bit-exact, including dropped slots, at
+    llama's K = 8 and olmoe's K = 16 kv heads."""
     import torch
-    B, S, K, D = 8, 2048, 8, 128
+    B, S, D = 8, 2048, 128
     checks = []
-    for new_dt, cache_dt in ((torch.bfloat16, torch.bfloat16),
-                             (torch.float32, torch.float32),
-                             (torch.float32, torch.bfloat16)):
+    for (new_dt, cache_dt), K in itertools.product(
+            ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.float32, torch.bfloat16)), (8, 16)):
         for Sn in (1, 4):
             index = [0, 5, 700, 1333, S - Sn, S, -1, S - Sn + 1]
             g = torch.Generator(device="cuda").manual_seed(len(checks))
@@ -263,8 +313,8 @@ def check_cache_update(tfa, ref):
             torch.cuda.synchronize()
             exact = all(torch.equal(a, b) for a, b in zip(got, want))
             checks.append({"new": str(new_dt).split(".")[1],
-                           "cache": str(cache_dt).split(".")[1], "Sn": Sn,
-                           "bit_exact": exact})
+                           "cache": str(cache_dt).split(".")[1], "K": K,
+                           "Sn": Sn, "bit_exact": exact})
             print(f"[check] cache_update {checks[-1]}", flush=True)
             if not exact:
                 raise AssertionError("cache_update is not bit-exact")
@@ -292,12 +342,14 @@ def _paged_case(B, S, H, K, D, Sq, bs, dtype, kv_len, seed):
 
 def check_flash_decode_paged(tfa, ref):
     """Paged kernel vs its plain version, and vs the DENSE kernel over the
-    gathered cache (must be equal: the reduction order is shared)."""
+    gathered cache (must be equal: the reduction order is shared); llama's
+    and olmoe's head counts and the reduced D=32."""
     import torch
     rng = np.random.default_rng(10)
     checks = []
     shapes = [((8, 2048, 24, 8, 128), 16, Sq) for Sq in (1, 5, 256)] \
-        + [((3, 64, 4, 2, 32), 8, Sq) for Sq in (1, 4)]
+        + [((3, 64, 4, 2, 32), 8, Sq) for Sq in (1, 4)] \
+        + [((8, 2048, 16, 16, 128), 16, Sq) for Sq in (1, 5, 256)]
     for dtype in (torch.bfloat16, torch.float32):
         for (B, S, H, K, D), bs, Sq in shapes:
             kv_len = rng.integers(Sq, S + 1, B)
@@ -344,15 +396,15 @@ def check_flash_decode_paged(tfa, ref):
 def check_cache_update_paged(tfa, ref):
     """Kernel vs plain version, bit-exact, at Sn 1, 4 and 256 across block
     boundaries, with done, negative and overrunning slots; blocks no table
-    maps must stay untouched."""
+    maps must stay untouched.  llama's K = 8 and olmoe's K = 16."""
     import torch
-    B, S, K, D, bs = 8, 2048, 8, 128, 16
+    B, S, D, bs = 8, 2048, 128, 16
     mb, mapped = S // bs, 100                 # 100 of 128 blocks mapped
     n_pool = B * mb + 1
     checks = []
-    for new_dt, pool_dt in ((torch.bfloat16, torch.bfloat16),
-                            (torch.float32, torch.float32),
-                            (torch.float32, torch.bfloat16)):
+    for (new_dt, pool_dt), K in itertools.product(
+            ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.float32, torch.bfloat16)), (8, 16)):
         for Sn in (1, 4, 256):
             # 14 + Sn crosses a block; 1600 - Sn ends on the last mapped
             # row; S is done, -1 negative, S - Sn + 1 overruns
@@ -383,7 +435,8 @@ def check_cache_update_paged(tfa, ref):
             untouched = all(torch.equal(a[um], b[um])
                             for a, b in zip(got, (kp, vp)))
             checks.append({"new": str(new_dt).split(".")[1],
-                           "pool": str(pool_dt).split(".")[1], "Sn": Sn,
+                           "pool": str(pool_dt).split(".")[1], "K": K,
+                           "Sn": Sn,
                            "bit_exact": exact,
                            "unmapped_blocks_untouched": untouched,
                            "unmapped_blocks": len(unmapped)})
@@ -394,12 +447,12 @@ def check_cache_update_paged(tfa, ref):
     return checks
 
 
-def time_flash_decode(tfa, ref, B, Sq, kv_len):
+def time_flash_decode(tfa, ref, B, Sq, kv_len, H=24, K=8):
     """Kernel, plain and library times at one main-path shape (bf16),
     rotating over enough cache copies that reads come from HBM, not L2."""
     import torch
     import torch.nn.functional as F
-    S, H, K, D = 2048, 24, 8, 128
+    S, D = 2048, 128
     esz = 2
     rows = [min(int(n), S) for n in kv_len]
     kv_bytes = sum(rows) * K * D * 2 * esz
@@ -436,10 +489,10 @@ def time_flash_decode(tfa, ref, B, Sq, kv_len):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_cache_update(tfa, ref):
+def time_cache_update(tfa, ref, K=8):
     """Decode-step write (Sn=1, bf16) of 8 slots, one of them done."""
     import torch
-    B, S, K, D, Sn = 8, 2048, 8, 128, 1
+    B, S, D, Sn = 8, 2048, 128, 1
     index = [96, 140, 333, 512, 700, 911, 1100, S]
     g = torch.Generator(device="cuda").manual_seed(7)
     kc = torch.zeros((B, S, K, D), dtype=torch.bfloat16, device="cuda")
@@ -473,13 +526,13 @@ def time_cache_update(tfa, ref):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_flash_decode_paged(tfa, ref, B, Sq, kv_len):
+def time_flash_decode_paged(tfa, ref, B, Sq, kv_len, H=24, K=8):
     """Paged kernel, plain and library times at one main-path shape (bf16,
     pool of B * 128 + 1 blocks of 16), rotating over enough pools that
     reads come from HBM, not L2."""
     import torch
     import torch.nn.functional as F
-    S, H, K, D, bs = 2048, 24, 8, 128, 16
+    S, D, bs = 2048, 128, 16
     esz = 2
     rows = [min(int(n), S) for n in kv_len]
     kv_bytes = sum(rows) * K * D * 2 * esz
@@ -523,11 +576,11 @@ def time_flash_decode_paged(tfa, ref, B, Sq, kv_len):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_cache_update_paged(tfa, ref, B, Sn, index):
-    """Paged write (bf16) of Sn rows per slot into a (B * 128 + 1, 16, 8,
+def time_cache_update_paged(tfa, ref, B, Sn, index, K=8):
+    """Paged write (bf16) of Sn rows per slot into a (B * 128 + 1, 16, K,
     128) pool through scattered tables."""
     import torch
-    S, K, D, bs = 2048, 8, 128, 16
+    S, D, bs = 2048, 128, 16
     mb = S // bs
     n_pool = B * mb + 1
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -582,9 +635,10 @@ def _attention_case(B, Sq, Sk, H, K, D, dtype, seed):
                           (B, Sq, H, D))]
 
 
-def _attn_ratio(name, got, want):
+def _entry_ratio(name, got, want):
     """|got - want| over its limit (ATTN_RTOL, ATTN_ATOL), entry by entry:
-    an entry passes at <= 1."""
+    an entry passes at <= 1.  The rule of the attention and
+    grouped_matmul checks."""
     got, want = got.float(), want.float()
     limit = ATTN_RTOL[name] * want.abs() + ATTN_ATOL * want.abs().max()
     return (got - want).abs() / limit.clamp(min=1e-30)
@@ -634,7 +688,7 @@ def check_flash_attention(tfa, ref):
             for n, got, w in (("out", out, want_out),
                               *zip(("dq", "dk", "dv"), grads, want)):
                 err[n] = (got.float() - w.float()).abs().max().item()
-                ratio[n] = _attn_ratio(name, got, w).max().item()
+                ratio[n] = _entry_ratio(name, got, w).max().item()
             checks.append({"dtype": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
                            "K": K, "D": D, "causal": causal,
                            "window": window, "softcap": cap,
@@ -675,7 +729,7 @@ def check_planted_faults(tfa, ref):
     faults = {}
     for n, got, w in (("out", out, want_out),
                       *zip(("dq", "dk", "dv"), grads, want)):
-        ratio = _attn_ratio("bfloat16", got, w)
+        ratio = _entry_ratio("bfloat16", got, w)
         faults[n] = {
             "flagged_share": (ratio > 1).float().mean().item(),
             "max_err_over_max_want": ((got.float() - w.float()).abs().max()
@@ -776,6 +830,103 @@ def time_flash_attention(tfa, ref):
     return {"fwd": t_fwd, "bwd": t_bwd}
 
 
+def _gmm_case(G, M, K, N, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((G, M, K), generator=g, device="cuda").to(dtype),
+            torch.randn((G, K, N), generator=g, device="cuda").to(dtype))
+
+
+def check_grouped_matmul(gmm, ref):
+    """The kernel against ``ref.grouped_matmul`` on the same inputs, entry
+    by entry (``_entry_ratio``), at the olmoe path's shapes (capacity 2 at
+    a decode step, 40 at a 256-row chunk; gate/up and down), at odd
+    capacities and at the reduced configs' shapes, bf16 and f32."""
+    import torch
+    checks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for G, M, K, N in GMM_SHAPES:
+            lhs, rhs = _gmm_case(G, M, K, N, dtype, 3000 + len(checks))
+            got = gmm.grouped_matmul(lhs, rhs)
+            want = ref.grouped_matmul(lhs, rhs)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError("grouped_matmul: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            ratio = _entry_ratio(name, got, want).max().item()
+            checks.append({"dtype": name, "G": G, "M": M, "K": K, "N": N,
+                           "max_abs_err": err, "worst_over_limit": ratio})
+            print(f"[check] grouped_matmul {name} G={G} M={M} K={K} N={N}: "
+                  f"max|err| {err:.3e}, worst entry / its limit "
+                  f"{ratio:.3f}", flush=True)
+            if not ratio <= 1.0:
+                raise AssertionError(f"grouped_matmul disagrees: {ratio}")
+    return checks
+
+
+def check_grouped_matmul_faults(gmm, ref):
+    """The check must reject a kernel that drops one 64-wide K-slice or
+    one group: at the 256-row chunk's gate shape (bf16), the kernel run on
+    lhs with its last 64 K-columns zeroed, and separately with its last
+    group zeroed, against the plain version of the intact inputs.  Raises
+    unless most of the affected entries are flagged (every entry for the
+    K-slice, the last group's for the group) and no other entry is."""
+    import torch
+    G, M, K, N = 64, 40, 2048, 1024
+    lhs, rhs = _gmm_case(G, M, K, N, torch.bfloat16, 3100)
+    want = ref.grouped_matmul(lhs, rhs)
+    cut_k, cut_g = lhs.clone(), lhs.clone()
+    cut_k[..., -64:] = 0
+    cut_g[-1] = 0
+    faults = {}
+    for fault, cut, affected in (("last 64-wide K-slice", cut_k, slice(None)),
+                                 ("last group", cut_g, slice(G - 1, G))):
+        flagged = _entry_ratio("bfloat16", gmm.grouped_matmul(cut, rhs),
+                               want) > 1
+        others = flagged.clone()
+        others[affected] = False
+        faults[fault] = {
+            "flagged_share_of_affected": flagged[affected].float().mean()
+            .item(),
+            "flagged_outside": int(others.sum().item())}
+        if not (faults[fault]["flagged_share_of_affected"] > 0.5
+                and faults[fault]["flagged_outside"] == 0):
+            raise AssertionError(f"grouped_matmul check vs a dropped "
+                                 f"{fault}: {faults[fault]}")
+    print(f"[check] grouped_matmul planted faults G={G} M={M} K={K} N={N} "
+          "bf16, lhs zeroed on the kernel's side only: share of the "
+          "affected entries beyond their limit: " + ", ".join(
+              f"{n} {f['flagged_share_of_affected']:.4f} "
+              f"({f['flagged_outside']} flagged elsewhere)"
+              for n, f in faults.items()), flush=True)
+    return faults
+
+
+def time_grouped_matmul(gmm, ref, G, M, K, N):
+    """Kernel, plain and library times at one olmoe shape (bf16), two input
+    sets in turn (each set's 268 MB of rhs is beyond the 50 MB L2).  The
+    library yardstick, never called by the port: ``torch.bmm``."""
+    import torch
+    cases = [_gmm_case(G, M, K, N, torch.bfloat16, 3200 + i)
+             for i in range(2)]
+    kernel = [functools.partial(gmm.grouped_matmul, *c) for c in cases]
+    library = [functools.partial(torch.bmm, *c) for c in cases]
+    plain = [functools.partial(ref.grouped_matmul, *c) for c in cases]
+    esz = 2
+    nbytes = esz * (G * M * K + G * K * N + G * M * N)
+    ops = 2.0 * G * M * K * N
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    return {"shape": f"G={G} M={M} K={K} N={N} bf16", "ms":
+            _time_graph_ms(kernel, min_calls=32),
+            "host_ms": _time_eager_ms(kernel, 10),
+            "plain_ms": _time_eager_ms(plain, 2),
+            "library_ms": _time_graph_ms(library, min_calls=32),
+            "library": "torch.bmm (CUDA graph, as the kernel)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -840,8 +991,20 @@ def _serve(tfa, engine, clock, cfg, specs):
     return done, wall, launches
 
 
-#: serving runs no cache-free attention: the training kernels stay at 0
-NO_TRAINING_KERNELS = {"flash_attention": 0, "flash_attention_bwd": 0}
+def _serving_launches(cfg, steps, chunks, paged):
+    """The exact launches of a serving arm of ``steps`` decode steps and
+    ``chunks`` prefill chunks: per layer and per step or chunk one
+    attention launch and, for an MoE model, three expert products
+    (gate, up, down); one cache write per decode step (dense: prefill
+    chunks write by a slice copy) or per step and chunk (paged).  No
+    training kernel runs."""
+    n = cfg.n_layers * (steps + chunks)
+    return {"flash_decode": 0 if paged else n,
+            "flash_decode_paged": n if paged else 0,
+            "cache_update": 0 if paged else cfg.n_layers * steps,
+            "cache_update_paged": n if paged else 0,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "grouped_matmul": 3 * n if cfg.n_experts else 0}
 
 
 def _check_launches(arm, launches, want):
@@ -882,35 +1045,58 @@ def _print_arm(name, st, launches):
           f"{st['prompt_tokens']} prompt tokens, "
           f"{st['new_tokens']} new tokens in {st['wall_s']:.2f}s: "
           f"{st['tok_per_s']:.1f} tok/s; prefill {st['prefill_s']:.2f}s, "
-          f"decode {st['decode_s']:.2f}s; {st['host_syncs']} host syncs "
+          f"decode {st['decode_s']:.2f}s "
+          f"({st['decode_s'] / st['decode_steps'] * 1e3:.1f} ms per decode "
+          f"step); {st['host_syncs']} host syncs "
           f"({st['decode_steps']} decode steps, {st['prefill_chunks']} "
           f"prefill chunks); launches {launches}; max_memory_allocated "
           f"{st['max_memory_allocated_gib']:.2f} GiB", flush=True)
 
 
-def serve_full_width(tfa):
-    """Phase 3a, the dense arm.  Returns its launches and stats, and what
-    the later arms reuse: (cfg, run, card params, request specs, streams)."""
+def _card_weights(cfg, run):
+    """Seeded random f32 masters of ``cfg`` made on the card (seed 0) and
+    cast once to the compute dtype (``lm.prepare_params``, as the engine
+    does); the masters are freed before this returns."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
+    masters = init_params(lm.model_decls(cfg),
+                          torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    params = lm.prepare_params(Ctx(run, "cuda"), masters)
+    del masters
+    torch.cuda.empty_cache()
+    return params
+
+
+def serve_full_width(tfa, arch=ARCH, tag=""):
+    """Phase 3a (llama) and the first arm of 3d (``arch=MOE_ARCH``, arms
+    named ``olmoe-*``): the dense arm.  Returns its launches and stats, and
+    what the later arms reuse: (cfg, run, card params, request specs,
+    streams)."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.models import lm
-    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.params import param_count
     from repro_torch.serving.engine import Request
 
-    cfg = get_model_config(ARCH)
-    run = get_run_config(ARCH, remat="none")          # bf16 compute
+    cfg = get_model_config(arch)
+    run = get_run_config(arch, remat="none")          # bf16 compute
     decls = lm.model_decls(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(decls, torch.Generator(device="cuda").manual_seed(0),
-                         "cuda")
+    params = _card_weights(cfg, run)
     clock = PhaseClock()
     engine = _engine(cfg, run, params, clock)
-    del params                                        # f32 masters
+    del params
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers d{cfg.d_model} "
           f"vocab {cfg.vocab}, {param_count(decls) / 1e9:.3f} B params, "
-          f"weights ready in {time.perf_counter() - t0:.1f}s", flush=True)
+          f"weights ready in {time.perf_counter() - t0:.1f}s (peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB with the f32 "
+          f"masters; {torch.cuda.memory_allocated() / 1e9:.2f} GB held)",
+          flush=True)
 
     rng = np.random.default_rng(0)
     warm = Request(uid=-1, prompt=rng.integers(0, cfg.vocab, 64).tolist(),
@@ -921,15 +1107,12 @@ def serve_full_width(tfa):
         plen = int(rng.integers(64, 1025))
         specs.append((rng.integers(0, cfg.vocab, plen).tolist(),
                       int(rng.integers(32, 129)), 0))
+    torch.cuda.reset_peak_memory_stats()
     done, wall, launches = _serve(tfa, engine, clock, cfg, specs)
     stats = _arm_stats(engine, clock, done, wall, specs)
-    L, steps = cfg.n_layers, stats["decode_steps"]
-    chunks = _plain_chunks(specs)
-    _check_launches("dense", launches, {
-        "flash_decode": L * (steps + chunks), "flash_decode_paged": 0,
-        "cache_update": L * steps, "cache_update_paged": 0,
-        **NO_TRAINING_KERNELS})
-    _print_arm("dense", stats, launches)
+    _check_launches(tag + "dense", launches, _serving_launches(
+        cfg, stats["decode_steps"], _plain_chunks(specs), paged=False))
+    _print_arm(tag + "dense", stats, launches)
     shared = (cfg, run, engine.params, specs,
               {r.uid: r.generated for r in done})
     del engine
@@ -937,10 +1120,12 @@ def serve_full_width(tfa):
     return launches, stats, shared
 
 
-def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged):
-    """Phase 3b: the dense arm's 16 requests once more, through
-    ``paged=True`` or dense; every stream must equal the dense arm's and
-    only that engine's kernels may launch."""
+def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
+              gate_equal=True):
+    """Phase 3b (and 3d): the dense arm's 16 requests once more, through
+    ``paged=True`` or dense; every stream must equal the dense arm's
+    (with ``gate_equal``; else the count is printed) and only that
+    engine's kernels may launch."""
     import torch
     from repro_torch.serving.engine import Request
     clock = PhaseClock()
@@ -956,6 +1141,11 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged):
     stats["streams_equal_dense"] = same
     _print_arm(name, stats, launches)
     msg = f"[serve:{name}] {same}/16 streams equal the dense arm's"
+    if not gate_equal:
+        msg += (" (not gated: a done lane reads stale rows of its own "
+                "slot, which differ between the dense cache and the "
+                "pool, and under capacity its routing can drop a live "
+                "lane's assignment -- the reference engine does the same)")
     if paged:
         stats.update(n_blocks=engine.n_blocks,
                      peak_used_blocks=engine.peak_used_blocks,
@@ -964,15 +1154,10 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged):
                 f"{engine.peak_used_blocks} used, "
                 f"{engine._alloc.used_blocks} used at the end")
     print(msg, flush=True)
-    if same != len(specs):
+    if gate_equal and same != len(specs):
         raise AssertionError(f"{name} arm: {same}/16 streams equal dense")
-    L, steps = cfg.n_layers, stats["decode_steps"]
-    n = L * (steps + _plain_chunks(specs))
-    _check_launches(name, launches, {
-        "flash_decode": 0 if paged else n,
-        "flash_decode_paged": n if paged else 0,
-        "cache_update": 0 if paged else L * steps,
-        "cache_update_paged": n if paged else 0, **NO_TRAINING_KERNELS})
+    _check_launches(name, launches, _serving_launches(
+        cfg, stats["decode_steps"], _plain_chunks(specs), paged))
     if paged and engine._alloc.used_blocks:
         raise AssertionError(f"{name} arm: the pool did not drain")
     del engine
@@ -1085,8 +1270,9 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
                   f"x{row['launches_per_step']:.0f}  {row['kernel']}",
                   flush=True)
         for g, ms in by_group.items():
-            print(f"[profile:{name}]   group {g}: {ms:.3f} ms/step",
-                  flush=True)
+            print(f"[profile:{name}]   group {g}: {ms:.3f} ms/step "
+                  f"({100 * ms / (busy_s / steps * 1e3):.1f}% of the device "
+                  "busy time)", flush=True)
     else:
         print(f"[profile:{name}] the profiler saw no device events: device "
               "busy share not measured", flush=True)
@@ -1097,7 +1283,7 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
             "profile_group_ms_per_step": by_group if dev else None}
 
 
-def profile_decode(cfg, run, params, name, **kw):
+def profile_decode(cfg, run, params, name, groups=None, **kw):
     """Where a steady decode step's time goes: two decode chunks of 8
     full lanes of a fresh engine under torch.profiler.  It runs after
     every serving arm, as the launches slow down once the profiler has
@@ -1119,7 +1305,165 @@ def profile_decode(cfg, run, params, name, **kw):
         torch.cuda.synchronize()
 
     return _profile_window(name, "steady decode, 8 lanes",
-                           2 * engine.decode_chunk, run_window)
+                           2 * engine.decode_chunk, run_window,
+                           groups=groups)
+
+
+def serve_moe_no_drop(tfa, cfg, run, params, specs):
+    """Phase 3d: the paged MoE path against the dense one, bit for bit,
+    where done lanes cannot reach live ones.  At capacity factor E/top_k
+    (8.0 for olmoe) the capacity is the call's token count, so no
+    assignment is ever dropped, and every row's expert products, and so
+    every live lane's output, depend on that lane alone.  The dense arm's
+    16 requests, untimed, dense and then paged: exact launches, and 16/16
+    paged streams equal the dense ones."""
+    import torch
+    cfg = dataclasses.replace(cfg,
+                              capacity_factor=cfg.n_experts / cfg.top_k)
+    streams = {}
+    for paged in (False, True):
+        name = "olmoe-nodrop-" + ("paged" if paged else "dense")
+        clock = PhaseClock()
+        engine = _engine(cfg, run, params, clock,
+                         **(dict(paged=True, block_size=16) if paged else {}))
+        done, _, launches = _serve(tfa, engine, clock, cfg, specs)
+        steps = engine.sync_count * engine.decode_chunk
+        _check_launches(name, launches, _serving_launches(
+            cfg, steps, _plain_chunks(specs), paged))
+        streams[paged] = {r.uid: r.generated for r in done}
+        del engine
+        torch.cuda.empty_cache()
+    same = sum(streams[True][u] == streams[False][u] for u in streams[False])
+    print(f"[serve:olmoe-nodrop] capacity factor {cfg.capacity_factor} "
+          f"(capacity = the call's token count: nothing dropped): "
+          f"{same}/16 paged streams equal the dense ones; launches exact "
+          f"in both", flush=True)
+    if same != len(specs):
+        raise AssertionError(f"olmoe no-drop arms: {same}/16 paged streams "
+                             "equal the dense ones")
+    return {"capacity_factor": cfg.capacity_factor,
+            "paged_streams_equal_dense": same}
+
+
+class SyncTally:
+    """The engine's ``power=`` hook in the replay arm: it notes which
+    caught warnings each phase raised, so that every synchronising call
+    can be filed under the phase it came in.  It synchronises nothing."""
+
+    def __init__(self):
+        self.caught, self.spans = [], []
+
+    @contextlib.contextmanager
+    def phase(self, name, calls=None):
+        i0 = len(self.caught)
+        yield None
+        self.spans.append((name, i0, len(self.caught)))
+
+    def where(self, i):
+        for name, i0, i1 in self.spans:
+            if i0 <= i < i1:
+                return name
+        return "outside"
+
+
+def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
+    """Phase 3d, the last arm: the dense arm's requests served once more,
+    untimed, to read what the timed arms must not pay for.
+      * Host syncs, by where they happen: under
+        ``torch.cuda.set_sync_debug_mode("warn")`` every synchronising
+        CUDA call warns, and ``SyncTally`` files each warning under the
+        phase it came in (prefill, decode) or outside both, where the
+        engine admits requests and fetches each decode chunk's tokens.
+        The only syncs allowed are those fetches, one per chunk.
+      * Capacity drops at the decode steps: the (token, expert)
+        assignments that capacity keeps and drops, for live lanes and for
+        done lanes (fed token 0 at index max_seq), counted on the card
+        over every decode step and layer.
+    Every stream must equal the dense arm's."""
+    import warnings
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request
+
+    tally = SyncTally()
+    engine = _engine(cfg, run, params, tally)
+    engine.generate([Request(uid=-1, max_new_tokens=8, prompt=list(range(
+        1, 65)))])                            # first-call costs, not counted
+    tally.spans = []
+    counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+    lanes = {}
+    real_forward, real_dispatch = lm.forward, L._moe_dispatch_local
+
+    def forward(ctx, cfg_, params_, batch, *, cache=None, cache_index=None):
+        step = torch.is_tensor(cache_index) and cache_index.ndim == 1
+        lanes["done"] = cache_index >= engine.max_seq if step else None
+        return real_forward(ctx, cfg_, params_, batch, cache=cache,
+                            cache_index=cache_index)
+
+    def dispatch(cfg_, xf, top_e, capacity):
+        out = real_dispatch(cfg_, xf, top_e, capacity)
+        if lanes["done"] is not None:
+            # [live kept, live dropped, done kept, done dropped]
+            keep = out[3].view(lanes["done"].shape[0], -1)
+            idx = (2 * lanes["done"].long()[:, None]
+                   + (~keep).long()).reshape(-1)
+            counts.index_add_(0, idx, torch.ones_like(idx))
+        return out
+
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=n, prefix_len=pl)
+            for i, (p, n, pl) in enumerate(specs)]
+    engine.sync_count = 0
+    lm.forward, L._moe_dispatch_local = forward, dispatch
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tally.caught = caught
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                done = engine.generate(reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        lm.forward, L._moe_dispatch_local = real_forward, real_dispatch
+    same = sum(r.generated == dense_streams[r.uid] for r in done)
+    syncs = {"prefill": 0, "decode": 0, "outside": 0}
+    sites = {k: {} for k in syncs}
+    for i, w in enumerate(caught):
+        if "called a synchronizing CUDA operation" not in str(w.message):
+            continue
+        where = tally.where(i)
+        syncs[where] += 1
+        site = f"{Path(w.filename).name}:{w.lineno}"
+        sites[where][site] = sites[where].get(site, 0) + 1
+    lk, ld, dk, dd = counts.tolist()
+    drops = {"live_assignments": lk + ld, "live_dropped": ld,
+             "live_dropped_share": ld / max(lk + ld, 1),
+             "done_assignments": dk + dd, "done_dropped": dd,
+             "done_dropped_share": dd / max(dk + dd, 1),
+             "decode_steps": engine.sync_count * engine.decode_chunk,
+             "layers": cfg.n_layers}
+    print(f"[serve:olmoe-syncs] {same}/16 streams equal the dense arm's; "
+          f"synchronising calls under torch.cuda.set_sync_debug_mode: "
+          f"decode phases {syncs['decode']}, outside the phases "
+          f"{syncs['outside']} ({engine.sync_count} decode chunks: the "
+          f"engine's fetch) at {sites['outside']}, prefill phases "
+          f"{syncs['prefill']} at {sites['prefill']}", flush=True)
+    print(f"[serve:olmoe-drops] capacity 2 per expert at a batch-8 decode "
+          f"step ({drops['decode_steps']} steps x {cfg.n_layers} layers): "
+          f"live lanes {ld} of {lk + ld} (token, expert) assignments "
+          f"dropped ({100 * drops['live_dropped_share']:.2f}%), done lanes "
+          f"{dd} of {dk + dd} ({100 * drops['done_dropped_share']:.2f}%)",
+          flush=True)
+    if same != len(specs):
+        raise AssertionError(f"olmoe replay: {same}/16 streams equal dense")
+    if syncs != {"prefill": 0, "decode": 0, "outside": engine.sync_count}:
+        raise AssertionError(f"olmoe replay: host syncs {syncs} {sites}, "
+                             f"expected one per decode chunk and no other")
+    del engine
+    torch.cuda.empty_cache()
+    return {"syncs": syncs, "sync_sites": sites, "drops": drops,
+            "replay_streams_equal_dense": same}
 
 
 # ---------------------------------------------------------------------------
@@ -1177,6 +1521,136 @@ def logits_parity():
     if not worst <= PARITY_TOL:
         raise AssertionError(f"logits parity {worst} > {PARITY_TOL}")
     return worst
+
+
+# [parity:olmoe], the f32 gate: the card (kernels, TF32 off) and the CPU
+# (plain versions) route identically and then differ by summation order
+# only, through 2 layers, 2048- and 1024-term sums and a 50304-wide
+# unembedding (logits ~N(0, 1) here): ~1e-5 expected, 1e-3 allowed
+MOE_PARITY_TOL = 1e-3
+
+
+def _moe_steps(ctx, cfg, params, prompts, nxt=None):
+    """Each prompt prefilled into its own slot of a 4-slot cache in
+    256-row chunks (batch 1), then one decode step of the 4 slots.
+    Returns (last-prompt-token logits (4, V), decode logits (4, V), the
+    decode step's input tokens, every router call's top_e), on the CPU in
+    float32.  ``nxt``: the decode step's tokens (default: the argmax of
+    the prefill logits)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import (make_decode_step,
+                                            make_prefill_chunk_step)
+    from repro_torch.serving.scheduler import chunk_plan
+
+    p = lm.prepare_params(ctx, params)
+    routes = []
+    real = L._moe_router
+
+    def tap(cfg_, p_, xf):
+        out = real(cfg_, p_, xf)
+        routes.append(out[1])
+        return out
+
+    L._moe_router = tap
+    try:
+        cache = lm.init_cache(ctx, cfg, len(prompts), 512)
+        step = make_prefill_chunk_step(cfg, ctx.run, ctx)
+        first = []
+        for sid, prompt in enumerate(prompts):
+            idx = 0
+            for size in chunk_plan(len(prompt), 256):
+                toks = torch.tensor([prompt[idx:idx + size]],
+                                    dtype=torch.int32, device=ctx.device)
+                cache, logits = step(p, cache, toks, sid, idx)
+                idx += size
+            first.append(logits[0].float().cpu())
+        first = torch.stack(first)
+        nxt = first.argmax(-1).int() if nxt is None else nxt
+        index = torch.tensor([len(q) for q in prompts], dtype=torch.int32,
+                             device=ctx.device)
+        _, dec = make_decode_step(cfg, ctx.run, ctx)(
+            p, cache, nxt[:, None].to(ctx.device), index)
+    finally:
+        L._moe_router = real
+    return first, dec.float().cpu(), nxt, [r.cpu() for r in routes]
+
+
+def _routed_apart(a, b, E):
+    """The share of (token, expert) assignments in ``a`` missing from
+    ``b`` (top_e lists of the same calls)."""
+    import torch
+    missing = total = 0
+    for x, y in zip(a, b):
+        ox = torch.zeros((x.shape[0], E)).scatter_(1, x, 1.0)
+        oy = torch.zeros((y.shape[0], E)).scatter_(1, y, 1.0)
+        missing += int((ox * (1 - oy)).sum())
+        total += x.numel()
+    return missing / total
+
+
+def olmoe_parity():
+    """Phase 4, MoE: olmoe at full width and 2 layers from one set of
+    seeded weights, the same prefill chunks and decode step on the card
+    and on the CPU.  The gate: the card in f32 (kernels, TF32 off) routes
+    every router call exactly as the CPU in f32 (plain path), and its
+    logits agree within MOE_PARITY_TOL.  Printed, not gated: the card in
+    bf16 against the CPU in f32 (max |logit diff| and the share of
+    assignments routed differently; routing is discontinuous, so a bf16
+    flip is no kernel fault)."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_model_config(MOE_ARCH), n_layers=2)
+    run32 = get_run_config(MOE_ARCH, remat="none", compute_dtype="float32")
+    run16 = get_run_config(MOE_ARCH, remat="none")
+    params = init_params(lm.model_decls(cfg), torch.Generator().manual_seed(1),
+                         "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (37, 100, 256, 300)]
+    cpu_first, cpu_dec, nxt, cpu_routes = _moe_steps(Ctx(run32, "cpu"), cfg,
+                                                     params, prompts)
+    out = {}
+    for name, run in (("f32", run32), ("bf16", run16)):
+        gmm.grouped_matmul.launches = 0
+        first, dec, _, routes = _moe_steps(Ctx(run, "cuda"), cfg, params,
+                                           prompts, nxt)
+        diff = max((first - cpu_first).abs().max().item(),
+                   (dec - cpu_dec).abs().max().item())
+        same = (len(routes) == len(cpu_routes)
+                and all(torch.equal(a, b) for a, b in zip(routes, cpu_routes)))
+        out[name] = {"max_abs_logit_diff": diff,
+                     "router_calls": len(routes),
+                     "routing_identical": same,
+                     "routed_apart_share": _routed_apart(cpu_routes, routes,
+                                                         cfg.n_experts),
+                     "grouped_matmul_launches": gmm.grouped_matmul.launches}
+        torch.cuda.empty_cache()
+    f32, b16 = out["f32"], out["bf16"]
+    print(f"[parity:olmoe] {cfg.name} d{cfg.d_model} {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, 2 layers, prefill chunks + one decode step of "
+          f"4 prompts ({len(cpu_routes)} router calls): card f32 (kernels, "
+          f"{f32['grouped_matmul_launches']} grouped_matmul launches) vs "
+          f"CPU f32: routing identical {f32['routing_identical']}, "
+          f"max|logit diff| {f32['max_abs_logit_diff']:.3e} (tol "
+          f"{MOE_PARITY_TOL}); card bf16 vs CPU f32 (not gated): max|logit "
+          f"diff| {b16['max_abs_logit_diff']:.4f}, "
+          f"{100 * b16['routed_apart_share']:.2f}% of assignments routed "
+          f"differently", flush=True)
+    if not f32["routing_identical"]:
+        raise AssertionError(f"[parity:olmoe] f32 routing differs: "
+                             f"{f32['routed_apart_share']}")
+    if not f32["max_abs_logit_diff"] <= MOE_PARITY_TOL:
+        raise AssertionError(f"[parity:olmoe] f32 logits differ by "
+                             f"{f32['max_abs_logit_diff']}")
+    _release_card()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1241,7 +1715,7 @@ def train_full_width(tfa):
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_decode": 0, "flash_decode_paged": 0, "cache_update": 0,
-            "cache_update_paged": 0,
+            "cache_update_paged": 0, "grouped_matmul": 0,
             "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
     step_s = float(np.median(secs[1:]))
@@ -1348,6 +1822,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ref
 
     t_start = time.perf_counter()
@@ -1384,12 +1859,31 @@ def main() -> int:
             tfa, ref, 8, 1, decode_index),
         "cache_update_paged prefill": time_cache_update_paged(
             tfa, ref, 1, 256, [512]),
+        # olmoe's heads: H = K = 16, one query row per kv head
+        "flash_decode decode g=1": time_flash_decode(
+            tfa, ref, 8, 1, decode_lens, H=16, K=16),
+        "flash_decode prefill g=1": time_flash_decode(
+            tfa, ref, 1, 256, [768], H=16, K=16),
+        "cache_update decode g=1": time_cache_update(tfa, ref, K=16),
+        "flash_decode_paged decode g=1": time_flash_decode_paged(
+            tfa, ref, 8, 1, decode_lens, H=16, K=16),
+        "flash_decode_paged prefill g=1": time_flash_decode_paged(
+            tfa, ref, 1, 256, [768], H=16, K=16),
+        "cache_update_paged decode g=1": time_cache_update_paged(
+            tfa, ref, 8, 1, decode_index, K=16),
+        "cache_update_paged prefill g=1": time_cache_update_paged(
+            tfa, ref, 1, 256, [512], K=16),
     }
     fa_checks = check_flash_attention(tfa, ref)
     fa_faults = check_planted_faults(tfa, ref)
     fa_times = time_flash_attention(tfa, ref)
     times["flash_attention training"] = fa_times["fwd"]
     times["flash_attention_bwd training"] = fa_times["bwd"]
+    gmm_checks = check_grouped_matmul(gmm, ref)
+    gmm_faults = check_grouped_matmul_faults(gmm, ref)
+    for G, M, K, N in GMM_SHAPES[:4]:
+        times[f"grouped_matmul {'decode' if M == 2 else 'prefill'} "
+              f"{K}x{N}"] = time_grouped_matmul(gmm, ref, G, M, K, N)
     for name, t in times.items():
         print(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms "
               f"(eager with its host work {t['host_ms']:.4f} ms), plain "
@@ -1411,11 +1905,31 @@ def main() -> int:
     paged_serving["again"] = paged2
     serving["again"] = dense2
     prefix_serving = serve_prefix_sharing(tfa, *shared[:3])
-    serving.update(profile_decode(*shared[:3], "dense"))
-    paged_serving.update(profile_decode(*shared[:3], "paged", paged=True,
+    llama = shared[:2]
+    del shared                            # llama's weights, before olmoe's
+    _release_card()
+    # 3d: full-width olmoe, dense, paged, then the untimed replay
+    moe_launches, moe_serving, moe_shared = serve_full_width(
+        tfa, MOE_ARCH, "olmoe-")
+    moe_paged_launches, moe_paged = serve_arm(tfa, *moe_shared,
+                                              "olmoe-paged", True,
+                                              gate_equal=False)
+    moe_serving.update(serve_moe_replay(tfa, *moe_shared))
+    moe_serving["no_drop"] = serve_moe_no_drop(tfa, *moe_shared[:4])
+    # the profiles come after every serving arm: launches slow down once
+    # the profiler has run
+    moe_serving.update(profile_decode(*moe_shared[:3], "olmoe-dense",
+                                      groups=MOE_PROFILE_GROUPS))
+    del moe_shared
+    _release_card()
+    params = _card_weights(*llama)
+    serving.update(profile_decode(*llama, params, "dense"))
+    paged_serving.update(profile_decode(*llama, params, "paged", paged=True,
                                         block_size=16))
-    del shared
+    del params
+    _release_card()
     parity = logits_parity()
+    moe_parity = olmoe_parity()
     train_launches, training = train_full_width(tfa)
     training["parity_rel_err"] = train_parity(tfa)
 
@@ -1425,6 +1939,11 @@ def main() -> int:
 
     def row(name, source, replaces, launches, err, tol, t, prefill, checks,
             arm, **extra):
+        # olmoe (H = K = 16): its times and its arm's launches beside
+        moe = moe_paged_launches if "paged" in name else moe_launches
+        g1 = {"launches": moe[name], "launches_arm": "olmoe-" + arm}
+        g1.update({k.split()[1]: times[k] for k in times
+                   if k.startswith(name + " ") and k.endswith("g=1")})
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=err,
                     tolerance=tol, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -1433,7 +1952,7 @@ def main() -> int:
                     shape=t["shape"], max_abs_diff=err, kernel_ms=t["ms"],
                     host_ms=t["host_ms"], launches_per_decode_step=28,
                     launches_arm=arm, prefill_chunk=prefill, checks=checks,
-                    **extra)
+                    olmoe_g1=g1, **extra)
 
     csrc = "src/repro_torch/kernels/csrc/"
     fa = "src/repro/kernels/flash_attention.py"
@@ -1489,10 +2008,29 @@ def main() -> int:
                                 "attention_blockwise: the Pallas "
                                 "flash_attention has no VJP"),
     ]
+    gmm_times = {k: t for k, t in times.items()
+                 if k.startswith("grouped_matmul")}
+    t = gmm_times["grouped_matmul decode 2048x1024"]
+    kernels.append(dict(
+        name="grouped_matmul", route="cuda",
+        source=csrc + "grouped_matmul.cu",
+        replaces="src/repro/kernels/grouped_matmul.py:51",
+        launches=moe_launches["grouped_matmul"], launches_arm="olmoe-dense",
+        max_abs_err=max(c["max_abs_err"] for c in gmm_checks
+                        if c["dtype"] == "bfloat16"),
+        worst_over_limit=max(c["worst_over_limit"] for c in gmm_checks),
+        tolerance=_ATTN_TOL_TEXT, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], library=t["library"], shape=t["shape"],
+        host_ms=t["host_ms"], times=gmm_times, checks=gmm_checks,
+        planted_fault=gmm_faults))
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
+    moe_serving["paged"] = moe_paged
     print(json.dumps({"kernels": kernels, "serving": serving,
+                      "olmoe_serving": moe_serving,
                       "training": training,
                       "parity_max_abs_diff": parity,
+                      "olmoe_parity": moe_parity,
                       "total_s": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,11 @@ source and every local header it includes (``#include "x.cuh"``), so an
 edit to either rebuilds and an unchanged source loads at once.
 ``build_all()`` starts one ``nvcc`` per source, all together.  A missing
 ``nvcc`` or a failed build raises: there is no fallback.
+
+The C interface every library shares is here too: the dtype codes its
+entry points take (``DTYPE_CODE``), the checks a wrapper makes before it
+hands over raw pointers (``check_cuda``), and the launch's returned
+``cudaError_t`` turned into an exception (``raise_on``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -49,7 +56,33 @@ SIGNATURES = {
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+    "grouped_matmul": ("grouped_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
+
+#: dtype code of a tensor at every kernel's C entry point
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_cuda(name: str, device, **tensors) -> None:
+    """Every tensor on ``device``, contiguous and (but int32 index
+    tensors) 16-byte aligned, as the kernels' vector loads need."""
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, "
+                             f"expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.dtype != torch.int32 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+def raise_on(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronise would not report it)."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError_t {err}")
+
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -28,25 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check_cuda(name: str, device, **tensors) -> None:
-    for arg, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.dtype != torch.int32 and t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
-                           f"cudaError_t {err}")
-
+from repro_torch.kernels.grouped_matmul import grouped_matmul
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
                  local_window=None, scale=None):
@@ -61,7 +43,7 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_len,
                                         scale=scale, softcap=softcap,
                                         local_window=local_window)
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"flash_decode: dtype {q.dtype} not supported")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError("flash_decode: caches must have q's dtype")
@@ -73,18 +55,18 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
                          f"caches {tuple(k_cache.shape)}")
     if D not in (32, 128):
         raise ValueError(f"flash_decode: head_dim {D} not in (32, 128)")
-    _check_cuda("flash_decode", q.device, q=q, k_cache=k_cache,
+    build.check_cuda("flash_decode", q.device, q=q, k_cache=k_cache,
                 v_cache=v_cache, kv_len=kv_len)
     out = torch.empty_like(q)
     lib = build.library("decode_attention")
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), B, Sq, H, S, K, D,
-        _DTYPE_CODE[q.dtype], float(scale),
+        build.DTYPE_CODE[q.dtype], float(scale),
         float(softcap) if softcap is not None else 0.0,
         int(local_window) if local_window is not None else 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("flash_decode", err)
+    build.raise_on("flash_decode", err)
     flash_decode.launches += 1
     return out
 
@@ -107,7 +89,7 @@ def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
                                               block_tables, scale=scale,
                                               softcap=softcap,
                                               local_window=local_window)
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"flash_decode_paged: dtype {q.dtype} not supported")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError("flash_decode_paged: pools must have q's dtype")
@@ -123,18 +105,19 @@ def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
                          f"pools {tuple(k_pool.shape)}")
     if D not in (32, 128):
         raise ValueError(f"flash_decode_paged: head_dim {D} not in (32, 128)")
-    _check_cuda("flash_decode_paged", q.device, q=q, k_pool=k_pool,
+    build.check_cuda("flash_decode_paged", q.device, q=q, k_pool=k_pool,
                 v_pool=v_pool, kv_len=kv_len, block_tables=block_tables)
     out = torch.empty_like(q)
     lib = build.library("decode_attention_paged")
     err = lib.flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         kv_len.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Sq,
-        H, K, D, bs, block_tables.shape[1], n_blocks, _DTYPE_CODE[q.dtype],
+        H, K, D, bs, block_tables.shape[1], n_blocks,
+        build.DTYPE_CODE[q.dtype],
         float(scale), float(softcap) if softcap is not None else 0.0,
         int(local_window) if local_window is not None else 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("flash_decode_paged", err)
+    build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1
     return out
 
@@ -151,7 +134,8 @@ def cache_update(k_cache, v_cache, k_new, v_new, index):
         return ref.kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index)
     B, Sn, K, D = k_new.shape
     S = k_cache.shape[1]
-    if k_cache.dtype not in _DTYPE_CODE or k_new.dtype not in _DTYPE_CODE:
+    if (k_cache.dtype not in build.DTYPE_CODE
+            or k_new.dtype not in build.DTYPE_CODE):
         raise TypeError(f"cache_update: dtypes {k_new.dtype} -> "
                         f"{k_cache.dtype} not supported")
     if v_cache.dtype != k_cache.dtype or v_new.dtype != k_new.dtype:
@@ -164,15 +148,15 @@ def cache_update(k_cache, v_cache, k_new, v_new, index):
                          f"caches {tuple(k_cache.shape)}")
     if (K * D) % 8:
         raise ValueError("cache_update: K * D must be a multiple of 8")
-    _check_cuda("cache_update", k_cache.device, k_cache=k_cache,
+    build.check_cuda("cache_update", k_cache.device, k_cache=k_cache,
                 v_cache=v_cache, k_new=k_new, v_new=v_new, index=index)
     lib = build.library("cache_update")
     err = lib.cache_update(
         k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), index.data_ptr(), B, Sn, S, K * D,
-        _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[k_cache.dtype],
+        build.DTYPE_CODE[k_new.dtype], build.DTYPE_CODE[k_cache.dtype],
         torch.cuda.current_stream(k_cache.device).cuda_stream)
-    _raise_on("cache_update", err)
+    build.raise_on("cache_update", err)
     cache_update.launches += 1
     return k_cache, v_cache
 
@@ -191,7 +175,8 @@ def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
                                              index, block_tables)
     B, Sn, K, D = k_new.shape
     n_blocks, bs = k_pool.shape[:2]
-    if k_pool.dtype not in _DTYPE_CODE or k_new.dtype not in _DTYPE_CODE:
+    if (k_pool.dtype not in build.DTYPE_CODE
+            or k_new.dtype not in build.DTYPE_CODE):
         raise TypeError(f"cache_update_paged: dtypes {k_new.dtype} -> "
                         f"{k_pool.dtype} not supported")
     if v_pool.dtype != k_pool.dtype or v_new.dtype != k_new.dtype:
@@ -209,7 +194,7 @@ def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
                          f"{tuple(k_new.shape)}, pools {tuple(k_pool.shape)}")
     if (K * D) % 8:
         raise ValueError("cache_update_paged: K * D must be a multiple of 8")
-    _check_cuda("cache_update_paged", k_pool.device, k_pool=k_pool,
+    build.check_cuda("cache_update_paged", k_pool.device, k_pool=k_pool,
                 v_pool=v_pool, k_new=k_new, v_new=v_new, index=index,
                 block_tables=block_tables)
     lib = build.library("cache_update_paged")
@@ -217,9 +202,9 @@ def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
         k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), index.data_ptr(), block_tables.data_ptr(), B, Sn,
         bs, block_tables.shape[1], n_blocks, K * D,
-        _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[k_pool.dtype],
+        build.DTYPE_CODE[k_new.dtype], build.DTYPE_CODE[k_pool.dtype],
         torch.cuda.current_stream(k_pool.device).cuda_stream)
-    _raise_on("cache_update_paged", err)
+    build.raise_on("cache_update_paged", err)
     cache_update_paged.launches += 1
     return k_pool, v_pool
 
@@ -229,7 +214,7 @@ cache_update_paged.launches = 0
 
 def _check_attention(name, q, k, v):
     B, Sq, H, D = q.shape
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} not supported")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: k and v must have q's dtype")
@@ -260,16 +245,16 @@ def flash_attention(q, k, v, *, causal=True, local_window=None, softcap=None,
                   scale=scale)
         return ref.attention_naive(q, k, v, return_lse=True, **kw)
     _check_attention("flash_attention", q, k, v)
-    _check_cuda("flash_attention", q.device, q=q, k=k, v=v)
+    build.check_cuda("flash_attention", q.device, q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     causal_i, cap, window = _flags(causal, local_window, softcap)
     err = build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, Sq, Sk, H, K, D, _DTYPE_CODE[q.dtype], causal_i,
-        float(scale), cap, window,
+        lse.data_ptr(), B, Sq, Sk, H, K, D, build.DTYPE_CODE[q.dtype],
+        causal_i, float(scale), cap, window,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("flash_attention", err)
+    build.raise_on("flash_attention", err)
     flash_attention.launches += 1
     return out, lse
 
@@ -298,7 +283,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq):
         raise TypeError("flash_attention_bwd: lse must be float32 of shape "
                         "(B, H, Sq)")
-    _check_cuda("flash_attention_bwd", q.device, q=q, k=k, v=v, out=out,
+    build.check_cuda("flash_attention_bwd", q.device, q=q, k=k, v=v, out=out,
                 lse=lse, dout=dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -307,18 +292,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, K, D,
-        _DTYPE_CODE[q.dtype], causal_i, float(scale), cap, window,
+        build.DTYPE_CODE[q.dtype], causal_i, float(scale), cap, window,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("flash_attention_bwd", err)
+    build.raise_on("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 
-#: The wrappers whose kernels serve the main paths (for launch counting).
+#: Every kernel wrapper of the package, for launch counting: the six
+#: above and ``kernels/grouped_matmul.py``'s (the MoE expert FFN).
 KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged,
-           flash_attention, flash_attention_bwd)
+           flash_attention, flash_attention_bwd, grouped_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,9 @@
-"""Dispatch of the model's attention and cache operations, by device.
+"""Dispatch of the model's attention, cache and expert operations, by
+device.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``);
-a tensor on CUDA goes to the hand-written kernel (``kernels/flash_attention.py``).
+a tensor on CUDA goes to the hand-written kernel
+(``kernels/flash_attention.py``, ``kernels/grouped_matmul.py``).
 There is no mode switch and no fallback: a CUDA tensor the kernel does not
 take raises.
 """
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention, ref
+from repro_torch.kernels import grouped_matmul as gmm
 
 
 class FlashAttention(torch.autograd.Function):
@@ -97,3 +100,9 @@ def kv_cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
     so no two slots write the same row.  Returns the pools."""
     return flash_attention.cache_update_paged(k_pool, v_pool, k_new, v_new,
                                               index, block_tables)
+
+
+def grouped_matmul(lhs, rhs):
+    """(G, M, K) x (G, K, N) -> (G, M, N) in lhs's dtype with float32
+    sums: the MoE expert product, one matmul per expert."""
+    return gmm.grouped_matmul(lhs.contiguous(), rhs.contiguous())

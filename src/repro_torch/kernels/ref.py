@@ -226,3 +226,14 @@ def kv_cache_update_paged_ref(k_pool, v_pool, k_new, v_new, index,
     k_pool[blk, off] = k_new[rows][keep].to(k_pool.dtype)
     v_pool[blk, off] = v_new[rows][keep].to(v_pool.dtype)
     return k_pool, v_pool
+
+
+# ===========================================================================
+# grouped matmul (MoE expert GEMM)
+# ===========================================================================
+
+def grouped_matmul(lhs, rhs):
+    """lhs: (G, M, K), rhs: (G, K, N) -> (G, M, N) in lhs's dtype, the
+    products summed in float32 and rounded once (``grouped_matmul_ref``)."""
+    return torch.einsum("gmk,gkn->gmn", lhs.float(),
+                        rhs.float()).to(lhs.dtype)

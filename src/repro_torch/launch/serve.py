@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8 --new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
       --max-seq 2048 --batch-size 8 --prefill-chunk 256    # full width
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --no-reduced --max-seq 2048 --batch-size 8 --prefill-chunk 256
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path).  ``--reduced``

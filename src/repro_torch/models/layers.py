@@ -1,4 +1,5 @@
-"""Neural layers of the dense decoder, ported from ``repro/models/layers.py``.
+"""Neural layers of the dense and MoE decoders, ported from
+``repro/models/layers.py``.
 
 Every ``*_decls`` returns a nested dict of PD declarations with the
 reference's keys and shapes; the matching ``apply_*`` consumes the
@@ -8,11 +9,18 @@ port has no sharding.  Weights are cast to the compute dtype at use with
 training the parameters stay f32 masters with ``requires_grad``: the cast
 at use is differentiable, so autograd returns f32 gradients, as JAX
 does.
+
+The MoE layer is the reference's local path (token-choice top-k router,
+capacity dispatch, grouped expert FFN, weighted combine).  Its
+expert-parallel ``shard_map`` path and the int8 all-to-all
+(``repro/models/layers.py:546-640``) need a mesh, which the port does not
+have yet: ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -243,6 +251,110 @@ def apply_mlp(ctx: Ctx, cfg: ModelConfig, p: dict, x):
     else:
         raise ValueError(cfg.mlp)
     return h @ p["w_down"].to(c)
+
+
+# ===========================================================================
+# mixture of experts (token-choice top-k, capacity-based dispatch)
+# ===========================================================================
+
+def moe_decls(cfg: ModelConfig, layers: int = 0) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": PD(_stack((d, e), layers), _saxes(("embed", None), layers),
+                     scale=d ** -0.5),
+        "w_gate": PD(_stack((e, d, f), layers),
+                     _saxes(("expert", "embed", "expert_mlp"), layers),
+                     scale=d ** -0.5),
+        "w_up": PD(_stack((e, d, f), layers),
+                   _saxes(("expert", "embed", "expert_mlp"), layers),
+                   scale=d ** -0.5),
+        "w_down": PD(_stack((e, f, d), layers),
+                     _saxes(("expert", "expert_mlp", "embed"), layers),
+                     scale=f ** -0.5),
+    }
+
+
+def _moe_router(cfg: ModelConfig, p: dict, xf):
+    """Router probabilities, top-k and the Switch load-balancing aux loss,
+    in float32 from the float32 router (``lm.prepare_params`` keeps it
+    f32, as the reference reads its masters).  xf: (T, D).  Returns
+    top_p (T, K) renormalised, top_e (T, K) and aux ()."""
+    E, K = cfg.n_experts, cfg.top_k
+    T = xf.shape[0]
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    me = probs.mean(dim=0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=xf.device).index_add_(
+        0, top_e.reshape(-1),
+        torch.full((T * K,), 1.0 / (T * K), dtype=torch.float32,
+                   device=xf.device))
+    aux = E * torch.sum(me * ce)
+    return top_p, top_e, aux
+
+
+def _moe_dispatch_local(cfg: ModelConfig, xf, top_e, capacity: int):
+    """Capacity dispatch of the call's tokens into (E, capacity, D), with
+    the combine indices.  Each (token, k) assignment, in row-major order,
+    takes the next position of its expert (a cumulative count); positions
+    past ``capacity`` go to an overflow row ``capacity`` that is cut off.
+    Returns (expert_in, flat_e, slot, keep).  Nothing here reads a device
+    value on the host."""
+    E, K = cfg.n_experts, cfg.top_k
+    T, D = xf.shape
+    flat_e = top_e.reshape(-1)                                  # (T*K,)
+    onehot = (flat_e[:, None]
+              == torch.arange(E, device=xf.device)[None]).int()
+    pos_in_e = torch.cumsum(onehot, dim=0) - 1
+    pos = pos_in_e.gather(1, flat_e[:, None])[:, 0]
+    keep = pos < capacity
+    slot = torch.where(keep, pos, capacity)
+    src = xf[:, None, :].expand(T, K, D).reshape(T * K, D)
+    # only the overflow row ever takes two writes; kept rows take one
+    expert_in = xf.new_zeros((E, capacity + 1, D)).index_put(
+        (flat_e, slot), src, accumulate=True)
+    return expert_in[:, :capacity], flat_e, slot, keep
+
+
+def _moe_combine_local(out, flat_e, slot, keep, top_p, B: int, S: int):
+    """Gather the expert outputs back to token order, weighted by the
+    router probability (zero where capacity dropped the assignment); the
+    weighting and the sum over K run in the output dtype."""
+    E, _, D = out.shape
+    K = top_p.shape[-1]
+    out_p = torch.cat([out, out.new_zeros((E, 1, D))], dim=1)
+    gathered = out_p[flat_e, slot]
+    gathered = gathered * (top_p.reshape(-1)[:, None].to(out.dtype)
+                           * keep[:, None].to(out.dtype))
+    return gathered.reshape(B * S, K, D).sum(dim=1).reshape(B, S, D)
+
+
+def _moe_expert_ffn(ctx: Ctx, cfg: ModelConfig, p: dict, expert_in):
+    """SwiGLU per expert: three grouped matmuls (the ``grouped_matmul``
+    kernel on CUDA)."""
+    c = ctx.cdtype
+    gate = ops.grouped_matmul(expert_in, p["w_gate"].to(c))
+    up = ops.grouped_matmul(expert_in, p["w_up"].to(c))
+    return ops.grouped_matmul(F.silu(gate) * up, p["w_down"].to(c))
+
+
+def apply_moe(ctx: Ctx, cfg: ModelConfig, p: dict, x):
+    """Token-choice top-k MoE with capacity-based dispatch, the
+    reference's local path.  The capacity comes from the call's own token
+    count, ``ceil(T * top_k * capacity_factor / E)``, so a token's output
+    depends on the other tokens of the call (done decode lanes included).
+    x: (B, S, D).  Returns (y, aux_loss)."""
+    c = ctx.cdtype
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    xf = x.reshape(B * S, D)
+    top_p, top_e, aux = _moe_router(cfg, p, xf)
+    capacity = int(max(1, math.ceil(B * S * K * cfg.capacity_factor / E)))
+    expert_in, flat_e, slot, keep = _moe_dispatch_local(cfg, xf, top_e,
+                                                        capacity)
+    out = _moe_expert_ffn(ctx, cfg, p, expert_in.to(c))
+    return _moe_combine_local(out, flat_e, slot, keep, top_p, B, S), aux
 
 
 # ===========================================================================

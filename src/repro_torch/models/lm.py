@@ -1,10 +1,12 @@
-"""LM assembly, dense family, ported from ``repro/models/lm.py``.
+"""LM assembly, dense and MoE families, ported from ``repro/models/lm.py``.
 
 One declarative parameter tree (the reference's keys and shapes, so the
 JAX package's weights load unchanged) and one forward: a pre-norm decoder
 whose layers run in a Python loop over the stacked ``layers`` leaves
-(the reference's ``lax.scan``).  Other families and the gemma2
-local/global pattern raise, naming the ROADMAP item that ports them.
+(the reference's ``lax.scan``); with ``n_experts > 0`` every layer's MLP
+is the MoE layer and ``forward`` returns the layers' summed aux loss.
+Other families and the gemma2 local/global pattern raise, naming the
+ROADMAP item that ports them.
 
 Forward modes:
   forward(...)                     full-sequence hidden states (no cache);
@@ -17,6 +19,7 @@ Forward modes:
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -26,9 +29,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        item = {"moe": "7", "ssm": "8", "hybrid": "8", "vlm": "12",
+def _require_ported(cfg: ModelConfig) -> None:
+    """The families the port runs: dense and MoE decoders."""
+    if cfg.family not in ("dense", "moe"):
+        item = {"ssm": "8", "hybrid": "8", "vlm": "12",
                 "audio": "12"}.get(cfg.family, "?")
         raise NotImplementedError(
             f"{cfg.family} family: ROADMAP queue 1 item {item}")
@@ -42,7 +46,7 @@ def _require_dense(cfg: ModelConfig) -> None:
 # ===========================================================================
 
 def model_decls(cfg: ModelConfig) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     n = cfg.n_layers
     d: dict[str, Any] = {
         "embed": L.embed_decls(cfg),
@@ -50,7 +54,8 @@ def model_decls(cfg: ModelConfig) -> dict:
             "ln1": L.norm_decls(cfg, layers=n),
             "attn": L.attention_decls(cfg, layers=n),
             "ln2": L.norm_decls(cfg, layers=n),
-            "mlp": L.mlp_decls(cfg, layers=n),
+            "mlp": (L.moe_decls(cfg, layers=n) if cfg.n_experts
+                    else L.mlp_decls(cfg, layers=n)),
         },
         "final_norm": L.norm_decls(cfg),
     }
@@ -64,13 +69,15 @@ def prepare_params(ctx: L.Ctx, params):
     """The params on ``ctx.device`` with the matrices and the embedding
     table cast ONCE to the compute dtype.  The reference casts its f32
     masters at every use; casting once rounds identically.  Norm scales
-    stay float32 (norm maths is float32)."""
+    stay float32 (norm maths is float32), and so does the MoE router: the
+    reference computes its logits from the f32 masters, and a bf16 router
+    would route differently."""
     c, dev = ctx.cdtype, torch.device(ctx.device)
 
     def cast(tree, key=None):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}
-        if key in ("scale", "bias"):
+        if key in ("scale", "bias", "router"):
             return tree.to(dev)
         return tree.to(device=dev, dtype=c)
 
@@ -84,14 +91,25 @@ def prepare_params(ctx: L.Ctx, params):
 def _tf_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin, *,
               local_window=None, cache=None, cache_index=None,
               block_tables=None):
-    """One transformer block; returns (h, cache)."""
+    """One transformer block; returns (h, cache, aux), aux the MoE
+    layer's load-balancing loss (None in a dense block)."""
     a_in = L.apply_norm(cfg, p["ln1"], h)
     attn_out, cache = L.apply_attention(
         ctx, cfg, p["attn"], a_in, cos, sin, local_window=local_window,
         cache=cache, cache_index=cache_index, block_tables=block_tables)
     h = h + attn_out
     m_in = L.apply_norm(cfg, p["ln2"], h)
-    return h + L.apply_mlp(ctx, cfg, p["mlp"], m_in), cache
+    if cfg.n_experts:
+        mlp_out, aux = L.apply_moe(ctx, cfg, p["mlp"], m_in)
+    else:
+        mlp_out, aux = L.apply_mlp(ctx, cfg, p["mlp"], m_in), None
+    return h + mlp_out, cache, aux
+
+
+def _remat_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin):
+    """A cache-free block for ``torch.utils.checkpoint``: (h, aux)."""
+    h, _, aux = _tf_block(ctx, cfg, p, h, cos, sin)
+    return h, aux
 
 
 def _remat(ctx: L.Ctx):
@@ -136,7 +154,7 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     slot's table row), and is written in place; the same dict comes back.
     A paged cache's top-level ``block_tables`` addresses every layer's
     pools; the model never remaps blocks."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = L.apply_embed(ctx, cfg, params["embed"], tokens)
@@ -148,19 +166,21 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     kv = cache["kv"] if cache is not None else None
     block_tables = cache.get("block_tables") if cache is not None else None
     remat = cache is None and torch.is_grad_enabled() and _remat(ctx)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         if remat:
-            h = torch.utils.checkpoint.checkpoint(
-                lambda p, h, cos, sin: _tf_block(ctx, cfg, p, h, cos, sin)[0],
-                p, h, cos, sin, use_reentrant=False)
-            continue
-        layer_cache = ({"k": kv["k"][i], "v": kv["v"][i]}
-                       if kv is not None else None)
-        h, _ = _tf_block(ctx, cfg, p, h, cos, sin,
-                         cache=layer_cache, cache_index=cache_index,
-                         block_tables=block_tables)
+            h, a = torch.utils.checkpoint.checkpoint(
+                functools.partial(_remat_block, ctx, cfg), p, h, cos, sin,
+                use_reentrant=False)
+        else:
+            layer_cache = ({"k": kv["k"][i], "v": kv["v"][i]}
+                           if kv is not None else None)
+            h, _, a = _tf_block(ctx, cfg, p, h, cos, sin,
+                                cache=layer_cache, cache_index=cache_index,
+                                block_tables=block_tables)
+        if a is not None:
+            aux = aux + a
     h = L.apply_norm(cfg, params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux, cache
 
 
@@ -190,7 +210,7 @@ def logits_for(ctx: L.Ctx, cfg: ModelConfig, params, h):
 def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
     """Decode state: stacked (L, B, max_seq, K, hd) k/v zeros in the
     compute dtype on ``ctx.device``."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     return {"kv": L.empty_kv_cache(cfg, batch, max_seq, ctx.cdtype,
                                    layers=cfg.n_layers, device=ctx.device)}
 
@@ -204,7 +224,7 @@ def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
     as the reference's: an unmapped entry aliases block 0, harmless since
     reads past kv_len are masked and writes only reach mapped entries.
     ``n_blocks`` defaults to ``batch * max_blocks`` (the dense capacity)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if max_seq % block_size:
         raise ValueError(f"max_seq {max_seq} must be a multiple of "
                          f"block_size {block_size}")
@@ -226,5 +246,5 @@ SLOT_ROWS = "rows"
 
 def cache_slot_spec(cfg: ModelConfig) -> dict[str, str]:
     """Per-top-level-key slot schema of ``init_cache``'s dict."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     return {"kv": SLOT_ROWS}

@@ -175,11 +175,13 @@ def _install_step(cur, index, rem, done, tok, slot: int, offset: int,
                   budget: int):
     """Arm one slot's decode lane, in place: ``tok`` is the pending (not
     yet delivered, not yet cache-written) token, ``offset`` the slot's
-    cache write position, ``budget`` the tokens still owed."""
+    cache write position, ``budget`` the tokens still owed.  The host
+    values go in by ``fill_`` (a kernel argument): ``t[slot] = value``
+    would copy a host tensor and wait for the card."""
     cur[slot] = tok
-    index[slot] = offset
-    rem[slot] = budget
-    done[slot] = budget <= 0
+    index[slot:slot + 1].fill_(offset)
+    rem[slot:slot + 1].fill_(budget)
+    done[slot:slot + 1].fill_(budget <= 0)
     return cur, index, rem, done
 
 

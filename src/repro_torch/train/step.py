@@ -62,9 +62,16 @@ def init_state(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
 
 
 def make_loss_fn(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
+    """Cross-entropy, plus ``router_aux_weight`` times the layers' summed
+    load-balancing loss for an MoE model (reported as ``aux``)."""
     def loss_fn(params, batch):
-        h, _, _ = lm.forward(ctx, cfg, params, batch)
-        return chunked_cross_entropy(ctx, cfg, params, h, batch["labels"])
+        h, aux, _ = lm.forward(ctx, cfg, params, batch)
+        loss, metrics = chunked_cross_entropy(ctx, cfg, params, h,
+                                              batch["labels"])
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_weight * aux
+            metrics = dict(metrics, aux=aux)
+        return loss, metrics
     return loss_fn
 
 

@@ -132,5 +132,5 @@ def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         lm.model_decls(cfg)
     from repro_torch.configs.registry import get_model_config as get
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        get("olmoe-1b-7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        get("mamba2-370m")
