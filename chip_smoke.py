@@ -29,7 +29,15 @@ caught):
      shapes (G=64; capacity 2 at decode, 40 at a 256-row chunk; odd
      capacities 1, 3, 5, 100) and the reduced configs', bf16 and f32,
      the check shown to reject a kernel that drops the last 64-wide
-     K-slice or the last group, then timed beside ``torch.bmm``;
+     K-slice or the last group, then timed beside ``torch.bmm``; the
+     four decode and cache kernels at zamba2's H = K = 32, D = 64,
+     checked (paged == dense bit for bit) and timed; ``ssd`` against
+     ``ref.ssd_chunked`` entry by entry at mamba2's (H=32, P=64, N=128)
+     and zamba2's (H=64, P=64, N=64) heads, S 256 (two chunks), 128, 64,
+     16 and 2, with and without h0, G=2 once, the state written over h0
+     once, bf16 and f32, the check shown to reject a kernel that drops
+     h0 or the state carried between chunks, then timed at S=256 beside
+     its byte bound (no library call computes SSD);
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times:
@@ -65,14 +73,30 @@ caught):
           same requests at capacity factor 8.0, where nothing is dropped
           and done lanes cannot reach live ones: dense and paged, 16/16
           streams equal bit for bit;
-     then torch.profiler windows of steady decode, olmoe dense, llama
-     dense and paged (last: launches slow down once the profiler has
-     run);
+       e. full-width, full-depth mamba2-370m (48 Mamba-2 layers), dense
+          (the reference refuses paged, and so must the engine): exact
+          launches (48 ``ssd`` per prefill chunk of two rows or more, no
+          attention kernel), then an untimed replay: the same streams,
+          one host sync per decode chunk and no other;
+       f. full-width, full-depth zamba2-1.2b (38 Mamba-2 layers, the
+          shared attention block every 6 with per-invocation LoRA),
+          dense and paged: exact launches (38 ``ssd`` per chunk of two
+          rows or more, 6 attention and 6 cache launches per step and,
+          paged, per chunk), 16/16 paged streams equal the dense ones
+          bit for bit, and prefix sharing refused;
+     then torch.profiler windows of steady decode, olmoe dense, mamba2
+     dense, zamba2 dense and paged, llama dense and paged (last:
+     launches slow down once the profiler has run);
   4. logits parity at full width and 2 layers: the card (bf16, kernels)
      against a float32 CPU forward of the same weights (plain path); for
      olmoe the same prefill chunks and decode step on both sides, the
      card in f32 routing exactly as the CPU in f32 with logits within
-     MOE_PARITY_TOL, and the card in bf16 printed beside them;
+     MOE_PARITY_TOL, and the card in bf16 printed beside them; mamba2 at
+     2 layers and zamba2 at 7 (one shared invocation and one trailing
+     layer), the same prefill chunks (256 + 64 rows: the state carried
+     between SSD chunks and from one chunk into the next; 1-row chunks)
+     and 3 decode steps, the card in f32 within SSM_PARITY_TOL of the
+     CPU in f32, the card in bf16 printed beside it;
   5. training, the second main path, after the serving arms have
      released their weights: full-width, full-depth llama3.2-3b (seeded
      f32 masters, bf16 compute, AdamW, remat="full", batch 2 x 2048)
@@ -85,7 +109,7 @@ caught):
      (kernels) against the CPU (plain versions) from the same weights and
      batch: loss, grad norm and the parameter update.
 
-It prints one ``{"kernels": [...]}`` line (seven kernels), the
+It prints one ``{"kernels": [...]}`` line (eight kernels), the
 nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
 prints no result.
@@ -162,6 +186,23 @@ TRAIN_PROFILE_GROUPS = {
 TRAIN_PARITY_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "update": 1e-2}
 ARCH = "llama3.2-3b"
 MOE_ARCH = "olmoe-1b-7b"
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "zamba2-1.2b"
+#: the ssd kernel's serving shapes, (H, P, N) of each Mamba-2 model
+SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
+#: kernel-name fragments of a Mamba model's decode step by kind
+SSM_PROFILE_GROUPS = {
+    "ssd": ("ssd_kernel",),
+    "flash_decode": ("decode_attention_kernel",),
+    "cache_update": ("cache_update_kernel", "cache_update_paged_kernel"),
+    "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
+}
+# [parity:mamba2] / [parity:zamba2], the f32 gate: the card (kernels, TF32
+# off) and the CPU (plain versions) differ by summation order only, through
+# 2 (mamba2) or 7 (zamba2) layers, 1024- to 8192-term sums, the SSD's
+# cumulative decays and a 32000- or 50280-wide unembedding (logits ~N(0,
+# 1) here): ~1e-5 expected, 1e-3 allowed
+SSM_PARITY_TOL = 1e-3
 #: kernel-name fragments of an olmoe decode step's device time by kind
 MOE_PROFILE_GROUPS = {
     "grouped_matmul": ("grouped_matmul_kernel",),
@@ -248,13 +289,15 @@ def _decode_case(B, S, H, K, D, Sq, dtype, kv_len, seed):
 def check_flash_decode(tfa, ref):
     """Kernel vs plain version over dtypes, chunk sizes (Sq 5: a partial
     block of query rows), softcap/window, the reduced configs' head_dim
-    32, and olmoe's H = K = 16 (one query head per kv head)."""
+    32, olmoe's H = K = 16 (one query head per kv head) and zamba2's
+    shared attention (H = K = 32, head_dim 64)."""
     import torch
     rng = np.random.default_rng(0)
     checks = []
     shapes = [((8, 2048, 24, 8, 128), Sq) for Sq in (1, 5, 256)] \
         + [((3, 64, 4, 2, 32), Sq) for Sq in (1, 4)] \
-        + [((8, 2048, 16, 16, 128), Sq) for Sq in (1, 5, 256)]   # olmoe
+        + [((8, 2048, 16, 16, 128), Sq) for Sq in (1, 5, 256)] \
+        + [((8, 2048, 32, 32, 64), Sq) for Sq in (1, 5, 256)]    # zamba2
     for dtype in (torch.bfloat16, torch.float32):
         for (B, S, H, K, D), Sq in shapes:
             kv_len = rng.integers(Sq, S + 1, B)
@@ -288,13 +331,15 @@ def check_flash_decode(tfa, ref):
 
 def check_cache_update(tfa, ref):
     """Kernel vs plain version, bit-exact, including dropped slots, at
-    llama's K = 8 and olmoe's K = 16 kv heads."""
+    llama's K = 8 and olmoe's K = 16 kv heads of 128, and zamba2's 32 of
+    64."""
     import torch
-    B, S, D = 8, 2048, 128
+    B, S = 8, 2048
     checks = []
-    for (new_dt, cache_dt), K in itertools.product(
+    for (new_dt, cache_dt), (K, D) in itertools.product(
             ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
-             (torch.float32, torch.bfloat16)), (8, 16)):
+             (torch.float32, torch.bfloat16)), ((8, 128), (16, 128),
+                                                (32, 64))):
         for Sn in (1, 4):
             index = [0, 5, 700, 1333, S - Sn, S, -1, S - Sn + 1]
             g = torch.Generator(device="cuda").manual_seed(len(checks))
@@ -314,7 +359,7 @@ def check_cache_update(tfa, ref):
             exact = all(torch.equal(a, b) for a, b in zip(got, want))
             checks.append({"new": str(new_dt).split(".")[1],
                            "cache": str(cache_dt).split(".")[1], "K": K,
-                           "Sn": Sn, "bit_exact": exact})
+                           "D": D, "Sn": Sn, "bit_exact": exact})
             print(f"[check] cache_update {checks[-1]}", flush=True)
             if not exact:
                 raise AssertionError("cache_update is not bit-exact")
@@ -343,13 +388,14 @@ def _paged_case(B, S, H, K, D, Sq, bs, dtype, kv_len, seed):
 def check_flash_decode_paged(tfa, ref):
     """Paged kernel vs its plain version, and vs the DENSE kernel over the
     gathered cache (must be equal: the reduction order is shared); llama's
-    and olmoe's head counts and the reduced D=32."""
+    and olmoe's head counts, zamba2's D=64 and the reduced D=32."""
     import torch
     rng = np.random.default_rng(10)
     checks = []
     shapes = [((8, 2048, 24, 8, 128), 16, Sq) for Sq in (1, 5, 256)] \
         + [((3, 64, 4, 2, 32), 8, Sq) for Sq in (1, 4)] \
-        + [((8, 2048, 16, 16, 128), 16, Sq) for Sq in (1, 5, 256)]
+        + [((8, 2048, 16, 16, 128), 16, Sq) for Sq in (1, 5, 256)] \
+        + [((8, 2048, 32, 32, 64), 16, Sq) for Sq in (1, 5, 256)]
     for dtype in (torch.bfloat16, torch.float32):
         for (B, S, H, K, D), bs, Sq in shapes:
             kv_len = rng.integers(Sq, S + 1, B)
@@ -396,15 +442,17 @@ def check_flash_decode_paged(tfa, ref):
 def check_cache_update_paged(tfa, ref):
     """Kernel vs plain version, bit-exact, at Sn 1, 4 and 256 across block
     boundaries, with done, negative and overrunning slots; blocks no table
-    maps must stay untouched.  llama's K = 8 and olmoe's K = 16."""
+    maps must stay untouched.  llama's K = 8 and olmoe's K = 16 kv heads of
+    128, zamba2's 32 of 64."""
     import torch
-    B, S, D, bs = 8, 2048, 128, 16
+    B, S, bs = 8, 2048, 16
     mb, mapped = S // bs, 100                 # 100 of 128 blocks mapped
     n_pool = B * mb + 1
     checks = []
-    for (new_dt, pool_dt), K in itertools.product(
+    for (new_dt, pool_dt), (K, D) in itertools.product(
             ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
-             (torch.float32, torch.bfloat16)), (8, 16)):
+             (torch.float32, torch.bfloat16)), ((8, 128), (16, 128),
+                                                (32, 64))):
         for Sn in (1, 4, 256):
             # 14 + Sn crosses a block; 1600 - Sn ends on the last mapped
             # row; S is done, -1 negative, S - Sn + 1 overruns
@@ -436,7 +484,7 @@ def check_cache_update_paged(tfa, ref):
                             for a, b in zip(got, (kp, vp)))
             checks.append({"new": str(new_dt).split(".")[1],
                            "pool": str(pool_dt).split(".")[1], "K": K,
-                           "Sn": Sn,
+                           "D": D, "Sn": Sn,
                            "bit_exact": exact,
                            "unmapped_blocks_untouched": untouched,
                            "unmapped_blocks": len(unmapped)})
@@ -447,12 +495,12 @@ def check_cache_update_paged(tfa, ref):
     return checks
 
 
-def time_flash_decode(tfa, ref, B, Sq, kv_len, H=24, K=8):
+def time_flash_decode(tfa, ref, B, Sq, kv_len, H=24, K=8, D=128):
     """Kernel, plain and library times at one main-path shape (bf16),
     rotating over enough cache copies that reads come from HBM, not L2."""
     import torch
     import torch.nn.functional as F
-    S, D = 2048, 128
+    S = 2048
     esz = 2
     rows = [min(int(n), S) for n in kv_len]
     kv_bytes = sum(rows) * K * D * 2 * esz
@@ -489,10 +537,10 @@ def time_flash_decode(tfa, ref, B, Sq, kv_len, H=24, K=8):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_cache_update(tfa, ref, K=8):
+def time_cache_update(tfa, ref, K=8, D=128):
     """Decode-step write (Sn=1, bf16) of 8 slots, one of them done."""
     import torch
-    B, S, D, Sn = 8, 2048, 128, 1
+    B, S, Sn = 8, 2048, 1
     index = [96, 140, 333, 512, 700, 911, 1100, S]
     g = torch.Generator(device="cuda").manual_seed(7)
     kc = torch.zeros((B, S, K, D), dtype=torch.bfloat16, device="cuda")
@@ -526,13 +574,13 @@ def time_cache_update(tfa, ref, K=8):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_flash_decode_paged(tfa, ref, B, Sq, kv_len, H=24, K=8):
+def time_flash_decode_paged(tfa, ref, B, Sq, kv_len, H=24, K=8, D=128):
     """Paged kernel, plain and library times at one main-path shape (bf16,
     pool of B * 128 + 1 blocks of 16), rotating over enough pools that
     reads come from HBM, not L2."""
     import torch
     import torch.nn.functional as F
-    S, D, bs = 2048, 128, 16
+    S, bs = 2048, 16
     esz = 2
     rows = [min(int(n), S) for n in kv_len]
     kv_bytes = sum(rows) * K * D * 2 * esz
@@ -576,11 +624,11 @@ def time_flash_decode_paged(tfa, ref, B, Sq, kv_len, H=24, K=8):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def time_cache_update_paged(tfa, ref, B, Sn, index, K=8):
+def time_cache_update_paged(tfa, ref, B, Sn, index, K=8, D=128):
     """Paged write (bf16) of Sn rows per slot into a (B * 128 + 1, 16, K,
-    128) pool through scattered tables."""
+    D) pool through scattered tables."""
     import torch
-    S, D, bs = 2048, 128, 16
+    S, bs = 2048, 16
     mb = S // bs
     n_pool = B * mb + 1
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -927,6 +975,156 @@ def time_grouped_matmul(gmm, ref, G, M, K, N):
             "bytes": nbytes}
 
 
+def _ssd_case(Bb, S, H, P, G, N, dtype, seed, dt_shift=-3.0):
+    """Seeded SSD inputs on the card in the model's layouts: x, B, C
+    ~N(0, 1), A = -exp(N(0, 0.25)), D ~N(0, 1), h0 ~N(0, 1) and dt =
+    softplus(N(dt_shift, 1)).  At dt_shift -3 (dt ~0.05, a decay of ~5 %
+    a row) the carried state reaches every row of a 128-row chunk, so a
+    kernel that drops it fails; at 0 (the models' scale, dt ~0.8) it fades
+    within ~10 rows."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((Bb, S, H, P), generator=g, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((Bb, S, H), generator=g, device="cuda")
+                    + dt_shift).to(dtype)
+    A = -torch.exp(0.5 * torch.randn((H,), generator=g, device="cuda"))
+    B = torch.randn((Bb, S, G, N), generator=g, device="cuda").to(dtype)
+    C = torch.randn((Bb, S, G, N), generator=g, device="cuda").to(dtype)
+    D = torch.randn((H,), generator=g, device="cuda")
+    h0 = torch.randn((Bb, H, P, N), generator=g, device="cuda")
+    return x, dt, A, B, C, D, h0
+
+
+def check_ssd(tssd, ref):
+    """The kernel against ``ref.ssd_chunked`` on the same card inputs,
+    entry by entry (``_entry_ratio``: y in its dtype, the final state by
+    the float32 rule), at mamba2's and zamba2's heads, S = 256 (two
+    chunks: the state carried), 128, 64, 16 and 2 (one chunk of S rows,
+    as serving cuts prompt tails), with and without h0, with D; the
+    models' dt scale once per shape; G = 2 once; the final state written
+    over h0 (the cache lane, in place) once; bf16 and f32."""
+    import torch
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for model, (H, P, N) in SSD_HEADS.items():
+            cases += [(dtype, model, H, P, N, S, 1, h0, -3.0, False)
+                      for S in (256, 128, 64, 16, 2) for h0 in (True, False)]
+            cases.append((dtype, model, H, P, N, 256, 1, True, 0.0, False))
+        H, P, N = SSD_HEADS["mamba2"]
+        cases.append((dtype, "mamba2", H, P, N, 256, 2, True, -3.0, False))
+        cases.append((dtype, "mamba2", H, P, N, 256, 1, True, -3.0, True))
+    checks = []
+    for dtype, model, H, P, N, S, G, use_h0, shift, inplace in cases:
+        x, dt, A, B, C, D, h0 = _ssd_case(1, S, H, P, G, N, dtype,
+                                          5000 + len(checks), shift)
+        h0 = h0 if use_h0 else None
+        Q = min(128, S)
+        want_y, want_s = ref.ssd_chunked(x, dt, A, B, C, D, h0, chunk=Q)
+        if inplace:
+            got_y, got_s = tssd.ssd(x, dt, A, B, C, D, h0, chunk=Q,
+                                    state_out=h0)
+        else:
+            got_y, got_s = tssd.ssd(x, dt, A, B, C, D, h0, chunk=Q)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got_y).all() and torch.isfinite(got_s).all()):
+            raise AssertionError("ssd: non-finite output")
+        name = str(dtype).split(".")[1]
+        ratio_y = _entry_ratio(name, got_y, want_y).max().item()
+        ratio_s = _entry_ratio("float32", got_s, want_s).max().item()
+        err = (got_y.float() - want_y.float()).abs().max().item()
+        checks.append({"dtype": name, "model": model, "H": H, "P": P, "N": N,
+                       "S": S, "G": G, "chunk": Q, "h0": use_h0,
+                       "dt_shift": shift, "state_out_is_h0": inplace,
+                       "max_abs_err": err, "worst_over_limit": ratio_y,
+                       "state_worst_over_limit": ratio_s})
+        print(f"[check] ssd {name} {model} H={H} P={P} N={N} S={S} G={G} "
+              f"chunk={Q} h0={use_h0} dt_shift={shift}"
+              f"{' state_out=h0' if inplace else ''}: max|err| {err:.3e}, "
+              f"worst entry / its limit: y {ratio_y:.3f}, state "
+              f"{ratio_s:.3f}", flush=True)
+        if not (ratio_y <= 1.0 and ratio_s <= 1.0):
+            raise AssertionError(f"ssd disagrees: {checks[-1]}")
+    return checks
+
+
+def check_ssd_faults(tssd, ref):
+    """The check must reject a kernel that drops the carried state: at
+    mamba2's heads, S = 256, bf16, the plain version's y from the real h0
+    against the kernel (a) given h0 zeroed, (b) run on the two 128-row
+    halves with no state carried from the first into the second.  Raises
+    unless more than a tenth of the affected entries (all rows for (a),
+    the second half for (b)) are flagged, and none of the first half for
+    (b), which is the same computation."""
+    import torch
+    H, P, N = SSD_HEADS["mamba2"]
+    x, dt, A, B, C, D, h0 = _ssd_case(1, 256, H, P, 1, N, torch.bfloat16,
+                                      5100)
+    want, _ = ref.ssd_chunked(x, dt, A, B, C, D, h0, chunk=128)
+    zeroed, _ = tssd.ssd(x, dt, A, B, C, D, torch.zeros_like(h0), chunk=128)
+    first, _ = tssd.ssd(x[:, :128], dt[:, :128], A, B[:, :128], C[:, :128],
+                        D, h0, chunk=128)
+    second, _ = tssd.ssd(x[:, 128:], dt[:, 128:], A, B[:, 128:],
+                         C[:, 128:], D, None, chunk=128)
+    faults = {}
+    for fault, got, affected in (
+            ("h0 zeroed", zeroed, slice(None)),
+            ("no state carried between halves",
+             torch.cat([first, second], dim=1), slice(128, None))):
+        flagged = _entry_ratio("bfloat16", got, want) > 1
+        others = flagged.clone()
+        others[:, affected] = False
+        faults[fault] = {
+            "flagged_share_of_affected": flagged[:, affected].float().mean()
+            .item(),
+            "flagged_outside": int(others.sum().item())}
+        if not (faults[fault]["flagged_share_of_affected"] > 0.1
+                and faults[fault]["flagged_outside"] == 0):
+            raise AssertionError(f"ssd check vs a kernel with {fault}: "
+                                 f"{faults[fault]}")
+    print(f"[check] ssd planted faults mamba2 heads S=256 bf16, against the "
+          "plain version from the real h0: share of the affected entries "
+          "beyond their limit: " + ", ".join(
+              f"{n} {f['flagged_share_of_affected']:.4f} "
+              f"({f['flagged_outside']} flagged elsewhere)"
+              for n, f in faults.items()), flush=True)
+    return faults
+
+
+def time_ssd(tssd, ref, model):
+    """Kernel and plain times of one 256-row prefill chunk at batch 1 (the
+    serving shape: bf16, h0 from the slot's lane and the final state
+    written back over it), at the models' dt scale.  The inputs (4-6 MB)
+    stay in the 50 MB L2, as in serving, where the chunk's projections
+    have just written them.  No single PyTorch call computes SSD: the
+    library column is none."""
+    import torch
+    H, P, N = SSD_HEADS[model]
+    S, G, Q = 256, 1, 128
+    x, dt, A, B, C, D, h0 = _ssd_case(1, S, H, P, G, N, torch.bfloat16,
+                                      5200, 0.0)
+    kernel = [functools.partial(tssd.ssd, x, dt, A, B, C, D, h0, chunk=Q,
+                                state_out=h0)]
+    plain = [functools.partial(ref.ssd_chunked, x, dt, A, B, C, D, h0,
+                               chunk=Q)]
+    esz = 2
+    nbytes = (esz * (2 * S * H * P + S * H + 2 * S * G * N)
+              + 4 * (2 * H + 2 * H * P * N))
+    # per head and chunk: C B^T and M x over the j <= i triangle, C state^T
+    # and the state update over all rows
+    tri = Q * (Q + 1) / 2
+    ops = H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    return {"shape": f"Bb=1 S={S} H={H} P={P} G={G} N={N} chunk={Q} bf16, "
+                     "h0 in place",
+            "ms": _time_graph_ms(kernel), "host_ms": _time_eager_ms(kernel,
+                                                                    20),
+            "plain_ms": _time_eager_ms(plain, 5), "library_ms": None,
+            "library": "none: no single PyTorch call computes SSD",
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -991,20 +1189,31 @@ def _serve(tfa, engine, clock, cfg, specs):
     return done, wall, launches
 
 
-def _serving_launches(cfg, steps, chunks, paged):
-    """The exact launches of a serving arm of ``steps`` decode steps and
-    ``chunks`` prefill chunks: per layer and per step or chunk one
-    attention launch and, for an MoE model, three expert products
-    (gate, up, down); one cache write per decode step (dense: prefill
-    chunks write by a slice copy) or per step and chunk (paged).  No
-    training kernel runs."""
-    n = cfg.n_layers * (steps + chunks)
+def _serving_launches(cfg, steps, specs, paged):
+    """The exact launches of a serving arm of ``steps`` decode steps on
+    the requests ``specs``, prefilled in 256-row chunks: per attention
+    layer (every layer of a decoder, zamba2's shared block once per
+    invocation, none in mamba2) and per step or chunk one attention
+    launch and, for an MoE model, three expert products (gate, up, down);
+    one cache write per decode step (dense: prefill chunks write by a
+    slice copy) or per step and chunk (paged); one ``ssd`` per Mamba layer
+    and prefill chunk of two rows or more (a 1-row chunk takes the decode
+    step's recurrence, as in the reference).  No training kernel runs."""
+    from repro_torch.models.lm import zamba_structure
+    from repro_torch.serving.scheduler import chunk_plan
+    plans = [chunk_plan(len(p), 256) for p, _, _ in specs]
+    chunks = sum(len(plan) for plan in plans)
+    attn = {"ssm": 0, "hybrid": zamba_structure(cfg)[0]}.get(
+        cfg.family, cfg.n_layers)
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n = attn * (steps + chunks)
     return {"flash_decode": 0 if paged else n,
             "flash_decode_paged": n if paged else 0,
-            "cache_update": 0 if paged else cfg.n_layers * steps,
+            "cache_update": 0 if paged else attn * steps,
             "cache_update_paged": n if paged else 0,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "grouped_matmul": 3 * n if cfg.n_experts else 0}
+            "grouped_matmul": 3 * n if cfg.n_experts else 0,
+            "ssd": mamba * sum(size >= 2 for plan in plans for size in plan)}
 
 
 def _check_launches(arm, launches, want):
@@ -1032,12 +1241,6 @@ def _arm_stats(engine, clock, done, wall, specs):
             "prefill_chunks": clock.calls["prefill"],
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30}
-
-
-def _plain_chunks(specs) -> int:
-    """Prefill chunk programs for ``specs`` with nothing shared."""
-    from repro_torch.serving.scheduler import chunk_plan
-    return sum(len(chunk_plan(len(p), 256)) for p, _, _ in specs)
 
 
 def _print_arm(name, st, launches):
@@ -1111,7 +1314,7 @@ def serve_full_width(tfa, arch=ARCH, tag=""):
     done, wall, launches = _serve(tfa, engine, clock, cfg, specs)
     stats = _arm_stats(engine, clock, done, wall, specs)
     _check_launches(tag + "dense", launches, _serving_launches(
-        cfg, stats["decode_steps"], _plain_chunks(specs), paged=False))
+        cfg, stats["decode_steps"], specs, paged=False))
     _print_arm(tag + "dense", stats, launches)
     shared = (cfg, run, engine.params, specs,
               {r.uid: r.generated for r in done})
@@ -1157,7 +1360,7 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
     if gate_equal and same != len(specs):
         raise AssertionError(f"{name} arm: {same}/16 streams equal dense")
     _check_launches(name, launches, _serving_launches(
-        cfg, stats["decode_steps"], _plain_chunks(specs), paged))
+        cfg, stats["decode_steps"], specs, paged))
     if paged and engine._alloc.used_blocks:
         raise AssertionError(f"{name} arm: the pool did not drain")
     del engine
@@ -1329,7 +1532,7 @@ def serve_moe_no_drop(tfa, cfg, run, params, specs):
         done, _, launches = _serve(tfa, engine, clock, cfg, specs)
         steps = engine.sync_count * engine.decode_chunk
         _check_launches(name, launches, _serving_launches(
-            cfg, steps, _plain_chunks(specs), paged))
+            cfg, steps, specs, paged))
         streams[paged] = {r.uid: r.generated for r in done}
         del engine
         torch.cuda.empty_cache()
@@ -1366,6 +1569,39 @@ class SyncTally:
         return "outside"
 
 
+def _count_syncs(engine, tally, specs):
+    """Serve fresh requests from ``specs`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``, where every synchronising
+    CUDA call warns, and file each warning under the phase ``tally`` (the
+    engine's ``power=`` hook) saw it in: prefill, decode, or outside both,
+    where the engine admits requests and fetches each decode chunk's
+    tokens.  Returns (finished requests, syncs by place, their sites)."""
+    import warnings
+    import torch
+    from repro_torch.serving.engine import Request
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=n, prefix_len=pl)
+            for i, (p, n, pl) in enumerate(specs)]
+    engine.sync_count = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tally.caught = caught
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            done = engine.generate(reqs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = {"prefill": 0, "decode": 0, "outside": 0}
+    sites = {k: {} for k in syncs}
+    for i, w in enumerate(caught):
+        if "called a synchronizing CUDA operation" not in str(w.message):
+            continue
+        where = tally.where(i)
+        syncs[where] += 1
+        site = f"{Path(w.filename).name}:{w.lineno}"
+        sites[where][site] = sites[where].get(site, 0) + 1
+    return done, syncs, sites
+
+
 def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
     """Phase 3d, the last arm: the dense arm's requests served once more,
     untimed, to read what the timed arms must not pay for.
@@ -1380,7 +1616,6 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
         done lanes (fed token 0 at index max_seq), counted on the card
         over every decode step and layer.
     Every stream must equal the dense arm's."""
-    import warnings
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import lm
@@ -1411,31 +1646,12 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
             counts.index_add_(0, idx, torch.ones_like(idx))
         return out
 
-    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=n, prefix_len=pl)
-            for i, (p, n, pl) in enumerate(specs)]
-    engine.sync_count = 0
     lm.forward, L._moe_dispatch_local = forward, dispatch
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            tally.caught = caught
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                done = engine.generate(reqs)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        done, syncs, sites = _count_syncs(engine, tally, specs)
     finally:
         lm.forward, L._moe_dispatch_local = real_forward, real_dispatch
     same = sum(r.generated == dense_streams[r.uid] for r in done)
-    syncs = {"prefill": 0, "decode": 0, "outside": 0}
-    sites = {k: {} for k in syncs}
-    for i, w in enumerate(caught):
-        if "called a synchronizing CUDA operation" not in str(w.message):
-            continue
-        where = tally.where(i)
-        syncs[where] += 1
-        site = f"{Path(w.filename).name}:{w.lineno}"
-        sites[where][site] = sites[where].get(site, 0) + 1
     lk, ld, dk, dd = counts.tolist()
     drops = {"live_assignments": lk + ld, "live_dropped": ld,
              "live_dropped_share": ld / max(lk + ld, 1),
@@ -1464,6 +1680,90 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
     torch.cuda.empty_cache()
     return {"syncs": syncs, "sync_sites": sites, "drops": drops,
             "replay_streams_equal_dense": same}
+
+
+def serve_ssm_replay(tfa, cfg, run, params, specs, dense_streams, tag):
+    """Phase 3e: a Mamba model's dense arm replayed, untimed: every stream
+    equals the dense arm's, and the only host syncs are the engine's
+    fetches, one per decode chunk (the Mamba lanes' reset at admission,
+    the in-place state and conv updates and the ``ssd`` wrapper sync
+    nothing)."""
+    import torch
+    from repro_torch.serving.engine import Request
+    tally = SyncTally()
+    engine = _engine(cfg, run, params, tally)
+    engine.generate([Request(uid=-1, max_new_tokens=8, prompt=list(range(
+        1, 65)))])                            # first-call costs, not counted
+    tally.spans = []
+    done, syncs, sites = _count_syncs(engine, tally, specs)
+    same = sum(r.generated == dense_streams[r.uid] for r in done)
+    print(f"[serve:{tag}syncs] {same}/16 streams equal the dense arm's; "
+          f"synchronising calls under torch.cuda.set_sync_debug_mode: "
+          f"decode phases {syncs['decode']}, outside the phases "
+          f"{syncs['outside']} ({engine.sync_count} decode chunks: the "
+          f"engine's fetch) at {sites['outside']}, prefill phases "
+          f"{syncs['prefill']} at {sites['prefill']}", flush=True)
+    if same != len(specs):
+        raise AssertionError(f"{tag}replay: {same}/16 streams equal dense")
+    if syncs != {"prefill": 0, "decode": 0, "outside": engine.sync_count}:
+        raise AssertionError(f"{tag}replay: host syncs {syncs} {sites}, "
+                             f"expected one per decode chunk and no other")
+    del engine
+    torch.cuda.empty_cache()
+    return {"syncs": syncs, "sync_sites": sites,
+            "replay_streams_equal_dense": same}
+
+
+def _refused(what, make, expect):
+    """``make()`` must raise ValueError with ``expect`` in its message."""
+    try:
+        make()
+    except ValueError as e:
+        if expect not in str(e):
+            raise
+        print(f"[serve:refused] {what}: ValueError({str(e)!r})", flush=True)
+        return str(e)
+    raise AssertionError(f"{what} did not raise")
+
+
+def serve_ssm(tfa):
+    """Phase 3e: full-width, full-depth mamba2-370m (48 Mamba-2 layers,
+    seeded random weights, bf16 compute with A_log, D, dt_bias and the
+    gated norm kept f32) on the engine settings of the other arms and 16
+    seeded requests: the dense arm (exact launches: 48 ``ssd`` per prefill
+    chunk of two rows or more, no attention kernel), its untimed replay
+    (same streams, one host sync per decode chunk and no other), and the
+    paged constructor, which must refuse.  Returns (launches, stats,
+    shared)."""
+    launches, stats, shared = serve_full_width(tfa, SSM_ARCH, "mamba2-")
+    stats.update(serve_ssm_replay(tfa, *shared, "mamba2-"))
+    cfg, run, params = shared[:3]
+    stats["paged_refused"] = _refused(
+        "mamba2 paged", lambda: _engine(cfg, run, params, None, paged=True,
+                                        block_size=16),
+        "no sequence rows to page")
+    return launches, stats, shared
+
+
+def serve_hybrid(tfa):
+    """Phase 3f: full-width, full-depth zamba2-1.2b (38 Mamba-2 layers and
+    the shared attention block, head_dim 64, after every 6 of them, with
+    per-invocation LoRA on q): the dense arm, then paged
+    (``block_size=16``), whose 16 streams must equal the dense arm's bit
+    for bit (nothing couples lanes: no capacity, and a done lane's stale
+    rows reach only itself); exact launches in both (38 ``ssd`` per chunk
+    of two rows or more, 6 attention and 6 cache launches per decode step
+    and, paged, per chunk); and prefix sharing, which must refuse.
+    Returns (dense launches, paged launches, stats, shared)."""
+    launches, stats, shared = serve_full_width(tfa, HYBRID_ARCH, "zamba2-")
+    paged_launches, paged = serve_arm(tfa, *shared, "zamba2-paged", True)
+    cfg, run, params = shared[:3]
+    stats["paged"] = paged
+    stats["prefix_sharing_refused"] = _refused(
+        "zamba2 prefix sharing", lambda: _engine(
+            cfg, run, params, None, paged=True, block_size=16,
+            prefix_sharing=True), "recurrent state cannot be row-shared")
+    return launches, paged_launches, stats, shared
 
 
 # ---------------------------------------------------------------------------
@@ -1653,6 +1953,98 @@ def olmoe_parity():
     return out
 
 
+def _ssm_steps(ctx, cfg, params, prompts, feed=None, steps=3):
+    """Each prompt prefilled into its own slot of a cache in 256-row
+    chunks (batch 1), then ``steps`` decode steps of all the slots.
+    Returns (each prompt's last-token logits (n, V), each decode step's
+    logits [(n, V)], the decode steps' input tokens [(n,)]), on the CPU in
+    float32.  ``feed``: the decode steps' tokens (default: each step's
+    argmax of the logits before it)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import (make_decode_step,
+                                            make_prefill_chunk_step)
+    from repro_torch.serving.scheduler import chunk_plan
+
+    p = lm.prepare_params(ctx, params)
+    cache = lm.init_cache(ctx, cfg, len(prompts), 512)
+    step = make_prefill_chunk_step(cfg, ctx.run, ctx)
+    first = []
+    for sid, prompt in enumerate(prompts):
+        idx = 0
+        for size in chunk_plan(len(prompt), 256):
+            toks = torch.tensor([prompt[idx:idx + size]], dtype=torch.int32,
+                                device=ctx.device)
+            cache, logits = step(p, cache, toks, sid, idx)
+            idx += size
+        first.append(logits[0].float().cpu())
+    first = torch.stack(first)
+    decode = make_decode_step(cfg, ctx.run, ctx)
+    index = torch.tensor([len(q) for q in prompts], dtype=torch.int32,
+                         device=ctx.device)
+    outs, fed, prev = [], [], first
+    for t in range(steps):
+        nxt = prev.argmax(-1).int() if feed is None else feed[t]
+        cache, logits = decode(p, cache, nxt[:, None].to(ctx.device),
+                               index + t)
+        prev = logits.float().cpu()
+        outs.append(prev)
+        fed.append(nxt)
+    return first, outs, fed
+
+
+def ssm_parity(arch, n_layers):
+    """Phase 4, Mamba: ``arch`` at full width and ``n_layers`` layers from
+    one set of seeded weights, the same per-slot prefill chunks and 3
+    decode steps on the card and on the CPU.  Prompts of 320, 37 and 100
+    tokens: 320 = 256 + 64 (a 256-row chunk is two SSD chunks that carry
+    the state; the 64-row chunk continues from h0 and the conv window), 37
+    = 32 + 4 + 1 (the 1-row chunk takes the decode branch), 100 = 64 + 32
+    + 4.  The gate: the card in f32 (kernels, TF32 off) within
+    SSM_PARITY_TOL of the CPU in f32 (plain path), on every prompt's last
+    logits and every decode step's; the card in bf16 printed beside it."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import ssd as tssd
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_model_config(arch), n_layers=n_layers)
+    run32 = get_run_config(arch, remat="none", compute_dtype="float32")
+    run16 = get_run_config(arch, remat="none")
+    params = init_params(lm.model_decls(cfg), torch.Generator().manual_seed(1),
+                         "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (320, 37, 100)]
+    cpu_first, cpu_dec, fed = _ssm_steps(Ctx(run32, "cpu"), cfg, params,
+                                         prompts)
+    out = {}
+    for name, run in (("f32", run32), ("bf16", run16)):
+        tssd.ssd.launches = 0
+        first, dec, _ = _ssm_steps(Ctx(run, "cuda"), cfg, params, prompts,
+                                   fed)
+        out[name] = {"max_abs_logit_diff": max(
+            [(first - cpu_first).abs().max().item()]
+            + [(a - b).abs().max().item() for a, b in zip(dec, cpu_dec)]),
+            "ssd_launches": tssd.ssd.launches}
+        torch.cuda.empty_cache()
+    f32, b16 = out["f32"], out["bf16"]
+    tag = arch.split("-")[0]
+    print(f"[parity:{tag}] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, "
+          f"{n_layers} layers, prefill chunks of prompts 320 / 37 / 100 + 3 "
+          f"decode steps: card f32 (kernels, {f32['ssd_launches']} ssd "
+          f"launches) vs CPU f32: max|logit diff| "
+          f"{f32['max_abs_logit_diff']:.3e} (tol {SSM_PARITY_TOL}); card "
+          f"bf16 vs CPU f32 (not gated): max|logit diff| "
+          f"{b16['max_abs_logit_diff']:.4f}", flush=True)
+    if not f32["max_abs_logit_diff"] <= SSM_PARITY_TOL:
+        raise AssertionError(f"[parity:{tag}] f32 logits differ by "
+                             f"{f32['max_abs_logit_diff']}")
+    _release_card()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 5: training at full width
 # ---------------------------------------------------------------------------
@@ -1715,7 +2107,7 @@ def train_full_width(tfa):
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_decode": 0, "flash_decode_paged": 0, "cache_update": 0,
-            "cache_update_paged": 0, "grouped_matmul": 0,
+            "cache_update_paged": 0, "grouped_matmul": 0, "ssd": 0,
             "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
             "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
     step_s = float(np.median(secs[1:]))
@@ -1824,6 +2216,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as tssd
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1873,6 +2266,20 @@ def main() -> int:
             tfa, ref, 8, 1, decode_index, K=16),
         "cache_update_paged prefill g=1": time_cache_update_paged(
             tfa, ref, 1, 256, [512], K=16),
+        # zamba2's shared attention: H = K = 32 heads of 64
+        "flash_decode decode D=64": time_flash_decode(
+            tfa, ref, 8, 1, decode_lens, H=32, K=32, D=64),
+        "flash_decode prefill D=64": time_flash_decode(
+            tfa, ref, 1, 256, [768], H=32, K=32, D=64),
+        "cache_update decode D=64": time_cache_update(tfa, ref, K=32, D=64),
+        "flash_decode_paged decode D=64": time_flash_decode_paged(
+            tfa, ref, 8, 1, decode_lens, H=32, K=32, D=64),
+        "flash_decode_paged prefill D=64": time_flash_decode_paged(
+            tfa, ref, 1, 256, [768], H=32, K=32, D=64),
+        "cache_update_paged decode D=64": time_cache_update_paged(
+            tfa, ref, 8, 1, decode_index, K=32, D=64),
+        "cache_update_paged prefill D=64": time_cache_update_paged(
+            tfa, ref, 1, 256, [512], K=32, D=64),
     }
     fa_checks = check_flash_attention(tfa, ref)
     fa_faults = check_planted_faults(tfa, ref)
@@ -1884,10 +2291,16 @@ def main() -> int:
     for G, M, K, N in GMM_SHAPES[:4]:
         times[f"grouped_matmul {'decode' if M == 2 else 'prefill'} "
               f"{K}x{N}"] = time_grouped_matmul(gmm, ref, G, M, K, N)
+    ssd_checks = check_ssd(tssd, ref)
+    ssd_faults = check_ssd_faults(tssd, ref)
+    for model in SSD_HEADS:
+        times[f"ssd prefill {model}"] = time_ssd(tssd, ref, model)
     for name, t in times.items():
+        lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+               else "none")
         print(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms "
               f"(eager with its host work {t['host_ms']:.4f} ms), plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"{t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
 
     dense_launches, serving, shared = serve_full_width(tfa)
@@ -1916,20 +2329,40 @@ def main() -> int:
                                               gate_equal=False)
     moe_serving.update(serve_moe_replay(tfa, *moe_shared))
     moe_serving["no_drop"] = serve_moe_no_drop(tfa, *moe_shared[:4])
-    # the profiles come after every serving arm: launches slow down once
-    # the profiler has run
-    moe_serving.update(profile_decode(*moe_shared[:3], "olmoe-dense",
-                                      groups=MOE_PROFILE_GROUPS))
+    # each model's weights are released before the next model's are made
+    olmoe = moe_shared[:2]
     del moe_shared
     _release_card()
-    params = _card_weights(*llama)
-    serving.update(profile_decode(*llama, params, "dense"))
-    paged_serving.update(profile_decode(*llama, params, "paged", paged=True,
-                                        block_size=16))
-    del params
+    # 3e, 3f: full-width mamba2 (dense) and zamba2 (dense, paged)
+    ssm_launches, ssm_serving, ssm_shared = serve_ssm(tfa)
+    mamba2 = ssm_shared[:2]
+    del ssm_shared
     _release_card()
+    hyb_launches, hyb_paged_launches, hyb_serving, hyb_shared = \
+        serve_hybrid(tfa)
+    zamba2 = hyb_shared[:2]
+    del hyb_shared
+    _release_card()
+    # the profiles come after every serving arm: launches slow down once
+    # the profiler has run; each model's seeded weights are made again
+    for model, into, name, groups, kw in (
+            (olmoe, moe_serving, "olmoe-dense", MOE_PROFILE_GROUPS, {}),
+            (mamba2, ssm_serving, "mamba2-dense", SSM_PROFILE_GROUPS, {}),
+            (zamba2, hyb_serving, "zamba2-dense", SSM_PROFILE_GROUPS, {}),
+            (zamba2, hyb_serving["paged"], "zamba2-paged",
+             SSM_PROFILE_GROUPS, dict(paged=True, block_size=16)),
+            (llama, serving, "dense", None, {}),
+            (llama, paged_serving, "paged", None,
+             dict(paged=True, block_size=16))):
+        params = _card_weights(*model)
+        into.update(profile_decode(*model, params, name, groups=groups,
+                                   **kw))
+        del params
+        _release_card()
     parity = logits_parity()
     moe_parity = olmoe_parity()
+    mamba_parity = {SSM_ARCH: ssm_parity(SSM_ARCH, 2),
+                    HYBRID_ARCH: ssm_parity(HYBRID_ARCH, 7)}
     train_launches, training = train_full_width(tfa)
     training["parity_rel_err"] = train_parity(tfa)
 
@@ -1939,11 +2372,16 @@ def main() -> int:
 
     def row(name, source, replaces, launches, err, tol, t, prefill, checks,
             arm, **extra):
-        # olmoe (H = K = 16): its times and its arm's launches beside
+        # olmoe (H = K = 16) and zamba2 (H = K = 32, D = 64): their times
+        # and their arms' launches beside
         moe = moe_paged_launches if "paged" in name else moe_launches
         g1 = {"launches": moe[name], "launches_arm": "olmoe-" + arm}
         g1.update({k.split()[1]: times[k] for k in times
                    if k.startswith(name + " ") and k.endswith("g=1")})
+        hyb = hyb_paged_launches if "paged" in name else hyb_launches
+        d64 = {"launches": hyb[name], "launches_arm": "zamba2-" + arm}
+        d64.update({k.split()[1]: times[k] for k in times
+                    if k.startswith(name + " ") and k.endswith("D=64")})
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=err,
                     tolerance=tol, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -1952,7 +2390,7 @@ def main() -> int:
                     shape=t["shape"], max_abs_diff=err, kernel_ms=t["ms"],
                     host_ms=t["host_ms"], launches_per_decode_step=28,
                     launches_arm=arm, prefill_chunk=prefill, checks=checks,
-                    olmoe_g1=g1, **extra)
+                    olmoe_g1=g1, zamba2_d64=d64, **extra)
 
     csrc = "src/repro_torch/kernels/csrc/"
     fa = "src/repro/kernels/flash_attention.py"
@@ -2024,13 +2462,35 @@ def main() -> int:
         library_ms=t["library_ms"], library=t["library"], shape=t["shape"],
         host_ms=t["host_ms"], times=gmm_times, checks=gmm_checks,
         planted_fault=gmm_faults))
+    t = times["ssd prefill mamba2"]
+    kernels.append(dict(
+        name="ssd", route="cuda", source=csrc + "ssd.cu",
+        replaces="src/repro/kernels/ssd.py:81",
+        launches=ssm_launches["ssd"], launches_arm="mamba2-dense",
+        launches_zamba2={"dense": hyb_launches["ssd"],
+                         "paged": hyb_paged_launches["ssd"]},
+        max_abs_err=max(c["max_abs_err"] for c in ssd_checks
+                        if c["dtype"] == "bfloat16"),
+        worst_over_limit=max(max(c["worst_over_limit"],
+                                 c["state_worst_over_limit"])
+                             for c in ssd_checks),
+        tolerance=_ATTN_TOL_TEXT + "; the f32 state: per entry "
+                  f"{ATTN_RTOL['float32']} |want| + {ATTN_ATOL} max|want|",
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, library=t["library"],
+        shape=t["shape"], host_ms=t["host_ms"],
+        times={k: v for k, v in times.items() if k.startswith("ssd")},
+        checks=ssd_checks, planted_fault=ssd_faults))
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
     moe_serving["paged"] = moe_paged
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "olmoe_serving": moe_serving,
+                      "mamba2_serving": ssm_serving,
+                      "zamba2_serving": hyb_serving,
                       "training": training,
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,
+                      "ssm_parity": mamba_parity,
                       "total_s": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,16 @@ not fit one 80 GB card and wait for the distributed slice (ROADMAP queue
 
 from __future__ import annotations
 
-from repro_torch.configs import llama32_3b, olmoe, phi35_moe
+from repro_torch.configs import (llama32_3b, mamba2_370m, olmoe, phi35_moe,
+                                 zamba2_1p2b)
 from repro_torch.configs.base import ModelConfig, RunConfig
 
 _MODULES = {
     "llama3.2-3b": llama32_3b,
     "olmoe-1b-7b": olmoe,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "mamba2-370m": mamba2_370m,
+    "zamba2-1.2b": zamba2_1p2b,
 }
 
 #: Architectures of the JAX package not ported yet -> the ROADMAP item
@@ -25,8 +28,6 @@ NOT_PORTED = {
     "gemma2-2b": "queue 1 item 11 (gemma2 and nemotron/minitron)",
     "nemotron-4-15b": "queue 1 item 11 (gemma2 and nemotron/minitron)",
     "minitron-4b": "queue 1 item 11 (gemma2 and nemotron/minitron)",
-    "mamba2-370m": "queue 1 item 8 (SSM and hybrid)",
-    "zamba2-1.2b": "queue 1 item 8 (SSM and hybrid)",
     "hubert-xlarge": "queue 1 item 12 (VLM and audio)",
     "qwen2-vl-72b": "queue 1 item 12 (VLM and audio)",
 }

@@ -57,6 +57,8 @@ SIGNATURES = {
                             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "grouped_matmul": ("grouped_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "ssd": ("ssd", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _P]),
 }
 
 #: dtype code of a tensor at every kernel's C entry point

@@ -320,6 +320,9 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* 
     case 32:   // the reduced configs
       return launch_rows<T, 32>(q, k, v, kv_len, out, B, Sq, H, K, scale, softcap, window,
                                 rows, stream);
+    case 64:   // zamba2's shared attention
+      return launch_rows<T, 64>(q, k, v, kv_len, out, B, Sq, H, K, scale, softcap, window,
+                                rows, stream);
     case 128:
       return launch_rows<T, 128>(q, k, v, kv_len, out, B, Sq, H, K, scale, softcap, window,
                                  rows, stream);

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.grouped_matmul import grouped_matmul
+from repro_torch.kernels.ssd import ssd
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
                  local_window=None, scale=None):
@@ -53,8 +54,8 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
             or k_cache.shape[3] != D or H % K):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"caches {tuple(k_cache.shape)}")
-    if D not in (32, 128):
-        raise ValueError(f"flash_decode: head_dim {D} not in (32, 128)")
+    if D not in (32, 64, 128):
+        raise ValueError(f"flash_decode: head_dim {D} not in (32, 64, 128)")
     build.check_cuda("flash_decode", q.device, q=q, k_cache=k_cache,
                 v_cache=v_cache, kv_len=kv_len)
     out = torch.empty_like(q)
@@ -103,8 +104,9 @@ def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
     if k_pool.shape != v_pool.shape or k_pool.shape[3] != D or H % K:
         raise ValueError(f"flash_decode_paged: shapes q {tuple(q.shape)}, "
                          f"pools {tuple(k_pool.shape)}")
-    if D not in (32, 128):
-        raise ValueError(f"flash_decode_paged: head_dim {D} not in (32, 128)")
+    if D not in (32, 64, 128):
+        raise ValueError(f"flash_decode_paged: head_dim {D} not in "
+                         "(32, 64, 128)")
     build.check_cuda("flash_decode_paged", q.device, q=q, k_pool=k_pool,
                 v_pool=v_pool, kv_len=kv_len, block_tables=block_tables)
     out = torch.empty_like(q)
@@ -302,9 +304,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
 flash_attention_bwd.launches = 0
 
 #: Every kernel wrapper of the package, for launch counting: the six
-#: above and ``kernels/grouped_matmul.py``'s (the MoE expert FFN).
+#: above, ``kernels/grouped_matmul.py``'s (the MoE expert FFN) and
+#: ``kernels/ssd.py``'s (the Mamba-2 scan).
 KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged,
-           flash_attention, flash_attention_bwd, grouped_matmul)
+           flash_attention, flash_attention_bwd, grouped_matmul, ssd)
 
 
 def reset_launch_counts() -> None:

@@ -3,7 +3,8 @@ device.
 
 A tensor on the CPU goes to the plain PyTorch version (``kernels/ref.py``);
 a tensor on CUDA goes to the hand-written kernel
-(``kernels/flash_attention.py``, ``kernels/grouped_matmul.py``).
+(``kernels/flash_attention.py``, ``kernels/grouped_matmul.py``,
+``kernels/ssd.py``).
 There is no mode switch and no fallback: a CUDA tensor the kernel does not
 take raises.
 """
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import flash_attention, ref
 from repro_torch.kernels import grouped_matmul as gmm
+from repro_torch.kernels import ssd as ssd_kernel
 
 
 class FlashAttention(torch.autograd.Function):
@@ -106,3 +108,14 @@ def grouped_matmul(lhs, rhs):
     """(G, M, K) x (G, K, N) -> (G, M, N) in lhs's dtype with float32
     sums: the MoE expert product, one matmul per expert."""
     return gmm.grouped_matmul(lhs.contiguous(), rhs.contiguous())
+
+
+def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk=128, state_out=None):
+    """Mamba-2 chunked SSD: x (Bb,S,H,P), dt (Bb,S,H), A (H,) f32, B/C
+    (Bb,S,G,N), optional D (H,) f32 and h0 (Bb,H,P,N) f32.  Returns (y in
+    x's dtype, the final f32 state), the state written into ``state_out``
+    when given (which may be ``h0``: an in-place update of a cache lane)."""
+    return ssd_kernel.ssd(x.contiguous(), dt.contiguous(), A.contiguous(),
+                          B.contiguous(), C.contiguous(),
+                          D.contiguous() if D is not None else None, h0,
+                          chunk=chunk, state_out=state_out)

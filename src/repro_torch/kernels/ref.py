@@ -237,3 +237,113 @@ def grouped_matmul(lhs, rhs):
     products summed in float32 and rounded once (``grouped_matmul_ref``)."""
     return torch.einsum("gmk,gkn->gmn", lhs.float(),
                         rhs.float()).to(lhs.dtype)
+
+
+# ===========================================================================
+# mamba-2 SSD (state-space duality)
+# ===========================================================================
+
+def ssd_naive(x, dt, A, B, C, D=None, h0=None):
+    """Sequential recurrence oracle (exact, O(S) steps).
+
+    x: (Bb, S, H, P); dt: (Bb, S, H); A: (H,) negative; B/C: (Bb, S, G, N).
+    Returns y: (Bb, S, H, P) and final state (Bb, H, P, N) in float32.
+    """
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    xf, dtf = x.float(), dt.float()
+    Bh = torch.repeat_interleave(B.float(), rep, dim=2)   # (Bb,S,H,N)
+    Ch = torch.repeat_interleave(C.float(), rep, dim=2)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        a = torch.exp(A[None] * dtf[:, t])                 # (Bb,H)
+        inc = torch.einsum("bhp,bhn->bhpn", xf[:, t] * dtf[:, t, :, None],
+                           Bh[:, t])
+        h = h * a[..., None, None] + inc
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1)                             # (Bb,S,H,P)
+    if D is not None:
+        y = y + xf * D[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def _segsum(a):
+    """Stable segment-sum: M[..., i, j] = sum_{j<k<=i} a[..., k], -inf j>i."""
+    S = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    M = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=a.device))
+    return M.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
+    """Chunked SSD (Mamba-2 Listing 1): quadratic intra-chunk + linear
+    inter-chunk state passing.  Same math as ssd_naive; the ``D`` skip is
+    added in float32 and y rounded once to x's dtype."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    nc = S // chunk
+    xf = x.float().reshape(Bb, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bb, nc, chunk, H)
+    Bf = torch.repeat_interleave(B.float(), rep, 2).reshape(Bb, nc, chunk,
+                                                            H, N)
+    Cf = torch.repeat_interleave(C.float(), rep, 2).reshape(Bb, nc, chunk,
+                                                            H, N)
+    xdt = xf * dtf[..., None]
+    a = A[None, None, None] * dtf                     # (Bb,nc,Q,H) log-decay
+    a = a.movedim(-1, -2)                             # (Bb,nc,H,Q)
+    a_cs = torch.cumsum(a, dim=-1)
+
+    # 1) intra-chunk (diagonal blocks)
+    L = torch.exp(_segsum(a))                         # (Bb,nc,H,Q,Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cf, Bf)
+    y_diag = torch.einsum("bchqk,bchqk,bckhp->bcqhp", scores, L, xdt)
+
+    # 2) per-chunk final states
+    decay = torch.exp(a_cs[..., -1:] - a_cs)          # (Bb,nc,H,Q)
+    states = torch.einsum("bchq,bcqhn,bcqhp->bchpn", decay, Bf, xdt)
+
+    # 3) inter-chunk recurrence over chunk states (state BEFORE chunk t)
+    chunk_decay = torch.exp(a_cs[..., -1])            # (Bb,nc,H)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prevs = []
+    for t in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, t][..., None, None] + states[:, t]
+    h_prev = torch.stack(h_prevs, dim=1)              # (Bb,nc,H,P,N)
+
+    # 4) inter-chunk contribution
+    out_decay = torch.exp(a_cs)                       # (Bb,nc,H,Q)
+    y_off = torch.einsum("bcqhn,bchpn,bchq->bcqhp", Cf, h_prev, out_decay)
+
+    y = (y_diag + y_off).reshape(Bb, S, H, P)
+    if D is not None:
+        y = y + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
+    """One decode step of the SSM recurrence.  state: (Bb,H,P,N) float32;
+    x_t: (Bb,H,P); dt_t: (Bb,H); B_t/C_t: (Bb,G,N).  Returns (y_t in x_t's
+    dtype, the new state)."""
+    H = x_t.shape[-2]
+    G = B_t.shape[-2]
+    rep = H // G
+    a = torch.exp(A[None] * dt_t.float())             # (Bb,H)
+    Bh = torch.repeat_interleave(B_t.float(), rep, dim=-2)
+    Ch = torch.repeat_interleave(C_t.float(), rep, dim=-2)
+    inc = torch.einsum("bhp,bhn->bhpn", x_t.float() * dt_t.float()[..., None],
+                       Bh)
+    state = state * a[..., None, None] + inc
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    if D is not None:
+        y = y + x_t.float() * D[None, :, None]
+    return y.to(x_t.dtype), state

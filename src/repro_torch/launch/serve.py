@@ -5,6 +5,10 @@
       --max-seq 2048 --batch-size 8 --prefill-chunk 256    # full width
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --no-reduced --max-seq 2048 --batch-size 8 --prefill-chunk 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --no-reduced --max-seq 2048 --batch-size 8 --prefill-chunk 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --no-reduced --max-seq 2048 --batch-size 8 --prefill-chunk 256
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path).  ``--reduced``

@@ -1,5 +1,5 @@
-"""Neural layers of the dense and MoE decoders, ported from
-``repro/models/layers.py``.
+"""Neural layers of the dense and MoE decoders and of the Mamba-2 block,
+ported from ``repro/models/layers.py``.
 
 Every ``*_decls`` returns a nested dict of PD declarations with the
 reference's keys and shapes; the matching ``apply_*`` consumes the
@@ -15,6 +15,11 @@ capacity dispatch, grouped expert FFN, weighted combine).  Its
 expert-parallel ``shard_map`` path and the int8 all-to-all
 (``repro/models/layers.py:546-640``) need a mesh, which the port does not
 have yet: ROADMAP queue 1 item 14.
+
+The Mamba-2 block runs its prefill chunks through ``ops.ssd`` (the
+``ssd`` kernel on CUDA) and its single-token decode through the plain
+one-step recurrence, as the reference does; its SSM and conv states are
+the cache's views and are updated in place.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.params import PD
 
 
@@ -90,6 +95,13 @@ def apply_norm(cfg: ModelConfig, p: dict, x, eps: float = 1e-6):
 # rotary position embeddings (plain RoPE and partial rotary)
 # ===========================================================================
 
+def rmsnorm_gated(scale, y, z, eps: float = 1e-6):
+    """Mamba-2 RMSNormGated: rmsnorm(y * silu(z)) * scale."""
+    yf = y.float() * F.silu(z.float())
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
 def rope_cos_sin(cfg: ModelConfig, positions):
     """positions: (B, S) int.  Returns cos/sin of shape (B, S, rot_half)."""
     if cfg.mrope_sections is not None:
@@ -140,7 +152,7 @@ def attention_decls(cfg: ModelConfig, layers: int = 0,
 
 def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
                     local_window=None, cache=None, cache_index=None,
-                    block_tables=None):
+                    block_tables=None, q_delta=None):
     """x: (B, S, d).  With ``cache`` (dict k/v (B, Smax, K, hd), one
     layer's views of the stacked cache) the new k/v rows are written IN
     PLACE and attention reads the cache: a (B,) ``cache_index`` tensor is
@@ -149,11 +161,16 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     With ``block_tables`` ((B, max_blocks) int32) the cache leaves are
     PAGED pools (n_blocks, bs, K, hd): every write and read goes through
     the table (``cache_update_paged``, ``flash_decode_paged``), and a
-    scalar prefill cursor is broadcast to (B,).  Returns (y, cache)."""
+    scalar prefill cursor is broadcast to (B,).  ``q_delta`` (B, S, H, hd),
+    zamba2's per-invocation LoRA, is added to q before RoPE (the
+    reference's ``_attention_with_qdelta``, ``repro/models/lm.py:372``).
+    Returns (y, cache)."""
     c = ctx.cdtype
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(c)).reshape(B, S, H, hd)
+    if q_delta is not None:
+        q = q + q_delta
     k = (x @ p["wk"].to(c)).reshape(B, S, K, hd)
     v = (x @ p["wv"].to(c)).reshape(B, S, K, hd)
     if cfg.use_rope:
@@ -355,6 +372,130 @@ def apply_moe(ctx: Ctx, cfg: ModelConfig, p: dict, x):
                                                         capacity)
     out = _moe_expert_ffn(ctx, cfg, p, expert_in.to(c))
     return _moe_combine_local(out, flat_e, slot, keep, top_p, B, S), aux
+
+
+# ===========================================================================
+# mamba-2 block (SSD)
+# ===========================================================================
+
+def mamba_decls(cfg: ModelConfig, layers: int = 0) -> dict:
+    d, din = cfg.d_model, cfg.d_inner
+    H, N, G = cfg.ssm_heads, cfg.ssm_state, 1
+    conv_dim = din + 2 * G * N
+    d_in_proj = 2 * din + 2 * G * N + H
+    return {
+        "in_proj": PD(_stack((d, d_in_proj), layers),
+                      _saxes(("embed", "ssm_inner"), layers)),
+        "conv_w": PD(_stack((cfg.ssm_conv, conv_dim), layers),
+                     _saxes(("conv", "ssm_inner"), layers),
+                     scale=cfg.ssm_conv ** -0.5),
+        "conv_b": PD(_stack((conv_dim,), layers),
+                     _saxes(("ssm_inner",), layers), "zeros"),
+        "A_log": PD(_stack((H,), layers), _saxes(("ssm_heads",), layers),
+                    "embed", scale=0.5),
+        "D": PD(_stack((H,), layers), _saxes(("ssm_heads",), layers), "ones"),
+        "dt_bias": PD(_stack((H,), layers), _saxes(("ssm_heads",), layers),
+                      "embed", scale=0.5),
+        "norm": PD(_stack((din,), layers), _saxes(("ssm_inner",), layers),
+                   "ones"),
+        "out_proj": PD(_stack((din, d), layers),
+                       _saxes(("ssm_inner", "embed"), layers)),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv via shifted adds. x: (B,S,C); w: (W,C)."""
+    W, S = w.shape[0], x.shape[1]
+    out = x * w[-1][None, None, :]
+    for i in range(1, W):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :S]
+        out = out + shifted * w[W - 1 - i][None, None, :]
+    return out + b[None, None, :]
+
+
+def _split_mamba(cfg: ModelConfig, zxbcdt):
+    din, N = cfg.d_inner, cfg.ssm_state
+    G = 1
+    z = zxbcdt[..., :din]
+    xbc = zxbcdt[..., din:din + din + 2 * G * N]
+    dt = zxbcdt[..., din + din + 2 * G * N:]
+    return z, xbc, dt
+
+
+def apply_mamba(ctx: Ctx, cfg: ModelConfig, p: dict, x, *, ssm_state=None,
+                conv_state=None):
+    """Mamba-2 block, the reference's three modes
+    (``repro/models/layers.py:686-746``):
+      * cache-free (both states None): zero-padded causal conv, SSD from a
+        zero state;
+      * prefill into a cache slot (S > 1, or S == 1 without ``ssm_state``):
+        the carried conv window is the chunk's true left context, and the
+        chunk's SSD (the ``ssd`` kernel on CUDA) starts from ``ssm_state``;
+      * single-step decode (S == 1 and ``ssm_state`` given): the conv
+        window rolls by one row and the recurrence takes one step.
+    ``ssm_state`` (B, H, P, N) float32 and ``conv_state`` (B, W-1, conv)
+    are one layer's views of the cache and are updated IN PLACE.
+    Returns (y, (ssm_state, conv_state))."""
+    c = ctx.cdtype
+    B, S, _ = x.shape
+    din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    G = 1
+    zxbcdt = x @ p["in_proj"].to(c)
+    z, xbc, dt_raw = _split_mamba(cfg, zxbcdt)
+
+    conv_w = p["conv_w"].to(c)
+    conv_b = p["conv_b"].to(c)
+    decode = S == 1 and ssm_state is not None
+    if decode:
+        # decode: roll the window, apply the conv at the newest position
+        window = torch.cat([conv_state, xbc], dim=1)           # (B, W, C)
+        xbc = (window * conv_w[None]).sum(dim=1, keepdim=True) + conv_b
+        conv_state.copy_(window[:, 1:])
+    elif conv_state is not None:
+        # prefill into a cache slot, possibly continuing an earlier chunk:
+        # the carried window is the true left context (a fresh slot carries
+        # zeros, which is plain zero-padding), so chunked prefill is exact
+        window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+        conv_state.copy_(window[:, -(cfg.ssm_conv - 1):])
+        xbc = _causal_conv(window, conv_w, conv_b)[:, cfg.ssm_conv - 1:]
+    else:
+        xbc = _causal_conv(xbc, conv_w, conv_b)
+    xbc = F.silu(xbc)
+
+    xs = xbc[..., :din].reshape(B, S, H, P)
+    Bm = xbc[..., din:din + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., din + G * N:].reshape(B, S, G, N)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    D = p["D"].float()
+
+    if decode:
+        y1, new_state = ref.ssd_decode_step(ssm_state, xs[:, 0],
+                                            dt[:, 0].to(c), A, Bm[:, 0],
+                                            Cm[:, 0], D=D)
+        ssm_state.copy_(new_state)
+        y = y1[:, None]
+    else:
+        chunk = min(cfg.ssm_chunk, S)
+        while S % chunk:
+            chunk -= 1
+        y, _ = ops.ssd(xs, dt.to(c), A, Bm, Cm, D=D, h0=ssm_state,
+                       chunk=chunk, state_out=ssm_state)
+    y = y.reshape(B, S, din)
+    y = rmsnorm_gated(p["norm"], y, z)
+    return y @ p["out_proj"].to(c), (ssm_state, conv_state)
+
+
+def empty_mamba_state(cfg: ModelConfig, batch: int, dtype, layers: int = 0,
+                      device="cpu"):
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "ssm": torch.zeros(_stack((batch, H, P, N), layers),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros(_stack((batch, cfg.ssm_conv - 1, conv_dim),
+                                   layers), dtype=dtype, device=device),
+    }
 
 
 # ===========================================================================

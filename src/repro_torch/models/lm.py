@@ -1,12 +1,19 @@
-"""LM assembly, dense and MoE families, ported from ``repro/models/lm.py``.
+"""LM assembly, ported from ``repro/models/lm.py``: the dense and MoE
+decoders, the Mamba-2 stack (``ssm``) and the zamba2 hybrid.
 
 One declarative parameter tree (the reference's keys and shapes, so the
-JAX package's weights load unchanged) and one forward: a pre-norm decoder
-whose layers run in a Python loop over the stacked ``layers`` leaves
-(the reference's ``lax.scan``); with ``n_experts > 0`` every layer's MLP
-is the MoE layer and ``forward`` returns the layers' summed aux loss.
-Other families and the gemma2 local/global pattern raise, naming the
-ROADMAP item that ports them.
+JAX package's weights load unchanged) and one forward whose layers run in
+a Python loop over the stacked ``layers`` leaves (the reference's
+``lax.scan``):
+  dense, moe  a pre-norm decoder; with ``n_experts > 0`` every layer's
+              MLP is the MoE layer and ``forward`` returns the layers'
+              summed aux loss
+  ssm         pre-norm residual Mamba-2 blocks (mamba2)
+  hybrid      Mamba-2 blocks with one SHARED attention block applied after
+              every ``shared_attn_period`` of them, on concat(h, the
+              embedding output), with per-invocation LoRA on q (zamba2)
+The vlm and audio families and the gemma2 local/global pattern raise,
+naming the ROADMAP item that ports them.
 
 Forward modes:
   forward(...)                     full-sequence hidden states (no cache);
@@ -23,17 +30,19 @@ import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.params import PD
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """The families the port runs: dense and MoE decoders."""
-    if cfg.family not in ("dense", "moe"):
-        item = {"ssm": "8", "hybrid": "8", "vlm": "12",
-                "audio": "12"}.get(cfg.family, "?")
+    """The families the port runs: dense and MoE decoders, Mamba-2 and the
+    zamba2 hybrid."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        item = {"vlm": "12", "audio": "12"}.get(cfg.family, "?")
         raise NotImplementedError(
             f"{cfg.family} family: ROADMAP queue 1 item {item}")
     if cfg.layer_pattern != "global" or cfg.post_norms:
@@ -45,24 +54,62 @@ def _require_ported(cfg: ModelConfig) -> None:
 # declarations
 # ===========================================================================
 
+def _shared_attn_decls(cfg: ModelConfig, n_inv: int) -> dict:
+    """Zamba2 shared transformer block over concat(h, emb) (width
+    2*d_model), plus per-invocation LoRA adapters on the q projection."""
+    d2 = 2 * cfg.d_model
+    r = cfg.shared_attn_lora or 32
+    return {
+        "ln1": L.norm_decls(cfg, d=d2),
+        "attn": L.attention_decls(cfg, d_in=d2),
+        "ln2": L.norm_decls(cfg, d=d2),
+        "mlp": {
+            "w_up": PD((d2, cfg.d_ff), ("embed", "mlp")),
+            "w_gate": PD((d2, cfg.d_ff), ("embed", "mlp")),
+            "w_down": PD((cfg.d_ff, cfg.d_model), ("mlp", "embed")),
+        },
+        "lora_a": PD((n_inv, d2, r), ("layers", "embed", "lora"),
+                     scale=d2 ** -0.5),
+        "lora_b": PD((n_inv, r, cfg.n_heads * cfg.head_dim),
+                     ("layers", "lora", "qkv_flat"), "zeros"),
+    }
+
+
+def zamba_structure(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(n_super, mamba_per_super, trailing) with
+    n_super*mamba_per_super + trailing == n_layers."""
+    period = max(cfg.shared_attn_period, 1)
+    n_super = cfg.n_layers // period
+    trailing = cfg.n_layers - n_super * period
+    return n_super, period, trailing
+
+
 def model_decls(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     n = cfg.n_layers
-    d: dict[str, Any] = {
-        "embed": L.embed_decls(cfg),
-        "layers": {
+    d: dict[str, Any] = {"embed": L.embed_decls(cfg)}
+    if cfg.family in ("ssm", "hybrid"):
+        d["layers"] = {"ln": L.norm_decls(cfg, layers=n),
+                       "mamba": L.mamba_decls(cfg, layers=n)}
+        if cfg.family == "hybrid":
+            d["shared"] = _shared_attn_decls(cfg, zamba_structure(cfg)[0])
+    else:
+        d["layers"] = {
             "ln1": L.norm_decls(cfg, layers=n),
             "attn": L.attention_decls(cfg, layers=n),
             "ln2": L.norm_decls(cfg, layers=n),
             "mlp": (L.moe_decls(cfg, layers=n) if cfg.n_experts
                     else L.mlp_decls(cfg, layers=n)),
-        },
-        "final_norm": L.norm_decls(cfg),
-    }
+        }
+    d["final_norm"] = L.norm_decls(cfg)
     ue = L.unembed_decls(cfg)
     if ue:
         d["unembed"] = ue
     return d
+
+
+#: parameter leaves that stay float32 on the compute path
+_F32_LEAVES = ("scale", "bias", "router", "A_log", "D", "dt_bias", "norm")
 
 
 def prepare_params(ctx: L.Ctx, params):
@@ -71,13 +118,16 @@ def prepare_params(ctx: L.Ctx, params):
     masters at every use; casting once rounds identically.  Norm scales
     stay float32 (norm maths is float32), and so does the MoE router: the
     reference computes its logits from the f32 masters, and a bf16 router
-    would route differently."""
+    would route differently.  So do the Mamba block's ``A_log``, ``D``,
+    ``dt_bias`` and gated-norm ``norm``, which the reference reads as
+    float32 from its masters (``repro/models/layers.py:93, 725-740``):
+    rounded to bf16, A and D would make the bf16 streams drift."""
     c, dev = ctx.cdtype, torch.device(ctx.device)
 
     def cast(tree, key=None):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}
-        if key in ("scale", "bias", "router"):
+        if key in _F32_LEAVES:
             return tree.to(dev)
         return tree.to(device=dev, dtype=c)
 
@@ -146,14 +196,79 @@ def _positions_default(batch: int, seq: int, device, cache_index=None):
     return pos.expand(batch, seq)
 
 
+def _mamba_layer(ctx: L.Ctx, cfg: ModelConfig, p, h, ssm_state=None,
+                 conv_state=None):
+    """One pre-norm residual Mamba-2 layer; the states (one layer's cache
+    views) are updated in place."""
+    out, _ = L.apply_mamba(ctx, cfg, p["mamba"], L.apply_norm(cfg, p["ln"], h),
+                           ssm_state=ssm_state, conv_state=conv_state)
+    return h + out
+
+
+def _shared_block(ctx: L.Ctx, cfg: ModelConfig, p, inv_idx: int, h, emb0, cos,
+                  sin, *, cache=None, cache_index=None, block_tables=None):
+    """Zamba2 shared attention block on concat(h, emb0), with invocation
+    ``inv_idx``'s LoRA on q (``repro/models/lm.py:344-369``)."""
+    c = ctx.cdtype
+    a_in = L.apply_norm(cfg, p["ln1"], torch.cat([h, emb0], dim=-1))
+    la = p["lora_a"][inv_idx].to(c)
+    lb = p["lora_b"][inv_idx].to(c)
+    B, S = a_in.shape[:2]
+    q_delta = (a_in @ la @ lb).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    out, _ = L.apply_attention(ctx, cfg, p["attn"], a_in, cos, sin,
+                               cache=cache, cache_index=cache_index,
+                               block_tables=block_tables, q_delta=q_delta)
+    h = h + out
+    m_in = L.apply_norm(cfg, p["ln2"], torch.cat([h, emb0], dim=-1))
+    gate = m_in @ p["mlp"]["w_gate"].to(c)
+    up = m_in @ p["mlp"]["w_up"].to(c)
+    return h + (F.silu(gate) * up) @ p["mlp"]["w_down"].to(c)
+
+
+def _ssm_forward(ctx: L.Ctx, cfg: ModelConfig, params, h, cos, sin, *,
+                 cache, cache_index, block_tables, remat: bool):
+    """The Mamba-2 stack; for the hybrid, the shared block after every
+    ``shared_attn_period`` layers (invocation i after layer (i+1)*period-1,
+    its KV in ``kv_shared`` layer i), trailing layers after the last.
+    ``emb0`` is the embedding output, as in the reference's
+    ``_zamba_forward`` (``repro/models/lm.py:445``)."""
+    st = cache["mamba"] if cache is not None else None
+    kv = cache.get("kv_shared") if cache is not None else None
+    per = zamba_structure(cfg)[1] if cfg.family == "hybrid" else 0
+    emb0 = h
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                functools.partial(_mamba_layer, ctx, cfg), p, h,
+                use_reentrant=False)
+        else:
+            h = _mamba_layer(ctx, cfg, p, h,
+                             st["ssm"][i] if st is not None else None,
+                             st["conv"][i] if st is not None else None)
+        if per and (i + 1) % per == 0:
+            inv = (i + 1) // per - 1
+            block = functools.partial(_shared_block, ctx, cfg,
+                                      params["shared"], inv)
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    block, h, emb0, cos, sin, use_reentrant=False)
+            else:
+                h = block(h, emb0, cos, sin,
+                          cache=({"k": kv["k"][inv], "v": kv["v"][inv]}
+                                 if kv is not None else None),
+                          cache_index=cache_index, block_tables=block_tables)
+    return h
+
+
 def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
             cache=None, cache_index=None):
     """Returns (hidden (B,S,D), aux_loss, cache).  ``cache`` is the
     ``init_cache`` dict (or one slot's views of it), or the
     ``init_paged_cache`` dict (pools passed whole, possibly with one
-    slot's table row), and is written in place; the same dict comes back.
-    A paged cache's top-level ``block_tables`` addresses every layer's
-    pools; the model never remaps blocks."""
+    slot's table row and, for the hybrid, its Mamba lane views), and is
+    written in place; the same dict comes back.  A paged cache's top-level
+    ``block_tables`` addresses every layer's pools; the model never remaps
+    blocks."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -163,10 +278,15 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
         positions = _positions_default(B, S, tokens.device, cache_index)
     cos, sin = (L.rope_cos_sin(cfg, positions) if cfg.use_rope
                 else (None, None))
-    kv = cache["kv"] if cache is not None else None
     block_tables = cache.get("block_tables") if cache is not None else None
     remat = cache is None and torch.is_grad_enabled() and _remat(ctx)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in ("ssm", "hybrid"):
+        h = _ssm_forward(ctx, cfg, params, h, cos, sin, cache=cache,
+                         cache_index=cache_index, block_tables=block_tables,
+                         remat=remat)
+        return L.apply_norm(cfg, params["final_norm"], h), aux, cache
+    kv = cache["kv"] if cache is not None else None
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         if remat:
             h, a = torch.utils.checkpoint.checkpoint(
@@ -208,43 +328,71 @@ def logits_for(ctx: L.Ctx, cfg: ModelConfig, params, h):
 
 
 def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
-    """Decode state: stacked (L, B, max_seq, K, hd) k/v zeros in the
-    compute dtype on ``ctx.device``."""
+    """Decode state on ``ctx.device``: stacked (L, B, max_seq, K, hd) k/v
+    zeros in the compute dtype (``kv``); for the Mamba families the
+    recurrent state (``mamba``: ``ssm`` (L, B, H, P, N) float32 and
+    ``conv`` (L, B, W-1, conv_dim)) and, for the hybrid, the shared
+    block's k/v stacked over its ``n_super`` invocations (``kv_shared``)."""
     _require_ported(cfg)
-    return {"kv": L.empty_kv_cache(cfg, batch, max_seq, ctx.cdtype,
-                                   layers=cfg.n_layers, device=ctx.device)}
+    c, dev = ctx.cdtype, ctx.device
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"mamba": L.empty_mamba_state(cfg, batch, c,
+                                            layers=cfg.n_layers, device=dev)}
+        if cfg.family == "hybrid":
+            out["kv_shared"] = L.empty_kv_cache(
+                cfg, batch, max_seq, c, layers=zamba_structure(cfg)[0],
+                device=dev)
+        return out
+    return {"kv": L.empty_kv_cache(cfg, batch, max_seq, c,
+                                   layers=cfg.n_layers, device=dev)}
 
 
 def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
                      block_size: int, n_blocks: int | None = None):
-    """Paged decode state on ``ctx.device``: the rows become block POOLS
-    (L, n_blocks, block_size, K, hd) shared by all slots, plus one
-    top-level ``block_tables`` ((batch, max_seq // block_size) int32)
-    mapping each slot's logical rows to pool blocks.  Tables start at zero,
-    as the reference's: an unmapped entry aliases block 0, harmless since
-    reads past kv_len are masked and writes only reach mapped entries.
+    """Paged decode state on ``ctx.device``: the rows keys become block
+    POOLS (layers, n_blocks, block_size, K, hd) shared by all slots, plus
+    one top-level ``block_tables`` ((batch, max_seq // block_size) int32)
+    mapping each slot's logical rows to pool blocks.  State keys (the
+    hybrid's Mamba lanes) are not row-addressable and stay dense; an
+    ``ssm`` cache has no rows and raises.  Tables start at zero, as the
+    reference's: an unmapped entry aliases block 0, harmless since reads
+    past kv_len are masked and writes only reach mapped entries.
     ``n_blocks`` defaults to ``batch * max_blocks`` (the dense capacity)."""
     _require_ported(cfg)
     if max_seq % block_size:
         raise ValueError(f"max_seq {max_seq} must be a multiple of "
                          f"block_size {block_size}")
+    if cfg.family == "ssm":
+        raise ValueError("ssm caches have no sequence rows to page")
+    c, dev = ctx.cdtype, ctx.device
     max_blocks = max_seq // block_size
     if n_blocks is None:
         n_blocks = batch * max_blocks
-    return {"kv": L.empty_paged_kv_cache(cfg, n_blocks, block_size,
-                                         ctx.cdtype, layers=cfg.n_layers,
-                                         device=ctx.device),
-            "block_tables": torch.zeros((batch, max_blocks),
-                                        dtype=torch.int32,
-                                        device=ctx.device)}
+    table = torch.zeros((batch, max_blocks), dtype=torch.int32, device=dev)
+    if cfg.family == "hybrid":
+        return {"mamba": L.empty_mamba_state(cfg, batch, c,
+                                             layers=cfg.n_layers, device=dev),
+                "kv_shared": L.empty_paged_kv_cache(
+                    cfg, n_blocks, block_size, c,
+                    layers=zamba_structure(cfg)[0], device=dev),
+                "block_tables": table}
+    return {"kv": L.empty_paged_kv_cache(cfg, n_blocks, block_size, c,
+                                         layers=cfg.n_layers, device=dev),
+            "block_tables": table}
 
 
 #: Slot semantics of a cache kind (as the reference): "rows" leaves carry
-#: sequence rows on axis 2, valid up to the slot's kv_len.
-SLOT_ROWS = "rows"
+#: sequence rows on axis 2, valid up to the slot's kv_len (attention masks
+#: the rest); "state" leaves carry the whole lane unconditionally
+#: (recurrent SSM / conv state has no row mask: it is the left context).
+SLOT_ROWS, SLOT_STATE = "rows", "state"
 
 
 def cache_slot_spec(cfg: ModelConfig) -> dict[str, str]:
     """Per-top-level-key slot schema of ``init_cache``'s dict."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"mamba": SLOT_STATE}
+    if cfg.family == "hybrid":
+        return {"mamba": SLOT_STATE, "kv_shared": SLOT_ROWS}
     return {"kv": SLOT_ROWS}

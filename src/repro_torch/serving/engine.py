@@ -97,9 +97,22 @@ def make_decode_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
 # ===========================================================================
 
 def _slot_views(cache, slot: int):
-    """One slot's lane of the stacked cache, as views (batch axis = 1):
-    writes through them land in the full cache."""
-    return {"kv": {k: a[:, slot:slot + 1] for k, a in cache["kv"].items()}}
+    """One slot's lane of every key of the stacked cache (rows and state
+    alike have the batch slot on axis 1), as views: writes through them
+    land in the full cache."""
+    return {key: {k: a[:, slot:slot + 1] for k, a in leaves.items()}
+            for key, leaves in cache.items()}
+
+
+def _reset_state_slot(cache, slot: int) -> None:
+    """Zero one slot's recurrent (SSM and conv) state before reuse, in
+    place (``repro/serving/engine.py:293-300``): unlike KV rows, which are
+    masked by the slot's kv_len, Mamba state carries unconditionally and
+    would leak the previous request into the next.  ``zero_`` on the lane
+    is a kernel: no host sync.  A cache without Mamba state is left as it
+    is."""
+    for a in cache.get("mamba", {}).values():
+        a[:, slot].zero_()
 
 
 def make_prefill_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
@@ -123,11 +136,20 @@ def make_prefill_chunk_step_paged(cfg: ModelConfig, run: RunConfig,
     axis, so they are passed WHOLE with only the slot's table row (the view
     ``block_tables[slot:slot+1]``): the paged write reaches only blocks
     that row maps, so every other slot's blocks are untouched -- the same
-    isolation, enforced by block ownership instead of lane slicing."""
+    isolation, enforced by block ownership instead of lane slicing.  State
+    keys (the hybrid's Mamba lanes) are passed as the slot's lane views."""
+
+    spec = lm.cache_slot_spec(cfg)
 
     def prefill_chunk(params, cache, tokens, slot: int, index: int):
-        sub = {"kv": cache["kv"],
-               "block_tables": cache["block_tables"][slot:slot + 1]}
+        sub = {}
+        for key, leaves in cache.items():
+            if key == "block_tables":
+                sub[key] = leaves[slot:slot + 1]
+            elif spec[key] == lm.SLOT_STATE:
+                sub[key] = {k: a[:, slot:slot + 1] for k, a in leaves.items()}
+            else:
+                sub[key] = leaves                   # pool: passed whole
         h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
                              cache=sub, cache_index=index)
         logits = lm.logits_for(ctx, cfg, params, h[:, -1:, :])
@@ -158,7 +180,10 @@ def make_decode_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
             rem = torch.where(done, rem, rem - 1)
             done = done | (rem <= 0)
             # done slots write at max_seq: the per-slot cache write drops
-            # them, so retired lanes cost no state
+            # them, so retired lanes cost no KV rows.  A Mamba lane has no
+            # row to drop: a done lane's recurrent state keeps advancing on
+            # token 0, as in the reference, and the reset at the next
+            # admission to that slot wipes it
             widx = torch.where(done, max_seq, index)
             h, _, cache = lm.forward(ctx, cfg, params, {"tokens": cur[:, None]},
                                      cache=cache, cache_index=widx)
@@ -220,6 +245,9 @@ class ServeEngine:
     request's ``prefix_len`` leading rows after prefill; later admissions
     whose prompts start with the same tokens map the cached blocks
     (copy-on-write on the partial tail block) and skip prefilling them.
+    As in the reference, an ``ssm`` model has no rows to page and refuses
+    ``paged=True``, and a cache with recurrent state (ssm, hybrid) refuses
+    prefix sharing; each admission zeroes the slot's Mamba state.
 
     The engine runs on ``ctx.device`` (``cuda`` by default; raises when
     there is no card, unless the Ctx names the CPU).
@@ -233,9 +261,18 @@ class ServeEngine:
                  n_blocks: int | None = None, prefix_sharing: bool = False):
         if prefix_sharing and not paged:
             raise ValueError("prefix_sharing requires paged=True")
-        if paged and max_seq % block_size:
-            raise ValueError(f"max_seq {max_seq} must be a multiple of "
-                             f"block_size {block_size}")
+        if paged:
+            if cfg.family == "ssm":
+                raise ValueError("ssm caches have no sequence rows to page")
+            if max_seq % block_size:
+                raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                                 f"block_size {block_size}")
+            if prefix_sharing and any(
+                    kind == lm.SLOT_STATE
+                    for kind in lm.cache_slot_spec(cfg).values()):
+                raise ValueError(
+                    "prefix_sharing requires a pure-rows cache schema "
+                    "(recurrent state cannot be row-shared)")
         prefill_chunk = min(prefill_chunk, max_seq)
         if prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1):
             raise ValueError(f"prefill_chunk must be a power of two, "
@@ -341,9 +378,12 @@ class ServeEngine:
 
     def _copy_block(self, src: int, dst: int) -> None:
         """CoW: duplicate pool block ``src`` into ``dst`` in every layer's
-        k and v pools (a plain tensor copy, on the device's queue)."""
-        for pool in self._cache["kv"].values():
-            pool[:, dst] = pool[:, src]
+        pools of every rows key (a plain tensor copy, on the device's
+        queue)."""
+        for key, kind in lm.cache_slot_spec(self.cfg).items():
+            if kind == lm.SLOT_ROWS:
+                for pool in self._cache[key].values():
+                    pool[:, dst] = pool[:, src]
 
     def _map_slot_blocks(self, sid: int, total_rows: int, shared_rows: int,
                          shared_blocks) -> list[int]:
@@ -394,6 +434,7 @@ class ServeEngine:
                 req.prompt, cap)
         blocks = self._map_slot_blocks(sid, plen + req.max_new_tokens,
                                        shared_rows, shared_blocks)
+        _reset_state_slot(self._cache, sid)
         logits = self._prefill_rows(req.prompt[shared_rows:], sid,
                                     shared_rows)
         self.prefill_tokens_skipped += shared_rows
@@ -510,6 +551,7 @@ class ServeEngine:
                 if self.paged:
                     logits = self._admit_paged(req, slot.sid)
                 else:
+                    _reset_state_slot(self._cache, slot.sid)
                     logits = self._prefill_rows(req.prompt, slot.sid, 0)
             _admit_step(self._cur, self._index, self._rem, self._done,
                         logits, slot.sid, len(req.prompt),

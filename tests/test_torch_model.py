@@ -128,9 +128,11 @@ def test_prefill_and_decode_steps_match_reference(dtype, tol):
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = dataclasses.replace(reduced(get_model_config(ARCH)), family="ssm")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        lm.model_decls(cfg)
+    for family in ("vlm", "audio"):
+        cfg = dataclasses.replace(reduced(get_model_config(ARCH)),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            lm.model_decls(cfg)
     from repro_torch.configs.registry import get_model_config as get
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        get("mamba2-370m")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        get("gemma2-2b")

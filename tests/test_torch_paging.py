@@ -540,7 +540,7 @@ def test_every_kernel_source_is_built_and_declared():
                                      "decode_attention_paged",
                                      "cache_update", "cache_update_paged",
                                      "flash_attention", "flash_attention_bwd",
-                                     "grouped_matmul"}
+                                     "grouped_matmul", "ssd"}
     for name in build.SIGNATURES:
         assert (build.CSRC / f"{name}.cu").exists()
     names = [p.name for p in build.sources("decode_attention_paged")]
@@ -548,7 +548,7 @@ def test_every_kernel_source_is_built_and_declared():
     assert {fn.__name__ for fn in tfa.KERNELS} == {
         "flash_decode", "flash_decode_paged", "cache_update",
         "cache_update_paged", "flash_attention", "flash_attention_bwd",
-        "grouped_matmul"}
+        "grouped_matmul", "ssd"}
 
 
 def test_reduced_config_pages_at_the_reference_shapes(f32_pair):
