@@ -21,8 +21,10 @@ caught):
      ``attention_naive`` (with its lse) and ``attention_bwd_ref`` entry by
      entry (the training shape B=2, S=2048, and D=32; causal, window +
      softcap, bidirectional, odd lengths, Sq != Sk; bf16 and f32), the
-     same checks shown to reject kernels that drop one 64-row tile, then
-     timed at the training shape beside SDPA and its autograd backward;
+     same checks shown to reject kernels that drop one tile of the bf16
+     kernels' sizes and the plain version with P and dS rounded to bf16
+     once (the shortcut the hi/lo split avoids), then timed at the
+     training shape beside SDPA and its autograd backward;
      the four decode and cache kernels also at olmoe's H = K = 16 (one
      query head per kv head), checked and timed; ``grouped_matmul``
      against ``ref.grouped_matmul`` entry by entry at the olmoe path's
@@ -35,7 +37,8 @@ caught):
      ``ref.ssd_chunked`` entry by entry at mamba2's (H=32, P=64, N=128)
      and zamba2's (H=64, P=64, N=64) heads, S 256 (two chunks), 128, 64,
      16 and 2, with and without h0, G=2 once, the state written over h0
-     once, bf16 and f32, the check shown to reject a kernel that drops
+     once, chunks 37 (S=148) and 1 (S=131) at mamba2's heads, bf16 and
+     f32, the check shown to reject a kernel that drops
      h0 or the state carried between chunks, then timed at S=256 beside
      its byte bound (no library call computes SSD);
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
@@ -172,11 +175,15 @@ GMM_SHAPES = [(64, 2, 2048, 1024), (64, 2, 1024, 2048),      # decode
               (8, 2, 128, 256), (8, 5, 256, 128),            # reduced configs
               (8, 17, 128, 256)]
 TRAIN_STEPS = 6
-#: kernel-name fragments of the train step's device time by kind
+#: the bf16 attention kernels' tiles: the forward's key tile, the dK/dV
+#: pass's query step and the dQ pass's query tile (flash_attention*.cu)
+FA_KEY_TILE, FA_KV_STEP, FA_DQ_TILE = 128, 64, 128
+#: kernel-name fragments of the train step's device time by kind (bf16:
+#: the tensor-core kernels)
 TRAIN_PROFILE_GROUPS = {
-    "flash_attention": ("attn_fwd_kernel",),
-    "flash_attention_bwd": ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
-                            "attn_delta_kernel"),
+    "flash_attention": ("attn_fwd_tc_kernel",),
+    "flash_attention_bwd": ("attn_bwd_dkdv_tc_kernel",
+                            "attn_bwd_dq_tc_kernel", "attn_delta_kernel"),
     "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
 }
 # [train:parity], f32 card (kernels, TF32 off) vs f32 CPU (plain), one
@@ -754,54 +761,100 @@ def check_flash_attention(tfa, ref):
 
 
 def check_planted_faults(tfa, ref):
-    """The attention checks must reject kernels that drop one 64-row tile
-    (the kernels' tile).  At the training shape (bf16, causal), against the
-    plain version of the intact inputs: the forward with the last key
-    tile's v zeroed (that tile's contribution to the last query rows
-    dropped), and the backward with the last query tile's dout zeroed
-    (that tile's contribution to every dk and dv dropped, its dq rows
-    zero).  Raises if a check passes a fault.  Reports, per tensor, the
-    share of entries beyond their limit and max|err| / max|want| (what a
-    limit on the whole tensor would see); for dv both also over the keys
-    before the last tile, whose dv the fault only shortens."""
+    """The attention checks must reject kernels that drop one tile of the
+    size the bf16 kernels use.  At the training shape (bf16, causal),
+    against the plain version of the intact inputs: the forward with the
+    last FA_KEY_TILE rows of v zeroed (its last key tile's contribution to
+    the last query rows dropped); the backward with the last FA_KV_STEP
+    rows of dout zeroed (the dK/dV pass's last query step: its
+    contribution to every dk and dv dropped), checked on dk and dv; and
+    with the last FA_DQ_TILE rows of dout zeroed (the dQ pass's last query
+    tile: those dq rows zero), checked on dq.  Raises if a check passes a
+    fault.  Reports, per tensor, the share of entries beyond their limit
+    and max|err| / max|want| (what a limit on the whole tensor would see);
+    for dv both also over the keys before the last step, whose dv the
+    fault only shortens."""
     import torch
-    B, S, H, K, D, T = 2, 2048, 24, 8, 128, 64
+    B, S, H, K, D = 2, 2048, 24, 8, 128
     q, k, v, do = _attention_case(B, S, S, H, K, D, torch.bfloat16, 700)
     want_out, want_lse = ref.attention_naive(q, k, v, return_lse=True)
     want = ref.attention_bwd_ref(q, k, v, want_out, want_lse, do)
-    v_cut, do_cut = v.clone(), do.clone()
-    v_cut[:, -T:] = 0
-    do_cut[:, -T:] = 0
+    v_cut, do_step, do_tile = v.clone(), do.clone(), do.clone()
+    v_cut[:, -FA_KEY_TILE:] = 0
+    do_step[:, -FA_KV_STEP:] = 0
+    do_tile[:, -FA_DQ_TILE:] = 0
     out, _ = tfa.flash_attention(q, k, v_cut)
-    grads = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do_cut)
+    _, dk, dv = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do_step)
+    dq, _, _ = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do_tile)
     faults = {}
-    for n, got, w in (("out", out, want_out),
-                      *zip(("dq", "dk", "dv"), grads, want)):
+    for n, got, w in (("out", out, want_out), ("dq", dq, want[0]),
+                      ("dk", dk, want[1]), ("dv", dv, want[2])):
         ratio = _entry_ratio("bfloat16", got, w)
         faults[n] = {
             "flagged_share": (ratio > 1).float().mean().item(),
             "max_err_over_max_want": ((got.float() - w.float()).abs().max()
                                       / w.float().abs().max()).item()}
         if n == "dv":
+            keep = slice(None, -FA_KV_STEP)
             faults[n]["flagged_share_before_last_tile"] = (
-                ratio[:, :-T] > 1).float().mean().item()
+                ratio[:, keep] > 1).float().mean().item()
             faults[n]["max_err_over_max_want_before_last_tile"] = (
-                (got[:, :-T].float() - w[:, :-T].float()).abs().max()
+                (got[:, keep].float() - w[:, keep].float()).abs().max()
                 / w.float().abs().max()).item()
         if not (ratio > 1).any():
             raise AssertionError(f"flash_attention: the {n} check passes a "
                                  "kernel that drops a tile")
     print(f"[check] flash_attention planted faults B={B} S={S} H={H} K={K} "
-          f"D={D} causal bf16 (out: last key tile's v zeroed; dq/dk/dv: last "
-          "query tile's dout zeroed): share of entries beyond their limit, "
-          "max|err|/max|want|: " + ", ".join(
+          f"D={D} causal bf16 (out: last {FA_KEY_TILE}-row key tile's v "
+          f"zeroed; dk/dv: last {FA_KV_STEP}-row query step's dout zeroed; "
+          f"dq: last {FA_DQ_TILE}-row query tile's dout zeroed): share of "
+          "entries beyond their limit, max|err|/max|want|: " + ", ".join(
               f"{n} {f['flagged_share']:.4f}, {f['max_err_over_max_want']:.3e}"
               for n, f in faults.items())
-          + "; dv before the last key tile {:.4f}, {:.3e}".format(
+          + "; dv before the last step {:.4f}, {:.3e}".format(
               faults["dv"]["flagged_share_before_last_tile"],
               faults["dv"]["max_err_over_max_want_before_last_tile"]),
           flush=True)
     return faults
+
+
+def check_bf16_shortcut(ref):
+    """The per-entry rule must reject the shortcut a bf16 tensor-core
+    product invites: P (for out) and dS (for dq) rounded to bf16 once
+    (``ref.attention_tc_emulated(parts=1)``, the plain version with that
+    one change), at the training shape (bf16, causal) on the card.  The
+    kernels' split, hi = bf16(x) and lo = bf16(x - hi) (``parts=2``), is
+    shown beside it, within the rule.  Raises if the rule passes the
+    shortcut or rejects the split."""
+    import torch
+    B, S, H, K, D = 2, 2048, 24, 8, 128
+    q, k, v, do = _attention_case(B, S, S, H, K, D, torch.bfloat16, 700)
+    want_out, want_lse = ref.attention_naive(q, k, v, return_lse=True)
+    want_dq = ref.attention_bwd_ref(q, k, v, want_out, want_lse, do)[0]
+    res = {}
+    for parts in (1, 2):
+        out, dq = ref.attention_tc_emulated(q, k, v, want_out, want_lse, do,
+                                            parts=parts)
+        for n, got, w in (("out", out, want_out), ("dq", dq, want_dq)):
+            ratio = _entry_ratio("bfloat16", got, w)
+            res[f"{n}_parts{parts}"] = {
+                "worst_over_limit": ratio.max().item(),
+                "flagged_share": (ratio > 1).float().mean().item()}
+        del out, dq
+    print(f"[check] flash_attention bf16 shortcut B={B} S={S} H={H} K={K} "
+          f"D={D} causal (plain version, worst entry / its limit, share "
+          "beyond): P and dS rounded to bf16 once: " + ", ".join(
+              f"{n} {res[n + '_parts1']['worst_over_limit']:.3f} "
+              f"({res[n + '_parts1']['flagged_share']:.4f})"
+              for n in ("out", "dq"))
+          + "; split hi + lo: " + ", ".join(
+              f"{n} {res[n + '_parts2']['worst_over_limit']:.3f}"
+              for n in ("out", "dq")), flush=True)
+    if any(res[f"{n}_parts1"]["worst_over_limit"] <= 1 for n in ("out", "dq")):
+        raise AssertionError(f"the attention rule passes bf16 P / dS: {res}")
+    if any(res[f"{n}_parts2"]["worst_over_limit"] > 1 for n in ("out", "dq")):
+        raise AssertionError(f"the attention rule rejects the split: {res}")
+    return res
 
 
 def time_flash_attention(tfa, ref):
@@ -1003,23 +1056,30 @@ def check_ssd(tssd, ref):
     chunks: the state carried), 128, 64, 16 and 2 (one chunk of S rows,
     as serving cuts prompt tails), with and without h0, with D; the
     models' dt scale once per shape; G = 2 once; the final state written
-    over h0 (the cache lane, in place) once; bf16 and f32."""
+    over h0 (the cache lane, in place) once; at mamba2's heads the chunks
+    a whole-prompt prefill picks that are no power of two: 37 (S = 4 x
+    37) and 1 (S = 131, a prime); bf16 and f32."""
     import torch
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for model, (H, P, N) in SSD_HEADS.items():
-            cases += [(dtype, model, H, P, N, S, 1, h0, -3.0, False)
+            cases += [(dtype, model, H, P, N, S, 1, h0, -3.0, False,
+                       min(128, S))
                       for S in (256, 128, 64, 16, 2) for h0 in (True, False)]
-            cases.append((dtype, model, H, P, N, 256, 1, True, 0.0, False))
+            cases.append((dtype, model, H, P, N, 256, 1, True, 0.0, False,
+                          128))
         H, P, N = SSD_HEADS["mamba2"]
-        cases.append((dtype, "mamba2", H, P, N, 256, 2, True, -3.0, False))
-        cases.append((dtype, "mamba2", H, P, N, 256, 1, True, -3.0, True))
+        cases.append((dtype, "mamba2", H, P, N, 256, 2, True, -3.0, False,
+                      128))
+        cases.append((dtype, "mamba2", H, P, N, 256, 1, True, -3.0, True,
+                      128))
+        cases += [(dtype, "mamba2", H, P, N, S, 1, True, -3.0, False, Q)
+                  for S, Q in ((4 * 37, 37), (131, 1))]
     checks = []
-    for dtype, model, H, P, N, S, G, use_h0, shift, inplace in cases:
+    for dtype, model, H, P, N, S, G, use_h0, shift, inplace, Q in cases:
         x, dt, A, B, C, D, h0 = _ssd_case(1, S, H, P, G, N, dtype,
                                           5000 + len(checks), shift)
         h0 = h0 if use_h0 else None
-        Q = min(128, S)
         want_y, want_s = ref.ssd_chunked(x, dt, A, B, C, D, h0, chunk=Q)
         if inplace:
             got_y, got_s = tssd.ssd(x, dt, A, B, C, D, h0, chunk=Q,
@@ -2283,6 +2343,7 @@ def main() -> int:
     }
     fa_checks = check_flash_attention(tfa, ref)
     fa_faults = check_planted_faults(tfa, ref)
+    fa_shortcut = check_bf16_shortcut(ref)
     fa_times = time_flash_attention(tfa, ref)
     times["flash_attention training"] = fa_times["fwd"]
     times["flash_attention_bwd training"] = fa_times["bwd"]
@@ -2434,7 +2495,8 @@ def main() -> int:
                   [dict(c, max_abs_err={n: c["max_abs_err"][n]
                                         for n in ("out", "lse")})
                    for c in fa_checks],
-                  tolerance=_ATTN_TOL_TEXT, planted_fault=fa_faults["out"]),
+                  tolerance=_ATTN_TOL_TEXT, planted_fault=fa_faults["out"],
+                  bf16_shortcut=fa_shortcut),
         train_row("flash_attention_bwd", csrc + "flash_attention_bwd.cu",
                   train_src + ":37", fa_times["bwd"],
                   [dict(c, max_abs_err={n: c["max_abs_err"][n]

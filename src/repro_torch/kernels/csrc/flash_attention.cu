@@ -15,21 +15,35 @@
 // 4 * D * (causal pairs) = 5.2e10 operations, 0.052 ms at the bf16
 // tensor-core peak, against ~67 MB of q, k, v, out (0.02 ms).
 //
-// What the design does (a first, simple kernel; see flash_attention.cuh
-// for the tiling):
-//   * the TPU's sequential ("arbitrary") kv grid axis becomes a loop inside
-//     the block: a block owns (b, h, 64-row query tile), keeps each row's
-//     running max, sum and (64 x D) accumulator in registers and walks the
-//     64-row key tiles the mask leaves visible -- fully masked tiles
-//     (causality, window) are never loaded, as the reference skips them;
-//   * each key/value tile is staged once per block by cp.async into
-//     shared memory and feeds all 64 query rows;
-//   * both products run on the CUDA cores in f32 (register-tiled 4 x 4
-//     and 4 x D/16 patches per thread): bf16 inputs, f32 accumulation.
-// Known limit, the first thing to fix: the products do not use the tensor
-// cores (mma.sync / wgmma), so the kernel sits far above its bound.
+// bf16: the tensor cores (attn_fwd_tc_kernel; building blocks in
+// hopper.cuh).  A block owns (b, h, 128 query rows) as two warpgroups of
+// 64 rows and walks the key tiles of 128 rows that the mask leaves
+// visible; fully masked tiles (causality, window) are never loaded, and
+// only tiles on the diagonal, the window's edge or past Sk are masked.
+//   * Staging: thread 0 loads the q tile and each key/value tile by TMA
+//     into a ring of 2 stages completed on mbarriers, so the next tile's
+//     copy runs under this tile's products; rows past Sq / Sk arrive as
+//     zeros.  The grid runs the query tiles with the most key tiles first.
+//   * S = Q K^T is one chain of wgmma from shared memory (both K-major);
+//     the online softmax (log2 domain) runs on the accumulator fragment in
+//     registers, with no score tile in shared memory.
+//   * P V: P feeds wgmma as the register A operand, V the shared-memory
+//     MN-major B operand.  Rounding P to bf16 would break the check's one
+//     bf16 ulp per entry, so P goes in as two bf16 parts, hi = bf16(P) and
+//     lo = bf16(P - hi), two products summed in f32: 6 * D * pairs
+//     operations in all (0.078 ms at the peak).  Q K^T takes bf16 inputs
+//     and is exact in f32.
+// What still bounds it: the block's two warpgroups run the S product, the
+// softmax and the P V product in turn (no overlap of one tile's softmax
+// with the next tile's product, no producer warp, one __syncthreads per
+// key tile), and the output is stored from registers.
+//
+// float32 (the checks and the f32 parity step): attn_fwd_kernel on the CUDA
+// cores (tiling in flash_attention.cuh), f32 products throughout; TF32
+// would not meet the f32 checks' 1e-5.
 
 #include "flash_attention.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -165,11 +179,225 @@ cudaError_t launch_fwd_dim(const void* q, const void* k, const void* v, void* ou
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 256;                // two warpgroups
+constexpr int FW_BQ = 128, FW_BK = 128, FW_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return (size_t)(FW_BQ + 2 * FW_STAGES * FW_BK) * D * 2 + (1 + FW_STAGES) * 8 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
+                   float scale, float softcap, int window) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* ks = qs + FW_BQ * D;                   // FW_STAGES key tiles
+  bf16* vs = ks + FW_STAGES * FW_BK * D;       // FW_STAGES value tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + FW_STAGES * FW_BK * D);  // q, then stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FW_BQ;   // most key tiles first
+  const int kh = h / (H / K);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int qw = q0 + 64 * wg;                           // the warpgroup's first row
+  const int row = qw + 16 * warp + lane / 4;             // rows row, row + 8
+  const int col = 2 * (lane % 4);                        // + 8j + e
+
+  const int q_last = min(q0 + FW_BQ, Sq) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, q0 - window + 1) / FW_BK * FW_BK : 0;
+  const int n = hi > lo ? (hi - lo + FW_BK - 1) / FW_BK : 0;
+  constexpr uint32_t KV_BYTES = 2u * FW_BK * D * 2;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + FW_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bars[0], FW_BQ * D * 2);
+    tma_tile<D>(qs, &q_map, &bars[0], h, q0, b, FW_BQ);
+    for (int s = 0; s < FW_STAGES && s < n; ++s) {
+      mbar_expect(&bars[1 + s], KV_BYTES);
+      tma_tile<D>(ks + s * FW_BK * D, &k_map, &bars[1 + s], kh, lo + s * FW_BK, b, FW_BK);
+      tma_tile<D>(vs + s * FW_BK * D, &v_map, &bars[1 + s], kh, lo + s * FW_BK, b, FW_BK);
+    }
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m2[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // running max (log2 units), sum
+  mbar_wait(&bars[0], 0);
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % FW_STAGES, k0 = lo + t * FW_BK;
+    const bf16* kt = ks + st * FW_BK * D;
+    const bf16* vt = vs + st * FW_BK * D;
+    mbar_wait(&bars[1 + st], (t / FW_STAGES) & 1);
+
+    float s[FW_BK / 2];
+#pragma unroll
+    for (int i = 0; i < FW_BK / 2; ++i) s[i] = 0.f;
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor_desc<D>(qs, FW_BQ, 64 * wg, kk), kmajor_desc<D>(kt, FW_BK, 0, kk),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+
+    // logits in log2 units; masked ones -inf (m2 starts finite, so no
+    // inf - inf)
+    const bool edge = k0 + FW_BK > Sk || (causal && k0 + FW_BK - 1 > qw) ||
+                      (window > 0 && qw + 63 - k0 >= window);
+    float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < FW_BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[4 * j + 2 * i + e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          x *= LOG2E;
+          if (edge && !visible(row + 8 * i, k0 + 8 * j + col + e, Sq, Sk, causal, window))
+            x = -INFINITY;
+          s[4 * j + 2 * i + e] = x;
+          tmax[i] = fmaxf(tmax[i], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float mn = fmaxf(m2[i], tmax[i]);
+      alpha[i] = exp2f(m2[i] - mn);
+      m2[i] = mn;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < FW_BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[4 * j + 2 * i + e] - m2[i]);
+          l[i] += p;
+          s[4 * j + 2 * i + e] = p;
+        }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * j + 2 * i] *= alpha[i];
+        o[4 * j + 2 * i + 1] *= alpha[i];
+      }
+
+    // O += P V with P as hi + lo
+    uint32_t ph[FW_BK / 16][4], pl[FW_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk) {
+      split_fragment(s, kk, ph[kk], pl[kk]);
+      reg_fence(ph[kk]);
+      reg_fence(pl[kk]);
+    }
+    reg_fence(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk) {
+      const uint64_t dv = mnmajor_desc<D>(vt, FW_BK, kk);
+      wgmma_rs(o, ph[kk], dv, 1);
+      wgmma_rs(o, pl[kk], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(o);
+
+    __syncthreads();   // both warpgroups are done with stage st
+    if (tid == 0 && t + FW_STAGES < n) {
+      const int kn = lo + (t + FW_STAGES) * FW_BK;
+      mbar_expect(&bars[1 + st], KV_BYTES);
+      tma_tile<D>(ks + st * FW_BK * D, &k_map, &bars[1 + st], kh, kn, b, FW_BK);
+      tma_tile<D>(vs + st * FW_BK * D, &v_map, &bars[1 + st], kh, kn, b, FW_BK);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qp = row + 8 * i;
+    if (qp >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    bf16* dst = out + (((size_t)b * Sq + qp) * H + h) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    if (lane % 4 == 0)
+      lse[((size_t)b * H + h) * Sq + qp] = l[i] > 0.f ? (m2[i] + log2f(l[i])) * LN2 : NEG_INF;
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int B, int Sq, int Sk, int H, int K, int causal, float scale,
+                          float softcap, int window, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  cudaError_t e = tile_map<D>(&qm, q, B, Sq, H, FW_BQ);
+  if (e == cudaSuccess) e = tile_map<D>(&km, k, B, Sk, K, FW_BK);
+  if (e == cudaSuccess) e = tile_map<D>(&vm, v, B, Sk, K, FW_BK);
+  if (e != cudaSuccess) return e;
+  auto kern = attn_fwd_tc_kernel<D>;
+  static bool configured = false;
+  e = allow_smem(kern, fwd_tc_smem<D>(), configured);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B, (Sq + FW_BQ - 1) / FW_BQ);
+  kern<<<grid, TC_THREADS, fwd_tc_smem<D>(), stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, Sk, H, K,
+      causal, scale, softcap, window);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_tc_dim(const void* q, const void* k, const void* v, void* out, void* lse,
+                              int B, int Sq, int Sk, int H, int K, int D, int causal,
+                              float scale, float softcap, int window, cudaStream_t st) {
+  switch (D) {
+    case 32:    // the reduced configs
+      return launch_fwd_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
+                               window, st);
+    case 64:
+      return launch_fwd_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
+                               window, st);
+    case 128:
+      return launch_fwd_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
+                                window, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, K, D) -> out (B, Sq, H, D), lse (B, H, Sq) f32.
-// dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 and window <= 0 mean
-// none.  Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  softcap
+// <= 0 and window <= 0 mean none.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int B, int Sq, int Sk, int H, int K, int D,
                                    int dtype, int causal, float scale, float softcap,
@@ -180,7 +408,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return (int)launch_fwd_dim<float>(q, k, v, out, lse, B, Sq, Sk, H, K, D, causal, scale,
                                       softcap, window, st);
   if (dtype == 1)
-    return (int)launch_fwd_dim<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, K, D, causal,
-                                              scale, softcap, window, st);
+    return (int)launch_fwd_tc_dim(q, k, v, out, lse, B, Sq, Sk, H, K, D, causal, scale, softcap,
+                                  window, st);
   return (int)cudaErrorInvalidValue;
 }

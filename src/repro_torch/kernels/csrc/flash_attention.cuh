@@ -1,12 +1,14 @@
 // Pieces shared by the cache-free attention forward (flash_attention.cu)
-// and its gradient (flash_attention_bwd.cu).
+// and its gradient (flash_attention_bwd.cu): the mask, and the tiling of
+// their float32 kernels on the CUDA cores (the bf16 kernels' tensor-core
+// pieces are in hopper.cuh).
 //
 // Tensors keep the reference's layout: q, out, dout (B, Sq, H, D); k, v
 // (B, Sk, K, D); the log-sum-exp and delta (B, H, Sq) float32.  Query head
 // h reads kv head h / (H / K).  Query row i and key row j are positions i
 // and j (no offset), as in the reference's cache-free attention.
 //
-// A block works on 64 x 64 tiles of (query rows) x (key rows) with 256
+// An f32 block works on 64 x 64 tiles of (query rows) x (key rows) with 256
 // threads, a 16 x 16 grid: thread (ty, tx) owns the 4 x 4 patch of rows
 // ty*4 .. ty*4+3 and columns tx, tx+16, tx+32, tx+48 of a score tile, and
 // the 4 rows ty*4 .. ty*4+3 x D/16 contiguous columns tx*D/16 .. of a

@@ -19,21 +19,46 @@
 // peak, against ~100 MB of inputs and gradients (0.03 ms).
 //
 // What the design does (one C entry point, three kernels in turn on the
-// caller's stream; tiling in flash_attention.cuh):
+// caller's stream):
 //   1. delta: one warp per (b, row, head) sums dO * O;
-//   2. dK/dV: one block per (b, kv head, 64-row key tile).  It loops over
-//      the G query heads of that kv head and the query tiles that can see
-//      the key tile (causality and window skip the rest), recomputes S and
-//      dP for each, and accumulates dK and dV in registers -- no atomics,
-//      a fixed summation order, so the gradient is deterministic;
-//   3. dQ: one block per (b, head, 64-row query tile), looping over the
-//      visible key tiles like the forward, dQ in registers.
-// S and dP are computed twice (once in each of 2 and 3): 14 * D * pairs
-// operations instead of 10, the price of keeping out of atomics.  All
-// products run on the CUDA cores in f32 (bf16 inputs, f32 accumulation);
-// the tensor cores are later work.
+//   2. dK/dV: one block per (b, kv head, key tile).  It loops over the G
+//      query heads of that kv head and the query tiles that can see the
+//      key tile (causality and window skip the rest), recomputes S and dP
+//      for each, and accumulates dK and dV in registers -- no atomics, a
+//      fixed summation order, so the gradient is deterministic;
+//   3. dQ: one block per (b, head, query tile), looping over the visible
+//      key tiles like the forward, dQ in registers.
+// S and dP are computed twice (once in each of 2 and 3), the price of
+// keeping out of atomics: on the tensor cores that recompute costs ~0.05
+// ms at the peak, and dQ summed by atomics would change from run to run.
+//
+// bf16: the tensor cores (attn_bwd_dkdv_tc_kernel, attn_bwd_dq_tc_kernel;
+// building blocks in hopper.cuh).  Both kernels run two warpgroups of 64
+// rows each; thread 0 loads the block's fixed tiles and, by TMA into a
+// ring of 2 stages on mbarriers, the tiles it loops over, the next one
+// under this one's products.
+//   * dK/dV: a block owns 128 key rows (64 per warpgroup) and steps over
+//     64-row query tiles: S^T = K Q^T and dP^T = V dO^T are wgmma from
+//     shared memory (K-major), so P^T and dS^T land in the accumulator
+//     layout that is the register A operand of dV += P^T dO and dK +=
+//     dS^T Q, whose B operands are the same q and dO tiles read MN-major.
+//     lse and delta of the step's rows are staged in shared memory.
+//   * dQ: a block owns 128 query rows (64 per warpgroup) and steps over
+//     64-row key tiles: S = Q K^T, dP = dO V^T, dQ += dS K (K MN-major).
+//   * P and dS go to the tensor cores as hi = bf16(x) and lo = bf16(x -
+//     hi), two products summed in f32 (one bf16 part would break the
+//     check's one bf16 ulp per entry): S^T, dP^T 2D each, dV, dK 4D each,
+//     S, dP 2D each, dQ 4D, so 20 * D * pairs operations (0.26 ms at the
+//     peak).
+// What still bounds it: as the forward, the products and the elementwise
+// work of a step run in turn, and one __syncthreads per step.
+//
+// float32 (the checks and the f32 parity step): attn_bwd_dkdv_kernel and
+// attn_bwd_dq_kernel on the CUDA cores (tiling in flash_attention.cuh), with
+// the same structure and 64-row tiles, f32 products throughout.
 
 #include "flash_attention.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -306,13 +331,419 @@ cudaError_t launch_bwd_dim(const void* q, const void* k, const void* v, const vo
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 256;                // two warpgroups
+constexpr int KV_BK = 128, KV_BQ = 64;         // dK/dV pass: key rows per block, query step
+constexpr int DQ_BQ = 128, DQ_BK = 64;         // dQ pass: query rows per block, key step
+constexpr int BW_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dkdv_tc_smem() {
+  return (size_t)(2 * KV_BK + 2 * BW_STAGES * KV_BQ) * D * 2 + 2 * BW_STAGES * KV_BQ * 4 +
+         (1 + BW_STAGES) * 8 + 1024;
+}
+template <int D>
+constexpr size_t dq_tc_smem() {
+  return (size_t)(2 * DQ_BQ + 2 * BW_STAGES * DQ_BK) * D * 2 + (1 + BW_STAGES) * 8 + 1024;
+}
+
+// p = exp(x - lse) on a visible entry (x the capped logit), and dS =
+// p (dP - delta) times the softcap's 1 - tanh^2; in place of s and dp
+__device__ __forceinline__ void probs_grad(float& s, float& dp, float scale, float softcap,
+                                           float lse2, float dl, bool ok) {
+  float x = s * scale, t = 0.f;
+  if (softcap > 0.f) {
+    t = tanhf(x / softcap);
+    x = softcap * t;
+  }
+  const float p = ok ? exp2f(x * LOG2E - lse2) : 0.f;
+  float ds = p * (dp - dl);
+  if (softcap > 0.f) ds *= 1.f - t * t;
+  s = p;
+  dp = ds;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+                        int Sk, int H, int K, int causal, float scale, float softcap,
+                        int window) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* vs = ks + KV_BK * D;
+  bf16* qs = vs + KV_BK * D;                   // BW_STAGES query tiles
+  bf16* dos = qs + BW_STAGES * KV_BQ * D;      // BW_STAGES dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + BW_STAGES * KV_BQ * D);  // [stage][row], log2
+  float* dl_s = lse_s + BW_STAGES * KV_BQ;                               // [stage][row]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dl_s + BW_STAGES * KV_BQ);  // k/v, then stages
+
+  const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * KV_BK;
+  const int G = H / K;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int kw = k0 + 64 * wg;                           // the warpgroup's first key row
+  const int row = kw + 16 * warp + lane / 4;             // key rows row, row + 8
+  const int col = 2 * (lane % 4);                        // + 8j + e: query in the step
+
+  const int k_last = min(k0 + KV_BK, Sk) - 1;
+  const int qlo = causal ? k0 : 0;
+  const int qhi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int nq = qhi > qlo ? (qhi - qlo + KV_BQ - 1) / KV_BQ : 0;
+  const int n = G * nq;                                  // steps: (head, query tile)
+  constexpr uint32_t STEP_BYTES = 2u * KV_BQ * D * 2;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + BW_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bars[0], 2u * KV_BK * D * 2);
+    tma_tile<D>(ks, &k_map, &bars[0], kh, k0, b, KV_BK);
+    tma_tile<D>(vs, &v_map, &bars[0], kh, k0, b, KV_BK);
+    for (int s = 0; s < BW_STAGES && s < n; ++s) {
+      const int h = kh * G + s / nq, q0 = qlo + (s % nq) * KV_BQ;
+      mbar_expect(&bars[1 + s], STEP_BYTES);
+      tma_tile<D>(qs + s * KV_BQ * D, &q_map, &bars[1 + s], h, q0, b, KV_BQ);
+      tma_tile<D>(dos + s * KV_BQ * D, &do_map, &bars[1 + s], h, q0, b, KV_BQ);
+    }
+  }
+  // lse (log2 units) and delta of step t's query rows into stage t % 2;
+  // zeros past Sq
+  auto stage_stats = [&](int t) {
+    if (t >= n || tid >= 2 * KV_BQ) return;
+    const int h = kh * G + t / nq, qp = qlo + (t % nq) * KV_BQ + tid % KV_BQ;
+    const size_t at = ((size_t)b * H + h) * Sq + qp;
+    float* dst = tid < KV_BQ ? lse_s : dl_s;
+    dst[(t % BW_STAGES) * KV_BQ + tid % KV_BQ] =
+        qp < Sq ? (tid < KV_BQ ? lse[at] * LOG2E : delta[at]) : 0.f;
+  };
+  stage_stats(0);
+  __syncthreads();
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  mbar_wait(&bars[0], 0);
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % BW_STAGES, q0 = qlo + (t % nq) * KV_BQ;
+    const bf16* qt = qs + st * KV_BQ * D;
+    const bf16* dot = dos + st * KV_BQ * D;
+    mbar_wait(&bars[1 + st], (t / BW_STAGES) & 1);
+
+    float s[KV_BQ / 2], dp[KV_BQ / 2];
+#pragma unroll
+    for (int i = 0; i < KV_BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor_desc<D>(ks, KV_BK, 64 * wg, kk), kmajor_desc<D>(qt, KV_BQ, 0, kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<D>(vs, KV_BK, 64 * wg, kk), kmajor_desc<D>(dot, KV_BQ, 0, kk),
+               kk > 0);
+    wgmma_commit();
+    stage_stats(t + 1);          // the next step's rows, under the products
+    wgmma_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    const bool edge = kw + 63 >= Sk || q0 + KV_BQ > Sq || (causal && q0 < kw + 63) ||
+                      (window > 0 && q0 + KV_BQ - 1 - kw >= window);
+    const float* ls = lse_s + st * KV_BQ;
+    const float* ds = dl_s + st * KV_BQ;
+#pragma unroll
+    for (int j = 0; j < KV_BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + col + e;
+          const bool ok =
+              !edge || visible(q0 + c, row + 8 * i, Sq, Sk, causal, window);
+          probs_grad(s[4 * j + 2 * i + e], dp[4 * j + 2 * i + e], scale, softcap, ls[c], ds[c],
+                     ok);
+        }
+
+    // dV += P^T dO, dK += dS^T Q, with P^T and dS^T as hi + lo
+    uint32_t ph[KV_BQ / 16][4], pl[KV_BQ / 16][4], gh[KV_BQ / 16][4], gl[KV_BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KV_BQ / 16; ++kk) {
+      split_fragment(s, kk, ph[kk], pl[kk]);
+      split_fragment(dp, kk, gh[kk], gl[kk]);
+      reg_fence(ph[kk]);
+      reg_fence(pl[kk]);
+      reg_fence(gh[kk]);
+      reg_fence(gl[kk]);
+    }
+    reg_fence(adv);
+    reg_fence(adk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV_BQ / 16; ++kk) {
+      const uint64_t ddo = mnmajor_desc<D>(dot, KV_BQ, kk);
+      const uint64_t dq = mnmajor_desc<D>(qt, KV_BQ, kk);
+      wgmma_rs(adv, ph[kk], ddo, 1);
+      wgmma_rs(adv, pl[kk], ddo, 1);
+      wgmma_rs(adk, gh[kk], dq, 1);
+      wgmma_rs(adk, gl[kk], dq, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(adv);
+    reg_fence(adk);
+
+    __syncthreads();   // both warpgroups are done with stage st (and its stats)
+    if (tid == 0 && t + BW_STAGES < n) {
+      const int tn = t + BW_STAGES;
+      const int h = kh * G + tn / nq, qn = qlo + (tn % nq) * KV_BQ;
+      mbar_expect(&bars[1 + st], STEP_BYTES);
+      tma_tile<D>(qs + st * KV_BQ * D, &q_map, &bars[1 + st], h, qn, b, KV_BQ);
+      tma_tile<D>(dos + st * KV_BQ * D, &do_map, &bars[1 + st], h, qn, b, KV_BQ);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = row + 8 * i;
+    if (kp >= Sk) continue;
+    const size_t at = (((size_t)b * Sk + kp) * K + kh) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+          __floats2bfloat162_rn(adk[4 * j + 2 * i] * scale, adk[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+          __floats2bfloat162_rn(adv[4 * j + 2 * i], adv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
+                      int Sk, int H, int K, int causal, float scale, float softcap, int window) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* dos = qs + DQ_BQ * D;
+  bf16* ks = dos + DQ_BQ * D;                  // BW_STAGES key tiles
+  bf16* vs = ks + BW_STAGES * DQ_BK * D;       // BW_STAGES value tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + BW_STAGES * DQ_BK * D);  // q/dO, stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BQ;   // most key tiles first
+  const int kh = h / (H / K);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int qw = q0 + 64 * wg;
+  const int row = qw + 16 * warp + lane / 4;             // query rows row, row + 8
+  const int col = 2 * (lane % 4);                        // + 8j + e: key in the step
+
+  const int q_last = min(q0 + DQ_BQ, Sq) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, q0 - window + 1) / DQ_BK * DQ_BK : 0;
+  const int n = hi > lo ? (hi - lo + DQ_BK - 1) / DQ_BK : 0;
+  constexpr uint32_t KV_BYTES = 2u * DQ_BK * D * 2;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + BW_STAGES; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bars[0], 2u * DQ_BQ * D * 2);
+    tma_tile<D>(qs, &q_map, &bars[0], h, q0, b, DQ_BQ);
+    tma_tile<D>(dos, &do_map, &bars[0], h, q0, b, DQ_BQ);
+    for (int s = 0; s < BW_STAGES && s < n; ++s) {
+      mbar_expect(&bars[1 + s], KV_BYTES);
+      tma_tile<D>(ks + s * DQ_BK * D, &k_map, &bars[1 + s], kh, lo + s * DQ_BK, b, DQ_BK);
+      tma_tile<D>(vs + s * DQ_BK * D, &v_map, &bars[1 + s], kh, lo + s * DQ_BK, b, DQ_BK);
+    }
+  }
+
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = row + 8 * i;
+    const size_t at = ((size_t)b * H + h) * Sq + qp;
+    lse2[i] = qp < Sq ? lse[at] * LOG2E : 0.f;
+    dl[i] = qp < Sq ? delta[at] : 0.f;
+  }
+  float adq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+  mbar_wait(&bars[0], 0);
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % BW_STAGES, k0 = lo + t * DQ_BK;
+    const bf16* kt = ks + st * DQ_BK * D;
+    const bf16* vt = vs + st * DQ_BK * D;
+    mbar_wait(&bars[1 + st], (t / BW_STAGES) & 1);
+
+    float s[DQ_BK / 2], dp[DQ_BK / 2];
+#pragma unroll
+    for (int i = 0; i < DQ_BK / 2; ++i) s[i] = dp[i] = 0.f;
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor_desc<D>(qs, DQ_BQ, 64 * wg, kk), kmajor_desc<D>(kt, DQ_BK, 0, kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<D>(dos, DQ_BQ, 64 * wg, kk), kmajor_desc<D>(vt, DQ_BK, 0, kk),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    const bool edge = k0 + DQ_BK > Sk || (causal && k0 + DQ_BK - 1 > qw) ||
+                      (window > 0 && qw + 63 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < DQ_BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok =
+              !edge || visible(row + 8 * i, k0 + 8 * j + col + e, Sq, Sk, causal, window);
+          probs_grad(s[4 * j + 2 * i + e], dp[4 * j + 2 * i + e], scale, softcap, lse2[i], dl[i],
+                     ok);
+        }
+
+    // dQ += dS K with dS as hi + lo
+    uint32_t gh[DQ_BK / 16][4], gl[DQ_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+      split_fragment(dp, kk, gh[kk], gl[kk]);
+      reg_fence(gh[kk]);
+      reg_fence(gl[kk]);
+    }
+    reg_fence(adq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
+      const uint64_t dk = mnmajor_desc<D>(kt, DQ_BK, kk);
+      wgmma_rs(adq, gh[kk], dk, 1);
+      wgmma_rs(adq, gl[kk], dk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(adq);
+
+    __syncthreads();   // both warpgroups are done with stage st
+    if (tid == 0 && t + BW_STAGES < n) {
+      const int kn = lo + (t + BW_STAGES) * DQ_BK;
+      mbar_expect(&bars[1 + st], KV_BYTES);
+      tma_tile<D>(ks + st * DQ_BK * D, &k_map, &bars[1 + st], kh, kn, b, DQ_BK);
+      tma_tile<D>(vs + st * DQ_BK * D, &v_map, &bars[1 + st], kh, kn, b, DQ_BK);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = row + 8 * i;
+    if (qp >= Sq) continue;
+    bf16* dst = dq + (((size_t)b * Sq + qp) * H + h) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(adq[4 * j + 2 * i] * scale, adq[4 * j + 2 * i + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
+                          const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                          void* delta, int B, int Sq, int Sk, int H, int K, int causal,
+                          float scale, float softcap, int window, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  cudaError_t e = tile_map<D>(&q64, q, B, Sq, H, KV_BQ);
+  if (e == cudaSuccess) e = tile_map<D>(&do64, dout, B, Sq, H, KV_BQ);
+  if (e == cudaSuccess) e = tile_map<D>(&k128, k, B, Sk, K, KV_BK);
+  if (e == cudaSuccess) e = tile_map<D>(&v128, v, B, Sk, K, KV_BK);
+  if (e == cudaSuccess) e = tile_map<D>(&q128, q, B, Sq, H, DQ_BQ);
+  if (e == cudaSuccess) e = tile_map<D>(&do128, dout, B, Sq, H, DQ_BQ);
+  if (e == cudaSuccess) e = tile_map<D>(&k64, k, B, Sk, K, DQ_BK);
+  if (e == cudaSuccess) e = tile_map<D>(&v64, v, B, Sk, K, DQ_BK);
+  if (e != cudaSuccess) return e;
+  const float* lse_ = static_cast<const float*>(lse);
+  float* delta_ = static_cast<float*>(delta);
+
+  const int rows = B * Sq * H;
+  attn_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta_, rows, Sq, H, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  auto kv_kern = attn_bwd_dkdv_tc_kernel<D>;
+  static bool kv_configured = false;
+  e = allow_smem(kv_kern, dkdv_tc_smem<D>(), kv_configured);
+  if (e != cudaSuccess) return e;
+  dim3 kv_grid(K, B, (Sk + KV_BK - 1) / KV_BK);   // key tile 0 (most query tiles) first
+  kv_kern<<<kv_grid, TC_THREADS, dkdv_tc_smem<D>(), stream>>>(
+      q64, k128, v128, do64, lse_, delta_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
+      Sk, H, K, causal, scale, softcap, window);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  auto q_kern = attn_bwd_dq_tc_kernel<D>;
+  static bool q_configured = false;
+  e = allow_smem(q_kern, dq_tc_smem<D>(), q_configured);
+  if (e != cudaSuccess) return e;
+  dim3 q_grid(H, B, (Sq + DQ_BQ - 1) / DQ_BQ);
+  q_kern<<<q_grid, TC_THREADS, dq_tc_smem<D>(), stream>>>(
+      q128, k64, v64, do128, lse_, delta_, static_cast<bf16*>(dq), Sq, Sk, H, K, causal, scale,
+      softcap, window);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_tc_dim(const void* q, const void* k, const void* v, const void* out,
+                              const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                              void* delta, int B, int Sq, int Sk, int H, int K, int D,
+                              int causal, float scale, float softcap, int window,
+                              cudaStream_t st) {
+  switch (D) {
+    case 32:    // the reduced configs
+      return launch_bwd_tc<32>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
+                               causal, scale, softcap, window, st);
+    case 64:
+      return launch_bwd_tc<64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
+                               causal, scale, softcap, window, st);
+    case 128:
+      return launch_bwd_tc<128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
+                                causal, scale, softcap, window, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Inputs q/out/dout (B, Sq, H, D), k/v (B, Sk, K, D), lse (B, H, Sq) f32
 // from the forward; outputs dq/dk/dv shaped and typed like q/k/v; delta is
-// (B, H, Sq) f32 scratch.  dtype: 0 = float32, 1 = bfloat16.  softcap <= 0
-// and window <= 0 mean none.  Returns the first cudaError_t of the three
-// launches (0 on success).
+// (B, H, Sq) f32 scratch.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16
+// (tensor cores).  softcap <= 0 and window <= 0 mean none.  Returns the
+// first cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* lse, const void* dout,
                                    void* dq, void* dk, void* dv, void* delta, int B, int Sq,
@@ -324,8 +755,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     return (int)launch_bwd_dim<float>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk,
                                       H, K, D, causal, scale, softcap, window, st);
   if (dtype == 1)
-    return (int)launch_bwd_dim<__nv_bfloat16>(q, k, v, out, lse, dout, dq, dk, dv, delta, B,
-                                              Sq, Sk, H, K, D, causal, scale, softcap, window,
-                                              st);
+    return (int)launch_bwd_tc_dim(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K, D,
+                                  causal, scale, softcap, window, st);
   return (int)cudaErrorInvalidValue;
 }

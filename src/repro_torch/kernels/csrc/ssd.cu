@@ -304,15 +304,15 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* B, 
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, B, C and y alike); A, D, h0 and
 // state_out are float32.  D and h0 may be null (no skip, a zero state);
-// state_out may equal h0.  Q is a power of two from 2 to 128 dividing S;
+// state_out may equal h0.  Q is any chunk from 1 to 128 dividing S;
 // P is a multiple of 16; N a multiple of 32 up to 128; G divides H.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int ssd(const void* x, const void* dt, const void* A, const void* B, const void* C,
                    const void* D, const void* h0, void* y, void* state_out, int Bb, int S, int H,
                    int P, int G, int N, int Q, int dtype, void* stream) {
   if (Bb <= 0 || S <= 0 || H <= 0 || H > 65535 || P <= 0 || P % PS != 0 || P / PS > 64 ||
-      G <= 0 || H % G != 0 || N <= 0 || N % 32 != 0 || N > NMAX || Q < 2 || Q > QMAX ||
-      (Q & (Q - 1)) != 0 || S % Q != 0)
+      G <= 0 || H % G != 0 || N <= 0 || N % 32 != 0 || N > NMAX || Q < 1 || Q > QMAX ||
+      S % Q != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

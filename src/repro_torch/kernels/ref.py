@@ -4,6 +4,11 @@ Each function mirrors its oracle in ``repro/kernels/ref.py`` line for
 line.  The CPU path of every kernel wrapper runs these, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  The CUDA path never calls them.
+
+``bf16_parts`` and ``attention_tc_emulated`` have no oracle: they redo
+the bf16 attention kernels' arithmetic (P and dS handed to the tensor
+cores in bf16 parts) so the CPU tests and ``chip_smoke.py`` can show
+which choice the per-entry check accepts.
 """
 
 from __future__ import annotations
@@ -151,6 +156,53 @@ def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def bf16_parts(x, parts: int):
+    """f32 ``x`` as ``parts`` bf16 terms, each the bf16 rounding of what the
+    earlier ones leave: 1 gives bf16(x); 2 gives hi = bf16(x) and lo =
+    bf16(x - hi), whose sum carries x to ~2^-16 of itself."""
+    terms, rest = [], x.float()
+    for _ in range(parts):
+        terms.append(rest.to(torch.bfloat16).float())
+        rest = rest - terms[-1]
+    return terms
+
+
+def attention_tc_emulated(q, k, v, out, lse, dout, *, parts: int,
+                          causal=True, local_window=None, softcap=None,
+                          scale=None):
+    """The bf16 tensor-core kernels' arithmetic in plain PyTorch: the f32
+    probabilities P (exp(S - max), normalised by their sum after the
+    product) and, for dq, dS are handed to their products with V and K as
+    ``bf16_parts(., parts)``, one f32 product per term; the other operands
+    are bf16 already.  ``out`` and ``lse`` are the forward's saved values
+    (dq's P and delta come from them, as in the backward).  Returns (out,
+    dq) in q's dtype.  With parts=2 this is the kernels' design; parts=1
+    is the shortcut the checks must reject."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else D ** -0.5
+    s, t, mask = _logits(q, k, causal, local_window, softcap, scale)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    e = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    acc = sum(torch.einsum("bkgqs,bskd->bkgqd", part, v.float())
+              for part in bf16_parts(e, parts))
+    o = acc / e.sum(-1, keepdim=True).clamp(min=1e-30)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, K, G, Sq, 1)),
+                    torch.zeros_like(s))
+    dof = dout.float().reshape(B, Sq, K, G, D)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    delta = (dof * out.float().reshape(B, Sq, K, G, D)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    dq = sum(torch.einsum("bkgqs,bskd->bqkgd", part, k.float())
+             for part in bf16_parts(ds, parts)) * scale
+    return o, dq.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_len, *, scale=None,

@@ -51,9 +51,9 @@ def _check(x, dt, A, B, C, D, h0, state_out, chunk):
         if t is not None and tuple(t.shape) != (Bb, H, P, N):
             raise ValueError(f"ssd: {name} shape {tuple(t.shape)}, expected "
                              f"{(Bb, H, P, N)}")
-    if chunk < 2 or chunk > 128 or chunk & (chunk - 1) or S % chunk:
+    if chunk < 1 or chunk > 128 or S % chunk:
         raise ValueError(f"ssd: chunk {chunk} for S={S}; the kernel takes a "
-                         "power of two from 2 to 128 that divides S")
+                         "chunk from 1 to 128 that divides S")
     if P % 16 or N % 32 or N > 128 or H > 65535:
         raise ValueError(f"ssd: H={H}, P={P}, N={N}; the kernel takes P a "
                          "multiple of 16 and N a multiple of 32 up to 128")

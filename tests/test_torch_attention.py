@@ -200,4 +200,82 @@ def test_kernel_sources_are_declared_and_hashed():
         assert name in build.SIGNATURES
         srcs = [p.name for p in build.sources(name)]
         assert srcs[0] == f"{name}.cu"
-        assert {"flash_attention.cuh", "decode_attention.cuh"} <= set(srcs)
+        assert {"flash_attention.cuh", "hopper.cuh",
+                "decode_attention.cuh"} <= set(srcs)
+
+
+# ===========================================================================
+# the bf16 kernels' numerics: P and dS go to the tensor cores in two parts
+# ===========================================================================
+
+# chip_smoke.py's per-entry rule for a bf16 output (ATTN_RTOL, ATTN_ATOL):
+# one bf16 ulp of the entry plus 1e-5 of the largest entry
+RULE_RTOL, RULE_ATOL = 2 ** -7, 1e-5
+
+# (B, S, H, K, D, causal, local_window, softcap): the kernels' head dims,
+# GQA, window + softcap without causality
+RULE_CASES = [
+    (1, 256, 4, 2, 64, True, None, None),
+    (2, 128, 4, 2, 32, True, None, None),
+    (1, 192, 4, 2, 32, False, 50, 5.0),
+    (1, 128, 2, 1, 128, True, None, None),
+]
+
+
+def _rule_inputs(case, seed=3):
+    B, S, H, K, D, causal, window, cap = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16()
+        for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D)))
+    kw = dict(causal=causal, local_window=window, softcap=cap)
+    out, lse = ref.attention_naive(q, k, v, return_lse=True, **kw)
+    dq = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)[0]
+    return (q, k, v, out, lse, do), kw, out, dq
+
+
+def _over_rule(got, want):
+    """Each entry's |got - want| over its limit: passes at <= 1."""
+    got, want = got.float(), want.float()
+    limit = RULE_RTOL * want.abs() + RULE_ATOL * want.abs().max()
+    return (got - want).abs() / limit
+
+
+def _rule_id(c):
+    B, S, H, K, D, causal, window, cap = c
+    return f"B{B}-S{S}-H{H}-K{K}-D{D}-{'causal' if causal else 'bidir'}-w{window}-cap{cap}"
+
+
+@pytest.mark.parametrize("case", RULE_CASES, ids=_rule_id)
+def test_p_and_ds_rounded_to_bf16_break_the_rule(case):
+    """The shortcut a bf16 tensor-core product invites, P (and dS) rounded
+    to bf16 once, puts entries of out and dq beyond one bf16 ulp of the
+    plain f32 versions: the per-entry rule rejects it."""
+    args, kw, out, dq = _rule_inputs(case)
+    got_out, got_dq = ref.attention_tc_emulated(*args, parts=1, **kw)
+    assert _over_rule(got_out, out).max() > 2
+    assert _over_rule(got_dq, dq).max() > 2
+
+
+@pytest.mark.parametrize("case", RULE_CASES, ids=_rule_id)
+def test_p_and_ds_split_hi_lo_meet_the_rule(case):
+    """P and dS as hi = bf16(x) and lo = bf16(x - hi), one f32 product per
+    part (the kernels' design): every entry of out and dq within one bf16
+    ulp of the plain versions."""
+    args, kw, out, dq = _rule_inputs(case)
+    got_out, got_dq = ref.attention_tc_emulated(*args, parts=2, **kw)
+    assert _over_rule(got_out, out).max() <= 1
+    assert _over_rule(got_dq, dq).max() <= 1
+
+
+def test_bf16_parts_carry_x_to_two_to_the_minus_16():
+    x = torch.from_numpy(np.random.default_rng(4).random(4096).astype(
+        np.float32))
+    hi, lo = ref.bf16_parts(x, 2)
+    (one,) = ref.bf16_parts(x, 1)
+    assert torch.equal(one, hi)
+    assert torch.equal(hi, hi.bfloat16().float())
+    assert torch.equal(lo, lo.bfloat16().float())
+    assert ((hi + lo - x).abs() <= 2.0 ** -16 * x.abs()).all()
+    assert ((hi - x).abs() > 2.0 ** -12 * x.abs()).any()
+

@@ -271,6 +271,34 @@ def test_apply_mamba_three_modes_match_jax():
                                atol=F32_TOL)
 
 
+@pytest.mark.parametrize("ssm_chunk,chunk", [(64, 37), (16, 1)])
+def test_whole_prompt_prefill_of_a_prime_length_matches_jax(monkeypatch,
+                                                            ssm_chunk, chunk):
+    """A cache-free 37-row prefill: the largest divisor of 37 up to
+    ``ssm_chunk`` is 37 itself (``ssm_chunk`` 64) or 1 (16), chunks that
+    are no power of two.  The port's block equals the JAX
+    package's in f32, and the SSD ran at that chunk."""
+    (jcfg, _, jctx, jparams), (cfg, _, ctx, params) = _pair(ARCHS[0])
+    jcfg = dataclasses.replace(jcfg, ssm_chunk=ssm_chunk)
+    cfg = dataclasses.replace(cfg, ssm_chunk=ssm_chunk)
+    jp = _layer(jparams["layers"]["mamba"], 0)
+    p = {k: v[0] for k, v in params["layers"]["mamba"].items()}
+    seen = []
+    real_ssd = ops.ssd
+
+    def spy(*args, chunk, **kw):
+        seen.append(chunk)
+        return real_ssd(*args, chunk=chunk, **kw)
+
+    monkeypatch.setattr(ops, "ssd", spy)
+    x = np.random.default_rng(7).standard_normal(
+        (2, 37, cfg.d_model)).astype(np.float32)
+    jy, _ = jL.apply_mamba(jctx, jcfg, jp, jnp.asarray(x))
+    y, _ = L.apply_mamba(ctx, cfg, p, torch.from_numpy(x))
+    assert seen == [chunk]
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=F32_TOL)
+
+
 def test_rmsnorm_gated_matches_jax():
     rng = np.random.default_rng(1)
     scale, y, z = (rng.standard_normal(s).astype(np.float32)
@@ -623,8 +651,8 @@ def test_cuda_branch_checks_inputs_and_never_falls_back(monkeypatch):
         tssd.ssd(x, dt[:, :32], A, Bm, Cm)
     with pytest.raises(ValueError, match="h0 shape"):
         tssd.ssd(x, dt, A, Bm, Cm, D, h0[..., :16])
-    for chunk in (1, 24, 256, 128):                 # 128 does not divide 64
-        with pytest.raises(ValueError, match="power of two"):
+    for chunk in (0, 24, 256, 129, 128):            # 128 does not divide 64
+        with pytest.raises(ValueError, match="from 1 to 128 that divides"):
             tssd.ssd(x, dt, A, Bm, Cm, chunk=chunk)
     with pytest.raises(ValueError, match="multiple of 32"):
         tssd.ssd(x, dt, A, Bm[..., :16].contiguous(),
@@ -658,6 +686,30 @@ def test_cuda_branch_checks_inputs_and_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="head_dim 48"):
         tfa.flash_decode(q[..., :48].contiguous(), kc[..., :48].contiguous(),
                          kc[..., :48].contiguous(), kv_len)
+    assert tssd.ssd.launches == 0
+
+
+@pytest.mark.parametrize("S,chunk", [(148, 37), (131, 1), (64, 1),
+                                     (128, 128)])
+def test_cuda_branch_takes_any_chunk_that_divides_s(monkeypatch, S, chunk):
+    """A whole-prompt prefill picks the largest divisor of S up to
+    ``ssm_chunk``: 37 for S = 4 x 37, 1 for a prime S = 131.  The CUDA
+    branch passes those to the kernel (here: to the build, which raises
+    without nvcc) and still rejects 129 and a chunk that does not divide
+    S."""
+    x, dt, A, Bm, Cm, D, h0 = (
+        torch.from_numpy(a).as_subclass(_OnCuda)
+        for a in _ssd_inputs(1, S, 4, 16, 1, 32, 0))
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(tssd.build, "library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tssd.ssd(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
+    for bad in (129, chunk + 1 if S % (chunk + 1) else chunk + 2):
+        with pytest.raises(ValueError, match="from 1 to 128 that divides"):
+            tssd.ssd(x, dt, A, Bm, Cm, D, h0, chunk=bad)
     assert tssd.ssd.launches == 0
 
 
