@@ -14,8 +14,12 @@ caught):
      over a (1025, 16, 8, 128) pool whose tables are scattered by a seeded
      permutation (free tail entries on the parking block), the paged
      attention also against the dense kernel over the gathered cache (must
-     be equal, bit for bit); then kernel (device time, from a CUDA graph),
-     plain-version and library times beside the card's least possible time
+     be equal, bit for bit), the attention also entry by entry, and shown
+     to reject a kernel that drops one 128-row K/V tile or one split-KV
+     span and the plain version with P rounded to bf16 once (the shortcut
+     the chunk kernel's hi/lo split avoids); then kernel (device time,
+     from a CUDA graph), plain-version and library times beside the
+     card's least possible time
      (the bound), at decode and at a 256-row prefill chunk; the
      cache-free attention forward and backward against
      ``attention_naive`` (with its lse) and ``attention_bwd_ref`` entry by
@@ -28,10 +32,11 @@ caught):
      the four decode and cache kernels also at olmoe's H = K = 16 (one
      query head per kv head), checked and timed; ``grouped_matmul``
      against ``ref.grouped_matmul`` entry by entry at the olmoe path's
-     shapes (G=64; capacity 2 at decode, 40 at a 256-row chunk; odd
-     capacities 1, 3, 5, 100) and the reduced configs', bf16 and f32,
+     shapes (G=64; capacity 2 at decode, 1 to 40 at the prefill chunks of
+     1 to 256 rows; 100) and the reduced configs', bf16 and f32,
      the check shown to reject a kernel that drops the last 64-wide
-     K-slice or the last group, then timed beside ``torch.bmm``; the
+     K-slice or the last group, then timed beside ``torch.bmm`` at every
+     capacity olmoe's path produces; the
      four decode and cache kernels at zamba2's H = K = 32, D = 64,
      checked (paged == dense bit for bit) and timed; ``ssd`` against
      ``ref.ssd_chunked`` entry by entry at mamba2's (H=32, P=64, N=128)
@@ -170,10 +175,17 @@ _ATTN_TOL_TEXT = (f"per entry {ATTN_RTOL['bfloat16']} |want| + "
 # A wrong K-slice or group changes an entry by far more than one ulp.
 GMM_SHAPES = [(64, 2, 2048, 1024), (64, 2, 1024, 2048),      # decode
               (64, 40, 2048, 1024), (64, 40, 1024, 2048),    # 256-row chunk
+              (64, 20, 1024, 2048), (64, 10, 2048, 1024),    # 128, 64 rows
               (64, 1, 2048, 1024), (64, 3, 2048, 1024),      # odd capacity
               (64, 5, 1024, 2048), (64, 100, 2048, 1024),
               (8, 2, 128, 256), (8, 5, 256, 128),            # reduced configs
               (8, 17, 128, 256)]
+#: olmoe's capacities, ceil(S * 8 * 1.25 / 64), at the prefill chunks of
+#: 256, 128, ..., 1 rows (40 .. 1) and a batch-8 decode step (2): timed at
+#: the gate/up shape, and at 2 and 40 at the down shape
+GMM_TIME_M = (1, 2, 3, 5, 10, 20, 40)
+GMM_TIME_SHAPES = ([(64, M, 2048, 1024) for M in GMM_TIME_M]
+                   + [(64, 2, 1024, 2048), (64, 40, 1024, 2048)])
 TRAIN_STEPS = 6
 #: the bf16 attention kernels' tiles: the forward's key tile, the dK/dV
 #: pass's query step and the dQ pass's query tile (flash_attention*.cu)
@@ -200,7 +212,7 @@ SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
 #: kernel-name fragments of a Mamba model's decode step by kind
 SSM_PROFILE_GROUPS = {
     "ssd": ("ssd_kernel",),
-    "flash_decode": ("decode_attention_kernel",),
+    "flash_decode": ("decode_attention",),
     "cache_update": ("cache_update_kernel", "cache_update_paged_kernel"),
     "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
 }
@@ -212,8 +224,8 @@ SSM_PROFILE_GROUPS = {
 SSM_PARITY_TOL = 1e-3
 #: kernel-name fragments of an olmoe decode step's device time by kind
 MOE_PROFILE_GROUPS = {
-    "grouped_matmul": ("grouped_matmul_kernel",),
-    "flash_decode": ("decode_attention_kernel",),
+    "grouped_matmul": ("grouped_matmul",),
+    "flash_decode": ("decode_attention",),
     "cache_update": ("cache_update_kernel",),
     "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
 }
@@ -297,7 +309,9 @@ def check_flash_decode(tfa, ref):
     """Kernel vs plain version over dtypes, chunk sizes (Sq 5: a partial
     block of query rows), softcap/window, the reduced configs' head_dim
     32, olmoe's H = K = 16 (one query head per kv head) and zamba2's
-    shared attention (H = K = 32, head_dim 64)."""
+    shared attention (H = K = 32, head_dim 64): max|err| within
+    DECODE_TOL and every entry within the per-entry rule
+    (``_entry_ratio``)."""
     import torch
     rng = np.random.default_rng(0)
     checks = []
@@ -323,16 +337,19 @@ def check_flash_decode(tfa, ref):
                 err = (got.float() - want.float()).abs().max().item()
                 name = str(dtype).split(".")[1]
                 tol = DECODE_TOL[name]
+                ratio = _entry_ratio(name, got, want).max().item()
                 checks.append({"dtype": name, "B": B, "S": S, "H": H,
                                "K": K, "D": D, "Sq": Sq, "softcap": softcap,
                                "window": window, "max_abs_err": err,
-                               "tol": tol})
+                               "tol": tol, "worst_over_limit": ratio})
                 print(f"[check] flash_decode {name} B={B} S={S} H={H} K={K} "
                       f"D={D} Sq={Sq} "
                       f"softcap={softcap} window={window}: max|err| {err:.3e}"
-                      f" (tol {tol})", flush=True)
-                if not err <= tol:
-                    raise AssertionError(f"flash_decode disagrees: {err}")
+                      f" (tol {tol}), worst entry / its limit {ratio:.3f}",
+                      flush=True)
+                if not (err <= tol and ratio <= 1.0):
+                    raise AssertionError(f"flash_decode disagrees: {err}, "
+                                         f"{ratio}")
     return checks
 
 
@@ -393,9 +410,10 @@ def _paged_case(B, S, H, K, D, Sq, bs, dtype, kv_len, seed):
 
 
 def check_flash_decode_paged(tfa, ref):
-    """Paged kernel vs its plain version, and vs the DENSE kernel over the
-    gathered cache (must be equal: the reduction order is shared); llama's
-    and olmoe's head counts, zamba2's D=64 and the reduced D=32."""
+    """Paged kernel vs its plain version (DECODE_TOL and the per-entry
+    rule), and vs the DENSE kernel over the gathered cache (must be equal:
+    the reduction order is shared); llama's and olmoe's head counts,
+    zamba2's D=64 and the reduced D=32."""
     import torch
     rng = np.random.default_rng(10)
     checks = []
@@ -427,23 +445,113 @@ def check_flash_decode_paged(tfa, ref):
                 vs_dense = (got.float() - dense.float()).abs().max().item()
                 name = str(dtype).split(".")[1]
                 tol = DECODE_TOL[name]
+                ratio = _entry_ratio(name, got, want).max().item()
                 checks.append({"dtype": name, "B": B, "S": S, "H": H,
                                "K": K, "D": D, "bs": bs, "Sq": Sq,
                                "softcap": softcap, "window": window,
                                "max_abs_err": err, "tol": tol,
+                               "worst_over_limit": ratio,
                                "vs_dense_max_abs_diff": vs_dense})
                 print(f"[check] flash_decode_paged {name} B={B} S={S} H={H} "
                       f"K={K} D={D} bs={bs} Sq={Sq} softcap={softcap} "
-                      f"window={window}: max|err| {err:.3e} (tol {tol}); "
-                      f"vs dense kernel over the gathered cache "
-                      f"max|diff| {vs_dense}", flush=True)
-                if not err <= tol:
+                      f"window={window}: max|err| {err:.3e} (tol {tol}), "
+                      f"worst entry / its limit {ratio:.3f}; vs dense "
+                      f"kernel over the gathered cache max|diff| {vs_dense}",
+                      flush=True)
+                if not (err <= tol and ratio <= 1.0):
                     raise AssertionError(f"flash_decode_paged disagrees: "
-                                         f"{err}")
+                                         f"{err}, {ratio}")
                 if not torch.equal(got, dense):
                     raise AssertionError(f"flash_decode_paged differs from "
                                          f"flash_decode: {vs_dense}")
     return checks
+
+
+def check_decode_faults(tfa, ref):
+    """The decode checks must reject kernels that drop one 128-row K/V
+    tile or one split-KV span (``tfa.DECODE_SPAN`` rows).  At llama's heads
+    (H=24, K=8, D=128, bf16, S=2048), each fault zeroes those rows of one
+    slot's K and V on the kernel's side only, against the plain version of
+    the intact caches: at Sq=256 (the tensor-core chunk path; B=2, kv_len
+    768 and 1024) and at Sq=1 (the split-KV decode path; B=8, ragged).  An
+    entry is affected if its slot is the one cut and its query position
+    is at or past the first row cut (it sees a cut row).  Raises unless
+    more than half the affected entries are flagged by the per-entry rule
+    and no other entry is."""
+    import torch
+    B1, S, H, K, D = 8, 2048, 24, 8, 128
+    span = tfa.DECODE_SPAN
+    lens1 = [96, 700, 333, 1100, 512, 911, 140, 2048]
+    cases = [  # (fault, Sq, kv_len, slot, first cut row, rows cut)
+        ("128-row tile", 256, [768, 1024], 0, 640, 128),
+        ("split-KV span", 256, [768, 1024], 1, 512, span),
+        ("128-row tile", 1, lens1, 3, 384, 128),
+        ("split-KV span", 1, lens1, 3, 256, span)]
+    faults = []
+    for fault, Sq, lens, slot, lo, n in cases:
+        B = len(lens)
+        q, k, v, kl = _decode_case(B, S, H, K, D, Sq, torch.bfloat16, lens,
+                                   1500 + len(faults))
+        want = ref.decode_attention_ref(q, k, v, kl)
+        k_cut, v_cut = k.clone(), v.clone()
+        k_cut[slot, lo:lo + n] = 0
+        v_cut[slot, lo:lo + n] = 0
+        got = tfa.flash_decode(q, k_cut, v_cut, kl)
+        flagged = _entry_ratio("bfloat16", got, want) > 1
+        qpos = kl.long()[:, None] - Sq + torch.arange(Sq, device="cuda")
+        affected = torch.zeros_like(qpos, dtype=torch.bool)
+        affected[slot] = qpos[slot] >= lo
+        affected = affected[:, :, None, None].expand_as(flagged)
+        res = {"fault": fault, "Sq": Sq, "slot": slot, "rows": [lo, lo + n],
+               "flagged_share_of_affected": flagged[affected].float().mean()
+               .item(),
+               "flagged_outside": int((flagged & ~affected).sum().item())}
+        faults.append(res)
+        if not (res["flagged_share_of_affected"] > 0.5
+                and res["flagged_outside"] == 0):
+            raise AssertionError(f"flash_decode check vs a dropped {fault}: "
+                                 f"{res}")
+    print(f"[check] flash_decode planted faults B=2|8 S={S} H={H} K={K} "
+          f"D={D} bf16, K and V rows of one slot zeroed on the kernel's side "
+          "only: share of the affected entries beyond their limit: "
+          + ", ".join(f"{f['fault']} rows {f['rows'][0]}..{f['rows'][1]} "
+                      f"Sq={f['Sq']} {f['flagged_share_of_affected']:.4f} "
+                      f"({f['flagged_outside']} flagged elsewhere)"
+                      for f in faults), flush=True)
+    return faults
+
+
+def check_decode_shortcut(ref):
+    """The per-entry rule must reject the shortcut a bf16 tensor-core P V
+    product invites in the prefill-chunk kernel: P rounded to bf16 once
+    (``ref.decode_attention_tc_emulated(parts=1)``, the plain version with
+    that one change), at llama's heads and a 256-row chunk (B=2, kv_len 768
+    and 1024, bf16) on the card.  The kernel's split, hi = bf16(P) and lo =
+    bf16(P - hi) (``parts=2``), is shown beside it, within the rule.
+    Raises if the rule passes the shortcut or rejects the split."""
+    import torch
+    B, S, H, K, D, Sq = 2, 2048, 24, 8, 128, 256
+    q, k, v, kl = _decode_case(B, S, H, K, D, Sq, torch.bfloat16,
+                               [768, 1024], 1600)
+    want = ref.decode_attention_ref(q, k, v, kl)
+    res = {}
+    for parts in (1, 2):
+        ratio = _entry_ratio("bfloat16", ref.decode_attention_tc_emulated(
+            q, k, v, kl, parts=parts), want)
+        res[f"parts{parts}"] = {
+            "worst_over_limit": ratio.max().item(),
+            "flagged_share": (ratio > 1).float().mean().item()}
+    print(f"[check] flash_decode bf16 shortcut B={B} Sq={Sq} H={H} K={K} "
+          f"D={D} kv_len 768, 1024 (plain version, worst entry / its limit, "
+          "share beyond): P rounded to bf16 once: "
+          f"{res['parts1']['worst_over_limit']:.3f} "
+          f"({res['parts1']['flagged_share']:.4f}); split hi + lo: "
+          f"{res['parts2']['worst_over_limit']:.3f}", flush=True)
+    if res["parts1"]["worst_over_limit"] <= 1:
+        raise AssertionError(f"the decode rule passes bf16 P: {res}")
+    if res["parts2"]["worst_over_limit"] > 1:
+        raise AssertionError(f"the decode rule rejects the split: {res}")
+    return res
 
 
 def check_cache_update_paged(tfa, ref):
@@ -2296,6 +2404,8 @@ def main() -> int:
     fd_checks = check_flash_decode(tfa, ref)
     cu_checks = check_cache_update(tfa, ref)
     fdp_checks = check_flash_decode_paged(tfa, ref)
+    fd_faults = check_decode_faults(tfa, ref)
+    fd_shortcut = check_decode_shortcut(ref)
     cup_checks = check_cache_update_paged(tfa, ref)
     rng = np.random.default_rng(3)
     decode_lens = rng.integers(96, 1153, 8).tolist()
@@ -2349,9 +2459,9 @@ def main() -> int:
     times["flash_attention_bwd training"] = fa_times["bwd"]
     gmm_checks = check_grouped_matmul(gmm, ref)
     gmm_faults = check_grouped_matmul_faults(gmm, ref)
-    for G, M, K, N in GMM_SHAPES[:4]:
-        times[f"grouped_matmul {'decode' if M == 2 else 'prefill'} "
-              f"{K}x{N}"] = time_grouped_matmul(gmm, ref, G, M, K, N)
+    for G, M, K, N in GMM_TIME_SHAPES:
+        times[f"grouped_matmul M={M} {K}x{N}"] = time_grouped_matmul(
+            gmm, ref, G, M, K, N)
     ssd_checks = check_ssd(tssd, ref)
     ssd_faults = check_ssd_faults(tssd, ref)
     for model in SSD_HEADS:
@@ -2459,7 +2569,9 @@ def main() -> int:
         row("flash_decode", csrc + "decode_attention.cu", fa + ":212",
             dense_launches["flash_decode"], bf16_err(fd_checks),
             DECODE_TOL["bfloat16"], times["flash_decode decode"],
-            times["flash_decode prefill"], fd_checks, "dense"),
+            times["flash_decode prefill"], fd_checks, "dense",
+            worst_over_limit=max(c["worst_over_limit"] for c in fd_checks),
+            planted_fault=fd_faults, bf16_shortcut=fd_shortcut),
         row("cache_update", csrc + "cache_update.cu", fa + ":394",
             dense_launches["cache_update"], 0.0, 0.0,
             times["cache_update decode"], None, cu_checks, "dense"),
@@ -2468,6 +2580,7 @@ def main() -> int:
             bf16_err(fdp_checks), DECODE_TOL["bfloat16"],
             times["flash_decode_paged decode"],
             times["flash_decode_paged prefill"], fdp_checks, "paged",
+            worst_over_limit=max(c["worst_over_limit"] for c in fdp_checks),
             vs_dense_max_abs_diff=max(c["vs_dense_max_abs_diff"]
                                       for c in fdp_checks)),
         row("cache_update_paged", csrc + "cache_update_paged.cu",
@@ -2510,7 +2623,7 @@ def main() -> int:
     ]
     gmm_times = {k: t for k, t in times.items()
                  if k.startswith("grouped_matmul")}
-    t = gmm_times["grouped_matmul decode 2048x1024"]
+    t = gmm_times["grouped_matmul M=2 2048x1024"]
     kernels.append(dict(
         name="grouped_matmul", route="cuda",
         source=csrc + "grouped_matmul.cu",

@@ -40,11 +40,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of each library's entry point: (argtypes, restype).
 SIGNATURES = {
     "decode_attention": ("flash_decode",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _F, _F, _I, _P]),
+                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _F, _F, _I, _I, _P]),
     "decode_attention_paged": ("flash_decode_paged",
-                               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _F, _I, _P]),
+                               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "cache_update": ("cache_update",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "cache_update_paged": ("cache_update_paged",

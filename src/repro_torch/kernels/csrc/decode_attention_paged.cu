@@ -10,15 +10,17 @@
 // What bounds it on the card: the bytes of K/V read, as for the dense
 // kernel; the table adds one int per K/V row staged (L1-resident).
 //
-// What the design does about it: it IS the dense kernel
+// What the design does about it: it IS the dense kernels
 // (decode_attention.cuh) with the row address resolved through the table.
-// At each 128-row tile every thread resolves one row's block (one table
-// load per row) into shared memory, then the tile's cp.async copies are
-// issued from those offsets, so no copy waits on a table load; the tile
-// spans 8 blocks of 16 (or 16 of 8).
-// Because the tile loop, the masks and every sum are the dense kernel's,
-// the output over a scattered pool equals flash_decode's over the gathered
-// cache bit for bit -- the reference's paged == dense invariant.
+// The CUDA-core decode kernel resolves each 128-row tile's rows (one table
+// load per row) into shared memory before it issues the tile's cp.async
+// copies, so no copy waits on a table load; the tensor-core chunk kernel
+// loads each thread's row offsets into registers before it issues that
+// thread's copies.  The tile spans 8 blocks of 16 (or 16 of 8).
+// Because the tile loops, the spans of the split, the masks and every sum
+// are the dense kernels', the output over a scattered pool equals
+// flash_decode's over the gathered cache bit for bit -- the reference's
+// paged == dense invariant.
 //   * done lanes (kv_len = max_blocks*bs + 1) stop at the slot's last row;
 //   * table entries are clamped into [0, pool_blocks) before forming an
 //     address: free and released slots point at the engine's parking block,
@@ -26,16 +28,17 @@
 
 #include "decode_attention.cuh"
 
-// pools (pool_blocks, bs, K, D); table (B, max_blocks) int32.
+// pools (pool_blocks, bs, K, D); table (B, max_blocks) int32; part and
+// counters as flash_decode's, with S = max_blocks * bs.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_decode_paged(const void* q, const void* k_pool, const void* v_pool,
-                                  const void* kv_len, const void* table, void* out, int B,
-                                  int Sq, int H, int K, int D, int bs, int max_blocks,
-                                  int pool_blocks, int dtype, float scale, float softcap,
-                                  int window, void* stream) {
+                                  const void* kv_len, const void* table, void* out, void* part,
+                                  void* counters, int B, int Sq, int H, int K, int D, int bs,
+                                  int max_blocks, int pool_blocks, int dtype, float scale,
+                                  float softcap, int window, int span, void* stream) {
   if (bs <= 0 || max_blocks <= 0 || pool_blocks <= 0) return (int)cudaErrorInvalidValue;
-  return decode_attention(q, k_pool, v_pool, kv_len, out, B, Sq, H, K, D, dtype, scale,
-                          softcap, window,
+  return decode_attention(q, k_pool, v_pool, kv_len, out, part, counters, B, Sq, H, K, D,
+                          dtype, scale, softcap, window, span,
                           PagedRows{static_cast<const int*>(table), max_blocks, bs, pool_blocks},
                           stream);
 }

@@ -31,6 +31,40 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.ssd import ssd
 
+#: query rows of a kv head (Sq * H / K) up to which a call takes the
+#: kernels' decode path, split-KV over spans of DECODE_SPAN kv rows (a
+#: multiple of their 128-row tile); more rows take the prefill-chunk path
+DECODE_ROWS = 4
+DECODE_SPAN = 256
+
+#: per device, the decode path's span counters: zeros, which every launch
+#: leaves as it found them (one stream at a time may use them)
+_counters: dict = {}
+
+
+def _decode_scratch(q, K, D, limit):
+    """The decode path's scratch for a call with ``limit`` kv rows per slot:
+    the spans' (acc, m, l) states and the counters; (None, None) on the
+    prefill-chunk path, which needs none.  The caller holds them until the
+    launch is enqueued."""
+    B, Sq, H = q.shape[:3]
+    if Sq * (H // K) > DECODE_ROWS:
+        return None, None
+    n_spans = -(-limit // DECODE_SPAN)
+    part = torch.empty(B * K * n_spans * DECODE_ROWS * (D + 2),
+                       dtype=torch.float32, device=q.device)
+    counters = _counters.get(q.device)
+    if counters is None or counters.numel() < B * K:
+        counters = torch.zeros(max(B * K, 1024), dtype=torch.int32,
+                               device=q.device)
+        _counters[q.device] = counters
+    return part, counters
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
                  local_window=None, scale=None):
     """q: (B, Sq, H, D); caches: (B, S, K, D); kv_len: (B,) int32 valid
@@ -60,12 +94,14 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
                 v_cache=v_cache, kv_len=kv_len)
     out = torch.empty_like(q)
     lib = build.library("decode_attention")
+    part, counters = _decode_scratch(q, K, D, S)
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), B, Sq, H, S, K, D,
+        kv_len.data_ptr(), out.data_ptr(), _ptr(part), _ptr(counters), B, Sq,
+        H, S, K, D,
         build.DTYPE_CODE[q.dtype], float(scale),
         float(softcap) if softcap is not None else 0.0,
-        int(local_window) if local_window is not None else 0,
+        int(local_window) if local_window is not None else 0, DECODE_SPAN,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_decode", err)
     flash_decode.launches += 1
@@ -111,13 +147,15 @@ def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
                 v_pool=v_pool, kv_len=kv_len, block_tables=block_tables)
     out = torch.empty_like(q)
     lib = build.library("decode_attention_paged")
+    max_blocks = block_tables.shape[1]
+    part, counters = _decode_scratch(q, K, D, max_blocks * bs)
     err = lib.flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        kv_len.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, Sq,
-        H, K, D, bs, block_tables.shape[1], n_blocks,
+        kv_len.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+        _ptr(part), _ptr(counters), B, Sq, H, K, D, bs, max_blocks, n_blocks,
         build.DTYPE_CODE[q.dtype],
         float(scale), float(softcap) if softcap is not None else 0.0,
-        int(local_window) if local_window is not None else 0,
+        int(local_window) if local_window is not None else 0, DECODE_SPAN,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_decode_paged", err)
     flash_decode_paged.launches += 1

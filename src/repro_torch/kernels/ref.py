@@ -5,10 +5,14 @@ line.  The CPU path of every kernel wrapper runs these, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  The CUDA path never calls them.
 
-``bf16_parts`` and ``attention_tc_emulated`` have no oracle: they redo
-the bf16 attention kernels' arithmetic (P and dS handed to the tensor
-cores in bf16 parts) so the CPU tests and ``chip_smoke.py`` can show
-which choice the per-entry check accepts.
+``bf16_parts``, ``attention_tc_emulated`` and
+``decode_attention_tc_emulated`` have no oracle: they redo the bf16
+attention kernels' arithmetic (P and dS handed to the tensor cores in bf16
+parts) so the CPU tests and ``chip_smoke.py`` can show which choice the
+per-entry check accepts.  ``decode_attention_split`` has none either: it
+is the decode kernels' split-KV order of sums (fixed spans of kv rows,
+combined in span order), held against ``decode_attention_ref`` and the
+JAX ``flash_decode`` by the CPU tests.
 """
 
 from __future__ import annotations
@@ -214,6 +218,80 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len, *, scale=None,
     return attention_naive(q, k_cache, v_cache, causal=True,
                            local_window=local_window, softcap=softcap,
                            scale=scale, kv_len=kv_len)
+
+
+def _decode_logits(q, k_cache, kv_len, scale, softcap, local_window):
+    """(B, K, G, Sq, S) f32 logits of the decode layout (q at the END of
+    each slot's kv_len window) after scale and softcap, and their mask, as
+    ``attention_naive`` computes them with ``kv_len``."""
+    B, Sq, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, Sq, K, H // K, D)
+    s = _softcap(torch.einsum("bqkgd,bskd->bkgqs", qf, k_cache.float())
+                 * scale, softcap)
+    q_pos = torch.arange(Sq, device=q.device)[None] + kv_len.long()[:, None] \
+        - Sq
+    k_pos = torch.arange(S, device=q.device)
+    mask = q_pos[:, :, None] >= k_pos[None, None, :]
+    if local_window is not None:
+        mask &= q_pos[:, :, None] - k_pos[None, None, :] < local_window
+    return s, mask[:, None, None]
+
+
+def decode_attention_split(q, k_cache, v_cache, kv_len, *, span, scale=None,
+                           softcap=None, local_window=None):
+    """``decode_attention_ref`` in the decode kernels' order of sums:
+    each slot's kv rows cut into fixed spans of ``span`` positions
+    ([0, span), [span, 2 span), ...), an online-softmax state (m, l, acc)
+    per span, the states combined in span order (M = max m, L = sum l
+    e^(m - M), acc = sum acc e^(m - M), out = acc / max(L, 1e-30)).  The
+    cache is zero-padded to whole spans, so a larger cache (a paged slot's
+    max_blocks * bs rows) only adds spans no live row sees, which add
+    exact zeros: the result does not depend on it."""
+    B, Sq, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    pad = -S % span
+    kp = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, 0, 0, pad))
+    s, mask = _decode_logits(q, kp, kv_len, scale, softcap, local_window)
+    mask = mask & (torch.arange(S + pad, device=q.device) < S)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    states = []
+    for j in range(0, S + pad, span):
+        sj, mj = s[..., j:j + span], mask[..., j:j + span]
+        m = sj.amax(-1)
+        e = torch.exp(sj - m[..., None]) * mj
+        states.append((m, e.sum(-1),
+                       torch.einsum("bkgqs,bskd->bkgqd", e, vp[:, j:j + span])))
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    L = torch.zeros_like(M)
+    acc = torch.zeros(M.shape + (D,), device=q.device)
+    for m, l, a in states:
+        sc = torch.exp(m - M)
+        L = L + l * sc
+        acc = acc + a * sc[..., None]
+    out = acc / torch.clamp(L, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_tc_emulated(q, k_cache, v_cache, kv_len, *, parts: int,
+                                 scale=None, softcap=None, local_window=None):
+    """The bf16 prefill-chunk kernel's arithmetic in plain PyTorch: the f32
+    probabilities P (exp(S - max), normalised by their sum after the
+    product) handed to the product with V as ``bf16_parts(P, parts)``, one
+    f32 product per term; q, K and V are bf16 already.  With parts=2 this
+    is the kernel's design; parts=1 is the shortcut the checks must
+    reject.  Returns (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    s, mask = _decode_logits(q, k_cache, kv_len, scale, softcap,
+                             local_window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    e = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    acc = sum(torch.einsum("bkgqs,bskd->bkgqd", part, v_cache.float())
+              for part in bf16_parts(e, parts))
+    o = acc / e.sum(-1, keepdim=True).clamp(min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
 def kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index):

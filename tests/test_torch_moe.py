@@ -581,5 +581,5 @@ def test_cuda_branch_checks_inputs_and_never_falls_back(monkeypatch):
 def test_kernel_source_is_declared_and_hashed():
     assert build.SIGNATURES["grouped_matmul"][0] == "grouped_matmul"
     assert [p.name for p in build.sources("grouped_matmul")] \
-        == ["grouped_matmul.cu"]
+        == ["grouped_matmul.cu", "hopper.cuh"]
     assert (build.CSRC / "grouped_matmul.cu").exists()

@@ -544,7 +544,8 @@ def test_every_kernel_source_is_built_and_declared():
     for name in build.SIGNATURES:
         assert (build.CSRC / f"{name}.cu").exists()
     names = [p.name for p in build.sources("decode_attention_paged")]
-    assert names == ["decode_attention_paged.cu", "decode_attention.cuh"]
+    assert names == ["decode_attention_paged.cu", "decode_attention.cuh",
+                     "hopper.cuh"]
     assert {fn.__name__ for fn in tfa.KERNELS} == {
         "flash_decode", "flash_decode_paged", "cache_update",
         "cache_update_paged", "flash_attention", "flash_attention_bwd",
