@@ -4,7 +4,8 @@
 Phases (any failure raises and exits non-zero; no phase's failure is
 caught):
 
-  0. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (timed);
+  0. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (timed;
+     each kernel's registers and spills as ``ptxas -v`` reports them);
   1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and
      power limit;
   2. each kernel against its plain PyTorch version on the card, at the
@@ -42,10 +43,15 @@ caught):
      ``ref.ssd_chunked`` entry by entry at mamba2's (H=32, P=64, N=128)
      and zamba2's (H=64, P=64, N=64) heads, S 256 (two chunks), 128, 64,
      16 and 2, with and without h0, G=2 once, the state written over h0
-     once, chunks 37 (S=148) and 1 (S=131) at mamba2's heads, bf16 and
-     f32, the check shown to reject a kernel that drops
-     h0 or the state carried between chunks, then timed at S=256 beside
-     its byte bound (no library call computes SSD);
+     once, chunks 37 (S=148) and 1 (S=131) at mamba2's heads, the
+     contract's edges (P=48, N=96, G=2; P=16, N=32), bf16 and f32, the
+     check shown to reject a kernel that drops h0, the state carried
+     between chunks or one 64-row tile of x, and the plain version with
+     M, the state and x o wd rounded to bf16 once (the shortcut the bf16
+     kernel's hi/lo split avoids), then timed at S=256 and at every tail
+     a prompt's chunk plan cuts (S = 128 ... 2) beside its byte bound (no
+     library call computes SSD), and summed per Mamba layer over a
+     serving arm's chunks;
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times:
@@ -93,8 +99,9 @@ caught):
           paged, per chunk), 16/16 paged streams equal the dense ones
           bit for bit, and prefix sharing refused;
      then torch.profiler windows of steady decode, olmoe dense, mamba2
-     dense, zamba2 dense and paged, llama dense and paged (last:
-     launches slow down once the profiler has run);
+     dense, zamba2 dense and paged, llama dense and paged, and of the
+     prefill of one 1024-row prompt (four 256-row chunks) on mamba2 and
+     zamba2 (last: launches slow down once the profiler has run);
   4. logits parity at full width and 2 layers: the card (bf16, kernels)
      against a float32 CPU forward of the same weights (plain path); for
      olmoe the same prefill chunks and decode step on both sides, the
@@ -125,6 +132,7 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -209,9 +217,16 @@ SSM_ARCH = "mamba2-370m"
 HYBRID_ARCH = "zamba2-1.2b"
 #: the ssd kernel's serving shapes, (H, P, N) of each Mamba-2 model
 SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
+#: the prefill chunks timed: a 256-row chunk and every tail ``chunk_plan``
+#: cuts that takes the kernel (two rows or more)
+SSD_TIME_S = (256, 128, 64, 32, 16, 8, 4, 2)
+#: the bf16 ssd kernel's row tile (csrc/ssd.cu)
+SSD_TILE = 64
+#: the prompt of the [profile:*-prefill] windows: four 256-row chunks
+PREFILL_PROFILE_LEN = 1024
 #: kernel-name fragments of a Mamba model's decode step by kind
 SSM_PROFILE_GROUPS = {
-    "ssd": ("ssd_kernel",),
+    "ssd": ("ssd_kernel", "ssd_tc_kernel"),
     "flash_decode": ("decode_attention",),
     "cache_update": ("cache_update_kernel", "cache_update_paged_kernel"),
     "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
@@ -1166,7 +1181,8 @@ def check_ssd(tssd, ref):
     models' dt scale once per shape; G = 2 once; the final state written
     over h0 (the cache lane, in place) once; at mamba2's heads the chunks
     a whole-prompt prefill picks that are no power of two: 37 (S = 4 x
-    37) and 1 (S = 131, a prime); bf16 and f32."""
+    37) and 1 (S = 131, a prime); the edges of the kernel's contract (P =
+    48, N = 96, G = 2; P = 16, N = 32, chunk 48); bf16 and f32."""
     import torch
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1183,6 +1199,10 @@ def check_ssd(tssd, ref):
                       128))
         cases += [(dtype, "mamba2", H, P, N, S, 1, True, -3.0, False, Q)
                   for S, Q in ((4 * 37, 37), (131, 1))]
+        # the edges of the contract: P a multiple of 16 and N of 32 that
+        # fill no whole tile of the bf16 kernel, two groups
+        cases += [(dtype, "edges", 8, 48, 96, 256, 2, True, -3.0, False, 128),
+                  (dtype, "edges", 4, 16, 32, 96, 1, True, -3.0, False, 48)]
     checks = []
     for dtype, model, H, P, N, S, G, use_h0, shift, inplace, Q in cases:
         x, dt, A, B, C, D, h0 = _ssd_case(1, S, H, P, G, N, dtype,
@@ -1217,13 +1237,17 @@ def check_ssd(tssd, ref):
 
 
 def check_ssd_faults(tssd, ref):
-    """The check must reject a kernel that drops the carried state: at
-    mamba2's heads, S = 256, bf16, the plain version's y from the real h0
-    against the kernel (a) given h0 zeroed, (b) run on the two 128-row
-    halves with no state carried from the first into the second.  Raises
-    unless more than a tenth of the affected entries (all rows for (a),
-    the second half for (b)) are flagged, and none of the first half for
-    (b), which is the same computation."""
+    """The check must reject a kernel that drops the carried state or one
+    of the bf16 kernel's 64-row tiles: at mamba2's heads, S = 256, bf16,
+    the plain version's y from the real inputs against the kernel (a)
+    given h0 zeroed, (b) run on the two 128-row halves with no state
+    carried from the first into the second, (c) given x with rows 64..127
+    zeroed (the first chunk's second 64-row tile of M x, of the state
+    update's reduction and of D x dropped).  Raises unless more than a
+    tenth of the affected entries (all rows for (a); the second half for
+    (b); rows 64 on for (c), which see the tile directly or through the
+    state) are flagged, and none of the rows the fault cannot reach (the
+    first half for (b), rows 0..63 for (c): the same computation)."""
     import torch
     H, P, N = SSD_HEADS["mamba2"]
     x, dt, A, B, C, D, h0 = _ssd_case(1, 256, H, P, 1, N, torch.bfloat16,
@@ -1234,11 +1258,16 @@ def check_ssd_faults(tssd, ref):
                         D, h0, chunk=128)
     second, _ = tssd.ssd(x[:, 128:], dt[:, 128:], A, B[:, 128:],
                          C[:, 128:], D, None, chunk=128)
+    x_cut = x.clone()
+    x_cut[:, SSD_TILE:2 * SSD_TILE] = 0
+    tile, _ = tssd.ssd(x_cut, dt, A, B, C, D, h0, chunk=128)
     faults = {}
     for fault, got, affected in (
             ("h0 zeroed", zeroed, slice(None)),
             ("no state carried between halves",
-             torch.cat([first, second], dim=1), slice(128, None))):
+             torch.cat([first, second], dim=1), slice(128, None)),
+            (f"x rows {SSD_TILE}..{2 * SSD_TILE - 1} zeroed", tile,
+             slice(SSD_TILE, None))):
         flagged = _entry_ratio("bfloat16", got, want) > 1
         others = flagged.clone()
         others[:, affected] = False
@@ -1251,24 +1280,67 @@ def check_ssd_faults(tssd, ref):
             raise AssertionError(f"ssd check vs a kernel with {fault}: "
                                  f"{faults[fault]}")
     print(f"[check] ssd planted faults mamba2 heads S=256 bf16, against the "
-          "plain version from the real h0: share of the affected entries "
-          "beyond their limit: " + ", ".join(
+          "plain version from the real inputs: share of the affected "
+          "entries beyond their limit: " + ", ".join(
               f"{n} {f['flagged_share_of_affected']:.4f} "
               f"({f['flagged_outside']} flagged elsewhere)"
               for n, f in faults.items()), flush=True)
     return faults
 
 
-def time_ssd(tssd, ref, model):
-    """Kernel and plain times of one 256-row prefill chunk at batch 1 (the
-    serving shape: bf16, h0 from the slot's lane and the final state
-    written back over it), at the models' dt scale.  The inputs (4-6 MB)
-    stay in the 50 MB L2, as in serving, where the chunk's projections
-    have just written them.  No single PyTorch call computes SSD: the
-    library column is none."""
+def check_ssd_shortcut(ref):
+    """The per-entry rules must reject the shortcut a bf16 tensor-core
+    SSD invites: M, the carried state and x o wd rounded to bf16 once
+    (``ref.ssd_tc_emulated(parts=1)``, the plain version with that one
+    change), at mamba2's and zamba2's heads, S = 256, bf16, on the card.
+    The kernel's split, hi = bf16(v) and lo = bf16(v - hi) (``parts=2``),
+    is shown beside it, within the rules (y: one bf16 ulp; the state: the
+    float32 rule).  Raises if the rules pass the shortcut or reject the
+    split."""
+    import torch
+    res = {}
+    for model, (H, P, N) in SSD_HEADS.items():
+        x, dt, A, B, C, D, h0 = _ssd_case(1, 256, H, P, 1, N, torch.bfloat16,
+                                          5300)
+        want_y, want_s = ref.ssd_chunked(x, dt, A, B, C, D, h0, chunk=128)
+        for parts in (1, 2):
+            y, st = ref.ssd_tc_emulated(x, dt, A, B, C, D, h0, chunk=128,
+                                        parts=parts)
+            for n, got, w, rule in (("y", y, want_y, "bfloat16"),
+                                    ("state", st, want_s, "float32")):
+                ratio = _entry_ratio(rule, got, w)
+                res[f"{model}_{n}_parts{parts}"] = {
+                    "worst_over_limit": ratio.max().item(),
+                    "flagged_share": (ratio > 1).float().mean().item()}
+    print("[check] ssd bf16 shortcut S=256 chunk=128 (plain version, worst "
+          "entry / its limit, share beyond): M, the state and x o wd "
+          "rounded to bf16 once: " + ", ".join(
+              f"{m} {n} {res[f'{m}_{n}_parts1']['worst_over_limit']:.3f} "
+              f"({res[f'{m}_{n}_parts1']['flagged_share']:.4f})"
+              for m in SSD_HEADS for n in ("y", "state"))
+          + "; split hi + lo: " + ", ".join(
+              f"{m} {n} {res[f'{m}_{n}_parts2']['worst_over_limit']:.3f}"
+              for m in SSD_HEADS for n in ("y", "state")), flush=True)
+    if any(v["worst_over_limit"] <= 1 for k, v in res.items()
+           if k.endswith("parts1")):
+        raise AssertionError(f"the ssd rules pass bf16 operands: {res}")
+    if any(v["worst_over_limit"] > 1 for k, v in res.items()
+           if k.endswith("parts2")):
+        raise AssertionError(f"the ssd rules reject the split: {res}")
+    return res
+
+
+def time_ssd(tssd, ref, model, S=256):
+    """Kernel and plain times of one prefill chunk of S rows at batch 1
+    (the serving shape: bf16, h0 from the slot's lane and the final state
+    written back over it), at the models' dt scale: S = 256 (two 128-row
+    kernel chunks) or a tail of ``chunk_plan`` (S = Q = 2 ... 128).  The
+    inputs (at most 4-6 MB) stay in the 50 MB L2, as in serving, where the
+    chunk's projections have just written them.  No single PyTorch call
+    computes SSD: the library column is none."""
     import torch
     H, P, N = SSD_HEADS[model]
-    S, G, Q = 256, 1, 128
+    G, Q = 1, min(S, 128)
     x, dt, A, B, C, D, h0 = _ssd_case(1, S, H, P, G, N, torch.bfloat16,
                                       5200, 0.0)
     kernel = [functools.partial(tssd.ssd, x, dt, A, B, C, D, h0, chunk=Q,
@@ -1278,10 +1350,10 @@ def time_ssd(tssd, ref, model):
     esz = 2
     nbytes = (esz * (2 * S * H * P + S * H + 2 * S * G * N)
               + 4 * (2 * H + 2 * H * P * N))
-    # per head and chunk: C B^T and M x over the j <= i triangle, C state^T
-    # and the state update over all rows
+    # per chunk: C B^T once per group over the j <= i triangle; per head
+    # M x over the triangle, C state^T and the state update over all rows
     tri = Q * (Q + 1) / 2
-    ops = H * (S // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
+    ops = (S // Q) * (G * 2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
     bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
     return {"shape": f"Bb=1 S={S} H={H} P={P} G={G} N={N} chunk={Q} bf16, "
                      "h0 in place",
@@ -1291,6 +1363,28 @@ def time_ssd(tssd, ref, model):
             "library": "none: no single PyTorch call computes SSD",
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
             "bytes": nbytes}
+
+
+def ssd_layer_ms(times, model, specs):
+    """Print the ``ssd`` device time of one Mamba layer over a serving
+    arm's requests, derived, not measured: the prefill chunks of two rows
+    or more that ``chunk_plan`` cuts from the prompts, replayed here, each
+    at its timed size (``SSD_TIME_S``), summed."""
+    from repro_torch.serving.scheduler import chunk_plan
+    calls = collections.Counter(size for p, _, _ in specs
+                                for size in chunk_plan(len(p), 256)
+                                if size >= 2)
+    per = {S: n * times[_ssd_time_key(model, S)]["ms"]
+           for S, n in sorted(calls.items(), reverse=True)}
+    print(f"[time] ssd per {model} layer over the arm's 16 requests, "
+          f"derived: {sum(calls.values())} calls replayed from chunk_plan, "
+          + ", ".join(f"{calls[S]} x S={S}" for S in per)
+          + f", times their [time] ssd kernel ms: {sum(per.values()):.4f} ms",
+          flush=True)
+
+
+def _ssd_time_key(model, S):
+    return f"ssd prefill {model}" if S == 256 else f"ssd tail {model} S={S}"
 
 
 # ---------------------------------------------------------------------------
@@ -1678,6 +1772,35 @@ def profile_decode(cfg, run, params, name, groups=None, **kw):
     return _profile_window(name, "steady decode, 8 lanes",
                            2 * engine.decode_chunk, run_window,
                            groups=groups)
+
+
+def profile_prefill(cfg, run, params, name, groups=None):
+    """Where a prefill chunk's time goes: one request of PREFILL_PROFILE_LEN
+    prompt tokens (four 256-row chunks) prefilled into slot 0 of a fresh
+    engine under torch.profiler, through the engine's own chunk loop,
+    after a warm-up request.  It runs after every serving arm, as
+    ``profile_decode`` does."""
+    import torch
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(11)
+    engine = _engine(cfg, run, params, None)
+    engine.generate([Request(uid=-1, max_new_tokens=8, prompt=rng.integers(
+        0, cfg.vocab, 300).tolist())])        # first-call costs, not counted
+    prompt = rng.integers(0, cfg.vocab, PREFILL_PROFILE_LEN).tolist()
+    torch.cuda.synchronize()
+
+    def run_window():
+        engine._prefill_rows(prompt, 0, 0)
+        torch.cuda.synchronize()
+
+    out = _profile_window(name, f"prefill of {PREFILL_PROFILE_LEN} rows, "
+                          "per 256-row chunk",
+                          PREFILL_PROFILE_LEN // engine.prefill_chunk,
+                          run_window, groups=groups)
+    del engine
+    torch.cuda.empty_cache()
+    return {"prefill_" + k: v for k, v in out.items()}
 
 
 def serve_moe_no_drop(tfa, cfg, run, params, specs):
@@ -2396,6 +2519,12 @@ def main() -> int:
     libs = build.build_all()
     print(f"[build] {[p.name for p in libs]} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    ptxas = build.kernel_resources()
+    print("[build] ptxas -v, registers and bytes spilled (stores/loads) a "
+          "thread: " + "; ".join(
+              f"{k} {v.get('registers')}, {v.get('spill_stores')}/"
+              f"{v.get('spill_loads')}" for k, v in sorted(ptxas.items())),
+          flush=True)
 
     kind = torch.cuda.get_device_name(0)
     smi = _smi_line()
@@ -2464,8 +2593,10 @@ def main() -> int:
             gmm, ref, G, M, K, N)
     ssd_checks = check_ssd(tssd, ref)
     ssd_faults = check_ssd_faults(tssd, ref)
+    ssd_shortcut = check_ssd_shortcut(ref)
     for model in SSD_HEADS:
-        times[f"ssd prefill {model}"] = time_ssd(tssd, ref, model)
+        for S in SSD_TIME_S:
+            times[_ssd_time_key(model, S)] = time_ssd(tssd, ref, model, S)
     for name, t in times.items():
         lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
                else "none")
@@ -2506,11 +2637,13 @@ def main() -> int:
     _release_card()
     # 3e, 3f: full-width mamba2 (dense) and zamba2 (dense, paged)
     ssm_launches, ssm_serving, ssm_shared = serve_ssm(tfa)
+    ssd_layer_ms(times, "mamba2", ssm_shared[3])
     mamba2 = ssm_shared[:2]
     del ssm_shared
     _release_card()
     hyb_launches, hyb_paged_launches, hyb_serving, hyb_shared = \
         serve_hybrid(tfa)
+    ssd_layer_ms(times, "zamba2", hyb_shared[3])
     zamba2 = hyb_shared[:2]
     del hyb_shared
     _release_card()
@@ -2528,6 +2661,10 @@ def main() -> int:
         params = _card_weights(*model)
         into.update(profile_decode(*model, params, name, groups=groups,
                                    **kw))
+        if name in ("mamba2-dense", "zamba2-dense"):
+            into.update(profile_prefill(*model, params,
+                                        name.split("-")[0] + "-prefill",
+                                        groups=groups))
         del params
         _release_card()
     parity = logits_parity()
@@ -2655,7 +2792,8 @@ def main() -> int:
         bound_by=t["bound_by"], library_ms=None, library=t["library"],
         shape=t["shape"], host_ms=t["host_ms"],
         times={k: v for k, v in times.items() if k.startswith("ssd")},
-        checks=ssd_checks, planted_fault=ssd_faults))
+        checks=ssd_checks, planted_fault=ssd_faults,
+        bf16_shortcut=ssd_shortcut))
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
     moe_serving["paged"] = moe_paged
     print(json.dumps({"kernels": kernels, "serving": serving,
@@ -2665,7 +2803,7 @@ def main() -> int:
                       "training": training,
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,
-                      "ssm_parity": mamba_parity,
+                      "ssm_parity": mamba_parity, "ptxas": ptxas,
                       "total_s": time.perf_counter() - t_start}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,15 @@ Every ``kernels/csrc/*.cu`` file is one shared library with a plain C
 interface, compiled at first use for ``sm_90a``::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 into ``build/kernels/`` at the repository root, named by a hash of the
 source and every local header it includes (``#include "x.cuh"``), so an
 edit to either rebuilds and an unchanged source loads at once.
 ``build_all()`` starts one ``nvcc`` per source, all together.  A missing
 ``nvcc`` or a failed build raises: there is no fallback.
+``kernel_resources()`` reads each kernel's registers and spilled bytes
+from ``ptxas -v``'s report of the builds this process ran.
 
 The C interface every library shares is here too: the dtype codes its
 entry points take (``DTYPE_CODE``), the checks a wrapper makes before it
@@ -33,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -89,6 +91,8 @@ def raise_on(name: str, err: int) -> None:
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: the compiler's output of each library built in this process
+_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -149,6 +153,7 @@ def _finish(name: str, proc) -> None:
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
                            f"{log}")
     os.replace(tmp, out)
+    _logs[name] = log
 
 
 def build_all() -> list[Path]:
@@ -180,3 +185,40 @@ def library(name: str) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def demangle(symbols: list[str]) -> list[str]:
+    """The readable names of mangled kernel symbols, by the toolkit's
+    ``cu++filt -p`` (no parameter types), e.g.
+    ``<unnamed>::ssd_tc_kernel<(int)128, (int)64>``."""
+    if not symbols:
+        return []
+    return subprocess.run([str(Path(nvcc()).with_name("cu++filt")), "-p",
+                           *symbols], capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+
+
+def kernel_resources() -> dict[str, dict[str, int]]:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} of every
+    kernel of the libraries built in this process, from ``ptxas -v``
+    (bytes spilled per thread), named by ``demangle``; a library loaded
+    from the cache built nothing here and reports nothing."""
+    out: dict[str, dict[str, int]] = {}
+    for log in _logs.values():
+        kernel = None
+        for line in log.splitlines():
+            m = _ENTRY.search(line)
+            if m:
+                kernel = m.group(1)
+                out[kernel] = {}
+            elif kernel is not None and _SPILL.search(line):
+                st, ld = _SPILL.search(line).groups()
+                out[kernel].update(spill_stores=int(st), spill_loads=int(ld))
+            elif kernel is not None and _REGS.search(line):
+                out[kernel]["registers"] = int(_REGS.search(line).group(1))
+    return dict(zip(demangle(list(out)), out.values(), strict=True))

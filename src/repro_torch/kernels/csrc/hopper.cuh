@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels (bf16 paths of
-// flash_attention.cu, flash_attention_bwd.cu, decode_attention.cuh and
-// grouped_matmul.cu): TMA tile loads into a ring of shared-memory stages
-// with mbarriers, wgmma shared-memory descriptors, the wgmma operand forms,
-// and the split of an f32 matrix into a high and a low bf16 part.
+// flash_attention.cu, flash_attention_bwd.cu, decode_attention.cuh,
+// grouped_matmul.cu and ssd.cu): TMA tile loads into a ring of
+// shared-memory stages with mbarriers, wgmma shared-memory descriptors,
+// the wgmma operand forms, and the split of an f32 matrix into a high and
+// a low bf16 part.
 //
 // Layout.  A tile of `rows` rows x D bf16 columns lives in shared memory
 // as D*2/SW boxes of rows x SW bytes, SW = min(128, 2*D): box c holds
@@ -446,6 +447,35 @@ __device__ __forceinline__ void wgmma_ss_amn(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (m64n32) = d * accumulate + A B, both from shared memory: A K-major
+// (kmajor_desc), B MN-major (mnmajor_desc).  ssd's C state^T, the state
+// stored (N, P) with P contiguous.
+__device__ __forceinline__ void wgmma_ss_bmn(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n32) = d * accumulate + A B, both from shared memory and both
+// MN-major (mnmajor_desc): the reduction runs down the rows of both tiles.
+// ssd's state update B^T (x o wd), with B and x stored row by row.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // ---------------------------------------------------------------------------
 // device: the hi/lo split

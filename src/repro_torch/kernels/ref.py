@@ -5,11 +5,11 @@ line.  The CPU path of every kernel wrapper runs these, the CPU tests
 hold them against the JAX package, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  The CUDA path never calls them.
 
-``bf16_parts``, ``attention_tc_emulated`` and
-``decode_attention_tc_emulated`` have no oracle: they redo the bf16
-attention kernels' arithmetic (P and dS handed to the tensor cores in bf16
-parts) so the CPU tests and ``chip_smoke.py`` can show which choice the
-per-entry check accepts.  ``decode_attention_split`` has none either: it
+``bf16_parts``, ``attention_tc_emulated``,
+``decode_attention_tc_emulated`` and ``ssd_tc_emulated`` have no oracle:
+they redo the bf16 tensor-core kernels' arithmetic (the f32 operands, such
+as P and dS, handed to the tensor cores in bf16 parts) so the CPU tests
+and ``chip_smoke.py`` can show which choice the per-entry check accepts.  ``decode_attention_split`` has none either: it
 is the decode kernels' split-KV order of sums (fixed spans of kv rows,
 combined in span order), held against ``decode_attention_ref`` and the
 JAX ``flash_decode`` by the CPU tests.
@@ -457,6 +457,52 @@ def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
     y = (y_diag + y_off).reshape(Bb, S, H, P)
     if D is not None:
         y = y + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_tc_emulated(x, dt, A, B, C, D=None, h0=None, *, chunk, parts: int):
+    """The bf16 tensor-core ``ssd`` kernel's arithmetic in plain PyTorch,
+    chunk by chunk as the kernel walks them: the scores C B^T from the
+    inputs (exact products, f32 sums); the f32 operands of the three other
+    products handed to them as ``bf16_parts(., parts)``, one f32 product
+    per term -- the masked M = (C B^T) o L o dt for M x, the carried state
+    for C state^T, and x o wd (wd = dt exp(a_cs[Q-1] - a_cs)) for the
+    state update (x o wd)^T B; the state itself carried in f32, scaled by
+    exp(a_cs[Q-1]) exactly.  D is added in f32 and y rounded once.  With
+    parts=2 this is the kernel's design; parts=1 is the shortcut the
+    checks must reject.  Returns (y in x's dtype, the final f32 state)."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    xf, dtf = x.float(), dt.float()
+    Bf = torch.repeat_interleave(B.float(), rep, 2)          # (Bb,S,H,N)
+    Cf = torch.repeat_interleave(C.float(), rep, 2)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))[None, :, :, None]
+    ys = []
+    for s0 in range(0, S, chunk):
+        xc, dc = xf[:, s0:s0 + chunk], dtf[:, s0:s0 + chunk]
+        Bc, Cc = Bf[:, s0:s0 + chunk], Cf[:, s0:s0 + chunk]
+        a_cs = torch.cumsum(A[None, None] * dc, dim=1)       # (Bb,Q,H)
+        seg = a_cs[:, :, None] - a_cs[:, None, :]            # (Bb,i,j,H)
+        L = torch.exp(torch.where(tri, seg, torch.full_like(seg, NEG_INF)))
+        m = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L * dc[:, None]
+        y_off = sum(torch.einsum("bihn,bhpn->bihp", Cc, part)
+                    for part in bf16_parts(h, parts))
+        y = torch.exp(a_cs)[..., None] * y_off + sum(
+            torch.einsum("bijh,bjhp->bihp", part, xc)
+            for part in bf16_parts(m, parts))
+        a_last = a_cs[:, -1]                                 # (Bb,H)
+        xw = xc * (dc * torch.exp(a_last[:, None] - a_cs))[..., None]
+        h = h * torch.exp(a_last)[..., None, None] + sum(
+            torch.einsum("bqhp,bqhn->bhpn", part, Bc)
+            for part in bf16_parts(xw, parts))
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    if D is not None:
+        y = y + xf * D[None, None, :, None]
     return y.to(x.dtype), h
 
 

@@ -10,6 +10,13 @@ alignment, allocates the outputs, launches the kernel on the current
 stream and raises if the launch returns a CUDA error.  There is no other
 path.  It counts its launches in ``ssd.launches``.
 
+bf16 runs on the tensor cores (``ssd_tc_kernel``: the scores C B^T, the
+masked product M x, C state^T and the state update on ``wgmma``, with M,
+the carried state and x o wd handed over as two bf16 parts each, which
+``ref.ssd_tc_emulated`` repeats on the CPU); float32, the parity path,
+runs on the CUDA cores (``ssd_kernel``).  Every chunk from 1 to 128 rows
+takes the same kernel of its dtype.
+
 The kernel adds the ``D`` skip in float32 and rounds y once, as
 ``ssd_chunked`` does (the Pallas wrapper rounded y, added ``D`` and
 rounded again).  The final state may be written over ``h0`` itself

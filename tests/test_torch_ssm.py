@@ -716,7 +716,7 @@ def test_cuda_branch_takes_any_chunk_that_divides_s(monkeypatch, S, chunk):
 def test_kernel_source_is_declared_and_hashed():
     assert build.SIGNATURES["ssd"][0] == "ssd"
     assert len(build.SIGNATURES["ssd"][1]) == 18
-    assert [p.name for p in build.sources("ssd")] == ["ssd.cu"]
+    assert [p.name for p in build.sources("ssd")] == ["ssd.cu", "hopper.cuh"]
     assert tssd.ssd in tfa.KERNELS
 
 
