@@ -39,7 +39,16 @@ caught):
      K-slice or the last group, then timed beside ``torch.bmm`` at every
      capacity olmoe's path produces; the
      four decode and cache kernels at zamba2's H = K = 32, D = 64,
-     checked (paged == dense bit for bit) and timed; ``ssd`` against
+     checked (paged == dense bit for bit) and timed; the two cache
+     writes with the serving step's RoPE folded in (given q, cos and sin)
+     against the plain composition (``apply_rope`` on q and k, then the
+     plain scatter), bit for bit in k cache, v cache and rotated q, at
+     llama's, olmoe's and zamba2's heads, a decode step and a 256-row
+     chunk with done, negative and overrunning slots, every dtype pair and
+     half-rotary heads, the check shown to reject k left unrotated and
+     RoPE's halves swapped, then timed at a decode step and a 256-row
+     chunk beside the plain composition and the byte bound (no single
+     PyTorch call does both); ``ssd`` against
      ``ref.ssd_chunked`` entry by entry at mamba2's (H=32, P=64, N=128)
      and zamba2's (H=64, P=64, N=64) heads, S 256 (two chunks), 128, 64,
      16 and 2, with and without h0, G=2 once, the state written over h0
@@ -98,7 +107,8 @@ caught):
           rows or more, 6 attention and 6 cache launches per step and,
           paged, per chunk), 16/16 paged streams equal the dense ones
           bit for bit, and prefix sharing refused;
-     then torch.profiler windows of steady decode, olmoe dense, mamba2
+     then torch.profiler windows (every device launch per step counted)
+     of steady decode, olmoe dense, mamba2
      dense, zamba2 dense and paged, llama dense and paged, and of the
      prefill of one 1024-row prompt (four 256-row chunks) on mamba2 and
      zamba2 (last: launches slow down once the profiler has run);
@@ -194,6 +204,11 @@ GMM_SHAPES = [(64, 2, 2048, 1024), (64, 2, 1024, 2048),      # decode
 GMM_TIME_M = (1, 2, 3, 5, 10, 20, 40)
 GMM_TIME_SHAPES = ([(64, M, 2048, 1024) for M in GMM_TIME_M]
                    + [(64, 2, 1024, 2048), (64, 40, 1024, 2048)])
+#: (H, K, D) of the attention the fused RoPE + cache write serves:
+#: llama3.2-3b, olmoe-1b-7b and zamba2-1.2b's shared block
+ROPE_HEADS = {"llama": (24, 8, 128), "olmoe": (16, 16, 128),
+              "zamba2": (32, 32, 64)}
+F32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 TRAIN_STEPS = 6
 #: the bf16 attention kernels' tiles: the forward's key tile, the dK/dV
 #: pass's query step and the dQ pass's query tile (flash_attention*.cu)
@@ -801,6 +816,234 @@ def time_cache_update_paged(tfa, ref, B, Sn, index, K=8, D=128):
             "library_ms": library_ms,
             "library": "Tensor.index_copy_ on the k and v pools viewed as "
                        "rows",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _rope_case(B, Sn, H, K, D, new_dt, rotary_pct, index, seed):
+    """q, k_new, v_new (new_dt) and the f32 cos/sin of positions index[b]
+    + j (``rope_cos_sin``'s formula, theta 500000), seeded on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Sn, H, D), generator=g, device="cuda").to(new_dt)
+    kn = torch.randn((B, Sn, K, D), generator=g, device="cuda").to(new_dt)
+    vn = torch.randn((B, Sn, K, D), generator=g, device="cuda").to(new_dt)
+    half = int(D * rotary_pct) // 2
+    pos = (torch.tensor(index, device="cuda").clamp(min=0)[:, None]
+           + torch.arange(Sn, device="cuda")[None])
+    inv = 500000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                     device="cuda") / half)
+    ang = pos.float()[..., None] * inv
+    return q, kn, vn, torch.cos(ang), torch.sin(ang)
+
+
+def _rope_cache(paged, B, S, K, D, cache_dt, Sn, seed, bs=16, mapped=100):
+    """Seeded caches (dense (B, S, K, D), or pools of B * S / bs + 1 blocks
+    of bs whose tables map ``mapped`` scattered blocks a slot and park the
+    rest), the per-slot index with a done, a negative and an overrunning
+    slot, the table (None dense) and the blocks no table maps."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if not paged:
+        shape, table, unmapped = (B, S, K, D), None, []
+        index = [0, 5, 700, 1333, S - Sn, S, -1, S - Sn + 1][:B]
+    else:
+        mb = S // bs
+        n_pool = B * mb + 1
+        shape = (n_pool, bs, K, D)
+        perm = np.random.default_rng(seed).permutation(B * mb)
+        table = perm.reshape(B, mb).copy()
+        table[:, mapped:] = n_pool - 1
+        unmapped = sorted(set(range(n_pool)) - set(table.ravel().tolist()))
+        table = torch.tensor(table, dtype=torch.int32, device="cuda")
+        index = [0, 14, 700, 1333, mapped * bs - Sn, S, -1, S - Sn + 1][:B]
+    kc = torch.randn(shape, generator=g, device="cuda").to(cache_dt)
+    vc = torch.randn(shape, generator=g, device="cuda").to(cache_dt)
+    return kc, vc, index, table, unmapped
+
+
+def _rope_both(tfa, ref, paged, kc, vc, idx, table, q, kn, vn, c, s, rp,
+               plain=None):
+    """(kernel outputs, plain outputs) of one fused call, each (k cache, v
+    cache, rotated q), on clones of the caches; ``plain`` replaces the
+    plain composition (a planted fault)."""
+    import torch
+    rope = dict(q=q, cos=c, sin=s, rotary_pct=rp)
+    if paged:
+        got = tfa.cache_update_paged(kc.clone(), vc.clone(), kn, vn, idx,
+                                     table, **rope)
+    else:
+        got = tfa.cache_update(kc.clone(), vc.clone(), kn, vn, idx, **rope)
+    want = (plain or ref.rope_kv_cache_update_ref)(
+        kc.clone(), vc.clone(), kn, vn, idx, q, c, s, rp,
+        block_tables=table)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _max_diff(got, want):
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def check_rope_cache_update(tfa, ref, paged):
+    """The fused RoPE + cache write against the plain composition
+    (``ref.rope_kv_cache_update_ref``: apply_rope on q and k, then the
+    plain scatter), bit for bit in k cache, v cache and rotated q: at
+    llama's, olmoe's and zamba2's heads, a decode step (B = 8, Sn = 1) and
+    a 256-row chunk (B = 8, Sn = 256), both with a done, a negative and an
+    overrunning slot, every dtype pair (new f32/bf16 x cache f32/bf16),
+    and partial rotary (half of each head) at llama's decode; paged, the
+    blocks no table maps must stay untouched."""
+    import torch
+    name = "cache_update_paged" if paged else "cache_update"
+    B, S = 8, 2048
+    dts = (torch.float32, torch.bfloat16)
+    cases = [(m, Sn, nd, cd, 1.0) for m in ROPE_HEADS for Sn in (1, 256)
+             for nd in dts for cd in dts]
+    cases += [("llama", 1, nd, torch.bfloat16, 0.5) for nd in dts]
+    checks = []
+    for model, Sn, new_dt, cache_dt, rp in cases:
+        H, K, D = ROPE_HEADS[model]
+        seed = 4000 + 100 * paged + len(checks)
+        kc, vc, index, table, unmapped = _rope_cache(paged, B, S, K, D,
+                                                     cache_dt, Sn, seed)
+        q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, new_dt, rp, index, seed)
+        idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+        got, want = _rope_both(tfa, ref, paged, kc, vc, idx, table, q, kn,
+                               vn, c, s, rp)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        check = {"model": model, "Sn": Sn, "rotary_pct": rp,
+                 "new": str(new_dt).split(".")[1],
+                 "cache": str(cache_dt).split(".")[1], "index": index,
+                 "max_abs_diff": _max_diff(got, want), "bit_exact": exact}
+        if paged:
+            um = torch.tensor(unmapped, device="cuda")
+            check["unmapped_blocks_untouched"] = all(
+                torch.equal(a[um], b[um]) for a, b in zip(got, (kc, vc)))
+        checks.append(check)
+        print(f"[check] {name} rope {check}", flush=True)
+        if not exact or not check.get("unmapped_blocks_untouched", True):
+            raise AssertionError(f"{name} with RoPE is not bit for bit the "
+                                 "plain composition")
+    return checks
+
+
+def _rope_halves_swapped(x, cos, sin, rotary_pct=1.0):
+    """apply_rope with the two rotated halves written in each other's
+    place: the planted fault of ``check_rope_faults``."""
+    import torch
+    D = x.shape[-1]
+    half = int(D * rotary_pct) // 2
+    x1, x2 = x[..., :half].float(), x[..., half:2 * half].float()
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    rotated = torch.cat([x2 * c + x1 * s, x1 * c - x2 * s], -1)
+    return torch.cat([rotated.to(x.dtype), x[..., 2 * half:]], -1)
+
+
+def check_rope_faults(tfa, ref):
+    """The bit-for-bit check shown to reject two wrong plain compositions
+    at llama's decode step (bf16, dense and paged): k written unrotated
+    (only the written k rows may differ), and RoPE's two halves swapped (q
+    and the written k rows differ).  Each must be flagged; the v cache
+    must stay equal in both."""
+    import torch
+    H, K, D = ROPE_HEADS["llama"]
+    B, S, Sn = 8, 2048, 1
+
+    def k_unrotated(kc, vc, kn, vn, idx, q, c, s, rp, block_tables=None):
+        q = ref.apply_rope(q, c, s, rp)
+        if block_tables is None:
+            ref.kv_cache_update_ref(kc, vc, kn, vn, idx)
+        else:
+            ref.kv_cache_update_paged_ref(kc, vc, kn, vn, idx, block_tables)
+        return kc, vc, q
+
+    def halves_swapped(kc, vc, kn, vn, idx, q, c, s, rp, block_tables=None):
+        q = _rope_halves_swapped(q, c, s, rp)
+        k = _rope_halves_swapped(kn, c, s, rp)
+        if block_tables is None:
+            ref.kv_cache_update_ref(kc, vc, k, vn, idx)
+        else:
+            ref.kv_cache_update_paged_ref(kc, vc, k, vn, idx, block_tables)
+        return kc, vc, q
+
+    out = {}
+    for paged in (False, True):
+        kc, vc, index, table, _ = _rope_cache(paged, B, S, K, D,
+                                              torch.bfloat16, Sn, 4500)
+        q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, torch.bfloat16, 1.0,
+                                     index, 4500)
+        idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+        for fault, plain in (("k_unrotated", k_unrotated),
+                             ("halves_swapped", halves_swapped)):
+            got, want = _rope_both(tfa, ref, paged, kc, vc, idx, table, q,
+                                   kn, vn, c, s, 1.0, plain=plain)
+            differs = [int((a != b).sum()) for a, b in zip(got, want)]
+            key = ("paged " if paged else "dense ") + fault
+            out[key] = {"flagged": differs != [0, 0, 0],
+                        "entries_differing": dict(zip(("k_cache", "v_cache",
+                                                       "q"), differs)),
+                        "k_entries_written": Sn * K * D * sum(
+                            0 <= i <= S - Sn for i in index)}
+            expect_q = fault == "halves_swapped"
+            if not (out[key]["flagged"] and differs[0] > 0
+                    and differs[1] == 0 and (differs[2] > 0) == expect_q):
+                raise AssertionError(f"planted fault {key} not flagged as "
+                                     f"expected: {out[key]}")
+    print(f"[check] cache_update rope planted faults {out}", flush=True)
+    return out
+
+
+def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index):
+    """The fused RoPE + cache write (bf16) at one serving shape, beside the
+    plain composition run eagerly (two apply_rope passes and the scatter)
+    and its byte bound; no single PyTorch call does both, so there is no
+    library time."""
+    import torch
+    H, K, D = ROPE_HEADS[model]
+    S, bs, esz = 2048, 16, 2
+    kc, vc, _, table, _ = _rope_cache(paged, B, S, K, D, torch.bfloat16, Sn,
+                                      4700)
+    if paged:                    # every slot's table maps all its blocks
+        mb = S // bs
+        table = torch.tensor(np.random.default_rng(9).permutation(B * mb)
+                             .reshape(B, mb), dtype=torch.int32,
+                             device="cuda")
+    q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, torch.bfloat16, 1.0, index,
+                                 4700)
+    idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+    rope = dict(q=q, cos=c, sin=s)
+    if paged:
+        call = functools.partial(tfa.cache_update_paged, kc, vc, kn, vn, idx,
+                                 table, **rope)
+    else:
+        call = functools.partial(tfa.cache_update, kc, vc, kn, vn, idx,
+                                 **rope)
+    ms = _time_graph_ms([call])
+    host_ms = _time_eager_ms([call], 200)
+    # the plain version syncs with the host (nonzero): eager only
+    plain_ms = _time_eager_ms([functools.partial(
+        ref.rope_kv_cache_update_ref, kc, vc, kn, vn, idx, q, c, s,
+        block_tables=table)], 50)
+    valid = [b for b, i in enumerate(index) if 0 <= i and i + Sn <= S]
+    half = D // 2
+    nbytes = (2 * B * Sn * H * D * esz            # q in, rotated q out
+              + 2 * 2 * len(valid) * Sn * K * D * esz   # k, v in and out
+              + 2 * B * Sn * half * 4 + 4 * B)    # cos, sin, index
+    if paged:
+        nbytes += 4 * len({(b, (index[b] + j) // bs) for b in valid
+                           for j in range(Sn)})
+    ops = 6.0 * Sn * half * (B * H + len(valid) * K)
+    bound_ms, bound_by = _bound(nbytes, ops, F32_OPS_PER_S)
+    done = len(index) - len(valid)
+    where = f"pool ({B * S // bs + 1},{bs},{K},{D})" if paged else \
+        f"S={S}"
+    return {"shape": f"B={B} Sn={Sn} H={H} K={K} D={D} {where} bf16, RoPE "
+                     f"of q and k" + (f", {done} done slot" if done else ""),
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "library": "none: no single PyTorch call does RoPE and the "
+                       "scatter",
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1457,8 +1700,9 @@ def _serving_launches(cfg, steps, specs, paged):
     layer (every layer of a decoder, zamba2's shared block once per
     invocation, none in mamba2) and per step or chunk one attention
     launch and, for an MoE model, three expert products (gate, up, down);
-    one cache write per decode step (dense: prefill chunks write by a
-    slice copy) or per step and chunk (paged); one ``ssd`` per Mamba layer
+    one cache write (RoPE of q and k folded in) per step and chunk, dense
+    and paged alike, so ``cache_update`` launches attn * (steps + chunks)
+    times on a dense arm; one ``ssd`` per Mamba layer
     and prefill chunk of two rows or more (a 1-row chunk takes the decode
     step's recurrence, as in the reference).  No training kernel runs."""
     from repro_torch.models.lm import zamba_structure
@@ -1471,7 +1715,7 @@ def _serving_launches(cfg, steps, specs, paged):
     n = attn * (steps + chunks)
     return {"flash_decode": 0 if paged else n,
             "flash_decode_paged": n if paged else 0,
-            "cache_update": 0 if paged else attn * steps,
+            "cache_update": 0 if paged else n,
             "cache_update_paged": n if paged else 0,
             "flash_attention": 0, "flash_attention_bwd": 0,
             "grouped_matmul": 3 * n if cfg.n_experts else 0,
@@ -1705,8 +1949,9 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
     """Run ``run()`` (``steps`` steps, ending in a synchronise) under
     torch.profiler and print where the device time went: device busy
     share = the kernels' summed device time over the window's wall time,
-    the top kernels, and the summed time of each of ``groups`` ({label:
-    name fragments}) per step."""
+    every device launch per step counted (kernels, copies, memsets), the
+    top kernels, and the summed time of each of ``groups`` ({label: name
+    fragments}) per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1719,6 +1964,7 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy_s = sum(t for _, t, _ in dev) / 1e6
+    launches = sum(n for _, _, n in dev) / steps
     dev.sort(key=lambda r: -r[1])
     top = [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
             "launches_per_step": n / steps} for k, t, n in dev[:top_n]]
@@ -1729,7 +1975,9 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
         print(f"[profile:{name}] {label}: {wall / steps * 1e3:.2f} ms per "
               f"step, device busy {busy_s / steps * 1e3:.2f} ms per step "
               f"({100 * busy_s / wall:.1f}% busy, "
-              f"{100 * (1 - busy_s / wall):.1f}% idle)", flush=True)
+              f"{100 * (1 - busy_s / wall):.1f}% idle), {launches:.1f} "
+              "device launches per step (kernels, copies and memsets, "
+              "all of them)", flush=True)
         for row in top:
             print(f"[profile:{name}]   {row['ms_per_step']:.3f} ms/step "
                   f"x{row['launches_per_step']:.0f}  {row['kernel']}",
@@ -1744,6 +1992,7 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
     return {"profile_ms_per_step": wall / steps * 1e3,
             "profile_device_busy_ms_per_step":
                 busy_s / steps * 1e3 if dev else None,
+            "profile_device_launches_per_step": launches if dev else None,
             "profile_top_kernels": top,
             "profile_group_ms_per_step": by_group if dev else None}
 
@@ -2044,7 +2293,7 @@ def serve_hybrid(tfa):
     for bit (nothing couples lanes: no capacity, and a done lane's stale
     rows reach only itself); exact launches in both (38 ``ssd`` per chunk
     of two rows or more, 6 attention and 6 cache launches per decode step
-    and, paged, per chunk); and prefix sharing, which must refuse.
+    and per chunk); and prefix sharing, which must refuse.
     Returns (dense launches, paged launches, stats, shared)."""
     launches, stats, shared = serve_full_width(tfa, HYBRID_ARCH, "zamba2-")
     paged_launches, paged = serve_arm(tfa, *shared, "zamba2-paged", True)
@@ -2536,6 +2785,9 @@ def main() -> int:
     fd_faults = check_decode_faults(tfa, ref)
     fd_shortcut = check_decode_shortcut(ref)
     cup_checks = check_cache_update_paged(tfa, ref)
+    cu_rope_checks = check_rope_cache_update(tfa, ref, paged=False)
+    cup_rope_checks = check_rope_cache_update(tfa, ref, paged=True)
+    rope_faults = check_rope_faults(tfa, ref)
     rng = np.random.default_rng(3)
     decode_lens = rng.integers(96, 1153, 8).tolist()
     decode_index = [96, 140, 333, 512, 700, 911, 1100, 2048]   # one done
@@ -2580,6 +2832,16 @@ def main() -> int:
         "cache_update_paged prefill D=64": time_cache_update_paged(
             tfa, ref, 1, 256, [512], K=32, D=64),
     }
+    # the fused RoPE + cache write at each model's heads: a decode step (one
+    # done slot) and a 256-row prefill chunk
+    for model, suffix in (("llama", ""), ("olmoe", " g=1"),
+                          ("zamba2", " D=64")):
+        for paged in (False, True):
+            name = "cache_update_paged" if paged else "cache_update"
+            times[f"{name} rope decode{suffix}"] = time_rope_cache_update(
+                tfa, ref, paged, model, 8, 1, decode_index)
+            times[f"{name} rope prefill{suffix}"] = time_rope_cache_update(
+                tfa, ref, paged, model, 1, 256, [512])
     fa_checks = check_flash_attention(tfa, ref)
     fa_faults = check_planted_faults(tfa, ref)
     fa_shortcut = check_bf16_shortcut(ref)
@@ -2684,11 +2946,11 @@ def main() -> int:
         # and their arms' launches beside
         moe = moe_paged_launches if "paged" in name else moe_launches
         g1 = {"launches": moe[name], "launches_arm": "olmoe-" + arm}
-        g1.update({k.split()[1]: times[k] for k in times
+        g1.update({" ".join(k.split()[1:-1]): times[k] for k in times
                    if k.startswith(name + " ") and k.endswith("g=1")})
         hyb = hyb_paged_launches if "paged" in name else hyb_launches
         d64 = {"launches": hyb[name], "launches_arm": "zamba2-" + arm}
-        d64.update({k.split()[1]: times[k] for k in times
+        d64.update({" ".join(k.split()[1:-1]): times[k] for k in times
                     if k.startswith(name + " ") and k.endswith("D=64")})
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=err,
@@ -2710,8 +2972,13 @@ def main() -> int:
             worst_over_limit=max(c["worst_over_limit"] for c in fd_checks),
             planted_fault=fd_faults, bf16_shortcut=fd_shortcut),
         row("cache_update", csrc + "cache_update.cu", fa + ":394",
-            dense_launches["cache_update"], 0.0, 0.0,
-            times["cache_update decode"], None, cu_checks, "dense"),
+            dense_launches["cache_update"],
+            max(c["max_abs_diff"] for c in cu_rope_checks), 0.0,
+            times["cache_update rope decode"],
+            times["cache_update rope prefill"], cu_rope_checks, "dense",
+            scatter_only={"decode": times["cache_update decode"],
+                          "checks": cu_checks},
+            planted_fault=rope_faults),
         row("flash_decode_paged", csrc + "decode_attention_paged.cu",
             fa + ":318", paged_launches["flash_decode_paged"],
             bf16_err(fdp_checks), DECODE_TOL["bfloat16"],
@@ -2721,9 +2988,15 @@ def main() -> int:
             vs_dense_max_abs_diff=max(c["vs_dense_max_abs_diff"]
                                       for c in fdp_checks)),
         row("cache_update_paged", csrc + "cache_update_paged.cu",
-            fa + ":462", paged_launches["cache_update_paged"], 0.0, 0.0,
-            times["cache_update_paged decode"],
-            times["cache_update_paged prefill"], cup_checks, "paged"),
+            fa + ":462", paged_launches["cache_update_paged"],
+            max(c["max_abs_diff"] for c in cup_rope_checks), 0.0,
+            times["cache_update_paged rope decode"],
+            times["cache_update_paged rope prefill"], cup_rope_checks,
+            "paged",
+            scatter_only={"decode": times["cache_update_paged decode"],
+                          "prefill": times["cache_update_paged prefill"],
+                          "checks": cup_checks},
+            planted_fault=rope_faults),
     ]
     train_src = "src/repro/kernels/ref.py"
 

@@ -48,10 +48,11 @@ SIGNATURES = {
                                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "cache_update": ("cache_update",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _P]),
     "cache_update_paged": ("cache_update_paged",
-                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P]),
+                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_fwd",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _I, _P]),

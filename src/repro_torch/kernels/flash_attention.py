@@ -6,10 +6,12 @@ training paths.
                       (TPU: flash_decode, _decode_kernel)
   flash_decode_paged  csrc/decode_attention_paged.cu
                       (TPU: flash_decode_paged, _decode_paged_kernel)
-  cache_update        csrc/cache_update.cu
-                      (TPU: cache_update, _cache_update_kernel)
-  cache_update_paged  csrc/cache_update_paged.cu
-                      (TPU: cache_update_paged, _cache_update_paged_kernel)
+  cache_update        csrc/cache_update.cu (+ cache_update.cuh)
+                      (TPU: cache_update, _cache_update_kernel; with q,
+                      cos and sin also the serving step's RoPE of q and k)
+  cache_update_paged  csrc/cache_update_paged.cu (+ cache_update.cuh)
+                      (TPU: cache_update_paged, _cache_update_paged_kernel;
+                      RoPE alike)
   flash_attention     csrc/flash_attention.cu
                       (TPU: flash_attention, _attn_kernel)
   flash_attention_bwd csrc/flash_attention_bwd.cu
@@ -165,65 +167,128 @@ def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
 flash_decode_paged.launches = 0
 
 
-def cache_update(k_cache, v_cache, k_new, v_new, index):
+def _rot_dim(name, k_new, q, cos, sin, rotary_pct):
+    """rot_dim of a ``cache_update(_paged)`` call with RoPE, or None for
+    the bare scatter (no q, cos or sin)."""
+    if q is None and cos is None and sin is None:
+        return None
+    if q is None or cos is None or sin is None:
+        raise TypeError(f"{name}: q, cos and sin come together")
+    return int(k_new.shape[3] * rotary_pct) // 2 * 2
+
+
+def _check_rope(name, k_new, q, cos, sin, rot_dim):
+    """The kernel's RoPE operands: q (B, Sn, H, D) in k_new's dtype and
+    cos/sin float32 (B, Sn, rot_dim / 2), rot_dim / 2 <= 128."""
+    B, Sn, K, D = k_new.shape
+    if q.dtype != k_new.dtype or q.ndim != 4 \
+            or tuple(q.shape[:2]) + (q.shape[3],) != (B, Sn, D):
+        raise TypeError(f"{name}: q {tuple(q.shape)} {q.dtype} must be "
+                        f"(B, Sn, H, D) in k_new's dtype {k_new.dtype}")
+    for arg, t in (("cos", cos), ("sin", sin)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, Sn,
+                                                          rot_dim // 2):
+            raise TypeError(f"{name}: {arg} must be float32 of shape "
+                            f"{(B, Sn, rot_dim // 2)}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    if rot_dim // 2 > 128:
+        raise ValueError(f"{name}: rot_dim {rot_dim} above 256")
+
+
+def _refuse_grad(name, *tensors):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{name} writes the cache in place and has no backward: "
+            "training takes apply_rope and flash_attention")
+
+
+def _check_scatter(name, k_cache, v_cache, k_new, v_new, index):
+    B = k_new.shape[0]
+    if (k_cache.dtype not in build.DTYPE_CODE
+            or k_new.dtype not in build.DTYPE_CODE):
+        raise TypeError(f"{name}: dtypes {k_new.dtype} -> "
+                        f"{k_cache.dtype} not supported")
+    if v_cache.dtype != k_cache.dtype or v_new.dtype != k_new.dtype:
+        raise TypeError(f"{name}: k and v dtypes differ")
+    if index.dtype != torch.int32 or tuple(index.shape) != (B,):
+        raise TypeError(f"{name}: index must be int32 of shape (B,)")
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, index, *, q=None, cos=None,
+                 sin=None, rotary_pct=1.0):
     """Write k/v_new (B, Sn, K, D) into the caches (B, S, K, D) IN PLACE at
     per-slot offsets ``index`` (B,) int32, cast to the cache dtype.  A slot
     with index < 0 or index + Sn > S is dropped whole (done-slot
-    semantics).  Returns (k_cache, v_cache)."""
+    semantics).  Returns (k_cache, v_cache).
+
+    With ``q`` (B, Sn, H, D) and ``cos``/``sin`` (B, Sn, rot_dim / 2)
+    float32 (``rope_cos_sin``'s), the same launch first applies RoPE to q
+    and k_new as ``ref.apply_rope`` does (``rotary_pct`` of each head) and
+    writes the rotated k; q is rotated for every slot, dropped ones too.
+    Returns (k_cache, v_cache, rotated q)."""
+    rot_dim = _rot_dim("cache_update", k_new, q, cos, sin, rotary_pct)
     if not k_cache.is_cuda:
-        return ref.kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index)
+        if rot_dim is None:
+            return ref.kv_cache_update_ref(k_cache, v_cache, k_new, v_new,
+                                           index)
+        return ref.rope_kv_cache_update_ref(k_cache, v_cache, k_new, v_new,
+                                            index, q, cos, sin, rotary_pct)
+    _refuse_grad("cache_update", q, k_new, v_new)
     B, Sn, K, D = k_new.shape
     S = k_cache.shape[1]
-    if (k_cache.dtype not in build.DTYPE_CODE
-            or k_new.dtype not in build.DTYPE_CODE):
-        raise TypeError(f"cache_update: dtypes {k_new.dtype} -> "
-                        f"{k_cache.dtype} not supported")
-    if v_cache.dtype != k_cache.dtype or v_new.dtype != k_new.dtype:
-        raise TypeError("cache_update: k and v dtypes differ")
-    if index.dtype != torch.int32 or tuple(index.shape) != (B,):
-        raise TypeError("cache_update: index must be int32 of shape (B,)")
+    _check_scatter("cache_update", k_cache, v_cache, k_new, v_new, index)
     if (v_new.shape != k_new.shape or k_cache.shape != v_cache.shape
             or tuple(k_cache.shape) != (B, S, K, D)):
         raise ValueError(f"cache_update: shapes new {tuple(k_new.shape)}, "
                          f"caches {tuple(k_cache.shape)}")
-    if (K * D) % 8:
-        raise ValueError("cache_update: K * D must be a multiple of 8")
+    rope = {}
+    if rot_dim is not None:
+        _check_rope("cache_update", k_new, q, cos, sin, rot_dim)
+        rope = dict(q=q, cos=cos, sin=sin)
     build.check_cuda("cache_update", k_cache.device, k_cache=k_cache,
-                v_cache=v_cache, k_new=k_new, v_new=v_new, index=index)
-    lib = build.library("cache_update")
-    err = lib.cache_update(
+                     v_cache=v_cache, k_new=k_new, v_new=v_new, index=index,
+                     **rope)
+    q_out = None if rot_dim is None else torch.empty_like(q)
+    err = build.library("cache_update").cache_update(
         k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), index.data_ptr(), B, Sn, S, K * D,
-        build.DTYPE_CODE[k_new.dtype], build.DTYPE_CODE[k_cache.dtype],
+        v_cache.data_ptr(), index.data_ptr(), _ptr(q), _ptr(q_out),
+        _ptr(cos), _ptr(sin), B, Sn, S, 0 if q is None else q.shape[2], K,
+        D, rot_dim or 0, build.DTYPE_CODE[k_new.dtype],
+        build.DTYPE_CODE[k_cache.dtype],
         torch.cuda.current_stream(k_cache.device).cuda_stream)
     build.raise_on("cache_update", err)
     cache_update.launches += 1
-    return k_cache, v_cache
+    if q_out is None:
+        return k_cache, v_cache
+    return k_cache, v_cache, q_out
 
 
 cache_update.launches = 0
 
 
-def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
+def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables, *,
+                       q=None, cos=None, sin=None, rotary_pct=1.0):
     """Write k/v_new (B, Sn, K, D) into the pools (n_blocks, bs, K, D) IN
     PLACE: row j of slot b lands at block ``block_tables[b, (index[b]+j)
     // bs]``, offset ``(index[b]+j) % bs``, cast to the pool dtype.  A slot
     with index < 0 or index + Sn > max_blocks * bs is dropped whole; a row
-    whose block id lies outside the pool is dropped.  Returns the pools."""
+    whose block id lies outside the pool is dropped.  Returns the pools;
+    with ``q``, ``cos`` and ``sin``, RoPE in the same launch, as
+    ``cache_update``'s, and (k_pool, v_pool, rotated q)."""
+    rot_dim = _rot_dim("cache_update_paged", k_new, q, cos, sin,
+                       rotary_pct)
     if not k_pool.is_cuda:
-        return ref.kv_cache_update_paged_ref(k_pool, v_pool, k_new, v_new,
-                                             index, block_tables)
+        if rot_dim is None:
+            return ref.kv_cache_update_paged_ref(k_pool, v_pool, k_new,
+                                                 v_new, index, block_tables)
+        return ref.rope_kv_cache_update_ref(k_pool, v_pool, k_new, v_new,
+                                            index, q, cos, sin, rotary_pct,
+                                            block_tables=block_tables)
+    _refuse_grad("cache_update_paged", q, k_new, v_new)
     B, Sn, K, D = k_new.shape
     n_blocks, bs = k_pool.shape[:2]
-    if (k_pool.dtype not in build.DTYPE_CODE
-            or k_new.dtype not in build.DTYPE_CODE):
-        raise TypeError(f"cache_update_paged: dtypes {k_new.dtype} -> "
-                        f"{k_pool.dtype} not supported")
-    if v_pool.dtype != k_pool.dtype or v_new.dtype != k_new.dtype:
-        raise TypeError("cache_update_paged: k and v dtypes differ")
-    if index.dtype != torch.int32 or tuple(index.shape) != (B,):
-        raise TypeError("cache_update_paged: index must be int32 of shape "
-                        "(B,)")
+    _check_scatter("cache_update_paged", k_pool, v_pool, k_new, v_new, index)
     if (block_tables.dtype != torch.int32 or block_tables.ndim != 2
             or block_tables.shape[0] != B):
         raise TypeError("cache_update_paged: block_tables must be int32 of "
@@ -232,21 +297,27 @@ def cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
             or tuple(k_pool.shape[2:]) != (K, D)):
         raise ValueError(f"cache_update_paged: shapes new "
                          f"{tuple(k_new.shape)}, pools {tuple(k_pool.shape)}")
-    if (K * D) % 8:
-        raise ValueError("cache_update_paged: K * D must be a multiple of 8")
+    rope = {}
+    if rot_dim is not None:
+        _check_rope("cache_update_paged", k_new, q, cos, sin, rot_dim)
+        rope = dict(q=q, cos=cos, sin=sin)
     build.check_cuda("cache_update_paged", k_pool.device, k_pool=k_pool,
-                v_pool=v_pool, k_new=k_new, v_new=v_new, index=index,
-                block_tables=block_tables)
-    lib = build.library("cache_update_paged")
-    err = lib.cache_update_paged(
+                     v_pool=v_pool, k_new=k_new, v_new=v_new, index=index,
+                     block_tables=block_tables, **rope)
+    q_out = None if rot_dim is None else torch.empty_like(q)
+    err = build.library("cache_update_paged").cache_update_paged(
         k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), index.data_ptr(), block_tables.data_ptr(), B, Sn,
-        bs, block_tables.shape[1], n_blocks, K * D,
-        build.DTYPE_CODE[k_new.dtype], build.DTYPE_CODE[k_pool.dtype],
+        v_pool.data_ptr(), index.data_ptr(), block_tables.data_ptr(),
+        _ptr(q), _ptr(q_out), _ptr(cos), _ptr(sin), B, Sn, bs,
+        block_tables.shape[1], n_blocks, 0 if q is None else q.shape[2], K,
+        D, rot_dim or 0, build.DTYPE_CODE[k_new.dtype],
+        build.DTYPE_CODE[k_pool.dtype],
         torch.cuda.current_stream(k_pool.device).cuda_stream)
     build.raise_on("cache_update_paged", err)
     cache_update_paged.launches += 1
-    return k_pool, v_pool
+    if q_out is None:
+        return k_pool, v_pool
+    return k_pool, v_pool, q_out
 
 
 cache_update_paged.launches = 0

@@ -73,12 +73,14 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, softcap=None,
                                         scale=scale)
 
 
-def kv_cache_update(k_cache, v_cache, k_new, v_new, index):
+def kv_cache_update(k_cache, v_cache, k_new, v_new, index, **rope):
     """Write k/v_new (B,Sn,K,D) into the caches IN PLACE at per-slot
     offsets ``index`` (B,); slots whose write would cross the cache end
-    are dropped whole (done-slot semantics).  Returns the caches."""
+    are dropped whole (done-slot semantics).  Returns the caches.  With
+    ``rope`` (q, cos, sin, rotary_pct) q and k_new are rotated first, in
+    the same launch, and the rotated q is returned third."""
     return flash_attention.cache_update(k_cache, v_cache, k_new, v_new,
-                                        index)
+                                        index, **rope)
 
 
 def decode_attention_paged(q, k_pool, v_pool, kv_len, block_tables, *,
@@ -93,15 +95,18 @@ def decode_attention_paged(q, k_pool, v_pool, kv_len, block_tables, *,
                                               scale=scale)
 
 
-def kv_cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables):
+def kv_cache_update_paged(k_pool, v_pool, k_new, v_new, index, block_tables,
+                          **rope):
     """Write k/v_new (B, Sn, K, D) into the paged pools IN PLACE at the
     (block, offset) destinations each slot's table maps rows
     [index, index + Sn) to; a slot whose write crosses its table's logical
     end is dropped whole (done-slot semantics, index = max_seq).  The
     engine keeps write destinations private (copy-on-write at admission),
-    so no two slots write the same row.  Returns the pools."""
+    so no two slots write the same row.  Returns the pools; with ``rope``
+    as ``kv_cache_update``'s, RoPE in the same launch and the rotated q
+    third."""
     return flash_attention.cache_update_paged(k_pool, v_pool, k_new, v_new,
-                                              index, block_tables)
+                                              index, block_tables, **rope)
 
 
 def grouped_matmul(lhs, rhs):

@@ -294,6 +294,22 @@ def decode_attention_tc_emulated(q, k_cache, v_cache, kv_len, *, parts: int,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def apply_rope(x, cos, sin, rotary_pct: float = 1.0):
+    """RoPE (``repro/models/layers.py::apply_rope``): x (B, S, H, D), the
+    first ``rot_dim`` dims of each head rotated by cos/sin (B, S,
+    rot_dim / 2) float32, the tail kept.  Each product and sum is its own
+    f32 rounding; the rotated values are rounded once to x's dtype."""
+    D = x.shape[-1]
+    rot_dim = int(D * rotary_pct) // 2 * 2
+    half = rot_dim // 2
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = xr[..., :half], xr[..., half:]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    x1f, x2f = x1.float(), x2.float()
+    rotated = torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], -1)
+    return torch.cat([rotated.to(x.dtype), xp], -1)
+
+
 def kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index):
     """Per-slot-offset cache write: scatter k/v_new (B, Sn, K, D) into
     (B, S, K, D) at row offsets ``index`` (B,).  A slot whose write would
@@ -358,6 +374,23 @@ def kv_cache_update_paged_ref(k_pool, v_pool, k_new, v_new, index,
     return k_pool, v_pool
 
 
+def rope_kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index, q, cos,
+                             sin, rotary_pct=1.0, block_tables=None):
+    """The serving step's RoPE and cache write as separate passes: q and
+    k_new rotated by ``apply_rope``, then ``kv_cache_update_ref`` (or, with
+    ``block_tables``, ``kv_cache_update_paged_ref``) of the rotated k and
+    v_new.  The plain version of the ``cache_update(_paged)`` kernels
+    called with q, cos and sin; returns (k_cache, v_cache, rotated q)."""
+    q = apply_rope(q, cos, sin, rotary_pct)
+    k = apply_rope(k_new, cos, sin, rotary_pct)
+    if block_tables is None:
+        kv_cache_update_ref(k_cache, v_cache, k, v_new, index)
+    else:
+        kv_cache_update_paged_ref(k_cache, v_cache, k, v_new, index,
+                                  block_tables)
+    return k_cache, v_cache, q
+
+
 # ===========================================================================
 # grouped matmul (MoE expert GEMM)
 # ===========================================================================
@@ -412,7 +445,9 @@ def _segsum(a):
 def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
     """Chunked SSD (Mamba-2 Listing 1): quadratic intra-chunk + linear
     inter-chunk state passing.  Same math as ssd_naive; the ``D`` skip is
-    added in float32 and y rounded once to x's dtype."""
+    added in float32 and y rounded once to x's dtype.  A float64 x sums
+    everything in float64 (a reference no float32 order of sums moves)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
@@ -420,14 +455,14 @@ def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
         raise ValueError(f"ssd_chunked: S={S} is not a multiple of "
                          f"chunk={chunk}")
     nc = S // chunk
-    xf = x.float().reshape(Bb, nc, chunk, H, P)
-    dtf = dt.float().reshape(Bb, nc, chunk, H)
-    Bf = torch.repeat_interleave(B.float(), rep, 2).reshape(Bb, nc, chunk,
+    xf = x.to(acc).reshape(Bb, nc, chunk, H, P)
+    dtf = dt.to(acc).reshape(Bb, nc, chunk, H)
+    Bf = torch.repeat_interleave(B.to(acc), rep, 2).reshape(Bb, nc, chunk,
                                                             H, N)
-    Cf = torch.repeat_interleave(C.float(), rep, 2).reshape(Bb, nc, chunk,
+    Cf = torch.repeat_interleave(C.to(acc), rep, 2).reshape(Bb, nc, chunk,
                                                             H, N)
     xdt = xf * dtf[..., None]
-    a = A[None, None, None] * dtf                     # (Bb,nc,Q,H) log-decay
+    a = A.to(acc)[None, None, None] * dtf             # (Bb,nc,Q,H) log-decay
     a = a.movedim(-1, -2)                             # (Bb,nc,H,Q)
     a_cs = torch.cumsum(a, dim=-1)
 
@@ -442,8 +477,8 @@ def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
 
     # 3) inter-chunk recurrence over chunk states (state BEFORE chunk t)
     chunk_decay = torch.exp(a_cs[..., -1])            # (Bb,nc,H)
-    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
+    h = (torch.zeros((Bb, H, P, N), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
     h_prevs = []
     for t in range(nc):
         h_prevs.append(h)
@@ -456,8 +491,16 @@ def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
 
     y = (y_diag + y_off).reshape(Bb, S, H, P)
     if D is not None:
-        y = y + x.float() * D[None, None, :, None]
+        y = y + x.to(acc) * D.to(acc)[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def _f32_product(eq, *ops):
+    """``torch.einsum`` of f32 operands summed in float64 and rounded once
+    to f32: a product whose every term is exact (a bf16 part times a bf16
+    input) comes out the same on any host, whatever order the host's BLAS
+    sums in."""
+    return torch.einsum(eq, *(o.double() for o in ops)).float()
 
 
 def ssd_tc_emulated(x, dt, A, B, C, D=None, h0=None, *, chunk, parts: int):
@@ -470,7 +513,9 @@ def ssd_tc_emulated(x, dt, A, B, C, D=None, h0=None, *, chunk, parts: int):
     state update (x o wd)^T B; the state itself carried in f32, scaled by
     exp(a_cs[Q-1]) exactly.  D is added in f32 and y rounded once.  With
     parts=2 this is the kernel's design; parts=1 is the shortcut the
-    checks must reject.  Returns (y in x's dtype, the final f32 state)."""
+    checks must reject.  Each product is summed exactly and rounded once
+    (``_f32_product``), so the emulation does not move with the host.
+    Returns (y in x's dtype, the final f32 state)."""
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
@@ -488,16 +533,16 @@ def ssd_tc_emulated(x, dt, A, B, C, D=None, h0=None, *, chunk, parts: int):
         a_cs = torch.cumsum(A[None, None] * dc, dim=1)       # (Bb,Q,H)
         seg = a_cs[:, :, None] - a_cs[:, None, :]            # (Bb,i,j,H)
         L = torch.exp(torch.where(tri, seg, torch.full_like(seg, NEG_INF)))
-        m = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L * dc[:, None]
-        y_off = sum(torch.einsum("bihn,bhpn->bihp", Cc, part)
+        m = _f32_product("bihn,bjhn->bijh", Cc, Bc) * L * dc[:, None]
+        y_off = sum(_f32_product("bihn,bhpn->bihp", Cc, part)
                     for part in bf16_parts(h, parts))
         y = torch.exp(a_cs)[..., None] * y_off + sum(
-            torch.einsum("bijh,bjhp->bihp", part, xc)
+            _f32_product("bijh,bjhp->bihp", part, xc)
             for part in bf16_parts(m, parts))
         a_last = a_cs[:, -1]                                 # (Bb,H)
         xw = xc * (dc * torch.exp(a_last[:, None] - a_cs))[..., None]
         h = h * torch.exp(a_last)[..., None, None] + sum(
-            torch.einsum("bqhp,bqhn->bhpn", part, Bc)
+            _f32_product("bqhp,bqhn->bhpn", part, Bc)
             for part in bf16_parts(xw, parts))
         ys.append(y)
     y = torch.cat(ys, dim=1)

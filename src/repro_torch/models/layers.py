@@ -115,19 +115,6 @@ def rope_cos_sin(cfg: ModelConfig, positions):
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x, cos, sin, rotary_pct: float = 1.0):
-    """x: (B, S, H, D); cos/sin: (B, S, rot_half)."""
-    D = x.shape[-1]
-    rot_dim = int(D * rotary_pct) // 2 * 2
-    half = rot_dim // 2
-    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
-    x1, x2 = xr[..., :half], xr[..., half:]
-    c, s = cos[:, :, None, :], sin[:, :, None, :]
-    x1f, x2f = x1.float(), x2.float()
-    rotated = torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], -1)
-    return torch.cat([rotated.to(x.dtype), xp], -1)
-
-
 # ===========================================================================
 # attention (GQA + optional KV cache)
 # ===========================================================================
@@ -154,17 +141,19 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
                     local_window=None, cache=None, cache_index=None,
                     block_tables=None, q_delta=None):
     """x: (B, S, d).  With ``cache`` (dict k/v (B, Smax, K, hd), one
-    layer's views of the stacked cache) the new k/v rows are written IN
-    PLACE and attention reads the cache: a (B,) ``cache_index`` tensor is
-    the per-slot decode write (the ``cache_update`` kernel, done slots
-    dropped), a scalar index the batch-1 prefill write (a slice copy).
-    With ``block_tables`` ((B, max_blocks) int32) the cache leaves are
-    PAGED pools (n_blocks, bs, K, hd): every write and read goes through
-    the table (``cache_update_paged``, ``flash_decode_paged``), and a
-    scalar prefill cursor is broadcast to (B,).  ``q_delta`` (B, S, H, hd),
-    zamba2's per-invocation LoRA, is added to q before RoPE (the
-    reference's ``_attention_with_qdelta``, ``repro/models/lm.py:372``).
-    Returns (y, cache)."""
+    layer's views of the stacked cache) RoPE of q and k and the write of
+    the new k/v rows IN PLACE are one ``cache_update`` launch, and
+    attention reads the cache: a (B,) ``cache_index`` tensor is the
+    per-slot decode write (done slots dropped), a scalar index the prefill
+    write, broadcast to (B,) (rows outside the cache raise first).  With
+    ``block_tables`` ((B, max_blocks) int32) the cache leaves are PAGED
+    pools (n_blocks, bs, K, hd): every write and read goes through the
+    table (``cache_update_paged``, ``flash_decode_paged``).  ``q_delta``
+    (B, S, H, hd), zamba2's per-invocation LoRA, is added to q before RoPE
+    (the reference's ``_attention_with_qdelta``,
+    ``repro/models/lm.py:372``).  Without a cache RoPE is ``apply_rope``
+    and attention the differentiable ``ops.attention``.  Returns (y,
+    cache)."""
     c = ctx.cdtype
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -173,49 +162,47 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
         q = q + q_delta
     k = (x @ p["wk"].to(c)).reshape(B, S, K, hd)
     v = (x @ p["wv"].to(c)).reshape(B, S, K, hd)
-    if cfg.use_rope:
-        q = apply_rope(q, cos, sin, cfg.rotary_pct)
-        k = apply_rope(k, cos, sin, cfg.rotary_pct)
     scale = (cfg.query_scale ** -0.5 if cfg.query_scale is not None
              else cfg.head_dim ** -0.5)
 
-    if cache is not None and block_tables is not None:
-        ck, cv = cache["k"], cache["v"]
-        if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
-            idx = cache_index.to(torch.int32)
-        else:
-            idx = torch.full((B,), int(cache_index), dtype=torch.int32,
-                             device=x.device)
-        ops.kv_cache_update_paged(ck, cv, k.contiguous(), v.contiguous(),
-                                  idx, block_tables)
-        out = ops.decode_attention_paged(q.contiguous(), ck.to(c), cv.to(c),
-                                         idx + S, block_tables,
-                                         softcap=cfg.attn_softcap,
-                                         local_window=local_window,
-                                         scale=scale)
-    elif cache is not None:
-        ck, cv = cache["k"], cache["v"]
-        if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
-            idx = cache_index.to(torch.int32)
-            ops.kv_cache_update(ck, cv, k.contiguous(), v.contiguous(), idx)
-            kv_len = idx + S
-        else:
-            start = int(cache_index)
-            if start < 0 or start + S > ck.shape[1]:
-                raise ValueError(f"prefill rows [{start}, {start + S}) "
-                                 f"outside the cache's {ck.shape[1]} rows")
-            ck[:, start:start + S] = k.to(ck.dtype)
-            cv[:, start:start + S] = v.to(cv.dtype)
-            kv_len = torch.full((B,), start + S, dtype=torch.int32,
-                                device=x.device)
-        out = ops.decode_attention(q.contiguous(), ck.to(c), cv.to(c),
-                                   kv_len, softcap=cfg.attn_softcap,
-                                   local_window=local_window, scale=scale)
-    else:
+    if cache is None:
+        if cfg.use_rope:
+            q = ref.apply_rope(q, cos, sin, cfg.rotary_pct)
+            k = ref.apply_rope(k, cos, sin, cfg.rotary_pct)
         out = ops.attention(q, k, v, causal=cfg.causal,
                             local_window=local_window,
                             softcap=cfg.attn_softcap, scale=scale,
                             naive_below=ctx.run.naive_attn_below)
+        return out.reshape(B, S, H * hd) @ p["wo"].to(c), cache
+
+    ck, cv = cache["k"], cache["v"]
+    if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
+        idx = cache_index.to(torch.int32)
+    else:
+        start = int(cache_index)
+        if block_tables is None and (start < 0 or start + S > ck.shape[1]):
+            raise ValueError(f"prefill rows [{start}, {start + S}) "
+                             f"outside the cache's {ck.shape[1]} rows")
+        idx = torch.full((B,), start, dtype=torch.int32, device=x.device)
+    rope = (dict(q=q.contiguous(), cos=cos, sin=sin,
+                 rotary_pct=cfg.rotary_pct) if cfg.use_rope else {})
+    attn = dict(softcap=cfg.attn_softcap, local_window=local_window,
+                scale=scale)
+    if block_tables is not None:
+        written = ops.kv_cache_update_paged(ck, cv, k.contiguous(),
+                                            v.contiguous(), idx,
+                                            block_tables, **rope)
+    else:
+        written = ops.kv_cache_update(ck, cv, k.contiguous(),
+                                      v.contiguous(), idx, **rope)
+    if rope:
+        q = written[2]
+    if block_tables is not None:
+        out = ops.decode_attention_paged(q.contiguous(), ck.to(c), cv.to(c),
+                                         idx + S, block_tables, **attn)
+    else:
+        out = ops.decode_attention(q.contiguous(), ck.to(c), cv.to(c),
+                                   idx + S, **attn)
     y = out.reshape(B, S, H * hd) @ p["wo"].to(c)
     return y, cache
 

@@ -70,9 +70,15 @@ def _want(reference, model, S, Q):
     """(y, final state) of ``reference`` on the seeded inputs.  The Pallas
     wrapper rounds y, adds D and rounds again, so its case runs without D
     (the kernel's own result, rounded once); the others fuse D and round
-    once, as the CUDA kernel does."""
+    once, as the CUDA kernel does.  The port's plain version sums in
+    float64 from the same bf16 inputs, y then rounded once to bf16: a
+    float32 reference moves with the host's BLAS, and its own error would
+    count against the emulation."""
     if reference == "torch":
-        return ref.ssd_chunked(*_torch_args(model, S, True), chunk=Q)
+        y, st = ref.ssd_chunked(*(a if a is None else a.double()
+                                  for a in _torch_args(model, S, True)),
+                                chunk=Q)
+        return y.bfloat16(), st
     a = _inputs(model, S)
     bf = {k: jnp.asarray(a[k], jnp.bfloat16) for k in ("x", "dt", "B", "C")}
     args = (bf["x"], bf["dt"], jnp.asarray(a["A"]), bf["B"], bf["C"])
