@@ -63,7 +63,17 @@ caught):
      serving arm's chunks;
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
-     chunk 256, decode chunk 8) on 16 seeded requests, three times:
+     chunk 256, decode chunk 8) on 16 seeded requests, three times.  Every
+     engine runs its decode chunk as one CUDA graph (its first chunk
+     eager, then captured; every later chunk one replay, whose launches
+     the kernel wrappers' counts include), and the split-KV counters must
+     be back at zero after every arm.  Each family also runs an
+     ``eager=True`` dense arm, whose 16 streams must equal the graphed
+     dense arm's bit for bit, and ``[serve:graph-ab]``: AB_PAIRS
+     alternating pairs (eager, graphed) of a steady 2-chunk window of 8
+     live lanes, ms per decode step (host clock, and CUDA events around
+     each decode chunk), host syncs per chunk (must be 1), the capture's
+     seconds and memory, and the two engines' streams equal bit for bit:
        a. dense: every request must get exactly its tokens and both dense
           kernels must have launched (the paged ones not);
        b. paged (``paged=True, block_size=16``) on the same 16 requests:
@@ -107,8 +117,9 @@ caught):
           rows or more, 6 attention and 6 cache launches per step and,
           paged, per chunk), 16/16 paged streams equal the dense ones
           bit for bit, and prefix sharing refused;
-     then torch.profiler windows (every device launch per step counted)
-     of steady decode, olmoe dense, mamba2
+     then torch.profiler windows (every device launch per step counted;
+     graph replays, and where the profiler does not see a graph's
+     kernels the line says so) of steady decode, olmoe dense, mamba2
      dense, zamba2 dense and paged, llama dense and paged, and of the
      prefill of one 1024-row prompt (four 256-row chunks) on mamba2 and
      zamba2 (last: launches slow down once the profiler has run);
@@ -1683,6 +1694,7 @@ def _serve(tfa, engine, clock, cfg, specs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+    _check_counters(tfa)
     if sorted(r.uid for r in done) != list(range(len(specs))):
         raise AssertionError("not every request finished")
     for r in done:
@@ -1692,6 +1704,16 @@ def _serve(tfa, engine, clock, cfg, specs):
         if not all(0 <= t < cfg.vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: token outside vocab")
     return done, wall, launches
+
+
+def _check_counters(tfa):
+    """The split-KV decode path's span counters are back at zero: every
+    launch, and so every replay of a graph that holds them, must leave
+    them as it found them."""
+    for dev, counters in tfa._counters.items():
+        if counters.any():
+            raise AssertionError(f"split-KV counters on {dev} not zero: "
+                                 f"{counters.nonzero().flatten().tolist()}")
 
 
 def _serving_launches(cfg, steps, specs, paged):
@@ -1830,15 +1852,16 @@ def serve_full_width(tfa, arch=ARCH, tag=""):
 
 
 def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
-              gate_equal=True):
-    """Phase 3b (and 3d): the dense arm's 16 requests once more, through
-    ``paged=True`` or dense; every stream must equal the dense arm's
-    (with ``gate_equal``; else the count is printed) and only that
+              gate_equal=True, eager=False):
+    """Phase 3b (and 3d-3f): the dense arm's 16 requests once more,
+    through ``paged=True`` or dense, graphed or (``eager=True``) with
+    every decode chunk run directly; every stream must equal the dense
+    arm's (with ``gate_equal``; else the count is printed) and only that
     engine's kernels may launch."""
     import torch
     from repro_torch.serving.engine import Request
     clock = PhaseClock()
-    engine = _engine(cfg, run, params, clock,
+    engine = _engine(cfg, run, params, clock, eager=eager,
                      **(dict(paged=True, block_size=16) if paged else {}))
     warm = Request(uid=-1, max_new_tokens=8, prompt=np.random.default_rng(5)
                    .integers(0, cfg.vocab, 64).tolist())
@@ -1872,6 +1895,153 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
     del engine
     torch.cuda.empty_cache()
     return launches, stats
+
+
+AB_PAIRS, AB_CHUNKS = 10, 2     # [serve:graph-ab]: pairs, chunks a turn
+
+
+def _steps_ms(engine, chunks):
+    """Wall and chunk-stream ms per decode step over ``chunks`` engine
+    steps: the host clock around them (from an idle card to a
+    synchronise), and CUDA events around each step's decode chunk,
+    summed.  The events bracket the engine's ``_decode_chunk`` (an older
+    engine's ``_decode_fn``): a graph replay's time on the card, or the
+    time an eager chunk takes to be issued, as the card waits on the
+    host."""
+    import torch
+    name = ("_decode_chunk" if hasattr(engine, "_decode_chunk")
+            else "_decode_fn")
+    real, ev = getattr(engine, name), []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        ev.append((start, end))
+        return out
+
+    setattr(engine, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(engine, name, real)
+    steps = chunks * engine.decode_chunk
+    return (wall * 1e3 / steps,
+            sum(a.elapsed_time(b) for a, b in ev) / steps)
+
+
+def _graph_pool_gib():
+    """Bytes the caching allocator holds in private pools (CUDA graphs'),
+    from its segment snapshot; None where the snapshot does not say."""
+    import torch
+    segs = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) != (0, 0)) / 2**30
+
+
+def graph_ab(tfa, cfg, run, params):
+    """``[serve:graph-ab]``: the eager (``eager=True``) and the graphed
+    dense engine, batch 8, 128-token prompts, every lane live to the end,
+    each after its first step (admission and the first chunk, which the
+    graphed engine captures); then AB_PAIRS alternating pairs (eager,
+    graphed) of AB_CHUNKS decode chunks each, in one process on one card:
+    wall and chunk-stream ms per decode step (``_steps_ms``) of each turn
+    and their medians, the graphed chunk's share of the wall time,
+    host syncs per chunk (must be 1), the capture's seconds, each first
+    step's peak allocation and the graph's private pool.  The two
+    engines' streams must be equal bit for bit at the end."""
+    import statistics
+    import torch
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, 128).tolist() for _ in range(8)]
+    engines, memory = {}, {}
+    for eager in (True, False):
+        engine = _engine(cfg, run, params, None, eager=eager)
+        new = engine.decode_chunk * (1 + AB_PAIRS * AB_CHUNKS) + 1
+        engine.start([Request(uid=i, prompt=p, max_new_tokens=new)
+                      for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine.step()
+        torch.cuda.synchronize()
+        memory[eager] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        engines[eager] = engine
+    pool = _graph_pool_gib()
+    syncs0 = {e: engines[e].sync_count for e in engines}
+    turns = {True: [], False: []}
+    for _ in range(AB_PAIRS):
+        for eager in (True, False):
+            turns[eager].append(_steps_ms(engines[eager], AB_CHUNKS))
+    per_chunk = {("eager" if e else "graphed"): (engines[e].sync_count
+                                                 - syncs0[e])
+                 / (AB_PAIRS * AB_CHUNKS) for e in engines}
+    graph = engines[False].graph
+    streams = {e: [s.request.generated for s in engines[e]._sched.active()]
+               for e in engines}
+    _check_counters(tfa)
+    med = {e: (statistics.median(w for w, _ in turns[e]),
+               statistics.median(d for _, d in turns[e])) for e in turns}
+    out = {"pairs": AB_PAIRS, "chunks_per_turn": AB_CHUNKS,
+           "eager_wall_ms_per_step": [w for w, _ in turns[True]],
+           "graphed_wall_ms_per_step": [w for w, _ in turns[False]],
+           "eager_chunk_stream_ms_per_step": [d for _, d in turns[True]],
+           "graphed_chunk_stream_ms_per_step": [d for _, d in turns[False]],
+           "median_eager_wall_ms": med[True][0],
+           "median_graphed_wall_ms": med[False][0],
+           "median_eager_chunk_stream_ms": med[True][1],
+           "median_graphed_chunk_stream_ms": med[False][1],
+           "host_syncs_per_chunk": per_chunk,
+           "capture_s": graph.capture_s,
+           "graph_launches_per_replay": {
+               fn.__name__: n for fn, n in graph.launches.items()},
+           "first_step_peak_gib": {"eager": memory[True],
+                                   "graphed": memory[False]},
+           "graph_pool_gib": pool}
+    print(f"[serve:graph-ab] {cfg.name} dense, batch 8, {AB_PAIRS} pairs "
+          f"(eager, graphed) of {AB_CHUNKS} chunks of {engine.decode_chunk} steps: "
+          "wall ms per step " + ", ".join(
+              f"({a[0]:.2f}, {b[0]:.2f})" for a, b in zip(turns[True],
+                                                          turns[False]))
+          + "; chunk-stream ms per step " + ", ".join(
+              f"({a[1]:.3f}, {b[1]:.3f})" for a, b in zip(turns[True],
+                                                          turns[False]))
+          + f"; medians: wall {med[True][0]:.2f} eager, {med[False][0]:.2f} "
+          f"graphed ({med[True][0] / med[False][0]:.2f}x), chunk-stream "
+          f"{med[True][1]:.3f} eager, {med[False][1]:.3f} graphed (the "
+          f"graph {100 * med[False][1] / med[False][0]:.1f}% of the "
+          "graphed wall); host "
+          f"syncs per chunk {per_chunk['eager']:.2f} eager, "
+          f"{per_chunk['graphed']:.2f} graphed; capture {graph.capture_s:.3f} s "
+          f"(instantiation included), {graph.replays} replays; first "
+          f"step's peak allocation {memory[True]:.3f} GiB eager, "
+          f"{memory[False]:.3f} GiB graphed; the graph's private pool "
+          + (f"{pool:.3f} GiB" if pool is not None else "not measured")
+          + f"; streams equal: {streams[True] == streams[False]}",
+          flush=True)
+    if per_chunk != {"eager": 1.0, "graphed": 1.0}:
+        raise AssertionError(f"{cfg.name} graph-ab: host syncs per chunk "
+                             f"{per_chunk}, expected 1")
+    if graph.replays != engines[False].sync_count - 1:
+        raise AssertionError(f"{cfg.name} graph-ab: {graph.replays} "
+                             f"replays of {engines[False].sync_count} "
+                             "chunks")
+    if streams[True] != streams[False]:
+        raise AssertionError(f"{cfg.name} graph-ab: the graphed streams "
+                             "differ from the eager ones")
+    del engines, engine
+    torch.cuda.empty_cache()
+    return out
 
 
 PREFIX_LEN = 600     # 37 full blocks of 16 + 8 rows: every sharer copies
@@ -1950,21 +2120,36 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
     torch.profiler and print where the device time went: device busy
     share = the kernels' summed device time over the window's wall time,
     every device launch per step counted (kernels, copies, memsets), the
-    top kernels, and the summed time of each of ``groups`` ({label: name
-    fragments}) per step."""
+    CUDA graph launches the host made, the top kernels, and the summed
+    time of each of ``groups`` ({label: name fragments}) per step.
+    ``run()`` may return the launches the kernel wrappers counted in it:
+    fewer device events than that mean the profiler did not see a graph's
+    kernels, and the busy share is then not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        counted = run()
         wall = time.perf_counter() - t0
-    dev = [(e.key, e.device_time_total, e.count)
-           for e in prof.key_averages()
+    events = prof.key_averages()
+    dev = [(e.key, e.device_time_total, e.count) for e in events
            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    graph_launches = sum(e.count for e in events
+                         if e.key == "cudaGraphLaunch") / steps
+    seen = sum(n for _, _, n in dev)
+    missed = counted is not None and seen < counted
+    if missed:
+        print(f"[profile:{name}] {label}: {wall / steps * 1e3:.2f} ms per "
+              f"step; the profiler saw {graph_launches:.1f} CUDA graph "
+              f"launches per step but not the graph's kernels ({seen} "
+              f"device events against the {counted} launches the "
+              "kernel wrappers counted): device busy share and device "
+              "launches not measured", flush=True)
+        dev = []
     busy_s = sum(t for _, t, _ in dev) / 1e6
-    launches = sum(n for _, _, n in dev) / steps
+    launches = seen / steps
     dev.sort(key=lambda r: -r[1])
     top = [{"kernel": k[:80], "ms_per_step": t / 1e3 / steps,
             "launches_per_step": n / steps} for k, t, n in dev[:top_n]]
@@ -1977,7 +2162,8 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
               f"({100 * busy_s / wall:.1f}% busy, "
               f"{100 * (1 - busy_s / wall):.1f}% idle), {launches:.1f} "
               "device launches per step (kernels, copies and memsets, "
-              "all of them)", flush=True)
+              f"all of them), {graph_launches:.2f} CUDA graph launches per "
+              "step", flush=True)
         for row in top:
             print(f"[profile:{name}]   {row['ms_per_step']:.3f} ms/step "
                   f"x{row['launches_per_step']:.0f}  {row['kernel']}",
@@ -1986,23 +2172,31 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
             print(f"[profile:{name}]   group {g}: {ms:.3f} ms/step "
                   f"({100 * ms / (busy_s / steps * 1e3):.1f}% of the device "
                   "busy time)", flush=True)
-    else:
+    elif not missed:
         print(f"[profile:{name}] the profiler saw no device events: device "
               "busy share not measured", flush=True)
     return {"profile_ms_per_step": wall / steps * 1e3,
             "profile_device_busy_ms_per_step":
                 busy_s / steps * 1e3 if dev else None,
             "profile_device_launches_per_step": launches if dev else None,
+            "profile_graph_launches_per_step": graph_launches,
             "profile_top_kernels": top,
             "profile_group_ms_per_step": by_group if dev else None}
 
 
+def _wrapper_launches(tfa):
+    return sum(fn.launches for fn in tfa.KERNELS)
+
+
 def profile_decode(cfg, run, params, name, groups=None, **kw):
     """Where a steady decode step's time goes: two decode chunks of 8
-    full lanes of a fresh engine under torch.profiler.  It runs after
+    full lanes of a fresh engine under torch.profiler, after its first
+    step (admission and the first chunk, which the graphed engine
+    captures), so the window's chunks are graph replays.  It runs after
     every serving arm, as the launches slow down once the profiler has
     run."""
     import torch
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(7)
@@ -2014,12 +2208,14 @@ def profile_decode(cfg, run, params, name, groups=None, **kw):
     torch.cuda.synchronize()
 
     def run_window():
+        before = _wrapper_launches(tfa)
         engine.step()
         engine.step()
         torch.cuda.synchronize()
+        return _wrapper_launches(tfa) - before
 
-    return _profile_window(name, "steady decode, 8 lanes",
-                           2 * engine.decode_chunk, run_window,
+    label = "steady decode, 8 lanes" + (", graphed" if engine.graph else "")
+    return _profile_window(name, label, 2 * engine.decode_chunk, run_window,
                            groups=groups)
 
 
@@ -2154,7 +2350,8 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
       * Capacity drops at the decode steps: the (token, expert)
         assignments that capacity keeps and drops, for live lanes and for
         done lanes (fed token 0 at index max_seq), counted on the card
-        over every decode step and layer.
+        over every decode step and layer (by ops patched in before the
+        engine captures its decode chunk, so every replay counts).
     Every stream must equal the dense arm's."""
     import torch
     from repro_torch.models import layers as L
@@ -2162,10 +2359,6 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
     from repro_torch.serving.engine import Request
 
     tally = SyncTally()
-    engine = _engine(cfg, run, params, tally)
-    engine.generate([Request(uid=-1, max_new_tokens=8, prompt=list(range(
-        1, 65)))])                            # first-call costs, not counted
-    tally.spans = []
     counts = torch.zeros(4, dtype=torch.int64, device="cuda")
     lanes = {}
     real_forward, real_dispatch = lm.forward, L._moe_dispatch_local
@@ -2186,8 +2379,15 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
             counts.index_add_(0, idx, torch.ones_like(idx))
         return out
 
+    # patched before the engine's first chunk, so the graph it captures
+    # counts the drops at every replay
     lm.forward, L._moe_dispatch_local = forward, dispatch
     try:
+        engine = _engine(cfg, run, params, tally)
+        engine.generate([Request(uid=-1, max_new_tokens=8, prompt=list(
+            range(1, 65)))])                  # first-call costs, not counted
+        tally.spans = []
+        counts.zero_()
         done, syncs, sites = _count_syncs(engine, tally, specs)
     finally:
         lm.forward, L._moe_dispatch_local = real_forward, real_dispatch
@@ -2276,6 +2476,9 @@ def serve_ssm(tfa):
     paged constructor, which must refuse.  Returns (launches, stats,
     shared)."""
     launches, stats, shared = serve_full_width(tfa, SSM_ARCH, "mamba2-")
+    _, stats["eager"] = serve_arm(tfa, *shared, "mamba2-eager", False,
+                                  eager=True)
+    stats["graph_ab"] = graph_ab(tfa, *shared[:3])
     stats.update(serve_ssm_replay(tfa, *shared, "mamba2-"))
     cfg, run, params = shared[:3]
     stats["paged_refused"] = _refused(
@@ -2297,6 +2500,9 @@ def serve_hybrid(tfa):
     Returns (dense launches, paged launches, stats, shared)."""
     launches, stats, shared = serve_full_width(tfa, HYBRID_ARCH, "zamba2-")
     paged_launches, paged = serve_arm(tfa, *shared, "zamba2-paged", True)
+    _, stats["eager"] = serve_arm(tfa, *shared, "zamba2-eager", False,
+                                  eager=True)
+    stats["graph_ab"] = graph_ab(tfa, *shared[:3])
     cfg, run, params = shared[:3]
     stats["paged"] = paged
     stats["prefix_sharing_refused"] = _refused(
@@ -2873,6 +3079,8 @@ def main() -> int:
     # other, as the host's pace drifts over a run
     _, paged2 = serve_arm(tfa, *shared, "paged-again", True)
     _, dense2 = serve_arm(tfa, *shared, "dense-again", False)
+    _, serving["eager"] = serve_arm(tfa, *shared, "eager", False, eager=True)
+    serving["graph_ab"] = graph_ab(tfa, *shared[:3])
     order = (("dense", serving), ("paged", paged_serving),
              ("paged", paged2), ("dense", dense2))
     print("[serve:abba] dense, paged, paged, dense: " + ", ".join(
@@ -2891,6 +3099,9 @@ def main() -> int:
     moe_paged_launches, moe_paged = serve_arm(tfa, *moe_shared,
                                               "olmoe-paged", True,
                                               gate_equal=False)
+    _, moe_serving["eager"] = serve_arm(tfa, *moe_shared, "olmoe-eager",
+                                        False, eager=True)
+    moe_serving["graph_ab"] = graph_ab(tfa, *moe_shared[:3])
     moe_serving.update(serve_moe_replay(tfa, *moe_shared))
     moe_serving["no_drop"] = serve_moe_no_drop(tfa, *moe_shared[:4])
     # each model's weights are released before the next model's are made

@@ -22,7 +22,9 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version from
 ``kernels/ref.py``; given CUDA tensors it checks device, dtype, shape and
 contiguity, allocates the output, launches the kernel on the current
 stream and raises if the launch returns a CUDA error.  There is no other
-path.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+path.  Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+a CUDA graph's replays add the launches its capture counted
+(``serving/graphs.py``).
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ DECODE_ROWS = 4
 DECODE_SPAN = 256
 
 #: per device, the decode path's span counters: zeros, which every launch
-#: leaves as it found them (one stream at a time may use them)
+#: leaves as it found them (one stream at a time may use them); a CUDA
+#: graph holds their address, so a grown set keeps the old one alive
 _counters: dict = {}
+_outgrown: list = []
 
 
 def _decode_scratch(q, K, D, limit):
@@ -57,6 +61,8 @@ def _decode_scratch(q, K, D, limit):
                        dtype=torch.float32, device=q.device)
     counters = _counters.get(q.device)
     if counters is None or counters.numel() < B * K:
+        if counters is not None:
+            _outgrown.append(counters)
         counters = torch.zeros(max(B * K, 1024), dtype=torch.int32,
                                device=q.device)
         _counters[q.device] = counters

@@ -7,17 +7,25 @@ Three device programs make up the runtime:
     into ONE slot's cache rows, at batch 1, through that slot's views of
     the stacked cache; every other slot's state is untouched.
   * ``make_decode_chunk_step``: K decode steps for the WHOLE batch with a
-    per-slot cache-index vector ``(B,)`` and per-slot done flags.  The
-    reference's ``lax.while_loop`` exits early once every slot is done;
-    here the loop runs all K iterations, masked by ``done``, so the host
-    never reads ``done``: done lanes emit -1 and their cache writes drop
-    (index = max_seq), so the token streams are the same.  One host sync
-    per K-token chunk.
+    per-slot cache-index vector ``(B,)`` and per-slot done flags, read
+    from and written back into the engine's persistent lane vectors and
+    ``out`` buffer.  The reference's ``lax.while_loop`` exits early once
+    every slot is done; here the loop runs all K iterations, masked by
+    ``done`` (a graph has a fixed length, and done lanes' writes drop):
+    done lanes emit -1 and their cache writes drop (index = max_seq), so
+    the token streams are the same.  One host sync per K-token chunk.
   * an admission step that arms a freshly prefilled slot's decode lane.
 
-State lives on ``ctx.device`` and is updated IN PLACE: the per-slot cache
-views are written by the kernels directly, so the reference's
-``_merge_slot`` has no counterpart.
+On the card the decode chunk is one CUDA graph (``serving/graphs.py``),
+as the reference jits it: an engine's first chunk runs eagerly on a side
+stream, is captured right after, and every later chunk is one replay.
+``eager=True`` runs the body directly (the counterpart of
+``jax.disable_jit``), as a CPU engine always does.
+
+State lives on ``ctx.device``, is allocated once per engine and updated
+IN PLACE: the per-slot cache views are written by the kernels directly,
+so the reference's ``_merge_slot`` has no counterpart, and a new stream
+resets the same storage, so a captured graph stays valid.
 
 ``paged=True`` replaces the per-slot cache with a block pool addressed
 through per-slot block tables (``make_prefill_chunk_step_paged``; the
@@ -46,6 +54,7 @@ from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import resolve_device
 from repro_torch.obs.tracer import NULL_TRACER
+from repro_torch.serving import graphs
 from repro_torch.serving.scheduler import (BlockAllocator, PrefixRegistry,
                                            Request, SlotScheduler, chunk_plan)
 
@@ -160,38 +169,42 @@ def make_prefill_chunk_step_paged(cfg: ModelConfig, run: RunConfig,
 
 def make_decode_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
                            chunk: int, max_seq: int):
-    """decode_chunk(params, cache, cur, index, rem, done) ->
-    (cache, cur, index, rem, done, out (B,chunk), steps).
+    """decode_chunk(params, cache, cur, index, rem, done, out) -> out.
 
-    ``chunk`` iterations with per-slot state vectors (B,): ``cur`` is each
-    slot's newest not-yet-delivered token, ``index`` its cache write
-    offset, ``rem`` tokens still owed, ``done`` the mask for finished or
-    empty slots.  ``out`` collects emitted tokens (-1 where a slot was
-    done), the only value the host needs per chunk.  Nothing here reads
-    a device value on the host."""
+    ``chunk`` iterations with per-slot state vectors (B,) int32 (``done``
+    bool): ``cur`` is each slot's newest not-yet-delivered token,
+    ``index`` its cache write offset, ``rem`` tokens still owed, ``done``
+    the mask for finished or empty slots.  ``out`` (B, chunk) int32
+    collects emitted tokens (-1 where a slot was done; every column is
+    written), the only value the host needs per chunk.  The cache, the
+    four vectors and ``out`` are updated IN PLACE (the vectors copied
+    back at the end), so the same storage serves every call and a CUDA
+    graph of the body.  Nothing here reads a device value on the host."""
 
-    def decode_chunk(params, cache, cur, index, rem, done):
-        B = cur.shape[0]
-        out = torch.full((B, chunk), -1, dtype=torch.int32, device=cur.device)
-        cur, index, rem = cur.int(), index.int(), rem.int()
+    def decode_chunk(params, cache, cur, index, rem, done, out):
+        tok, idx, left, fin = cur, index, rem, done
         for t in range(chunk):
             # deliver each live slot's pending token into the out buffer
-            out[:, t] = torch.where(done, -1, cur)
-            rem = torch.where(done, rem, rem - 1)
-            done = done | (rem <= 0)
+            out[:, t] = torch.where(fin, -1, tok)
+            left = torch.where(fin, left, left - 1)
+            fin = fin | (left <= 0)
             # done slots write at max_seq: the per-slot cache write drops
             # them, so retired lanes cost no KV rows.  A Mamba lane has no
             # row to drop: a done lane's recurrent state keeps advancing on
             # token 0, as in the reference, and the reset at the next
             # admission to that slot wipes it
-            widx = torch.where(done, max_seq, index)
-            h, _, cache = lm.forward(ctx, cfg, params, {"tokens": cur[:, None]},
-                                     cache=cache, cache_index=widx)
+            widx = torch.where(fin, max_seq, idx)
+            h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tok[:, None]},
+                                 cache=cache, cache_index=widx)
             logits = lm.logits_for(ctx, cfg, params, h)
             nxt = torch.argmax(logits[:, 0], dim=-1).int()
-            cur = torch.where(done, 0, nxt)
-            index = torch.where(done, index, index + 1)
-        return cache, cur, index, rem, done, out, chunk
+            tok = torch.where(fin, 0, nxt)
+            idx = torch.where(fin, idx, idx + 1)
+        cur.copy_(tok)
+        index.copy_(idx)
+        rem.copy_(left)
+        done.copy_(fin)
+        return out
 
     return decode_chunk
 
@@ -250,7 +263,12 @@ class ServeEngine:
     prefix sharing; each admission zeroes the slot's Mamba state.
 
     The engine runs on ``ctx.device`` (``cuda`` by default; raises when
-    there is no card, unless the Ctx names the CPU).
+    there is no card, unless the Ctx names the CPU).  On the card every
+    decode chunk after the engine's first is one replay of a CUDA graph
+    of the chunk (``serving/graphs.py``); ``eager=True`` runs each chunk
+    directly instead, as a CPU engine does.  A capture or replay that
+    fails raises.  The cache, the lane vectors and the ``out`` buffer are
+    allocated by the first stream and reset in place by later ones.
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, ctx: Ctx, params,
@@ -258,7 +276,8 @@ class ServeEngine:
                  prefill_chunk: int = 32, decode_chunk: int = 8,
                  tracer=None, trace_track: str = "engine",
                  paged: bool = False, block_size: int = 16,
-                 n_blocks: int | None = None, prefix_sharing: bool = False):
+                 n_blocks: int | None = None, prefix_sharing: bool = False,
+                 eager: bool = False):
         if prefix_sharing and not paged:
             raise ValueError("prefix_sharing requires paged=True")
         if paged:
@@ -305,6 +324,10 @@ class ServeEngine:
                               else make_prefill_chunk_step)(cfg, run, ctx)
         self._decode_fn = make_decode_chunk_step(cfg, run, ctx, decode_chunk,
                                                  max_seq)
+        # a CPU has no graphs: the caller who asks for it runs eagerly
+        self.eager = eager or self.device.type != "cuda"
+        self.graph = None              # the decode chunk's ChunkGraph
+        self._cache = None             # allocated by the first stream
         self._sched = None
         # transfer seam: tests swap this for a counting double to assert
         # the one-sync-per-chunk contract
@@ -446,10 +469,28 @@ class ServeEngine:
     # -- stream state --------------------------------------------------------
 
     def _ensure_stream(self) -> None:
-        """Bring up the device-resident stream state if none is active."""
+        """Bring up the stream state if none is active: the device state
+        is allocated by the first stream and reset in place by later ones
+        (a captured graph holds its addresses); the host's block books
+        are made anew."""
         if self._sched is not None:
             return
         self._sched = SlotScheduler(self.batch_size)
+        if self._cache is None:
+            self._alloc_state()
+        else:
+            self._reset_state()
+        if self.paged:
+            self._alloc = BlockAllocator(self.n_blocks, self.block_size)
+            self._registry = (PrefixRegistry(self._alloc)
+                              if self.prefix_sharing else None)
+            self._slot_blocks: dict[int, list[int]] = {}
+        else:
+            self._alloc = self._registry = None
+
+    def _alloc_state(self) -> None:
+        """The engine's device state, once: the cache, the lane vectors
+        and the decode chunk's ``out`` buffer."""
         B, dev = self.batch_size, self.device
         if self.paged:
             # the pool holds one PARKING block beyond the allocator's
@@ -460,17 +501,43 @@ class ServeEngine:
                 self.ctx, self.cfg, B, self.max_seq, self.block_size,
                 n_blocks=self.n_blocks + 1)
             self._cache["block_tables"].fill_(self._parking)
-            self._alloc = BlockAllocator(self.n_blocks, self.block_size)
-            self._registry = (PrefixRegistry(self._alloc)
-                              if self.prefix_sharing else None)
-            self._slot_blocks: dict[int, list[int]] = {}
         else:
             self._cache = lm.init_cache(self.ctx, self.cfg, B, self.max_seq)
-            self._alloc = self._registry = None
         self._cur = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._index = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._rem = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._done = torch.ones((B,), dtype=torch.bool, device=dev)
+        # every decode chunk writes all of it before the host reads it
+        self._out = torch.empty((B, self.decode_chunk), dtype=torch.int32,
+                                device=dev)
+
+    def _reset_state(self) -> None:
+        """``_alloc_state``'s values, written over the same storage (a
+        fresh engine's: a done lane still feeds the MoE router and reads
+        its slot's stale rows)."""
+        for key, leaves in self._cache.items():
+            if key == "block_tables":
+                leaves.fill_(self._parking)
+            else:
+                for a in leaves.values():
+                    a.zero_()
+        for v in (self._cur, self._index, self._rem):
+            v.zero_()
+        self._done.fill_(True)
+
+    def _decode_chunk(self) -> None:
+        """One decode chunk into ``_out``: the body itself when eager; on
+        the card the engine's first chunk is ``graphs.capture``'s eager
+        warm-up and capture, and every later chunk one replay."""
+        args = (self.params, self._cache, self._cur, self._index, self._rem,
+                self._done, self._out)
+        if self.eager:
+            self._decode_fn(*args)
+        elif self.graph is None:
+            self.graph = graphs.capture(lambda: self._decode_fn(*args),
+                                        self.device)
+        else:
+            self.graph.replay()
 
     def _validate_requests(self, requests) -> None:
         """Reject unservable requests before any device work: rows beyond
@@ -568,10 +635,7 @@ class ServeEngine:
         uids = [s.request.uid for s in sched.active()] \
             if tr is not None else None
         with self._phase("decode", calls=self.decode_chunk) as rec:
-            (self._cache, self._cur, self._index, self._rem, self._done,
-             out, _) = self._decode_fn(
-                self.params, self._cache, self._cur, self._index,
-                self._rem, self._done)
+            self._decode_chunk()
         if tr is not None:
             m = getattr(rec, "modeled", None)
             dt = m.runtime if m is not None else 1.0
@@ -582,7 +646,7 @@ class ServeEngine:
             self._vt += dt
             tr.span("engine.chunk", chunk_t0, self._vt, self.trace_track,
                     cat="chunk", args={"active": len(uids)})
-        out_host = self._fetch(out)           # the chunk's ONE sync
+        out_host = self._fetch(self._out)     # the chunk's ONE sync
         self.sync_count += 1
         newly: list[Request] = []
         for slot in sched.active():

@@ -9,14 +9,20 @@ weights, bf16, batch 8, prompts of 128 tokens) take one step (admission
 and the first decode chunk); then
 
   * two decode chunks (16 steps) on the host clock, ending in a
-    synchronise: wall ms per step; every model first, as launches slow
-    down once the profiler has run;
+    synchronise, with CUDA events around each step's decode chunk
+    (``chip_smoke._steps_ms``): wall and chunk-stream ms per step (a
+    graph replay's device time, or an eager chunk's issue time); every
+    model first, as launches slow down once the profiler has run;
   * two more chunks of a fresh engine under torch.profiler
     (``chip_smoke._profile_window``): device ms per step, the busy share
-    and every device launch per step.
+    and every device launch per step ("not measured" where the profiler
+    does not see a CUDA graph's kernels).
 
-The measuring code is this checkout's ``chip_smoke.py`` in every process,
-so each tree is read the same way; only ``repro_torch`` differs.  One
+Each tree's engine runs as that tree builds it: one whose ``ServeEngine``
+has no ``eager=`` runs every decode chunk eagerly, one that graphs the
+chunk by default replays its graph (``"graphed"`` in the line).  The
+measuring code is this checkout's ``chip_smoke.py`` in every process, so
+each tree is read the same way; only ``repro_torch`` differs.  One
 ``[ab]`` line per tree and model, then a summary of the turns.  Needs one
 CUDA card.
 """
@@ -27,7 +33,6 @@ import argparse
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -60,6 +65,7 @@ def one(tree: str) -> None:
     import repro_torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as tfa
     if not torch.cuda.is_available():
         raise SystemExit("decode_ab: no CUDA device")
     src = Path(repro_torch.__file__).resolve().parents[1]
@@ -70,12 +76,10 @@ def one(tree: str) -> None:
     for arch, (cfg, run) in models.items():          # host clock first
         params = cs._card_weights(cfg, run)
         engine = _steady_engine(cs, cfg, run, params)
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            engine.step()
-        torch.cuda.synchronize()
-        out[arch]["wall_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
-                                         / (STEPS * engine.decode_chunk))
+        out[arch]["graphed"] = getattr(engine, "graph", None) is not None
+        (out[arch]["wall_ms_per_step"],
+         out[arch]["chunk_stream_ms_per_step"]) = cs._steps_ms(engine,
+                                                               STEPS)
         del engine, params
         cs._release_card()
     for arch, (cfg, run) in models.items():          # then the profiler
@@ -83,9 +87,11 @@ def one(tree: str) -> None:
         engine = _steady_engine(cs, cfg, run, params)
 
         def window():
+            before = cs._wrapper_launches(tfa)
             for _ in range(STEPS):
                 engine.step()
             torch.cuda.synchronize()
+            return cs._wrapper_launches(tfa) - before
 
         prof = cs._profile_window(f"ab:{arch}", f"{tree}, steady decode",
                                   STEPS * engine.decode_chunk, window)
@@ -121,12 +127,17 @@ def main() -> int:
             return res.returncode
         rows += [json.loads(line[5:]) for line in res.stdout.splitlines()
                  if line.startswith("[ab] {")]
+    def num(x, fmt):
+        return "not measured" if x is None else format(x, fmt)
+
     for arch in ARCHS:
         turns = [r for r in rows if r["arch"] == arch]
         print(f"[ab:summary] {arch}: " + "; ".join(
-            f"{r['tree']} wall {r['wall_ms_per_step']:.2f} ms, device "
-            f"{r['device_ms_per_step']:.3f} ms, "
-            f"{r['device_launches_per_step']:.1f} launches per step"
+            f"{r['tree']} ({'graphed' if r['graphed'] else 'eager'}) wall "
+            f"{r['wall_ms_per_step']:.2f} ms, chunk-stream "
+            f"{r['chunk_stream_ms_per_step']:.3f} ms, device "
+            f"{num(r['device_ms_per_step'], '.3f')} ms, "
+            f"{num(r['device_launches_per_step'], '.1f')} launches per step"
             for r in turns), flush=True)
     return 0
 
