@@ -66,14 +66,26 @@ caught):
      chunk 256, decode chunk 8) on 16 seeded requests, three times.  Every
      engine runs its decode chunk as one CUDA graph (its first chunk
      eager, then captured; every later chunk one replay, whose launches
-     the kernel wrappers' counts include), and the split-KV counters must
-     be back at zero after every arm.  Each family also runs an
-     ``eager=True`` dense arm, whose 16 streams must equal the graphed
-     dense arm's bit for bit, and ``[serve:graph-ab]``: AB_PAIRS
-     alternating pairs (eager, graphed) of a steady 2-chunk window of 8
-     live lanes, ms per decode step (host clock, and CUDA events around
-     each decode chunk), host syncs per chunk (must be 1), the capture's
-     seconds and memory, and the two engines' streams equal bit for bit:
+     the kernel wrappers' counts include) and each prefill chunk as the
+     replay of one graph per chunk size, in the engine's prefill lane
+     (captured at the size's first use: each arm's engine first serves a
+     WARM_LEN-token request, cut into every size once, so every chunk of
+     the arm must be a replay, and each arm line counts them), and the
+     split-KV counters must be back at zero after every arm.  Each family
+     also runs an ``eager=True`` dense arm (every prefill and decode chunk
+     run directly), whose 16 streams must equal the graphed dense arm's
+     bit for bit, ``[serve:graph-ab]``: AB_PAIRS alternating pairs
+     (eager, graphed) of a steady 2-chunk window of 8 live lanes, ms per
+     decode step (host clock, and CUDA events around each decode chunk),
+     host syncs per chunk (must be 1), the capture's seconds and memory,
+     and the two engines' streams equal bit for bit, and
+     ``[serve:prefill-ab]``: PREFILL_AB_PAIRS alternating pairs (eager,
+     graphed) of the dense arm's 16 prompts (85 chunks) prefilled into one
+     slot, the host's wall ms over the chunks, CUDA events around each
+     chunk (summed, and per 256-row chunk), each prefill graph's capture
+     seconds, their shared pool and the lane's bytes, and every prompt's
+     last-token logits equal bit for bit; llama's ``[serve:capture-refused]``
+     shows that a prefill capture that fails raises and keeps no graph:
        a. dense: every request must get exactly its tokens and both dense
           kernels must have launched (the paged ones not);
        b. paged (``paged=True, block_size=16``) on the same 16 requests:
@@ -121,8 +133,9 @@ caught):
      graph replays, and where the profiler does not see a graph's
      kernels the line says so) of steady decode, olmoe dense, mamba2
      dense, zamba2 dense and paged, llama dense and paged, and of the
-     prefill of one 1024-row prompt (four 256-row chunks) on mamba2 and
-     zamba2 (last: launches slow down once the profiler has run);
+     graphed prefill of one 1024-row prompt (four 256-row chunks, each a
+     replay) on mamba2, zamba2 and llama (last: launches slow down once
+     the profiler has run);
   4. logits parity at full width and 2 layers: the card (bf16, kernels)
      against a float32 CPU forward of the same weights (plain path); for
      olmoe the same prefill chunks and decode step on both sides, the
@@ -248,8 +261,12 @@ SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
 SSD_TIME_S = (256, 128, 64, 32, 16, 8, 4, 2)
 #: the bf16 ssd kernel's row tile (csrc/ssd.cu)
 SSD_TILE = 64
-#: the prompt of the [profile:*-prefill] windows: four 256-row chunks
+#: the prompt of the [profile:*prefill] windows: four 256-row chunks
 PREFILL_PROFILE_LEN = 1024
+#: the warm-up prompt before a timed arm: 511 = 256 + 128 + ... + 1 is cut
+#: into every chunk size once, so a graphed engine captures every prefill
+#: graph (and its decode graph) before the arm, whose chunks are replays
+WARM_LEN = 511
 #: kernel-name fragments of a Mamba model's decode step by kind
 SSM_PROFILE_GROUPS = {
     "ssd": ("ssd_kernel", "ssd_tc_kernel"),
@@ -1688,6 +1705,9 @@ def _serve(tfa, engine, clock, cfg, specs):
             for i, (p, n, pl) in enumerate(specs)]
     clock.reset()
     engine.sync_count = 0
+    sizes0 = set(engine.prefill_graphs)
+    for graph in engine.prefill_graphs.values():
+        graph.replays = 0
     tfa.reset_launch_counts()
     t0 = time.perf_counter()
     done = engine.generate(reqs)
@@ -1695,6 +1715,14 @@ def _serve(tfa, engine, clock, cfg, specs):
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
     _check_counters(tfa)
+    # a graphed engine replays every prefill chunk but a size's first
+    new_sizes = set(engine.prefill_graphs) - sizes0
+    if not engine.eager and _prefill_replays(engine) \
+            != clock.calls["prefill"] - len(new_sizes):
+        raise AssertionError(
+            f"{_prefill_replays(engine)} prefill graph replays of "
+            f"{clock.calls['prefill']} chunks, {len(new_sizes)} sizes "
+            "captured in the arm")
     if sorted(r.uid for r in done) != list(range(len(specs))):
         raise AssertionError("not every request finished")
     for r in done:
@@ -1704,6 +1732,10 @@ def _serve(tfa, engine, clock, cfg, specs):
         if not all(0 <= t < cfg.vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: token outside vocab")
     return done, wall, launches
+
+
+def _prefill_replays(engine):
+    return sum(g.replays for g in engine.prefill_graphs.values())
 
 
 def _check_counters(tfa):
@@ -1767,6 +1799,8 @@ def _arm_stats(engine, clock, done, wall, specs):
             "host_syncs": engine.sync_count,
             "decode_steps": engine.sync_count * engine.decode_chunk,
             "prefill_chunks": clock.calls["prefill"],
+            "prefill_graph_replays": _prefill_replays(engine),
+            "prefill_graphs": len(engine.prefill_graphs),
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30}
 
@@ -1780,7 +1814,9 @@ def _print_arm(name, st, launches):
           f"({st['decode_s'] / st['decode_steps'] * 1e3:.1f} ms per decode "
           f"step); {st['host_syncs']} host syncs "
           f"({st['decode_steps']} decode steps, {st['prefill_chunks']} "
-          f"prefill chunks); launches {launches}; max_memory_allocated "
+          f"prefill chunks, {st['prefill_graph_replays']} of them prefill "
+          f"graph replays of {st['prefill_graphs']} graphs); launches "
+          f"{launches}; max_memory_allocated "
           f"{st['max_memory_allocated_gib']:.2f} GiB", flush=True)
 
 
@@ -1830,8 +1866,9 @@ def serve_full_width(tfa, arch=ARCH, tag=""):
           flush=True)
 
     rng = np.random.default_rng(0)
-    warm = Request(uid=-1, prompt=rng.integers(0, cfg.vocab, 64).tolist(),
-                   max_new_tokens=8)
+    # 64 seeded tokens repeated: the requests below follow those 64 draws
+    warm = Request(uid=-1, prompt=(rng.integers(0, cfg.vocab, 64).tolist()
+                                   * 8)[:WARM_LEN], max_new_tokens=8)
     engine.generate([warm])                   # first-call costs, not counted
     specs = []
     for _ in range(16):
@@ -1864,7 +1901,7 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
     engine = _engine(cfg, run, params, clock, eager=eager,
                      **(dict(paged=True, block_size=16) if paged else {}))
     warm = Request(uid=-1, max_new_tokens=8, prompt=np.random.default_rng(5)
-                   .integers(0, cfg.vocab, 64).tolist())
+                   .integers(0, cfg.vocab, WARM_LEN).tolist())
     engine.generate([warm])                   # first-call costs, not counted
     torch.cuda.reset_peak_memory_stats()
     done, wall, launches = _serve(tfa, engine, clock, cfg, specs)
@@ -1912,6 +1949,7 @@ def _steps_ms(engine, chunks):
     name = ("_decode_chunk" if hasattr(engine, "_decode_chunk")
             else "_decode_fn")
     real, ev = getattr(engine, name), []
+    own = name in vars(engine)      # an instance attribute, not a method
 
     def timed(*args):
         start = torch.cuda.Event(enable_timing=True)
@@ -1931,21 +1969,28 @@ def _steps_ms(engine, chunks):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        setattr(engine, name, real)
+        # a method is restored by deleting the patch: setting the bound
+        # method back would tie the engine into a reference cycle, which
+        # the cyclic collector could free, graphs and all, mid-capture
+        if own:
+            setattr(engine, name, real)
+        else:
+            delattr(engine, name)
     steps = chunks * engine.decode_chunk
     return (wall * 1e3 / steps,
             sum(a.elapsed_time(b) for a, b in ev) / steps)
 
 
-def _graph_pool_gib():
-    """Bytes the caching allocator holds in private pools (CUDA graphs'),
-    from its segment snapshot; None where the snapshot does not say."""
+def _graph_pool_gib(pool):
+    """GiB the caching allocator holds in the private pool ``pool`` (a
+    CUDA graph's, or graphs' that share it), from its segment snapshot;
+    None where the snapshot does not say."""
     import torch
     segs = torch.cuda.memory_snapshot()
     if any("segment_pool_id" not in seg for seg in segs):
         return None
     return sum(seg["total_size"] for seg in segs
-               if tuple(seg["segment_pool_id"]) != (0, 0)) / 2**30
+               if tuple(seg["segment_pool_id"]) == tuple(pool)) / 2**30
 
 
 def graph_ab(tfa, cfg, run, params):
@@ -1977,7 +2022,7 @@ def graph_ab(tfa, cfg, run, params):
         torch.cuda.synchronize()
         memory[eager] = (torch.cuda.max_memory_allocated() - base) / 2**30
         engines[eager] = engine
-    pool = _graph_pool_gib()
+    pool = _graph_pool_gib(engines[False].graph.graph.pool())
     syncs0 = {e: engines[e].sync_count for e in engines}
     turns = {True: [], False: []}
     for _ in range(AB_PAIRS):
@@ -2044,6 +2089,191 @@ def graph_ab(tfa, cfg, run, params):
     return out
 
 
+PREFILL_AB_PAIRS = 10     # [serve:prefill-ab]: alternating pairs
+
+
+def _prefill_turn(engine, prompts):
+    """Prefill every prompt into slot 0 through the engine's own chunk loop
+    (``_prefill_rows``: state reset, chunks, the graphed engine's lane
+    commit), from an idle card to a synchronise: the host's wall ms over
+    the turn, each chunk's (rows, CUDA-event ms) -- the events bracket the
+    engine's ``_prefill_chunk``: a graph replay's time on the card, or
+    the time an eager chunk takes to be issued, as the card waits on the
+    host -- and each prompt's last-token logits."""
+    import torch
+    real, ev, logits = engine._prefill_chunk, [], []
+
+    def timed(toks, sid, idx):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(toks, sid, idx)
+        end.record()
+        ev.append((len(toks), start, end))
+        return out
+
+    engine._prefill_chunk = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for prompt in prompts:
+            logits.append(engine._prefill_rows(prompt, 0, 0).clone())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine._prefill_chunk
+    return wall * 1e3, [(n, a.elapsed_time(b)) for n, a, b in ev], logits
+
+
+def _lane_bytes(engine):
+    """Bytes of the graphed engine's prefill lane: its own rows and state
+    leaves (a paged engine's pools are the cache's), the staging table
+    row, the offset, the token buffers and the logits."""
+    import torch
+    total = sum(a.nbytes for a in (engine._offset, engine._logits,
+                                   *engine._lane_tokens.values()))
+    for key, leaves in engine._lane.items():
+        if torch.is_tensor(leaves):
+            total += leaves.nbytes
+        elif leaves is not engine._cache[key]:
+            total += sum(a.nbytes for a in leaves.values())
+    return total
+
+
+def prefill_ab(tfa, cfg, run, params, specs):
+    """``[serve:prefill-ab]``: the eager (``eager=True``) and the graphed
+    engine prefill the arm's prompts (``specs``: 16 prompts, 85 chunks)
+    into slot 0, each engine after a warm-up request that cuts every chunk
+    size once (the graphed engine's captures); then PREFILL_AB_PAIRS
+    alternating pairs (eager, graphed) of turns, in one process on one
+    card: the host's wall ms over the arm's chunks, the chunks' CUDA-event
+    ms summed and per 256-row chunk, their medians, the graphed engine's
+    capture seconds per chunk size, its prefill graphs' shared pool and
+    its lane's bytes.  Every prompt's last-token logits must be equal bit
+    for bit between the two engines, every graphed chunk must be a
+    replay, and the split-KV counters must be back at zero."""
+    import statistics
+    import torch
+    from repro_torch.serving.engine import Request
+    prompts = [list(p) for p, _, _ in specs]
+    engines = {}
+    for eager in (True, False):
+        engine = _engine(cfg, run, params, None, eager=eager)
+        engine.generate([Request(uid=-1, max_new_tokens=8, prompt=np.random
+                                 .default_rng(9).integers(
+                                     0, cfg.vocab, WARM_LEN).tolist())])
+        engines[eager] = engine
+    graphed = engines[False]
+    replays0 = _prefill_replays(graphed)
+    turns = {True: [], False: []}
+    logits = {}
+    for _ in range(PREFILL_AB_PAIRS):
+        for eager in (True, False):
+            wall, chunks, logits[eager] = _prefill_turn(engines[eager],
+                                                        prompts)
+            turns[eager].append((wall, sum(ms for _, ms in chunks),
+                                 statistics.mean(ms for n, ms in chunks
+                                                 if n == 256)))
+    _check_counters(tfa)
+    n_chunks, n_256 = len(chunks), sum(n == 256 for n, _ in chunks)
+    replays = _prefill_replays(graphed) - replays0
+    same = sum(torch.equal(a, b) for a, b in zip(logits[True],
+                                                 logits[False]))
+    med = {e: [statistics.median(t[i] for t in turns[e]) for i in range(3)]
+           for e in turns}
+    capture = {n: g.capture_s for n, g in sorted(graphed.prefill_graphs
+                                                 .items(), reverse=True)}
+    pool = _graph_pool_gib(graphed._share[1])
+    lane = _lane_bytes(graphed)
+    out = {"pairs": PREFILL_AB_PAIRS, "prompts": len(prompts),
+           "rows": sum(map(len, prompts)), "chunks": n_chunks,
+           "chunks_of_256": n_256,
+           "eager_wall_ms": [t[0] for t in turns[True]],
+           "graphed_wall_ms": [t[0] for t in turns[False]],
+           "eager_chunk_stream_ms": [t[1] for t in turns[True]],
+           "graphed_chunk_stream_ms": [t[1] for t in turns[False]],
+           "eager_chunk_stream_ms_per_256": [t[2] for t in turns[True]],
+           "graphed_chunk_stream_ms_per_256": [t[2] for t in turns[False]],
+           "median_eager": dict(zip(("wall_ms", "chunk_stream_ms",
+                                     "chunk_stream_ms_per_256"), med[True])),
+           "median_graphed": dict(zip(("wall_ms", "chunk_stream_ms",
+                                       "chunk_stream_ms_per_256"),
+                                      med[False])),
+           "graph_replays": replays, "capture_s": capture,
+           "prefill_pool_gib": pool, "lane_bytes": lane,
+           "logits_equal": same}
+    print(f"[serve:prefill-ab] {cfg.name} dense, {len(prompts)} prompts "
+          f"({out['rows']} rows: {n_chunks} chunks, {n_256} of 256 rows), "
+          f"{PREFILL_AB_PAIRS} pairs (eager, graphed): wall ms over the "
+          f"{n_chunks} chunks " + ", ".join(
+              f"({a[0]:.1f}, {b[0]:.1f})" for a, b in zip(turns[True],
+                                                          turns[False]))
+          + "; chunk-stream ms per 256-row chunk " + ", ".join(
+              f"({a[2]:.3f}, {b[2]:.3f})" for a, b in zip(turns[True],
+                                                          turns[False]))
+          + f"; medians: wall {med[True][0]:.1f} eager, {med[False][0]:.1f} "
+          f"graphed ({med[True][0] / med[False][0]:.2f}x), i.e. "
+          f"{med[True][0] / n_chunks:.3f} and {med[False][0] / n_chunks:.3f} "
+          f"ms a chunk; chunk-stream over the {n_chunks} chunks "
+          f"{med[True][1]:.1f} eager, {med[False][1]:.1f} graphed (the "
+          f"graphs {100 * med[False][1] / med[False][0]:.1f}% of the "
+          f"graphed wall); per 256-row chunk {med[True][2]:.3f} eager, "
+          f"{med[False][2]:.3f} graphed ({med[True][2] / med[False][2]:.2f}x)"
+          f"; {replays} graph replays of {PREFILL_AB_PAIRS * n_chunks} "
+          "graphed chunks; capture s by chunk size " + ", ".join(
+              f"{n}: {t:.3f}" for n, t in capture.items())
+          + f" ({sum(capture.values()):.2f} s in all); the prefill graphs' "
+          "shared pool " + (f"{pool:.3f} GiB" if pool is not None
+                            else "not measured")
+          + f"; the lane {lane / 1e6:.1f} MB; last-token logits equal bit "
+          f"for bit: {same}/{len(prompts)}", flush=True)
+    if same != len(prompts):
+        raise AssertionError(f"{cfg.name} prefill-ab: {same}/{len(prompts)} "
+                             "prompts' logits equal eager's")
+    if replays != PREFILL_AB_PAIRS * n_chunks:
+        raise AssertionError(f"{cfg.name} prefill-ab: {replays} replays of "
+                             f"{PREFILL_AB_PAIRS * n_chunks} chunks")
+    del engines, engine, graphed
+    torch.cuda.empty_cache()
+    return out
+
+
+def capture_refused(cfg, run, params):
+    """``[serve:capture-refused]``: a graphed engine whose prefill chunk
+    ends in a host sync (``.item()``, which a capture may not do) runs its
+    first chunk's warm-up, and the capture that follows must fail: the
+    error comes out of ``generate``, no graph is kept, and a fresh engine
+    serves after it."""
+    import torch
+    from repro_torch.serving.engine import Request
+    engine = _engine(cfg, run, params, None)
+    real = engine._prefill_lane_fn
+
+    def syncing(*args):
+        out = real(*args)
+        out.sum().item()
+        return out
+
+    engine._prefill_lane_fn = syncing
+    try:
+        engine.generate([Request(uid=0, prompt=[3] * 40, max_new_tokens=2)])
+    except RuntimeError as e:
+        err = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    else:
+        raise AssertionError("a capture with a host sync did not raise")
+    kept = list(engine.prefill_graphs)
+    del engine
+    fresh = _engine(cfg, run, params, None).generate(
+        [Request(uid=0, prompt=[3] * 40, max_new_tokens=2)])
+    torch.cuda.synchronize()
+    print(f"[serve:capture-refused] {cfg.name}: a prefill capture with a "
+          f"host sync raised {err!r}; graphs kept {kept}; a fresh engine "
+          f"then served {len(fresh[0].generated)} tokens", flush=True)
+    if kept or len(fresh[0].generated) != 2:
+        raise AssertionError(f"capture refused: graphs kept {kept}")
+    return err
+
+
 PREFIX_LEN = 600     # 37 full blocks of 16 + 8 rows: every sharer copies
 
 
@@ -2058,7 +2288,7 @@ def serve_prefix_sharing(tfa, cfg, run, params):
                                     int(rng.integers(16, 401))).tolist(),
               int(rng.integers(32, 65)), PREFIX_LEN) for _ in range(16)]
     warm = Request(uid=-1, max_new_tokens=8, prompt=np.random.default_rng(6)
-                   .integers(0, cfg.vocab, 64).tolist())
+                   .integers(0, cfg.vocab, WARM_LEN).tolist())
     out = {}
     for name, kw in (("dense", {}),
                      ("shared", dict(paged=True, block_size=16,
@@ -2223,9 +2453,11 @@ def profile_prefill(cfg, run, params, name, groups=None):
     """Where a prefill chunk's time goes: one request of PREFILL_PROFILE_LEN
     prompt tokens (four 256-row chunks) prefilled into slot 0 of a fresh
     engine under torch.profiler, through the engine's own chunk loop,
-    after a warm-up request.  It runs after every serving arm, as
-    ``profile_decode`` does."""
+    after a warm-up request (which captures the 256-row chunk's graph, so
+    the window's chunks are replays).  It runs after every serving arm,
+    as ``profile_decode`` does."""
     import torch
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(11)
@@ -2236,11 +2468,14 @@ def profile_prefill(cfg, run, params, name, groups=None):
     torch.cuda.synchronize()
 
     def run_window():
+        before = _wrapper_launches(tfa)
         engine._prefill_rows(prompt, 0, 0)
         torch.cuda.synchronize()
+        return _wrapper_launches(tfa) - before
 
     out = _profile_window(name, f"prefill of {PREFILL_PROFILE_LEN} rows, "
-                          "per 256-row chunk",
+                          "per 256-row chunk"
+                          + ("" if engine.eager else ", graphed"),
                           PREFILL_PROFILE_LEN // engine.prefill_chunk,
                           run_window, groups=groups)
     del engine
@@ -2364,7 +2599,9 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
     real_forward, real_dispatch = lm.forward, L._moe_dispatch_local
 
     def forward(ctx, cfg_, params_, batch, *, cache=None, cache_index=None):
-        step = torch.is_tensor(cache_index) and cache_index.ndim == 1
+        # a decode step runs the whole batch; a prefill chunk, eager or in
+        # the graphed engine's lane (whose offset is a (1,) tensor), one slot
+        step = batch["tokens"].shape[0] > 1
         lanes["done"] = cache_index >= engine.max_seq if step else None
         return real_forward(ctx, cfg_, params_, batch, cache=cache,
                             cache_index=cache_index)
@@ -2385,7 +2622,7 @@ def serve_moe_replay(tfa, cfg, run, params, specs, dense_streams):
     try:
         engine = _engine(cfg, run, params, tally)
         engine.generate([Request(uid=-1, max_new_tokens=8, prompt=list(
-            range(1, 65)))])                  # first-call costs, not counted
+            range(1, WARM_LEN + 1)))])        # first-call costs, not counted
         tally.spans = []
         counts.zero_()
         done, syncs, sites = _count_syncs(engine, tally, specs)
@@ -2433,7 +2670,7 @@ def serve_ssm_replay(tfa, cfg, run, params, specs, dense_streams, tag):
     tally = SyncTally()
     engine = _engine(cfg, run, params, tally)
     engine.generate([Request(uid=-1, max_new_tokens=8, prompt=list(range(
-        1, 65)))])                            # first-call costs, not counted
+        1, WARM_LEN + 1)))])                  # first-call costs, not counted
     tally.spans = []
     done, syncs, sites = _count_syncs(engine, tally, specs)
     same = sum(r.generated == dense_streams[r.uid] for r in done)
@@ -2479,6 +2716,7 @@ def serve_ssm(tfa):
     _, stats["eager"] = serve_arm(tfa, *shared, "mamba2-eager", False,
                                   eager=True)
     stats["graph_ab"] = graph_ab(tfa, *shared[:3])
+    stats["prefill_ab"] = prefill_ab(tfa, *shared[:4])
     stats.update(serve_ssm_replay(tfa, *shared, "mamba2-"))
     cfg, run, params = shared[:3]
     stats["paged_refused"] = _refused(
@@ -2503,6 +2741,7 @@ def serve_hybrid(tfa):
     _, stats["eager"] = serve_arm(tfa, *shared, "zamba2-eager", False,
                                   eager=True)
     stats["graph_ab"] = graph_ab(tfa, *shared[:3])
+    stats["prefill_ab"] = prefill_ab(tfa, *shared[:4])
     cfg, run, params = shared[:3]
     stats["paged"] = paged
     stats["prefix_sharing_refused"] = _refused(
@@ -3081,6 +3320,8 @@ def main() -> int:
     _, dense2 = serve_arm(tfa, *shared, "dense-again", False)
     _, serving["eager"] = serve_arm(tfa, *shared, "eager", False, eager=True)
     serving["graph_ab"] = graph_ab(tfa, *shared[:3])
+    serving["prefill_ab"] = prefill_ab(tfa, *shared[:4])
+    serving["capture_refused"] = capture_refused(*shared[:3])
     order = (("dense", serving), ("paged", paged_serving),
              ("paged", paged2), ("dense", dense2))
     print("[serve:abba] dense, paged, paged, dense: " + ", ".join(
@@ -3102,6 +3343,7 @@ def main() -> int:
     _, moe_serving["eager"] = serve_arm(tfa, *moe_shared, "olmoe-eager",
                                         False, eager=True)
     moe_serving["graph_ab"] = graph_ab(tfa, *moe_shared[:3])
+    moe_serving["prefill_ab"] = prefill_ab(tfa, *moe_shared[:4])
     moe_serving.update(serve_moe_replay(tfa, *moe_shared))
     moe_serving["no_drop"] = serve_moe_no_drop(tfa, *moe_shared[:4])
     # each model's weights are released before the next model's are made
@@ -3134,10 +3376,10 @@ def main() -> int:
         params = _card_weights(*model)
         into.update(profile_decode(*model, params, name, groups=groups,
                                    **kw))
-        if name in ("mamba2-dense", "zamba2-dense"):
-            into.update(profile_prefill(*model, params,
-                                        name.split("-")[0] + "-prefill",
-                                        groups=groups))
+        if name in ("mamba2-dense", "zamba2-dense", "dense"):
+            into.update(profile_prefill(
+                *model, params, "prefill" if name == "dense"
+                else name.split("-")[0] + "-prefill", groups=groups))
         del params
         _release_card()
     parity = logits_parity()

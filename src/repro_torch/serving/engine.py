@@ -16,16 +16,28 @@ Three device programs make up the runtime:
     the token streams are the same.  One host sync per K-token chunk.
   * an admission step that arms a freshly prefilled slot's decode lane.
 
-On the card the decode chunk is one CUDA graph (``serving/graphs.py``),
-as the reference jits it: an engine's first chunk runs eagerly on a side
-stream, is captured right after, and every later chunk is one replay.
-``eager=True`` runs the body directly (the counterpart of
-``jax.disable_jit``), as a CPU engine always does.
+On the card both chunk programs are CUDA graphs (``serving/graphs.py``),
+as the reference jits them (``repro/serving/engine.py:409-415``): the
+decode chunk is one graph, captured after an engine's first chunk runs
+eagerly on a side stream, every later chunk one replay; the prefill
+chunk is one graph per chunk size (``chunk_plan``'s powers of two),
+captured the same way at the size's first use.  A prefill graph cannot
+take the slot and the row offset as Python ints, which it would bake in,
+so it runs in the PREFILL LANE (``make_prefill_lane_step``): batch-1
+tensors the engine allocates once -- one slot's worth of every dense row
+and state leaf (a paged engine passes its pools whole, with a staging
+table row), a (1,) row offset, a (1, size) token buffer per chunk size
+and the (1, V) logits.  A request's chunks run back to back in the lane
+(its state lanes zeroed first, a paged slot's table row copied in), and
+the lane is then committed to the slot, one strided copy per leaf: the
+reference's ``_slice_slot`` / ``_merge_slot`` (``:120-131``).
+``eager=True`` runs every chunk directly on the slot's views (the
+counterpart of ``jax.disable_jit``), as a CPU engine always does.
 
 State lives on ``ctx.device``, is allocated once per engine and updated
-IN PLACE: the per-slot cache views are written by the kernels directly,
-so the reference's ``_merge_slot`` has no counterpart, and a new stream
-resets the same storage, so a captured graph stays valid.
+IN PLACE: the per-slot cache views and the lane are written by the
+kernels directly, and a new stream resets the same storage, so a
+captured graph stays valid.
 
 ``paged=True`` replaces the per-slot cache with a block pool addressed
 through per-slot block tables (``make_prefill_chunk_step_paged``; the
@@ -60,7 +72,8 @@ from repro_torch.serving.scheduler import (BlockAllocator, PrefixRegistry,
 
 __all__ = ["Request", "ServeEngine", "make_prefill_step", "make_decode_step",
            "make_prefill_chunk_step", "make_prefill_chunk_step_paged",
-           "make_decode_chunk_step", "BlockAllocator", "PrefixRegistry"]
+           "make_prefill_lane_step", "make_decode_chunk_step",
+           "BlockAllocator", "PrefixRegistry"]
 
 _SNAPSHOTS = "slot snapshots (drain/restore/checkpoint): ROADMAP queue 1 item 9"
 
@@ -167,6 +180,27 @@ def make_prefill_chunk_step_paged(cfg: ModelConfig, run: RunConfig,
     return prefill_chunk
 
 
+def make_prefill_lane_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
+    """prefill_lane(params, lane, tokens (1,chunk), offset (1,), logits
+    (1,V)) -> logits.  The graphed engine's prefill chunk: the chunk runs
+    in the prefill lane (a batch-1 cache dict, or a paged engine's pools
+    with a staging table row), at the row offset the (1,) int32 tensor
+    holds, and its last-token logits are written into ``logits``: every
+    address is the engine's own, so one CUDA graph per chunk size serves
+    every slot and offset.  The tensor offset takes the per-slot path of
+    the forward, whose RoPE positions, cache rows and kv_len equal the
+    int offset's bit for bit; the int path's row check is the host's
+    ``_validate_requests``."""
+
+    def prefill_lane(params, lane, tokens, offset, logits):
+        h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
+                             cache=lane, cache_index=offset)
+        return logits.copy_(lm.logits_for(ctx, cfg, params,
+                                          h[:, -1:, :])[:, 0])
+
+    return prefill_lane
+
+
 def make_decode_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
                            chunk: int, max_seq: int):
     """decode_chunk(params, cache, cur, index, rem, done, out) -> out.
@@ -265,10 +299,13 @@ class ServeEngine:
     The engine runs on ``ctx.device`` (``cuda`` by default; raises when
     there is no card, unless the Ctx names the CPU).  On the card every
     decode chunk after the engine's first is one replay of a CUDA graph
-    of the chunk (``serving/graphs.py``); ``eager=True`` runs each chunk
-    directly instead, as a CPU engine does.  A capture or replay that
-    fails raises.  The cache, the lane vectors and the ``out`` buffer are
-    allocated by the first stream and reset in place by later ones.
+    of the chunk, and every prefill chunk after its size's first use one
+    replay of that size's graph, run in the prefill lane
+    (``serving/graphs.py``); ``eager=True`` runs each chunk directly
+    instead, as a CPU engine does.  A capture or replay that fails
+    raises.  The cache, the lane vectors, the prefill lane and the
+    ``out`` buffer are allocated by the first stream and kept by later
+    ones.
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, ctx: Ctx, params,
@@ -322,12 +359,16 @@ class ServeEngine:
         self._vt = 0.0
         self._prefill_step = (make_prefill_chunk_step_paged if paged
                               else make_prefill_chunk_step)(cfg, run, ctx)
+        self._prefill_lane_fn = make_prefill_lane_step(cfg, run, ctx)
         self._decode_fn = make_decode_chunk_step(cfg, run, ctx, decode_chunk,
                                                  max_seq)
         # a CPU has no graphs: the caller who asks for it runs eagerly
         self.eager = eager or self.device.type != "cuda"
         self.graph = None              # the decode chunk's ChunkGraph
+        self.prefill_graphs: dict[int, graphs.ChunkGraph] = {}  # by size
+        self._spec = lm.cache_slot_spec(cfg)
         self._cache = None             # allocated by the first stream
+        self._lane = None              # the graphed prefill's, likewise
         self._sched = None
         # transfer seam: tests swap this for a counting double to assert
         # the one-sync-per-chunk contract
@@ -349,16 +390,69 @@ class ServeEngine:
 
     def _prefill_rows(self, tokens, sid: int, idx0: int):
         """Chunked prefill of ``tokens`` into rows [idx0, idx0 + len) of
-        slot ``sid``; returns the last-token logits (1, V).  ``idx0 > 0``
-        is the prefix-shared suffix prefill."""
+        slot ``sid``, its Mamba state zeroed first; returns the last-token
+        logits (1, V).  ``idx0 > 0`` is the prefix-shared suffix prefill
+        (paged only).  Eager, every chunk writes the slot's views; graphed,
+        the chunks run in the prefill lane, which is then committed to the
+        slot (a dense prefill starts at row 0, so the lane's rows [0, len)
+        are the request's)."""
+        if self.eager:
+            _reset_state_slot(self._cache, sid)
+        else:
+            _reset_state_slot(self._lane, 0)
+            if self.paged:
+                self._lane["block_tables"].copy_(
+                    self._cache["block_tables"][sid:sid + 1])
         idx, logits = idx0, None
         for size in chunk_plan(len(tokens), self.prefill_chunk):
             o = idx - idx0
-            toks = self._tokens(tokens[o:o + size])
-            self._cache, logits = self._prefill_step(
-                self.params, self._cache, toks, sid, idx)
+            logits = self._prefill_chunk(tokens[o:o + size], sid, idx)
             idx += size
+        if not self.eager:
+            self._commit_lane(sid, idx)
         return logits
+
+    def _prefill_chunk(self, toks: list[int], sid: int, idx: int):
+        """One prompt chunk at row ``idx`` of slot ``sid``; returns its
+        last-token logits (1, V).  Eager, the chunk program on the slot's
+        views.  Graphed, in the lane: the token buffer of the chunk's size
+        is set by a non-blocking copy from pageable memory (the runtime
+        stages it, so the host does not wait for the device's queue, and
+        no reused host buffer can race the copy), the offset by ``fill_``;
+        then the size's graph is replayed, or, at the size's first use,
+        ``graphs.capture``'s eager warm-up runs the chunk and the graph is
+        captured on the lane's shared stream and pool."""
+        if self.eager:
+            self._cache, logits = self._prefill_step(
+                self.params, self._cache, self._tokens(toks), sid, idx)
+            return logits
+        buf = self._lane_tokens[len(toks)]
+        buf.copy_(torch.tensor([toks], dtype=torch.int32), non_blocking=True)
+        self._offset.fill_(idx)
+        graph = self.prefill_graphs.get(len(toks))
+        if graph is not None:
+            graph.replay()
+        else:
+            self.prefill_graphs[len(toks)] = graphs.capture(
+                lambda: self._prefill_lane_fn(self.params, self._lane, buf,
+                                              self._offset, self._logits),
+                self.device, share=self._share)
+        return self._logits
+
+    def _commit_lane(self, sid: int, rows: int) -> None:
+        """Copy the prefill lane into slot ``sid``, one strided copy per
+        leaf on the device's queue: rows [0, rows) of each dense rows
+        leaf, and each state leaf whole.  A paged engine's pools were
+        written in place through the staging row."""
+        for key, lane in self._lane.items():
+            if key == "block_tables" or lane is self._cache[key]:
+                continue
+            for k, a in lane.items():
+                dst = self._cache[key][k][:, sid]
+                if self._spec[key] == lm.SLOT_ROWS:
+                    dst[:, :rows].copy_(a[:, 0, :rows])
+                else:
+                    dst.copy_(a[:, 0])
 
     # -- paged-mode block bookkeeping (host only) ----------------------------
 
@@ -403,7 +497,7 @@ class ServeEngine:
         """CoW: duplicate pool block ``src`` into ``dst`` in every layer's
         pools of every rows key (a plain tensor copy, on the device's
         queue)."""
-        for key, kind in lm.cache_slot_spec(self.cfg).items():
+        for key, kind in self._spec.items():
             if kind == lm.SLOT_ROWS:
                 for pool in self._cache[key].values():
                     pool[:, dst] = pool[:, src]
@@ -457,7 +551,6 @@ class ServeEngine:
                 req.prompt, cap)
         blocks = self._map_slot_blocks(sid, plen + req.max_new_tokens,
                                        shared_rows, shared_blocks)
-        _reset_state_slot(self._cache, sid)
         logits = self._prefill_rows(req.prompt[shared_rows:], sid,
                                     shared_rows)
         self.prefill_tokens_skipped += shared_rows
@@ -510,6 +603,38 @@ class ServeEngine:
         # every decode chunk writes all of it before the host reads it
         self._out = torch.empty((B, self.decode_chunk), dtype=torch.int32,
                                 device=dev)
+        if not self.eager:
+            self._alloc_lane()
+
+    def _alloc_lane(self) -> None:
+        """The graphed prefill's lane, once: one slot's worth (batch 1) of
+        every dense rows and state leaf, zeros (a paged engine's pools are
+        the cache's own, with a (1, max_blocks) staging table row); the
+        (1,) row offset; a (1, size) token buffer per chunk size; the
+        (1, V) float32 logits; and, on the card, the side stream and
+        private memory pool its graphs share.  Every prefill graph reads
+        and writes these addresses, so no later stream reallocates them:
+        each request rewrites what it reads (state lanes zeroed, table row
+        copied, rows written before attention reads them)."""
+        dev = self.device
+        self._lane = {}
+        for key, leaves in self._cache.items():
+            if key == "block_tables":
+                self._lane[key] = torch.zeros_like(leaves[:1])
+            elif self.paged and self._spec[key] == lm.SLOT_ROWS:
+                self._lane[key] = leaves                # pools: passed whole
+            else:
+                self._lane[key] = {k: torch.zeros(a[:, :1].shape,
+                                                  dtype=a.dtype, device=dev)
+                                   for k, a in leaves.items()}
+        self._offset = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self._lane_tokens = {
+            size: torch.zeros((1, size), dtype=torch.int32, device=dev)
+            for size in (self.prefill_chunk >> i
+                         for i in range(self.prefill_chunk.bit_length()))}
+        self._logits = torch.zeros((1, self.cfg.vocab_padded),
+                                   dtype=torch.float32, device=dev)
+        self._share = graphs.shared(dev) if dev.type == "cuda" else None
 
     def _reset_state(self) -> None:
         """``_alloc_state``'s values, written over the same storage (a
@@ -541,7 +666,8 @@ class ServeEngine:
 
     def _validate_requests(self, requests) -> None:
         """Reject unservable requests before any device work: rows beyond
-        ``max_seq``, or (paged) a block reservation no empty pool could
+        ``max_seq`` (the graphed prefill's tensor offset has no row check
+        of its own), or (paged) a block reservation no empty pool could
         cover, which would deadlock the FCFS admission gate."""
         for req in requests:
             total = len(req.prompt) + req.max_new_tokens
@@ -618,7 +744,6 @@ class ServeEngine:
                 if self.paged:
                     logits = self._admit_paged(req, slot.sid)
                 else:
-                    _reset_state_slot(self._cache, slot.sid)
                     logits = self._prefill_rows(req.prompt, slot.sid, 0)
             _admit_step(self._cur, self._index, self._rem, self._done,
                         logits, slot.sid, len(req.prompt),

@@ -163,7 +163,7 @@ class _ReplayBody:
         self.body()
 
 
-def _capture_on_cpu(body, device):
+def _capture_on_cpu(body, device, share=None):
     """``graphs.capture`` without a card: the eager warm-up chunk, then a
     stand-in graph of the same body."""
     body()
@@ -193,7 +193,7 @@ def test_the_graphed_path_gives_the_eager_streams(pairs, arch, mode,
 def test_a_failed_capture_raises(pairs, monkeypatch):
     cfg, run, ctx, params = pairs("llama3.2-3b")[1]
 
-    def refuse(body, device):
+    def refuse(body, device, share=None):
         raise RuntimeError("capture refused")
 
     monkeypatch.setattr(graphs, "capture", refuse)
