@@ -61,6 +61,27 @@ caught):
      a prompt's chunk plan cuts (S = 128 ... 2) beside its byte bound (no
      library call computes SSD), and summed per Mamba layer over a
      serving arm's chunks;
+  2b. the power backend (``power/nvml.py``, ``power/metered.py``), run
+     under ``NvmlBackend.restore_limit_on_exit()`` with the whole script
+     (without ``libnvidia-ml.so.1`` the run fails): ``[power:nvml]``, the
+     card's limits, the energy counter's update period and one probe
+     limit write (refused or not: both are results, decided once);
+     ``[power:calibrate]``, the mean draw of an idle, a compute-bound and
+     a memory-bound window and the envelope fitted from them beside
+     ``hw/h100.py``'s; after llama's dense arm (3a), ``[power:table]``,
+     prefill and decode windows of that arm's work at every cap of the
+     sweep (at the default limit only where writes are refused) and the
+     SED and ED picks from them beside the modelled H100 table's, and
+     ``[power:serve]``, the dense arm under a ``MeteredPowerManager`` on
+     that measured table (default, SED, SED, default where writes are
+     allowed): J per generated token and prompt row, each phase's
+     joules, cap writes, apply failures, the manager's syncs, and its
+     streams equal to the dense arm's.  Every serving arm line carries
+     its joules and J per generated token, and ``[train]`` its joules a
+     step, read from the counter where the card already waits; every
+     window's mean draw must lie between 10 W and 1.05 x the limit, the
+     counter must never go backwards, and the limit nvidia-smi reads at
+     the end must be the one it read at the start;
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times.  Every
@@ -173,6 +194,7 @@ import functools
 import itertools
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
@@ -183,8 +205,10 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak
+from repro_torch.hw.h100 import H100_CHIP  # noqa: E402  (data-sheet roofline)
+
+HBM_BYTES_PER_S = H100_CHIP.hbm_bandwidth      # 3.35e12
+BF16_OPS_PER_S = H100_CHIP.peak_flops_bf16     # dense bf16, 989e12
 # kernel vs plain version on the card: bf16 outputs are rounded from f32
 # sums that differ only in order, so they differ by at most ~2 bf16 ulps
 # at |x| < 2 (2 * 2^-7); f32 outputs differ by summation order alone
@@ -1659,6 +1683,410 @@ def _ssd_time_key(model, S):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the power backend (NVML), the envelope and the cap table
+# ---------------------------------------------------------------------------
+
+#: the card's ``NvmlBackend`` once ``main`` has opened it: every serving
+#: arm and the training loop read its energy counter where the card is
+#: already idle (None: no energy is read, as in ``tools/serve_probe.py``)
+METER = None
+#: [power:nvml]: seconds spent reading the counter back to back, and the
+#: probe write's distance below the maximum limit
+COUNTER_SPIN_S, PROBE_BELOW_MAX_W = 1.0, 100.0
+#: [power:calibrate]: seconds of each window (after a warm-up of
+#: CALIBRATE_WARM_S), and the drift from hw/h100.py's constants printed
+CALIBRATE_S, CALIBRATE_WARM_S, ENVELOPE_DRIFT = 2.0, 1.0, 0.15
+#: [power:table]: the least seconds of a measured window, and the time a
+#: new limit is given to take effect before its windows
+TABLE_WINDOW_S, SETTLE_S = 2.0, 0.2
+#: a window's mean draw must lie between these (W, and times the limit)
+DRAW_MIN_W, DRAW_MAX_OF_LIMIT = 10.0, 1.05
+#: the energy counter's update period, s, as [power:nvml] measured it
+COUNTER_PERIOD_S = 0.0
+
+
+def _check_draw(what, joules, seconds, limit_w=None):
+    """A window's mean draw on the counter is physical: at least
+    DRAW_MIN_W, at most DRAW_MAX_OF_LIMIT times the limit in force.  The
+    counter holds the energy up to its last update, so a window's joules
+    cover an interval within one update period of the window: the bounds
+    are taken over the window's seconds less and plus that period."""
+    limit = limit_w if limit_w is not None else METER.limit_w()
+    lo = DRAW_MIN_W * max(seconds - COUNTER_PERIOD_S, 0.0)
+    hi = DRAW_MAX_OF_LIMIT * limit * (seconds + COUNTER_PERIOD_S)
+    if not lo <= joules <= hi:
+        raise AssertionError(f"{what}: {joules:.1f} J over {seconds:.3f} s "
+                             f"(mean {joules / seconds:.1f} W) is outside "
+                             f"[{DRAW_MIN_W}, {DRAW_MAX_OF_LIMIT} x "
+                             f"{limit:.2f}] W over the window -/+ "
+                             f"{COUNTER_PERIOD_S * 1e3:.1f} ms")
+    return joules / seconds
+
+
+def _metered(fn, nvml):
+    """(seconds, joules) of ``fn()`` from an idle card to a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    e0, t0 = nvml.energy_mj(), time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, (nvml.energy_mj() - e0) / 1e3
+
+
+def power_nvml(nvml):
+    """``[power:nvml]``: the card as NVML sees it; the energy counter's
+    update period (the counter read back to back for COUNTER_SPIN_S on
+    an idle card: the median time and energy between two readings that
+    differ); one probe write of the maximum limit less PROBE_BELOW_MAX_W,
+    read back and put back.  A refused write is a result, decided here
+    once for the run."""
+    lo, hi = nvml.limit_range_w()
+    info = {"name": nvml.name(), "bus_id": nvml.bus_id,
+            "default_w": nvml.default_limit_w(), "min_w": lo, "max_w": hi,
+            "limit_w": nvml.limit_w(), "power_w": nvml.power_mw() / 1e3}
+    reads, last = 0, nvml.energy_mj()
+    t_last = t0 = time.perf_counter()
+    steps_s, steps_mj, first = [], [], True
+    while time.perf_counter() - t0 < COUNTER_SPIN_S:
+        v, t = nvml.energy_mj(), time.perf_counter()
+        reads += 1
+        if v != last:
+            if not first:            # the first change ends a partial step
+                steps_s.append(t - t_last)
+                steps_mj.append(v - last)
+            first, last, t_last = False, v, t
+    if len(steps_s) < 2:
+        raise AssertionError(f"[power:nvml] the energy counter changed "
+                             f"{len(steps_s)} times in {COUNTER_SPIN_S} s")
+    global COUNTER_PERIOD_S
+    COUNTER_PERIOD_S = float(np.median(steps_s))
+    info.update(counter_period_ms=COUNTER_PERIOD_S * 1e3,
+                counter_step_mj=float(np.median(steps_mj)),
+                counter_changes=len(steps_s) + 1,
+                read_us=COUNTER_SPIN_S / reads * 1e6)
+    probe = nvml.probe(hi - PROBE_BELOW_MAX_W)
+    info.update(writable=probe.writable, code=probe.code,
+                probe_cap_w=hi - PROBE_BELOW_MAX_W,
+                probe_read_back_w=probe.read_back_w,
+                probe_call_ms=probe.seconds * 1e3,
+                limit_after_probe_w=nvml.limit_w())
+    print(f"[power:nvml] {info['name']} (bus {info['bus_id']}): limit "
+          f"{info['limit_w']:.2f} W in force, default {info['default_w']:.2f}"
+          f" W, range {lo:.2f}-{hi:.2f} W, drawing {info['power_w']:.1f} W; "
+          f"energy counter: median step {info['counter_period_ms']:.2f} ms "
+          f"and {info['counter_step_mj']:.0f} mJ ({info['counter_changes']} "
+          f"changes in {COUNTER_SPIN_S:.0f} s, a read {info['read_us']:.1f} "
+          f"us); probe write {info['probe_cap_w']:.2f} W: writable: "
+          f"{'true' if probe.writable else 'false'} ({probe.code}), read "
+          f"back {probe.read_back_w:.2f} W, call {probe.seconds * 1e3:.3f} "
+          f"ms; limit after the probe {info['limit_after_probe_w']:.2f} W",
+          flush=True)
+    if info["limit_after_probe_w"] != info["limit_w"]:
+        raise AssertionError("[power:nvml] the probe did not put the limit "
+                             "back")
+    return info
+
+
+def power_calibrate(nvml):
+    """``[power:calibrate]``: three windows of CALIBRATE_S at the limit in
+    force, each after a warm-up of CALIBRATE_WARM_S of the same work: the
+    idle card, a bf16 MATMUL_N^3 ``torch.matmul`` loop (compute-bound)
+    and a COPY_BYTES device-to-device copy loop (memory-bound); the mean
+    draw of each on the energy counter, the envelope fitted from them
+    (``hw.h100.fit_envelope``) beside hw/h100.py's constants, and any
+    drift over ENVELOPE_DRIFT (printed, not gated: draw varies by
+    card)."""
+    import torch
+    from repro_torch.hw import h100
+    n = h100.MATMUL_N
+
+    def loop(fn, batch, seconds):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            if fn is None:
+                time.sleep(0.05)
+                continue
+            for _ in range(batch):
+                fn()
+            torch.cuda.synchronize()
+        return 0
+
+    def window(name, fn=None, batch=0):
+        loop(fn, batch, CALIBRATE_WARM_S)
+        s, j = _metered(lambda: loop(fn, batch, CALIBRATE_S), nvml)
+        out[name] = {"seconds": s, "joules": j,
+                     "mean_w": _check_draw(f"[power:calibrate] {name}", j, s)}
+
+    out = {}
+    window("idle")            # first, before the buffers' kernels wake it
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    c = torch.empty(n, n, device="cuda", dtype=torch.bfloat16)
+    window("compute", lambda: torch.matmul(a, b, out=c), 50)
+    del a, b, c
+    src = torch.empty(h100.COPY_BYTES, device="cuda", dtype=torch.uint8)
+    dst = torch.empty_like(src)
+    window("memory", lambda: dst.copy_(src), 200)
+    del src, dst
+    torch.cuda.empty_cache()
+    fit = h100.fit_envelope(out["idle"]["mean_w"], out["compute"]["mean_w"],
+                            out["memory"]["mean_w"])
+    const = {"p_static": h100.H100_CHIP.p_static,
+             "p_compute_max": h100.H100_CHIP.p_compute_max,
+             "p_mem_max": h100.H100_CHIP.p_mem_max}
+    drift = {k: (fit[k] - const[k]) / const[k] for k in fit}
+    out.update(fit=fit, constants=const, drift=drift)
+    far = [f"{k} {100 * v:+.1f}%" for k, v in drift.items()
+           if abs(v) > ENVELOPE_DRIFT]
+    print(f"[power:calibrate] at {nvml.limit_w():.2f} W, {CALIBRATE_S:.0f} s "
+          f"windows after {CALIBRATE_WARM_S:.0f} s warm-ups, mean W: idle "
+          f"{out['idle']['mean_w']:.1f}, bf16 {n}^3 matmul "
+          f"{out['compute']['mean_w']:.1f}, {h100.COPY_BYTES >> 20} MiB copy "
+          f"{out['memory']['mean_w']:.1f}; fitted envelope p_static "
+          f"{fit['p_static']:.1f}, p_compute_max {fit['p_compute_max']:.1f}, "
+          f"p_mem_max {fit['p_mem_max']:.1f} W against hw/h100.py's "
+          f"{const['p_static']:.1f}, {const['p_compute_max']:.1f}, "
+          f"{const['p_mem_max']:.1f} W (measured on {h100.MEASURED_ON})"
+          + (f"; drift over {100 * ENVELOPE_DRIFT:.0f}%: {', '.join(far)}"
+             if far else ""), flush=True)
+    return out
+
+
+def _card_spec(nvml):
+    """hw/h100.py's spec with the limits this card's NVML reports."""
+    from repro_torch.hw.h100 import H100_SUPERCHIP
+    lo, hi = nvml.limit_range_w()
+    return dataclasses.replace(H100_SUPERCHIP, limit_min=lo, limit_max=hi,
+                               limit_default=nvml.default_limit_w())
+
+
+def _arm_tasks(cfg, specs):
+    """The arm's serving phases on the model: its mean prompt and its
+    mean new tokens at batch 8 (``serve_phase_tasks``)."""
+    from repro_torch.serving.engine import serve_phase_tasks
+    return serve_phase_tasks(
+        cfg, batch=8, prompt=round(np.mean([len(p) for p, _, _ in specs])),
+        new_tokens=round(np.mean([n for _, n, _ in specs])))
+
+
+def power_table(tfa, nvml, writable, cfg, run, params, specs):
+    """``[power:table]``, the paper's experiment on the card: two
+    phase-homogeneous windows at each cap of the sweep (the default only
+    where writes are refused), measured one phase at a time on the
+    energy counter after SETTLE_S at the new limit and one warm-up of
+    the same work: prefill, the arm's 16 prompts (85 chunks) into one
+    slot of the graphed engine, as [serve:prefill-ab]; decode, graphed
+    chunks at 8 live lanes, as [serve:graph-ab].  The default cap runs
+    first, and the number of turns and chunks that fill TABLE_WINDOW_S
+    there is kept for every cap, so each cap does the same work.  Each
+    window gives seconds and joules per call (a prefill chunk, a decode
+    step), which the measured TaskTable holds at the arm's task scale
+    (``_arm_tasks``).  The SED and ED picks per phase from it are printed
+    beside the picks of the modelled H100 table of the same tasks.  A
+    write that fails here fails the run."""
+    import math
+    import torch
+    from repro_torch.core.power_model import measure_sweep
+    from repro_torch.core.tasks import TaskMeasurement, TaskTable
+    from repro_torch.power import optimal_cap
+    from repro_torch.serving.engine import Request
+    spec = _card_spec(nvml)
+    default = nvml.limit_w()
+    sweep = spec.cap_sweep() if writable else (default,)
+    tasks = {t.name: t for t in _arm_tasks(cfg, specs)}
+    engine = _engine(cfg, run, params, None)
+    engine.generate([Request(uid=-1, max_new_tokens=8, prompt=np.random
+                             .default_rng(10).integers(
+                                 0, cfg.vocab, WARM_LEN).tolist())])
+    prompts = [list(p) for p, _, _ in specs]
+    rng = np.random.default_rng(11)
+    lanes = [rng.integers(0, cfg.vocab, 128).tolist() for _ in range(8)]
+    max_chunks = (2048 - 128) // engine.decode_chunk - 3
+
+    def decode_start():
+        engine.start([Request(uid=i, prompt=p, max_new_tokens=(
+            max_chunks + 2) * engine.decode_chunk)
+            for i, p in enumerate(lanes)])
+        for _ in range(2):                  # admission, then a warm chunk
+            engine.step()
+
+    turns = chunks = None
+    rows, windows = [], []
+    for cap in sorted(sweep, reverse=True):
+        if writable:
+            nvml.apply(cap)
+            if nvml.current_cap != cap:
+                raise AssertionError(f"[power:table] wrote {cap} W, read "
+                                     f"back {nvml.current_cap} W")
+        time.sleep(SETTLE_S)
+        n_chunks = len(_prefill_turn(engine, prompts)[1])     # warm-up
+        if turns is None:
+            s, _ = _metered(lambda: _prefill_turn(engine, prompts), nvml)
+            turns = max(1, math.ceil(TABLE_WINDOW_S / s))
+        s_pre, j_pre = _metered(lambda: [_prefill_turn(engine, prompts)
+                                         for _ in range(turns)], nvml)
+        decode_start()
+        if chunks is None:
+            torch.cuda.synchronize()
+            t0, chunks = time.perf_counter(), 0
+            while time.perf_counter() - t0 < TABLE_WINDOW_S \
+                    and chunks < max_chunks:
+                engine.step()
+                chunks += 1
+            decode_start()
+        s_dec, j_dec = _metered(lambda: [engine.step()
+                                         for _ in range(chunks)], nvml)
+        limit = nvml.limit_w()
+        calls = {"prefill": n_chunks * turns,
+                 "decode": chunks * engine.decode_chunk}
+        for name, s, j in (("prefill", s_pre, j_pre),
+                           ("decode", s_dec, j_dec)):
+            w = _check_draw(f"[power:table] {name} at {cap} W", j, s, limit)
+            per = tasks[name].calls / calls[name]
+            rows.append(TaskMeasurement(name, cap, s * per, j * per))
+            windows.append({"phase": name, "cap_w": cap, "seconds": s,
+                            "joules": j, "calls": calls[name],
+                            "ms_per_call": s / calls[name] * 1e3,
+                            "j_per_call": j / calls[name], "mean_w": w})
+    _check_counters(tfa)
+    if writable:
+        nvml.apply(default)
+        time.sleep(SETTLE_S)
+    step_chunk = engine.decode_chunk
+    del engine
+    torch.cuda.empty_cache()
+    table = TaskTable(rows)
+    model = measure_sweep(list(tasks.values()), tuple(sorted(sweep)), spec)
+    picks = {m: {ph: {"measured": optimal_cap(m, table, ph),
+                      "modelled": optimal_cap(m, model, ph)}
+                 for ph in tasks} for m in ("sed", "ed")}
+    print(f"[power:table] {cfg.name} dense, graphed, batch 8: "
+          + ("every cap of the sweep " if writable else
+             "the default limit only (limit writes refused: no sweep "
+             "possible) ")
+          + f"{', '.join(f'{c:.0f}' for c in sorted(sweep))} W, settle "
+          f"{SETTLE_S:.1f} s and one warm-up each; prefill windows {turns} "
+          f"x the arm's {n_chunks} chunks, decode windows {chunks} chunks "
+          f"of {step_chunk} steps at 8 lanes; per call (ms, J, "
+          "mean W): " + "; ".join(
+              f"{w['phase']} {w['cap_w']:.0f} W {w['ms_per_call']:.3f} ms "
+              f"{w['j_per_call']:.4f} J {w['mean_w']:.1f} W"
+              for w in windows)
+          + "; picks measured / modelled (hw/h100.py): " + "; ".join(
+              f"{m} {ph} {v['measured']:.0f} / {v['modelled']:.0f} W"
+              for m, by in picks.items() for ph, v in by.items()),
+          flush=True)
+    return table, {"caps": sorted(sweep), "windows": windows,
+                   "picks": picks, "prefill_turns": turns,
+                   "decode_chunks": chunks,
+                   "modelled": [dataclasses.astuple(r) for r in model.rows]}
+
+
+def power_serve(tfa, nvml, writable, table, info, cfg, run, params, specs,
+                dense_streams):
+    """``[power:serve]``: the dense llama arm (the same 16 requests) under a
+    ``MeteredPowerManager`` whose table is the measured one of
+    [power:table], so its per-phase caps are the measured SED picks;
+    where writes are allowed, in the order default, SED, SED, default
+    against the same arm at the default limit (the same manager with
+    every phase at the default cap), else once with its caps logged and
+    not applied.  Per arm: tok/s, J per generated token and per prompt
+    row, each phase's measured J and s, cap writes, ``apply_failures``
+    (0 when writable) and the manager's own syncs.  Every stream must
+    equal the graphed dense arm's, the launches must be exact, and the
+    phases' joules must sum to the arm's within one counter period times
+    the limit per phase boundary, plus the time between phases at the
+    limit."""
+    import torch
+    from repro_torch.core.tasks import TaskTable
+    from repro_torch.power import CapSchedule, LoggingBackend
+    from repro_torch.power.metered import MeteredPowerManager
+    from repro_torch.serving.engine import Request
+    spec = _card_spec(nvml)
+    default = nvml.limit_w()
+    tasks = _arm_tasks(cfg, specs)
+    backend = nvml if writable else LoggingBackend()
+
+    def manager(name):
+        return MeteredPowerManager(
+            TaskTable(list(table.rows)), tasks=tasks, metric="sed",
+            backend=backend, meter=nvml, spec=spec,
+            schedule=(CapSchedule({}, default_cap=default)
+                      if name == "default" else None))
+
+    order = ("default", "sed", "sed", "default") if writable else ("sed",)
+    engine = _engine(cfg, run, params, None)
+    engine.generate([Request(uid=-1, max_new_tokens=8, prompt=np.random
+                             .default_rng(12).integers(
+                                 0, cfg.vocab, WARM_LEN).tolist())])
+    period_s = info["counter_period_ms"] / 1e3
+    out = []
+    for name in order:
+        # each arm from the default limit, through a manager of its own
+        # (which knows no cap in force, so its first phase writes)
+        if writable:
+            nvml.apply(default)
+            time.sleep(SETTLE_S)
+        pm = manager(name)
+        engine.power = pm
+        done, wall, launches, joules = _serve(tfa, engine, pm, cfg, specs)
+        engine.power = None
+        st = _arm_stats(engine, pm, done, wall, specs, joules)
+        _check_launches(f"power-{name}", launches, _serving_launches(
+            cfg, st["decode_steps"], specs, paged=False))
+        same = sum(r.generated == dense_streams[r.uid] for r in done)
+        phase_j = pm.total_joules()
+        boundaries = 2 * sum(pm.entries.values())
+        # the counter's quantisation at each boundary, and the host's time
+        # between phases (the fetch, admission), at most at the limit
+        gap_s = max(wall - sum(pm.seconds.values()), 0.0)
+        slack = (period_s * boundaries + gap_s) * DRAW_MAX_OF_LIMIT * default
+        st.update(arm=name, caps=dict(pm.schedule.caps),
+                  prefill_j=pm.joules["prefill"],
+                  decode_j=pm.joules["decode"], phase_j=phase_j,
+                  j_per_prompt_row=pm.joules["prefill"]
+                  / st["prompt_tokens"],
+                  cap_writes=pm.transitions,
+                  apply_failures=pm.apply_failures,
+                  manager_syncs=pm.syncs, streams_equal=same,
+                  boundaries=boundaries, gap_s=gap_s, sum_slack_j=slack,
+                  limit_after_w=nvml.limit_w())
+        caps = {ph: round(pm.cap_for(ph)) for ph in ("prefill", "decode")}
+        print(f"[power:serve] {cfg.name} dense, {name} caps {caps} W"
+              + ("" if writable else " (logged, not applied)")
+              + f": {st['tok_per_s']:.1f} tok/s, {joules:.1f} J, "
+              f"{st['j_per_token']:.4f} J per generated token, "
+              f"{st['j_per_prompt_row']:.5f} J per prompt row; prefill "
+              f"{st['prefill_j']:.1f} J in {st['prefill_s']:.3f} s, decode "
+              f"{st['decode_j']:.1f} J in {st['decode_s']:.3f} s (phases "
+              f"{phase_j:.1f} of the arm's {joules:.1f} J, {boundaries} "
+              f"boundaries, {gap_s * 1e3:.1f} ms between phases, slack "
+              f"{slack:.1f} J); {st['cap_writes']} cap "
+              f"writes, {st['apply_failures']} apply failures, "
+              f"{st['manager_syncs']} syncs of the manager beside the "
+              f"engine's {st['host_syncs']}; {same}/16 streams equal the "
+              "graphed dense arm's", flush=True)
+        if same != len(specs):
+            raise AssertionError(f"[power:serve] {name}: {same}/16 streams")
+        if writable and st["apply_failures"]:
+            raise AssertionError(f"[power:serve] {name}: "
+                                 f"{st['apply_failures']} failed cap writes")
+        if abs(joules - phase_j) > slack:
+            raise AssertionError(f"[power:serve] {name}: phases {phase_j:.1f}"
+                                 f" J against the arm's {joules:.1f} J")
+        out.append(st)
+    if writable:
+        nvml.apply(default)
+    del engine
+    torch.cuda.empty_cache()
+    if writable:
+        print("[power:serve] ABBA: " + ", ".join(
+            f"{st['arm']} {st['tok_per_s']:.1f} tok/s "
+            f"{st['j_per_token']:.4f} J/token" for st in out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -1698,7 +2126,11 @@ def _engine(cfg, run, params, clock, **kw):
 def _serve(tfa, engine, clock, cfg, specs):
     """Serve fresh requests made from ``specs`` [(prompt, max_new_tokens,
     prefix_len)] with every count set to 0 just before and read just
-    after; every request must get exactly its tokens."""
+    after; every request must get exactly its tokens.  Returns the
+    finished requests, the wall seconds, the launches and the arm's
+    joules on the card's energy counter (None without ``METER``), read
+    where the card is idle: after the engine's last fetch and after the
+    arm's closing synchronise, so no sync is added."""
     import torch
     from repro_torch.serving.engine import Request
     reqs = [Request(uid=i, prompt=list(p), max_new_tokens=n, prefix_len=pl)
@@ -1709,10 +2141,12 @@ def _serve(tfa, engine, clock, cfg, specs):
     for graph in engine.prefill_graphs.values():
         graph.replays = 0
     tfa.reset_launch_counts()
+    e0 = METER.energy_mj() if METER is not None else None
     t0 = time.perf_counter()
     done = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    joules = (METER.energy_mj() - e0) / 1e3 if METER is not None else None
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
     _check_counters(tfa)
     # a graphed engine replays every prefill chunk but a size's first
@@ -1731,7 +2165,9 @@ def _serve(tfa, engine, clock, cfg, specs):
                                  f"tokens, wanted {r.max_new_tokens}")
         if not all(0 <= t < cfg.vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: token outside vocab")
-    return done, wall, launches
+    if joules is not None:
+        _check_draw("arm", joules, wall)
+    return done, wall, launches, joules
 
 
 def _prefill_replays(engine):
@@ -1786,13 +2222,15 @@ def _check_launches(arm, launches, want):
                              f"expected {want}")
 
 
-def _arm_stats(engine, clock, done, wall, specs):
+def _arm_stats(engine, clock, done, wall, specs, joules=None):
     """The arm's numbers; ``prefill_chunks`` counts the chunk programs the
-    engine reported to its phase hook (a shared prefix skips its own)."""
+    engine reported to its phase hook (a shared prefix skips its own);
+    ``joules`` is the arm's energy (None where not measured)."""
     import torch
     n_tok = sum(len(r.generated) for r in done)
     return {"requests": len(done), "wall_s": wall, "tok_per_s": n_tok / wall,
-            "new_tokens": n_tok,
+            "new_tokens": n_tok, "energy_j": joules,
+            "j_per_token": joules / n_tok if joules is not None else None,
             "prompt_tokens": sum(len(p) for p, _, _ in specs),
             "prefill_s": clock.seconds["prefill"],
             "decode_s": clock.seconds["decode"],
@@ -1809,7 +2247,10 @@ def _print_arm(name, st, launches):
     print(f"[serve:{name}] {st['requests']} requests, "
           f"{st['prompt_tokens']} prompt tokens, "
           f"{st['new_tokens']} new tokens in {st['wall_s']:.2f}s: "
-          f"{st['tok_per_s']:.1f} tok/s; prefill {st['prefill_s']:.2f}s, "
+          f"{st['tok_per_s']:.1f} tok/s"
+          + (f", {st['energy_j']:.1f} J, {st['j_per_token']:.4f} J per "
+             f"generated token" if st["energy_j"] is not None else "")
+          + f"; prefill {st['prefill_s']:.2f}s, "
           f"decode {st['decode_s']:.2f}s "
           f"({st['decode_s'] / st['decode_steps'] * 1e3:.1f} ms per decode "
           f"step); {st['host_syncs']} host syncs "
@@ -1876,8 +2317,8 @@ def serve_full_width(tfa, arch=ARCH, tag=""):
         specs.append((rng.integers(0, cfg.vocab, plen).tolist(),
                       int(rng.integers(32, 129)), 0))
     torch.cuda.reset_peak_memory_stats()
-    done, wall, launches = _serve(tfa, engine, clock, cfg, specs)
-    stats = _arm_stats(engine, clock, done, wall, specs)
+    done, wall, launches, joules = _serve(tfa, engine, clock, cfg, specs)
+    stats = _arm_stats(engine, clock, done, wall, specs, joules)
     _check_launches(tag + "dense", launches, _serving_launches(
         cfg, stats["decode_steps"], specs, paged=False))
     _print_arm(tag + "dense", stats, launches)
@@ -1904,8 +2345,8 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
                    .integers(0, cfg.vocab, WARM_LEN).tolist())
     engine.generate([warm])                   # first-call costs, not counted
     torch.cuda.reset_peak_memory_stats()
-    done, wall, launches = _serve(tfa, engine, clock, cfg, specs)
-    stats = _arm_stats(engine, clock, done, wall, specs)
+    done, wall, launches, joules = _serve(tfa, engine, clock, cfg, specs)
+    stats = _arm_stats(engine, clock, done, wall, specs, joules)
     same = sum(r.generated == dense_streams[r.uid] for r in done)
     stats["streams_equal_dense"] = same
     _print_arm(name, stats, launches)
@@ -2297,8 +2738,9 @@ def serve_prefix_sharing(tfa, cfg, run, params):
         engine = _engine(cfg, run, params, clock, **kw)
         engine.generate([warm])
         torch.cuda.reset_peak_memory_stats()
-        done, wall, launches = _serve(tfa, engine, clock, cfg, specs)
-        st = _arm_stats(engine, clock, done, wall, specs)
+        done, wall, launches, joules = _serve(tfa, engine, clock, cfg,
+                                              specs)
+        st = _arm_stats(engine, clock, done, wall, specs, joules)
         st["launches"] = launches
         st["streams"] = {r.uid: r.generated for r in done}
         if name == "shared":
@@ -2500,7 +2942,7 @@ def serve_moe_no_drop(tfa, cfg, run, params, specs):
         clock = PhaseClock()
         engine = _engine(cfg, run, params, clock,
                          **(dict(paged=True, block_size=16) if paged else {}))
-        done, _, launches = _serve(tfa, engine, clock, cfg, specs)
+        done, _, launches, _ = _serve(tfa, engine, clock, cfg, specs)
         steps = engine.sync_count * engine.decode_chunk
         _check_launches(name, launches, _serving_launches(
             cfg, steps, specs, paged))
@@ -3078,17 +3520,21 @@ def train_full_width(tfa):
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
     step_fn = make_train_step(cfg, run, Ctx(run, "cuda"))
     tfa.reset_launch_counts()
-    losses, gnorms, secs = [], [], []
+    losses, gnorms, secs, joules = [], [], [], []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
+        e0 = METER.energy_mj()           # on the loop's own syncs
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        joules.append((METER.energy_mj() - e0) / 1e3)
+        _check_draw(f"[train] step {i}", joules[-1], secs[-1])
         print(f"[train] step {i} loss={losses[-1]:.4f} "
-              f"grad_norm={gnorms[-1]:.4f} {secs[-1]:.3f}s", flush=True)
+              f"grad_norm={gnorms[-1]:.4f} {secs[-1]:.3f}s "
+              f"E={joules[-1]:.1f}J", flush=True)
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_decode": 0, "flash_decode_paged": 0, "cache_update": 0,
@@ -3107,10 +3553,17 @@ def train_full_width(tfa):
              "tokens_per_s": tokens / step_s,
              "peak_allocated_gb": peak / 1e9, "launches": launches,
              "model_ops_per_step": model_ops,
-             "bf16_peak_share": model_ops / (step_s * BF16_OPS_PER_S)}
+             "bf16_peak_share": model_ops / (step_s * BF16_OPS_PER_S),
+             "step_j": joules,
+             "median_step_j_after_first": float(np.median(joules[1:])),
+             "j_per_step": sum(joules) / TRAIN_STEPS}
     print(f"[train] {TRAIN_STEPS} steps of {B} x {S} tokens: "
           f"{step_s:.3f} s per step (median after the first; first "
-          f"{secs[0]:.3f} s), {stats['tokens_per_s']:.0f} tokens/s, peak "
+          f"{secs[0]:.3f} s), {stats['median_step_j_after_first']:.1f} J per "
+          f"step (median after the first; {stats['j_per_step']:.1f} over "
+          f"the {TRAIN_STEPS}, "
+          f"{stats['median_step_j_after_first'] / tokens * 1e3:.2f} mJ a "
+          f"token), {stats['tokens_per_s']:.0f} tokens/s, peak "
           f"allocated {peak / 1e9:.2f} GB, {100 * stats['bf16_peak_share']:.1f}"
           f"% of the bf16 peak ({model_ops:.3e} model operations per step); "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}",
@@ -3197,6 +3650,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
+    from repro_torch.power.nvml import NvmlBackend
+    global METER
+    # a terminated run still puts the power limit back (the with below,
+    # and the backend's atexit hook)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    nvml = NvmlBackend(0)            # no libnvidia-ml.so.1: the run fails
+    try:
+        with nvml.restore_limit_on_exit():
+            METER = nvml
+            return _smoke(nvml)
+    finally:
+        METER = None
+        nvml.close()
+
+
+def _smoke(nvml) -> int:
+    import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import grouped_matmul as gmm
@@ -3312,7 +3782,14 @@ def main() -> int:
               f"{t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
 
+    # 2b: the power backend, before the serving arms; the cap table and
+    # the metered arm need llama's weights and its dense arm's streams
+    power = {"nvml": power_nvml(nvml), "calibrate": power_calibrate(nvml)}
+    writable = power["nvml"]["writable"]
     dense_launches, serving, shared = serve_full_width(tfa)
+    table, power["table"] = power_table(tfa, nvml, writable, *shared[:4])
+    power["serve"] = power_serve(tfa, nvml, writable, table, power["nvml"],
+                                 *shared)
     paged_launches, paged_serving = serve_arm(tfa, *shared, "paged", True)
     # dense, paged, paged, dense: each engine read on both sides of the
     # other, as the host's pace drifts over a run
@@ -3530,8 +4007,13 @@ def main() -> int:
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,
                       "ssm_parity": mamba_parity, "ptxas": ptxas,
+                      "power": power,
                       "total_s": time.perf_counter() - t_start}))
-    print(smi)
+    smi_end = _smi_line()
+    if smi_end != smi:
+        raise AssertionError(f"the card's limit moved: nvidia-smi read "
+                             f"{smi!r} at the start, {smi_end!r} at the end")
+    print(smi_end)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

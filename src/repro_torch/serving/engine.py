@@ -46,13 +46,15 @@ and a ``PrefixRegistry`` shares registered prompt prefixes, copying a
 partly shared tail block on write).  Table rows are set from the host with
 non-blocking copies, so paged mode keeps one host sync per decode chunk.
 
-With a power manager attached (anything with ``phase(name, calls=)``,
-e.g. ``repro.power.PowerManager``), prefill and decode run under their
-own phase caps, entered once per admitted request / decode chunk.
+With a power manager attached (anything with ``phase(name, calls=)``:
+the port's ``repro_torch.power.PowerManager``, or on the card
+``power.metered.MeteredPowerManager``, which measures each phase),
+prefill and decode run under their own phase caps, entered once per
+admitted request / decode chunk; ``serve_phase_tasks`` gives their
+roofline tasks.
 
 Not ported yet, each raising ``NotImplementedError``: drain / restore /
-checkpoint / abandon (ROADMAP queue 1 item 9), ``serve_phase_tasks``
-(item 5).
+checkpoint / abandon (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ import contextlib
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.tasks import Task
 from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import resolve_device
@@ -70,18 +73,33 @@ from repro_torch.serving import graphs
 from repro_torch.serving.scheduler import (BlockAllocator, PrefixRegistry,
                                            Request, SlotScheduler, chunk_plan)
 
-__all__ = ["Request", "ServeEngine", "make_prefill_step", "make_decode_step",
-           "make_prefill_chunk_step", "make_prefill_chunk_step_paged",
+__all__ = ["Request", "ServeEngine", "serve_phase_tasks", "make_prefill_step",
+           "make_decode_step", "make_prefill_chunk_step", "make_prefill_chunk_step_paged",
            "make_prefill_lane_step", "make_decode_chunk_step",
            "BlockAllocator", "PrefixRegistry"]
 
 _SNAPSHOTS = "slot snapshots (drain/restore/checkpoint): ROADMAP queue 1 item 9"
 
 
-def serve_phase_tasks(*args, **kwargs):
-    raise NotImplementedError(
-        "serve_phase_tasks needs the power/hardware models: ROADMAP queue 1 "
-        "item 5")
+def serve_phase_tasks(cfg: ModelConfig, batch: int, prompt: int,
+                      new_tokens: int, chips: int = 1) -> list[Task]:
+    """Prefill vs decode phases with analytic roofline terms — the serving
+    analogue of ``train.phases.training_phase_tasks`` (a copy of
+    ``repro/serving/engine.py:56-73``).  Prefill is compute-bound (wants a
+    high cap per SED); decode streams the KV cache (memory-bound — a low
+    cap is nearly free)."""
+    from repro_torch.hw import flops as F
+    n = F.active_param_count(cfg)
+    prefill_flops = 2.0 * n * batch * prompt \
+        + F._attention_flops_fwd(cfg, batch, prompt, prompt)
+    decode_flops = 2.0 * n * batch
+    cache = F._cache_bytes(cfg, batch, prompt)
+    return [
+        Task("prefill", flops=prefill_flops / chips,
+             hbm_bytes=(2.0 * n + cache) / chips),
+        Task("decode", flops=decode_flops / chips,
+             hbm_bytes=(2.0 * n + cache) / chips, calls=new_tokens),
+    ]
 
 
 # ===========================================================================

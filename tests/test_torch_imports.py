@@ -37,13 +37,21 @@ def test_port_sources_found():
     assert "repro_torch/serving/engine.py" in names
     assert "repro_torch/kernels/flash_attention.py" in names
     assert "repro_torch/train/step.py" in names
+    for mod in ("hw/tpu", "hw/dvfs", "hw/flops", "hw/h100", "core/tasks",
+                "core/power_model", "core/metrics", "core/trace",
+                "power/metrics", "power/backends", "power/manager",
+                "power/arbiter", "power/nvml", "power/metered",
+                "train/phases"):
+        assert f"repro_torch/{mod}.py" in names
     assert (REPO / "chip_smoke.py").exists()
 
 
 def test_importing_the_engine_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     code = ("import sys, repro_torch.serving.engine, "
-            "repro_torch.launch.serve, repro_torch.launch.train; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.power.nvml, repro_torch.power.metered, "
+            "repro_torch.hw, repro_torch.core; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -62,8 +62,9 @@ def main() -> int:
               + ", ".join(f"{n}: {g.capture_s:.3f}"
                           for n, g in engine.prefill_graphs.items())
               + f", decode {engine.graph.capture_s:.3f}", flush=True)
-        done, wall, launches = cs._serve(tfa, engine, clock, cfg, specs)
-        stats = cs._arm_stats(engine, clock, done, wall, specs)
+        done, wall, launches, joules = cs._serve(tfa, engine, clock, cfg,
+                                                 specs)
+        stats = cs._arm_stats(engine, clock, done, wall, specs, joules)
         cs._print_arm(arch + "-dense", stats, launches)
         cs._check_launches(arch, launches, cs._serving_launches(
             cfg, stats["decode_steps"], specs, False))
