@@ -61,11 +61,13 @@ caught):
      a prompt's chunk plan cuts (S = 128 ... 2) beside its byte bound (no
      library call computes SSD), and summed per Mamba layer over a
      serving arm's chunks;
-  2b. the power backend (``power/nvml.py``, ``power/metered.py``), run
-     under ``NvmlBackend.restore_limit_on_exit()`` with the whole script
-     (without ``libnvidia-ml.so.1`` the run fails): ``[power:nvml]``, the
-     card's limits, the energy counter's update period and one probe
-     limit write (refused or not: both are results, decided once);
+  2b. the power backend (``power/nvml.py``, ``power/metered.py``), the
+     card's power session opened once by ``open_card`` for the whole
+     script, which puts the limit back at its end (without
+     ``libnvidia-ml.so.1`` the run fails): ``[power:nvml]``, the
+     card's limits, the energy counter's update period and the session's
+     one probe limit write (refused or not: both are results, decided
+     once);
      ``[power:calibrate]``, the mean draw of an idle, a compute-bound and
      a memory-bound window and the envelope fitted from them beside
      ``hw/h100.py``'s; after llama's dense arm (3a), ``[power:table]``,
@@ -177,10 +179,30 @@ caught):
      share of the bf16 peak;
   6. training parity: one f32 step at full width and 2 layers on the card
      (kernels) against the CPU (plain versions) from the same weights and
-     batch: loss, grad norm and the parameter update.
+     batch: loss, grad norm and the parameter update;
+  7. LSMS, the paper's own workload (``models/lsms.py``, no kernel of
+     the repo's: PyTorch's complex64 products and LU), on a card that no
+     model holds any more: ``[lsms:parity]``, a reduced configuration
+     (LSMS_PARITY) on the card against the CPU, A, tau and the density
+     within LSMS_TOL; ``[lsms:scf]``, ``LSMS_CARD`` (128 atoms, a LIZ of
+     113, nb 16: 1808 x 1808 complex64 per atom and energy point, 8
+     points, 2 iterations): wall s, J and mean W per iteration, the peak
+     memory and the density's finite sum; ``[lsms:table1]``, each task
+     timed alone at one energy point's shapes over a window of at least
+     WINDOW_S on the energy counter: ms per call against its bound,
+     J and W, and the tasks' summed seconds over the SCF wall;
+     ``[lsms:table2]``, the modelled H100 sweep of the measured mix (SED
+     and ED caps per task) beside the paper-calibrated mix's;
+     ``[lsms:power]``, ``LSMS_CARD`` again under a ``MeteredPowerManager``
+     with those SED caps (written, or logged where writes are refused):
+     the density bit-equal to ``[lsms:scf]``'s and 0 failed writes; and
+     ``[profile:lsms]``, one energy point under torch.profiler: the top
+     kernels, the busy share and the LU backend (MAGMA, cuSOLVER or
+     cuBLAS batched, by kernel name).
 
-It prints one ``{"kernels": [...]}`` line (eight kernels), the
-nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+It prints one ``{"lsms": ...}`` line, one ``{"kernels": [...]}`` line
+(eight kernels), the nvidia-smi line, and as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
 prints no result.
 """
@@ -205,7 +227,12 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
-from repro_torch.hw.h100 import H100_CHIP  # noqa: E402  (data-sheet roofline)
+# the data sheet's roofline
+from repro_torch.hw.h100 import H100_CHIP, PEAK_FLOPS_F32  # noqa: E402
+# [power:table]'s and [lsms:table1]'s least window on the energy counter,
+# and the seconds a new limit is given to take effect before one
+from repro_torch.power.metered import SETTLE_S, WINDOW_S  # noqa: E402
+from repro_torch.power.nvml import PROBE_BELOW_MAX_W  # noqa: E402
 
 HBM_BYTES_PER_S = H100_CHIP.hbm_bandwidth      # 3.35e12
 BF16_OPS_PER_S = H100_CHIP.peak_flops_bf16     # dense bf16, 989e12
@@ -256,7 +283,7 @@ GMM_TIME_SHAPES = ([(64, M, 2048, 1024) for M in GMM_TIME_M]
 #: llama3.2-3b, olmoe-1b-7b and zamba2-1.2b's shared block
 ROPE_HEADS = {"llama": (24, 8, 128), "olmoe": (16, 16, 128),
               "zamba2": (32, 32, 64)}
-F32_OPS_PER_S = 67e12           # float32 outside the tensor cores
+F32_OPS_PER_S = PEAK_FLOPS_F32  # float32 outside the tensor cores, 67e12
 TRAIN_STEPS = 6
 #: the bf16 attention kernels' tiles: the forward's key tile, the dK/dV
 #: pass's query step and the dQ pass's query tile (flash_attention*.cu)
@@ -1690,15 +1717,11 @@ def _ssd_time_key(model, S):
 #: arm and the training loop read its energy counter where the card is
 #: already idle (None: no energy is read, as in ``tools/serve_probe.py``)
 METER = None
-#: [power:nvml]: seconds spent reading the counter back to back, and the
-#: probe write's distance below the maximum limit
-COUNTER_SPIN_S, PROBE_BELOW_MAX_W = 1.0, 100.0
+#: [power:nvml]: seconds spent reading the counter back to back
+COUNTER_SPIN_S = 1.0
 #: [power:calibrate]: seconds of each window (after a warm-up of
 #: CALIBRATE_WARM_S), and the drift from hw/h100.py's constants printed
 CALIBRATE_S, CALIBRATE_WARM_S, ENVELOPE_DRIFT = 2.0, 1.0, 0.15
-#: [power:table]: the least seconds of a measured window, and the time a
-#: new limit is given to take effect before its windows
-TABLE_WINDOW_S, SETTLE_S = 2.0, 0.2
 #: a window's mean draw must lie between these (W, and times the limit)
 DRAW_MIN_W, DRAW_MAX_OF_LIMIT = 10.0, 1.05
 #: the energy counter's update period, s, as [power:nvml] measured it
@@ -1733,13 +1756,14 @@ def _metered(fn, nvml):
     return time.perf_counter() - t0, (nvml.energy_mj() - e0) / 1e3
 
 
-def power_nvml(nvml):
+def power_nvml(card):
     """``[power:nvml]``: the card as NVML sees it; the energy counter's
     update period (the counter read back to back for COUNTER_SPIN_S on
     an idle card: the median time and energy between two readings that
-    differ); one probe write of the maximum limit less PROBE_BELOW_MAX_W,
-    read back and put back.  A refused write is a result, decided here
-    once for the run."""
+    differ); ``open_card``'s probe write of the maximum limit less
+    PROBE_BELOW_MAX_W, read back and put back.  A refused write is a
+    result, decided there once for the run."""
+    nvml, probe = card.nvml, card.probe
     lo, hi = nvml.limit_range_w()
     info = {"name": nvml.name(), "bus_id": nvml.bus_id,
             "default_w": nvml.default_limit_w(), "min_w": lo, "max_w": hi,
@@ -1764,11 +1788,11 @@ def power_nvml(nvml):
                 counter_step_mj=float(np.median(steps_mj)),
                 counter_changes=len(steps_s) + 1,
                 read_us=COUNTER_SPIN_S / reads * 1e6)
-    probe = nvml.probe(hi - PROBE_BELOW_MAX_W)
     info.update(writable=probe.writable, code=probe.code,
                 probe_cap_w=hi - PROBE_BELOW_MAX_W,
                 probe_read_back_w=probe.read_back_w,
                 probe_call_ms=probe.seconds * 1e3,
+                limit_before_probe_w=card.limit_w,
                 limit_after_probe_w=nvml.limit_w())
     print(f"[power:nvml] {info['name']} (bus {info['bus_id']}): limit "
           f"{info['limit_w']:.2f} W in force, default {info['default_w']:.2f}"
@@ -1779,9 +1803,9 @@ def power_nvml(nvml):
           f"us); probe write {info['probe_cap_w']:.2f} W: writable: "
           f"{'true' if probe.writable else 'false'} ({probe.code}), read "
           f"back {probe.read_back_w:.2f} W, call {probe.seconds * 1e3:.3f} "
-          f"ms; limit after the probe {info['limit_after_probe_w']:.2f} W",
-          flush=True)
-    if info["limit_after_probe_w"] != info["limit_w"]:
+          f"ms; limit before the probe {card.limit_w:.2f} W, after it "
+          f"{info['limit_after_probe_w']:.2f} W", flush=True)
+    if info["limit_after_probe_w"] != card.limit_w:
         raise AssertionError("[power:nvml] the probe did not put the limit "
                              "back")
     return info
@@ -1852,14 +1876,6 @@ def power_calibrate(nvml):
     return out
 
 
-def _card_spec(nvml):
-    """hw/h100.py's spec with the limits this card's NVML reports."""
-    from repro_torch.hw.h100 import H100_SUPERCHIP
-    lo, hi = nvml.limit_range_w()
-    return dataclasses.replace(H100_SUPERCHIP, limit_min=lo, limit_max=hi,
-                               limit_default=nvml.default_limit_w())
-
-
 def _arm_tasks(cfg, specs):
     """The arm's serving phases on the model: its mean prompt and its
     mean new tokens at batch 8 (``serve_phase_tasks``)."""
@@ -1869,7 +1885,7 @@ def _arm_tasks(cfg, specs):
         new_tokens=round(np.mean([n for _, n, _ in specs])))
 
 
-def power_table(tfa, nvml, writable, cfg, run, params, specs):
+def power_table(tfa, card, cfg, run, params, specs):
     """``[power:table]``, the paper's experiment on the card: two
     phase-homogeneous windows at each cap of the sweep (the default only
     where writes are refused), measured one phase at a time on the
@@ -1877,7 +1893,7 @@ def power_table(tfa, nvml, writable, cfg, run, params, specs):
     the same work: prefill, the arm's 16 prompts (85 chunks) into one
     slot of the graphed engine, as [serve:prefill-ab]; decode, graphed
     chunks at 8 live lanes, as [serve:graph-ab].  The default cap runs
-    first, and the number of turns and chunks that fill TABLE_WINDOW_S
+    first, and the number of turns and chunks that fill WINDOW_S
     there is kept for every cap, so each cap does the same work.  Each
     window gives seconds and joules per call (a prefill chunk, a decode
     step), which the measured TaskTable holds at the arm's task scale
@@ -1890,7 +1906,7 @@ def power_table(tfa, nvml, writable, cfg, run, params, specs):
     from repro_torch.core.tasks import TaskMeasurement, TaskTable
     from repro_torch.power import optimal_cap
     from repro_torch.serving.engine import Request
-    spec = _card_spec(nvml)
+    nvml, spec, writable = card.nvml, card.spec, card.writable
     default = nvml.limit_w()
     sweep = spec.cap_sweep() if writable else (default,)
     tasks = {t.name: t for t in _arm_tasks(cfg, specs)}
@@ -1922,14 +1938,14 @@ def power_table(tfa, nvml, writable, cfg, run, params, specs):
         n_chunks = len(_prefill_turn(engine, prompts)[1])     # warm-up
         if turns is None:
             s, _ = _metered(lambda: _prefill_turn(engine, prompts), nvml)
-            turns = max(1, math.ceil(TABLE_WINDOW_S / s))
+            turns = max(1, math.ceil(WINDOW_S / s))
         s_pre, j_pre = _metered(lambda: [_prefill_turn(engine, prompts)
                                          for _ in range(turns)], nvml)
         decode_start()
         if chunks is None:
             torch.cuda.synchronize()
             t0, chunks = time.perf_counter(), 0
-            while time.perf_counter() - t0 < TABLE_WINDOW_S \
+            while time.perf_counter() - t0 < WINDOW_S \
                     and chunks < max_chunks:
                 engine.step()
                 chunks += 1
@@ -1982,7 +1998,7 @@ def power_table(tfa, nvml, writable, cfg, run, params, specs):
                    "modelled": [dataclasses.astuple(r) for r in model.rows]}
 
 
-def power_serve(tfa, nvml, writable, table, info, cfg, run, params, specs,
+def power_serve(tfa, card, table, info, cfg, run, params, specs,
                 dense_streams):
     """``[power:serve]``: the dense llama arm (the same 16 requests) under a
     ``MeteredPowerManager`` whose table is the measured one of
@@ -1999,18 +2015,17 @@ def power_serve(tfa, nvml, writable, table, info, cfg, run, params, specs,
     limit."""
     import torch
     from repro_torch.core.tasks import TaskTable
-    from repro_torch.power import CapSchedule, LoggingBackend
+    from repro_torch.power import CapSchedule
     from repro_torch.power.metered import MeteredPowerManager
     from repro_torch.serving.engine import Request
-    spec = _card_spec(nvml)
+    nvml, spec, writable = card.nvml, card.spec, card.writable
     default = nvml.limit_w()
     tasks = _arm_tasks(cfg, specs)
-    backend = nvml if writable else LoggingBackend()
 
     def manager(name):
         return MeteredPowerManager(
             TaskTable(list(table.rows)), tasks=tasks, metric="sed",
-            backend=backend, meter=nvml, spec=spec,
+            backend=card.backend, meter=nvml, spec=spec,
             schedule=(CapSchedule({}, default_cap=default)
                       if name == "default" else None))
 
@@ -2787,9 +2802,12 @@ def serve_prefix_sharing(tfa, cfg, run, params):
     return out
 
 
-def _profile_window(name, label, steps, run, groups=None, top_n=8):
+def _profile_window(name, label, steps, run, groups=None, top_n=8,
+                    cpu=True):
     """Run ``run()`` (``steps`` steps, ending in a synchronise) under
-    torch.profiler and print where the device time went: device busy
+    torch.profiler (``cpu``: the host's ops too, else the CUDA activity
+    alone: kernels, copies and the runtime's calls, such as
+    ``cudaGraphLaunch``) and print where the device time went: device busy
     share = the kernels' summed device time over the window's wall time,
     every device launch per step counted (kernels, copies, memsets), the
     CUDA graph launches the host made, the top kernels, and the summed
@@ -2800,8 +2818,10 @@ def _profile_window(name, label, steps, run, groups=None, top_n=8):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         counted = run()
         wall = time.perf_counter() - t0
@@ -3645,27 +3665,378 @@ def train_parity(tfa):
     return err
 
 
+# ---------------------------------------------------------------------------
+# phase 7: LSMS, the paper's own workload (models/lsms.py)
+# ---------------------------------------------------------------------------
+
+#: [lsms:parity]: the reduced configuration held card against CPU
+LSMS_PARITY = dict(n_atoms=16, liz=8, nb=16, e_points=4)
+# card vs CPU, both complex64 with TF32 off: the same products and
+# factorisations with their sums in another order (cuBLAS and the card's
+# LU against LAPACK), through an LU of order 128 whose pivots are the
+# identity's (|A| ~ 1 on the diagonal): ~1e-7 relative expected in A
+# (t is diagonal, so each product has one term), ~1e-6 in tau and the
+# density; A against max|A|, tau and the density relative to their largest
+LSMS_TOL = {"A": 1e-5, "tau": 1e-4, "density": 1e-4}
+#: MAGMA's kernel names: its batched LU's panels, pivot swaps and updates
+#: and getrs's triangular solves (``magma_*`` types in a signature,
+#: ``*_kernel_batched``, ``*_kernel_shared_batched``, ``*_template_batched_*``
+#: and ``zdisplace_pointers_kernel``, read on the card with
+#: torch 2.11.0+cu128)
+MAGMA_KERNELS = ("magma", "_kernel_batched", "_kernel_shared_batched",
+                 "template_batched_", "displace_pointers")
+#: kernel-name fragments of an energy point's device time by the library
+#: that ran it: MAGMA's batched LU, cuSOLVER's, cuBLAS's GEMMs (the block
+#: product) and PyTorch's own elementwise kernels (G0, A = I - tG0)
+LSMS_PROFILE_GROUPS = {
+    "MAGMA": MAGMA_KERNELS,
+    "cuSOLVER": ("cusolver",),
+    "cuBLAS GEMM": ("xmma", "nvjet", "cutlass", "sm80_", "sm90_"),
+    "PyTorch elementwise": ("at::native",),
+}
+
+
+def lsms_parity():
+    """``[lsms:parity]``: LSMS_PARITY on the card against the same code on
+    the CPU, on the same numpy positions (seeded): A and tau at the first
+    energy point of the first iteration, and ``run_scf``'s density, each
+    within LSMS_TOL, the worst entry printed."""
+    import torch
+    from repro_torch.models import lsms
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[lsms:parity] needs TF32 off")
+    cfg = lsms.LsmsConfig(**LSMS_PARITY)
+    pos = np.random.default_rng(23).uniform(
+        0.0, 10.0, (cfg.n_atoms, 3)).astype(np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = torch.from_numpy(pos).to(dev)
+        energy = torch.from_numpy(lsms.contour(cfg)).to(dev)[0]
+        A, t_blocks = lsms.build_kkr_matrix(cfg, p, lsms.initial_t(cfg, dev),
+                                            energy)
+        tau, _ = lsms.solve_tau(A, t_blocks)
+        density = lsms.run_scf(cfg, positions=pos, device=dev)
+        got[dev] = {"A": A.cpu(), "tau": tau.cpu(), "density": density.cpu()}
+    out = {}
+    for name, tol in LSMS_TOL.items():
+        card, cpu = got["cuda"][name], got["cpu"][name]
+        diff = (card - cpu).abs()
+        worst = int(diff.argmax())
+        rel = float(diff.max() / cpu.abs().max())
+        out[name] = {"rel_err": rel, "tol": tol,
+                     "worst": [str(card.flatten()[worst].item()),
+                               str(cpu.flatten()[worst].item())]}
+    print(f"[lsms:parity] {cfg.n_atoms} atoms, LIZ {cfg.liz}, nb {cfg.nb}, "
+          f"{cfg.e_points} energy points, card (TF32 off) vs CPU, complex64: "
+          + "; ".join(f"{k} {v['rel_err']:.3e} of max|CPU| (limit "
+                      f"{v['tol']:.0e}; worst entry card {v['worst'][0]} vs "
+                      f"CPU {v['worst'][1]})" for k, v in out.items()),
+          flush=True)
+    bad = [k for k, v in out.items() if not v["rel_err"] <= v["tol"]]
+    if bad:
+        raise AssertionError(f"[lsms:parity] card and CPU disagree on {bad}")
+    return out
+
+
+def _lsms_run(nvml, cfg, positions, power=None):
+    """``run_scf``'s iterations on the card from an idle card
+    (``lsms.metered_scf``, as the example runs them): wall seconds and
+    joules of each, read where ``host_mix`` has waited for the card,
+    each iteration's draw checked, and the density."""
+    from repro_torch.models import lsms
+    density, iters = lsms.metered_scf(nvml, cfg, positions, power=power)
+    for it in iters:
+        it["mean_w"] = _check_draw("[lsms] an SCF iteration", it["joules"],
+                                   it["seconds"])
+    return density, iters
+
+
+def lsms_scf(nvml):
+    """``[lsms:scf]``: LSMS_CARD through ``scf_iterations`` on the card,
+    after one untimed call of each task at its shapes (the libraries'
+    first-call costs): wall s and J per iteration, the mean draw, the
+    peak memory, and the density: finite, of shape (n_atoms,)."""
+    import torch
+    from repro_torch.models import lsms
+    cfg = lsms.LSMS_CARD
+    positions = lsms.make_positions(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for fn in lsms.task_calls(cfg, positions).values():
+        fn()
+    _release_card()
+    density, iters = _lsms_run(nvml, cfg, positions)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rho = density.cpu().numpy()
+    if rho.shape != (cfg.n_atoms,) or not np.isfinite(rho).all():
+        raise AssertionError(f"[lsms:scf] density {rho.shape}, finite "
+                             f"{np.isfinite(rho).all()}")
+    wall = sum(it["seconds"] for it in iters)
+    joules = sum(it["joules"] for it in iters)
+    print(f"[lsms:scf] {cfg.n_atoms} atoms, LIZ {cfg.liz}, nb {cfg.nb} "
+          f"(m = {cfg.liz * cfg.nb}), {cfg.e_points} energy points, "
+          f"{cfg.scf_iters} iterations: " + ", ".join(
+              f"iteration {i} {it['seconds']:.3f} s {it['joules']:.1f} J "
+              f"{it['mean_w']:.1f} W" for i, it in enumerate(iters))
+          + f"; {wall:.3f} s and {joules:.1f} J in all ({joules / wall:.1f} "
+          f"W); peak {peak:.2f} GiB; density sum {float(rho.sum()):.6f}, "
+          f"finite, shape {rho.shape}", flush=True)
+    _release_card()
+    return positions, density, {"iterations": iters, "wall_s": wall,
+                                "joules": joules, "peak_gib": peak,
+                                "density_sum": float(rho.sum())}
+
+
+def lsms_table1(card, positions, scf):
+    """``[lsms:table1]``: ``lsms.measure_table1``, the builder the example
+    shares: each task timed alone at one energy point's shapes
+    (``lsms.task_calls``), repeated to fill a window of at least
+    WINDOW_S on the energy counter, at the limit in force (and at every
+    cap of the sweep where the card takes writes; each window's draw
+    checked at its cap): ms per call against its bound
+    (``lsms_task_counts``), J per call and the window's mean W, and the
+    task's calls, s and J over the run; then the per-task seconds summed
+    over the run against the [lsms:scf] wall (not gated).  Returns the
+    summary and the measured task mix."""
+    from repro_torch.models import lsms
+    measured = lsms.measure_table1(card, lsms.LSMS_CARD, positions)
+    _release_card()
+    limit = measured["caps"][0]
+    for cap, windows in measured["windows"].items():
+        for task, w in windows.items():
+            _check_draw(f"[lsms:table1] {task} at {cap:.2f} W", w["joules"],
+                        w["seconds"], limit_w=cap)
+    rows = {t: dict(r, ms=r["s_per_call"] * 1e3, bound_ms=r["bound_s"] * 1e3)
+            for t, r in measured["rows"].items()}
+    for task, r in rows.items():
+        share = (f", {100 * r['bound_ms'] / r['ms']:.1f}% of it"
+                 if r["bound_ms"] else "")
+        print(f"[lsms:table1] {task}: {r['ms']:.4f} ms a call against its "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}{share}); "
+              f"{r['j_per_call']:.4f} J a call at {r['mean_w']:.1f} W "
+              f"({r['reps']} calls over {r['seconds']:.2f} s at "
+              f"{limit:.2f} W); {r['calls']} calls in the run: "
+              f"{r['run_s']:.3f} s, {r['run_j']:.2f} J", flush=True)
+    if len(measured["caps"]) > 1:
+        print("[lsms:table1] per cap, s and J over the run: " + "; ".join(
+            f"{m.task} {m.cap:.0f} W {m.runtime:.3f} s {m.energy:.2f} J"
+            for m in measured["measurements"]), flush=True)
+    total = sum(r["run_s"] for r in rows.values())
+    ratio = total / scf["wall_s"]
+    print(f"[lsms:table1] the tasks' seconds over the run sum to "
+          f"{total:.3f} s against the [lsms:scf] wall of {scf['wall_s']:.3f}"
+          f" s: ratio {ratio:.3f}", flush=True)
+    return {"tasks": rows, "caps": measured["caps"], "sum_s": total,
+            "ratio_to_scf": ratio, "limit_w": limit,
+            "measurements": [dataclasses.asdict(m)
+                             for m in measured["measurements"]]}, \
+        measured["tasks"]
+
+
+def lsms_table2(card, tasks):
+    """``[lsms:table2]``: the modelled H100 sweep (hw/h100.py, the limits
+    NVML reports) of the measured task mix (``measure_table1``'s
+    ``measured_lsms_tasks``): the SED and ED caps per task, beside the
+    paper-calibrated mix's picks on the same spec."""
+    from repro_torch.core import measure_sweep, table2
+    from repro_torch.models import lsms
+    spec = card.spec
+    out = {}
+    for name, mix in (("measured", tasks),
+                      ("paper", lsms.paper_calibrated_tasks(spec.chip))):
+        out[name] = {r.task: dataclasses.asdict(r)
+                     for r in table2(measure_sweep(mix, spec=spec))}
+    print("[lsms:table2] modelled H100 envelope, sweep "
+          f"{', '.join(f'{c:.0f}' for c in spec.cap_sweep())} W; measured "
+          "task mix, SED / ED caps (dE%, dt% at SED): " + "; ".join(
+              f"{t} {r['sed_cap']:.0f} / {r['ed_cap']:.0f} W "
+              f"({-r['sed_energy_reduction_pct']:+.2f}%, "
+              f"{r['sed_runtime_increase_pct']:+.2f}%)"
+              for t, r in out["measured"].items())
+          + "; the paper-calibrated mix on the same spec: " + "; ".join(
+              f"{t} {r['sed_cap']:.0f} / {r['ed_cap']:.0f} W"
+              for t, r in out["paper"].items()), flush=True)
+    return out
+
+
+def lsms_power(card, positions, density, scf, tasks):
+    """``[lsms:power]``: LSMS_CARD again under a ``MeteredPowerManager``
+    on the modelled table of the measured mix (its SED caps), one phase
+    per task per energy point and one per host mix: the caps written
+    through NVML where the card takes writes, else logged.  The density
+    must equal [lsms:scf]'s bit for bit (the phases add only syncs and
+    counter reads), with 0 failed writes; J per iteration beside the
+    unmetered run's, and the manager's syncs."""
+    import torch
+    from repro_torch.core import TaskTable, measure_sweep
+    from repro_torch.models import lsms
+    from repro_torch.power.metered import MeteredPowerManager
+    cfg, spec, nvml = lsms.LSMS_CARD, card.spec, card.nvml
+    writable = card.writable
+    default = nvml.limit_w()
+    pm = MeteredPowerManager(
+        TaskTable(measure_sweep(tasks, spec=spec).rows), tasks=tasks,
+        metric="sed", backend=card.backend, meter=nvml, spec=spec)
+    got, iters = _lsms_run(nvml, cfg, positions, power=pm)
+    if writable:
+        nvml.apply(default)
+    _release_card()
+    equal = torch.equal(got.view(torch.int32), density.view(torch.int32))
+    caps = {t: round(pm.cap_for(t)) for t in pm.tasks}
+    joules = sum(it["joules"] for it in iters)
+    # each phase's wall (its edges' syncs and one counter read included),
+    # summed per task and iteration, in the order the loop ran them
+    per_iter = len(pm.history) // cfg.scf_iters
+    by_iter = [{t: sum(r.wall_s for r in pm.history[i * per_iter:
+                                                     (i + 1) * per_iter]
+                       if r.name == t) for t in pm.tasks}
+               for i in range(cfg.scf_iters)]
+    getrf_ms = [r.wall_s * 1e3 for r in pm.history if r.name == "getrf"]
+    print(f"[lsms:power] SED caps {caps} W"
+          + ("" if writable else " (logged, not applied: writes refused)")
+          + ": " + ", ".join(
+              f"iteration {i} {it['seconds']:.3f} s {it['joules']:.1f} J"
+              for i, it in enumerate(iters))
+          + " against the unmetered " + ", ".join(
+              f"{it['seconds']:.3f} s {it['joules']:.1f} J"
+              for it in scf["iterations"])
+          + f"; phases {pm.total_joules():.1f} of {joules:.1f} J, "
+          f"{sum(pm.entries.values())} phases, {pm.transitions} cap writes, "
+          f"{pm.apply_failures} apply failures, {pm.syncs} syncs of the "
+          f"manager; density bit-equal to [lsms:scf]: {equal}; phase s by "
+          "iteration: " + ", ".join(
+              f"{t} " + " / ".join(f"{it[t]:.3f}" for it in by_iter)
+              for t in pm.tasks)
+          + f"; getrf phases {min(getrf_ms):.1f}-{max(getrf_ms):.1f} ms "
+          f"(median {float(np.median(getrf_ms)):.1f})", flush=True)
+    if not equal:
+        raise AssertionError("[lsms:power] the metered density differs")
+    if pm.apply_failures:
+        raise AssertionError(f"[lsms:power] {pm.apply_failures} failed "
+                             "cap writes")
+    return {"iterations": iters, "caps": caps, "syncs": pm.syncs,
+            "phase_s_by_iteration": by_iter, "getrf_phase_ms": getrf_ms,
+            "phases": sum(pm.entries.values()),
+            "phase_joules": dict(pm.joules), "phase_seconds":
+            dict(pm.seconds), "cap_writes": pm.transitions,
+            "apply_failures": pm.apply_failures, "bit_equal": equal}
+
+
+def profile_lsms(positions):
+    """``[profile:lsms]``: one energy point of LSMS_CARD (``scf_step`` with
+    one contour point, to the density on the host) under torch.profiler,
+    after one untimed: the top device ops, the busy share and the
+    library each group of kernels came from; and which LU backend torch
+    was built with and prefers."""
+    import torch
+    from repro_torch.models import lsms
+    cfg = dataclasses.replace(lsms.LSMS_CARD, e_points=1)
+    t_diag = lsms.initial_t(cfg, "cuda")
+
+    def run():
+        lsms.scf_step(cfg, positions, t_diag)[0].cpu()
+        return None
+
+    run()
+    # the CUDA activity alone: with the host's ops too, this phase took
+    # 63.3 s over MAGMA's ~6000 launches under one op, without them 1.8 s
+    # (NVIDIA H100 80GB HBM3, torch 2.11.0+cu128)
+    out = _profile_window("lsms", "one energy point of LSMS_CARD "
+                          "(buildKKRMatrix, zgemm, getrf, trsm)", 1, run,
+                          groups=LSMS_PROFILE_GROUPS, top_n=12, cpu=False)
+    by_backend, unknown = collections.defaultdict(float), []
+    for row in out["profile_top_kernels"]:
+        backend = _lu_backend(row["kernel"])
+        if backend == "unknown":
+            unknown.append(row["kernel"])
+        if backend is not None:
+            by_backend[backend] += row["ms_per_step"]
+    out.update(has_magma=bool(torch.cuda.has_magma),
+               preferred_linalg=str(
+                   torch.backends.cuda.preferred_linalg_library()),
+               lu_backend=sorted(b for b in by_backend if b != "unknown"),
+               lu_ms_by_backend=dict(by_backend), lu_unknown=unknown)
+    print(f"[profile:lsms] LU backend: torch built with MAGMA "
+          f"{out['has_magma']}, preferred {out['preferred_linalg']}; by the "
+          f"names of the top {len(out['profile_top_kernels'])} kernels: "
+          + (", ".join(f"{b} {ms:.3f} ms/step"
+                       for b, ms in by_backend.items()) or "no LU kernel"),
+          flush=True)
+    if unknown or not out["lu_backend"]:
+        print("[profile:lsms] LU backend unknown: "
+              + ("; ".join(unknown) if unknown else
+                 "no top kernel is a known library's LU kernel")
+              + " (names of MAGMA, cuSOLVER and cuBLAS batched LU kernels "
+              "matched)", flush=True)
+    _release_card()
+    return out
+
+
+def _lu_backend(kernel):
+    """The library that ran an LU kernel, by its name: ``MAGMA``
+    (MAGMA_KERNELS), ``cuSOLVER``, ``cuBLAS batched`` (a batched getrf or
+    getrs), ``unknown`` for an LU-like name (getrf, getrs, getf2, laswp,
+    batched) of none of them, None for any other kernel."""
+    k = kernel.lower()
+    if any(f in k for f in MAGMA_KERNELS):
+        return "MAGMA"
+    if "cusolver" in k:
+        return "cuSOLVER"
+    if "batch" in k and ("getrf" in k or "getrs" in k):
+        return "cuBLAS batched"
+    if any(f in k for f in ("getrf", "getrs", "getf2", "laswp", "batch")):
+        return "unknown"
+    return None
+
+
+def lsms_phases(card):
+    """Phase 7: every [lsms:*] line, the seconds each phase took, and the
+    {"lsms": ...} summary."""
+    from repro_torch.models import lsms
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    out = {"parity": lsms_parity()}
+    lap("parity")
+    positions, density, out["scf"] = lsms_scf(card.nvml)
+    lap("scf")
+    out["table1"], tasks = lsms_table1(card, positions, out["scf"])
+    lap("table1")
+    out["table2"] = lsms_table2(card, tasks)
+    lap("table2")
+    out["power"] = lsms_power(card, positions, density, out["scf"], tasks)
+    lap("power")
+    out["profile"] = profile_lsms(positions)
+    lap("profile")
+    print("[lsms] seconds per phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    out.update(config=dataclasses.asdict(lsms.LSMS_CARD), seconds=seconds)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    from repro_torch.power.nvml import NvmlBackend
+    from repro_torch.power.nvml import open_card
     global METER
-    # a terminated run still puts the power limit back (the with below,
+    # a terminated run still puts the power limit back (the stack below,
     # and the backend's atexit hook)
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    nvml = NvmlBackend(0)            # no libnvidia-ml.so.1: the run fails
-    try:
-        with nvml.restore_limit_on_exit():
-            METER = nvml
-            return _smoke(nvml)
-    finally:
-        METER = None
-        nvml.close()
+    with contextlib.ExitStack() as stack:
+        card = open_card(stack, 0)   # no libnvidia-ml.so.1: the run fails
+        METER = card.nvml
+        try:
+            return _smoke(card)
+        finally:
+            METER = None
 
 
-def _smoke(nvml) -> int:
+def _smoke(card) -> int:
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as tfa
@@ -3784,11 +4155,11 @@ def _smoke(nvml) -> int:
 
     # 2b: the power backend, before the serving arms; the cap table and
     # the metered arm need llama's weights and its dense arm's streams
-    power = {"nvml": power_nvml(nvml), "calibrate": power_calibrate(nvml)}
-    writable = power["nvml"]["writable"]
+    power = {"nvml": power_nvml(card),
+             "calibrate": power_calibrate(card.nvml)}
     dense_launches, serving, shared = serve_full_width(tfa)
-    table, power["table"] = power_table(tfa, nvml, writable, *shared[:4])
-    power["serve"] = power_serve(tfa, nvml, writable, table, power["nvml"],
+    table, power["table"] = power_table(tfa, card, *shared[:4])
+    power["serve"] = power_serve(tfa, card, table, power["nvml"],
                                  *shared)
     paged_launches, paged_serving = serve_arm(tfa, *shared, "paged", True)
     # dense, paged, paged, dense: each engine read on both sides of the
@@ -3865,6 +4236,9 @@ def _smoke(nvml) -> int:
                     HYBRID_ARCH: ssm_parity(HYBRID_ARCH, 7)}
     train_launches, training = train_full_width(tfa)
     training["parity_rel_err"] = train_parity(tfa)
+    # 7: LSMS, the paper's own workload, on a card no model holds
+    lsms = lsms_phases(card)
+    print(json.dumps({"lsms": lsms}))
 
     def bf16_err(checks):
         return max(c["max_abs_err"] for c in checks

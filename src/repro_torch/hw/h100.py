@@ -53,6 +53,10 @@ LIMIT_DEFAULT_W = 700.0    # NVIDIA H100 80GB HBM3, 700.00 W
 #: measured yet
 NVML_SET_LIMIT_S = 1.06e-4  # NVIDIA H100 80GB HBM3, 700.00 W
 
+#: float32 outside the tensor cores (the same data sheet): the rate of the
+#: complex64 work of ``models/lsms.py`` (TF32 off)
+PEAK_FLOPS_F32 = 67e12
+
 #: the calibration windows' work per call: a bf16 n^3 matmul (A, B read,
 #: C written) and a copy of COPY_BYTES (read and written)
 MATMUL_N = 8192

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import time
 
 import torch
@@ -45,8 +44,7 @@ from repro_torch.configs.registry import (ARCH_IDS, get_model_config,
 from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import init_params, resolve_device
-from repro_torch.power import (LoggingBackend, PowerManager,
-                               available_metrics)
+from repro_torch.power import PowerManager, available_metrics
 from repro_torch.serving.engine import Request, ServeEngine, serve_phase_tasks
 
 
@@ -118,20 +116,12 @@ def _power_session(args, cfg, device, stack):
             metric=args.power_metric)
         return pm, pm, None
     from repro_torch.core.tasks import TaskTable
-    from repro_torch.hw.h100 import H100_SUPERCHIP
     from repro_torch.power.metered import MeteredPowerManager
-    from repro_torch.power.nvml import NvmlBackend
-    nvml = NvmlBackend(device.index or 0)
-    stack.callback(nvml.close)
-    stack.enter_context(nvml.restore_limit_on_exit())
-    lo, hi = nvml.limit_range_w()
-    spec = dataclasses.replace(H100_SUPERCHIP, limit_min=lo, limit_max=hi,
-                               limit_default=nvml.default_limit_w())
-    probe = nvml.probe(hi - 100.0)
-    backend = nvml
-    if not probe.writable:
-        backend = LoggingBackend()
-        print(f"[power] limit writes refused ({probe.code}): caps are "
+    from repro_torch.power.nvml import open_card
+    card = open_card(stack, device.index or 0)
+    nvml, spec = card.nvml, card.spec
+    if not card.writable:
+        print(f"[power] limit writes refused ({card.probe.code}): caps are "
               f"logged, not applied; energy is measured at the "
               f"{nvml.limit_w():.2f} W limit in force")
     tasks = serve_phase_tasks(cfg, batch=args.batch_size,
@@ -139,7 +129,7 @@ def _power_session(args, cfg, device, stack):
     model = PowerManager(tasks=tasks, metric=args.power_metric, spec=spec)
     return MeteredPowerManager(
         TaskTable(list(model.table.rows)), tasks=tasks,
-        metric=args.power_metric, backend=backend, meter=nvml,
+        metric=args.power_metric, backend=card.backend, meter=nvml,
         spec=spec), model, nvml
 
 

@@ -22,15 +22,26 @@ energy, cap=...)``, re-normalised to the registered task's canonical
 call count exactly as the reference's ``phase()`` re-normalises its
 modelled measurement (``manager.py:371-373``).  ``reset()`` starts a new
 accounting window without touching the table or the schedule.
+
+``metered_windows`` times functions one at a time on the same counter,
+each repeated over a window of at least WINDOW_S, long enough for the
+counter's period: the per-call seconds and joules of a task measured
+alone.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Callable, Iterator
 
 from repro_torch.power.manager import PhaseRecord, PowerManager
+
+#: the least seconds of a measured window on the energy counter (it moves
+#: every ~100 ms on an H100, so a shorter window is its quantisation), and
+#: the seconds a new power limit is given to take effect before one
+WINDOW_S, SETTLE_S = 2.0, 0.2
 
 
 class MeteredPowerManager(PowerManager):
@@ -93,3 +104,48 @@ class MeteredPowerManager(PowerManager):
 
     def total_joules(self) -> float:
         return sum(self.joules.values())
+
+
+def metered_windows(calls: dict[str, Callable[[], object]], meter, *,
+                    window_s: float | None = None,
+                    sync: Callable[[], None] | None = None) -> dict:
+    """Each of ``calls`` (name -> a function of no arguments) timed alone on
+    the energy counter: after one warm-up call and one timed call, the
+    call is repeated back to back, from an idle card to a synchronise,
+    until one window of at least ``window_s`` (WINDOW_S unless given)
+    holds it (a window that
+    falls short is measured again with more calls).  A counter that
+    moves every ~100 ms gives a call shorter than that its joules only
+    over such windows.  Returns name -> ``seconds``, ``joules`` and
+    ``reps`` of the window, and per call ``s_per_call`` and
+    ``j_per_call``, and the window's ``mean_w``."""
+    if window_s is None:
+        window_s = WINDOW_S
+    if sync is None:
+        import torch
+        sync = torch.cuda.synchronize
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        one = max(time.perf_counter() - t0, 1e-6)
+        reps = max(1, math.ceil(window_s / one))
+        while True:
+            sync()
+            e0, t0 = meter.energy_mj(), time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync()
+            seconds = time.perf_counter() - t0
+            joules = (meter.energy_mj() - e0) / 1e3
+            if seconds >= window_s:
+                break
+            reps = math.ceil(reps * 1.1 * window_s / seconds)
+        out[name] = {"seconds": seconds, "joules": joules, "reps": reps,
+                     "s_per_call": seconds / reps,
+                     "j_per_call": joules / reps,
+                     "mean_w": joules / seconds}
+    return out

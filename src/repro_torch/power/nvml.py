@@ -30,10 +30,14 @@ import contextlib
 import ctypes
 import dataclasses
 import time
-from typing import Callable, Iterator, Optional
+from typing import TYPE_CHECKING, Callable, Iterator, Optional
 
 from repro_torch.core.tasks import Task, TaskMeasurement
 from repro_torch.power.backends import TRANSITION_ENERGY_J
+
+if TYPE_CHECKING:
+    from repro_torch.hw.h100 import H100Spec
+    from repro_torch.power.backends import CapBackend
 
 LIBRARY = "libnvidia-ml.so.1"
 
@@ -269,3 +273,46 @@ class NvmlBackend:
         if self._open:
             self._open = False
             self._call("nvmlShutdown")
+
+
+#: ``open_card``'s probe write: the maximum limit less this many watts
+PROBE_BELOW_MAX_W = 100.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CardPower:
+    """A card's power session: its ``NvmlBackend``, the limit in force when
+    it was opened (``limit_w``, put back when it closes), the H100 spec
+    with the limits NVML reports (``spec``), the probe write's result,
+    and the ``CapBackend`` that applies caps: the NVML backend where the
+    card took the probe write, else a ``LoggingBackend`` (caps logged,
+    not applied)."""
+
+    nvml: NvmlBackend
+    limit_w: float
+    spec: H100Spec
+    probe: ProbeResult
+    backend: CapBackend
+
+    @property
+    def writable(self) -> bool:
+        return self.probe.writable
+
+
+def open_card(stack: contextlib.ExitStack, device: int = 0, *,
+              nvml: NvmlBackend | None = None) -> CardPower:
+    """Open NVML for CUDA device ``device`` (or take ``nvml``), closed and
+    its limit put back when ``stack`` closes; probe one write of the
+    maximum limit less PROBE_BELOW_MAX_W."""
+    from repro_torch.hw.h100 import H100_SUPERCHIP
+    from repro_torch.power.backends import LoggingBackend
+    if nvml is None:
+        nvml = NvmlBackend(device)
+    stack.callback(nvml.close)
+    limit = stack.enter_context(nvml.restore_limit_on_exit())
+    lo, hi = nvml.limit_range_w()
+    spec = dataclasses.replace(H100_SUPERCHIP, limit_min=lo, limit_max=hi,
+                               limit_default=nvml.default_limit_w())
+    probe = nvml.probe(hi - PROBE_BELOW_MAX_W)
+    return CardPower(nvml, limit, spec, probe,
+                     nvml if probe.writable else LoggingBackend())

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing in ``src/repro_torch`` or
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+"""The port stands alone: nothing in ``src/repro_torch``, the port's
+examples (``examples/torch_*.py``) or ``chip_smoke.py`` imports ``jax``
+or the JAX package ``repro``."""
 
 import ast
 import os
@@ -12,8 +13,9 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
-SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+PORT = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+SOURCES = PORT + EXAMPLES + [REPO / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -33,7 +35,7 @@ def test_no_jax_or_repro_import(path):
 
 
 def test_port_sources_found():
-    names = {p.relative_to(REPO / "src").as_posix() for p in SOURCES[:-1]}
+    names = {p.relative_to(REPO / "src").as_posix() for p in PORT}
     assert "repro_torch/serving/engine.py" in names
     assert "repro_torch/kernels/flash_attention.py" in names
     assert "repro_torch/train/step.py" in names
@@ -41,8 +43,11 @@ def test_port_sources_found():
                 "core/power_model", "core/metrics", "core/trace",
                 "power/metrics", "power/backends", "power/manager",
                 "power/arbiter", "power/nvml", "power/metered",
-                "train/phases"):
+                "train/phases", "models/lsms"):
         assert f"repro_torch/{mod}.py" in names
+    assert {p.name for p in EXAMPLES} == {
+        "torch_lsms_scf.py", "torch_quickstart.py", "torch_serve_decode.py",
+        "torch_train_energy_aware.py"}
     assert (REPO / "chip_smoke.py").exists()
 
 
@@ -51,7 +56,7 @@ def test_importing_the_engine_loads_no_jax():
     code = ("import sys, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.power.nvml, repro_torch.power.metered, "
-            "repro_torch.hw, repro_torch.core; "
+            "repro_torch.models.lsms, repro_torch.hw, repro_torch.core; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")

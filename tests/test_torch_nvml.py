@@ -174,6 +174,34 @@ def test_probe_reports_and_restores(refuse):
     assert fake.limit_mw == 700_000
 
 
+@pytest.mark.parametrize("refuse", [False, True])
+def test_open_card_session(refuse):
+    """``open_card``: the spec takes NVML's limits, one probe write of the
+    maximum less ``PROBE_BELOW_MAX_W`` decides the backend (NVML where it
+    lands, a ``LoggingBackend`` where it is refused), and closing the
+    stack puts the limit in force at the open back and shuts NVML."""
+    import contextlib
+    fake = FakeNvml(refuse=refuse)
+    fake.range_mw = (250_000, 650_000)
+    with contextlib.ExitStack() as stack:
+        card = nvml_mod.open_card(stack, nvml=_backend(fake))
+        assert card.limit_w == 700.0
+        assert ("set", round(1e3 * (650.0 - nvml_mod.PROBE_BELOW_MAX_W))) \
+            in fake.log
+        assert card.writable is not refuse
+        assert card.probe.code == ("NVML_ERROR_NO_PERMISSION" if refuse
+                                   else "NVML_SUCCESS")
+        assert (card.spec.limit_min, card.spec.limit_max,
+                card.spec.p_default) == (250.0, 650.0, 700.0)
+        assert card.spec.chip == H100_SUPERCHIP.chip
+        if refuse:
+            assert isinstance(card.backend, LoggingBackend)
+        else:
+            assert card.backend is card.nvml
+            card.backend.apply(300.0)
+    assert fake.limit_mw == 700_000 and fake.log[-1] == "shutdown"
+
+
 def test_restore_limit_after_an_exception(monkeypatch):
     registered = []
     monkeypatch.setattr(atexit, "register", registered.append)

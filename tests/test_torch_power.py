@@ -18,7 +18,7 @@ from repro.configs.base import reduced as jreduced  # noqa: E402
 from repro.configs.registry import get_model_config as jget_cfg  # noqa: E402
 from repro.core.trace import generate_trace as jgenerate_trace  # noqa: E402
 from repro.hw import flops as jflops  # noqa: E402
-from repro.models.lsms import paper_calibrated_tasks  # noqa: E402
+from repro.models.lsms import paper_calibrated_tasks as jlsms_tasks  # noqa: E402
 from repro.power.backends import RetryingBackend as JRetrying  # noqa: E402
 from repro.serving.engine import serve_phase_tasks as jserve_tasks  # noqa: E402
 from repro.train.phases import PhaseEnergyLedger as JLedger  # noqa: E402
@@ -31,6 +31,7 @@ from repro_torch.core.trace import generate_trace  # noqa: E402
 from repro_torch.hw import dvfs, flops  # noqa: E402
 from repro_torch.hw.h100 import (H100_SUPERCHIP, calibration_profiles,  # noqa: E402
                                  fit_envelope)
+from repro_torch.models import lsms  # noqa: E402
 from repro_torch.power.backends import RetryingBackend  # noqa: E402
 from repro_torch.serving.engine import serve_phase_tasks  # noqa: E402
 from repro_torch.train.phases import (PhaseEnergyLedger,  # noqa: E402
@@ -51,7 +52,7 @@ def _rows(table):
 def _mixes():
     """name -> reference Task list: the paper's LSMS mix, and each ported
     arch's serving and training phases (full width)."""
-    out = {"lsms": paper_calibrated_tasks()}
+    out = {"lsms": jlsms_tasks()}
     for arch in ARCH_IDS:
         cfg = jget_cfg(arch)
         out[f"serve-{arch}"] = jserve_tasks(cfg, batch=128, prompt=32768,
@@ -61,6 +62,16 @@ def _mixes():
 
 
 MIXES = _mixes()
+#: the port's side of each mix: the LSMS mix from the port's own
+#: ``paper_calibrated_tasks``, the others the reference's Tasks as the port's
+PORT_MIXES = {name: _port(tasks) for name, tasks in MIXES.items()}
+PORT_MIXES["lsms"] = lsms.paper_calibrated_tasks()
+
+
+def test_port_lsms_mix_is_the_references():
+    """The port's ``paper_calibrated_tasks`` equals the reference's, field
+    for field, so every test below holds the port's own mix."""
+    assert PORT_MIXES["lsms"] == _port(MIXES["lsms"])
 NOISES = {"exact": None,
           "noisy": dict(sigma_runtime=0.03, sigma_power=0.05, seed=7)}
 
@@ -72,7 +83,7 @@ def test_sweep_tables_equal(mix, noise):
     with and without the seeded noise model."""
     kw = NOISES[noise]
     want = jcore.measure_sweep(MIXES[mix], noise=kw and jcore.NoiseModel(**kw))
-    got = core.measure_sweep(_port(MIXES[mix]),
+    got = core.measure_sweep(PORT_MIXES[mix],
                              noise=kw and core.NoiseModel(**kw))
     assert _rows(got) == _rows(want)
     assert got.table1() == want.table1()
@@ -84,7 +95,7 @@ def test_picks_equal(mix):
     """SED, ED and edw scores and picks, ``rank_caps``, Table 2, GPS-UP and
     the weighted impact for every task, bit for bit."""
     jt = jcore.measure_sweep(MIXES[mix])
-    pt = core.measure_sweep(_port(MIXES[mix]))
+    pt = core.measure_sweep(PORT_MIXES[mix])
     for task in jt.tasks():
         for m in METRICS:
             assert power.get_metric(m).score(pt, task) \
@@ -157,7 +168,7 @@ def test_power_manager_sessions_equal(mix, session):
         pkw["goal"] = power.PowerGoal(metric="ed",
                                       max_runtime_increase_pct=5.0)
     want = _session(jcore, jpower, MIXES[mix], **jkw)
-    got = _session(core, power, _port(MIXES[mix]), **pkw)
+    got = _session(core, power, PORT_MIXES[mix], **pkw)
     assert got == want
 
 
@@ -262,9 +273,8 @@ def test_phase_tasks_equal(arch, red):
 
 
 def test_power_trace_equal():
-    tasks = MIXES["lsms"]
-    want = jgenerate_trace(tasks, 240.0, jitter_sigma=2.0, seed=3)
-    got = generate_trace(_port(tasks), 240.0, jitter_sigma=2.0, seed=3)
+    want = jgenerate_trace(MIXES["lsms"], 240.0, jitter_sigma=2.0, seed=3)
+    got = generate_trace(PORT_MIXES["lsms"], 240.0, jitter_sigma=2.0, seed=3)
     assert [dataclasses.astuple(p) for p in got.points] \
         == [dataclasses.astuple(p) for p in want.points]
     assert (got.energy_total, got.energy_chip, got.energy_host) \
@@ -300,11 +310,11 @@ def test_h100_zero_draw_host_stays_finite(mix):
     """A host with no draw divides by zero nowhere: every row finite and
     positive where the task does work, idle phases included, and the pod
     arbiter's floors hold."""
-    table = core.measure_sweep(_port(MIXES[mix]), spec=H100_SUPERCHIP)
+    table = core.measure_sweep(PORT_MIXES[mix], spec=H100_SUPERCHIP)
     for r in table.rows:
         assert math.isfinite(r.runtime) and math.isfinite(r.energy)
         assert r.energy >= 0 and r.runtime >= 0
-    pm = power.PowerManager(tasks=_port(MIXES[mix]), spec=H100_SUPERCHIP)
+    pm = power.PowerManager(tasks=PORT_MIXES[mix], spec=H100_SUPERCHIP)
     assert all(c in H100_SUPERCHIP.cap_sweep()
                for c in pm.schedule.caps.values())
     step = pm.account_step()

@@ -19,6 +19,7 @@ failed check raises.
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import sys
 import time
@@ -33,7 +34,7 @@ def main() -> int:
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as tfa
-    from repro_torch.power.nvml import NvmlBackend
+    from repro_torch.power.nvml import open_card
     if not torch.cuda.is_available():
         raise SystemExit("power_probe: no CUDA device")
     t0 = time.perf_counter()
@@ -43,20 +44,17 @@ def main() -> int:
           f"torch {torch.__version__}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    nvml = NvmlBackend(0)
-    try:
-        with nvml.restore_limit_on_exit():
-            cs.METER = nvml
-            info = cs.power_nvml(nvml)
-            cs.power_calibrate(nvml)
+    with contextlib.ExitStack() as stack:
+        card = open_card(stack, 0)
+        cs.METER = card.nvml
+        try:
+            info = cs.power_nvml(card)
+            cs.power_calibrate(card.nvml)
             _, _, shared = cs.serve_full_width(tfa)
-            table, _ = cs.power_table(tfa, nvml, info["writable"],
-                                      *shared[:4])
-            cs.power_serve(tfa, nvml, info["writable"], table, info,
-                           *shared)
-    finally:
-        cs.METER = None
-        nvml.close()
+            table, _ = cs.power_table(tfa, card, *shared[:4])
+            cs.power_serve(tfa, card, table, info, *shared)
+        finally:
+            cs.METER = None
     end = cs._smi_line()
     print(f"[probe] total {time.perf_counter() - t0:.1f}s; {end}", flush=True)
     if end != smi:
