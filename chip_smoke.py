@@ -152,6 +152,34 @@ caught):
           rows or more, 6 attention and 6 cache launches per step and,
           paged, per chunk), 16/16 paged streams equal the dense ones
           bit for bit, and prefix sharing refused;
+       g. slot migration (``drain``/``restore``/``checkpoint``, int8
+          snapshots), each arm with the counts set to 0 just before it
+          and every kernel of its engines' path required to launch, the
+          split-KV counters back at zero and no graph captured again on
+          a source engine: on llama's weights and dense-arm requests,
+          ``[migrate:dense]`` (the 16 requests served until 8 are
+          mid-decode, all drained: the payload's MB, the drain's ms
+          through its two host syncs and the restore's ms over every
+          install, each bracketed by synchronisation, and the GB/s they
+          imply; half the snapshots restored into a second engine of
+          MIGRATE_TARGET's geometry, half into the source: 16/16 streams
+          equal the dense arm's), ``[migrate:partial]``
+          (``select_victims(2)``, ``drain(slots=...)``,
+          ``set_slot_limit(6)``: 14 survivors and the two restored
+          victims equal the arm's), ``[migrate:int8]`` (a raw checkpoint,
+          then an int8 drain: bytes within 1 % of ``int8_payload_ratio``,
+          every leaf within row absmax / 254 + bf16 rounding of the raw
+          one; equal streams counted, not gated) and ``[migrate:paged]``
+          (the prefix arm's requests, sharing PREFIX_LEN rows, drained
+          from a paged prefix-sharing engine into the dense source and a
+          fresh paged one: 16/16 equal the prefix arm's dense streams,
+          the prefix-trimmed payload under the untrimmed bytes, the
+          prefix rows taken from the registry, with the partial tail
+          block copied on write, and re-prefilled); then
+          ``[migrate:olmoe]`` (at the no-drop capacity factor),
+          ``[migrate:mamba2]`` and ``[migrate:zamba2]``: one whole drain
+          mid-decode restored into the same engine, 16/16 equal the
+          family's dense arm; a ``{"migrate": ...}`` line;
      then torch.profiler windows (every device launch per step counted;
      graph replays, and where the profiler does not see a graph's
      kernels the line says so) of steady decode, olmoe dense, mamba2
@@ -200,7 +228,8 @@ caught):
      kernels, the busy share and the LU backend (MAGMA, cuSOLVER or
      cuBLAS batched, by kernel name).
 
-It prints one ``{"lsms": ...}`` line, one ``{"kernels": [...]}`` line
+It prints one ``{"migrate": ...}`` line, one ``{"lsms": ...}`` line, one
+``{"kernels": [...]}`` line
 (eight kernels), the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
@@ -2131,11 +2160,15 @@ class PhaseClock:
 
 
 def _engine(cfg, run, params, clock, **kw):
+    """An engine on the card at the main path's geometry (batch 8,
+    max_seq 2048, prefill chunk 256, decode chunk 8), which ``kw`` may
+    override."""
     from repro_torch.models.layers import Ctx
     from repro_torch.serving.engine import ServeEngine
-    return ServeEngine(cfg, run, Ctx(run, "cuda"), params, batch_size=8,
-                       max_seq=2048, prefill_chunk=256, decode_chunk=8,
-                       power=clock, **kw)
+    geometry = dict(batch_size=8, max_seq=2048, prefill_chunk=256,
+                    decode_chunk=8)
+    return ServeEngine(cfg, run, Ctx(run, "cuda"), params, power=clock,
+                       **{**geometry, **kw})
 
 
 def _serve(tfa, engine, clock, cfg, specs):
@@ -2735,7 +2768,8 @@ PREFIX_LEN = 600     # 37 full blocks of 16 + 8 rows: every sharer copies
 
 def serve_prefix_sharing(tfa, cfg, run, params):
     """Phase 3c: 16 requests opening with one 600-token system prefix,
-    served dense and with paged prefix sharing."""
+    served dense and with paged prefix sharing.  Returns the arms' stats,
+    the request specs and the dense arm's streams."""
     import torch
     from repro_torch.serving.engine import Request
     rng = np.random.default_rng(4)
@@ -2797,9 +2831,10 @@ def serve_prefix_sharing(tfa, cfg, run, params):
             or sh["registry_entries"] != 1:
         raise AssertionError("prefix arm: the pool holds more than the "
                              "registry's prefix")
+    dense_streams = out["dense"]["streams"]
     for st in out.values():
         del st["streams"]
-    return out
+    return out, specs, dense_streams
 
 
 def _profile_window(name, label, steps, run, groups=None, top_n=8,
@@ -2952,7 +2987,8 @@ def serve_moe_no_drop(tfa, cfg, run, params, specs):
     assignment is ever dropped, and every row's expert products, and so
     every live lane's output, depend on that lane alone.  The dense arm's
     16 requests, untimed, dense and then paged: exact launches, and 16/16
-    paged streams equal the dense ones."""
+    paged streams equal the dense ones.  Returns the stats, the no-drop
+    config and the dense streams."""
     import torch
     cfg = dataclasses.replace(cfg,
                               capacity_factor=cfg.n_experts / cfg.top_k)
@@ -2977,8 +3013,8 @@ def serve_moe_no_drop(tfa, cfg, run, params, specs):
     if same != len(specs):
         raise AssertionError(f"olmoe no-drop arms: {same}/16 paged streams "
                              "equal the dense ones")
-    return {"capacity_factor": cfg.capacity_factor,
-            "paged_streams_equal_dense": same}
+    return ({"capacity_factor": cfg.capacity_factor,
+             "paged_streams_equal_dense": same}, cfg, streams[False])
 
 
 class SyncTally:
@@ -3211,6 +3247,469 @@ def serve_hybrid(tfa):
             cfg, run, params, None, paged=True, block_size=16,
             prefix_sharing=True), "recurrent state cannot be row-shared")
     return launches, paged_launches, stats, shared
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: slot migration (drain, restore, checkpoint, int8 snapshots)
+# ---------------------------------------------------------------------------
+
+# the restore target of [migrate:dense]/[migrate:partial]: another geometry,
+# whose rows hold the largest need of the arm (a 1024-token prompt + 128)
+MIGRATE_TARGET = dict(batch_size=4, max_seq=1280)
+# rounds of each copy `_copy_ms` times (their median is kept)
+COPY_ROUNDS = 3
+
+
+def _migrate_engine(cfg, run, params, **kw):
+    """An engine at ``_engine``'s geometry (graphed, no power hook), warmed
+    by a WARM_LEN-token request that captures the decode chunk and every
+    prefill chunk size, so a later capture would be the migration's."""
+    from repro_torch.serving.engine import Request
+    engine = _engine(cfg, run, params, None, **kw)
+    engine.generate([Request(
+        uid=-1, max_new_tokens=8, prompt=np.random.default_rng(7)
+        .integers(0, cfg.vocab, WARM_LEN).tolist())])
+    return engine
+
+
+def _requests(specs):
+    from repro_torch.serving.engine import Request
+    return [Request(uid=i, prompt=list(p), max_new_tokens=n, prefix_len=pl)
+            for i, (p, n, pl) in enumerate(specs)]
+
+
+def _synced(fn):
+    """``fn()`` bracketed by ``torch.cuda.synchronize``: (its value, s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _time_installs(engines):
+    """Time every snapshot install of ``engines`` (each bracketed by a
+    synchronise) into the returned dict's ``s``, count it in ``n``, and
+    count in ``skipped`` the prefix rows the installs took from a prefix
+    registry and in ``cow`` the tail blocks they copied on write."""
+    total = {"s": 0.0, "n": 0, "skipped": 0, "cow": 0}
+
+    def timed(engine):
+        real = engine._install_snapshot
+
+        def install(snap, sid):
+            k0, c0 = engine.prefill_tokens_skipped, engine.cow_copies
+            _, s = _synced(lambda: real(snap, sid))
+            total["s"] += s
+            total["n"] += 1
+            total["skipped"] += engine.prefill_tokens_skipped - k0
+            total["cow"] += engine.cow_copies - c0
+        return install
+
+    for engine in engines:
+        engine._install_snapshot = timed(engine)
+    return total
+
+
+def _run_all(*engines):
+    """Step every engine in turn until none is pending."""
+    while any(e.pending for e in engines):
+        for e in engines:
+            if e.pending:
+                e.step()
+
+
+def _measured_drain(engine, which=None):
+    """``engine.drain(which)``, bracketed by synchronisation: (snapshots,
+    {"s": its seconds through both host syncs, "syncs": the host syncs it
+    made, "extra_bytes": the most device memory it held above what was
+    allocated before it})."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = engine.sync_count
+    snaps, secs = _synced(lambda: engine.drain(which))
+    return snaps, {"s": secs, "syncs": engine.sync_count - s0,
+                   "extra_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def _drain_mid_decode(engine, reqs, slots=None):
+    """Start ``reqs`` (16, every budget >= 32 tokens) and run one step:
+    8 requests admitted and 8 tokens into their decode, 8 queued.  Then
+    drain (every slot, or ``slots``: a callable of the engine giving the
+    slot ids); returns ``_measured_drain``'s pair."""
+    engine.start(reqs)
+    engine.step()
+    if engine.active_slots != engine.batch_size:
+        raise AssertionError(f"{engine.active_slots} slots mid-decode")
+    return _measured_drain(engine,
+                           slots(engine) if slots is not None else None)
+
+
+def _graphs(engine):
+    return engine.graph, dict(engine.prefill_graphs)
+
+
+def _decode_replays(engine):
+    return engine.graph.replays if engine.graph is not None else 0
+
+
+def _same_graphs(name, engine, before):
+    if engine.graph is not before[0] or engine.prefill_graphs != before[1]:
+        raise AssertionError(f"[migrate:{name}] a drain/restore cycle "
+                             f"captured a graph again")
+
+
+def _equal_streams(name, done, want):
+    """How many of ``done`` equal ``want``'s streams; any that part are
+    printed with the uid and the first token where they do."""
+    parted = [(r.uid, next((i for i, (a, b) in enumerate(
+        zip(r.generated, want[r.uid])) if a != b),
+        min(len(r.generated), len(want[r.uid]))))
+        for r in done if r.generated != want[r.uid]]
+    if parted:
+        print(f"[migrate:{name}] streams part from the dense arm's at "
+              f"(uid, token) {parted}", flush=True)
+    return len(done) - len(parted)
+
+
+def _migrate_launches(tfa, name, cfg, specs, paged):
+    """The arm's kernel launches (counts set to 0 before it): every
+    kernel of its engines' path must have launched."""
+    launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+    need = {k for mode in paged
+            for k, n in _serving_launches(cfg, 1, specs, mode).items() if n}
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"[migrate:{name}] launches {launches}: "
+                             f"{sorted(need)} must all run")
+    return launches
+
+
+def _payload_stats(snaps, drain, installs):
+    warm = [s for s in snaps if s.warm]
+    nbytes = sum(s.payload_bytes for s in warm)
+    return {"snapshots": len(snaps), "warm": len(warm),
+            "payload_mb": nbytes / 1e6,
+            "payload_rows": sum(s.kv_len - s.prefix_len for s in warm),
+            "drain_ms": drain["s"] * 1e3, "drain_syncs": drain["syncs"],
+            "drain_extra_mb": drain["extra_bytes"] / 1e6,
+            "drain_gb_per_s": nbytes / drain["s"] / 1e9,
+            "restore_ms": installs["s"] * 1e3, "installs": installs["n"],
+            "restore_gb_per_s": (nbytes / installs["s"] / 1e9
+                                 if installs["s"] else None)}
+
+
+def _print_migrate(name, st, extra=""):
+    print(f"[migrate:{name}] {st['warm']} warm of {st['snapshots']} "
+          f"snapshots, {st['payload_mb']:.1f} MB of payload "
+          f"({st['payload_rows']} rows); drain {st['drain_ms']:.2f} ms "
+          f"through {st['drain_syncs']} host syncs "
+          f"({st['drain_gb_per_s']:.2f} GB/s, holding "
+          f"{st['drain_extra_mb']:.1f} MB more on the card at its peak); "
+          f"restore "
+          f"{st['restore_ms']:.2f} ms over {st['installs']} installs"
+          + (f" ({st['restore_gb_per_s']:.2f} GB/s)"
+             if st["restore_gb_per_s"] else "")
+          + f"; {st['streams_equal']}/16 streams equal the dense arm's; "
+          f"launches {st['launches']}" + extra
+          + f"; the arm took {st['seconds']:.1f} s", flush=True)
+
+
+def _split_restore(snaps, src, dst):
+    """Half the snapshots (every other one: 4 warm, 4 cold) into ``dst``,
+    the rest back into ``src``; both run to the end."""
+    dst.start([])
+    dst.restore(snaps[0::2])
+    src.restore(snaps[1::2])
+    _run_all(src, dst)
+    return src.finished + dst.finished
+
+
+def _copy_ms(nbytes):
+    """The median ms of copying ``nbytes`` from the card to the host: into
+    newly allocated pageable memory, as ``ServeEngine``'s export does,
+    and into one pinned buffer kept across the copies; and back to the
+    card from that buffer.  A ceiling for the untried pinned staging, not
+    the engine's path."""
+    import torch
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    times = {"pageable": [], "pinned": [], "pinned_h2d": []}
+    for _ in range(COPY_ROUNDS):
+        times["pageable"].append(_synced(dev.cpu)[1])
+        times["pinned"].append(_synced(lambda: pinned.copy_(dev))[1])
+        times["pinned_h2d"].append(_synced(lambda: dev.copy_(pinned))[1])
+    return {k: sorted(v)[COPY_ROUNDS // 2] * 1e3 for k, v in times.items()}
+
+
+def _int8_check(ck, snaps):
+    """Every int8 leaf of the drained snapshots against the same slot's raw
+    leaf from the checkpoint taken just before, on the card: within the
+    reference's budget, row absmax / 254 plus bf16 rounding.  Returns
+    (raw bytes, int8 bytes, worst error over its budget)."""
+    import torch
+    from repro_torch.kernels import ref
+    raw = {s.request.uid: s for s in ck if s.warm}
+    raw_bytes = q_bytes = 0
+    worst = 0.0
+    for s in snaps:
+        if not s.warm:
+            continue
+        r = raw[s.request.uid]
+        if (r.kv_len, r.cur, r.rem) != (s.kv_len, s.cur, s.rem):
+            raise AssertionError("checkpoint and drain cursors differ")
+        raw_bytes += r.payload_bytes
+        q_bytes += s.payload_bytes
+        for key, leaves in s.payload.items():
+            for k, leaf in leaves.items():
+                a = r.payload[key][k].cuda().float()
+                d = ref.int8_dequantize(leaf.q.cuda(), leaf.scale.cuda(),
+                                        getattr(torch, leaf.dtype)).float()
+                rel = 2.0 ** -8 if r.payload[key][k].element_size() <= 2 \
+                    else 2.0 ** -20
+                budget = a.abs().amax(-1, keepdim=True) \
+                    * (1 / 254 + rel) + 1e-8
+                worst = max(worst, ((d - a).abs() / budget).max().item())
+    return raw_bytes, q_bytes, worst
+
+
+def migrate_llama(tfa, cfg, run, params, specs, dense_streams, prefix_specs,
+                  prefix_streams):
+    """Phase 3g on llama at full width (the dense arm's weights, 16
+    requests and streams; ``_engine``'s geometry, graphed):
+      * [migrate:dense]: a whole drain mid-decode (8 warm, 8 cold), half
+        the snapshots restored into a second engine of MIGRATE_TARGET's
+        geometry and half into the source; 16/16 streams equal the dense
+        arm's, the source captured nothing more;
+      * [migrate:partial]: ``select_victims(2)``, ``drain(slots=...)``,
+        ``set_slot_limit(6)``: the 14 others finish on the source and the
+        two victims on the second engine, all equal the arm's;
+      * [migrate:int8]: a raw ``checkpoint`` then an int8 drain: bytes
+        within 1 % of ``int8_payload_ratio``, every leaf within the
+        reference's budget; streams counted, not gated (lossy);
+      * [migrate:paged]: the prefix arm's requests (PREFIX_LEN shared
+        rows: 37 whole blocks and 8 rows), drained mid-decode from a paged
+        prefix-sharing engine and restored into the dense source (the
+        prefix re-prefilled) and a fresh paged one (re-prefilled once,
+        then shared from its registry with the partial tail block copied
+        on write): 16/16 equal the prefix arm's dense streams, the
+        trimmed payload under the untrimmed rows' bytes.
+    The split-KV counters are back at zero after each arm."""
+    import torch
+    from repro_torch.models import lm
+    t_all = time.perf_counter()
+    out = {}
+    src = _migrate_engine(cfg, run, params)
+    dst = _engine(cfg, run, params, None, **MIGRATE_TARGET)
+    installs = _time_installs([src, dst])
+    before = _graphs(src)
+    L, K, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    item = src._cache["kv"]["k"].element_size()
+    row_bytes = L * 2 * K * D * item
+    for name in ("dense", "int8"):
+        t0 = time.perf_counter()
+        tfa.reset_launch_counts()
+        installs.update(s=0.0, n=0, skipped=0, cow=0)
+        reqs = _requests(specs)
+        ck = None
+        if name == "int8":
+            src.start(reqs)
+            src.step()
+            ck = src.checkpoint()         # raw, non-destructive
+            src.snapshot_int8 = True
+            snaps, drain = _measured_drain(src)
+            src.snapshot_int8 = False
+        else:
+            snaps, drain = _drain_mid_decode(src, reqs)
+        done = _split_restore(snaps, src, dst)
+        st = _payload_stats(snaps, drain, installs)
+        st["streams_equal"] = _equal_streams(name, done, dense_streams)
+        st["launches"] = _migrate_launches(tfa, name, cfg, specs, [False])
+        _check_counters(tfa)
+        _same_graphs(name, src, before)
+        if drain["syncs"] != 2:
+            raise AssertionError(f"[migrate:{name}] drain made "
+                                 f"{drain['syncs']} host syncs, not 2")
+        extra = ""
+        if name == "dense":
+            st["derived_row_kib"] = row_bytes / 1024
+            st["copy_ms"] = _copy_ms(sum(s.payload_bytes for s in snaps))
+            extra = (f"; a row {row_bytes / 1024:.0f} KiB (derived: "
+                     f"{L} x {K} x {D} x 2 x {item} B); the payload's bytes "
+                     f"alone, card to host: into new pageable memory (the "
+                     f"engine's way) {st['copy_ms']['pageable']:.2f} ms, "
+                     f"into a pinned buffer kept across copies "
+                     f"{st['copy_ms']['pinned']:.2f} ms (not the engine's "
+                     f"path); host to card from it "
+                     f"{st['copy_ms']['pinned_h2d']:.2f} ms")
+            if sum(s.payload_bytes for s in snaps) \
+                    != st["payload_rows"] * row_bytes:
+                raise AssertionError("[migrate:dense] payload bytes are "
+                                     "not the rows' bytes")
+        else:
+            raw_b, q_b, worst = _int8_check(ck, snaps)
+            want = lm.int8_payload_ratio(cfg, itemsize=item)
+            st.update(raw_mb=raw_b / 1e6, int8_mb=q_b / 1e6,
+                      ratio=q_b / raw_b, ratio_modelled=want,
+                      worst_over_budget=worst, gated_streams=False)
+            extra = (f"; raw {raw_b / 1e6:.1f} MB -> int8 {q_b / 1e6:.1f} "
+                     f"MB, ratio {q_b / raw_b:.4f} (modelled {want:.4f}); "
+                     f"worst leaf error {worst:.3f} of its budget (row "
+                     f"absmax / 254 + bf16 rounding); streams not gated: "
+                     f"the payload is lossy")
+            if abs(q_b / raw_b / want - 1) > 0.01 or worst > 1:
+                raise AssertionError(f"[migrate:int8] ratio "
+                                     f"{q_b / raw_b} vs {want}, worst "
+                                     f"error {worst} of its budget")
+        st["seconds"] = time.perf_counter() - t0
+        _print_migrate(name, st, extra)
+        if name == "dense" and st["streams_equal"] != len(specs):
+            raise AssertionError(f"[migrate:dense] {st['streams_equal']}/16 "
+                                 "streams equal the dense arm's")
+        out[name] = st
+
+    # partial: two victims shed, the slot limit pinned at 6
+    t0 = time.perf_counter()
+    tfa.reset_launch_counts()
+    installs.update(s=0.0, n=0, skipped=0, cow=0)
+    replays0 = _decode_replays(src)
+    snaps, drain = _drain_mid_decode(
+        src, _requests(specs), slots=lambda e: e.select_victims(2))
+    victims = [(s.request.uid, s.request.max_new_tokens
+                - len(s.request.generated)) for s in snaps]
+    src.set_slot_limit(6)
+    peak = 0
+    while src.pending:
+        src.step()
+        peak = max(peak, src.active_slots)
+    survivors = list(src.finished)
+    src.set_slot_limit(8)
+    dst.start([])
+    dst.restore(snaps)
+    _run_all(dst)
+    st = _payload_stats(snaps, drain, installs)
+    st.update(victims=victims, peak_active=peak,
+              survivors_equal=_equal_streams("partial", survivors,
+                                             dense_streams),
+              victims_equal=_equal_streams("partial", dst.finished,
+                                           dense_streams),
+              replays=_decode_replays(src) - replays0)
+    st["streams_equal"] = st["survivors_equal"] + st["victims_equal"]
+    st["launches"] = _migrate_launches(tfa, "partial", cfg, specs, [False])
+    _check_counters(tfa)
+    _same_graphs("partial", src, before)
+    st["seconds"] = time.perf_counter() - t0
+    _print_migrate("partial", st, (
+        f"; victims (uid, tokens owed) {victims}, slot limit 6 (peak "
+        f"{peak} active); {st['survivors_equal']}/14 survivors and "
+        f"{st['victims_equal']}/2 victims equal; the decode graph replayed "
+        f"{st['replays']} times, none recaptured"))
+    if len(survivors) != 14 or st["streams_equal"] != len(specs) \
+            or peak > 6:
+        raise AssertionError(f"[migrate:partial] {st['streams_equal']}/16 "
+                             f"equal, {len(survivors)} survivors, peak "
+                             f"{peak}")
+    out["partial"] = st
+
+    # paged: prefix-trimmed snapshots into the dense source and a fresh
+    # paged engine
+    t0 = time.perf_counter()
+    paged_kw = dict(paged=True, block_size=16, prefix_sharing=True)
+    psrc = _migrate_engine(cfg, run, params, **paged_kw)
+    pbefore = _graphs(psrc)
+    pdst = _engine(cfg, run, params, None, **paged_kw)
+    installs_p = _time_installs([pdst])
+    installs.update(s=0.0, n=0, skipped=0, cow=0)
+    tfa.reset_launch_counts()
+    snaps, drain = _drain_mid_decode(psrc, _requests(prefix_specs))
+    warm = [s for s in snaps if s.warm]
+    trimmed = sum(s.payload_bytes for s in warm)
+    untrimmed = sum(s.kv_len for s in warm) * row_bytes
+    prefix_rows = sum(s.prefix_len for s in warm)
+    # the first admission prefilled the prefix itself: its slot ships whole
+    if sorted(s.prefix_len for s in warm) \
+            != [0] + [PREFIX_LEN] * (len(warm) - 1) \
+            or trimmed != untrimmed - prefix_rows * row_bytes:
+        raise AssertionError("[migrate:paged] snapshots not trimmed to "
+                             "their private rows")
+    src.start([])
+    src.restore(snaps[0::2])
+    pdst.restore(snaps[1::2])
+    _run_all(src, pdst)
+    for k in installs:
+        installs[k] += installs_p[k]
+    from_registry = installs["skipped"]
+    reprefilled = prefix_rows - from_registry
+    registry_blocks = pdst._alloc.blocks_for(PREFIX_LEN)
+    st = _payload_stats(snaps, drain, installs)
+    st.update(untrimmed_mb=untrimmed / 1e6,
+              prefix_rows_from_registry=from_registry,
+              prefix_rows_reprefilled=reprefilled,
+              streams_equal=_equal_streams(
+                  "paged", src.finished + pdst.finished, prefix_streams),
+              cow_copies=installs["cow"],
+              pool_blocks_at_end=pdst._alloc.used_blocks)
+    st["launches"] = _migrate_launches(tfa, "paged", cfg, prefix_specs,
+                                       [False, True])
+    _check_counters(tfa)
+    _same_graphs("paged", psrc, pbefore)
+    _same_graphs("paged", src, before)
+    st["seconds"] = time.perf_counter() - t0
+    _print_migrate("paged", st, (
+        f"; {len(warm) - 1} of {len(warm)} warm snapshots "
+        f"prefix-trimmed to rows [{PREFIX_LEN}, kv_len): "
+        f"{trimmed / 1e6:.1f} MB against {untrimmed / 1e6:.1f} MB "
+        f"untrimmed; prefix rows rebuilt from the registry "
+        f"{from_registry}, re-prefilled {reprefilled}; the paged target's "
+        f"installs copied {installs['cow']} partial tail blocks on write; "
+        f"it holds "
+        f"{pdst._alloc.used_blocks} blocks at the end (its registry's "
+        f"{registry_blocks})"))
+    if st["streams_equal"] != len(prefix_specs) or not trimmed < untrimmed \
+            or pdst._alloc.used_blocks != registry_blocks \
+            or from_registry == 0 \
+            or installs["cow"] != from_registry // PREFIX_LEN:
+        raise AssertionError(f"[migrate:paged] {st['streams_equal']}/16 "
+                             f"equal, {trimmed} vs {untrimmed} bytes")
+    out["paged"] = st
+    del src, dst, psrc, pdst
+    torch.cuda.empty_cache()
+    print(f"[migrate] llama: the four arms and their engines took "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
+    return out
+
+
+def migrate_family(tfa, name, cfg, run, params, specs, dense_streams):
+    """[migrate:olmoe|mamba2|zamba2]: one whole drain mid-decode restored
+    into the same engine; 16/16 streams equal the family's dense arm
+    (olmoe at the no-drop capacity factor, where no done lane reaches a
+    live one), no capture added, the counters back at zero."""
+    import torch
+    t0 = time.perf_counter()
+    engine = _migrate_engine(cfg, run, params)
+    installs = _time_installs([engine])
+    before = _graphs(engine)
+    tfa.reset_launch_counts()
+    snaps, drain = _drain_mid_decode(engine, _requests(specs))
+    engine.restore(snaps)
+    _run_all(engine)
+    st = _payload_stats(snaps, drain, installs)
+    st["streams_equal"] = _equal_streams(name, engine.finished,
+                                         dense_streams)
+    st["launches"] = _migrate_launches(tfa, name, cfg, specs, [False])
+    _check_counters(tfa)
+    _same_graphs(name, engine, before)
+    st["seconds"] = time.perf_counter() - t0
+    _print_migrate(name, st)
+    if st["streams_equal"] != len(specs) or drain["syncs"] != 2:
+        raise AssertionError(f"[migrate:{name}] {st['streams_equal']}/16 "
+                             f"streams equal the dense arm's, "
+                             f"{drain['syncs']} syncs")
+    del engine
+    torch.cuda.empty_cache()
+    return st
 
 
 # ---------------------------------------------------------------------------
@@ -4178,7 +4677,10 @@ def _smoke(card) -> int:
         for n, st in order), flush=True)
     paged_serving["again"] = paged2
     serving["again"] = dense2
-    prefix_serving = serve_prefix_sharing(tfa, *shared[:3])
+    prefix_serving, prefix_specs, prefix_streams = serve_prefix_sharing(
+        tfa, *shared[:3])
+    # 3g: slot migration, on llama's weights and arms
+    migrate = migrate_llama(tfa, *shared, prefix_specs, prefix_streams)
     llama = shared[:2]
     del shared                            # llama's weights, before olmoe's
     _release_card()
@@ -4193,19 +4695,25 @@ def _smoke(card) -> int:
     moe_serving["graph_ab"] = graph_ab(tfa, *moe_shared[:3])
     moe_serving["prefill_ab"] = prefill_ab(tfa, *moe_shared[:4])
     moe_serving.update(serve_moe_replay(tfa, *moe_shared))
-    moe_serving["no_drop"] = serve_moe_no_drop(tfa, *moe_shared[:4])
+    moe_serving["no_drop"], nodrop_cfg, nodrop_streams = serve_moe_no_drop(
+        tfa, *moe_shared[:4])
+    migrate["olmoe"] = migrate_family(tfa, "olmoe", nodrop_cfg,
+                                      *moe_shared[1:4], nodrop_streams)
     # each model's weights are released before the next model's are made
     olmoe = moe_shared[:2]
     del moe_shared
     _release_card()
     # 3e, 3f: full-width mamba2 (dense) and zamba2 (dense, paged)
     ssm_launches, ssm_serving, ssm_shared = serve_ssm(tfa)
+    migrate["mamba2"] = migrate_family(tfa, "mamba2", *ssm_shared)
     ssd_layer_ms(times, "mamba2", ssm_shared[3])
     mamba2 = ssm_shared[:2]
     del ssm_shared
     _release_card()
     hyb_launches, hyb_paged_launches, hyb_serving, hyb_shared = \
         serve_hybrid(tfa)
+    migrate["zamba2"] = migrate_family(tfa, "zamba2", *hyb_shared)
+    print(json.dumps({"migrate": migrate}), flush=True)
     ssd_layer_ms(times, "zamba2", hyb_shared[3])
     zamba2 = hyb_shared[:2]
     del hyb_shared

@@ -392,6 +392,48 @@ def rope_kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index, q, cos,
 
 
 # ===========================================================================
+# portable slot state: slot lanes and int8 payload compression
+# ===========================================================================
+#
+# The reference routes these to XLA in every mode (``repro/kernels/
+# ops.py:107-147``): no Pallas kernel to port, so the plain versions are
+# the port's path on the card too.
+
+def slot_gather(a, slot: int, axis: int = 1):
+    """Lift one slot's lane out of a stacked cache leaf: drop ``axis`` (the
+    batch/slot dim) at index ``slot``, (L, B, ...) -> (L, ...).  A COPY,
+    as the reference's value: later writes to ``a`` do not reach it."""
+    return a.select(axis, slot).clone()
+
+
+def slot_scatter(a, sub, slot: int, axis: int = 1):
+    """Install a lifted lane into a stacked cache leaf at index ``slot``
+    along ``axis`` (cast to ``a``'s dtype), IN PLACE (the reference is
+    functional); returns ``a``."""
+    a.select(axis, slot).copy_(sub)
+    return a
+
+
+def int8_quantize(a, axis: int = -1):
+    """Symmetric per-row int8 quantization (``int8_quantize_ref``): the
+    scale is the row's absmax over ``axis`` in float32 divided by 127,
+    floored at 1e-12 (f32, kept dim); q is round-half-to-even of the
+    float32 value divided (not multiplied by a reciprocal) by the scale,
+    clipped to +-127.  Bit-equal to the reference's q and scale."""
+    f = a.float()
+    scale = f.abs().amax(dim=axis, keepdim=True) / 127.0
+    scale = torch.clamp_min(scale, 1e-12)
+    q = torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_dequantize(q, scale, dtype):
+    """Inverse of ``int8_quantize``: q * scale in float32, cast to
+    ``dtype``."""
+    return (q.float() * scale).to(dtype)
+
+
+# ===========================================================================
 # grouped matmul (MoE expert GEMM)
 # ===========================================================================
 

@@ -22,6 +22,10 @@ Forward modes:
   forward(..., cache, cache_index) prefill chunk or decode step; the cache
                                    (dense ``init_cache`` or paged
                                    ``init_paged_cache``) is updated in place
+
+Portable slot state (``export_slot``/``import_slot``, their paged
+variants, int8 payloads) moves one slot's lane between caches of any
+batch size and ``max_seq``: the serving engine's drain and restore.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models.params import PD
 
@@ -396,3 +402,312 @@ def cache_slot_spec(cfg: ModelConfig) -> dict[str, str]:
     if cfg.family == "hybrid":
         return {"mamba": SLOT_STATE, "kv_shared": SLOT_ROWS}
     return {"kv": SLOT_ROWS}
+
+
+# ===========================================================================
+# portable slot state (``repro/models/lm.py:617-877``)
+# ===========================================================================
+#
+# Every decode-cache leaf is laid out (stack, B, ...): axis 0 is the layer
+# stack (n_layers, or n_super for the zamba2 shared-attention cache) and
+# axis 1 is the batch SLOT.  ``export_slot``/``import_slot`` lift a lane
+# out of one engine's cache and install it into another's, of any batch
+# size and ``max_seq``, so a drained request travels as data instead of
+# being regenerated.  A payload is ``{key: {leaf: tensor}}`` with the batch
+# axis removed; rows leaves are trimmed to ``[row_start, kv_len)``.  The
+# importers write IN PLACE: an engine's cache is storage its CUDA graphs
+# hold, never rebound.
+
+class QuantizedLeaf:
+    """One payload leaf compressed at rest: per-row symmetric int8 ``q``
+    with a float32 ``scale`` sidecar, and the original dtype's name.  A
+    node of the port's tree helpers (``repro_torch.tree``), so
+    ``slot_payload_bytes`` counts q and scale bytes (about half the raw
+    bf16 bytes for head_dim-sized rows)."""
+
+    def __init__(self, q, scale, dtype):
+        self.q, self.scale = q, scale
+        self.dtype = str(dtype).removeprefix("torch.")
+
+    def tree_flatten(self):
+        return (self.q, self.scale), self.dtype
+
+    @classmethod
+    def tree_unflatten(cls, dtype, children):
+        return cls(children[0], children[1], dtype)
+
+    def __repr__(self):
+        return (f"QuantizedLeaf(q={tuple(getattr(self.q, 'shape', ()))}, "
+                f"dtype={self.dtype})")
+
+
+def _payload_map(fn, payload):
+    """``fn`` over every leaf of a payload, a ``QuantizedLeaf`` counting as
+    one leaf."""
+    return {key: {k: fn(a) for k, a in leaves.items()}
+            for key, leaves in payload.items()}
+
+
+def quantize_payload(payload):
+    """int8-compress every leaf of an ``export_slot`` payload, or of a
+    ``slot_lane``'s sources (per-row scale over the last axis: head_dim
+    for KV rows, the state feature axis for Mamba lanes).  Lossy: the
+    worst-case error per element is the row absmax / 254 plus the storage
+    dtype's own rounding."""
+    return _payload_map(
+        lambda a: QuantizedLeaf(*ref.int8_quantize(
+            a.read() if isinstance(a, PoolRows) else a), dtype=a.dtype),
+        payload)
+
+
+def dequantize_payload(payload, device=None):
+    """Undo ``quantize_payload`` (identity on raw leaves), with every leaf
+    first moved to ``device`` if given: a quantized leaf travels as int8
+    and is widened there."""
+
+    def leaf(x):
+        if isinstance(x, QuantizedLeaf):
+            return ref.int8_dequantize(_to(x.q, device), _to(x.scale, device),
+                                       getattr(torch, x.dtype))
+        return _to(x, device)
+
+    return _payload_map(leaf, payload)
+
+
+def _to(a, device):
+    # non_blocking: the runtime stages pageable memory, so the host does
+    # not wait for the device's queue
+    return a if device is None else a.to(device, non_blocking=True)
+
+
+def payload_is_quantized(payload) -> bool:
+    return any(isinstance(a, QuantizedLeaf)
+               for leaves in payload.values() for a in leaves.values())
+
+
+def int8_payload_ratio(cfg: ModelConfig, itemsize: int = 2) -> float:
+    """Modeled on-wire size ratio of an int8-quantized payload vs raw: 1
+    int8 byte per element plus a 4-byte f32 scale per ``head_dim`` row,
+    over ``itemsize`` raw bytes per element."""
+    row = max(int(getattr(cfg, "head_dim", 64) or 64), 1)
+    return (1.0 + 4.0 / row) / float(itemsize)
+
+
+class PoolRows:
+    """Rows of one paged pool leaf (stack, n_blocks, block_size, ...) that
+    a slot's block list maps, gathered only when read: ``read(out)``
+    writes them, (stack, rows, ...), straight into ``out`` in one
+    ``index_select``."""
+
+    def __init__(self, pool, index):
+        self.pool = pool.view(pool.shape[0], -1, *pool.shape[3:])
+        self.index = index
+        self.shape = (pool.shape[0], index.numel()) + tuple(pool.shape[3:])
+        self.dtype = pool.dtype
+
+    def read(self, out=None):
+        return torch.index_select(self.pool, 1, self.index, out=out)
+
+
+def slot_lane(cfg: ModelConfig, cache, slot: int, kv_len: int,
+              row_start: int = 0, blocks=None, block_size: int = 0) -> dict:
+    """Slot ``slot``'s payload as device sources, unchecked and not yet
+    copied: views of the dense lane ("rows" leaves trimmed to [row_start,
+    kv_len)) and of "state" leaves, or, with ``blocks`` (a paged cache),
+    ``PoolRows`` of the rows leaves.  ``export_slot``/``export_slot_paged``
+    check their arguments and copy these (``read_lane_leaf``); the serving
+    engine writes them straight into its one transfer buffer."""
+    if blocks is not None:
+        blk, off = _paged_row_coords(blocks, block_size, row_start, kv_len,
+                                     cache["block_tables"].device)
+        index = blk * block_size + off
+    lane = {}
+    for key, kind in cache_slot_spec(cfg).items():
+        if kind == SLOT_STATE:
+            lane[key] = {k: a.select(1, slot) for k, a in cache[key].items()}
+        elif blocks is None:
+            lane[key] = {k: a[:, slot, row_start:kv_len]
+                         for k, a in cache[key].items()}
+        else:
+            lane[key] = {k: PoolRows(a, index) for k, a in cache[key].items()}
+    return lane
+
+
+def read_lane_leaf(x):
+    """A ``slot_lane`` source as a tensor of its own: a copy of a view
+    (``slot_gather``'s value), or the gathered pool rows."""
+    return x.read() if isinstance(x, PoolRows) else x.clone()
+
+
+def export_slot(cfg: ModelConfig, cache, slot: int, kv_len: int,
+                quantize: bool = False, row_start: int = 0) -> dict:
+    """Lift slot ``slot``'s state out of a batched decode cache, as a copy
+    on the cache's device: "rows" leaves trimmed to rows [row_start,
+    kv_len) (the only rows attention can read at this fill, less a shared
+    prefix the receiver rebuilds), "state" leaves whole.  The payload
+    installs into any slot of any cache of the same ``cfg`` whose
+    ``max_seq`` holds it (``import_slot``).  ``quantize=True`` compresses
+    it (``quantize_payload``).  ``row_start > 0`` needs a pure-rows
+    schema: a state lane is the whole left context and cannot be split at
+    a row."""
+    if kv_len < 0:
+        raise ValueError(f"kv_len must be >= 0, got {kv_len}")
+    if not 0 <= row_start <= kv_len:
+        raise ValueError(f"row_start {row_start} outside [0, {kv_len}]")
+    spec = cache_slot_spec(cfg)
+    if row_start and any(k == SLOT_STATE for k in spec.values()):
+        raise ValueError("row_start > 0 requires a pure-rows cache schema")
+    if set(spec) != set(cache):
+        raise ValueError(f"cache keys {sorted(cache)} do not match the "
+                         f"slot schema {sorted(spec)}")
+    for key, kind in spec.items():
+        if kind == SLOT_ROWS \
+                and any(kv_len > a.shape[2] for a in cache[key].values()):
+            raise ValueError(f"kv_len {kv_len} exceeds the cache rows of "
+                             f"{key}")
+    # trim before the copy: only the payload rows are read
+    lane = slot_lane(cfg, cache, slot, kv_len, row_start)
+    return quantize_payload(lane) if quantize \
+        else _payload_map(read_lane_leaf, lane)
+
+
+def import_slot(cfg: ModelConfig, cache, payload, slot: int,
+                row_offset: int = 0):
+    """Install an ``export_slot`` payload into slot ``slot`` of ``cache``,
+    IN PLACE, and return the cache.  The WHOLE lane is overwritten, as the
+    reference's zero pad and scatter (``repro/models/lm.py:756-783``):
+    rows below ``row_offset`` and past the payload are zeroed, so a
+    prefix-trimmed payload's prefix must be rebuilt AFTER this call;
+    "state" leaves overwrite the lane as they are.  The payload may lie on
+    the host: each leaf is moved to the cache's device, and a quantized
+    one widened there.  Every check runs before the first write."""
+    spec = cache_slot_spec(cfg)
+    if row_offset and any(k == SLOT_STATE for k in spec.values()):
+        raise ValueError("row_offset > 0 requires a pure-rows cache schema")
+    if set(spec) != set(payload) or set(spec) != set(cache):
+        raise ValueError(f"payload keys {sorted(payload)} do not match the "
+                         f"slot schema {sorted(spec)}")
+    for key, kind in spec.items():
+        for k, full in cache[key].items():
+            a = _payload_leaf(payload[key][k])
+            if kind == SLOT_ROWS:
+                rows = full.shape[2]           # destination max_seq
+                if a.shape[0] != full.shape[0] \
+                        or tuple(a.shape[2:]) != tuple(full.shape[3:]):
+                    raise ValueError(
+                        f"{key}: payload lane {tuple(a.shape)} does not fit "
+                        f"cache {tuple(full.shape)}")
+                if row_offset + a.shape[1] > rows:
+                    raise ValueError(
+                        f"{key}: payload carries rows up to "
+                        f"{row_offset + a.shape[1]} but the destination "
+                        f"cache holds only {rows}")
+            elif a.shape[0] != full.shape[0] \
+                    or tuple(a.shape[1:]) != tuple(full.shape[2:]):
+                raise ValueError(
+                    f"{key}: payload lane {tuple(a.shape)} does not fit "
+                    f"cache {tuple(full.shape)}")
+    device = next(iter(cache[next(iter(spec))].values())).device
+    payload = dequantize_payload(payload, device)
+    for key, kind in spec.items():
+        for k, full in cache[key].items():
+            a = payload[key][k]
+            if kind == SLOT_ROWS:
+                lane = full[:, slot]
+                end = row_offset + a.shape[1]
+                lane[:, :row_offset].zero_()
+                lane[:, row_offset:end].copy_(a)
+                lane[:, end:].zero_()
+            else:
+                ref.slot_scatter(full, a, slot)
+    return cache
+
+
+def _payload_leaf(x):
+    """A payload leaf's shape carrier: q of a quantized leaf."""
+    return x.q if isinstance(x, QuantizedLeaf) else x
+
+
+def _paged_row_coords(blocks, block_size: int, row_start: int, row_stop: int,
+                      device=None):
+    """(pool block ids, in-block offsets) int64 vectors addressing logical
+    rows [row_start, row_stop) of a slot whose table maps logical block i
+    to pool block ``blocks[i]`` (host-side list, in logical order), on
+    ``device``."""
+    rows = torch.arange(row_start, row_stop)
+    blk = torch.tensor(list(blocks), dtype=torch.int64)[rows // block_size]
+    return _to(blk, device), _to(rows % block_size, device)
+
+
+def export_slot_paged(cfg: ModelConfig, cache, slot: int, blocks,
+                      block_size: int, kv_len: int, *, row_start: int = 0,
+                      quantize: bool = False):
+    """``export_slot`` for a paged cache: rows leaves are gathered out of
+    the block pools through the slot's host-side block list, giving the
+    SAME payload as the dense exporter (payloads are layout-portable).
+    ``row_start`` ships only the private suffix of a prefix-shared slot."""
+    if not 0 <= row_start <= kv_len:
+        raise ValueError(f"row_start {row_start} outside [0, {kv_len}]")
+    if kv_len > len(blocks) * block_size:
+        raise ValueError(f"kv_len {kv_len} exceeds the {len(blocks)} mapped "
+                         f"blocks of size {block_size}")
+    spec = cache_slot_spec(cfg)
+    if row_start and any(k == SLOT_STATE for k in spec.values()):
+        raise ValueError("row_start > 0 requires a pure-rows cache schema")
+    if set(spec) != set(cache) - {"block_tables"}:
+        raise ValueError(f"cache keys {sorted(cache)} do not match the "
+                         f"slot schema {sorted(spec)}")
+    lane = slot_lane(cfg, cache, slot, kv_len, row_start, blocks,
+                     block_size)
+    return quantize_payload(lane) if quantize \
+        else _payload_map(read_lane_leaf, lane)
+
+
+def import_slot_paged(cfg: ModelConfig, cache, payload, slot: int, blocks,
+                      block_size: int, *, row_offset: int = 0):
+    """Install an ``export_slot``/``export_slot_paged`` payload into a
+    paged cache, IN PLACE, and return it: rows scatter to the (block,
+    offset) rows the slot's block list maps [row_offset, row_offset +
+    rows) to.  Unlike the dense importer this writes ONLY the payload
+    rows: shared prefix blocks below ``row_offset`` are never touched
+    (other slots' tables may map them).  Every check runs before the
+    first write."""
+    spec = cache_slot_spec(cfg)
+    if row_offset and any(k == SLOT_STATE for k in spec.values()):
+        raise ValueError("row_offset > 0 requires a pure-rows cache schema")
+    if set(spec) != set(payload):
+        raise ValueError(f"payload keys {sorted(payload)} do not match the "
+                         f"slot schema {sorted(spec)}")
+    rows = {}
+    for key, kind in spec.items():
+        if kind == SLOT_STATE:
+            continue
+        rows[key] = _payload_leaf(next(iter(payload[key].values()))).shape[1]
+        if row_offset + rows[key] > len(blocks) * block_size:
+            raise ValueError(
+                f"{key}: payload rows reach {row_offset + rows[key]} but "
+                f"only {len(blocks)} blocks of size {block_size} are mapped")
+        for k, full in cache[key].items():
+            lane = _payload_leaf(payload[key][k])
+            if lane.shape[0] != full.shape[0] \
+                    or tuple(lane.shape[2:]) != tuple(full.shape[3:]):
+                raise ValueError(f"{key}: payload lane {tuple(lane.shape)} "
+                                 f"does not fit pool {tuple(full.shape)}")
+    device = cache["block_tables"].device
+    payload = dequantize_payload(payload, device)
+    for key, kind in spec.items():
+        if kind == SLOT_STATE:
+            for k, full in cache[key].items():
+                ref.slot_scatter(full, payload[key][k], slot)
+            continue
+        blk, off = _paged_row_coords(blocks, block_size, row_offset,
+                                     row_offset + rows[key], device)
+        for k, full in cache[key].items():
+            full[:, blk, off] = payload[key][k].to(full.dtype)
+    return cache
+
+
+def slot_payload_bytes(payload) -> int:
+    """On-wire size of an ``export_slot`` payload: what a cross-node
+    migration moves (q and scale of a quantized leaf)."""
+    return int(sum(a.numel() * a.element_size() for a in tree.leaves(payload)))

@@ -53,13 +53,25 @@ prefill and decode run under their own phase caps, entered once per
 admitted request / decode chunk; ``serve_phase_tasks`` gives their
 roofline tasks.
 
-Not ported yet, each raising ``NotImplementedError``: drain / restore /
-checkpoint / abandon (ROADMAP queue 1 item 9).
+Preemption is lossless and proportional, as in the reference
+(``repro/serving/engine.py:703-986``): ``drain()`` stops the stream and
+returns every request as a ``SlotSnapshot`` (an in-flight slot warm, its
+cache lane and decode cursor copied to the host in two syncs; a queued
+request cold), ``drain(slots=...)`` sheds only the named slots while the
+rest decode on bit-identically, ``checkpoint()`` exports without
+releasing anything, ``abandon()`` drops the stream, and ``restore(snaps)``
+installs snapshots into this or any engine of the same model config,
+restored slots ahead of fresh admissions.  A drain drops only the host's
+books: the device state and every graph stay, and the next stream resets
+that state in place.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
+from collections import deque
 
 import torch
 
@@ -71,14 +83,15 @@ from repro_torch.models.params import resolve_device
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving import graphs
 from repro_torch.serving.scheduler import (BlockAllocator, PrefixRegistry,
-                                           Request, SlotScheduler, chunk_plan)
+                                           Request, SlotScheduler, chunk_plan,
+                                           fewest_remaining)
+from repro_torch.tree import tree_map
 
-__all__ = ["Request", "ServeEngine", "serve_phase_tasks", "make_prefill_step",
-           "make_decode_step", "make_prefill_chunk_step", "make_prefill_chunk_step_paged",
+__all__ = ["Request", "ServeEngine", "SlotSnapshot", "serve_phase_tasks",
+           "fewest_remaining", "make_prefill_step", "make_decode_step",
+           "make_prefill_chunk_step", "make_prefill_chunk_step_paged",
            "make_prefill_lane_step", "make_decode_chunk_step",
            "BlockAllocator", "PrefixRegistry"]
-
-_SNAPSHOTS = "slot snapshots (drain/restore/checkpoint): ROADMAP queue 1 item 9"
 
 
 def serve_phase_tasks(cfg: ModelConfig, batch: int, prompt: int,
@@ -264,11 +277,16 @@ def make_decode_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
 def _install_step(cur, index, rem, done, tok, slot: int, offset: int,
                   budget: int):
     """Arm one slot's decode lane, in place: ``tok`` is the pending (not
-    yet delivered, not yet cache-written) token, ``offset`` the slot's
-    cache write position, ``budget`` the tokens still owed.  The host
-    values go in by ``fill_`` (a kernel argument): ``t[slot] = value``
-    would copy a host tensor and wait for the card."""
-    cur[slot] = tok
+    yet delivered, not yet cache-written) token, a device scalar from the
+    prefill logits or a restored cursor's int, ``offset`` the slot's cache
+    write position, ``budget`` the tokens still owed.  The host values go
+    in by ``fill_`` (a kernel argument): ``t[slot] = value`` would copy a
+    host tensor and wait for the card.  Shared by fresh admission and
+    snapshot restore."""
+    if torch.is_tensor(tok):
+        cur[slot] = tok
+    else:
+        cur[slot:slot + 1].fill_(tok)
     index[slot:slot + 1].fill_(offset)
     rem[slot:slot + 1].fill_(budget)
     done[slot:slot + 1].fill_(budget <= 0)
@@ -286,6 +304,39 @@ def _admit_step(cur, index, rem, done, logits, slot: int, plen: int,
 
 def _to_host(x):
     return x.cpu().numpy()
+
+
+@dataclasses.dataclass
+class SlotSnapshot:
+    """One request's portable in-flight state: everything another engine
+    needs to continue the stream bit-identically (the reference's,
+    ``repro/serving/engine.py:256-290``).
+
+    Decoding is greedy, so the cursor is ``cur``, the PENDING token
+    (computed, not yet delivered nor written to the cache), ``kv_len``
+    (rows valid) and ``rem`` (tokens still owed).  ``payload`` is the
+    ``lm.export_slot`` cache lane as host tensors (copies, never views of
+    a cache); ``None`` marks a COLD snapshot (never admitted: restoring
+    re-queues it for ordinary prefill).  ``prefix_len``: leading rows NOT
+    in the payload (a prefix-shared slot ships only its private suffix);
+    the restoring engine rebuilds them from its prefix registry or by
+    re-prefilling ``request.prompt[:prefix_len]``."""
+
+    request: Request
+    rem: int
+    kv_len: int = 0
+    cur: int | None = None
+    payload: dict | None = None
+    prefix_len: int = 0
+
+    @property
+    def warm(self) -> bool:
+        return self.payload is not None
+
+    @property
+    def payload_bytes(self) -> int:
+        """On-wire cost of migrating this snapshot (the cache lane only)."""
+        return lm.slot_payload_bytes(self.payload) if self.warm else 0
 
 
 class ServeEngine:
@@ -324,11 +375,20 @@ class ServeEngine:
     raises.  The cache, the lane vectors, the prefill lane and the
     ``out`` buffer are allocated by the first stream and kept by later
     ones.
+
+    ``drain``/``restore``/``checkpoint``/``abandon`` preempt the stream
+    losslessly (see the module docstring); ``select_victims`` names a
+    partial drain's slots under ``victim_policy`` (default
+    ``fewest_remaining``) and ``set_slot_limit`` keeps shed lanes empty.
+    ``snapshot_int8=True`` quantizes warm payloads on the device before
+    they cross to the host (per-row int8 + f32 scale: about half the
+    bytes, and restores no longer bit-exact).
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, ctx: Ctx, params,
                  batch_size: int = 4, max_seq: int = 256, power=None,
                  prefill_chunk: int = 32, decode_chunk: int = 8,
+                 snapshot_int8: bool = False, victim_policy=None,
                  tracer=None, trace_track: str = "engine",
                  paged: bool = False, block_size: int = 16,
                  n_blocks: int | None = None, prefix_sharing: bool = False,
@@ -360,6 +420,8 @@ class ServeEngine:
         self.power = power
         self.prefill_chunk = prefill_chunk
         self.decode_chunk = decode_chunk
+        self.snapshot_int8 = snapshot_int8
+        self.victim_policy = victim_policy or fewest_remaining
         self.paged, self.block_size = paged, block_size
         self.prefix_sharing = prefix_sharing
         self.max_blocks = max_seq // block_size if paged else 0
@@ -388,6 +450,12 @@ class ServeEngine:
         self._cache = None             # allocated by the first stream
         self._lane = None              # the graphed prefill's, likewise
         self._sched = None
+        # warm snapshots awaiting a free slot (installed ahead of fresh
+        # admissions: they carry finished work)
+        self._restore_q: deque[SlotSnapshot] = deque()
+        # occupancy cap surviving drain/restore cycles (a partial
+        # preemption pins it below batch_size so shed lanes stay empty)
+        self._slot_limit = batch_size
         # transfer seam: tests swap this for a counting double to assert
         # the one-sync-per-chunk contract
         self._fetch = _to_host
@@ -545,6 +613,7 @@ class ServeEngine:
         blocks += self._alloc.alloc(
             self._alloc.blocks_for(total_rows) - len(blocks))
         self._slot_blocks[sid] = blocks
+        self._slot_shared_rows[sid] = shared_rows
         self._set_table_row(sid, blocks)
         self.peak_used_blocks = max(self.peak_used_blocks,
                                     self._alloc.used_blocks)
@@ -555,6 +624,7 @@ class ServeEngine:
         table row (shared prefix blocks survive through their other
         holders)."""
         self._alloc.release(self._slot_blocks.pop(sid))
+        self._slot_shared_rows.pop(sid, None)
         self._set_table_row(sid, [])
 
     def _admit_paged(self, req: Request, sid: int):
@@ -587,6 +657,7 @@ class ServeEngine:
         if self._sched is not None:
             return
         self._sched = SlotScheduler(self.batch_size)
+        self._sched.set_limit(self._slot_limit)
         if self._cache is None:
             self._alloc_state()
         else:
@@ -596,6 +667,7 @@ class ServeEngine:
             self._registry = (PrefixRegistry(self._alloc)
                               if self.prefix_sharing else None)
             self._slot_blocks: dict[int, list[int]] = {}
+            self._slot_shared_rows: dict[int, int] = {}
         else:
             self._alloc = self._registry = None
 
@@ -712,6 +784,7 @@ class ServeEngine:
         reset); then drive ``step()`` until ``pending`` is False."""
         self._validate_requests(requests)
         self._sched = None
+        self._restore_q.clear()
         self.finished = []
         self._ensure_stream()
         self._sched.submit(requests)
@@ -726,8 +799,10 @@ class ServeEngine:
 
     @property
     def queue_depth(self) -> int:
-        """Requests waiting for a slot."""
-        return len(self._sched.queue) if self._sched is not None else 0
+        """Requests waiting for a slot: the FCFS queue and the snapshots
+        not yet re-admitted."""
+        q = len(self._restore_q)
+        return q + (len(self._sched.queue) if self._sched is not None else 0)
 
     @property
     def active_slots(self) -> int:
@@ -736,8 +811,20 @@ class ServeEngine:
 
     @property
     def pending(self) -> bool:
-        """Whether the stream still has queued or in-flight requests."""
+        """Whether the stream still has queued, restorable or in-flight
+        requests (False before ``start``/``restore`` and after a full
+        ``drain``)."""
+        if self._restore_q:
+            return True
         return self._sched.has_work if self._sched is not None else False
+
+    @property
+    def in_flight_tokens(self) -> int:
+        """Tokens already generated for requests still occupying slots:
+        what a caller loses if it abandons the stream mid-stint."""
+        if self._sched is None:
+            return 0
+        return sum(len(s.request.generated) for s in self._sched.active())
 
     def step(self) -> list[Request]:
         """One engine step: admit whatever fits the free slots, run one
@@ -748,6 +835,18 @@ class ServeEngine:
         sched = self._sched
         tr = self.tracer if self.tracer.enabled else None
         chunk_t0 = self._vt
+        # restored slots first: their work is already paid for, and a warm
+        # snapshot's install is a cache write, not a prefill
+        while self._restore_q:
+            snap = self._restore_q[0]
+            if self.paged and not self._fits_blocks(
+                    snap.request.prompt, snap.kv_len + snap.rem,
+                    snap.prefix_len):
+                break               # FCFS: later snapshots wait too
+            slot = sched.occupy(snap.request)
+            if slot is None:
+                break
+            self._install_snapshot(self._restore_q.popleft(), slot.sid)
         can_admit = self._can_admit if self.paged else None
         for slot in sched.admit_ready(can_admit=can_admit):
             req = slot.request
@@ -810,18 +909,247 @@ class ServeEngine:
             self.step()
         return self.finished
 
-    # -- not ported yet ----------------------------------------------------
-    def drain(self, slots=None):
-        raise NotImplementedError(_SNAPSHOTS)
+    # -- preemption (``repro/serving/engine.py:703-962``) -------------------
+    #
+    # The device state is never freed or rebound: a full drain and
+    # ``abandon`` drop only the host's books (scheduler, block allocator,
+    # prefix registry), and the next stream resets the same storage.
 
-    def restore(self, snaps):
-        raise NotImplementedError(_SNAPSHOTS)
+    def _fetch_payloads(self, payloads: list[dict]) -> list[dict]:
+        """Every leaf of ``payloads`` (device sources: views of the cache,
+        ``lm.PoolRows``, or int8 q and scale) to the host in ONE transfer:
+        each leaf is written straight into one packed device buffer (at a
+        16-byte-aligned offset), the only copy on the device, ``_fetch``
+        copies it to the host once, and each leaf comes back as a host
+        tensor over its bytes (a copy, never a view of the cache)."""
+        leaves: list = []
+        for p in payloads:
+            tree_map(leaves.append, p)
+        sizes = [math.prod(a.shape) * a.dtype.itemsize for a in leaves]
+        offsets, n = [], 0
+        for size in sizes:
+            offsets.append(n)
+            n += -(-size // 16) * 16
+        buf = torch.empty(n, dtype=torch.uint8, device=self.device)
 
-    def checkpoint(self):
-        raise NotImplementedError(_SNAPSHOTS)
+        def over(mem, a, o, size):
+            return mem[o:o + size].view(a.dtype).view(a.shape)
 
-    def abandon(self):
-        raise NotImplementedError(_SNAPSHOTS)
+        for a, o, size in zip(leaves, offsets, sizes):
+            dst = over(buf, a, o, size)
+            if isinstance(a, lm.PoolRows):
+                a.read(out=dst)
+            else:
+                dst.copy_(a)
+        host = torch.from_numpy(self._fetch(buf))
+        it = iter(over(host, a, o, size)
+                  for a, o, size in zip(leaves, offsets, sizes))
+        return [tree_map(lambda _: next(it), p) for p in payloads]
+
+    def _export_payload(self, sid: int, kv_len: int):
+        """One slot's snapshot payload as device sources (``lm.slot_lane``:
+        views of the lane, or the pool rows a paged slot maps), with the
+        same schema either way, so payloads are layout-portable; int8 on
+        the device already under ``snapshot_int8``.  A prefix-shared paged
+        slot ships only rows [shared, kv_len): the receiver rebuilds the
+        prefix."""
+        if self.paged:
+            lane = lm.slot_lane(self.cfg, self._cache, sid, kv_len,
+                                self._slot_shared_rows.get(sid, 0),
+                                self._slot_blocks[sid], self.block_size)
+        else:
+            lane = lm.slot_lane(self.cfg, self._cache, sid, kv_len)
+        return lm.quantize_payload(lane) if self.snapshot_int8 else lane
+
+    def _snapshot_slots(self, slots, clone: bool) -> list[SlotSnapshot]:
+        """Warm snapshots of ``slots`` in two host syncs: the stacked
+        cursor vectors (kv_len sizes the payload), then every payload in
+        one transfer.  ``clone``: the snapshots own copies of the
+        requests (a checkpoint, which later decode must not reach)."""
+        if not slots:
+            return []
+        cur, index, rem = self._fetch(torch.stack(
+            (self._cur, self._index, self._rem)))
+        payloads = self._fetch_payloads([
+            self._export_payload(s.sid, int(index[s.sid])) for s in slots])
+        self.sync_count += 2
+        return [SlotSnapshot(
+            request=s.request.clone() if clone else s.request,
+            rem=int(rem[s.sid]), kv_len=int(index[s.sid]),
+            cur=int(cur[s.sid]), payload=payload,
+            prefix_len=(self._slot_shared_rows.get(s.sid, 0)
+                        if self.paged else 0))
+            for s, payload in zip(slots, payloads)]
+
+    def _export_slots(self, sched, chosen) -> list[SlotSnapshot]:
+        """Export ``chosen`` active slots as warm snapshots and release
+        them from the scheduler (and, paged, their blocks)."""
+        snaps = self._snapshot_slots(list(chosen), clone=False)
+        for slot in list(chosen):
+            sid = slot.sid
+            sched.release(slot)
+            if self.paged:
+                self._release_slot_blocks(sid)
+        return snaps
+
+    def select_victims(self, n: int) -> list[int]:
+        """Slot ids of the ``n`` partial-drain victims the engine's
+        ``victim_policy`` picks (default: fewest remaining tokens first):
+        the ``slots=`` argument a proportional ``drain`` wants."""
+        if self._sched is None or n <= 0:
+            return []
+        return [s.sid for s in self.victim_policy(self._sched.active())[:n]]
+
+    def set_slot_limit(self, limit: int) -> None:
+        """Cap concurrent occupancy below ``batch_size``: a partial
+        preemption sheds capacity, not just current occupants, so freed
+        lanes do not refill from the queue until the cap is raised.  The
+        cap survives drain/restore cycles."""
+        if not 1 <= limit <= self.batch_size:
+            raise ValueError(f"slot limit must be in [1, "
+                             f"{self.batch_size}], got {limit}")
+        self._slot_limit = limit
+        if self._sched is not None:
+            self._sched.set_limit(limit)
+
+    @property
+    def slot_limit(self) -> int:
+        return self._slot_limit
+
+    def drain(self, slots=None) -> list[SlotSnapshot]:
+        """Stop the stream LOSSLESSLY, entirely or slot by slot.
+
+        ``slots=None``: every in-flight slot becomes a warm snapshot,
+        every queued or not yet installed request a cold one, and the
+        engine is left idle (``pending`` False).  ``slots=[sid, ...]``:
+        only the named slots are exported and their decode lanes masked
+        (done, nothing owed, written in place by ``fill_``); every other
+        slot decodes on bit-identically, since per-slot cache state is
+        independent.  The stream stays up; pair with ``set_slot_limit``
+        to keep the shed lanes empty."""
+        sched = self._sched
+        if sched is None:
+            return []
+        if slots is not None:
+            want = set(slots)
+            chosen = [s for s in sched.active() if s.sid in want]
+            snaps = self._export_slots(sched, chosen)
+            for slot in chosen:
+                # done lanes write at max_seq (dropped) and emit nothing
+                sid = slot.sid
+                self._done[sid:sid + 1].fill_(True)
+                self._rem[sid:sid + 1].fill_(0)
+                self._cur[sid:sid + 1].fill_(0)
+            return snaps
+        snaps = self._export_slots(sched, sched.active())
+        snaps.extend(self._restore_q)
+        self._restore_q.clear()
+        snaps.extend(SlotSnapshot(request=req, rem=req.max_new_tokens)
+                     for req in sched.queue)
+        self._sched = None          # the books go; the device state stays
+        self._alloc = self._registry = None
+        return snaps
+
+    def checkpoint(self) -> list[SlotSnapshot]:
+        """Snapshot the WHOLE stream non-destructively: every in-flight
+        slot warm (the same two host syncs as a drain), every snapshot
+        awaiting restore and every queued request in its current form,
+        with the requests CLONED, so later decode on the live stream
+        cannot reach the checkpoint.  Nothing is released; decoding
+        continues untouched, and restoring the checkpoint replays from
+        this boundary bit-identically."""
+        sched = self._sched
+        if sched is None:
+            return []
+        snaps = self._snapshot_slots(sched.active(), clone=True)
+        snaps.extend(dataclasses.replace(s, request=s.request.clone())
+                     for s in self._restore_q)
+        snaps.extend(SlotSnapshot(request=req.clone(),
+                                  rem=req.max_new_tokens)
+                     for req in sched.queue)
+        return snaps
+
+    def abandon(self) -> None:
+        """Crash path: drop the stream WITHOUT exporting anything.
+        In-flight work not covered by an earlier ``checkpoint`` is lost;
+        the engine is left idle and restarts with ``start``/``restore``."""
+        self._sched = None
+        self._alloc = self._registry = None
+        self._restore_q.clear()
+
+    def restore(self, snaps: list[SlotSnapshot]) -> None:
+        """Admit snapshots into this engine's stream (started on demand).
+        Warm ones install their cache lane and resume their cursor as a
+        slot frees, ahead of fresh admissions; cold ones join the FCFS
+        queue.  A snapshot this engine cannot hold raises before any
+        device work."""
+        for s in snaps:
+            need = s.kv_len + s.rem if s.warm \
+                else len(s.request.prompt) + s.request.max_new_tokens
+            if need > self.max_seq:
+                raise ValueError(
+                    f"request {s.request.uid}: snapshot needs {need} cache "
+                    f"rows but this engine holds max_seq {self.max_seq}")
+            if self.paged and -(-need // self.block_size) > self.n_blocks:
+                raise ValueError(
+                    f"request {s.request.uid}: snapshot needs "
+                    f"{-(-need // self.block_size)} blocks but the pool "
+                    f"holds {self.n_blocks}")
+        self._ensure_stream()
+        tr = self.tracer if self.tracer.enabled else None
+        for s in snaps:
+            if not s.warm:
+                self._sched.submit([s.request])
+                self._trace_submit([s.request])
+            elif s.rem <= 0:        # finished between export and restore
+                self.finished.append(s.request)
+            else:
+                self._restore_q.append(s)
+                if tr is not None:
+                    tr.instant("restore", self._vt, self.trace_track,
+                               cat="serving",
+                               args={"uid": s.request.uid,
+                                     "bytes": s.payload_bytes,
+                                     "kv_len": s.kv_len})
+
+    def _install_snapshot(self, snap: SlotSnapshot, sid: int) -> None:
+        """Write a warm snapshot's cache lane into slot ``sid``, in place,
+        and arm its decode lane at the restored cursor.  A prefix-trimmed
+        payload (``prefix_len > 0``) has rows [0, prefix_len) rebuilt here:
+        from this engine's prefix registry when it holds them, else by
+        re-prefilling that prompt span (graphed: in the prefill lane, whose
+        commit copies only those rows)."""
+        prompt, pfx = snap.request.prompt, snap.prefix_len
+        if self.paged:
+            shared_rows, shared_blocks = 0, []
+            if self._registry is not None and pfx > 0:
+                shared_rows, shared_blocks = self._registry.lookup(
+                    prompt, pfx)
+            blocks = self._map_slot_blocks(sid, snap.kv_len + snap.rem,
+                                           shared_rows, shared_blocks)
+            _reset_state_slot(self._cache, sid)
+            if shared_rows < pfx:
+                n = len(chunk_plan(pfx - shared_rows, self.prefill_chunk))
+                with self._phase("prefill", calls=n):
+                    self._prefill_rows(prompt[shared_rows:pfx], sid,
+                                       shared_rows)
+            self.prefill_tokens_skipped += shared_rows
+            lm.import_slot_paged(self.cfg, self._cache, snap.payload, sid,
+                                 blocks, self.block_size, row_offset=pfx)
+            if self._registry is not None and pfx > 0:
+                self._registry.register(
+                    prompt, pfx, blocks[:self._alloc.blocks_for(pfx)])
+        else:
+            # the dense importer overwrites the WHOLE lane (rows below
+            # row_offset zeroed), so the prefix re-prefill comes AFTER it
+            lm.import_slot(self.cfg, self._cache, snap.payload, sid,
+                           row_offset=pfx)
+            if pfx > 0:
+                n = len(chunk_plan(pfx, self.prefill_chunk))
+                with self._phase("prefill", calls=n):
+                    self._prefill_rows(prompt[:pfx], sid, 0)
+        _install_step(self._cur, self._index, self._rem, self._done,
+                      snap.cur, sid, snap.kv_len, snap.rem)
 
 
 def _valid_len(row) -> int:

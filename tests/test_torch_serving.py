@@ -160,13 +160,15 @@ def test_submit_queue_depth_and_active_slots(port):
         eng.submit([Request(uid=9, prompt=[1] * 30, max_new_tokens=8)])
 
 
-def test_unported_modes_name_their_roadmap_item(port):
+def test_an_idle_engine_drains_and_checkpoints_nothing(port):
+    """The reference's idle-engine behaviour: with no stream, ``drain`` and
+    ``checkpoint`` return no snapshot and ``abandon`` returns None."""
     cfg, run, ctx, params = port
     for paged in (False, True):
         eng = ServeEngine(cfg, run, ctx, params, paged=paged)
-        for call in (eng.drain, eng.checkpoint, eng.abandon):
-            with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-                call()
+        assert eng.drain() == [] and eng.checkpoint() == []
+        assert eng.abandon() is None
+        assert not eng.pending and eng.queue_depth == 0
 
 
 def test_default_device_entry_points_raise_without_cuda(port,
