@@ -9,7 +9,8 @@ caught):
   1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and
      power limit;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (B=8, S=2048, H=24, K=8, D=128; Sq 1, 5 and 256;
+     main path's shapes (B=8, S=2048, H=24, K=8, D=128; Sq 1, 5, 256 and
+     1024, ``StaticServeEngine``'s whole-prompt prefill;
      ragged kv_len with one done lane; also the reduced configs' D=32),
      bf16 and f32 (TF32 off), with stated tolerances; the paged kernels
      over a (1025, 16, 8, 128) pool whose tables are scattered by a seeded
@@ -180,6 +181,26 @@ caught):
           ``[migrate:mamba2]`` and ``[migrate:zamba2]``: one whole drain
           mid-decode restored into the same engine, 16/16 equal the
           family's dense arm; a ``{"migrate": ...}`` line;
+       h. the engine's benchmark interface and the fleet layer, on
+          llama's weights (every engine shares the arms' weight tensors):
+          ``[serve:static]``, ``StaticServeEngine`` (the reference's
+          throughput baseline: equal-length buckets at batch 8, each
+          prompt prefilled whole, one host sync a token step, eager) on
+          the dense arm's 16 requests beside the graphed dense arm: tok/s,
+          p50/p99 of ``completion_s`` and J per generated token; every
+          request gets its tokens, ``completion_s`` holds every uid, the
+          dense kernels launch exactly 28 times a prefill batch and a
+          decode step, and equal streams are counted, not gated; and
+          ``[fleet:engine]``, ``fleet_scenario``: a ``SimulatedCluster``
+          on the modelled H100 (``policy="sensitivity"``) of two
+          open-loop ``ServeJob``s over graphed engines (one paged, one
+          dense) fed a diurnal trace through admission and the
+          autoscaler, its budget dipping below the nodes' floors: every
+          arrival counted once, at least one stream moved between the
+          engines with its tokens, every completed stream equal to its
+          request served alone by the engine that finished it, the four
+          attention and cache kernels launched, wall s and tok/s, the
+          card's joules beside the fleet's modelled ones;
      then torch.profiler windows (every device launch per step counted;
      graph replays, and where the profiler does not see a graph's
      kernels the line says so) of steady decode, olmoe dense, mamba2
@@ -230,7 +251,8 @@ caught):
 
 It prints one ``{"migrate": ...}`` line, one ``{"lsms": ...}`` line, one
 ``{"kernels": [...]}`` line
-(eight kernels), the nvidia-smi line, and as its last line
+(eight kernels; the JSON also has ``power`` and ``fleet`` objects), the
+nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
 prints no result.
@@ -445,15 +467,16 @@ def _decode_case(B, S, H, K, D, Sq, dtype, kv_len, seed):
 
 def check_flash_decode(tfa, ref):
     """Kernel vs plain version over dtypes, chunk sizes (Sq 5: a partial
-    block of query rows), softcap/window, the reduced configs' head_dim
-    32, olmoe's H = K = 16 (one query head per kv head) and zamba2's
-    shared attention (H = K = 32, head_dim 64): max|err| within
-    DECODE_TOL and every entry within the per-entry rule
+    block of query rows; Sq 1024: a whole prompt), softcap/window, the
+    reduced configs' head_dim 32, olmoe's H = K = 16 (one query head per
+    kv head) and zamba2's shared attention (H = K = 32, head_dim 64):
+    max|err| within DECODE_TOL and every entry within the per-entry rule
     (``_entry_ratio``)."""
     import torch
     rng = np.random.default_rng(0)
     checks = []
-    shapes = [((8, 2048, 24, 8, 128), Sq) for Sq in (1, 5, 256)] \
+    # Sq 1024: [serve:static]'s whole-prompt prefill of up to 1024 rows
+    shapes = [((8, 2048, 24, 8, 128), Sq) for Sq in (1, 5, 256, 1024)] \
         + [((3, 64, 4, 2, 32), Sq) for Sq in (1, 4)] \
         + [((8, 2048, 16, 16, 128), Sq) for Sq in (1, 5, 256)] \
         + [((8, 2048, 32, 32, 64), Sq) for Sq in (1, 5, 256)]    # zamba2
@@ -2270,6 +2293,25 @@ def _check_launches(arm, launches, want):
                              f"expected {want}")
 
 
+def _percentile(xs, q):
+    """The nearest-rank percentile ``benchmarks/serving_throughput.py``
+    reads from ``completion_s``."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, round(q * (len(xs) - 1))))]
+
+
+def _completion(engine, done):
+    """p50 and p99 of the finished requests' ``completion_s``: each
+    request's wall seconds from its stream's start to the end of the
+    chunk (or token step) that finished it."""
+    missing = [r.uid for r in done if r.uid not in engine.completion_s]
+    if missing:
+        raise AssertionError(f"completion_s lacks uids {missing}")
+    lat = [engine.completion_s[r.uid] for r in done]
+    return {"completion_p50_s": _percentile(lat, 0.50),
+            "completion_p99_s": _percentile(lat, 0.99)}
+
+
 def _arm_stats(engine, clock, done, wall, specs, joules=None):
     """The arm's numbers; ``prefill_chunks`` counts the chunk programs the
     engine reported to its phase hook (a shared prefix skips its own);
@@ -2277,6 +2319,7 @@ def _arm_stats(engine, clock, done, wall, specs, joules=None):
     import torch
     n_tok = sum(len(r.generated) for r in done)
     return {"requests": len(done), "wall_s": wall, "tok_per_s": n_tok / wall,
+            **_completion(engine, done),
             "new_tokens": n_tok, "energy_j": joules,
             "j_per_token": joules / n_tok if joules is not None else None,
             "prompt_tokens": sum(len(p) for p, _, _ in specs),
@@ -3713,6 +3756,347 @@ def migrate_family(tfa, name, cfg, run, params, specs, dense_streams):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: the engine's benchmark interface and the fleet layer
+# ---------------------------------------------------------------------------
+
+class _PhaseCount:
+    """A ``power=`` hook that only counts phase entries (no sync)."""
+
+    def __init__(self):
+        self.entries = collections.Counter()
+
+    @contextlib.contextmanager
+    def phase(self, name, calls=None):
+        self.entries[name] += 1
+        yield None
+
+
+def _shares_weights(engine, params):
+    """Whether the engine holds the very tensors it was given (the port's
+    ``prepare_params`` casts nothing that is already on the card in its
+    compute dtype), and the bytes a copy would have cost."""
+    from repro_torch.tree import leaves
+    mine, given = leaves(engine.params), leaves(params)
+    same = len(mine) == len(given) and all(
+        a.data_ptr() == b.data_ptr() for a, b in zip(mine, given))
+    return same, sum(a.numel() * a.element_size() for a in given)
+
+
+def serve_static(tfa, cfg, run, params, specs, dense_streams, dense_stats):
+    """[serve:static]: ``StaticServeEngine`` (the reference's throughput
+    baseline: equal-length buckets at batch 8, each prompt prefilled whole
+    as one chunk, one host sync a token step, eager) on the dense arm's 16
+    requests, beside the graphed continuous engine's dense arm: tok/s, p50
+    and p99 of ``completion_s``, J per generated token.  Every request
+    must get its tokens, ``completion_s`` must hold every uid, and the two
+    dense kernels must launch exactly 28 times per prefill batch and per
+    decode step (the paged ones not).  Equal streams are counted, not
+    gated: a whole-prompt prefill at batch 8 sums in another order than
+    256-row chunks at batch 1."""
+    import torch
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.legacy import StaticServeEngine
+    counts = _PhaseCount()
+    engine = StaticServeEngine(cfg, run, Ctx(run, "cuda"), params,
+                               batch_size=8, max_seq=2048, power=counts)
+    shared, _ = _shares_weights(engine, params)
+    engine.generate([Request(uid=-1, max_new_tokens=4, prompt=np.random
+                             .default_rng(6).integers(0, cfg.vocab, 64)
+                             .tolist())])    # first-call costs, not counted
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=n)
+            for i, (p, n, _) in enumerate(specs)]
+    counts.entries.clear()
+    engine.sync_count = 0
+    torch.cuda.synchronize()
+    tfa.reset_launch_counts()
+    e0 = METER.energy_mj() if METER is not None else None
+    t0 = time.perf_counter()
+    done = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    joules = (METER.energy_mj() - e0) / 1e3 if METER is not None else None
+    launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+    _check_counters(tfa)
+    if sorted(r.uid for r in done) != list(range(len(specs))):
+        raise AssertionError("[serve:static] not every request finished")
+    for r in done:
+        if len(r.generated) != r.max_new_tokens \
+                or not all(0 <= t < cfg.vocab for t in r.generated):
+            raise AssertionError(f"[serve:static] request {r.uid}: "
+                                 f"{len(r.generated)} tokens, wanted "
+                                 f"{r.max_new_tokens} in the vocab")
+    n = cfg.n_layers * (counts.entries["prefill"] + counts.entries["decode"])
+    _check_launches("static", launches, {
+        "flash_decode": n, "flash_decode_paged": 0, "cache_update": n,
+        "cache_update_paged": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0, "grouped_matmul": 0, "ssd": 0})
+    if joules is not None:
+        _check_draw("static", joules, wall)
+    n_tok = sum(len(r.generated) for r in done)
+    st = {"requests": len(done), "wall_s": wall, "tok_per_s": n_tok / wall,
+          "new_tokens": n_tok, "energy_j": joules,
+          "j_per_token": joules / n_tok if joules is not None else None,
+          **_completion(engine, done),
+          "prefill_batches": counts.entries["prefill"],
+          "decode_steps": counts.entries["decode"],
+          "host_syncs": engine.sync_count, "weights_shared": shared,
+          "streams_equal_dense": sum(r.generated == dense_streams[r.uid]
+                                     for r in done),
+          "launches": launches,
+          "max_memory_allocated_gib":
+              torch.cuda.max_memory_allocated() / 2**30}
+    c = dense_stats
+
+    def arm(name, s):
+        j = (f", {s['j_per_token']:.4f} J per generated token"
+             if s["j_per_token"] is not None else "")
+        return (f"{name} {s['tok_per_s']:.1f} tok/s, completion p50 "
+                f"{s['completion_p50_s']:.3f} s / p99 "
+                f"{s['completion_p99_s']:.3f} s{j}")
+
+    print(f"[serve:static] {st['requests']} requests, {n_tok} new tokens in "
+          f"{wall:.2f}s: " + arm("static", st) + "; " + arm("graphed "
+          "continuous (the dense arm)", c) + f"; static: "
+          f"{st['prefill_batches']} whole-prompt prefill batches of 8, "
+          f"{st['decode_steps']} decode steps, {st['host_syncs']} host "
+          f"syncs; weights shared with the arms: {shared}; "
+          f"{st['streams_equal_dense']}/16 streams equal the dense arm's "
+          f"(not gated); launches {launches}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return st
+
+
+#: [fleet:engine]: an open-loop fleet of one paged and one dense engine on
+#: the modelled H100 (sensitivity steering, the diurnal trace at seed 0,
+#: admission and the autoscaler of ``benchmarks/traffic_slo.py``'s engine
+#: arm), its budget dipping below both nodes' floors for the second
+#: quarter of FLEET_DURATION_S: the dip suspends both jobs (lossless
+#: drains of their in-flight streams, restored when it lifts), and the
+#: autoscaler's shrinks park in-flight streams that the scheduler hands
+#: to the other engine.  The quantum is
+#: a quarter second, so streams are in flight when the fleet decides.
+#: Arrivals are clamped to prompts of FLEET_PROMPT_CAP and outputs of
+#: FLEET_OUTPUT_CAP against max_seq 2048.  The ``ServeJob``s' modelled
+#: shape (batch 8, prompt 256, 64 new tokens, chunks of 8) paces the
+#: virtual clock, as the engine arm's does; the engines do the real work.
+FLEET_ENGINES = (dict(paged=True, block_size=16), {})
+FLEET_DURATION_S = 10.0
+FLEET_QUANTUM_S = 0.25
+FLEET_RPS = 6.0
+FLEET_BUDGET_FRACS = (0.9, 0.17, 0.9, 0.9)
+FLEET_PROMPT_CAP, FLEET_OUTPUT_CAP = 1024, 256
+FLEET_VALUE = 2.0          # benchmarks/traffic_slo.py's SERVE_VALUE
+FLEET_WAKE_S = 2.0
+
+
+def fleet_scenario(fleet, workload, cfg, engines, spec, seed=0):
+    """The [fleet:engine] scenario through the packages ``fleet`` and
+    ``workload`` (the port's here; ``tests/test_torch_fleet.py`` runs it
+    on the CPU with reduced engines): one open-loop ``ServeJob`` per
+    engine, ``cfg`` the full-width config that paces the virtual clock.
+    Returns the run's pieces and its counters."""
+    cluster = fleet.SimulatedCluster(
+        n_nodes=len(engines), cabinet_size=len(engines),
+        policy="sensitivity", spec=spec, quantum_s=FLEET_QUANTUM_S,
+        idle_w=spec.p_floor, wake_latency_s=FLEET_WAKE_S)
+    tracker = workload.SLOTracker(sink=cluster.telemetry)
+    trace = [dataclasses.replace(
+                 e, prompt_len=min(e.prompt_len, FLEET_PROMPT_CAP),
+                 output_len=min(max(e.output_len, 1), FLEET_OUTPUT_CAP))
+             for e in workload.diurnal_trace(
+                 seed=seed, until_s=FLEET_DURATION_S, base_rps=FLEET_RPS)]
+    feed = workload.WorkloadDriver(
+        trace, tracker, admission=workload.AdmissionController(),
+        autoscaler=workload.Autoscaler(min_slots=1, shrink_frac=0.5,
+                                       park_after_s=4.0, park_rest_s=2.0,
+                                       min_running=1, wake_threshold=4))
+    jobs = [fleet.ServeJob(f"eng-{i}", cfg, batch=8, prompt=256,
+                           new_tokens=64, total_requests=0, decode_chunk=8,
+                           open_loop=True, partial=True, migrate=True,
+                           value=FLEET_VALUE, slo=tracker, engine=engine)
+            for i, engine in enumerate(engines)]
+    leg = FLEET_DURATION_S / len(FLEET_BUDGET_FRACS)
+    p_max = len(engines) * spec.p_max
+    budget = [(i * leg, f * p_max) for i, f in enumerate(FLEET_BUDGET_FRACS)]
+    counters = cluster.run(jobs=jobs, budget=budget,
+                           until_s=FLEET_DURATION_S, workload=feed)
+    return {"cluster": cluster, "jobs": jobs, "tracker": tracker,
+            "feed": feed, "trace": trace, "budget": budget,
+            "counters": counters}
+
+
+def fleet_accounting(run):
+    """Every arrival counted exactly once: completed, rejected, queued
+    (in the feed's backlog or in a job, in flight or parked) or not
+    delivered yet; every uid held by one job; every completed request
+    with exactly its tokens.  Returns the counts and, per job, its
+    completed requests (the job whose engine finished them)."""
+    summary = run["tracker"].summary()
+    jobs, feed, trace = run["jobs"], run["feed"], run["trace"]
+    completed = sum(s["completed"] for s in summary.values())
+    rejected = sum(s["rejected"] for s in summary.values())
+    offered = sum(s["offered"] for s in summary.values())
+    uids = [r.uid for j in jobs for r in (j.requests or [])]
+    finished = {j.name: [r for r in (j.requests or []) if r.done]
+                for j in jobs}
+    outstanding = sum(1 for j in jobs for r in (j.requests or [])
+                      if not r.done)
+    queued = len(feed.backlog) + outstanding
+    undelivered = len(trace) - feed.offered
+    n_done = sum(len(v) for v in finished.values())
+    if len(uids) != len(set(uids)):
+        raise AssertionError("a request is held by two jobs")
+    if offered != feed.offered \
+            or completed + rejected + queued + undelivered != len(trace) \
+            or completed != n_done:
+        raise AssertionError(
+            f"arrivals {len(trace)}: {completed} completed ({n_done} done "
+            f"in the jobs), {rejected} rejected, {queued} queued, "
+            f"{undelivered} not delivered; {offered} offered, "
+            f"{feed.offered} by the feed")
+    for r in (r for v in finished.values() for r in v):
+        if len(r.generated) != r.max_new_tokens:
+            raise AssertionError(f"request {r.uid}: {len(r.generated)} "
+                                 f"tokens, wanted {r.max_new_tokens}")
+    return {"arrivals": len(trace), "completed": completed,
+            "rejected": rejected, "queued_at_end": queued,
+            "undelivered": undelivered, "finished": finished}
+
+
+def fleet_replay(run):
+    """Each completed request served again alone by the engine that
+    finished it (a fresh stream of that job's completed requests, in
+    uid order, with their prompts): the streams it gives, by uid."""
+    from repro_torch.serving.engine import Request
+    out = {}
+    for job in run["jobs"]:
+        reqs = [Request(uid=r.uid, prompt=list(r.prompt),
+                        max_new_tokens=r.max_new_tokens)
+                for r in sorted(job.requests or [], key=lambda r: r.uid)
+                if r.done]
+        if reqs:
+            out.update({r.uid: list(r.generated)
+                        for r in job.engine.generate(reqs)})
+    return out
+
+
+def fleet_engine(tfa, cfg, run, params):
+    """[fleet:engine]: ``fleet_scenario`` on the card over graphed,
+    full-width llama3.2-3b engines (batch 8, max_seq 2048, prefill chunk
+    256, decode chunk 8; one paged, one dense) that share the arms'
+    weights, with the counts set to 0 just before the fleet runs and read
+    just after.  Gates: every arrival counted once, in-flight tokens kept
+    by the dip's drains, at least one stream moved from one engine to the
+    other with its tokens, every completed stream equal to its request
+    served alone by the engine that finished it, and the four attention
+    and cache kernels launched.  The card's
+    joules are measured on its energy counter; the fleet's own joules are
+    its model of the H100 spec on the virtual clock, printed as such."""
+    import torch
+    from repro_torch import fleet, workload
+    from repro_torch.hw.h100 import H100_SUPERCHIP
+    from repro_torch.serving.engine import Request
+    t_all = time.perf_counter()
+    engines = [_engine(cfg, run, params, None, **kw) for kw in FLEET_ENGINES]
+    shared = [_shares_weights(e, params) for e in engines]
+    warm = np.random.default_rng(7).integers(0, cfg.vocab, WARM_LEN).tolist()
+    for e in engines:                 # capture every graph before the run
+        e.generate([Request(uid=-1, prompt=warm, max_new_tokens=8)])
+    torch.cuda.synchronize()
+    tfa.reset_launch_counts()
+    e0 = METER.energy_mj() if METER is not None else None
+    t0 = time.perf_counter()
+    out = fleet_scenario(fleet, workload, cfg, engines, H100_SUPERCHIP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    joules = (METER.energy_mj() - e0) / 1e3 if METER is not None else None
+    launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+    _check_counters(tfa)
+    if joules is not None:
+        _check_draw("fleet", joules, wall)
+    acct = fleet_accounting(out)
+    c = out["counters"]
+    want = ("flash_decode", "cache_update", "flash_decode_paged",
+            "cache_update_paged")
+    if not all(launches[k] > 0 for k in want) or any(
+            launches[k] for k in launches if k not in want):
+        raise AssertionError(f"[fleet:engine] launches {launches}")
+    if c["adoptions"] < 1 or c["adopted_tokens"] <= 0 \
+            or c["migrated_tokens"] <= 0:
+        raise AssertionError(f"[fleet:engine] {c['adoptions']} adoptions "
+                             f"moving {c['adopted_tokens']} tokens between "
+                             f"the engines, {c['migrated_tokens']} tokens "
+                             f"kept by drains")
+    graphs_before = [(e.graph, dict(e.prefill_graphs)) for e in engines]
+    alone = fleet_replay(out)
+    if [(e.graph, dict(e.prefill_graphs)) for e in engines] \
+            != graphs_before:
+        raise AssertionError("[fleet:engine] the replay captured a graph")
+    done = [r for v in acct["finished"].values() for r in v]
+    equal = sum(alone[r.uid] == r.generated for r in done)
+    gen = c["tokens"]
+    modelled_j = c["energy_j"] + c["idle_energy_j"]
+    slo = out["tracker"].summary()
+    st = {"engines": ["paged" if e.paged else "dense" for e in engines],
+          "weights_shared": all(s for s, _ in shared),
+          "weight_bytes": shared[0][1],
+          "wall_s": wall, "virtual_s": c["virtual_s"],
+          "generated_tokens": gen, "wall_tok_per_s": gen / wall,
+          "energy_j": joules,
+          "j_per_token": joules / gen if joules is not None else None,
+          "modelled_energy_j": modelled_j,
+          "modelled_j_per_token": modelled_j / gen,
+          "launches": launches, "streams_equal_alone": equal,
+          "slo": slo, "counters": c,
+          **{k: v for k, v in acct.items() if k != "finished"}}
+    print(f"[fleet:engine] {len(engines)} graphed llama3.2-3b engines "
+          f"({', '.join(st['engines'])}; weights shared, not copied: "
+          f"{st['weights_shared']}, {st['weight_bytes'] / 1e9:.2f} GB) "
+          f"under SimulatedCluster(spec=H100_SUPERCHIP, policy="
+          f"sensitivity, quantum {FLEET_QUANTUM_S} s), budget "
+          + " -> ".join(f"{w:.0f} W" for _, w in out["budget"])
+          + f" over {FLEET_DURATION_S:.0f} s virtual: "
+          f"{acct['arrivals']} arrivals, {acct['completed']} completed, "
+          f"{acct['rejected']} rejected, {acct['queued_at_end']} queued "
+          f"and {acct['undelivered']} undelivered at the end; {gen} "
+          f"generated tokens in {wall:.2f} s wall ({gen / wall:.1f} tok/s "
+          f"wall)", flush=True)
+    print(f"[fleet:engine] {c['preemptions']} preemptions "
+          f"({c['migrated_tokens']} tokens kept by drains, "
+          f"{c['dropped_tokens']} dropped), {c['migrations']} cross-node "
+          f"transfers, {c['partial_drains']} partial drains "
+          f"({c['shed_slots']} slots), {c['adoptions']} adoptions: "
+          f"{c['adopted_slots']} streams with {c['adopted_tokens']} tokens "
+          f"moved between the engines "
+          f"({c['adoption_bytes'] / 1e6:.1f} MB); {c['sleeps']} sleeps / "
+          f"{c['wakes']} wakes, queue peak {c['queue_depth_peak']}",
+          flush=True)
+    for name, s in sorted(slo.items()):
+        print(f"[fleet:engine] slo {name}: attainment "
+              f"{s['attainment']:.3f} ({s['met']}/{s['completed']} met, "
+              f"{s['rejected']} rejected), p50 {s['p50_latency_s']:.2f} s / "
+              f"p99 {s['p99_latency_s']:.2f} s virtual", flush=True)
+    measured = (f"measured {joules:.1f} J on the card's counter "
+                f"({joules / gen:.4f} J per generated token)"
+                if joules is not None else "card joules not measured")
+    print(f"[fleet:engine] launches {launches}; {measured}; the fleet's "
+          f"modelled joules (H100 spec, virtual clock, not measured) "
+          f"{modelled_j:.1f} J ({modelled_j / gen:.4f} J per token); "
+          f"{equal}/{len(done)} completed streams equal their request "
+          f"served alone by the engine that finished it; phase "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
+    if equal != len(done):
+        raise AssertionError(f"[fleet:engine] {equal}/{len(done)} streams "
+                             f"equal their replay")
+    st["seconds"] = time.perf_counter() - t_all
+    del engines, out
+    torch.cuda.empty_cache()
+    return st
+
+
+# ---------------------------------------------------------------------------
 # phase 4: logits parity at full width, reduced depth
 # ---------------------------------------------------------------------------
 
@@ -4673,7 +5057,9 @@ def _smoke(card) -> int:
              ("paged", paged2), ("dense", dense2))
     print("[serve:abba] dense, paged, paged, dense: " + ", ".join(
         f"{n} {st['tok_per_s']:.1f} tok/s "
-        f"({st['decode_s'] / st['decode_steps'] * 1e3:.1f} ms/step)"
+        f"({st['decode_s'] / st['decode_steps'] * 1e3:.1f} ms/step, "
+        f"completion p50 {st['completion_p50_s']:.3f} s / p99 "
+        f"{st['completion_p99_s']:.3f} s)"
         for n, st in order), flush=True)
     paged_serving["again"] = paged2
     serving["again"] = dense2
@@ -4681,6 +5067,9 @@ def _smoke(card) -> int:
         tfa, *shared[:3])
     # 3g: slot migration, on llama's weights and arms
     migrate = migrate_llama(tfa, *shared, prefix_specs, prefix_streams)
+    # 3h: the engine's benchmark interface and the fleet layer
+    serving["static"] = serve_static(tfa, *shared, serving)
+    fleet_st = fleet_engine(tfa, *shared[:3])
     llama = shared[:2]
     del shared                            # llama's weights, before olmoe's
     _release_card()
@@ -4772,7 +5161,10 @@ def _smoke(card) -> int:
                     shape=t["shape"], max_abs_diff=err, kernel_ms=t["ms"],
                     host_ms=t["host_ms"], launches_per_decode_step=28,
                     launches_arm=arm, prefill_chunk=prefill, checks=checks,
-                    olmoe_g1=g1, zamba2_d64=d64, **extra)
+                    olmoe_g1=g1, zamba2_d64=d64,
+                    launches_fleet=fleet_st["launches"][name],
+                    launches_static=serving["static"]["launches"][name],
+                    **extra)
 
     csrc = "src/repro_torch/kernels/csrc/"
     fa = "src/repro/kernels/flash_attention.py"
@@ -4889,7 +5281,7 @@ def _smoke(card) -> int:
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,
                       "ssm_parity": mamba_parity, "ptxas": ptxas,
-                      "power": power,
+                      "power": power, "fleet": fleet_st,
                       "total_s": time.perf_counter() - t_start}))
     smi_end = _smi_line()
     if smi_end != smi:

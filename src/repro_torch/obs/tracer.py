@@ -18,8 +18,7 @@ Determinism is the design constraint, not an afterthought:
   * nothing here iterates an unordered container.
 
 Two same-seed runs therefore emit byte-identical event lists, which the
-Perfetto export (``repro.obs.export`` in the JAX package; not ported
-yet) turns into byte-identical JSON —
+Perfetto export (``repro_torch.obs.export``) turns into byte-identical JSON —
 the property ``tests/test_obs.py`` locks down, and the reason traces
 compose with the bit-identical-replay guarantees from the preemption /
 chaos work.

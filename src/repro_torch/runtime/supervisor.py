@@ -6,9 +6,9 @@ O(1) in cluster size; cluster-level coordination happens through the shared
 checkpoint directory (the usual pattern for TPU pod slices, where the
 scheduler restarts the whole slice on any chip failure).
 
-A copy of ``PreemptionGuard``, ``StragglerWatchdog`` and ``Supervisor`` from
-``repro.runtime.supervisor`` (standard library only; the port imports
-nothing of ``repro``).  ``StepwiseSupervisor`` and ``plan_mesh_shape`` come
+A copy of ``PreemptionGuard``, ``StragglerWatchdog``, ``Supervisor`` and
+``StepwiseSupervisor`` from ``repro.runtime.supervisor`` (standard library
+only; the port imports nothing of ``repro``).  ``plan_mesh_shape`` comes
 with the distributed slice (ROADMAP queue 1 item 14).
 """
 
@@ -89,8 +89,8 @@ class Supervisor:
 
     ``train_fn(restart_count) -> exit_reason`` must itself restore from the
     newest valid checkpoint (repro_torch.ckpt.checkpoint.restore does the
-    validation + fallback).  Any exception or preemption triggers a restart with
-    exponential backoff, up to max_restarts."""
+    validation + fallback).  Any exception or preemption triggers a restart
+    with exponential backoff, up to max_restarts."""
 
     max_restarts: int = 3
     backoff_s: float = 0.1
@@ -129,3 +129,29 @@ class Supervisor:
             except Exception as e:  # noqa: BLE001 - supervisor catches all
                 delay = self._record_restart("crashed", repr(e))
             time.sleep(delay)
+
+
+@dataclasses.dataclass
+class StepwiseSupervisor(Supervisor):
+    """The Supervisor's restart policy for cooperative, step-wise runtimes.
+
+    ``Supervisor.run`` wraps a *blocking* train function and sleeps through
+    its own backoff.  A fleet scheduler instead drives jobs one step at a
+    time on a virtual clock and preempts them cooperatively (power budget
+    shrank, node reassigned), so it needs the same accounting — restart
+    budget, exponential backoff, history — as explicit events rather than
+    a blocking loop.  ``preempted()`` / ``crashed()`` return the backoff
+    delay in (virtual) seconds; the caller decides when the job becomes
+    eligible to resume."""
+
+    def preempted(self) -> float:
+        """Record a cooperative preemption; returns the backoff delay the
+        job must wait before it is eligible for re-placement."""
+        return self._record_restart("preempted", None)
+
+    def crashed(self, err: BaseException | str) -> float:
+        return self._record_restart(
+            "crashed", err if isinstance(err, str) else repr(err))
+
+    def completed(self, reason: str) -> None:
+        self.history.append(("completed", reason))

@@ -71,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import time
 from collections import deque
 
 import torch
@@ -383,6 +384,10 @@ class ServeEngine:
     ``snapshot_int8=True`` quantizes warm payloads on the device before
     they cross to the host (per-row int8 + f32 scale: about half the
     bytes, and restores no longer bit-exact).
+
+    ``completion_s`` maps each finished uid to its wall seconds since its
+    stream came up, read after the finishing chunk's host sync;
+    ``capacity_hint(rows)`` says how many ``rows``-row requests fit now.
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, ctx: Ctx, params,
@@ -461,6 +466,9 @@ class ServeEngine:
         self._fetch = _to_host
         self.sync_count = 0
         self.finished: list[Request] = []
+        # uid -> wall seconds from the stream's start to the chunk that
+        # finished it (read after that chunk's one host sync)
+        self.completion_s: dict[int, float] = {}
 
     # -- internals ---------------------------------------------------------
     def _phase(self, name: str, calls: int | None = None):
@@ -647,6 +655,20 @@ class ServeEngine:
                                     blocks[:self._alloc.blocks_for(cap)])
         return logits
 
+    def capacity_hint(self, rows: int) -> int:
+        """Admissions of ``rows``-row requests this engine could take
+        right now (``repro/serving/engine.py:578-589``): free slots under
+        the slot limit and, paged, the allocator's free blocks over the
+        blocks one such request reserves.  The fleet scheduler reads it
+        to size the room it offers adopted streams."""
+        room = self.slot_limit - self.active_slots
+        if not self.paged:
+            return max(0, room)
+        per = max(1, -(-max(rows, 1) // self.block_size))
+        if getattr(self, "_alloc", None) is None:      # stream not up yet
+            return max(0, min(room, self.n_blocks // per))
+        return max(0, min(room, self._alloc.free_blocks // per))
+
     # -- stream state --------------------------------------------------------
 
     def _ensure_stream(self) -> None:
@@ -656,6 +678,7 @@ class ServeEngine:
         are made anew."""
         if self._sched is not None:
             return
+        self._t0 = time.perf_counter()
         self._sched = SlotScheduler(self.batch_size)
         self._sched.set_limit(self._slot_limit)
         if self._cache is None:
@@ -890,6 +913,7 @@ class ServeEngine:
                     cat="chunk", args={"active": len(uids)})
         out_host = self._fetch(self._out)     # the chunk's ONE sync
         self.sync_count += 1
+        now = time.perf_counter() - self._t0
         newly: list[Request] = []
         for slot in sched.active():
             row = out_host[slot.sid]
@@ -897,6 +921,7 @@ class ServeEngine:
             slot.request.generated.extend(fresh)
             slot.emitted += len(fresh)
             if slot.emitted >= slot.request.max_new_tokens:
+                self.completion_s[slot.request.uid] = now
                 newly.append(sched.release(slot))
                 if self.paged:
                     self._release_slot_blocks(slot.sid)
