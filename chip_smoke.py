@@ -54,14 +54,34 @@ caught):
      and zamba2's (H=64, P=64, N=64) heads, S 256 (two chunks), 128, 64,
      16 and 2, with and without h0, G=2 once, the state written over h0
      once, chunks 37 (S=148) and 1 (S=131) at mamba2's heads, the
-     contract's edges (P=48, N=96, G=2; P=16, N=32), bf16 and f32, the
+     contract's edges (P=48, N=96, G=2; P=16, N=32), the training shape
+     (Bb=2, S=2048, chunk 128, both heads), bf16 and f32, the
      check shown to reject a kernel that drops h0, the state carried
      between chunks or one 64-row tile of x, and the plain version with
      M, the state and x o wd rounded to bf16 once (the shortcut the bf16
      kernel's hi/lo split avoids), then timed at S=256 and at every tail
      a prompt's chunk plan cuts (S = 128 ... 2) beside its byte bound (no
      library call computes SSD), and summed per Mamba layer over a
-     serving arm's chunks;
+     serving arm's chunks; the two gradient kernels of the training
+     paths: ``grouped_matmul_bwd`` against ``ref.grouped_matmul_bwd`` entry
+     by entry at olmoe's training capacity (640 rows: 2 x 2048 tokens,
+     top-8 of 64, capacity factor 1.25), gate/up and down, with dead rows
+     (zero in lhs and dout past a group's live count: their dlhs exactly
+     zero), at odd capacities and the reduced shapes, bf16 and f32, each
+     twice bit for bit, shown to reject a kernel that leaves one group's
+     drhs unwritten or drops the last 64-row M-slice, then timed beside
+     the two ``torch.bmm`` calls (and the forward at M = 640); ``ssd_bwd``
+     against ``ref.ssd_chunked_bwd`` entry by entry, every gradient (dx,
+     ddt, dB, dC by the dtype's rule; the f32 sums dA, dD, dh0 by
+     SSD_BWD_F32_RTOL/ATOL, each beside the float64 plain version's
+     distance), at the training shape (Bb=2, S=2048, chunk 128) of
+     mamba2's and zamba2's heads, with h0, D and the final state's
+     gradient, G = 2, chunks 37 and 1, the contract's edges, bf16 and f32,
+     each twice bit for bit, shown to reject a kernel that does not carry
+     the state's gradient between chunks or does not sum dB over a
+     group's heads, then timed with the forward at the training shape;
+     and the decode and RoPE cache kernels at nemotron-4-15b's heads (H =
+     48, K = 8: a GQA group of 6, half rotary), checked and timed;
   2b. the power backend (``power/nvml.py``, ``power/metered.py``), the
      card's power session opened once by ``open_card`` for the whole
      script, which puts the limit back at its end (without
@@ -201,6 +221,10 @@ caught):
           request served alone by the engine that finished it, the four
           attention and cache kernels launched, wall s and tok/s, the
           card's joules beside the fleet's modelled ones;
+       i. full-width minitron-4b (4.19 B params) and nemotron-4-15b
+          (15.63 B; each f32 leaf cast to bf16 as it is drawn), dense and
+          graphed, at the arms' traffic: exact launches, tok/s and J per
+          generated token;
      then torch.profiler windows (every device launch per step counted;
      graph replays, and where the profiler does not see a graph's
      kernels the line says so) of steady decode, olmoe dense, mamba2
@@ -225,10 +249,19 @@ caught):
      ``make_train_step``: finite losses, the last below the first, and
      exactly 2 x 28 ``flash_attention`` and 28 ``flash_attention_bwd``
      launches per step; seconds per step, tokens/s, peak memory and the
-     share of the bf16 peak;
+     share of the bf16 peak; then the same loop as ``[train:olmoe]``
+     (olmoe-1b-7b at full width, depth cut to 8 of 16 layers: its full
+     depth's f32 state does not fit the card), ``[train:mamba2]`` and
+     ``[train:zamba2]`` (full depth), each with exact launches of every
+     kernel, ``grouped_matmul_bwd`` and ``ssd_bwd`` among them; after
+     each arm's steps, on a fresh batch its cross-entropy stays near
+     ln(vocab) (the repeated batch is learnt by heart, nothing leaks),
+     and, but for olmoe, the hidden states up to a position stay
+     bit-equal when the tokens after it change;
   6. training parity: one f32 step at full width and 2 layers on the card
      (kernels) against the CPU (plain versions) from the same weights and
-     batch: loss, grad norm and the parameter update;
+     batch: loss, grad norm and the parameter update, for llama3.2-3b,
+     olmoe-1b-7b and mamba2-370m;
   7. LSMS, the paper's own workload (``models/lsms.py``, no kernel of
      the repo's: PyTorch's complex64 products and LU), on a card that no
      model holds any more: ``[lsms:parity]``, a reduced configuration
@@ -251,7 +284,7 @@ caught):
 
 It prints one ``{"migrate": ...}`` line, one ``{"lsms": ...}`` line, one
 ``{"kernels": [...]}`` line
-(eight kernels; the JSON also has ``power`` and ``fleet`` objects), the
+(ten kernels; the JSON also has ``power`` and ``fleet`` objects), the
 nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
@@ -267,13 +300,20 @@ import functools
 import itertools
 import json
 import math
+import os
 import signal
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
+# the caching allocator grows segments in place instead of keeping freed
+# blocks of earlier shapes apart: without it [train:olmoe] at 8 layers
+# ran out of memory with 21 GB reserved but unallocated.  Read when CUDA
+# starts, so set before anything touches the card
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
@@ -323,19 +363,35 @@ GMM_SHAPES = [(64, 2, 2048, 1024), (64, 2, 1024, 2048),      # decode
               (64, 1, 2048, 1024), (64, 3, 2048, 1024),      # odd capacity
               (64, 5, 1024, 2048), (64, 100, 2048, 1024),
               (8, 2, 128, 256), (8, 5, 256, 128),            # reduced configs
-              (8, 17, 128, 256)]
+              (8, 17, 128, 256),
+              (64, 640, 2048, 1024), (64, 640, 1024, 2048)]  # training
 #: olmoe's capacities, ceil(S * 8 * 1.25 / 64), at the prefill chunks of
 #: 256, 128, ..., 1 rows (40 .. 1) and a batch-8 decode step (2): timed at
 #: the gate/up shape, and at 2 and 40 at the down shape
 GMM_TIME_M = (1, 2, 3, 5, 10, 20, 40)
 GMM_TIME_SHAPES = ([(64, M, 2048, 1024) for M in GMM_TIME_M]
                    + [(64, 2, 1024, 2048), (64, 40, 1024, 2048)])
+#: the training step's shape: batch x sequence, and olmoe's capacity there,
+#: ceil(2 * 2048 * 8 * 1.25 / 64) (``_olmoe_train_capacity``), at which
+#: the forward is timed too (gate/up and down)
+TRAIN_B, TRAIN_S = 2, 2048
+GMM_TRAIN_M = 640
+GMM_TIME_SHAPES += [(64, GMM_TRAIN_M, 2048, 1024),
+                    (64, GMM_TRAIN_M, 1024, 2048)]
 #: (H, K, D) of the attention the fused RoPE + cache write serves:
 #: llama3.2-3b, olmoe-1b-7b and zamba2-1.2b's shared block
 ROPE_HEADS = {"llama": (24, 8, 128), "olmoe": (16, 16, 128),
               "zamba2": (32, 32, 64)}
+#: (H, K, D) of nemotron-4-15b: 48 query heads over 8 kv heads, a GQA
+#: group of 6 (minitron-4b's 24 over 8 is llama's group of 3); both rotate
+#: half of each head (rotary_pct 0.5)
+NEMOTRON_HEADS = (48, 8, 128)
+MINITRON_ARCH, NEMOTRON_ARCH = "minitron-4b", "nemotron-4-15b"
 F32_OPS_PER_S = PEAK_FLOPS_F32  # float32 outside the tensor cores, 67e12
 TRAIN_STEPS = 6
+#: the position after which the training arms' causality check replaces
+#: the tokens: inside the 8th 128-row SSD chunk (896..1023), no boundary
+CAUSAL_T = 1000
 #: the bf16 attention kernels' tiles: the forward's key tile, the dK/dV
 #: pass's query step and the dQ pass's query tile (flash_attention*.cu)
 FA_KEY_TILE, FA_KV_STEP, FA_DQ_TILE = 128, 64, 128
@@ -345,8 +401,18 @@ TRAIN_PROFILE_GROUPS = {
     "flash_attention": ("attn_fwd_tc_kernel",),
     "flash_attention_bwd": ("attn_bwd_dkdv_tc_kernel",
                             "attn_bwd_dq_tc_kernel", "attn_delta_kernel"),
+    "grouped_matmul": ("grouped_matmul_tc_kernel",),
+    "grouped_matmul_bwd": ("gmm_bwd_tc_kernel",),
+    "ssd": ("ssd_tc_kernel",),
+    "ssd_bwd": ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel"),
     "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
 }
+#: the training arms beside llama's [train]: (arch, layers or None for
+#: full depth).  olmoe's 16 layers of f32 master, grad and AdamW state
+#: (16 B a param, 6.92 B params: ~111 GB) do not fit the card; 8 layers
+#: (57.0 GB of state) do
+TRAIN_ARMS = {"olmoe": ("olmoe-1b-7b", 8), "mamba2": ("mamba2-370m", None),
+              "zamba2": ("zamba2-1.2b", None)}
 # [train:parity], f32 card (kernels, TF32 off) vs f32 CPU (plain), one
 # step: loss and grad norm differ by summation order only; the AdamW
 # update g / (|g| + eps) flips for a gradient within rounding of zero
@@ -363,6 +429,17 @@ SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
 SSD_TIME_S = (256, 128, 64, 32, 16, 8, 4, 2)
 #: the bf16 ssd kernel's row tile (csrc/ssd.cu)
 SSD_TILE = 64
+# ssd_bwd's float32 sums (dA, dD, dh0) against the plain version, per
+# entry: |got - want| <= SSD_BWD_F32_RTOL |want| + SSD_BWD_F32_ATOL
+# max|want|.  dA sums Bb x S rows of a reverse cumsum over the chunk of
+# row sums over the chunk (4096 x 128 x 128 terms at the training shape),
+# which cancel: on an H100 the plain version's own f32 dA lies up to
+# 1.5e-5 of max|dA| from the float64 plain version of the same inputs, and
+# the kernel's as far (each [check] ssd_bwd line prints both), so the two
+# can differ by ~3e-5 of max|dA|; 1e-4 leaves about three times that.  A
+# dropped chunk's or head's share moves dA by far more.
+SSD_BWD_F32_RTOL = 1e-5
+SSD_BWD_F32_ATOL = 1e-4
 #: the prompt of the [profile:*prefill] windows: four 256-row chunks
 PREFILL_PROFILE_LEN = 1024
 #: the warm-up prompt before a timed arm: 511 = 256 + 128 + ... + 1 is cut
@@ -479,7 +556,8 @@ def check_flash_decode(tfa, ref):
     shapes = [((8, 2048, 24, 8, 128), Sq) for Sq in (1, 5, 256, 1024)] \
         + [((3, 64, 4, 2, 32), Sq) for Sq in (1, 4)] \
         + [((8, 2048, 16, 16, 128), Sq) for Sq in (1, 5, 256)] \
-        + [((8, 2048, 32, 32, 64), Sq) for Sq in (1, 5, 256)]    # zamba2
+        + [((8, 2048, 32, 32, 64), Sq) for Sq in (1, 5, 256)] \
+        + [((8, 2048, *NEMOTRON_HEADS), Sq) for Sq in (1, 256)]  # group 6
     for dtype in (torch.bfloat16, torch.float32):
         for (B, S, H, K, D), Sq in shapes:
             kv_len = rng.integers(Sq, S + 1, B)
@@ -1032,9 +1110,12 @@ def check_rope_cache_update(tfa, ref, paged):
     cases = [(m, Sn, nd, cd, 1.0) for m in ROPE_HEADS for Sn in (1, 256)
              for nd in dts for cd in dts]
     cases += [("llama", 1, nd, torch.bfloat16, 0.5) for nd in dts]
+    # nemotron's and minitron's serving step: half rotary, bf16 cache
+    cases += [("nemotron", Sn, nd, torch.bfloat16, 0.5) for Sn in (1, 256)
+              for nd in dts]
     checks = []
     for model, Sn, new_dt, cache_dt, rp in cases:
-        H, K, D = ROPE_HEADS[model]
+        H, K, D = ROPE_HEADS.get(model, NEMOTRON_HEADS)
         seed = 4000 + 100 * paged + len(checks)
         kc, vc, index, table, unmapped = _rope_cache(paged, B, S, K, D,
                                                      cache_dt, Sn, seed)
@@ -1125,13 +1206,14 @@ def check_rope_faults(tfa, ref):
     return out
 
 
-def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index):
+def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index,
+                           rotary_pct=1.0):
     """The fused RoPE + cache write (bf16) at one serving shape, beside the
     plain composition run eagerly (two apply_rope passes and the scatter)
     and its byte bound; no single PyTorch call does both, so there is no
-    library time."""
+    library time.  ``rotary_pct``: the share of each head rotated."""
     import torch
-    H, K, D = ROPE_HEADS[model]
+    H, K, D = ROPE_HEADS.get(model, NEMOTRON_HEADS)
     S, bs, esz = 2048, 16, 2
     kc, vc, _, table, _ = _rope_cache(paged, B, S, K, D, torch.bfloat16, Sn,
                                       4700)
@@ -1140,10 +1222,10 @@ def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index):
         table = torch.tensor(np.random.default_rng(9).permutation(B * mb)
                              .reshape(B, mb), dtype=torch.int32,
                              device="cuda")
-    q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, torch.bfloat16, 1.0, index,
-                                 4700)
+    q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, torch.bfloat16, rotary_pct,
+                                 index, 4700)
     idx = torch.tensor(index, dtype=torch.int32, device="cuda")
-    rope = dict(q=q, cos=c, sin=s)
+    rope = dict(q=q, cos=c, sin=s, rotary_pct=rotary_pct)
     if paged:
         call = functools.partial(tfa.cache_update_paged, kc, vc, kn, vn, idx,
                                  table, **rope)
@@ -1155,9 +1237,9 @@ def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index):
     # the plain version syncs with the host (nonzero): eager only
     plain_ms = _time_eager_ms([functools.partial(
         ref.rope_kv_cache_update_ref, kc, vc, kn, vn, idx, q, c, s,
-        block_tables=table)], 50)
+        rotary_pct, block_tables=table)], 50)
     valid = [b for b, i in enumerate(index) if 0 <= i and i + Sn <= S]
-    half = D // 2
+    half = int(D * rotary_pct) // 2
     nbytes = (2 * B * Sn * H * D * esz            # q in, rotated q out
               + 2 * 2 * len(valid) * Sn * K * D * esz   # k, v in and out
               + 2 * B * Sn * half * 4 + 4 * B)    # cos, sin, index
@@ -1170,7 +1252,10 @@ def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index):
     where = f"pool ({B * S // bs + 1},{bs},{K},{D})" if paged else \
         f"S={S}"
     return {"shape": f"B={B} Sn={Sn} H={H} K={K} D={D} {where} bf16, RoPE "
-                     f"of q and k" + (f", {done} done slot" if done else ""),
+                     f"of q and k"
+                     + (f" (rotary_pct {rotary_pct})" if rotary_pct < 1
+                        else "")
+                     + (f", {done} done slot" if done else ""),
             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "library_ms": None,
             "library": "none: no single PyTorch call does RoPE and the "
@@ -1556,7 +1641,10 @@ def check_ssd(tssd, ref):
     over h0 (the cache lane, in place) once; at mamba2's heads the chunks
     a whole-prompt prefill picks that are no power of two: 37 (S = 4 x
     37) and 1 (S = 131, a prime); the edges of the kernel's contract (P =
-    48, N = 96, G = 2; P = 16, N = 32, chunk 48); bf16 and f32."""
+    48, N = 96, G = 2; P = 16, N = 32, chunk 48); and the training arms'
+    shape, Bb = 2, S = 2048, chunk 128 (16 chunks), at both models' heads,
+    with and without h0, at dt_shift -3 and at the models' dt scale; bf16
+    and f32."""
     import torch
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1566,6 +1654,10 @@ def check_ssd(tssd, ref):
                       for S in (256, 128, 64, 16, 2) for h0 in (True, False)]
             cases.append((dtype, model, H, P, N, 256, 1, True, 0.0, False,
                           128))
+            cases += [(dtype, model, H, P, N, TRAIN_S, 1, h0, shift, False,
+                       128, TRAIN_B)
+                      for h0, shift in ((True, -3.0), (False, -3.0),
+                                        (False, 0.0))]
         H, P, N = SSD_HEADS["mamba2"]
         cases.append((dtype, "mamba2", H, P, N, 256, 2, True, -3.0, False,
                       128))
@@ -1578,8 +1670,9 @@ def check_ssd(tssd, ref):
         cases += [(dtype, "edges", 8, 48, 96, 256, 2, True, -3.0, False, 128),
                   (dtype, "edges", 4, 16, 32, 96, 1, True, -3.0, False, 48)]
     checks = []
-    for dtype, model, H, P, N, S, G, use_h0, shift, inplace, Q in cases:
-        x, dt, A, B, C, D, h0 = _ssd_case(1, S, H, P, G, N, dtype,
+    for dtype, model, H, P, N, S, G, use_h0, shift, inplace, Q, *bb in cases:
+        Bb = bb[0] if bb else 1
+        x, dt, A, B, C, D, h0 = _ssd_case(Bb, S, H, P, G, N, dtype,
                                           5000 + len(checks), shift)
         h0 = h0 if use_h0 else None
         want_y, want_s = ref.ssd_chunked(x, dt, A, B, C, D, h0, chunk=Q)
@@ -1596,11 +1689,12 @@ def check_ssd(tssd, ref):
         ratio_s = _entry_ratio("float32", got_s, want_s).max().item()
         err = (got_y.float() - want_y.float()).abs().max().item()
         checks.append({"dtype": name, "model": model, "H": H, "P": P, "N": N,
-                       "S": S, "G": G, "chunk": Q, "h0": use_h0,
+                       "Bb": Bb, "S": S, "G": G, "chunk": Q, "h0": use_h0,
                        "dt_shift": shift, "state_out_is_h0": inplace,
                        "max_abs_err": err, "worst_over_limit": ratio_y,
                        "state_worst_over_limit": ratio_s})
-        print(f"[check] ssd {name} {model} H={H} P={P} N={N} S={S} G={G} "
+        print(f"[check] ssd {name} {model} H={H} P={P} N={N} Bb={Bb} S={S} "
+              f"G={G} "
               f"chunk={Q} h0={use_h0} dt_shift={shift}"
               f"{' state_out=h0' if inplace else ''}: max|err| {err:.3e}, "
               f"worst entry / its limit: y {ratio_y:.3f}, state "
@@ -1724,10 +1818,7 @@ def time_ssd(tssd, ref, model, S=256):
     esz = 2
     nbytes = (esz * (2 * S * H * P + S * H + 2 * S * G * N)
               + 4 * (2 * H + 2 * H * P * N))
-    # per chunk: C B^T once per group over the j <= i triangle; per head
-    # M x over the triangle, C state^T and the state update over all rows
-    tri = Q * (Q + 1) / 2
-    ops = (S // Q) * (G * 2 * tri * N + H * (2 * tri * P + 4 * Q * N * P))
+    ops = _ssd_ops(1, S, H, P, G, N, Q)
     bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
     return {"shape": f"Bb=1 S={S} H={H} P={P} G={G} N={N} chunk={Q} bf16, "
                      "h0 in place",
@@ -1759,6 +1850,413 @@ def ssd_layer_ms(times, model, specs):
 
 def _ssd_time_key(model, S):
     return f"ssd prefill {model}" if S == 256 else f"ssd tail {model} S={S}"
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the training kernels of MoE and Mamba-2 (grouped_matmul_bwd,
+# ssd_bwd) against their plain versions
+# ---------------------------------------------------------------------------
+
+def _olmoe_train_capacity():
+    """The expert capacity of an olmoe training step at TRAIN_B x TRAIN_S
+    tokens: ceil(T * top_k * capacity_factor / E) (``apply_moe``)."""
+    from repro_torch.configs.registry import get_model_config
+    cfg = get_model_config(MOE_ARCH)
+    return math.ceil(TRAIN_B * TRAIN_S * cfg.top_k * cfg.capacity_factor
+                     / cfg.n_experts)
+
+
+def _gmm_bwd_case(G, M, K, N, dtype, seed, live=None):
+    """lhs, rhs and a cotangent dout on the card; with ``live`` (G,) the
+    rows of lhs and dout past each group's live count are zero, as
+    ``_moe_dispatch_local`` leaves expert_in and the combine leaves the
+    cotangent of rows it never reads."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lhs, rhs, dout = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                      for shape in ((G, M, K), (G, K, N), (G, M, N)))
+    if live is not None:
+        dead = (torch.arange(M, device="cuda")[None]
+                >= torch.tensor(live, device="cuda")[:, None])
+        lhs[dead] = 0
+        dout[dead] = 0
+    return lhs, rhs, dout
+
+
+def check_grouped_matmul_bwd(gmm, ref):
+    """The gradient kernel against ``ref.grouped_matmul_bwd`` on the same
+    inputs, entry by entry (``_entry_ratio``): at olmoe's training shapes
+    (capacity GMM_TRAIN_M rows; gate/up and down), with each group's rows
+    past a seeded live count zero in lhs and dout (their dlhs rows must be
+    exactly zero), at odd capacities and the reduced configs' shapes, bf16
+    and f32; only dlhs and only drhs once; and the same inputs twice, bit
+    for bit."""
+    import torch
+    M = _olmoe_train_capacity()
+    if M != GMM_TRAIN_M:
+        raise AssertionError(f"olmoe's training capacity {M}, GMM_TRAIN_M "
+                             f"{GMM_TRAIN_M}")
+    rng = np.random.default_rng(7)
+    shapes = [(64, M, 2048, 1024, None), (64, M, 1024, 2048, None),
+              (64, M, 2048, 1024, rng.integers(0, M + 1, 64).tolist()),
+              (64, 37, 1024, 2048, None), (64, 1, 2048, 1024, None),
+              (8, 17, 128, 256, None), (8, 5, 256, 128, [5, 0, 3, 1, 5, 2,
+                                                         4, 0])]
+    checks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for G, m, K, N, live in shapes:
+            lhs, rhs, dout = _gmm_bwd_case(G, m, K, N, dtype,
+                                           3300 + len(checks), live)
+            got = gmm.grouped_matmul_bwd(lhs, rhs, dout)
+            again = gmm.grouped_matmul_bwd(lhs, rhs, dout)
+            want = ref.grouped_matmul_bwd(lhs, rhs, dout)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError("grouped_matmul_bwd: non-finite output")
+            err = {n: (a.float() - w.float()).abs().max().item()
+                   for n, a, w in zip(("dlhs", "drhs"), got, want)}
+            ratio = {n: _entry_ratio(name, a, w).max().item()
+                     for n, a, w in zip(("dlhs", "drhs"), got, want)}
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            check = {"dtype": name, "G": G, "M": m, "K": K, "N": N,
+                     "live_rows": live is not None, "max_abs_err": err,
+                     "worst_over_limit": ratio, "bit_equal_twice": same}
+            if live is not None:
+                dead = (torch.arange(m, device="cuda")[None]
+                        >= torch.tensor(live, device="cuda")[:, None])
+                check["dead_rows_dlhs_zero"] = bool(
+                    (got[0][dead] == 0).all().item())
+            checks.append(check)
+            print(f"[check] grouped_matmul_bwd {name} G={G} M={m} K={K} "
+                  f"N={N}{' live rows' if live is not None else ''}: "
+                  "max|err| (worst entry / its limit) " + ", ".join(
+                      f"{n} {err[n]:.3e} ({ratio[n]:.3f})" for n in err)
+                  + f", bit-equal twice {same}"
+                  + (f", dlhs zero on the dead rows "
+                     f"{check['dead_rows_dlhs_zero']}"
+                     if live is not None else ""), flush=True)
+            if not (max(ratio.values()) <= 1.0 and same
+                    and check.get("dead_rows_dlhs_zero", True)):
+                raise AssertionError(f"grouped_matmul_bwd disagrees: {check}")
+        lhs, rhs, dout = _gmm_bwd_case(8, 17, 128, 256, dtype, 3390)
+        want = ref.grouped_matmul_bwd(lhs, rhs, dout)
+        only_l = gmm.grouped_matmul_bwd(lhs, rhs, dout, need_rhs=False)
+        only_r = gmm.grouped_matmul_bwd(lhs, rhs, dout, need_lhs=False)
+        if only_l[1] is not None or only_r[0] is not None or not (
+                _entry_ratio(name, only_l[0], want[0]).max() <= 1
+                and _entry_ratio(name, only_r[1], want[1]).max() <= 1):
+            raise AssertionError("grouped_matmul_bwd: one-sided call wrong")
+    return checks
+
+
+def check_grouped_matmul_bwd_faults(gmm, ref):
+    """The check must reject a gradient kernel that leaves one group's
+    drhs unwritten (zeros where the kernel did not store) or drops the
+    last 64-row M-slice from both contractions: at olmoe's training gate
+    shape (bf16), against the plain version of the intact inputs.  Raises
+    unless more than half of the affected entries (the last group's drhs;
+    every drhs entry and the slice's dlhs rows) are flagged and none
+    elsewhere."""
+    import torch
+    G, M, K, N = 64, _olmoe_train_capacity(), 2048, 1024
+    lhs, rhs, dout = _gmm_bwd_case(G, M, K, N, torch.bfloat16, 3400)
+    want = ref.grouped_matmul_bwd(lhs, rhs, dout)
+    dlhs, drhs = gmm.grouped_matmul_bwd(lhs, rhs, dout)
+    unwritten = drhs.clone()
+    unwritten[-1] = 0
+    cut_l, cut_d = lhs.clone(), dout.clone()
+    cut_l[:, -64:] = 0
+    cut_d[:, -64:] = 0
+    sliced = gmm.grouped_matmul_bwd(cut_l, rhs, cut_d)
+    faults = {}
+    for fault, got, affected in (
+            ("one group's drhs unwritten", (dlhs, unwritten),
+             (None, (slice(G - 1, G),))),
+            ("last 64-row M-slice dropped", sliced,
+             ((slice(None), slice(M - 64, None)), (slice(None),)))):
+        flagged = [_entry_ratio("bfloat16", a, w) > 1
+                   for a, w in zip(got, want)]
+        hit = torch.cat([f[idx].flatten() for f, idx in zip(flagged, affected)
+                         if idx is not None])
+        outside = 0
+        for f, idx in zip(flagged, affected):
+            rest = f.clone()
+            if idx is not None:
+                rest[idx] = False
+            outside += int(rest.sum().item())
+        faults[fault] = {"flagged_share_of_affected":
+                         hit.float().mean().item(),
+                         "flagged_outside": outside}
+        if not (faults[fault]["flagged_share_of_affected"] > 0.5
+                and outside == 0):
+            raise AssertionError(f"grouped_matmul_bwd check vs {fault}: "
+                                 f"{faults[fault]}")
+    print(f"[check] grouped_matmul_bwd planted faults G={G} M={M} K={K} "
+          f"N={N} bf16: share of the affected entries beyond their limit: "
+          + ", ".join(f"{n} {f['flagged_share_of_affected']:.4f} "
+                      f"({f['flagged_outside']} flagged elsewhere)"
+                      for n, f in faults.items()), flush=True)
+    return faults
+
+
+def time_grouped_matmul_bwd(gmm, ref, G, M, K, N):
+    """Gradient kernel, plain and library times at one olmoe training
+    shape (bf16), two input sets in turn (each ~0.8 GB, beyond the 50 MB
+    L2).  The library yardstick, never called by the port: the two
+    ``torch.bmm`` calls dout rhs^T and lhs^T dout."""
+    import torch
+    cases = [_gmm_bwd_case(G, M, K, N, torch.bfloat16, 3500 + i)
+             for i in range(2)]
+    kernel = [functools.partial(gmm.grouped_matmul_bwd, *c) for c in cases]
+    plain = [functools.partial(ref.grouped_matmul_bwd, *c) for c in cases]
+
+    def two_bmm(lhs, rhs, dout):
+        return (torch.bmm(dout, rhs.transpose(1, 2)),
+                torch.bmm(lhs.transpose(1, 2), dout))
+
+    library = [functools.partial(two_bmm, *c) for c in cases]
+    esz = 2
+    nbytes = 2 * esz * (G * M * K + G * K * N) + esz * G * M * N
+    ops = 4.0 * G * M * K * N
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    return {"shape": f"G={G} M={M} K={K} N={N} bf16", "ms":
+            _time_graph_ms(kernel, min_calls=8),
+            "host_ms": _time_eager_ms(kernel, 4),
+            "plain_ms": _time_eager_ms(plain, 1),
+            "library_ms": _time_graph_ms(library, min_calls=8),
+            "library": "torch.bmm(dout, rhs^T) and torch.bmm(lhs^T, dout) "
+                       "(CUDA graph, as the kernel)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes}
+
+
+#: the ssd_bwd cases: (model, H, P, N, G, Bb, S, chunk, h0, D, dstate,
+#: dt_shift): the training shapes (no h0, no final-state gradient) at
+#: mamba2's and zamba2's heads, chunks no power of two (37) and 1, G = 2
+#: with h0 and the final state's gradient, the contract's edges
+SSD_BWD_CASES = (
+    [(m, *SSD_HEADS[m], 1, 2, 2048, 128, False, True, False, 0.0)
+     for m in SSD_HEADS]
+    + [(m, *SSD_HEADS[m], 1, 1, 256, 128, True, True, True, -3.0)
+       for m in SSD_HEADS]
+    + [("mamba2", *SSD_HEADS["mamba2"], 2, 1, 256, 128, True, True, True,
+        -3.0),
+       ("mamba2", *SSD_HEADS["mamba2"], 1, 2, 4 * 37, 37, True, False, True,
+        -3.0),
+       ("zamba2", *SSD_HEADS["zamba2"], 1, 1, 131, 1, True, True, True,
+        -3.0),
+       ("edges", 8, 48, 96, 2, 1, 256, 128, True, True, True, -3.0),
+       ("edges", 4, 16, 32, 1, 2, 96, 48, False, False, True, -3.0)])
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _ssd_bwd_case(H, P, N, G, Bb, S, dtype, seed, use_h0, use_D, use_dstate,
+                  shift):
+    import torch
+    x, dt, A, B, C, D, h0 = _ssd_case(Bb, S, H, P, G, N, dtype, seed, shift)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+    dstate = torch.randn(h0.shape, generator=g, device="cuda")
+    return (x, dt, A, B, C, D if use_D else None, h0 if use_h0 else None, dy,
+            dstate if use_dstate else None)
+
+
+def _ssd_bwd_f32_ratio(got, want):
+    """|got - want| over SSD_BWD_F32_RTOL |want| + SSD_BWD_F32_ATOL
+    max|want|, entry by entry: the rule of ssd_bwd's float32 sums."""
+    want = want.float()
+    limit = SSD_BWD_F32_RTOL * want.abs() + SSD_BWD_F32_ATOL * \
+        want.abs().max()
+    return (got.float() - want).abs() / limit.clamp(min=1e-30)
+
+
+def _ssd_bwd_ratios(name, got, want):
+    """Each gradient's worst entry over its limit: the ones in x's dtype
+    (dx, ddt, dB, dC) by that dtype's ``_entry_ratio`` rule, the float32
+    sums (dA, dD, dh0) by ``_ssd_bwd_f32_ratio``."""
+    return {n: (_entry_ratio(name, a, w) if n in ("dx", "ddt", "dB", "dC")
+                else _ssd_bwd_f32_ratio(a, w)).max().item()
+            for n, a, w in zip(SSD_BWD_NAMES, got, want) if w is not None}
+
+
+def check_ssd_bwd(tssd, ref):
+    """The gradient kernels against ``ref.ssd_chunked_bwd`` on the same
+    card inputs, entry by entry, every gradient: SSD_BWD_CASES, bf16 and
+    f32; each case twice, bit for bit."""
+    import torch
+    checks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for (model, H, P, N, G, Bb, S, Q, use_h0, use_D, use_ds,
+             shift) in SSD_BWD_CASES:
+            args = _ssd_bwd_case(H, P, N, G, Bb, S, dtype,
+                                 5400 + len(checks), use_h0, use_D, use_ds,
+                                 shift)
+            got = tssd.ssd_bwd(*args, chunk=Q)
+            again = tssd.ssd_bwd(*args, chunk=Q)
+            want = ref.ssd_chunked_bwd(*args, chunk=Q)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(t).all() for t in got if t is not None):
+                raise AssertionError("ssd_bwd: non-finite output")
+            ratio = _ssd_bwd_ratios(name, got, want)
+            err = {n: (a.float() - w.float()).abs().max().item()
+                   for n, a, w in zip(SSD_BWD_NAMES, got, want)
+                   if w is not None}
+            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)
+            # the f32 sums (dA, dD, dh0), kernel and plain, each against
+            # the plain version in float64 of the same inputs, over the
+            # largest exact entry
+            exact = ref.ssd_chunked_bwd(
+                *(t.double() if t is not None and t.is_floating_point()
+                  else t for t in args), chunk=Q)
+            f64 = {n: [((t.double() - e).abs().max() / e.abs().max()).item()
+                       for t in (a, w)]
+                   for n, a, w, e in zip(SSD_BWD_NAMES, got, want, exact)
+                   if n in ("dA", "dD", "dh0") and w is not None}
+            checks.append({"dtype": name, "model": model, "H": H, "P": P,
+                           "N": N, "G": G, "Bb": Bb, "S": S, "chunk": Q,
+                           "h0": use_h0, "D": use_D, "dstate": use_ds,
+                           "dt_shift": shift, "max_abs_err": err,
+                           "worst_over_limit": ratio,
+                           "f32_sums_vs_float64": f64,
+                           "bit_equal_twice": same})
+            print(f"[check] ssd_bwd {name} {model} H={H} P={P} N={N} G={G} "
+                  f"Bb={Bb} S={S} chunk={Q} h0={use_h0} D={use_D} "
+                  f"dstate={use_ds} dt_shift={shift}: max|err| (worst entry "
+                  "/ its limit) " + ", ".join(
+                      f"{n} {err[n]:.3e} ({ratio[n]:.3f})" for n in ratio)
+                  + f", bit-equal twice {same}; f32 sums vs float64 "
+                  "(kernel, plain) over max|exact| " + ", ".join(
+                      f"{n} {k:.2e}/{p:.2e}" for n, (k, p) in f64.items()),
+                  flush=True)
+    bad = [c for c in checks if not (max(c["worst_over_limit"].values())
+                                      <= 1.0 and c["bit_equal_twice"])]
+    if bad:
+        raise AssertionError(f"ssd_bwd disagrees: {bad}")
+    return checks
+
+
+def check_ssd_bwd_faults(tssd, ref):
+    """The check must reject a gradient kernel that does not carry the
+    state's gradient between chunks, or does not sum dB over a group's
+    heads: at mamba2's heads, Bb = 1, S = 256 (two chunks), bf16, against
+    the plain version of the real inputs: (a) the kernel run on the two
+    128-row halves, the second from the first's final state (so its own
+    gradients are right) and the first given no gradient of its final
+    state; (b) dB of the kernel run with B repeated for every head (G =
+    H), taking each group's first head.  Raises unless more than a tenth
+    of the affected entries (the first half's rows of dx, ddt, dB and dC,
+    and dA; every dB entry) are flagged, and none of the first fault's
+    unaffected rows (the second half)."""
+    import torch
+    H, P, N = SSD_HEADS["mamba2"]
+    x, dt, A, B, C, D, h0, dy, ds = _ssd_bwd_case(
+        H, P, N, 1, 1, 256, torch.bfloat16, 5500, True, True, True, -3.0)
+    want = ref.ssd_chunked_bwd(x, dt, A, B, C, D, h0, dy, ds, chunk=128)
+    half = (slice(None), slice(None, 128))
+    rest = (slice(None), slice(128, None))
+    _, mid = tssd.ssd(x[half].contiguous(), dt[half].contiguous(), A,
+                      B[half].contiguous(), C[half].contiguous(), D, h0,
+                      chunk=128)
+    first = tssd.ssd_bwd(*(t[half].contiguous() for t in (x, dt)), A,
+                         *(t[half].contiguous() for t in (B, C)), D, h0,
+                         dy[half].contiguous(), None, chunk=128)
+    second = tssd.ssd_bwd(*(t[rest].contiguous() for t in (x, dt)), A,
+                          *(t[rest].contiguous() for t in (B, C)), D, mid,
+                          dy[rest].contiguous(), ds, chunk=128)
+    faults = {}
+    flagged = {n: _entry_ratio("bfloat16", torch.cat([first[i], second[i]],
+                                                     dim=1), want[i]) > 1
+               for n, i in (("dx", 0), ("ddt", 1), ("dB", 3), ("dC", 4))}
+    flagged["dA"] = _ssd_bwd_f32_ratio(first[2] + second[2], want[2]) > 1
+    hit = torch.cat([flagged[n][half].flatten() for n in ("dx", "ddt", "dB",
+                                                          "dC")]
+                    + [flagged["dA"]])
+    faults["state gradient not carried between chunks"] = {
+        "flagged_share_of_affected": hit.float().mean().item(),
+        "flagged_outside": int(sum(flagged[n][rest].sum().item()
+                                   for n in ("dx", "ddt", "dB", "dC")))}
+    rep = torch.repeat_interleave
+    per_head = tssd.ssd_bwd(x, dt, A, rep(B, H, 2), rep(C, H, 2), D, h0, dy,
+                            ds, chunk=128)
+    fl = _entry_ratio("bfloat16", per_head[3][:, :, ::H].contiguous(),
+                      want[3]) > 1
+    faults["dB not summed over the group's heads"] = {
+        "flagged_share_of_affected": fl.float().mean().item(),
+        "flagged_outside": 0}
+    for fault, f in faults.items():
+        if not (f["flagged_share_of_affected"] > 0.1
+                and f["flagged_outside"] == 0):
+            raise AssertionError(f"ssd_bwd check vs a kernel with {fault}: "
+                                 f"{f}")
+    print("[check] ssd_bwd planted faults mamba2 heads S=256 bf16, against "
+          "the plain version from the real inputs: share of the affected "
+          "entries beyond their limit: " + ", ".join(
+              f"{n} {f['flagged_share_of_affected']:.4f} "
+              f"({f['flagged_outside']} flagged elsewhere)"
+              for n, f in faults.items()), flush=True)
+    return faults
+
+
+def _ssd_train_case(model, seed):
+    """mamba2's or zamba2's heads at the training shape (TRAIN_B x
+    TRAIN_S, chunk 128, bf16, D, no h0), at the models' dt scale."""
+    import torch
+    H, P, N = SSD_HEADS[model]
+    return _ssd_bwd_case(H, P, N, 1, TRAIN_B, TRAIN_S, torch.bfloat16, seed,
+                         False, True, False, 0.0)
+
+
+def _ssd_ops(Bb, S, H, P, G, N, Q):
+    """The forward's operations: per chunk, C B^T once per group over the
+    j <= i triangle; per head M x over the triangle, C state^T and the
+    state update over all rows."""
+    tri = Q * (Q + 1) / 2
+    return Bb * (S // Q) * (G * 2 * tri * N
+                            + H * (2 * tri * P + 4 * Q * N * P))
+
+
+def time_ssd_train(tssd, ref, model):
+    """The forward kernel and the gradient kernels at the training shape
+    (bf16): kernel, plain and bound; no single PyTorch call computes
+    either, so the library column is none.  Two input sets in turn."""
+    H, P, N = SSD_HEADS[model]
+    G, Q, Bb, S = 1, 128, TRAIN_B, TRAIN_S
+    cases = [_ssd_train_case(model, 5600 + i) for i in range(2)]
+    fwd = [functools.partial(tssd.ssd, *c[:7], chunk=Q) for c in cases]
+    bwd = [functools.partial(tssd.ssd_bwd, *c, chunk=Q) for c in cases]
+    esz = 2
+    io = esz * (2 * Bb * S * H * P + Bb * S * H + 2 * Bb * S * G * N) \
+        + 4 * 2 * H
+    tri = Q * (Q + 1) / 2
+    # the backward: the states entering the chunks again (2 Q P N a head
+    # and chunk) and the reverse scan of their gradient (2 Q P N); S o L
+    # per group; dxdt (the triangle and 2 Q P N), dS (the triangle), dC
+    # and dB (the triangle and 2 Q P N each)
+    bwd_ops = Bb * (S // Q) * (G * 2 * tri * N + H * (
+        10 * Q * P * N + 4 * tri * (P + N)))
+    out = {}
+    for name, calls, plain, nbytes, ops in (
+            ("fwd", fwd, [functools.partial(ref.ssd_chunked, *c[:7], chunk=Q)
+                          for c in cases],
+             io + 4 * Bb * H * P * N, _ssd_ops(Bb, S, H, P, G, N, Q)),
+            ("bwd", bwd, [functools.partial(ref.ssd_chunked_bwd, *c, chunk=Q)
+                          for c in cases],
+             2 * io + esz * Bb * S * H * P, bwd_ops)):
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+        out[name] = {
+            "shape": f"Bb={Bb} S={S} H={H} P={P} G={G} N={N} chunk={Q} "
+                     "bf16, D, no h0",
+            "ms": _time_graph_ms(calls, min_calls=8),
+            "host_ms": _time_eager_ms(calls, 4),
+            "plain_ms": _time_eager_ms(plain, 1), "library_ms": None,
+            "library": "none: no single PyTorch call computes SSD or its "
+                       "gradient",
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2280,7 +2778,8 @@ def _serving_launches(cfg, steps, specs, paged):
             "cache_update_paged": n if paged else 0,
             "flash_attention": 0, "flash_attention_bwd": 0,
             "grouped_matmul": 3 * n if cfg.n_experts else 0,
-            "ssd": mamba * sum(size >= 2 for plan in plans for size in plan)}
+            "ssd": mamba * sum(size >= 2 for plan in plans for size in plan),
+            "grouped_matmul_bwd": 0, "ssd_bwd": 0}
 
 
 def _check_launches(arm, launches, want):
@@ -2353,27 +2852,28 @@ def _print_arm(name, st, launches):
 
 
 def _card_weights(cfg, run):
-    """Seeded random f32 masters of ``cfg`` made on the card (seed 0) and
-    cast once to the compute dtype (``lm.prepare_params``, as the engine
-    does); the masters are freed before this returns."""
+    """Seeded random weights of ``cfg`` made on the card (seed 0) in their
+    compute dtypes: each f32 master leaf cast by ``lm.prepare_leaf`` as
+    soon as it is drawn (the engine's ``prepare_params`` rule), so a model
+    whose f32 masters and bf16 copy would not fit together (nemotron-4-15b:
+    62.5 + 31.3 GB) holds one f32 leaf at a time."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import Ctx
     from repro_torch.models.params import init_params
-    masters = init_params(lm.model_decls(cfg),
-                          torch.Generator(device="cuda").manual_seed(0),
-                          "cuda")
-    params = lm.prepare_params(Ctx(run, "cuda"), masters)
-    del masters
+    params = init_params(lm.model_decls(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", functools.partial(lm.prepare_leaf,
+                                                   Ctx(run, "cuda")))
     torch.cuda.empty_cache()
     return params
 
 
 def serve_full_width(tfa, arch=ARCH, tag=""):
-    """Phase 3a (llama) and the first arm of 3d (``arch=MOE_ARCH``, arms
-    named ``olmoe-*``): the dense arm.  Returns its launches and stats, and
-    what the later arms reuse: (cfg, run, card params, request specs,
-    streams)."""
+    """Phase 3a (llama), the first arm of 3d (``arch=MOE_ARCH``, arms
+    named ``olmoe-*``) and 3i (minitron-4b, nemotron-4-15b): the dense
+    arm.  Returns its launches and stats, and what the later arms reuse:
+    (cfg, run, card params, request specs, streams)."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.models import lm
@@ -2393,8 +2893,8 @@ def serve_full_width(tfa, arch=ARCH, tag=""):
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers d{cfg.d_model} "
           f"vocab {cfg.vocab}, {param_count(decls) / 1e9:.3f} B params, "
           f"weights ready in {time.perf_counter() - t0:.1f}s (peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB with the f32 "
-          f"masters; {torch.cuda.memory_allocated() / 1e9:.2f} GB held)",
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held)",
           flush=True)
 
     rng = np.random.default_rng(0)
@@ -3830,7 +4330,8 @@ def serve_static(tfa, cfg, run, params, specs, dense_streams, dense_stats):
     _check_launches("static", launches, {
         "flash_decode": n, "flash_decode_paged": 0, "cache_update": n,
         "cache_update_paged": 0, "flash_attention": 0,
-        "flash_attention_bwd": 0, "grouped_matmul": 0, "ssd": 0})
+        "flash_attention_bwd": 0, "grouped_matmul": 0, "ssd": 0,
+        "grouped_matmul_bwd": 0, "ssd_bwd": 0})
     if joules is not None:
         _check_draw("static", joules, wall)
     n_tok = sum(len(r.generated) for r in done)
@@ -4388,14 +4889,46 @@ def _release_card():
     torch.cuda.reset_peak_memory_stats()
 
 
-def train_full_width(tfa):
-    """Phase 5, the training main path: full-width, full-depth
-    llama3.2-3b (seeded f32 masters on the card, bf16 compute, AdamW,
-    remat="full", batch 2 x 2048, logits_chunk 1024, 2 warmup steps)
-    through ``make_train_step``, TRAIN_STEPS steps on one repeated
-    TokenSource batch.  Every loss finite, the last below the first, and
-    exactly 2 forward launches (the forward and its recompute) and one
-    backward launch per layer and step."""
+def _train_launches(cfg, steps):
+    """The exact kernel launches of ``steps`` train steps under
+    remat="full": per attention layer (every layer of a decoder, zamba2's
+    shared block once per invocation) two ``flash_attention`` (the forward
+    and its recompute) and one ``flash_attention_bwd``; per MoE layer six
+    ``grouped_matmul`` (gate, up, down, twice) and three
+    ``grouped_matmul_bwd``; per Mamba layer two ``ssd`` and one
+    ``ssd_bwd``; no decode kernel."""
+    from repro_torch.models.lm import zamba_structure
+    attn = {"ssm": 0, "hybrid": zamba_structure(cfg)[0]}.get(
+        cfg.family, cfg.n_layers)
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    moe = cfg.n_layers if cfg.n_experts else 0
+    return {"flash_decode": 0, "flash_decode_paged": 0, "cache_update": 0,
+            "cache_update_paged": 0,
+            "flash_attention": 2 * attn * steps,
+            "flash_attention_bwd": attn * steps,
+            "grouped_matmul": 6 * moe * steps, "ssd": 2 * mamba * steps,
+            "grouped_matmul_bwd": 3 * moe * steps,
+            "ssd_bwd": mamba * steps}
+
+
+def _active_params(cfg, n_params):
+    """Parameters a token's forward reads: all of them, but of an MoE
+    layer's experts only top_k of n_experts."""
+    if not cfg.n_experts:
+        return n_params
+    experts = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
+    return n_params - experts + experts * cfg.top_k / cfg.n_experts
+
+
+def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train"):
+    """Phase 5, the training paths: full-width ``arch`` (full depth, or
+    ``n_layers``; seeded f32 masters on the card, bf16 compute, AdamW,
+    remat="full", batch TRAIN_B x TRAIN_S, logits_chunk 1024, 2 warmup
+    steps) through ``make_train_step``, TRAIN_STEPS steps on one repeated
+    TokenSource batch: llama3.2-3b as ``[train]``, and ``[train:olmoe]``,
+    ``[train:mamba2]``, ``[train:zamba2]``.  Every loss and grad norm
+    finite, the last loss below the first, and exactly
+    ``_train_launches`` per step."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.data.pipeline import DataConfig, TokenSource
@@ -4404,9 +4937,23 @@ def train_full_width(tfa):
     from repro_torch.models.params import param_count
     from repro_torch.train.step import init_state, make_train_step
 
-    B, S = 2, 2048
-    cfg = get_model_config(ARCH)
-    run = get_run_config(ARCH, remat="full", logits_chunk=1024,
+    B, S = TRAIN_B, TRAIN_S
+    cfg = get_model_config(arch)
+    depth = ""
+    if n_layers is not None:
+        full = param_count(lm.model_decls(cfg))
+        cut = dataclasses.replace(cfg, n_layers=n_layers)
+        n_cut = param_count(lm.model_decls(cut))
+        per = (full - n_cut) / (cfg.n_layers - n_layers)
+        depth = (f"; depth cut to {n_layers} of {cfg.n_layers} layers: f32 "
+                 f"master, grad and two AdamW moments are 16 B a param, "
+                 f"{full / 1e9:.3f} B params at full depth need "
+                 f"{16 * full / 1e9:.1f} GB (the card has 80), each layer "
+                 f"{per / 1e9:.3f} B ({16 * per / 1e9:.1f} GB), the rest "
+                 f"{(n_cut - n_layers * per) / 1e9:.3f} B, so {n_layers} "
+                 f"layers hold {16 * n_cut / 1e9:.1f} GB of state")
+        cfg = cut
+    run = get_run_config(arch, remat="full", logits_chunk=1024,
                          warmup_steps=2, total_steps=TRAIN_STEPS)
     _release_card()
     t0 = time.perf_counter()
@@ -4414,10 +4961,10 @@ def train_full_width(tfa):
                        "cuda").tree()
     torch.cuda.synchronize()
     n_params = param_count(lm.model_decls(cfg))
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
           f"params; f32 masters + AdamW state ready in "
           f"{time.perf_counter() - t0:.1f}s, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated{depth}",
           flush=True)
     data = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=B, seq_len=S))
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
@@ -4434,24 +4981,25 @@ def train_full_width(tfa):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         joules.append((METER.energy_mj() - e0) / 1e3)
-        _check_draw(f"[train] step {i}", joules[-1], secs[-1])
-        print(f"[train] step {i} loss={losses[-1]:.4f} "
+        _check_draw(f"[{tag}] step {i}", joules[-1], secs[-1])
+        print(f"[{tag}] step {i} loss={losses[-1]:.4f} "
               f"grad_norm={gnorms[-1]:.4f} {secs[-1]:.3f}s "
               f"E={joules[-1]:.1f}J", flush=True)
     launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_decode": 0, "flash_decode_paged": 0, "cache_update": 0,
-            "cache_update_paged": 0, "grouped_matmul": 0, "ssd": 0,
-            "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    want = _train_launches(cfg, TRAIN_STEPS)
     step_s = float(np.median(secs[1:]))
     tokens = B * S
+    attn_layers = want["flash_attention_bwd"] // TRAIN_STEPS
     attn_fwd_ops = 4.0 * cfg.head_dim * B * cfg.n_heads * S * (S + 1) / 2
-    # 6 N per token (forward 2, backward 4) plus the attention's forward
-    # and its 2.5x backward, per layer; the remat recompute is not counted
-    model_ops = 6.0 * n_params * tokens + 3.5 * attn_fwd_ops * cfg.n_layers
-    stats = {"steps": TRAIN_STEPS, "batch": B, "seq": S, "losses": losses,
-             "grad_norms": gnorms, "step_s": secs,
+    # 6 N per token (forward 2, backward 4) over the params a token reads
+    # plus the attention's forward and its 2.5x backward, per attention
+    # layer; the remat recompute and the SSD scan are not counted
+    model_ops = (6.0 * _active_params(cfg, n_params) * tokens
+                 + 3.5 * attn_fwd_ops * attn_layers)
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
+             "params": n_params, "steps": TRAIN_STEPS, "batch": B, "seq": S,
+             "losses": losses, "grad_norms": gnorms, "step_s": secs,
              "median_step_s_after_first": step_s,
              "tokens_per_s": tokens / step_s,
              "peak_allocated_gb": peak / 1e9, "launches": launches,
@@ -4460,7 +5008,8 @@ def train_full_width(tfa):
              "step_j": joules,
              "median_step_j_after_first": float(np.median(joules[1:])),
              "j_per_step": sum(joules) / TRAIN_STEPS}
-    print(f"[train] {TRAIN_STEPS} steps of {B} x {S} tokens: "
+    print(f"[{tag}] {cfg.name} {cfg.n_layers} layers, {TRAIN_STEPS} steps "
+          f"of {B} x {S} tokens: "
           f"{step_s:.3f} s per step (median after the first; first "
           f"{secs[0]:.3f} s), {stats['median_step_j_after_first']:.1f} J per "
           f"step (median after the first; {stats['j_per_step']:.1f} over "
@@ -4472,12 +5021,14 @@ def train_full_width(tfa):
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}",
           flush=True)
     if not all(math.isfinite(x) for x in losses + gnorms):
-        raise AssertionError(f"[train] non-finite loss or grad norm: "
+        raise AssertionError(f"[{tag}] non-finite loss or grad norm: "
                              f"{losses} {gnorms}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] loss did not fall: {losses}")
+        raise AssertionError(f"[{tag}] loss did not fall: {losses}")
     if launches != want:
-        raise AssertionError(f"[train] launches {launches}, expected {want}")
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
+    stats.update(_memorised_not_leaked(cfg, run, state["params"], batch,
+                                       data, tag))
 
     def one_step():
         step_fn(state, batch)
@@ -4486,17 +5037,74 @@ def train_full_width(tfa):
     # one more step after the counted ones (and after the serving
     # profiles: the profiler slows later launches)
     stats["profile"] = _profile_window(
-        "train", "one train step", 1, one_step, top_n=12,
-        groups=TRAIN_PROFILE_GROUPS)
+        tag.replace("train:", "train-"), "one train step", 1, one_step,
+        top_n=12, groups=TRAIN_PROFILE_GROUPS)
     del state, batch
     _release_card()
     return launches, stats
 
 
-def train_parity(tfa):
-    """Phase 6: one train step at full width and 2 layers in f32 from the
-    same seeded weights and batch, on the card (kernels) and on the CPU
-    (plain versions): loss, grad norm and the parameter update agree."""
+def _memorised_not_leaked(cfg, run, params, batch, data, tag):
+    """After an arm's steps on its one repeated batch of uniform random
+    tokens, a loss below ln(vocab) can only be that batch learnt by
+    heart, unless the forward lets a position see a later token.  So,
+    without grad, on the trained weights: the cross-entropy on a fresh
+    batch (``data.batch(1)``) must not fall below ln(vocab) - 1 (a leak
+    would carry over to any batch); and, for a model without an MoE
+    router (whose capacity cut couples tokens), the tokens after position
+    CAUSAL_T are replaced, and the final hidden states at positions <=
+    CAUSAL_T (in the middle of a 128-row SSD chunk) must stay bit-equal
+    while those after it change."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.train.step import make_loss_fn
+    ctx = Ctx(run, "cuda")
+    loss_fn = make_loss_fn(cfg, run, ctx)
+    fresh = {k: torch.from_numpy(v).cuda() for k, v in data.batch(1).items()}
+    t = CAUSAL_T
+    with torch.no_grad():
+        seen_ce = float(loss_fn(params, batch)[1]["ce"])
+        fresh_ce = float(loss_fn(params, fresh)[1]["ce"])
+        out = {"seen_ce": seen_ce, "fresh_ce": fresh_ce,
+               "ln_vocab": math.log(cfg.vocab)}
+        line = (f"[{tag}] after the steps: cross-entropy {seen_ce:.4f} on "
+                f"the trained batch, {fresh_ce:.4f} on a fresh one (ln "
+                f"vocab {out['ln_vocab']:.4f})")
+        if not cfg.n_experts:
+            alt = batch["tokens"].clone()
+            alt[:, t + 1:] = fresh["tokens"][:, t + 1:]
+            h = lm.forward(ctx, cfg, params, {"tokens": batch["tokens"]})[0]
+            h_alt = lm.forward(ctx, cfg, params, {"tokens": alt})[0]
+            diff = (h.float() - h_alt.float()).abs()
+            out["causal"] = {"t": t,
+                             "upto_t_max_abs_diff": diff[:, :t + 1].max()
+                             .item(),
+                             "after_t_max_abs_diff": diff[:, t + 1:].max()
+                             .item()}
+            line += (f"; tokens after position {t} replaced: final hidden "
+                     f"states max|diff| {out['causal']['upto_t_max_abs_diff']}"
+                     f" at positions <= {t}, "
+                     f"{out['causal']['after_t_max_abs_diff']:.4g} after")
+            del h, h_alt, diff
+    print(line, flush=True)
+    if not fresh_ce >= out["ln_vocab"] - 1:
+        raise AssertionError(f"[{tag}] cross-entropy {fresh_ce} on a fresh "
+                             f"batch of uniform random tokens, below ln "
+                             f"vocab - 1: a position sees later tokens")
+    if "causal" in out and not (out["causal"]["upto_t_max_abs_diff"] == 0
+                                and out["causal"]["after_t_max_abs_diff"]
+                                > 0):
+        raise AssertionError(f"[{tag}] not causal: {out['causal']}")
+    return out
+
+
+def train_parity(tfa, arch=ARCH, tag="train:parity"):
+    """Phase 6: one train step of ``arch`` at full width and 2 layers in
+    f32 from the same seeded weights and batch, on the card (kernels) and
+    on the CPU (plain versions): loss, grad norm and the parameter update
+    agree, and the card launched exactly ``_train_launches`` (llama as
+    ``[train:parity]``, then olmoe and mamba2)."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.data.pipeline import DataConfig, TokenSource
@@ -4504,8 +5112,8 @@ def train_parity(tfa):
     from repro_torch.train.step import init_state, make_train_step
     from repro_torch.tree import leaves, tree_map
 
-    cfg = dataclasses.replace(get_model_config(ARCH), n_layers=2)
-    run = get_run_config(ARCH, remat="full", compute_dtype="float32",
+    cfg = dataclasses.replace(get_model_config(arch), n_layers=2)
+    run = get_run_config(arch, remat="full", compute_dtype="float32",
                          logits_chunk=256, warmup_steps=0, total_steps=1)
     cpu = init_state(cfg, run, torch.Generator().manual_seed(2), "cpu").tree()
     p0 = [p.clone() for p in leaves(cpu["params"])]
@@ -4518,8 +5126,8 @@ def train_parity(tfa):
     card, m_card = make_train_step(cfg, run, Ctx(run, "cuda"))(
         card, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
     torch.cuda.synchronize()
-    launches = {"flash_attention": tfa.flash_attention.launches,
-                "flash_attention_bwd": tfa.flash_attention_bwd.launches}
+    launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+    want = _train_launches(cfg, 1)
     cpu, m_cpu = make_train_step(cfg, run, Ctx(run, "cpu"))(
         cpu, {k: torch.from_numpy(v) for k, v in host.items()})
     err = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
@@ -4530,19 +5138,20 @@ def train_parity(tfa):
         du2 += float(((a.detach().cpu() - p) - u_cpu).double().square().sum())
         u2 += float(u_cpu.double().square().sum())
     err["update"] = math.sqrt(du2 / u2)
-    print(f"[train:parity] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 "
+    ran = {k: n for k, n in launches.items() if n}
+    print(f"[{tag}] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 "
           f"layers, f32, one AdamW step on 1 x 256 tokens: card (kernels, "
-          f"launches {launches}) vs CPU (plain): loss "
+          f"launches {ran}) vs CPU (plain): loss "
           f"{float(m_card['loss']):.6f} vs {float(m_cpu['loss']):.6f}, "
           f"grad_norm {float(m_card['grad_norm']):.6f} vs "
           f"{float(m_cpu['grad_norm']):.6f}; relative errors "
           + ", ".join(f"{k} {v:.2e} (tol {TRAIN_PARITY_TOL[k]})"
                       for k, v in err.items()), flush=True)
-    if launches != {"flash_attention": 4, "flash_attention_bwd": 2}:
-        raise AssertionError(f"[train:parity] launches {launches}")
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
     bad = [k for k, v in err.items() if not v <= TRAIN_PARITY_TOL[k]]
     if bad:
-        raise AssertionError(f"[train:parity] disagrees on {bad}: {err}")
+        raise AssertionError(f"[{tag}] disagrees on {bad}: {err}")
     del card
     _release_card()
     return err
@@ -5017,17 +5626,38 @@ def _smoke(card) -> int:
     fa_times = time_flash_attention(tfa, ref)
     times["flash_attention training"] = fa_times["fwd"]
     times["flash_attention_bwd training"] = fa_times["bwd"]
+    # nemotron-4-15b's heads: a GQA group of 6, half rotary
+    H6, K6, _ = NEMOTRON_HEADS
+    times["flash_decode decode g=6"] = time_flash_decode(
+        tfa, ref, 8, 1, decode_lens, H=H6, K=K6)
+    times["flash_decode prefill g=6"] = time_flash_decode(
+        tfa, ref, 1, 256, [768], H=H6, K=K6)
+    times["cache_update rope decode g=6"] = time_rope_cache_update(
+        tfa, ref, False, "nemotron", 8, 1, decode_index, rotary_pct=0.5)
+    times["cache_update rope prefill g=6"] = time_rope_cache_update(
+        tfa, ref, False, "nemotron", 1, 256, [512], rotary_pct=0.5)
     gmm_checks = check_grouped_matmul(gmm, ref)
     gmm_faults = check_grouped_matmul_faults(gmm, ref)
     for G, M, K, N in GMM_TIME_SHAPES:
         times[f"grouped_matmul M={M} {K}x{N}"] = time_grouped_matmul(
             gmm, ref, G, M, K, N)
+    gmm_bwd_checks = check_grouped_matmul_bwd(gmm, ref)
+    gmm_bwd_faults = check_grouped_matmul_bwd_faults(gmm, ref)
+    for K, N in ((2048, 1024), (1024, 2048)):
+        times[f"grouped_matmul_bwd M={GMM_TRAIN_M} {K}x{N}"] = \
+            time_grouped_matmul_bwd(gmm, ref, 64, GMM_TRAIN_M, K, N)
     ssd_checks = check_ssd(tssd, ref)
     ssd_faults = check_ssd_faults(tssd, ref)
     ssd_shortcut = check_ssd_shortcut(ref)
     for model in SSD_HEADS:
         for S in SSD_TIME_S:
             times[_ssd_time_key(model, S)] = time_ssd(tssd, ref, model, S)
+    ssd_bwd_checks = check_ssd_bwd(tssd, ref)
+    ssd_bwd_faults = check_ssd_bwd_faults(tssd, ref)
+    for model in SSD_HEADS:
+        t = time_ssd_train(tssd, ref, model)
+        times[f"ssd train {model}"] = t["fwd"]
+        times[f"ssd_bwd train {model}"] = t["bwd"]
     for name, t in times.items():
         lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
                else "none")
@@ -5107,6 +5737,14 @@ def _smoke(card) -> int:
     zamba2 = hyb_shared[:2]
     del hyb_shared
     _release_card()
+    # 3i: full-width minitron-4b and nemotron-4-15b, dense and graphed
+    nemo_launches, nemo_serving = {}, {}
+    for arch, tag in ((MINITRON_ARCH, "minitron"), (NEMOTRON_ARCH,
+                                                    "nemotron")):
+        nemo_launches[tag], nemo_serving[tag], shared = serve_full_width(
+            tfa, arch, tag + "-")
+        del shared
+        _release_card()
     # the profiles come after every serving arm: launches slow down once
     # the profiler has run; each model's seeded weights are made again
     for model, into, name, groups, kw in (
@@ -5132,7 +5770,13 @@ def _smoke(card) -> int:
     mamba_parity = {SSM_ARCH: ssm_parity(SSM_ARCH, 2),
                     HYBRID_ARCH: ssm_parity(HYBRID_ARCH, 7)}
     train_launches, training = train_full_width(tfa)
+    for name, (arch, layers) in TRAIN_ARMS.items():
+        training[name] = train_full_width(tfa, arch, layers,
+                                          "train:" + name)[1]
     training["parity_rel_err"] = train_parity(tfa)
+    for name in ("olmoe", "mamba2"):
+        training[name]["parity_rel_err"] = train_parity(
+            tfa, TRAIN_ARMS[name][0], "train:parity-" + name)
     # 7: LSMS, the paper's own workload, on a card no model holds
     lsms = lsms_phases(card)
     print(json.dumps({"lsms": lsms}))
@@ -5153,6 +5797,11 @@ def _smoke(card) -> int:
         d64 = {"launches": hyb[name], "launches_arm": "zamba2-" + arm}
         d64.update({" ".join(k.split()[1:-1]): times[k] for k in times
                     if k.startswith(name + " ") and k.endswith("D=64")})
+        # nemotron-4-15b (H = 48, K = 8: a group of 6), dense only
+        g6 = {"launches": nemo_launches["nemotron"][name],
+              "launches_arm": "nemotron-dense"}
+        g6.update({" ".join(k.split()[1:-1]): times[k] for k in times
+                   if k.startswith(name + " ") and k.endswith("g=6")})
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=err,
                     tolerance=tol, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -5161,7 +5810,7 @@ def _smoke(card) -> int:
                     shape=t["shape"], max_abs_diff=err, kernel_ms=t["ms"],
                     host_ms=t["host_ms"], launches_per_decode_step=28,
                     launches_arm=arm, prefill_chunk=prefill, checks=checks,
-                    olmoe_g1=g1, zamba2_d64=d64,
+                    olmoe_g1=g1, zamba2_d64=d64, nemotron_g6=g6,
                     launches_fleet=fleet_st["launches"][name],
                     launches_static=serving["static"]["launches"][name],
                     **extra)
@@ -5250,7 +5899,27 @@ def _smoke(card) -> int:
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t["library_ms"], library=t["library"], shape=t["shape"],
         host_ms=t["host_ms"], times=gmm_times, checks=gmm_checks,
-        planted_fault=gmm_faults))
+        planted_fault=gmm_faults,
+        launches_train=training["olmoe"]["launches"]["grouped_matmul"]))
+    t = times[f"grouped_matmul_bwd M={GMM_TRAIN_M} 2048x1024"]
+    kernels.append(dict(
+        name="grouped_matmul_bwd", route="cuda",
+        source=csrc + "grouped_matmul_bwd.cu", replaces=train_src + ":346",
+        replaces_note="XLA autodiff of ref.grouped_matmul_ref: the Pallas "
+                      "grouped_matmul has no VJP",
+        launches=training["olmoe"]["launches"]["grouped_matmul_bwd"],
+        launches_arm="train:olmoe",
+        max_abs_err=max(max(c["max_abs_err"].values())
+                        for c in gmm_bwd_checks if c["dtype"] == "bfloat16"),
+        worst_over_limit=max(max(c["worst_over_limit"].values())
+                             for c in gmm_bwd_checks),
+        tolerance=_ATTN_TOL_TEXT, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], library=t["library"], shape=t["shape"],
+        host_ms=t["host_ms"],
+        times={k: v for k, v in times.items()
+               if k.startswith("grouped_matmul_bwd")},
+        checks=gmm_bwd_checks, planted_fault=gmm_bwd_faults))
     t = times["ssd prefill mamba2"]
     kernels.append(dict(
         name="ssd", route="cuda", source=csrc + "ssd.cu",
@@ -5270,13 +5939,39 @@ def _smoke(card) -> int:
         shape=t["shape"], host_ms=t["host_ms"],
         times={k: v for k, v in times.items() if k.startswith("ssd")},
         checks=ssd_checks, planted_fault=ssd_faults,
-        bf16_shortcut=ssd_shortcut))
+        bf16_shortcut=ssd_shortcut,
+        launches_train={m: training[m]["launches"]["ssd"]
+                        for m in ("mamba2", "zamba2")}))
+    t = times["ssd_bwd train mamba2"]
+    kernels.append(dict(
+        name="ssd_bwd", route="cuda", source=csrc + "ssd_bwd.cu",
+        replaces=train_src + ":277",
+        replaces_note="XLA autodiff of ref.ssd_chunked: the Pallas ssd has "
+                      "no VJP",
+        launches=training["mamba2"]["launches"]["ssd_bwd"],
+        launches_arm="train:mamba2",
+        launches_zamba2=training["zamba2"]["launches"]["ssd_bwd"],
+        max_abs_err=max(max(v for n, v in c["max_abs_err"].items()
+                            if n in ("dx", "ddt", "dB", "dC"))
+                        for c in ssd_bwd_checks if c["dtype"] == "bfloat16"),
+        worst_over_limit=max(max(c["worst_over_limit"].values())
+                             for c in ssd_bwd_checks),
+        tolerance=_ATTN_TOL_TEXT + f"; the f32 sums dA, dD, dh0: per entry "
+                  f"{SSD_BWD_F32_RTOL} |want| + {SSD_BWD_F32_ATOL} "
+                  "max|want|",
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, library=t["library"],
+        shape=t["shape"], host_ms=t["host_ms"],
+        times={k: v for k, v in times.items() if k.startswith("ssd")
+               and "train" in k},
+        checks=ssd_bwd_checks, planted_fault=ssd_bwd_faults))
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
     moe_serving["paged"] = moe_paged
     print(json.dumps({"kernels": kernels, "serving": serving,
                       "olmoe_serving": moe_serving,
                       "mamba2_serving": ssm_serving,
                       "zamba2_serving": hyb_serving,
+                      "nemotron_serving": nemo_serving,
                       "training": training,
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,

@@ -60,8 +60,11 @@ SIGNATURES = {
                             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "grouped_matmul": ("grouped_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "grouped_matmul_bwd": ("grouped_matmul_bwd",
+                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "ssd": ("ssd", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _P]),
+    "ssd_bwd": ("ssd_bwd", [_P] * 18 + [_I] * 8 + [_P]),
 }
 
 #: dtype code of a tensor at every kernel's C entry point

@@ -45,7 +45,9 @@
 // and 8 above.
 //
 // Not done yet: skipping the groups that capacity leaves empty at decode
-// (ROADMAP queue 2 item 6); a backward (queue 1 item 16).
+// (ROADMAP queue 2 item 6).  The gradient (dlhs = dout rhs^T, drhs = lhs^T
+// dout) is grouped_matmul_bwd.cu, a kernel of its own: the Pallas kernel
+// has no VJP either, and JAX differentiates grouped_matmul_ref.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -55,7 +55,8 @@
 //     bf16 once breaks the per-entry check (ref.ssd_tc_emulated,
 //     chip_smoke.py's shortcut line); two parts leave ~2^-18 a term.
 //   * Warp 0 scans the log-decay (a run of rows a lane, shuffles across
-//     lanes) from dt loaded one chunk ahead.  Three block barriers a chunk:
+//     lanes; a row's sum holds no later row, so y up to a row is the same
+//     bit for bit whatever follows it) from dt loaded one chunk ahead.  Three block barriers a chunk:
 //     after the scan, after the row products (the old state is read),
 //     after the state update (the stage is free).
 // Every bf16 chunk from 1 to 128 rows takes this kernel: on an H100 it is
@@ -63,9 +64,11 @@
 // path cuts (2 to 256 rows; PERF.md section 6), so nothing dispatches
 // between the two by shape.  What bounds it now is one chunk's chain, not
 // bytes: ~7 us for a tail of up to 64 rows, ~9 us for 128 rows.
-// A backward would reuse, per chunk, a_cs, the masked M (or S and L) and
-// the state entering the chunk, which this kernel keeps only in registers
-// and shared memory (ROADMAP queue 1 item 17).
+// The gradient is ssd_bwd.cu.  It needs, per chunk, a_cs, S o L and the
+// state entering the chunk, which this kernel keeps only in registers and
+// shared memory: the backward recomputes them (the states in a scan of
+// its own), so this kernel writes nothing more for training and the
+// serving path pays nothing.
 //
 // float32 (the checks and the f32 parity arms): ssd_kernel on the CUDA
 // cores (the first port of the kernel), f32 products throughout; TF32
@@ -185,7 +188,12 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const float v = __shfl_up_sync(0xffffffffu, tot, o);
         if (lane >= o) tot += v;
       }
-      const float before = tot - run;
+      // the lanes before this one's run: the previous lane's inclusive
+      // total, so a row's a_cs sums the rows up to it and no later one
+      // (tot - run rounds with the run's later rows: an output would
+      // depend on later inputs in its last bits)
+      float before = __shfl_up_sync(0xffffffffu, tot, 1);
+      if (lane == 0) before = 0.f;
       for (int i = lo; i < hi; ++i) acs[i] += before;
     }
     __syncthreads();
@@ -576,7 +584,12 @@ ssd_tc_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__
         const float v = __shfl_up_sync(0xffffffffu, tot, o);
         if (lane >= o) tot += v;
       }
-      const float before = tot - run;
+      // the lanes before this one's run: the previous lane's inclusive
+      // total, so a row's a_cs sums the rows up to it and no later one
+      // (tot - run rounds with the run's later rows: an output would
+      // depend on later inputs in its last bits)
+      float before = __shfl_up_sync(0xffffffffu, tot, 1);
+      if (lane == 0) before = 0.f;
       float mine = 0.f;
 #pragma unroll
       for (int k = 0; k < PER; ++k)

@@ -32,8 +32,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.grouped_matmul import grouped_matmul
-from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_bwd)
+from repro_torch.kernels.ssd import ssd, ssd_bwd
 
 #: query rows of a kv head (Sq * H / K) up to which a call takes the
 #: kernels' decode path, split-KV over spans of DECODE_SPAN kv rows (a
@@ -419,10 +420,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
 flash_attention_bwd.launches = 0
 
 #: Every kernel wrapper of the package, for launch counting: the six
-#: above, ``kernels/grouped_matmul.py``'s (the MoE expert FFN) and
-#: ``kernels/ssd.py``'s (the Mamba-2 scan).
+#: above, ``kernels/grouped_matmul.py``'s (the MoE expert FFN and its
+#: gradient) and ``kernels/ssd.py``'s (the Mamba-2 scan and its gradient).
 KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged,
-           flash_attention, flash_attention_bwd, grouped_matmul, ssd)
+           flash_attention, flash_attention_bwd, grouped_matmul, ssd,
+           grouped_matmul_bwd, ssd_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -444,6 +444,17 @@ def grouped_matmul(lhs, rhs):
                         rhs.float()).to(lhs.dtype)
 
 
+def grouped_matmul_bwd(lhs, rhs, dout):
+    """The gradient of ``grouped_matmul`` given its cotangent dout (G, M,
+    N): (dlhs = dout rhs^T in lhs's dtype, drhs = lhs^T dout in rhs's),
+    each product summed in float32 (float64 for float64 inputs) and
+    rounded once, as autodiff of the f32 einsum gives."""
+    acc = torch.promote_types(lhs.dtype, torch.float32)
+    d = dout.to(acc)
+    return (torch.einsum("gmn,gkn->gmk", d, rhs.to(acc)).to(lhs.dtype),
+            torch.einsum("gmk,gmn->gkn", lhs.to(acc), d).to(rhs.dtype))
+
+
 # ===========================================================================
 # mamba-2 SSD (state-space duality)
 # ===========================================================================
@@ -535,6 +546,96 @@ def ssd_chunked(x, dt, A, B, C, D=None, h0=None, chunk=128):
     if D is not None:
         y = y + x.to(acc) * D.to(acc)[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def ssd_chunked_bwd(x, dt, A, B, C, D, h0, dy, dstate=None, chunk=128):
+    """The gradient of ``ssd_chunked`` written out chunk by chunk, the
+    plain version of the ``ssd_bwd`` kernel: given dy (Bb,S,H,P) and the
+    final state's gradient ``dstate`` (Bb,H,P,N) float32 or None (zero),
+    returns (dx, ddt, dA, dB, dC, dD, dh0) in the dtypes of x, dt, A, B,
+    C, D and h0 (dD None without D, dh0 None without h0).  Every sum in
+    float32, or float64 for a float64 x.  Per chunk, with L_ij =
+    exp(a_cs_i - a_cs_j) (i >= j), S = C B^T, dec_j = exp(a_cs[-1] -
+    a_cs_j), the entering state h_prev and the leaving state's gradient
+    dh_next: dh_prev = exp(a_cs[-1]) dh_next + sum_i exp(a_cs_i) dy_i C_i;
+    dxdt_j = sum_i S_ij L_ij dy_i + dec_j dh_next B_j; dS = L o (dy xdt^T);
+    dC = dS B + exp(a_cs) dy h_prev; dB = dS^T C + dec dt x dh_next; d
+    a_cs gathers the L, exp(a_cs) and dec terms, and d a is its reverse
+    cumsum."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    if S % chunk:
+        raise ValueError(f"ssd_chunked_bwd: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    nc, Q = S // chunk, chunk
+    xf = x.to(acc).reshape(Bb, nc, Q, H, P)
+    dtf = dt.to(acc).reshape(Bb, nc, Q, H)
+    dyf = dy.to(acc).reshape(Bb, nc, Q, H, P)
+    Bf = torch.repeat_interleave(B.to(acc), rep, 2).reshape(Bb, nc, Q, H, N)
+    Cf = torch.repeat_interleave(C.to(acc), rep, 2).reshape(Bb, nc, Q, H, N)
+    Af = A.to(acc)
+    a_cs = torch.cumsum(Af * dtf, dim=2)               # (Bb,nc,Q,H)
+    a_last = a_cs[:, :, -1]                            # (Bb,nc,H)
+    dec = torch.exp(a_last[:, :, None] - a_cs)
+    ea = torch.exp(a_cs)
+    xdt = xf * dtf[..., None]
+
+    # the state entering each chunk, and the gradient leaving it
+    states = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", dec, Bf, xdt)
+    h = (torch.zeros((Bb, H, P, N), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
+    h_prevs = []
+    for t in range(nc):
+        h_prevs.append(h)
+        h = h * torch.exp(a_last[:, t])[..., None, None] + states[:, t]
+    h_prev = torch.stack(h_prevs, dim=1)               # (Bb,nc,H,P,N)
+    U = torch.einsum("bcqh,bcqhp,bcqhn->bchpn", ea, dyf, Cf)
+    dh = (torch.zeros((Bb, H, P, N), dtype=acc, device=x.device)
+          if dstate is None else dstate.to(acc))
+    dh_nexts = [None] * nc
+    for t in reversed(range(nc)):
+        dh_nexts[t] = dh
+        dh = dh * torch.exp(a_last[:, t])[..., None, None] + U[:, t]
+    dh_next = torch.stack(dh_nexts, dim=1)
+
+    # intra-chunk: (Bb,nc,i,j,H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                device=x.device))[:, :, None]
+    seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]
+    L = torch.exp(torch.where(tri, seg, torch.full_like(seg, -torch.inf)))
+    SL = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * L
+    Gm = torch.einsum("bcihp,bcjhp->bcijh", dyf, xdt)
+    dS = L * Gm
+    W = SL * Gm
+    dxdt = (torch.einsum("bcijh,bcihp->bcjhp", SL, dyf)
+            + dec[..., None] * torch.einsum("bchpn,bcjhn->bcjhp", dh_next,
+                                             Bf))
+    off = ea[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyf, h_prev)
+    dCh = torch.einsum("bcijh,bcjhn->bcihn", dS, Bf) + off
+    bst = (dec * dtf)[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xf,
+                                                dh_next)
+    dBh = torch.einsum("bcijh,bcihn->bcjhn", dS, Cf) + bst
+    r = (Bf * bst).sum(-1)                             # (Bb,nc,Q,H)
+    da_cs = W.sum(3) - W.sum(2) + (Cf * off).sum(-1) - r
+    da_cs[:, :, -1] += r.sum(2) + torch.exp(a_last) * (h_prev
+                                                       * dh_next).sum((-2,
+                                                                       -1))
+    da = torch.flip(torch.cumsum(torch.flip(da_cs, [2]), 2), [2])
+    ddt = (dxdt * xf).sum(-1) + Af * da
+    dA = (da * dtf).sum((0, 1, 2))
+    dx = dxdt * dtf[..., None]
+    dD = None
+    if D is not None:
+        dx = dx + dyf * D.to(acc)[:, None]
+        dD = (dyf * xf).sum((0, 1, 2, 4)).to(D.dtype)
+    dB = dBh.reshape(Bb, S, G, rep, N).sum(3)
+    dC = dCh.reshape(Bb, S, G, rep, N).sum(3)
+    return (dx.reshape(Bb, S, H, P).to(x.dtype),
+            ddt.reshape(Bb, S, H).to(dt.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype), dD,
+            dh.to(h0.dtype) if h0 is not None else None)
 
 
 def _f32_product(eq, *ops):

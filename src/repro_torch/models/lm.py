@@ -128,16 +128,22 @@ def prepare_params(ctx: L.Ctx, params):
     ``dt_bias`` and gated-norm ``norm``, which the reference reads as
     float32 from its masters (``repro/models/layers.py:93, 725-740``):
     rounded to bf16, A and D would make the bf16 streams drift."""
-    c, dev = ctx.cdtype, torch.device(ctx.device)
-
     def cast(tree, key=None):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}
-        if key in _F32_LEAVES:
-            return tree.to(dev)
-        return tree.to(device=dev, dtype=c)
+        return prepare_leaf(ctx, (key,), tree)
 
     return cast(params)
+
+
+def prepare_leaf(ctx: L.Ctx, path, t):
+    """One leaf of ``prepare_params``, named by its key ``path``: on
+    ``ctx.device``, float32 if its last key is in ``_F32_LEAVES``, else in
+    the compute dtype.  ``init_params(..., prepare=...)`` applies it to
+    each leaf as it is drawn, so the f32 masters never exist whole."""
+    if path[-1] in _F32_LEAVES:
+        return t.to(ctx.device)
+    return t.to(device=ctx.device, dtype=ctx.cdtype)
 
 
 # ===========================================================================

@@ -59,11 +59,15 @@ def _set(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def init_params(decls, generator: torch.Generator, device="cuda"):
+def init_params(decls, generator: torch.Generator, device="cuda",
+                prepare=None):
     """Materialize concrete float32 parameters on ``device``, drawing every
     leaf in turn from ``generator`` (a ``torch.Generator`` on that device
     or on the CPU).  Same std rule as the reference; not the same numbers
-    (use ``load_numpy_params`` for those)."""
+    (use ``load_numpy_params`` for those).  ``prepare(path, tensor)``, if
+    given, replaces each leaf as soon as it is drawn (``lm.prepare_leaf``:
+    the compute copy of a model whose f32 masters would not fit beside
+    it); the numbers drawn are the same."""
     dev = resolve_device(device)
     out: dict = {}
     for path, pd in _leaves(decls):
@@ -79,8 +83,8 @@ def init_params(decls, generator: torch.Generator, device="cuda"):
                        else _fan_in(pd.shape) ** -0.5)
             t = torch.randn(pd.shape, generator=generator,
                             device=generator.device, dtype=torch.float32)
-            t = (t.to(dev) * std).to(pd.dtype)
-        _set(out, path, t)
+            t = t.to(dev).mul_(std).to(pd.dtype)
+        _set(out, path, t if prepare is None else prepare(path, t))
     return out
 
 

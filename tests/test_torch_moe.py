@@ -561,21 +561,45 @@ def test_cuda_branch_checks_inputs_and_never_falls_back(monkeypatch):
                             .transpose(1, 2)[:, :, :32])
     with pytest.raises(ValueError, match="is on cpu"):
         tgmm.grouped_matmul(lhs.as_subclass(_OnCard), rhs)
-    # no backward kernel: a call autograd would differentiate raises
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        tgmm.grouped_matmul(lhs, rhs.clone().requires_grad_())
+    # the backward's CUDA branch checks its inputs as the forward's does,
+    # and dout against the product's shape and dtype
+    dout = torch.zeros((4, 3, 32)).as_subclass(_OnCuda)
+    with pytest.raises(TypeError, match="dtypes"):
+        tgmm.grouped_matmul_bwd(lhs.half(), rhs.half(), dout.half())
+    with pytest.raises(ValueError, match="shapes"):
+        tgmm.grouped_matmul_bwd(lhs, rhs[:, :8], dout)
+    with pytest.raises(ValueError, match="dout"):
+        tgmm.grouped_matmul_bwd(lhs, rhs, dout[:, :2])
+    with pytest.raises(ValueError, match="dout"):
+        tgmm.grouped_matmul_bwd(lhs, rhs, dout.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgmm.grouped_matmul_bwd(lhs, rhs, dout.transpose(1, 2).contiguous()
+                                .transpose(1, 2))
+    with pytest.raises(ValueError, match="is on cpu"):
+        tgmm.grouped_matmul_bwd(lhs.as_subclass(_OnCard),
+                                rhs.as_subclass(_OnCard), dout)
 
     def no_nvcc(name):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(tgmm.build, "library", no_nvcc)
     monkeypatch.setattr(ref, "grouped_matmul", None)
+    monkeypatch.setattr(ref, "grouped_matmul_bwd", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         tgmm.grouped_matmul(lhs, rhs)
+    # a call autograd differentiates launches the same forward kernel
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgmm.grouped_matmul(lhs, rhs.clone().requires_grad_())
     with torch.no_grad():
         with pytest.raises(RuntimeError, match="nvcc"):
             tgmm.grouped_matmul(lhs, rhs.clone().requires_grad_())
+    # ... and the backward kernel, never the plain version
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgmm.grouped_matmul_bwd(lhs, rhs, dout)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgmm.grouped_matmul_bwd(lhs, rhs, dout, need_lhs=False)
     assert tgmm.grouped_matmul.launches == 0
+    assert tgmm.grouped_matmul_bwd.launches == 0
 
 
 def test_kernel_source_is_declared_and_hashed():

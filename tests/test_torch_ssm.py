@@ -662,17 +662,51 @@ def test_cuda_branch_checks_inputs_and_never_falls_back(monkeypatch):
                  Cm, chunk=16)
     with pytest.raises(ValueError, match="is on cpu"):
         tssd.ssd(x.as_subclass(_OnCard), dt, A, Bm, Cm, chunk=16)
-    # no backward kernel: a call autograd would differentiate raises
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        tssd.ssd(x.clone().requires_grad_(), dt, A, Bm, Cm, chunk=16)
+    # the backward's CUDA branch checks its inputs as the forward's does,
+    # and dy and the final state's gradient
+    dy = torch.zeros_like(x).as_subclass(_OnCuda)
+    with pytest.raises(TypeError, match="dtypes"):
+        tssd.ssd_bwd(x.half(), dt.half(), A, Bm.half(), Cm.half(), D, h0,
+                     dy.half(), chunk=16)
+    with pytest.raises(ValueError, match="from 1 to 128 that divides"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy, chunk=24)
+    with pytest.raises(ValueError, match="dy"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy[:, :32], chunk=16)
+    with pytest.raises(ValueError, match="dy"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy.bfloat16(), chunk=16)
+    with pytest.raises(ValueError, match="dstate"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy, h0[..., :16], chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0,
+                     dy.transpose(2, 3).contiguous().transpose(2, 3),
+                     chunk=16)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tssd.ssd_bwd(x.as_subclass(_OnCard), dt.as_subclass(_OnCard),
+                     A.as_subclass(_OnCard), Bm.as_subclass(_OnCard),
+                     Cm.as_subclass(_OnCard), D.as_subclass(_OnCard),
+                     h0.as_subclass(_OnCard), dy, chunk=16)
+    wide = [torch.zeros(shape).as_subclass(_OnCuda)
+            for shape in ((1, 64, 2, 144), (1, 64, 2), (1, 64, 1, 32))]
+    with pytest.raises(ValueError, match="P up to 128"):
+        tssd.ssd_bwd(wide[0], wide[1], A[:2].contiguous(), wide[2], wide[2],
+                     None, None, wide[0], chunk=16)
 
     def no_nvcc(name):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(tssd.build, "library", no_nvcc)
     monkeypatch.setattr(ref, "ssd_chunked", None)
+    monkeypatch.setattr(ref, "ssd_chunked_bwd", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         tssd.ssd(x, dt, A, Bm, Cm, D, h0, chunk=16, state_out=h0)
+    # a call autograd differentiates launches the same forward kernel ...
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tssd.ssd(x.clone().requires_grad_(), dt, A, Bm, Cm, chunk=16)
+    # ... and the backward kernel, never the plain version
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy, chunk=16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tssd.ssd_bwd(x, dt, A, Bm, Cm, None, None, dy, h0, chunk=16)
     # head_dim 64 (zamba2's attention) now reaches the decode kernels
     q = torch.zeros((2, 1, 4, 64)).as_subclass(_OnCuda)
     kc = torch.zeros((2, 16, 4, 64)).as_subclass(_OnCuda)
@@ -687,6 +721,7 @@ def test_cuda_branch_checks_inputs_and_never_falls_back(monkeypatch):
         tfa.flash_decode(q[..., :48].contiguous(), kc[..., :48].contiguous(),
                          kc[..., :48].contiguous(), kv_len)
     assert tssd.ssd.launches == 0
+    assert tssd.ssd_bwd.launches == 0
 
 
 @pytest.mark.parametrize("S,chunk", [(148, 37), (131, 1), (64, 1),
