@@ -79,7 +79,11 @@ caught):
      gradient, G = 2, chunks 37 and 1, the contract's edges, bf16 and f32,
      each twice bit for bit, shown to reject a kernel that does not carry
      the state's gradient between chunks or does not sum dB over a
-     group's heads, then timed with the forward at the training shape;
+     group's heads, and the plain version with the bf16 kernels' f32
+     operands rounded to bf16 once (``ref.ssd_bwd_tc_emulated``: the
+     shortcut the hi/lo split avoids), then timed with the forward at the
+     training shape (and, after the serving arms, by pass: the state
+     pass, the chunk pass, torch.profiler's device time by kernel name);
      and the decode and RoPE cache kernels at nemotron-4-15b's heads (H =
      48, K = 8: a GQA group of 6, half rotary), checked and timed;
   2b. the power backend (``power/nvml.py``, ``power/metered.py``), the
@@ -404,7 +408,8 @@ TRAIN_PROFILE_GROUPS = {
     "grouped_matmul": ("grouped_matmul_tc_kernel",),
     "grouped_matmul_bwd": ("gmm_bwd_tc_kernel",),
     "ssd": ("ssd_tc_kernel",),
-    "ssd_bwd": ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel"),
+    "ssd_bwd": ("ssd_bwd_states_tc_kernel", "ssd_bwd_scan_kernel",
+                "ssd_bwd_chunk_tc_kernel"),
     "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "cutlass", "xmma"),
 }
 #: the training arms beside llama's [train]: (arch, layers or None for
@@ -422,6 +427,12 @@ ARCH = "llama3.2-3b"
 MOE_ARCH = "olmoe-1b-7b"
 SSM_ARCH = "mamba2-370m"
 HYBRID_ARCH = "zamba2-1.2b"
+#: the bf16 ssd_bwd kernels by pass (csrc/ssd_bwd.cu): the state pass
+#: (each chunk's state products, then the scans across chunks) and the
+#: chunk pass
+SSD_BWD_PASSES = {
+    "state": ("ssd_bwd_states_tc_kernel", "ssd_bwd_scan_kernel"),
+    "chunk": ("ssd_bwd_chunk_tc_kernel",)}
 #: the ssd kernel's serving shapes, (H, P, N) of each Mamba-2 model
 SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
 #: the prefill chunks timed: a 256-row chunk and every tail ``chunk_plan``
@@ -527,6 +538,32 @@ def _bound(nbytes: float, ops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _kernel_group_ms(calls, groups, rounds: int = 4):
+    """Device ms per call of each group ({label: kernel-name fragments})
+    of the kernels ``calls`` launch: ``rounds`` passes over the calls
+    under torch.profiler (the CUDA activity alone), each kernel's device
+    time summed into its group."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for c in calls:
+                c()
+        torch.cuda.synchronize()
+    n = rounds * len(calls)
+    out = dict.fromkeys(groups, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for g, frags in groups.items():
+                if any(f in e.key for f in frags):
+                    out[g] += e.device_time_total / 1e3 / n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2200,6 +2237,45 @@ def check_ssd_bwd_faults(tssd, ref):
     return faults
 
 
+def check_ssd_bwd_shortcut(ref):
+    """The per-entry rules must reject the shortcut a bf16 tensor-core
+    gradient invites: its f32 operands (x o wd and exp(a_cs) dy, h_prev
+    and dh_next, S o L and dS) rounded to bf16 once
+    (``ref.ssd_bwd_tc_emulated(parts=1)``), at mamba2's and zamba2's
+    heads, Bb 1, S = 256, chunk 128, with h0, D and the final state's
+    gradient, bf16, on the card, against the plain version on the same
+    inputs (``_ssd_bwd_ratios``).  The kernels' split, hi = bf16(v) and lo
+    = bf16(v - hi) (``parts=2``), is shown beside it, within the rules.
+    Raises if the rules pass the shortcut or reject the split."""
+    import torch
+    res = {}
+    for model, (H, P, N) in SSD_HEADS.items():
+        args = _ssd_bwd_case(H, P, N, 1, 1, 256, torch.bfloat16, 5700, True,
+                             True, True, -3.0)
+        want = ref.ssd_chunked_bwd(*args, chunk=128)
+        for parts in (1, 2):
+            got = ref.ssd_bwd_tc_emulated(*args, chunk=128, parts=parts)
+            res[f"{model}_parts{parts}"] = _ssd_bwd_ratios("bfloat16", got,
+                                                           want)
+    print("[check] ssd_bwd bf16 shortcut S=256 chunk=128 h0 D dstate (plain "
+          "version, worst entry / its limit): the f32 operands rounded to "
+          "bf16 once: " + "; ".join(
+              f"{m} " + ", ".join(f"{n} {v:.3f}" for n, v in
+                                  res[f"{m}_parts1"].items())
+              for m in SSD_HEADS)
+          + "; split hi + lo: " + "; ".join(
+              f"{m} " + ", ".join(f"{n} {v:.3f}" for n, v in
+                                  res[f"{m}_parts2"].items())
+              for m in SSD_HEADS), flush=True)
+    if any(max(v.values()) <= 1 for k, v in res.items()
+           if k.endswith("parts1")):
+        raise AssertionError(f"the ssd_bwd rules pass bf16 operands: {res}")
+    if any(max(v.values()) > 1 for k, v in res.items()
+           if k.endswith("parts2")):
+        raise AssertionError(f"the ssd_bwd rules reject the split: {res}")
+    return res
+
+
 def _ssd_train_case(model, seed):
     """mamba2's or zamba2's heads at the training shape (TRAIN_B x
     TRAIN_S, chunk 128, bf16, D, no h0), at the models' dt scale."""
@@ -2221,7 +2297,8 @@ def _ssd_ops(Bb, S, H, P, G, N, Q):
 def time_ssd_train(tssd, ref, model):
     """The forward kernel and the gradient kernels at the training shape
     (bf16): kernel, plain and bound; no single PyTorch call computes
-    either, so the library column is none.  Two input sets in turn."""
+    either, so the library column is none.  Two input sets in turn (the
+    split by pass is ``time_ssd_bwd_passes``, after the serving arms)."""
     H, P, N = SSD_HEADS[model]
     G, Q, Bb, S = 1, 128, TRAIN_B, TRAIN_S
     cases = [_ssd_train_case(model, 5600 + i) for i in range(2)]
@@ -2257,6 +2334,26 @@ def time_ssd_train(tssd, ref, model):
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
             "bytes": nbytes}
     return out
+
+
+def time_ssd_bwd_passes(tssd, times):
+    """The ``[time] ssd_bwd`` line by pass at each model's training shape,
+    on ``time_ssd_train``'s inputs: torch.profiler's device ms a call of
+    each pass (``SSD_BWD_PASSES``), kept as ``pass_ms`` in the gradient's
+    ``times`` entry (the whole call's [time] line is CUDA events over a
+    graph).  Run after the serving arms, as every profile: launches slow
+    down once the profiler has run."""
+    for model in SSD_HEADS:
+        cases = [_ssd_train_case(model, 5600 + i) for i in range(2)]
+        t = times[f"ssd_bwd train {model}"]
+        t["pass_ms"] = _kernel_group_ms(
+            [functools.partial(tssd.ssd_bwd, *c, chunk=128) for c in cases],
+            SSD_BWD_PASSES)
+        print(f"[time] ssd_bwd train {model} by pass {t['shape']}: state "
+              f"pass {t['pass_ms']['state']:.4f} ms (each chunk's state "
+              f"products and the scans), chunk pass "
+              f"{t['pass_ms']['chunk']:.4f} ms (profiler device ms a call; "
+              f"the call {t['ms']:.4f} ms)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5654,6 +5751,7 @@ def _smoke(card) -> int:
             times[_ssd_time_key(model, S)] = time_ssd(tssd, ref, model, S)
     ssd_bwd_checks = check_ssd_bwd(tssd, ref)
     ssd_bwd_faults = check_ssd_bwd_faults(tssd, ref)
+    ssd_bwd_shortcut = check_ssd_bwd_shortcut(ref)
     for model in SSD_HEADS:
         t = time_ssd_train(tssd, ref, model)
         times[f"ssd train {model}"] = t["fwd"]
@@ -5765,6 +5863,7 @@ def _smoke(card) -> int:
                 else name.split("-")[0] + "-prefill", groups=groups))
         del params
         _release_card()
+    time_ssd_bwd_passes(tssd, times)
     parity = logits_parity()
     moe_parity = olmoe_parity()
     mamba_parity = {SSM_ARCH: ssm_parity(SSM_ARCH, 2),
@@ -5964,7 +6063,8 @@ def _smoke(card) -> int:
         shape=t["shape"], host_ms=t["host_ms"],
         times={k: v for k, v in times.items() if k.startswith("ssd")
                and "train" in k},
-        checks=ssd_bwd_checks, planted_fault=ssd_bwd_faults))
+        checks=ssd_bwd_checks, planted_fault=ssd_bwd_faults,
+        bf16_shortcut=ssd_bwd_shortcut))
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
     moe_serving["paged"] = moe_paged
     print(json.dumps({"kernels": kernels, "serving": serving,

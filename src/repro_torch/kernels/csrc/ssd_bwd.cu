@@ -24,43 +24,94 @@
 // What bounds it on the card: bytes, ~0.026 ms at mamba2's training shape
 // (Bb = 2, S = 2048, H = 32, P = 64, N = 128, chunk 128: x, dy and dx in
 // bf16, ~88 MB at 3.35 TB/s), where the gradient's 17.3 GFLOP would take
-// 0.017 ms at the bf16 tensor-core peak.  This kernel does its products on
-// the CUDA cores in f32, where they take at least 0.26 ms (67 TFLOP/s); on
-// an H100 80GB HBM3 at a 700 W limit it takes 4.5 ms a layer (6.0 ms at
-// zamba2's heads), PERF.md section 6.  The tensor cores (as ssd.cu's
-// forward) are the way down.
+// 0.017 ms at the bf16 tensor-core peak.  On an NVIDIA H100 80GB HBM3 at a
+// 700.00 W limit the bf16 kernels below take 0.43 ms a layer at mamba2's
+// heads (the state pass 0.13, the chunk pass 0.30) and 0.56 ms at
+// zamba2's (0.16, 0.40); the first port's kernels, every product on the
+// CUDA cores in f32 with per-head dB, dC and per-chunk f32 states in
+// ~400 MB of scratch, took 4.50 and 5.99 ms (PERF.md section 6).
+// What holds them at 16x and 11x the bound:
+//   * the chunk pass runs one 8-warp block an SM (255 registers a thread
+//     fill the register file; ptxas -v reports 112-440 bytes spilled),
+//     whose heads follow one another: each head's scan, its three block
+//     barriers, its tile loads and the adds of its dB and dC into the
+//     slice's rows wait on each other, with no second block to fill the
+//     gaps;
+//   * the state pass moves its f32 chunk states and their bf16 parts
+//     through device memory (~300 MB of traffic at mamba2's shape), and
+//     its scan walks the 16 chunks one after another.
 //
-// Design: two kernels, every sum in float32 (bf16 inputs are widened when
-// loaded; outputs are rounded once).
+// bf16: three kernels, every product on wgmma (building blocks in
+// hopper.cuh), f32 sums, each gradient rounded once.  Products of two bf16
+// inputs (C B^T, dy x^T) are exact; each f32 operand goes in as two bf16
+// parts, hi = bf16(v) and lo = bf16(v - hi), one product each: x o wd and
+// exp(a_cs) dy, the entering state and the leaving gradient, S o L and dS
+// (ref.ssd_bwd_tc_emulated repeats these sums on the CPU; rounding any of
+// them to bf16 once breaks the per-entry check, chip_smoke.py's shortcut
+// line).  Products whose f32 factor is one per row (dec, dec dt, exp(a_cs)
+// of dxdt's, dB's and dC's state terms) take the bf16 input and the parts
+// of the state, and scale the accumulator's rows afterwards.
+//   1. ssd_bwd_states_tc_kernel, a block per (chunk, head slice, b): each
+//      chunk's state (x o wd)^T B and its gradient's share (exp(a_cs)
+//      dy)^T C on wgmma (both operands MN-major, as they lie), every chunk
+//      at once, to f32 scratch.
+//   2. ssd_bwd_scan_kernel: the two recurrences across chunks, state by
+//      state entry, forward from h0 and backward from the final state's
+//      gradient; it writes each chunk's entering state and leaving
+//      gradient as bf16 parts (TMA-ready, (P, N) a head), their product
+//      by slab of entries, and dh0.  The state pass is kernels 1 and 2,
+//      apart from the chunk pass: a chunk's gradients need the states of
+//      every earlier chunk and the gradients of every later one, a
+//      dependency across the whole grid; the states of all chunks are
+//      formed in parallel on the tensor cores and only the elementwise
+//      scan runs chunk after chunk.
+//   3. ssd_bwd_chunk_tc_kernel, a block per (chunk, slice of HS heads of
+//      one group, b): B and C of the chunk by TMA once; per head x, dy and
+//      the state parts by TMA, S^T = B C^T and G^T = x dy^T (rows j), S o
+//      L and dS packed from the accumulators as the register A operand of
+//      dxdt's (S o L)^T dy and dB's dS^T C; then G = dy x^T (rows i) for
+//      dC's dS B; warp 0 scans the log-decay and reverse-cumsums d a_cs.
+//      HS is the fewest heads that keep the grid within one block an SM
+//      (8 of mamba2's 32 heads, 16 of zamba2's 64 at the training shape),
+//      so B and C are loaded once for HS heads (the scores are formed
+//      again a head: kept, they would take 64 more registers a thread),
+//      and the f32 dB, dC scratch is (Bb, S, H / HS, N): each head slice
+//      adds its heads' terms into its own rows, in head order, the same
+//      thread for an entry every head (a batch of loads issued before any
+//      add, so their round trips overlap).
+// Deterministic sums: no floating-point atomics.  A block adds its sums in
+// a fixed order (per thread, shuffles down a warp, the warps in order).  A
+// block counts itself done on an integer counter of its (b, chunk, group)
+// and of its head slice (atomicAdd on ints, after a __threadfence); the
+// block that finishes last of a (b, chunk, group) adds the group's slices'
+// dB and dC in slice order, and the last of a slice its heads' dA and dD
+// over (b, chunk) in order.  Which block is last varies from run to run;
+// the order of every sum does not.
+//
+// float32 (the checks and the f32 parity arms): the first port's two
+// kernels on the CUDA cores, f32 products throughout (TF32 would not meet
+// the f32 checks).
 //   1. ssd_bwd_state_kernel, a block per (b, h, 16 head dims p), walks the
 //      chunks forward from h0 and writes the state entering each chunk
-//      (h_prev, Bb x nc x H x P x N f32), as the forward kernel carries it,
-//      then backward from the final state's gradient and writes the
-//      gradient leaving each chunk (dh_next), ending at dh0.  The forward
-//      kernel writes none of this: the serving path pays nothing, and the
-//      backward recomputes the states (a third of the forward's work).
-//   2. ssd_bwd_chunk_kernel, a block per (chunk, h, b), every chunk at
-//      once: it stages B and C (f32) and forms S o L, then in turn dxdt
-//      (writing dx and x . dxdt), dS over S o L (the d a_cs row and column
-//      sums), dC and dB, staging dh_next, x dt and h_prev in one reused
-//      region of shared memory (at Q = N = 128: 207 KB, one block an SM).
-//      dx and ddt are written per head.  dB and dC are written per head
-//      into f32 scratch, and dA's and dD's per-block sums into a (Bb nc,
-//      H) scratch.
-// Deterministic sums: no floating-point atomics.  Each block adds its own
-// sums in a fixed order (per thread, then shuffles down a warp, then the
-// warps in order).  A block counts itself done on an integer counter of
-// its (b, chunk, group) and of its head (atomicAdd on ints, after a
-// __threadfence); the block that finishes last of a (b, chunk, group) adds
-// the group's H/G heads' dB and dC scratch in head order, and the last of
-// a head adds its Bb nc dA and dD sums in (b, chunk) order.  Which block is
-// last varies from run to run; the order of every sum does not.
+//      (h_prev, Bb x nc x H x P x N f32), then backward from the final
+//      state's gradient and writes the gradient leaving each chunk
+//      (dh_next), ending at dh0.
+//   2. ssd_bwd_chunk_kernel, a block per (chunk, h, b): it stages B and C
+//      (f32) and forms S o L, then in turn dxdt (writing dx and x . dxdt),
+//      dS over S o L (the d a_cs row and column sums), dC and dB, staging
+//      dh_next, x dt and h_prev in one reused region of shared memory.
+//      dB and dC are written per head into f32 scratch and added over the
+//      group's heads by the last block, as above.
+// Neither path changes the forward kernel (ssd.cu): the serving path pays
+// nothing for training.
 // Contract: P a multiple of 16 up to 128, N a multiple of 32 up to 128,
 // any chunk Q from 1 to 128 that divides S, float32 or bfloat16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -75,17 +126,6 @@ constexpr int MMAX = NMAX / 32;           // n columns per lane
 constexpr int KMAX = PMAX / 32;           // p columns per lane
 
 __host__ __device__ inline int padded_rows(int Q) { return (Q + 3) / 4 * 4; }
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -131,9 +171,9 @@ __device__ float block_sum(float v, float* red, int tid) {
 }
 
 struct Args {
-  const void *x, *dt, *B, *C, *dy;   // x's dtype
+  const void *x, *dt, *B, *C, *dy;   // float32, as every tensor here
   const float *A, *D, *h0, *dstate;  // D, h0, dstate may be null
-  void *dx, *ddt, *dB, *dC;          // x's dtype
+  void *dx, *ddt, *dB, *dC;
   float *dA, *dD, *dh0;              // dD, dh0 written iff D, h0 given
   float *hprev, *dhnext;             // (Bb, nc, H, P, N)
   float *dBh, *dCh;                  // (Bb, S, H, N): per-head dB, dC
@@ -151,7 +191,6 @@ __host__ __device__ inline size_t state_smem_floats(int Q, int N) {
   return Qp * (N + 1) + Qp * PS + (size_t)PS * (N + 1) + 3 * Qp;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
   extern __shared__ __align__(16) float sm[];
   const int Q = a.Q, N = a.N, P = a.P, H = a.H, S = a.S, G = a.G;
@@ -167,16 +206,16 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float Ah = a.A[h];
-  const T* x = static_cast<const T*>(a.x);
-  const T* dt = static_cast<const T*>(a.dt);
+  const float* x = static_cast<const float*>(a.x);
+  const float* dt = static_cast<const float*>(a.dt);
   const size_t state_base = (((size_t)b * H + h) * P + p0) * N;
 
   for (int i = tid; i < PS * N; i += THREADS)
     St[(i / N) * ldn + i % N] = a.h0 != nullptr ? a.h0[state_base + i] : 0.f;
 
   for (int pass = 0; pass < 2; ++pass) {
-    const T* V = static_cast<const T*>(pass == 0 ? a.B : a.C);
-    const T* X = pass == 0 ? x : static_cast<const T*>(a.dy);
+    const float* V = static_cast<const float*>(pass == 0 ? a.B : a.C);
+    const float* X = pass == 0 ? x : static_cast<const float*>(a.dy);
     float* out = pass == 0 ? a.hprev : a.dhnext;
     if (pass == 1) {
       __syncthreads();
@@ -187,17 +226,17 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
       const int c = pass == 0 ? t : nc - 1 - t;
       const int s0 = c * Q;
       for (int i = tid; i < Qp; i += THREADS) {
-        const float d = i < Q ? widen(dt[((size_t)b * S + s0 + i) * H + h]) : 0.f;
+        const float d = i < Q ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
         dts[i] = d;
         acs[i] = Ah * d;
       }
       for (int i = tid; i < Qp * N; i += THREADS) {
         const int q = i / N, n = i % N;
-        Vs[q * ldn + n] = q < Q ? widen(V[(((size_t)b * S + s0 + q) * G + g) * N + n]) : 0.f;
+        Vs[q * ldn + n] = q < Q ? V[(((size_t)b * S + s0 + q) * G + g) * N + n] : 0.f;
       }
       for (int i = tid; i < Qp * PS; i += THREADS) {
         const int q = i / PS, p = i % PS;
-        Xs[i] = q < Q ? widen(X[(((size_t)b * S + s0 + q) * H + h) * P + p0 + p]) : 0.f;
+        Xs[i] = q < Q ? X[(((size_t)b * S + s0 + q) * H + h) * P + p0 + p] : 0.f;
       }
       __syncthreads();
       if (warp == 0) scan_rows(acs, Q, lane);
@@ -258,7 +297,6 @@ __host__ __device__ inline size_t chunk_smem_floats(int Q, int P, int N) {
   return Qp * (N + 1) + rows2 * ldr + Qp * (Qp + 1) + 9 * Qp + WARPS * Qp + WARPS;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   extern __shared__ __align__(16) float sm[];
   const int Q = a.Q, N = a.N, P = a.P, H = a.H, S = a.S, G = a.G;
@@ -285,27 +323,27 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   const int nm = N / 32, kp = (P + 31) / 32;
   const float Ah = a.A[h];
   const float Dh = a.D != nullptr ? a.D[h] : 0.f;
-  const T* x = static_cast<const T*>(a.x);
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* Bm = static_cast<const T*>(a.B);
-  const T* Cm = static_cast<const T*>(a.C);
-  const T* dt = static_cast<const T*>(a.dt);
-  T* dx = static_cast<T*>(a.dx);
+  const float* x = static_cast<const float*>(a.x);
+  const float* dy = static_cast<const float*>(a.dy);
+  const float* Bm = static_cast<const float*>(a.B);
+  const float* Cm = static_cast<const float*>(a.C);
+  const float* dt = static_cast<const float*>(a.dt);
+  float* dx = static_cast<float*>(a.dx);
   auto row_hp = [&](int i) { return (((size_t)b * S + s0 + i) * H + h); };   // x, dy rows
   auto row_gn = [&](int i) { return (((size_t)b * S + s0 + i) * G + g) * N; };
   const size_t st_base = (((size_t)b * nc + c) * H + h) * (size_t)P * N;
 
   // 0. dt, the log-decay, B and C
   for (int i = tid; i < Qp; i += THREADS) {
-    const float d = i < Q ? widen(dt[((size_t)b * S + s0 + i) * H + h]) : 0.f;
+    const float d = i < Q ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
     dts[i] = d;
     acs[i] = Ah * d;
     roww[i] = colw[i] = dda[i] = ddx[i] = rv[i] = 0.f;
   }
   for (int i = tid; i < Qp * N; i += THREADS) {
     const int q = i / N, n = i % N;
-    Bs[q * ldn + n] = q < Q ? widen(Bm[row_gn(q) + n]) : 0.f;
-    R2[q * ldr + n] = q < Q ? widen(Cm[row_gn(q) + n]) : 0.f;
+    Bs[q * ldn + n] = q < Q ? Bm[row_gn(q) + n] : 0.f;
+    R2[q * ldr + n] = q < Q ? Cm[row_gn(q) + n] : 0.f;
   }
   __syncthreads();
   if (warp == 0) scan_rows(acs, Q, lane);
@@ -369,7 +407,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
       for (int k = 0; k < KMAX; ++k) {
         const int p = lane + 32 * k;
         if (k < kp && p < P) {
-          const float yv = widen(dy[row_hp(i) * P + p]);
+          const float yv = dy[row_hp(i) * P + p];
 #pragma unroll
           for (int r = 0; r < 4; ++r) t1[r][k] = fmaf(s[r], yv, t1[r][k]);
         }
@@ -400,8 +438,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
           if (k < kp && p < P) {
             const float dxdt = t1[r][k] + dec[j] * t2[r][k];
             const size_t o = row_hp(j) * P + p;
-            const float xv = widen(x[o]), yv = widen(dy[o]);
-            dx[o] = narrow<T>(dts[j] * dxdt + Dh * yv);
+            const float xv = x[o], yv = dy[o];
+            dx[o] = dts[j] * dxdt + Dh * yv;
             part = fmaf(xv, dxdt, part);
             dd = fmaf(yv, xv, dd);
           }
@@ -417,7 +455,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   //    (d a_cs: + row sums, - column sums); Ms becomes dS.  x dt staged.
   for (int i = tid; i < Qp * P; i += THREADS) {
     const int q = i / P, p = i % P;
-    R2[q * ldr + p] = q < Q ? widen(x[row_hp(q) * P + p]) * dts[q] : 0.f;
+    R2[q * ldr + p] = q < Q ? x[row_hp(q) * P + p] * dts[q] : 0.f;
   }
   __syncthreads();
   {
@@ -434,7 +472,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
       for (int p = 0; p < P; ++p) {
         float yv[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) yv[r] = i0 + r < Q ? widen(dy[row_hp(i0 + r) * P + p]) : 0.f;
+        for (int r = 0; r < 4; ++r) yv[r] = i0 + r < Q ? dy[row_hp(i0 + r) * P + p] : 0.f;
 #pragma unroll
         for (int cc = 0; cc < QMAX / 32; ++cc)
           if (cc <= cmax) {
@@ -507,7 +545,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
     for (int p = 0; p < P; ++p) {
       float yv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) yv[r] = i0 + r < Q ? widen(dy[row_hp(i0 + r) * P + p]) : 0.f;
+      for (int r = 0; r < 4; ++r) yv[r] = i0 + r < Q ? dy[row_hp(i0 + r) * P + p] : 0.f;
 #pragma unroll
       for (int m = 0; m < MMAX; ++m)
         if (m < nm) {
@@ -527,7 +565,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
             const int n = lane + 32 * m;
             const float off = eas[i] * acc2[r][m];
             a.dCh[row_hp(i) * N + n] = acc1[r][m] + off;
-            part = fmaf(widen(Cm[row_gn(i) + n]), off, part);
+            part = fmaf(Cm[row_gn(i) + n], off, part);
           }
         part = warp_sum(part);
         if (lane == 0) dda[i] += part;
@@ -541,7 +579,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   //    at Q-1 (+).  C and dh_next staged.
   for (int i = tid; i < Qp * N; i += THREADS) {
     const int q = i / N, n = i % N;
-    Bs[q * ldn + n] = q < Q ? widen(Cm[row_gn(q) + n]) : 0.f;
+    Bs[q * ldn + n] = q < Q ? Cm[row_gn(q) + n] : 0.f;
   }
   for (int i = tid; i < P * N; i += THREADS) R2[(i / N) * ldr + i % N] = a.dhnext[st_base + i];
   __syncthreads();
@@ -569,7 +607,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
     for (int p = 0; p < P; ++p) {
       float xv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = j0 + r < Q ? widen(x[row_hp(j0 + r) * P + p]) : 0.f;
+      for (int r = 0; r < 4; ++r) xv[r] = j0 + r < Q ? x[row_hp(j0 + r) * P + p] : 0.f;
 #pragma unroll
       for (int m = 0; m < MMAX; ++m)
         if (m < nm) {
@@ -589,7 +627,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
             const int n = lane + 32 * m;
             const float bst = dec[j] * dts[j] * acc2[r][m];
             a.dBh[row_hp(j) * N + n] = acc1[r][m] + bst;
-            part = fmaf(widen(Bm[row_gn(j) + n]), bst, part);
+            part = fmaf(Bm[row_gn(j) + n], bst, part);
           }
         part = warp_sum(part);
         if (lane == 0) {
@@ -608,12 +646,12 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
     float rsum = 0.f;
     for (int j = 0; j < Q; ++j) rsum += rv[j];
     float da = 0.f, dA = 0.f;
-    T* ddt = static_cast<T*>(a.ddt);
+    float* ddt = static_cast<float*>(a.ddt);
     for (int k = Q - 1; k >= 0; --k) {
       float dacs = roww[k] - colw[k] + dda[k];
       if (k == Q - 1) dacs += rsum + expf(a_last) * hd_sum;
       da += dacs;
-      ddt[((size_t)b * S + s0 + k) * H + h] = narrow<T>(ddx[k] + Ah * da);
+      ddt[((size_t)b * S + s0 + k) * H + h] = ddx[k] + Ah * da;
       dA = fmaf(dts[k], da, dA);
     }
     a.dA_part[((size_t)b * nc + c) * H + h] = dA;
@@ -632,8 +670,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   __syncthreads();
   if (last_group) {
     __threadfence();
-    T* dB = static_cast<T*>(a.dB);
-    T* dC = static_cast<T*>(a.dC);
+    float* dB = static_cast<float*>(a.dB);
+    float* dC = static_cast<float*>(a.dC);
     for (int i = tid; i < Q * N; i += THREADS) {
       const int q = i / N, n = i % N;
       const size_t base = (((size_t)b * S + s0 + q) * H + (size_t)g * rep) * N + n;
@@ -642,8 +680,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
         sb += __ldcg(a.dBh + base + (size_t)r * N);
         sc += __ldcg(a.dCh + base + (size_t)r * N);
       }
-      dB[row_gn(q) + n] = narrow<T>(sb);
-      dC[row_gn(q) + n] = narrow<T>(sc);
+      dB[row_gn(q) + n] = sb;
+      dC[row_gn(q) + n] = sc;
     }
   }
   if (last_head && tid == 0) {
@@ -658,10 +696,9 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   }
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto k1 = ssd_bwd_state_kernel<T>;
-  auto k2 = ssd_bwd_chunk_kernel<T>;
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  auto k1 = ssd_bwd_state_kernel;
+  auto k2 = ssd_bwd_chunk_kernel;
   static bool configured = false;   // above 48 KB only after opting in (one card)
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -682,14 +719,929 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TQ = 128;             // rows of a chunk's tile (rows past Q masked)
+constexpr int TC_THREADS = 256;     // two warpgroups, 64 rows of the tile each
+constexpr int SCAN_SLAB = 1024;     // state entries a block of the scan
+constexpr int MAX_SLABS = PMAX * NMAX / SCAN_SLAB;
+
+struct TcArgs {
+  const __nv_bfloat16 *x, *dt, *B, *C, *dy;
+  const float *A, *D, *h0, *dstate;   // D, h0, dstate may be null
+  __nv_bfloat16 *dx, *ddt, *dB, *dC;
+  float *dA, *dD, *dh0;               // dD, dh0 written iff D, h0 given
+  float *states, *ustates;            // (Bb nc H, P, N): each chunk's (x o wd)^T B, (e^a dy)^T C
+  __nv_bfloat16* parts;               // (4, Bb nc H, P, N): h_prev hi, lo; dh_next hi, lo
+  float *dBp, *dCp;                   // (Bb, S, H / HS, N): each head slice's dB, dC
+  float* hd_part;                     // (Bb nc H, MAX_SLABS): <h_prev, dh_next> by slab
+  float* alast;                       // (Bb nc H): a_cs[Q-1]
+  float *dA_part, *dD_part;           // (Bb nc, H)
+  int* counters;                      // Bb nc G + H / HS, zero at the launch
+  int Bb, S, H, P, G, N, Q, HS;
+};
+
+// warp 0: the chunk's dt (rows < Q, zero past Q) into dts and the inclusive
+// cumsum of A dt into acs (as ssd.cu's tensor-core kernel: a run of rows a
+// lane, the runs' totals scanned with shuffles, so a row's sum holds no
+// later row; rows past Q hold a_cs[Q-1]); returns a_cs[Q-1] to every lane
+__device__ __forceinline__ float tc_scan(const __nv_bfloat16* dt, int stride, int Q, float Ah,
+                                         float* dts, float* acs, int lane) {
+  constexpr int PER = TQ / 32;
+  float d[PER], cs[PER], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = lane * PER + k;
+    d[k] = i < Q ? __bfloat162float(dt[(size_t)i * stride]) : 0.f;
+    run += Ah * d[k];
+    cs[k] = run;
+  }
+  float tot = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, tot, o);
+    if (lane >= o) tot += v;
+  }
+  float before = __shfl_up_sync(0xffffffffu, tot, 1);
+  if (lane == 0) before = 0.f;
+  float mine = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (lane * PER + k == Q - 1) mine = cs[k] + before;
+  const float a_last = __shfl_sync(0xffffffffu, mine, (Q - 1) / PER);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = lane * PER + k;
+    dts[i] = d[k];
+    acs[i] = i < Q ? cs[k] + before : a_last;
+  }
+  return a_last;
+}
+
+// The bf16 pair at (row r, columns col, col + 1) of a rows x D tile in
+// hopper.cuh's layout (col even), widened
+template <int D>
+__device__ __forceinline__ float2 tile_pair(const __nv_bfloat16* tile, int rows, int r, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      reinterpret_cast<const unsigned char*>(tile) + swizzled_byte<D>(rows, r, col / 8) +
+      2 * (col % 8)));
+}
+
+// sum over the 4 lanes of a quad (the lanes holding one accumulator row)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- 1. each chunk's state products ---------------------------------------
+
+template <int PT, int NT>
+struct StatesLayout {
+  static constexpr uint32_t BC = TQ * NT * 2;   // a B or C tile
+  static constexpr uint32_t XP = TQ * PT * 2;   // one part of x o wd or e^a dy
+  static constexpr size_t bytes = 2 * (size_t)BC + 4 * XP + 4 * TQ * 4 + 8 + 1024;
+};
+
+// A block per (chunk, slice of HS heads of one group, b): B and C of the
+// chunk by TMA once; per head x o wd and exp(a_cs) dy as two bf16 parts
+// each, then warpgroup 0 the chunk's state (x o wd)^T B and warpgroup 1
+// its gradient's share (exp(a_cs) dy)^T C (P x N, f32), both operands
+// MN-major; written to scratch with the chunk's a_cs[Q-1].
+template <int PT, int NT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ssd_bwd_states_tc_kernel(const __grid_constant__ CUtensorMap b_map,
+                         const __grid_constant__ CUtensorMap c_map, TcArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = StatesLayout<PT, NT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* Bt = reinterpret_cast<bf16*>(base);
+  bf16* Ct = reinterpret_cast<bf16*>(base + L::BC);
+  bf16* xw_hi = reinterpret_cast<bf16*>(base + 2 * L::BC);
+  bf16* xw_lo = xw_hi + TQ * PT;
+  bf16* ey_hi = xw_lo + TQ * PT;
+  bf16* ey_lo = ey_hi + TQ * PT;
+  float* dts = reinterpret_cast<float*>(ey_lo + TQ * PT);
+  float* acs = dts + TQ;
+  float* wds = acs + TQ;   // dt exp(a_cs[Q-1] - a_cs), zero past Q
+  float* eas = wds + TQ;   // exp(a_cs), zero past Q
+  uint64_t* bar = reinterpret_cast<uint64_t*>(eas + TQ);
+
+  const int c = blockIdx.x, h_first = blockIdx.y * a.HS, b = blockIdx.z;
+  const int Q = a.Q, S = a.S, H = a.H, P = a.P, N = a.N, nc = S / Q;
+  const int g = h_first / (H / a.G);
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const int t = lane % 4, gq = lane / 4;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect(bar, 2 * L::BC);
+#pragma unroll
+    for (int box = 0; box < NT / 64; ++box) {
+      tma_load(Bt + box * TQ * 64, &b_map, bar, 64 * box, g, c * Q, b);
+      tma_load(Ct + box * TQ * 64, &c_map, bar, 64 * box, g, c * Q, b);
+    }
+  }
+  __syncthreads();
+  mbar_wait(bar, 0);
+
+  for (int hh = 0; hh < a.HS; ++hh) {
+    const int h = h_first + hh;
+    const size_t idx = ((size_t)b * nc + c) * H + h;
+    const size_t row0 = ((size_t)b * S + (size_t)c * Q) * H + h;   // (b, c Q, h)
+    if (tid < 32) {
+      const float a_last = tc_scan(a.dt + row0, H, Q, a.A[h], dts, acs, lane);
+      __syncwarp();
+      for (int i = lane; i < TQ; i += 32) {
+        wds[i] = i < Q ? dts[i] * expf(a_last - acs[i]) : 0.f;
+        eas[i] = i < Q ? expf(acs[i]) : 0.f;
+      }
+      if (lane == 0) a.alast[idx] = a_last;
+    }
+    __syncthreads();
+    // x o wd and exp(a_cs) dy as two bf16 parts, 8 columns a step, in the
+    // tiles' layout (rows past Q and columns past P zero)
+    for (int k = tid; k < TQ * PT / 8; k += TC_THREADS) {
+      const int q = k / (PT / 8), cc = k % (PT / 8);
+      uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
+      if (q < Q && 8 * cc < P) {
+        const size_t o = (row0 + (size_t)q * H) * P + 8 * cc;
+        xv = *reinterpret_cast<const uint4*>(a.x + o);
+        yv = *reinterpret_cast<const uint4*>(a.dy + o);
+      }
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&yv);
+      const float wq = wds[q], eq = eas[q];
+      uint32_t xh[4], xl[4], yh[4], yl[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 xf = __bfloat1622float2(xp[u]), yf = __bfloat1622float2(yp[u]);
+        split_pack(xf.x * wq, xf.y * wq, xh[u], xl[u]);
+        split_pack(yf.x * eq, yf.y * eq, yh[u], yl[u]);
+      }
+      const uint32_t off = swizzled_byte<PT>(TQ, q, cc);
+      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(xw_hi) + off) =
+          make_uint4(xh[0], xh[1], xh[2], xh[3]);
+      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(xw_lo) + off) =
+          make_uint4(xl[0], xl[1], xl[2], xl[3]);
+      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ey_hi) + off) =
+          make_uint4(yh[0], yh[1], yh[2], yh[3]);
+      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ey_lo) + off) =
+          make_uint4(yl[0], yl[1], yl[2], yl[3]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // warpgroup 0: (x o wd)^T B; warpgroup 1: (e^a dy)^T C; 64 rows p a pass
+    const bf16* hi = wg == 0 ? xw_hi : ey_hi;
+    const bf16* lo = wg == 0 ? xw_lo : ey_lo;
+    const bf16* V = wg == 0 ? Bt : Ct;
+    float* out = (wg == 0 ? a.states : a.ustates) + idx * P * N;
+    const int ksteps = (Q + 15) / 16;   // rows past Q are zero in both parts
+#pragma unroll
+    for (int pb = 0; pb < PT / 64; ++pb) {
+      float acc[NT / 2];
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+      reg_fence(acc);
+      wgmma_fence();
+      for (int kk = 0; kk < ksteps; ++kk) {
+        const uint64_t dv = mnmajor_desc<NT>(V, TQ, kk);
+        wgmma_ss_mn(acc, mnmajor_desc<64>(hi + pb * TQ * 64, TQ, kk), dv, 1);
+        wgmma_ss_mn(acc, mnmajor_desc<64>(lo + pb * TQ * 64, TQ, kk), dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      // acc[4j + 2i + e] = out[p = 64 pb + 16 w + gq + 8 i][n = 8 j + 2 t + e]
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int p = 64 * pb + 16 * w + gq + 8 * i;
+        if (p >= P) continue;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          const int n = 8 * j + 2 * t;
+          if (n < N)
+            *reinterpret_cast<float2*>(out + (size_t)p * N + n) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+    __syncthreads();   // the parts are read before the next head's are stored
+  }
+}
+
+// ---- 2. the scans across chunks -------------------------------------------
+
+// hi and lo bf16 parts of four floats, as two 8-byte words
+__device__ __forceinline__ void split4(float4 v, uint2& hi, uint2& lo) {
+  split_pack(v.x, v.y, hi.x, lo.x);
+  split_pack(v.z, v.w, hi.y, lo.y);
+}
+
+__device__ __forceinline__ float4 widen4(uint2 hi, uint2 lo) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi.y));
+  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo.x));
+  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo.y));
+  return make_float4(a.x + c.x, a.y + c.y, b.x + d.x, b.y + d.y);
+}
+
+// A block per (slab of 1024 state entries, h, b), four entries a thread:
+// forward from h0, the state entering each chunk (its two parts) and
+// state = state e^{a_cs[Q-1]} + the chunk's; backward from the final
+// state's gradient, the gradient leaving each chunk (its two parts), its
+// product with the entering state's parts (summed over the slab in a
+// fixed order) and dh = dh e^{a_cs[Q-1]} + the chunk's share; dh0 at the
+// end.
+__global__ void __launch_bounds__(TC_THREADS) ssd_bwd_scan_kernel(TcArgs a) {
+  __shared__ float red[TC_THREADS / 32];
+  const int slab = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int H = a.H, nc = a.S / a.Q, tid = threadIdx.x;
+  const size_t PN = (size_t)a.P * a.N, plane = (size_t)a.Bb * nc * H * PN;
+  const size_t e0 = (size_t)slab * SCAN_SLAB + 4 * tid;
+  const bool on = e0 < PN;
+  const size_t state0 = ((size_t)b * H + h) * PN + e0;
+  __nv_bfloat16* hp_hi = a.parts;
+  __nv_bfloat16* hp_lo = a.parts + plane;
+  __nv_bfloat16* dn_hi = a.parts + 2 * plane;
+  __nv_bfloat16* dn_lo = a.parts + 3 * plane;
+
+  // each sweep loads the next chunk's operands before it uses this one's
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto at = [&](int c) { return (((size_t)b * nc + c) * H + h) * PN + e0; };
+  float4 run = on && a.h0 != nullptr ? *reinterpret_cast<const float4*>(a.h0 + state0) : zero;
+  float4 s_next = on ? *reinterpret_cast<const float4*>(a.states + at(0)) : zero;
+  float al_next = a.alast[((size_t)b * nc) * H + h];
+  for (int c = 0; c < nc; ++c) {
+    const size_t o = at(c);
+    const float4 s = s_next;
+    const float d = expf(al_next);
+    if (c + 1 < nc) {
+      s_next = on ? *reinterpret_cast<const float4*>(a.states + at(c + 1)) : zero;
+      al_next = a.alast[((size_t)b * nc + c + 1) * H + h];
+    }
+    if (on) {
+      uint2 hi, lo;
+      split4(run, hi, lo);
+      *reinterpret_cast<uint2*>(hp_hi + o) = hi;
+      *reinterpret_cast<uint2*>(hp_lo + o) = lo;
+      run = make_float4(run.x * d + s.x, run.y * d + s.y, run.z * d + s.z, run.w * d + s.w);
+    }
+  }
+  float4 dr = on && a.dstate != nullptr ? *reinterpret_cast<const float4*>(a.dstate + state0)
+                                        : zero;
+  auto load_back = [&](int c, float4& u, uint2& hh, uint2& hl, float& al) {
+    const size_t o = at(c);
+    if (on) {
+      u = *reinterpret_cast<const float4*>(a.ustates + o);
+      hh = *reinterpret_cast<const uint2*>(hp_hi + o);
+      hl = *reinterpret_cast<const uint2*>(hp_lo + o);
+    }
+    al = a.alast[((size_t)b * nc + c) * H + h];
+  };
+  float4 u_next = zero;
+  uint2 hh_next = make_uint2(0u, 0u), hl_next = hh_next;
+  float bl_next;
+  load_back(nc - 1, u_next, hh_next, hl_next, bl_next);
+  for (int c = nc - 1; c >= 0; --c) {
+    const size_t idx = ((size_t)b * nc + c) * H + h, o = at(c);
+    const float4 u = u_next;
+    const uint2 hh = hh_next, hl = hl_next;
+    const float d = expf(bl_next);
+    if (c > 0) load_back(c - 1, u_next, hh_next, hl_next, bl_next);
+    float hd = 0.f;
+    if (on) {
+      uint2 hi, lo;
+      split4(dr, hi, lo);
+      *reinterpret_cast<uint2*>(dn_hi + o) = hi;
+      *reinterpret_cast<uint2*>(dn_lo + o) = lo;
+      const float4 hv = widen4(hh, hl), dv = widen4(hi, lo);
+      hd = hv.x * dv.x + hv.y * dv.y + hv.z * dv.z + hv.w * dv.w;
+      dr = make_float4(dr.x * d + u.x, dr.y * d + u.y, dr.z * d + u.z, dr.w * d + u.w);
+    }
+    hd = block_sum(hd, red, tid);
+    if (tid == 0) a.hd_part[idx * MAX_SLABS + slab] = hd;
+  }
+  if (on && a.dh0 != nullptr) *reinterpret_cast<float4*>(a.dh0 + state0) = dr;
+}
+
+// ---- 3. every chunk's gradients -------------------------------------------
+
+template <int PT, int NT>
+struct ChunkLayout {
+  static constexpr uint32_t BC = TQ * NT * 2;   // a B or C tile
+  static constexpr uint32_t XY = TQ * PT * 2;   // an x or dy tile
+  static constexpr uint32_t SP = PT * NT * 2;   // one part of a state tile
+  static constexpr uint32_t X_OFF = 2 * BC, Y_OFF = X_OFF + XY, HI_OFF = Y_OFF + XY,
+                            LO_OFF = HI_OFF + SP, F_OFF = LO_OFF + SP;
+  // dts, acs, eas, dec, colw, rv, ddx, dda (TQ each); the row sums of W by
+  // warp (8 x TQ); the warps' dD shares (8)
+  static constexpr uint32_t NF = 16 * TQ + 8;
+  static constexpr uint32_t BAR_OFF = F_OFF + NF * 4;
+  static constexpr size_t bytes = BAR_OFF + 3 * 8 + 1024;
+};
+
+// A (b, chunk) block's rows r = 64 wg + 16 w + lane / 4 + 8 i of the
+// 128-row tile: the entries [4 j + 2 i + e] of an m64 accumulator at
+// column 8 j + 2 t + e.  Each S o L / dS entry (f32) as two bf16 parts,
+// packed by k-step as wgmma's register A operand.
+__device__ __forceinline__ void pack8(const float (&v)[8], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) split_pack(v[2 * u], v[2 * u + 1], hi[u], lo[u]);
+}
+
+// rows[r] += acc's rows r (columns 2t, 2t+1 of each 8; the first head
+// stores), r = 0, 1, for a thread's two accumulator rows (null: past Q):
+// the partials of 8 entry pairs are loaded together before any is added,
+// so their round trips overlap
+template <int NT>
+__device__ __forceinline__ void add_rows(const float (&acc)[NT / 2], float* const (&rows)[2],
+                                         int N, int t, bool first) {
+#pragma unroll
+  for (int q0 = 0; q0 < NT / 4; q0 += 8) {
+    float2 o[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = q0 + u, r = q / (NT / 8), n = 8 * (q % (NT / 8)) + 2 * t;
+      o[u] = make_float2(0.f, 0.f);
+      if (!first && rows[r] != nullptr && n < N)
+        o[u] = *reinterpret_cast<const float2*>(rows[r] + n);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = q0 + u, r = q / (NT / 8), cc = q % (NT / 8), n = 8 * cc + 2 * t;
+      if (rows[r] != nullptr && n < N)
+        *reinterpret_cast<float2*>(rows[r] + n) =
+            make_float2(o[u].x + acc[4 * cc + 2 * r], o[u].y + acc[4 * cc + 2 * r + 1]);
+    }
+  }
+}
+
+// A block per (chunk, slice of HS heads of one group, b).  B and C of the
+// chunk by TMA once; per head x, dy and the parts of dh_next by TMA, then
+//   phase A (warpgroup rows j): S^T = B C^T and G^T = x dy^T; S o L, dS and
+//     W = S o L o G dt (its row and column sums) in registers, the first
+//     two packed as two bf16 parts; dxdt = dec (B dh_next^T) + (S o L)^T
+//     dy (dx, x . dxdt); dB = dec dt (x dh_next) + dS^T C;
+//   the parts of h_prev by TMA into dh_next's place;
+//   phase B (warpgroup rows i): G = dy x^T, dS packed; dC = e^a (dy
+//     h_prev) + dS B;
+//   warp 0: d a_cs, its reverse cumsum, ddt and the head's dA, dD shares.
+// dB and dC add over the slice's heads in the slice's f32 scratch rows,
+// each entry by one thread in head order.
+template <int PT, int NT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ssd_bwd_chunk_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap y_map,
+                        const __grid_constant__ CUtensorMap b_map,
+                        const __grid_constant__ CUtensorMap c_map,
+                        const __grid_constant__ CUtensorMap parts_map, TcArgs a) {
+  using bf16 = __nv_bfloat16;
+  using L = ChunkLayout<PT, NT>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int last[2];
+  unsigned char* base = align1024(smem_raw);
+  bf16* Bt = reinterpret_cast<bf16*>(base);
+  bf16* Ct = reinterpret_cast<bf16*>(base + L::BC);
+  bf16* Xt = reinterpret_cast<bf16*>(base + L::X_OFF);
+  bf16* Yt = reinterpret_cast<bf16*>(base + L::Y_OFF);
+  bf16* Shi = reinterpret_cast<bf16*>(base + L::HI_OFF);   // dh_next, then h_prev
+  bf16* Slo = reinterpret_cast<bf16*>(base + L::LO_OFF);
+  float* dts = reinterpret_cast<float*>(base + L::F_OFF);
+  float* acs = dts + TQ;
+  float* eas = acs + TQ;    // exp(a_cs), zero past Q
+  float* dec = eas + TQ;    // exp(a_cs[Q-1] - a_cs), zero past Q
+  float* colw = dec + TQ;   // d a_cs from L, columns (-)
+  float* rv = colw + TQ;    // B_j . (dB's state term): d a_cs at j (-), at Q-1 (+)
+  float* ddx = rv + TQ;     // x . dxdt
+  float* dda = ddx + TQ;    // C_i . (dC's state term)
+  float* rowp = dda + TQ;   // 8 x TQ: d a_cs from L, rows (+), by warp
+  float* ddp = rowp + 8 * TQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);   // B/C, head, h_prev
+
+  const int c = blockIdx.x, sl = blockIdx.y, b = blockIdx.z;
+  const int Q = a.Q, S = a.S, H = a.H, P = a.P, N = a.N, G = a.G, HS = a.HS;
+  const int nc = S / Q, rep = H / G, h_first = sl * HS, g = h_first / rep, nsl = H / HS;
+  const int tid = threadIdx.x, wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const int t = lane % 4, gq = lane / 4;
+  const int rw[2] = {64 * wg + 16 * w + gq, 64 * wg + 16 * w + gq + 8};   // the thread's rows
+  const size_t bc = (size_t)b * nc + c;
+  const size_t plane = (size_t)a.Bb * nc * H;
+  const int slabs = (P * N + SCAN_SLAB - 1) / SCAN_SLAB;
+
+  auto load_head = [&](int h) {   // x, dy and the parts of dh_next
+    mbar_expect(&bars[1], 2 * L::XY + 2 * L::SP);
+#pragma unroll
+    for (int box = 0; box < PT / 64; ++box) {
+      tma_load(Xt + box * TQ * 64, &x_map, &bars[1], 64 * box, h, c * Q, b);
+      tma_load(Yt + box * TQ * 64, &y_map, &bars[1], 64 * box, h, c * Q, b);
+    }
+    const int idx = (int)(bc * H + h);
+#pragma unroll
+    for (int box = 0; box < NT / 64; ++box) {
+      tma_load_3d(Shi + box * PT * 64, &parts_map, &bars[1], 64 * box, 0, (int)(2 * plane) + idx);
+      tma_load_3d(Slo + box * PT * 64, &parts_map, &bars[1], 64 * box, 0, (int)(3 * plane) + idx);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_init_fence();
+    mbar_expect(&bars[0], 2 * L::BC);
+#pragma unroll
+    for (int box = 0; box < NT / 64; ++box) {
+      tma_load(Bt + box * TQ * 64, &b_map, &bars[0], 64 * box, g, c * Q, b);
+      tma_load(Ct + box * TQ * 64, &c_map, &bars[0], 64 * box, g, c * Q, b);
+    }
+    load_head(h_first);
+  }
+  __syncthreads();
+  mbar_wait(&bars[0], 0);
+
+  for (int hh = 0; hh < HS; ++hh) {
+    const int h = h_first + hh;
+    const size_t idx = bc * H + h;
+    const size_t xrow = ((size_t)b * S + (size_t)c * Q) * H + h;   // (b, c Q, h)
+    const float Ah = a.A[h], Dh = a.D != nullptr ? a.D[h] : 0.f;
+    float hd = 0.f;   // warp 0: <h_prev, dh_next> of the head's chunk
+    if (tid < 32) {
+      hd = warp_sum(lane < slabs ? a.hd_part[idx * MAX_SLABS + lane] : 0.f);
+      const float a_last = tc_scan(a.dt + xrow, H, Q, Ah, dts, acs, lane);
+      __syncwarp();
+      for (int i = lane; i < TQ; i += 32) {
+        eas[i] = i < Q ? expf(acs[i]) : 0.f;
+        dec[i] = i < Q ? expf(a_last - acs[i]) : 0.f;
+      }
+    }
+    mbar_wait(&bars[1], hh & 1);
+    __syncthreads();   // (1) the scan; the head's tiles have landed
+
+    // ---- phase A: this warpgroup's rows j, columns i ----
+    uint32_t slh[8][4], sll[8][4], dsh[8][4], dsl[8][4];
+    float aj[2], dj[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      aj[r] = acs[rw[r]];
+      dj[r] = dts[rw[r]];
+    }
+    {
+      float s[64], gt[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = gt[i] = 0.f;
+      reg_fence(s);
+      reg_fence(gt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 16; ++kk)
+        wgmma_ss(s, kmajor_desc<NT>(Bt, TQ, 64 * wg, kk), kmajor_desc<NT>(Ct, TQ, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < PT / 16; ++kk)
+        wgmma_ss(gt, kmajor_desc<PT>(Xt, TQ, 64 * wg, kk), kmajor_desc<PT>(Yt, TQ, 0, kk),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(s);
+      reg_fence(gt);
+      float cw[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float vs[8], vd[8], rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int r = (m >> 1) & 1, e = m & 1;
+          const int i = 16 * kk + 8 * (m >> 2) + 2 * t + e, j = rw[r];
+          const float Lij = j <= i && i < Q ? expf(acs[i] - aj[r]) : 0.f;
+          const float slv = s[8 * kk + m] * Lij, gm = gt[8 * kk + m] * dj[r];
+          const float wv = slv * gm;
+          vs[m] = slv;
+          vd[m] = Lij * gm;
+          cw[r] += wv;
+          rs[m >> 2][e] += wv;
+        }
+        pack8(vs, slh[kk], sll[kk]);
+        pack8(vd, dsh[kk], dsl[kk]);
+        // the column sums of W over this warp's 16 rows j
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = rs[q][e];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (gq == 0) rowp[(4 * wg + w) * TQ + 16 * kk + 8 * q + 2 * t + e] = v;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v = quad_sum(cw[r]);
+        if (t == 0) colw[rw[r]] = v;
+      }
+    }
+
+    // dxdt = dec (B dh_next^T) + (S o L)^T dy; dx = dt dxdt + D dy
+    float dd = 0.f;   // this thread's share of dy . x
+    {
+      float acc[PT / 2];
+#pragma unroll
+      for (int i = 0; i < PT / 2; ++i) acc[i] = 0.f;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 16; ++kk) {
+        const uint64_t da = kmajor_desc<NT>(Bt, TQ, 64 * wg, kk);
+        wgmma_ss(acc, da, kmajor_desc<NT>(Shi, PT, 0, kk), 1);
+        wgmma_ss(acc, da, kmajor_desc<NT>(Slo, PT, 0, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+#pragma unroll
+      for (int k = 0; k < PT / 2; ++k) acc[k] *= dec[rw[(k >> 1) & 1]];
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        if (kk >= 4 * wg) {   // i >= j: the second warpgroup's rows need i >= 64
+          const uint64_t db = mnmajor_desc<PT>(Yt, TQ, kk);
+          wgmma_rs(acc, slh[kk], db, 1);
+          wgmma_rs(acc, sll[kk], db, 1);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = rw[r];
+        float px = 0.f;
+        if (j < Q) {
+          __nv_bfloat16* dxr = a.dx + (xrow + (size_t)j * H) * P;
+          const float dtj = dts[j];
+#pragma unroll
+          for (int cc = 0; cc < PT / 8; ++cc) {
+            const int p = 8 * cc + 2 * t;
+            if (p >= P) continue;
+            const float2 xv = tile_pair<PT>(Xt, TQ, j, p), yv = tile_pair<PT>(Yt, TQ, j, p);
+            const float v0 = acc[4 * cc + 2 * r], v1 = acc[4 * cc + 2 * r + 1];
+            *reinterpret_cast<__nv_bfloat162*>(dxr + p) =
+                __floats2bfloat162_rn(dtj * v0 + Dh * yv.x, dtj * v1 + Dh * yv.y);
+            px += xv.x * v0 + xv.y * v1;
+            dd += yv.x * xv.x + yv.y * xv.y;
+          }
+        }
+        px = quad_sum(px);
+        if (t == 0) ddx[j] = px;
+      }
+    }
+    {
+      const float v = warp_sum(dd);
+      if (lane == 0) ddp[tid / 32] = v;
+    }
+
+    // dB = dec dt (x dh_next) + dS^T C, added into the slice's rows
+    {
+      float acc[NT / 2];
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PT / 16; ++kk) {
+        const uint64_t da = kmajor_desc<PT>(Xt, TQ, 64 * wg, kk);
+        wgmma_ss_bmn(acc, da, mnmajor_desc<NT>(Shi, PT, kk), 1);
+        wgmma_ss_bmn(acc, da, mnmajor_desc<NT>(Slo, PT, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = rw[r];
+        const float f = dec[j] * dts[j];
+        float rr = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < NT / 8; ++cc) {
+          const float2 bv = tile_pair<NT>(Bt, TQ, j, 8 * cc + 2 * t);
+          const float v0 = acc[4 * cc + 2 * r] * f, v1 = acc[4 * cc + 2 * r + 1] * f;
+          acc[4 * cc + 2 * r] = v0;
+          acc[4 * cc + 2 * r + 1] = v1;
+          rr += bv.x * v0 + bv.y * v1;
+        }
+        rr = quad_sum(rr);
+        if (t == 0) rv[j] = rr;
+      }
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        if (kk >= 4 * wg) {
+          const uint64_t db = mnmajor_desc<NT>(Ct, TQ, kk);
+          wgmma_rs(acc, dsh[kk], db, 1);
+          wgmma_rs(acc, dsl[kk], db, 1);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      float* rows[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        rows[r] = rw[r] < Q ? a.dBp + (((size_t)b * S + (size_t)c * Q + rw[r]) * nsl + sl) * N
+                            : nullptr;
+      add_rows<NT>(acc, rows, N, t, hh == 0);
+    }
+    __syncthreads();   // (2) dh_next is read; colw, rv, ddx, rowp, ddp are written
+    if (tid == 0) {
+      mbar_expect(&bars[2], 2 * L::SP);
+#pragma unroll
+      for (int box = 0; box < NT / 64; ++box) {
+        tma_load_3d(Shi + box * PT * 64, &parts_map, &bars[2], 64 * box, 0, (int)idx);
+        tma_load_3d(Slo + box * PT * 64, &parts_map, &bars[2], 64 * box, 0, (int)(plane + idx));
+      }
+    }
+
+    // ---- phase B: this warpgroup's rows i, columns j ----
+    uint32_t ph[8][4], pl[8][4];
+    {
+      float gg[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) gg[i] = 0.f;
+      reg_fence(gg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PT / 16; ++kk)
+        wgmma_ss(gg, kmajor_desc<PT>(Yt, TQ, 64 * wg, kk), kmajor_desc<PT>(Xt, TQ, 0, kk),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(gg);
+      float ai[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) ai[r] = acs[rw[r]];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float vd[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int r = (m >> 1) & 1, e = m & 1;
+          const int j = 16 * kk + 8 * (m >> 2) + 2 * t + e, i = rw[r];
+          const float Lij = j <= i && i < Q ? expf(ai[r] - acs[j]) : 0.f;
+          vd[m] = Lij * gg[8 * kk + m] * dts[j];
+        }
+        pack8(vd, ph[kk], pl[kk]);
+      }
+    }
+    mbar_wait(&bars[2], hh & 1);
+
+    // dC = e^a (dy h_prev) + dS B, added into the slice's rows
+    {
+      float acc[NT / 2];
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PT / 16; ++kk) {
+        const uint64_t da = kmajor_desc<PT>(Yt, TQ, 64 * wg, kk);
+        wgmma_ss_bmn(acc, da, mnmajor_desc<NT>(Shi, PT, kk), 1);
+        wgmma_ss_bmn(acc, da, mnmajor_desc<NT>(Slo, PT, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = rw[r];
+        const float f = eas[i];
+        float cr = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < NT / 8; ++cc) {
+          const float2 cv = tile_pair<NT>(Ct, TQ, i, 8 * cc + 2 * t);
+          const float v0 = acc[4 * cc + 2 * r] * f, v1 = acc[4 * cc + 2 * r + 1] * f;
+          acc[4 * cc + 2 * r] = v0;
+          acc[4 * cc + 2 * r + 1] = v1;
+          cr += cv.x * v0 + cv.y * v1;
+        }
+        cr = quad_sum(cr);
+        if (t == 0) dda[i] = cr;
+      }
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        if (kk < 4 * (wg + 1)) {   // j <= i: the first warpgroup's rows need j < 64
+          const uint64_t db = mnmajor_desc<NT>(Bt, TQ, kk);
+          wgmma_rs(acc, ph[kk], db, 1);
+          wgmma_rs(acc, pl[kk], db, 1);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      float* rows[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        rows[r] = rw[r] < Q ? a.dCp + (((size_t)b * S + (size_t)c * Q + rw[r]) * nsl + sl) * N
+                            : nullptr;
+      add_rows<NT>(acc, rows, N, t, hh == 0);
+    }
+    __syncthreads();   // (3) x, dy, h_prev are read; dda is written
+    if (tid == 0 && hh + 1 < HS) load_head(h + 1);
+
+    // warp 0: d a_cs by row, its reverse cumsum d a (a run of rows a lane,
+    // the later lanes' totals by shuffles), ddt, and the head's dA, dD
+    if (tid < 32) {
+      constexpr int PER = TQ / 32;
+      float dcs[PER], rsum = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = lane * PER + k;
+        float v = 0.f;
+        if (i < Q) {
+          float rowsum = 0.f;
+#pragma unroll
+          for (int w8 = 0; w8 < 8; ++w8) rowsum += rowp[w8 * TQ + i];
+          v = rowsum - colw[i] + dda[i] - rv[i];
+          rsum += rv[i];
+        }
+        dcs[k] = v;
+      }
+      rsum = warp_sum(rsum);
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (lane * PER + k == Q - 1) dcs[k] += rsum + expf(acs[Q - 1]) * hd;
+      float suf[PER], run = 0.f;
+#pragma unroll
+      for (int k = PER - 1; k >= 0; --k) {
+        run += dcs[k];
+        suf[k] = run;
+      }
+      float tot = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_down_sync(0xffffffffu, tot, o);
+        if (lane + o < 32) tot += v;
+      }
+      float after = __shfl_down_sync(0xffffffffu, tot, 1);
+      if (lane == 31) after = 0.f;
+      float dA = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int i = lane * PER + k;
+        if (i < Q) {
+          const float da = suf[k] + after;
+          a.ddt[xrow + (size_t)i * H] = __float2bfloat16(ddx[i] + Ah * da);
+          dA += dts[i] * da;
+        }
+      }
+      dA = warp_sum(dA);
+      if (lane == 0) {
+        float ds = 0.f;
+        for (int w8 = 0; w8 < 8; ++w8) ds += ddp[w8];
+        a.dA_part[bc * H + h] = dA;
+        a.dD_part[bc * H + h] = ds;
+      }
+    }
+  }
+
+  // the last block of a (b, chunk, group) adds the group's slices' dB and
+  // dC, the last of a slice its heads' dA and dD over (b, chunk), each in a
+  // fixed order
+  __threadfence();
+  __syncthreads();
+  const int spg = rep / HS;   // slices a group
+  if (tid == 0) {
+    last[0] = atomicAdd(&a.counters[bc * G + g], 1) == spg - 1;
+    last[1] = atomicAdd(&a.counters[(size_t)a.Bb * nc * G + sl], 1) == a.Bb * nc - 1;
+  }
+  __syncthreads();
+  if (last[0]) {
+    __threadfence();
+    const int s0 = g * spg;
+    for (int k = tid; k < Q * (N / 2); k += TC_THREADS) {
+      const int q = k / (N / 2), n = 2 * (k % (N / 2));
+      const size_t rowq = (size_t)b * S + (size_t)c * Q + q;
+      float2 sb = make_float2(0.f, 0.f), sc = sb;
+      for (int s2 = 0; s2 < spg; ++s2) {
+        const size_t o = (rowq * nsl + s0 + s2) * N + n;
+        const float2 vb = __ldcg(reinterpret_cast<const float2*>(a.dBp + o));
+        const float2 vc = __ldcg(reinterpret_cast<const float2*>(a.dCp + o));
+        sb = make_float2(sb.x + vb.x, sb.y + vb.y);
+        sc = make_float2(sc.x + vc.x, sc.y + vc.y);
+      }
+      const size_t o = (rowq * G + g) * N + n;
+      *reinterpret_cast<__nv_bfloat162*>(a.dB + o) = __floats2bfloat162_rn(sb.x, sb.y);
+      *reinterpret_cast<__nv_bfloat162*>(a.dC + o) = __floats2bfloat162_rn(sc.x, sc.y);
+    }
+  }
+  if (last[1]) {
+    __threadfence();
+    for (int k = tid; k < HS; k += TC_THREADS) {
+      const int h = h_first + k;
+      float sa = 0.f, sd = 0.f;
+      for (int i = 0; i < a.Bb * nc; ++i) {
+        sa += __ldcg(a.dA_part + (size_t)i * H + h);
+        sd += __ldcg(a.dD_part + (size_t)i * H + h);
+      }
+      a.dA[h] = sa;
+      if (a.dD != nullptr) a.dD[h] = sd;
+    }
+  }
+}
+
+// A map of a 4-D bf16 tensor (d3, d2, d1, d0), d0 contiguous, read in
+// boxes of `rows` (along d2) x 64 (along d0) elements of one (d3, d1)
+// index, 128-byte swizzled; elements past any edge are zero-filled
+cudaError_t map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d2, int d3,
+                   int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)d0 * 2, (cuuint64_t)d1 * d0 * 2,
+                                 (cuuint64_t)d2 * d1 * d0 * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int sm_count() {
+  static int n = 0;   // one card
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// heads a block: the fewest (a divisor of the group's H / G) that keep the
+// chunk pass within one block an SM, so B and C and the chunk's scores are
+// loaded and formed once for as many heads as the card leaves room for
+int head_slice(int Bb, int nc, int H, int G) {
+  const int rep = H / G;
+  for (int hs = 1; hs < rep; ++hs)
+    if (rep % hs == 0 && (long long)Bb * nc * (H / hs) <= sm_count()) return hs;
+  return rep;
+}
+
+template <int PT, int NT>
+cudaError_t launch_tc(const TcArgs& a, cudaStream_t stream) {
+  const int nc = a.S / a.Q;
+  CUtensorMap xm, ym, bm, cm, pm;
+  cudaError_t e = map_4d(&xm, a.x, a.P, a.H, a.S, a.Bb, TQ);
+  if (e == cudaSuccess) e = map_4d(&ym, a.dy, a.P, a.H, a.S, a.Bb, TQ);
+  if (e == cudaSuccess) e = map_4d(&bm, a.B, a.N, a.G, a.S, a.Bb, TQ);
+  if (e == cudaSuccess) e = map_4d(&cm, a.C, a.N, a.G, a.S, a.Bb, TQ);
+  if (e == cudaSuccess) e = tile_map_3d(&pm, a.parts, a.N, a.P, 4 * a.Bb * nc * a.H, PT);
+  if (e != cudaSuccess) return e;
+  auto k1 = ssd_bwd_states_tc_kernel<PT, NT>;
+  auto k3 = ssd_bwd_chunk_tc_kernel<PT, NT>;
+  static bool configured = false;   // once per instantiation (one card)
+  if (!configured) {
+    e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)StatesLayout<PT, NT>::bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)ChunkLayout<PT, NT>::bytes);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid(nc, a.H / a.HS, a.Bb);
+  k1<<<grid, TC_THREADS, StatesLayout<PT, NT>::bytes, stream>>>(bm, cm, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_bwd_scan_kernel<<<dim3((a.P * a.N + SCAN_SLAB - 1) / SCAN_SLAB, a.H, a.Bb), TC_THREADS, 0,
+                        stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  k3<<<grid, TC_THREADS, ChunkLayout<PT, NT>::bytes, stream>>>(xm, ym, bm, cm, pm, a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tc_tiles(const TcArgs& a, cudaStream_t st) {
+  if (a.P <= 64 && a.N <= 64) return launch_tc<64, 64>(a, st);
+  if (a.P <= 64) return launch_tc<64, 128>(a, st);
+  if (a.N <= 64) return launch_tc<128, 64>(a, st);
+  return launch_tc<128, 128>(a, st);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for x, dt, B, C, dy and dx, ddt, dB,
 // dC alike; A, D, h0, dstate and dA, dD, dh0 are float32.  D, h0 and
 // dstate may be null (no skip, a zero initial state, no gradient of the
 // final state); dD and dh0 are written iff D and h0 are given.  work holds
-// 2 Bb (S/Q) H P N + 2 Bb S H N + 2 Bb (S/Q) H floats; counters Bb (S/Q) G
-// + H ints, zero.  Returns the first launch's cudaError_t that is not 0.
+// 4 Bb (S/Q) H P N + 2 Bb S H N + 19 Bb (S/Q) H floats; counters Bb (S/Q) G
+// + H ints, zero.  bf16 launches three kernels, float32 two.  Returns the
+// first launch's cudaError_t that is not 0.
 extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void* B,
                        const void* C, const void* D, const void* h0, const void* dy,
                        const void* dstate, void* dx, void* ddt, void* dA, void* dB, void* dC,
@@ -700,17 +1652,39 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
       Q > QMAX || S % Q != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const size_t nc = S / Q, states = (size_t)Bb * nc * H * P * N, heads = (size_t)Bb * S * H * N;
+  const size_t chunks = (size_t)Bb * nc * H;
   float* w = static_cast<float*>(work);
-  Args a{x, dt, B, C, dy,
-         static_cast<const float*>(A), static_cast<const float*>(D),
-         static_cast<const float*>(h0), static_cast<const float*>(dstate),
-         dx, ddt, dB, dC,
-         static_cast<float*>(dA), D != nullptr ? static_cast<float*>(dD) : nullptr,
-         h0 != nullptr ? static_cast<float*>(dh0) : nullptr,
-         w, w + states, w + 2 * states, w + 2 * states + heads,
-         w + 2 * states + 2 * heads, w + 2 * states + 2 * heads + (size_t)Bb * nc * H,
-         static_cast<int*>(counters), Bb, S, H, P, G, N, Q};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(a, st);
-  return (int)launch<__nv_bfloat16>(a, st);
+  if (dtype == 0) {
+    Args a{x, dt, B, C, dy,
+           static_cast<const float*>(A), static_cast<const float*>(D),
+           static_cast<const float*>(h0), static_cast<const float*>(dstate),
+           dx, ddt, dB, dC,
+           static_cast<float*>(dA), D != nullptr ? static_cast<float*>(dD) : nullptr,
+           h0 != nullptr ? static_cast<float*>(dh0) : nullptr,
+           w, w + states, w + 2 * states, w + 2 * states + heads,
+           w + 2 * states + 2 * heads, w + 2 * states + 2 * heads + chunks,
+           static_cast<int*>(counters), Bb, S, H, P, G, N, Q};
+    return (int)launch_f32(a, st);
+  }
+  using bf16 = __nv_bfloat16;
+  // states, ustates, the four bf16 planes of parts (2 states floats), dBp,
+  // dCp, hd_part, alast, dA_part, dD_part
+  float* hd = w + 4 * states + 2 * heads;
+  TcArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(dt),
+           static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+           static_cast<const bf16*>(dy),
+           static_cast<const float*>(A), static_cast<const float*>(D),
+           static_cast<const float*>(h0), static_cast<const float*>(dstate),
+           static_cast<bf16*>(dx), static_cast<bf16*>(ddt), static_cast<bf16*>(dB),
+           static_cast<bf16*>(dC),
+           static_cast<float*>(dA), D != nullptr ? static_cast<float*>(dD) : nullptr,
+           h0 != nullptr ? static_cast<float*>(dh0) : nullptr,
+           w, w + states, reinterpret_cast<bf16*>(w + 2 * states),
+           w + 4 * states, w + 4 * states + heads,
+           hd, hd + chunks * MAX_SLABS, hd + chunks * (MAX_SLABS + 1),
+           hd + chunks * (MAX_SLABS + 2),
+           static_cast<int*>(counters), Bb, S, H, P, G, N, Q,
+           head_slice(Bb, (int)nc, H, G)};
+  return (int)launch_tc_tiles(a, st);
 }

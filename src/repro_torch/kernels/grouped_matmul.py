@@ -18,7 +18,10 @@ launches in ``<wrapper>.launches``.
 A call that autograd will differentiate goes through ``GroupedMatmul``:
 its forward is ``grouped_matmul``'s launch and its backward one
 ``grouped_matmul_bwd`` launch (dlhs = dout rhs^T and drhs = lhs^T dout,
-each only where its input needs a gradient).
+each only where its input needs a gradient).  Each wrapper's count is of
+kernel launches: a ``grouped_matmul_bwd`` call is one kernel, its grid
+covering the tiles of both products (bf16: the wgmma/TMA kernel
+``gmm_bwd_tc_kernel``; float32: ``gmm_bwd_f32_kernel``).
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ def grouped_matmul_bwd(lhs, rhs, dout, *, need_lhs=True, need_rhs=True):
     """The gradient of ``grouped_matmul`` given its cotangent dout (G, M,
     N) in lhs's dtype: (dlhs (G, M, K), drhs (G, K, N)), each product
     summed in float32 and rounded once, None where not wanted.  On CUDA
-    one launch computes both, under ``grouped_matmul``'s contract."""
+    one kernel launch computes the wanted ones, under ``grouped_matmul``'s
+    contract."""
     if not lhs.is_cuda:
         dlhs, drhs = ref.grouped_matmul_bwd(lhs, rhs, dout)
         return dlhs if need_lhs else None, drhs if need_rhs else None

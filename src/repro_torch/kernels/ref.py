@@ -6,9 +6,10 @@ hold them against the JAX package, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  The CUDA path never calls them.
 
 ``bf16_parts``, ``attention_tc_emulated``,
-``decode_attention_tc_emulated`` and ``ssd_tc_emulated`` have no oracle:
-they redo the bf16 tensor-core kernels' arithmetic (the f32 operands, such
-as P and dS, handed to the tensor cores in bf16 parts) so the CPU tests
+``decode_attention_tc_emulated``, ``ssd_tc_emulated`` and
+``ssd_bwd_tc_emulated`` have no oracle: they redo the bf16 tensor-core
+kernels' arithmetic (the f32 operands, such as P and dS, handed to the
+tensor cores in bf16 parts) so the CPU tests
 and ``chip_smoke.py`` can show which choice the per-entry check accepts.  ``decode_attention_split`` has none either: it
 is the decode kernels' split-KV order of sums (fixed spans of kv rows,
 combined in span order), held against ``decode_attention_ref`` and the
@@ -692,6 +693,99 @@ def ssd_tc_emulated(x, dt, A, B, C, D=None, h0=None, *, chunk, parts: int):
     if D is not None:
         y = y + xf * D[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def ssd_bwd_tc_emulated(x, dt, A, B, C, D, h0, dy, dstate=None, *, chunk,
+                        parts: int):
+    """The bf16 tensor-core ``ssd_bwd`` kernels' arithmetic in plain
+    PyTorch: ``ssd_chunked_bwd``'s function with every product as the
+    kernels form it.  Products of two bf16 inputs (C B^T, dy x^T) are
+    exact and summed in f32; each f32 operand goes to its product as
+    ``bf16_parts(., parts)``, one f32 product per term: x o wd and
+    exp(a_cs) dy for each chunk's state and its gradient ((x o wd)^T B,
+    (exp(a_cs) dy)^T C), which are carried across the chunks in f32; the
+    entering state h_prev and the leaving gradient dh_next, given to
+    dxdt's B dh_next^T, dB's x dh_next and dC's dy h_prev (each scaled by
+    its row's f32 factor afterwards: dec, dec dt, exp(a_cs)); and S o L and
+    dS for dxdt's (S o L)^T dy, dC's dS B and dB's dS^T C.
+    <h_prev, dh_next> is taken from the parts.  With parts=2 this is the
+    kernels' design; parts=1 is the shortcut the checks must reject.
+    Each product is summed exactly and rounded once (``_f32_product``).
+    Returns ``ssd_chunked_bwd``'s tuple."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    nc, Q = S // chunk, chunk
+    xf = x.float().reshape(Bb, nc, Q, H, P)
+    dtf = dt.float().reshape(Bb, nc, Q, H)
+    dyf = dy.float().reshape(Bb, nc, Q, H, P)
+    Bf = torch.repeat_interleave(B.float(), rep, 2).reshape(Bb, nc, Q, H, N)
+    Cf = torch.repeat_interleave(C.float(), rep, 2).reshape(Bb, nc, Q, H, N)
+    Af = A.float()
+    a_cs = torch.cumsum(Af * dtf, dim=2)               # (Bb,nc,Q,H)
+    a_last = a_cs[:, :, -1]
+    dec = torch.exp(a_last[:, :, None] - a_cs)
+    ea = torch.exp(a_cs)
+
+    def split_product(eq, f32_op, other):
+        return sum(_f32_product(eq, part, other)
+                   for part in bf16_parts(f32_op, parts))
+
+    # the state pass: each chunk's state and state gradient, then the
+    # scans across chunks in f32
+    xw = xf * (dtf * dec)[..., None]
+    states = split_product("bcqhp,bcqhn->bchpn", xw, Bf)
+    U = split_product("bcqhp,bcqhn->bchpn", ea[..., None] * dyf, Cf)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prevs = []
+    for t in range(nc):
+        h_prevs.append(h)
+        h = h * torch.exp(a_last[:, t])[..., None, None] + states[:, t]
+    dh = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+          if dstate is None else dstate.float())
+    dh_nexts = [None] * nc
+    for t in reversed(range(nc)):
+        dh_nexts[t] = dh
+        dh = dh * torch.exp(a_last[:, t])[..., None, None] + U[:, t]
+    h_prev = torch.stack(h_prevs, dim=1)               # (Bb,nc,H,P,N)
+    dh_next = torch.stack(dh_nexts, dim=1)
+
+    # the chunk pass
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                device=x.device))[:, :, None]
+    seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]
+    L = torch.exp(torch.where(tri, seg, torch.full_like(seg, NEG_INF)))
+    SL = _f32_product("bcihn,bcjhn->bcijh", Cf, Bf) * L
+    Gm = _f32_product("bcihp,bcjhp->bcijh", dyf, xf) * dtf[:, :, None]
+    dS = L * Gm
+    W = SL * Gm
+    dxdt = (dec[..., None] * split_product("bchpn,bcjhn->bcjhp", dh_next, Bf)
+            + split_product("bcijh,bcihp->bcjhp", SL, dyf))
+    off = ea[..., None] * split_product("bchpn,bcihp->bcihn", h_prev, dyf)
+    dCh = off + split_product("bcijh,bcjhn->bcihn", dS, Bf)
+    bst = (dec * dtf)[..., None] * split_product("bchpn,bcjhp->bcjhn",
+                                                 dh_next, xf)
+    dBh = bst + split_product("bcijh,bcihn->bcjhn", dS, Cf)
+    r = (Bf * bst).sum(-1)
+    hd = (sum(bf16_parts(h_prev, parts)) * sum(bf16_parts(dh_next, parts))
+          ).sum((-2, -1))
+    da_cs = W.sum(3) - W.sum(2) + (Cf * off).sum(-1) - r
+    da_cs[:, :, -1] += r.sum(2) + torch.exp(a_last) * hd
+    da = torch.flip(torch.cumsum(torch.flip(da_cs, [2]), 2), [2])
+    ddt = (dxdt * xf).sum(-1) + Af * da
+    dA = (da * dtf).sum((0, 1, 2))
+    dx = dxdt * dtf[..., None]
+    dD = None
+    if D is not None:
+        dx = dx + dyf * D.float()[:, None]
+        dD = (dyf * xf).sum((0, 1, 2, 4)).to(D.dtype)
+    dB = dBh.reshape(Bb, S, G, rep, N).sum(3)
+    dC = dCh.reshape(Bb, S, G, rep, N).sum(3)
+    return (dx.reshape(Bb, S, H, P).to(x.dtype),
+            ddt.reshape(Bb, S, H).to(dt.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype), dD,
+            dh.to(h0.dtype) if h0 is not None else None)
 
 
 def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):

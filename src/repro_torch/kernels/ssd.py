@@ -12,8 +12,13 @@ Given CPU tensors each runs its plain PyTorch version (``ref.ssd_chunked``,
 ``ref.ssd_chunked_bwd``); given CUDA tensors it checks device, dtype,
 shape, contiguity and alignment, allocates the outputs, launches the
 kernel on the current stream and raises if the launch returns a CUDA
-error.  There is no other path.  Each counts its launches in
-``<wrapper>.launches`` (one ``ssd_bwd`` launch runs its two kernels).
+error.  There is no other path.  Each counts its calls in
+``<wrapper>.launches``: an ``ssd`` call is one kernel; an ``ssd_bwd`` call
+is three in bf16 (each chunk's state products, the scans across chunks,
+the chunk pass: ``ssd_bwd_states_tc_kernel``, ``ssd_bwd_scan_kernel``,
+``ssd_bwd_chunk_tc_kernel``, every product on ``wgmma``, which
+``ref.ssd_bwd_tc_emulated`` repeats on the CPU) and two in float32 (the
+states, then the chunk pass, on the CUDA cores).
 
 bf16 runs on the tensor cores (``ssd_tc_kernel``: the scores C B^T, the
 masked product M x, C state^T and the state update on ``wgmma``, with M,
@@ -138,8 +143,9 @@ def ssd_bwd(x, dt, A, B, C, D, h0, dy, dstate=None, *, chunk=128):
     (Bb,S,H,P) in x's dtype and the final state's gradient ``dstate``
     (Bb,H,P,N) float32 or None (zero): (dx, ddt, dA, dB, dC, dD, dh0) in
     the dtypes of x, dt, A, B, C, D and h0, dD None without D and dh0
-    None without h0.  On CUDA one launch runs the ``ssd_bwd`` kernels,
-    under ``ssd``'s contract with P at most 128."""
+    None without h0.  On CUDA one call runs the ``ssd_bwd`` kernels
+    (three in bf16, two in float32; ``ssd_bwd.launches`` counts the
+    call), under ``ssd``'s contract with P at most 128."""
     if not x.is_cuda:
         return ref.ssd_chunked_bwd(x, dt, A, B, C, D, h0, dy, dstate,
                                    chunk=chunk)
@@ -166,8 +172,8 @@ def ssd_bwd(x, dt, A, B, C, D, h0, dy, dstate=None, *, chunk=128):
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
     dD = torch.empty_like(D) if D is not None else None
     dh0 = torch.empty_like(h0) if h0 is not None else None
-    work = torch.empty((2 * Bb * nc * H * P * N + 2 * Bb * S * H * N
-                        + 2 * Bb * nc * H,), dtype=torch.float32, device=dev)
+    work = torch.empty((4 * Bb * nc * H * P * N + 2 * Bb * S * H * N
+                        + 19 * Bb * nc * H,), dtype=torch.float32, device=dev)
     counters = torch.zeros((Bb * nc * G + H,), dtype=torch.int32, device=dev)
 
     def ptr(t):

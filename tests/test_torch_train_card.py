@@ -1,6 +1,8 @@
 """The training kernels of MoE and Mamba-2 on the card (the ``cuda`` cases;
 they skip without one): ``grouped_matmul_bwd`` and ``ssd_bwd`` against
-their plain versions at a small size, bf16 and f32, the ``ssd`` forward at
+their plain versions at a small size, bf16 and f32, and at the cases their
+tensor-core kernels make risky (a capacity ending inside a tile, one-sided
+calls; two groups, chunks of 37 rows and of one), the ``ssd`` forward at
 the training shape (and causal there), and reduced olmoe and mamba2 train
 steps that run through them.  The CPU tests against the JAX
 package are in ``tests/test_torch_train_moe_ssm.py``; this file imports no
@@ -90,6 +92,68 @@ def test_ssd_bwd_kernel_matches_its_plain_version(card, dtype):
                        1e-4 if f32_sum else 1e-5), n
         assert torch.equal(a, b), n
     assert tssd.ssd_bwd.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [37, 640])
+def test_grouped_matmul_bwd_at_a_ragged_capacity(card, dtype, M):
+    """The one-launch gradient at capacities that end inside a 128-row
+    tile (37) and at olmoe's training capacity (640), gate/up's widths:
+    both products, then each alone (the other None), against the plain
+    version; the same inputs twice, bit for bit; a dead row's dlhs exactly
+    zero; one kernel launch a call."""
+    g = torch.Generator(device=card).manual_seed(3)
+    G, K, N = 64, 2048, 1024
+    lhs, rhs, dout = (torch.randn(s, generator=g, device=card).to(dtype)
+                      for s in ((G, M, K), (G, K, N), (G, M, N)))
+    lhs[:, M - 3:] = 0                   # dead rows at the ragged end
+    dout[:, M - 3:] = 0
+    want = ref.grouped_matmul_bwd(lhs, rhs, dout)
+    got = tgmm.grouped_matmul_bwd(lhs, rhs, dout)
+    again = tgmm.grouped_matmul_bwd(lhs, rhs, dout)
+    only_l = tgmm.grouped_matmul_bwd(lhs, rhs, dout, need_rhs=False)
+    only_r = tgmm.grouped_matmul_bwd(lhs, rhs, dout, need_lhs=False)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert _within(a, w, RTOL[dtype]) and torch.equal(a, b)
+    assert only_l[1] is None and only_r[0] is None
+    assert torch.equal(only_l[0], got[0]) and torch.equal(only_r[1], got[1])
+    assert (got[0][:, M - 3:] == 0).all()
+    assert tgmm.grouped_matmul_bwd.launches == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,S,Q", [(2, 256, 128), (1, 148, 37), (1, 131, 1)])
+def test_ssd_bwd_at_two_groups_and_odd_chunks(card, dtype, G, S, Q):
+    """The gradient at mamba2's heads with two groups (each group's dB and
+    dC summed over its own 16 heads) and at chunks of 37 rows and of one
+    row, with h0, D and the final state's gradient: every gradient within
+    its rule against the plain version, the same inputs twice bit for
+    bit."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    Bb, H, P, N = 1, 32, 64, 128
+    x = torch.randn((Bb, S, H, P), generator=gen, device=card).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bb, S, H), generator=gen, device=card) - 3).to(dtype)
+    A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device=card))
+    Bm, Cm = (torch.randn((Bb, S, G, N), generator=gen, device=card)
+              .to(dtype) for _ in range(2))
+    D = torch.randn((H,), generator=gen, device=card)
+    h0, ds = (torch.randn((Bb, H, P, N), generator=gen, device=card)
+              for _ in range(2))
+    dy = torch.randn(x.shape, generator=gen, device=card).to(dtype)
+    got = tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy, ds, chunk=Q)
+    again = tssd.ssd_bwd(x, dt, A, Bm, Cm, D, h0, dy, ds, chunk=Q)
+    want = ref.ssd_chunked_bwd(x, dt, A, Bm, Cm, D, h0, dy, ds, chunk=Q)
+    torch.cuda.synchronize()
+    for n, a, b, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dh0"), got,
+                          again, want):
+        f32_sum = n in ("dA", "dD", "dh0")
+        assert _within(a, w, 1e-5 if f32_sum else RTOL[dtype],
+                       1e-4 if f32_sum else 1e-5), n
+        assert torch.equal(a, b), n
 
 
 @pytest.mark.cuda

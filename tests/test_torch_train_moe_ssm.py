@@ -359,15 +359,17 @@ def test_train_step_matches_jax_over_two_steps(arch, remat):
 
 def test_gradient_kernels_are_declared_hashed_and_counted():
     """Each gradient kernel is a library of its own, built from its source
-    alone, with the C entry point's parameters as its declared argtypes,
-    and its wrapper is among the counted kernels."""
+    and the shared Hopper header (TMA, mbarriers, wgmma), with the C entry
+    point's parameters as its declared argtypes, and its wrapper is among
+    the counted kernels."""
     import re
 
     from repro_torch.kernels import build
     for name in ("grouped_matmul_bwd", "ssd_bwd"):
         fn, argtypes = build.SIGNATURES[name]
         assert fn == name
-        assert [p.name for p in build.sources(name)] == [f"{name}.cu"]
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu",
+                                                         "hopper.cuh"]
         src = (build.CSRC / f"{name}.cu").read_text()
         params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
                            src).group(1)

@@ -9,12 +9,14 @@ Builds every kernel (printing ``ptxas -v``'s registers and spills of the
 gradient kernels), then ``ssd`` (``check_ssd``, the training shape among
 its cases), ``grouped_matmul_bwd`` and ``ssd_bwd`` against
 their plain versions entry by entry (bf16 and f32, at the training shapes,
-twice bit for bit), their planted faults, and their times beside their
-bounds (and the forward kernels' at the training shapes, and the decode
-kernels' at nemotron's group of 6); then, unless ``--no-arms``, the
-``[serve:minitron-dense]`` and ``[serve:nemotron-dense]`` arms,
-``[train:olmoe]``, ``[train:mamba2]``, ``[train:zamba2]`` and the f32
-parity steps of olmoe and mamba2.  Any failed check raises.
+twice bit for bit), their planted faults, the bf16 gradient's shortcut
+(``check_ssd_bwd_shortcut``), and their times beside their bounds
+(``ssd_bwd``'s also by pass; the forward kernels' at the training
+shapes, and the decode kernels' at nemotron's group of 6); then, unless
+``--no-arms``, the ``[serve:minitron-dense]`` and
+``[serve:nemotron-dense]`` arms, ``[train:olmoe]``, ``[train:mamba2]``,
+``[train:zamba2]`` and the f32 parity steps of olmoe and mamba2.  Any
+failed check raises.
 """
 
 from __future__ import annotations
@@ -46,10 +48,13 @@ def main() -> int:
         f"{k} {v}" for k, v in sorted(build.kernel_resources().items())
         if "bwd" in k), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    times = None
     if "--arms-only" not in sys.argv:
-        checks_and_times(cs, tfa, gmm, ref, tssd)
+        times = checks_and_times(cs, tfa, gmm, ref, tssd)
     if "--no-arms" not in sys.argv:
         arms(cs, tfa)
+    if times is not None:   # a profiler, after the arms
+        cs.time_ssd_bwd_passes(tssd, times)
     print(f"[probe] done in {time.perf_counter() - t0:.1f}s")
     return 0
 
@@ -60,6 +65,7 @@ def checks_and_times(cs, tfa, gmm, ref, tssd):
     cs.check_grouped_matmul_bwd_faults(gmm, ref)
     cs.check_ssd_bwd(tssd, ref)
     cs.check_ssd_bwd_faults(tssd, ref)
+    cs.check_ssd_bwd_shortcut(ref)
     times = {}
     for G, M, K, N in cs.GMM_TIME_SHAPES[-2:]:
         times[f"grouped_matmul M={M} {K}x{N}"] = cs.time_grouped_matmul(
@@ -89,6 +95,7 @@ def checks_and_times(cs, tfa, gmm, ref, tssd):
               f"{t['host_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"library {lib}, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})", flush=True)
+    return times
 
 
 def arms(cs, tfa):
