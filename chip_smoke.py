@@ -540,32 +540,6 @@ def _bound(nbytes: float, ops: float, ops_rate: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _kernel_group_ms(calls, groups, rounds: int = 4):
-    """Device ms per call of each group ({label: kernel-name fragments})
-    of the kernels ``calls`` launch: ``rounds`` passes over the calls
-    under torch.profiler (the CUDA activity alone), each kernel's device
-    time summed into its group."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for c in calls:
-        c()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            for c in calls:
-                c()
-        torch.cuda.synchronize()
-    n = rounds * len(calls)
-    out = dict.fromkeys(groups, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for g, frags in groups.items():
-                if any(f in e.key for f in frags):
-                    out[g] += e.device_time_total / 1e3 / n
-    return out
-
-
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -2305,6 +2279,9 @@ def time_ssd_train(tssd, ref, model):
     fwd = [functools.partial(tssd.ssd, *c[:7], chunk=Q) for c in cases]
     bwd = [functools.partial(tssd.ssd_bwd, *c, chunk=Q) for c in cases]
     esz = 2
+    # the forward reads x, dt, B, C, A and D and writes y; the backward
+    # reads x, dy, dt, B, C, A and D and writes dx, ddt, dB, dC, dA and dD:
+    # the same bytes less one (Bb, S, H, P) plane
     io = esz * (2 * Bb * S * H * P + Bb * S * H + 2 * Bb * S * G * N) \
         + 4 * 2 * H
     tri = Q * (Q + 1) / 2
@@ -2321,7 +2298,7 @@ def time_ssd_train(tssd, ref, model):
              io + 4 * Bb * H * P * N, _ssd_ops(Bb, S, H, P, G, N, Q)),
             ("bwd", bwd, [functools.partial(ref.ssd_chunked_bwd, *c, chunk=Q)
                           for c in cases],
-             2 * io + esz * Bb * S * H * P, bwd_ops)):
+             2 * io - esz * Bb * S * H * P, bwd_ops)):
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
         out[name] = {
             "shape": f"Bb={Bb} S={S} H={H} P={P} G={G} N={N} chunk={Q} "
@@ -2339,16 +2316,34 @@ def time_ssd_train(tssd, ref, model):
 def time_ssd_bwd_passes(tssd, times):
     """The ``[time] ssd_bwd`` line by pass at each model's training shape,
     on ``time_ssd_train``'s inputs: torch.profiler's device ms a call of
-    each pass (``SSD_BWD_PASSES``), kept as ``pass_ms`` in the gradient's
-    ``times`` entry (the whole call's [time] line is CUDA events over a
-    graph).  Run after the serving arms, as every profile: launches slow
-    down once the profiler has run."""
+    each pass (``SSD_BWD_PASSES``, ``_profile_window`` over four rounds of
+    the calls, the CUDA activity alone), kept as ``pass_ms`` in the
+    gradient's ``times`` entry (the whole call's [time] line is CUDA
+    events over a graph).  Run after the serving arms, as every profile:
+    launches slow down once the profiler has run."""
+    import torch
+    rounds = 4
+
+    def run(calls):
+        for _ in range(rounds):
+            for c in calls:
+                c()
+        torch.cuda.synchronize()
+
     for model in SSD_HEADS:
         cases = [_ssd_train_case(model, 5600 + i) for i in range(2)]
+        calls = [functools.partial(tssd.ssd_bwd, *c, chunk=128)
+                 for c in cases]
         t = times[f"ssd_bwd train {model}"]
-        t["pass_ms"] = _kernel_group_ms(
-            [functools.partial(tssd.ssd_bwd, *c, chunk=128) for c in cases],
-            SSD_BWD_PASSES)
+        run(calls)
+        t["pass_ms"] = _profile_window(
+            f"ssd_bwd-{model}", "ssd_bwd calls", rounds * len(calls),
+            functools.partial(run, calls), groups=SSD_BWD_PASSES,
+            cpu=False)["profile_group_ms_per_step"]
+        if t["pass_ms"] is None:
+            print(f"[time] ssd_bwd train {model} by pass: not measured (the "
+                  "profiler saw no device time)", flush=True)
+            continue
         print(f"[time] ssd_bwd train {model} by pass {t['shape']}: state "
               f"pass {t['pass_ms']['state']:.4f} ms (each chunk's state "
               f"products and the scans), chunk pass "

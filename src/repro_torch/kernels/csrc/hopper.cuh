@@ -70,6 +70,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// the streaming multiprocessors of the current card, for grids sized to
+// it (one card: asked once); a failed query returns its error
+inline cudaError_t sm_count(int* n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      sms = 0;
+      return e;
+    }
+  }
+  *n = sms;
+  return cudaSuccess;
+}
+
 // swizzle width in bytes of a bf16 row of D columns (D = 32: 64 bytes;
 // D = 64, 128: 128 bytes)
 __host__ __device__ constexpr int swizzle_bytes(int D) { return 2 * D < 128 ? 2 * D : 128; }

@@ -21,16 +21,18 @@
 // and dh0 = dh_prev of the first chunk.  B and C are shared by the H/G
 // heads of a group, so dB and dC sum over those heads.
 //
-// What bounds it on the card: bytes, ~0.026 ms at mamba2's training shape
-// (Bb = 2, S = 2048, H = 32, P = 64, N = 128, chunk 128: x, dy and dx in
-// bf16, ~88 MB at 3.35 TB/s), where the gradient's 17.3 GFLOP would take
-// 0.017 ms at the bf16 tensor-core peak.  On an NVIDIA H100 80GB HBM3 at a
-// 700.00 W limit the bf16 kernels below take 0.43 ms a layer at mamba2's
-// heads (the state pass 0.13, the chunk pass 0.30) and 0.56 ms at
-// zamba2's (0.16, 0.40); the first port's kernels, every product on the
-// CUDA cores in f32 with per-head dB, dC and per-chunk f32 states in
-// ~400 MB of scratch, took 4.50 and 5.99 ms (PERF.md section 6).
-// What holds them at 16x and 11x the bound:
+// What bounds it on the card: at mamba2's training shape (Bb = 2, S =
+// 2048, H = 32, P = 64, N = 128, chunk 128, bf16) operations, 17.3 GFLOP
+// at the bf16 tensor-core peak, ~0.0175 ms, where reading x, dy, dt, B, C
+// once and writing dx, ddt, dB, dC once (~55 MB at 3.35 TB/s) takes
+// 0.0164 ms; at zamba2's heads (H = 64, P = 64, N = 64) bytes, ~104 MB,
+// ~0.031 ms.  On an NVIDIA H100 80GB HBM3 at a 700.00 W limit the bf16
+// kernels below take 0.426 ms a layer at mamba2's heads (the state pass
+// 0.125, the chunk pass 0.301) and 0.566 ms at zamba2's (0.156, 0.405);
+// the first port's kernels, every product on the CUDA cores in f32 with
+// per-head dB, dC and per-chunk f32 states in ~400 MB of scratch, took
+// 4.50 and 5.99 ms (PERF.md section 6).  What holds them at 24x and 18x
+// the bound:
 //   * the chunk pass runs one 8-warp block an SM (255 registers a thread
 //     fill the register file; ptxas -v reports 112-440 bytes spilled),
 //     whose heads follow one another: each head's scan, its three block
@@ -1571,25 +1573,30 @@ cudaError_t map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d2, i
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-int sm_count() {
-  static int n = 0;   // one card
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 // heads a block: the fewest (a divisor of the group's H / G) that keep the
-// chunk pass within one block an SM, so B and C and the chunk's scores are
-// loaded and formed once for as many heads as the card leaves room for
-int head_slice(int Bb, int nc, int H, int G) {
+// chunk pass within one block an SM of the card's `sms`, so B and C and the
+// chunk's scores are loaded and formed once for as many heads as the card
+// leaves room for
+int head_slice(int Bb, int nc, int H, int G, int sms) {
   const int rep = H / G;
   for (int hs = 1; hs < rep; ++hs)
-    if (rep % hs == 0 && (long long)Bb * nc * (H / hs) <= sm_count()) return hs;
+    if (rep % hs == 0 && (long long)Bb * nc * (H / hs) <= sms) return hs;
   return rep;
+}
+
+// The work buffer's floats (ssd_bwd's `work`), for a call the entry point
+// accepts; `hs` is the bf16 path's head slice (unused for float32).
+//   float32: hprev, dhnext (Bb nc H P N each), per-head dB, dC (Bb S H N
+//            each), dA_part, dD_part (Bb nc H each)
+//   bf16:    states, ustates (Bb nc H P N each), the four bf16 planes of
+//            parts (2 Bb nc H P N floats), each head slice's dB, dC (Bb S
+//            (H / hs) N each), hd_part (Bb nc H MAX_SLABS), alast,
+//            dA_part, dD_part (Bb nc H each)
+size_t work_floats(int Bb, int S, int H, int P, int N, int Q, int dtype, int hs) {
+  const size_t nc = S / Q, states = (size_t)Bb * nc * H * P * N;
+  const size_t chunks = (size_t)Bb * nc * H;
+  if (dtype == 0) return 2 * states + 2 * (size_t)Bb * S * H * N + 2 * chunks;
+  return 4 * states + 2 * (size_t)Bb * S * (H / hs) * N + (MAX_SLABS + 3) * chunks;
 }
 
 template <int PT, int NT>
@@ -1633,13 +1640,31 @@ cudaError_t launch_tc_tiles(const TcArgs& a, cudaStream_t st) {
   return launch_tc<128, 128>(a, st);
 }
 
+bool valid(int Bb, int S, int H, int P, int G, int N, int Q, int dtype) {
+  return Bb > 0 && Bb <= 65535 && S > 0 && H > 0 && H <= 65535 && P > 0 && P % PS == 0 &&
+         P <= PMAX && G > 0 && H % G == 0 && N > 0 && N % 32 == 0 && N <= NMAX && Q >= 1 &&
+         Q <= QMAX && S % Q == 0 && (dtype == 0 || dtype == 1);
+}
+
 }  // namespace
+
+// The floats ssd_bwd's `work` must hold for these sizes and dtype (the
+// bf16 path's dB, dC partials depend on the card's SM count); -1 for sizes
+// ssd_bwd refuses or a failed query of the card.
+extern "C" long long ssd_bwd_work_floats(int Bb, int S, int H, int P, int G, int N, int Q,
+                                         int dtype) {
+  if (!valid(Bb, S, H, P, G, N, Q, dtype)) return -1;
+  int sms = 0;
+  if (dtype == 1 && sm_count(&sms) != cudaSuccess) return -1;
+  const int hs = dtype == 1 ? head_slice(Bb, S / Q, H, G, sms) : 1;
+  return (long long)work_floats(Bb, S, H, P, N, Q, dtype, hs);
+}
 
 // dtype: 0 = float32, 1 = bfloat16, for x, dt, B, C, dy and dx, ddt, dB,
 // dC alike; A, D, h0, dstate and dA, dD, dh0 are float32.  D, h0 and
 // dstate may be null (no skip, a zero initial state, no gradient of the
 // final state); dD and dh0 are written iff D and h0 are given.  work holds
-// 4 Bb (S/Q) H P N + 2 Bb S H N + 19 Bb (S/Q) H floats; counters Bb (S/Q) G
+// ssd_bwd_work_floats(...) floats (work_floats above); counters Bb (S/Q) G
 // + H ints, zero.  bf16 launches three kernels, float32 two.  Returns the
 // first launch's cudaError_t that is not 0.
 extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void* B,
@@ -1647,10 +1672,7 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
                        const void* dstate, void* dx, void* ddt, void* dA, void* dB, void* dC,
                        void* dD, void* dh0, void* work, void* counters, int Bb, int S, int H,
                        int P, int G, int N, int Q, int dtype, void* stream) {
-  if (Bb <= 0 || Bb > 65535 || S <= 0 || H <= 0 || H > 65535 || P <= 0 || P % PS != 0 ||
-      P > PMAX || G <= 0 || H % G != 0 || N <= 0 || N % 32 != 0 || N > NMAX || Q < 1 ||
-      Q > QMAX || S % Q != 0 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(Bb, S, H, P, G, N, Q, dtype)) return (int)cudaErrorInvalidValue;
   const size_t nc = S / Q, states = (size_t)Bb * nc * H * P * N, heads = (size_t)Bb * S * H * N;
   const size_t chunks = (size_t)Bb * nc * H;
   float* w = static_cast<float*>(work);
@@ -1668,9 +1690,14 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
     return (int)launch_f32(a, st);
   }
   using bf16 = __nv_bfloat16;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int hs = head_slice(Bb, (int)nc, H, G, sms);
+  const size_t slices = (size_t)Bb * S * (H / hs) * N;
   // states, ustates, the four bf16 planes of parts (2 states floats), dBp,
-  // dCp, hd_part, alast, dA_part, dD_part
-  float* hd = w + 4 * states + 2 * heads;
+  // dCp, hd_part, alast, dA_part, dD_part (work_floats)
+  float* hd = w + 4 * states + 2 * slices;
   TcArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(dt),
            static_cast<const bf16*>(B), static_cast<const bf16*>(C),
            static_cast<const bf16*>(dy),
@@ -1681,10 +1708,9 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
            static_cast<float*>(dA), D != nullptr ? static_cast<float*>(dD) : nullptr,
            h0 != nullptr ? static_cast<float*>(dh0) : nullptr,
            w, w + states, reinterpret_cast<bf16*>(w + 2 * states),
-           w + 4 * states, w + 4 * states + heads,
+           w + 4 * states, w + 4 * states + slices,
            hd, hd + chunks * MAX_SLABS, hd + chunks * (MAX_SLABS + 1),
            hd + chunks * (MAX_SLABS + 2),
-           static_cast<int*>(counters), Bb, S, H, P, G, N, Q,
-           head_slice(Bb, (int)nc, H, G)};
+           static_cast<int*>(counters), Bb, S, H, P, G, N, Q, hs};
   return (int)launch_tc_tiles(a, st);
 }

@@ -22,9 +22,10 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version from
 ``kernels/ref.py``; given CUDA tensors it checks device, dtype, shape and
 contiguity, allocates the output, launches the kernel on the current
 stream and raises if the launch returns a CUDA error.  There is no other
-path.  Each wrapper counts its kernel launches in ``<wrapper>.launches``;
-a CUDA graph's replays add the launches its capture counted
-(``serving/graphs.py``).
+path.  Each wrapper counts its calls on the card in ``<wrapper>.launches``,
+one a call whatever the call runs (the rule of every wrapper in
+``KERNELS``, which lists the device kernels a call runs); a CUDA graph's
+replays add the calls its capture counted (``serving/graphs.py``).
 """
 
 from __future__ import annotations
@@ -422,6 +423,11 @@ flash_attention_bwd.launches = 0
 #: Every kernel wrapper of the package, for launch counting: the six
 #: above, ``kernels/grouped_matmul.py``'s (the MoE expert FFN and its
 #: gradient) and ``kernels/ssd.py``'s (the Mamba-2 scan and its gradient).
+#: ``<wrapper>.launches`` counts calls on the card.  A call runs one
+#: device kernel, but for two wrappers: ``flash_attention_bwd`` runs three
+#: (the rows' dout . out, then dk/dv, then dq) and ``ssd_bwd`` three in
+#: bfloat16 (the chunks' state products, the scans across chunks, the
+#: chunk pass) and two in float32 (the states, the chunk pass).
 KERNELS = (flash_decode, flash_decode_paged, cache_update, cache_update_paged,
            flash_attention, flash_attention_bwd, grouped_matmul, ssd,
            grouped_matmul_bwd, ssd_bwd)

@@ -13,15 +13,16 @@ Given CPU tensors each runs its plain PyTorch version
 checks device, dtype, shape, contiguity and alignment, allocates the
 outputs, launches the kernel on the current stream and raises if the
 launch returns a CUDA error.  There is no other path.  Each counts its
-launches in ``<wrapper>.launches``.
+calls in ``<wrapper>.launches`` (the rule at ``flash_attention.KERNELS``).
 
 A call that autograd will differentiate goes through ``GroupedMatmul``:
 its forward is ``grouped_matmul``'s launch and its backward one
 ``grouped_matmul_bwd`` launch (dlhs = dout rhs^T and drhs = lhs^T dout,
-each only where its input needs a gradient).  Each wrapper's count is of
-kernel launches: a ``grouped_matmul_bwd`` call is one kernel, its grid
-covering the tiles of both products (bf16: the wgmma/TMA kernel
-``gmm_bwd_tc_kernel``; float32: ``gmm_bwd_f32_kernel``).
+each only where its input needs a gradient).  A call of either wrapper
+runs one device kernel, so its count is of kernel launches: a
+``grouped_matmul_bwd`` call's grid covers the tiles of both products
+(bf16: the wgmma/TMA kernel ``gmm_bwd_tc_kernel``; float32:
+``gmm_bwd_f32_kernel``).
 """
 
 from __future__ import annotations

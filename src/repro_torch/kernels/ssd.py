@@ -13,9 +13,10 @@ Given CPU tensors each runs its plain PyTorch version (``ref.ssd_chunked``,
 shape, contiguity and alignment, allocates the outputs, launches the
 kernel on the current stream and raises if the launch returns a CUDA
 error.  There is no other path.  Each counts its calls in
-``<wrapper>.launches``: an ``ssd`` call is one kernel; an ``ssd_bwd`` call
-is three in bf16 (each chunk's state products, the scans across chunks,
-the chunk pass: ``ssd_bwd_states_tc_kernel``, ``ssd_bwd_scan_kernel``,
+``<wrapper>.launches`` (the rule at ``flash_attention.KERNELS``): an
+``ssd`` call is one kernel; an ``ssd_bwd`` call is three in bf16 (each
+chunk's state products, the scans across chunks, the chunk pass:
+``ssd_bwd_states_tc_kernel``, ``ssd_bwd_scan_kernel``,
 ``ssd_bwd_chunk_tc_kernel``, every product on ``wgmma``, which
 ``ref.ssd_bwd_tc_emulated`` repeats on the CPU) and two in float32 (the
 states, then the chunk pass, on the CUDA cores).
@@ -41,6 +42,8 @@ dD and dh0 from dy and the final state's gradient.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -138,6 +141,18 @@ def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk=128, state_out=None):
 ssd.launches = 0
 
 
+def _work_floats(lib, *sizes) -> int:
+    """The floats of ``ssd_bwd``'s work buffer, as the library lays it out
+    (``ssd_bwd_work_floats``: the bf16 path's dB/dC partials are sized by
+    the head slice it picks for the card)."""
+    fn = lib.ssd_bwd_work_floats
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    n = fn(*sizes)
+    if n < 0:
+        raise RuntimeError(f"ssd_bwd: no work size for {sizes}")
+    return n
+
+
 def ssd_bwd(x, dt, A, B, C, D, h0, dy, dstate=None, *, chunk=128):
     """The gradient of ``ssd`` (the one of ``ref.ssd_chunked``) given dy
     (Bb,S,H,P) in x's dtype and the final state's gradient ``dstate``
@@ -172,14 +187,16 @@ def ssd_bwd(x, dt, A, B, C, D, h0, dy, dstate=None, *, chunk=128):
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
     dD = torch.empty_like(D) if D is not None else None
     dh0 = torch.empty_like(h0) if h0 is not None else None
-    work = torch.empty((4 * Bb * nc * H * P * N + 2 * Bb * S * H * N
-                        + 19 * Bb * nc * H,), dtype=torch.float32, device=dev)
+    lib = build.library("ssd_bwd")
+    floats = _work_floats(lib, Bb, S, H, P, G, N, chunk,
+                          build.DTYPE_CODE[x.dtype])
+    work = torch.empty((floats,), dtype=torch.float32, device=dev)
     counters = torch.zeros((Bb * nc * G + H,), dtype=torch.int32, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    err = build.library("ssd_bwd").ssd_bwd(
+    err = lib.ssd_bwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), ptr(D), ptr(h0), dy.data_ptr(), ptr(dstate),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
