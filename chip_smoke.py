@@ -383,9 +383,9 @@ GMM_TRAIN_M = 640
 GMM_TIME_SHAPES += [(64, GMM_TRAIN_M, 2048, 1024),
                     (64, GMM_TRAIN_M, 1024, 2048)]
 #: (H, K, D) of the attention the fused RoPE + cache write serves:
-#: llama3.2-3b, olmoe-1b-7b and zamba2-1.2b's shared block
+#: llama3.2-3b, olmoe-1b-7b, zamba2-1.2b's shared block and gemma2-2b
 ROPE_HEADS = {"llama": (24, 8, 128), "olmoe": (16, 16, 128),
-              "zamba2": (32, 32, 64)}
+              "zamba2": (32, 32, 64), "gemma2": (8, 4, 256)}
 #: (H, K, D) of nemotron-4-15b: 48 query heads over 8 kv heads, a GQA
 #: group of 6 (minitron-4b's 24 over 8 is llama's group of 3); both rotate
 #: half of each head (rotary_pct 0.5)
@@ -1450,25 +1450,31 @@ def check_bf16_shortcut(ref):
     return res
 
 
-def time_flash_attention(tfa, ref):
+def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None):
     """Forward and backward kernel, plain and library times at the
-    training shape (bf16, causal), two input sets in turn (~67 MB each,
+    training shape (bf16, causal; llama's heads, or ``heads`` with
+    ``softcap``), two input sets in turn (~67 MB each at llama's heads,
     beyond the 50 MB L2).  Library yardsticks, never called by the port:
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and
-    its autograd backward."""
+    its autograd backward.  SDPA has no softcap: with one there is no
+    library call of the same function, and SDPA's time without the
+    softcap is kept beside as ``sdpa_no_softcap_ms``."""
     import torch
     import torch.nn.functional as F
-    B, S, H, K, D = 2, 2048, 24, 8, 128
+    (B, S), (H, K, D) = (2, 2048), heads
     esz = 2
+    cap = dict(softcap=softcap)
     cases = [_attention_case(B, S, S, H, K, D, torch.bfloat16, 900 + i)
              for i in range(2)]
-    saved = [tfa.flash_attention(q, k, v) for q, k, v, _ in cases]
-    fwd = [functools.partial(tfa.flash_attention, *c[:3]) for c in cases]
-    bwd = [functools.partial(tfa.flash_attention_bwd, *c[:3], o, l, c[3])
+    saved = [tfa.flash_attention(q, k, v, **cap) for q, k, v, _ in cases]
+    fwd = [functools.partial(tfa.flash_attention, *c[:3], **cap)
+           for c in cases]
+    bwd = [functools.partial(tfa.flash_attention_bwd, *c[:3], o, l, c[3],
+                             **cap)
            for c, (o, l) in zip(cases, saved)]
 
     def plain_fwd(q, k, v):
-        return ref.attention_naive(q, k, v, return_lse=True)
+        return ref.attention_naive(q, k, v, return_lse=True, **cap)
 
     lib_in = [[t.transpose(1, 2).contiguous().requires_grad_()
                for t in c[:3]] for c in cases]
@@ -1497,7 +1503,8 @@ def time_flash_attention(tfa, ref):
     t_bwd = {"ms": _time_graph_ms(bwd, min_calls=16),
              "host_ms": _time_eager_ms(bwd, 4),
              "plain_ms": _time_eager_ms(
-                 [functools.partial(ref.attention_bwd_ref, *c[:3], o, l, c[3])
+                 [functools.partial(ref.attention_bwd_ref, *c[:3], o, l, c[3],
+                                    **cap)
                   for c, (o, l) in zip(cases, saved)], 1),
              "library_ms": _time_graph_ms(lib_b, min_calls=16,
                                           stream=lib_stream)}
@@ -1512,7 +1519,8 @@ def time_flash_attention(tfa, ref):
     t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
         4 * q_bytes + 4 * kv_bytes + lse_bytes, 10.0 * D * pairs,
         BF16_OPS_PER_S)
-    shape = f"B={B} S={S} H={H} K={K} D={D} causal bf16"
+    shape = f"B={B} S={S} H={H} K={K} D={D} causal bf16" \
+        + (f" softcap {softcap}" if softcap else "")
     t_fwd.update(shape=shape, ops=4.0 * D * pairs,
                  library="F.scaled_dot_product_attention(is_causal=True, "
                          "enable_gqa=True) on (B,H,S,D) copies",
@@ -1521,6 +1529,12 @@ def time_flash_attention(tfa, ref):
                  library="torch.autograd.grad through the same SDPA call "
                          "(CUDA graph, as the kernel)",
                  plain="ref.attention_bwd_ref")
+    if softcap:
+        for t in (t_fwd, t_bwd):
+            t["sdpa_no_softcap_ms"] = t.pop("library_ms")
+            t["library_ms"] = None
+            t["library"] = ("none: SDPA has no softcap; sdpa_no_softcap_ms "
+                            "is " + t["library"] + " without it")
     return {"fwd": t_fwd, "bwd": t_bwd}
 
 
@@ -4693,7 +4707,7 @@ def fleet_engine(tfa, cfg, run, params):
 # phase 4: logits parity at full width, reduced depth
 # ---------------------------------------------------------------------------
 
-def logits_parity():
+def logits_parity(arch=ARCH, tag="parity"):
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.models import lm
@@ -4703,8 +4717,8 @@ def logits_parity():
                                             make_prefill_chunk_step)
     from repro_torch.serving.scheduler import chunk_plan
 
-    cfg = dataclasses.replace(get_model_config(ARCH), n_layers=2)
-    run = get_run_config(ARCH, remat="none")
+    cfg = dataclasses.replace(get_model_config(arch), n_layers=2)
+    run = get_run_config(arch, remat="none")
     ctx = Ctx(run, "cuda")
     cpu_ctx = Ctx(run.replace(compute_dtype="float32"), "cpu")
     params = init_params(lm.model_decls(cfg), torch.Generator().manual_seed(1),
@@ -4737,7 +4751,7 @@ def logits_parity():
         want = lm.logits_for(cpu_ctx, cfg, params, h[:, -2:])[0]
         worst = max(worst, (first[i] - want[0]).abs().max().item(),
                     (dec[i] - want[1]).abs().max().item())
-    print(f"[parity] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 layers: "
+    print(f"[{tag}] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 layers: "
           f"card bf16 (kernels) vs CPU f32 (plain) last-prompt-token and "
           f"first-decode logits over 4 prompts: max|diff| {worst:.4f} "
           f"(tol {PARITY_TOL})", flush=True)
@@ -5012,15 +5026,19 @@ def _active_params(cfg, n_params):
     return n_params - experts + experts * cfg.top_k / cfg.n_experts
 
 
-def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train"):
+def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train",
+                     remat="full", profile=True):
     """Phase 5, the training paths: full-width ``arch`` (full depth, or
     ``n_layers``; seeded f32 masters on the card, bf16 compute, AdamW,
     remat="full", batch TRAIN_B x TRAIN_S, logits_chunk 1024, 2 warmup
     steps) through ``make_train_step``, TRAIN_STEPS steps on one repeated
     TokenSource batch: llama3.2-3b as ``[train]``, and ``[train:olmoe]``,
-    ``[train:mamba2]``, ``[train:zamba2]``.  Every loss and grad norm
+    ``[train:mamba2]``, ``[train:zamba2]``, ``[train:gemma2]``; with
+    ``remat="dots"`` the ``[train:dots]`` arms.  Every loss and grad norm
     finite, the last loss below the first, and exactly
-    ``_train_launches`` per step."""
+    ``_train_launches`` per step (the same under "dots": the kernels'
+    autograd Functions run again in the backward pass).  ``profile``:
+    one more step under the profiler."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.data.pipeline import DataConfig, TokenSource
@@ -5045,7 +5063,7 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train"):
                  f"{(n_cut - n_layers * per) / 1e9:.3f} B, so {n_layers} "
                  f"layers hold {16 * n_cut / 1e9:.1f} GB of state")
         cfg = cut
-    run = get_run_config(arch, remat="full", logits_chunk=1024,
+    run = get_run_config(arch, remat=remat, logits_chunk=1024,
                          warmup_steps=2, total_steps=TRAIN_STEPS)
     _release_card()
     t0 = time.perf_counter()
@@ -5089,7 +5107,7 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train"):
     # layer; the remat recompute and the SSD scan are not counted
     model_ops = (6.0 * _active_params(cfg, n_params) * tokens
                  + 3.5 * attn_fwd_ops * attn_layers)
-    stats = {"arch": cfg.name, "n_layers": cfg.n_layers,
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers, "remat": remat,
              "params": n_params, "steps": TRAIN_STEPS, "batch": B, "seq": S,
              "losses": losses, "grad_norms": gnorms, "step_s": secs,
              "median_step_s_after_first": step_s,
@@ -5128,9 +5146,10 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train"):
 
     # one more step after the counted ones (and after the serving
     # profiles: the profiler slows later launches)
-    stats["profile"] = _profile_window(
-        tag.replace("train:", "train-"), "one train step", 1, one_step,
-        top_n=12, groups=TRAIN_PROFILE_GROUPS)
+    if profile:
+        stats["profile"] = _profile_window(
+            tag.replace("train:", "train-"), "one train step", 1, one_step,
+            top_n=12, groups=TRAIN_PROFILE_GROUPS)
     del state, batch
     _release_card()
     return launches, stats
@@ -5247,6 +5266,591 @@ def train_parity(tfa, arch=ARCH, tag="train:parity"):
     del card
     _release_card()
     return err
+
+
+# ---------------------------------------------------------------------------
+# gemma2-2b: the attention kernels at head_dim 256 (phase 2), its serving
+# arms (phase 3j) and training (phase 5), and remat="dots" ([train:dots])
+# ---------------------------------------------------------------------------
+
+GEMMA2_ARCH = "gemma2-2b"
+#: gemma2-2b's attention: H, K, D, the logit softcap and the local window
+G2_HEADS = (8, 4, 256)
+G2_CAP, G2_WINDOW = 50.0, 4096
+#: the serving arms' cache rows: past the window, so local and global
+#: layers compute different things (at 2048 they would not)
+G2_MAX_SEQ = 8192
+#: the two long prompts' rows are drawn from [4500, 6000]
+G2_LONG = (4500, 6000)
+#: the decode checks' ragged kv_len over 8192 rows: past the window, a
+#: full slot and a done lane (S + 1)
+G2_DECODE_LENS = [5000, 4097, 300, 8192, 6000, 2048, 4500, 8193]
+G2_CHUNK_LENS = [5000, 300, 8193]
+#: the head_dim 256 kernels' key tiles (the .cu notes): the bf16 chunk
+#: kernel's 64 rows, the bf16 decode-step kernel's 128; the forward's 64,
+#: the dK/dV pass's 64-row query step and the dQ pass's 128-row query tile
+G2_TILE = {"chunk": 64, "step": 128, "fwd": 64, "kv_step": 64,
+           "dq_tile": 128}
+#: [train:dots]: olmoe's depth under "dots" (as [train:olmoe]'s)
+DOTS_OLMOE_LAYERS = 8
+
+
+def _pools_of(k, v, bs, seed):
+    """The dense caches (B, S, K, D) scattered into pools of 16-row blocks
+    through a seeded permutation: (k pool, v pool, table)."""
+    import torch
+    B, S = k.shape[:2]
+    mb = S // bs
+    perm = np.random.default_rng(seed).permutation(B * mb)
+    table = torch.tensor(perm.reshape(B, mb), dtype=torch.int32,
+                         device="cuda")
+    idx = table.reshape(-1).long()
+    kp = torch.empty((B * mb, bs) + tuple(k.shape[2:]), dtype=k.dtype,
+                     device="cuda")
+    vp = torch.empty_like(kp)
+    kp[idx] = k.reshape(B * mb, bs, *k.shape[2:])
+    vp[idx] = v.reshape(B * mb, bs, *v.shape[2:])
+    return kp, vp, table
+
+
+def _cols_dropped(got, want, name):
+    """Share of entries of columns 128..255 beyond their limit when a
+    kernel leaves them at zero (the second half of the head dim dropped),
+    and how many entries of columns 0..127 are (none should be)."""
+    cut = got.clone()
+    cut[..., 128:] = 0
+    flagged = _entry_ratio(name, cut, want) > 1
+    return {"flagged_share_cols_128_255": flagged[..., 128:].float().mean()
+            .item(),
+            "flagged_cols_0_127": int(flagged[..., :128].sum().item())}
+
+
+def check_gemma2_decode(tfa, ref):
+    """``flash_decode`` and ``flash_decode_paged`` at gemma2's heads (H = 8,
+    K = 4, D = 256, softcap 50) over 8192 rows: a decode step (B = 8, Sq =
+    1) and a 256-row chunk (B = 3), ragged kv_len past the window with a
+    done lane, the local layers' window of 4096 and the global layers'
+    none, bf16 and f32, entry by entry (``_entry_ratio``, and max|err|
+    within DECODE_TOL); the paged kernel over 16-row blocks scattered
+    through a pool equal to the dense one bit for bit.  Then the planted
+    faults, bf16 with the window: one key tile of the head_dim 256 tile
+    size dropped (K and V rows of one slot zeroed on the kernel's side:
+    64 rows in a chunk, 128 in a decode step; more than half of the
+    affected entries must be flagged and none other) and the output's
+    columns 128..255 dropped (more than half of them flagged, none of
+    columns 0..127); the paged check must reject both (bit-equality with
+    the intact dense output)."""
+    import torch
+    H, K, D = G2_HEADS
+    S = G2_MAX_SEQ
+    checks, faults = [], []
+    cases = [(1, G2_DECODE_LENS), (256, G2_CHUNK_LENS)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for Sq, lens in cases:
+            for window in (G2_WINDOW, None):
+                B = len(lens)
+                seed = 6000 + len(checks)
+                q, k, v, kl = _decode_case(B, S, H, K, D, Sq, dtype, lens,
+                                           seed)
+                kw = dict(softcap=G2_CAP, local_window=window)
+                got = tfa.flash_decode(q, k, v, kl, **kw)
+                want = ref.decode_attention_ref(q, k, v, kl, **kw)
+                kp, vp, table = _pools_of(k, v, 16, seed)
+                paged = tfa.flash_decode_paged(q, kp, vp, kl, table, **kw)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError("flash_decode D=256: non-finite")
+                err = (got.float() - want.float()).abs().max().item()
+                ratio = _entry_ratio(name, got, want).max().item()
+                same = torch.equal(paged, got)
+                checks.append({"dtype": name, "B": B, "S": S, "H": H,
+                               "K": K, "D": D, "Sq": Sq, "softcap": G2_CAP,
+                               "window": window, "kv_len": lens,
+                               "max_abs_err": err, "tol": DECODE_TOL[name],
+                               "worst_over_limit": ratio,
+                               "paged_equals_dense": same})
+                print(f"[check] flash_decode(_paged) {name} B={B} S={S} "
+                      f"H={H} K={K} D={D} Sq={Sq} softcap={G2_CAP} "
+                      f"window={window}: max|err| {err:.3e} (tol "
+                      f"{DECODE_TOL[name]}), worst entry / its limit "
+                      f"{ratio:.3f}, paged == dense {same}", flush=True)
+                if not (err <= DECODE_TOL[name] and ratio <= 1.0 and same):
+                    raise AssertionError(f"flash_decode at head_dim 256 "
+                                         f"disagrees: {checks[-1]}")
+                if dtype != torch.bfloat16 or window is None:
+                    continue
+                # the planted faults: slot 0 (kv_len 5000) loses one key
+                # tile its rows see, or the output loses columns 128..255
+                n = G2_TILE["chunk" if Sq > 1 else "step"]
+                lo = 4992 - n
+                k_cut, v_cut = k.clone(), v.clone()
+                k_cut[0, lo:lo + n] = 0
+                v_cut[0, lo:lo + n] = 0
+                cut = tfa.flash_decode(q, k_cut, v_cut, kl, **kw)
+                kp_cut, vp_cut, _ = _pools_of(k_cut, v_cut, 16, seed)
+                paged_cut = tfa.flash_decode_paged(q, kp_cut, vp_cut, kl,
+                                                   table, **kw)
+                flagged = _entry_ratio(name, cut, want) > 1
+                qpos = kl.long()[:, None] - Sq + torch.arange(Sq,
+                                                              device="cuda")
+                affected = torch.zeros_like(qpos, dtype=torch.bool)
+                affected[0] = qpos[0] >= lo
+                affected = affected[:, :, None, None].expand_as(flagged)
+                res = {"Sq": Sq, "tile_rows": [lo, lo + n],
+                       "tile_flagged_share_of_affected":
+                           flagged[affected].float().mean().item(),
+                       "tile_flagged_outside":
+                           int((flagged & ~affected).sum().item()),
+                       **_cols_dropped(got, want, name),
+                       "paged_rejects_tile": not torch.equal(paged_cut, got)}
+                paged_cols = paged.clone()
+                paged_cols[..., 128:] = 0
+                res["paged_rejects_cols"] = not torch.equal(paged_cols, got)
+                faults.append(res)
+                print(f"[check] flash_decode(_paged) D=256 planted faults "
+                      f"Sq={Sq}: {res}", flush=True)
+                if not (res["tile_flagged_share_of_affected"] > 0.5
+                        and res["tile_flagged_outside"] == 0
+                        and res["flagged_share_cols_128_255"] > 0.5
+                        and res["flagged_cols_0_127"] == 0
+                        and res["paged_rejects_tile"]
+                        and res["paged_rejects_cols"]):
+                    raise AssertionError(f"the head_dim 256 decode checks "
+                                         f"pass a planted fault: {res}")
+                del k_cut, v_cut, kp_cut, vp_cut
+            del q, k, v, kp, vp
+    return checks, faults
+
+
+def check_gemma2_cache_faults(tfa, ref):
+    """The bit-for-bit cache_update(_paged) checks at gemma2's heads
+    (``check_rope_cache_update``, ``ROPE_HEADS["gemma2"]``) must reject a
+    kernel that leaves one 64-row block of a 256-row chunk unwritten and
+    one that leaves columns 128..255 of every written row unwritten (the
+    cache keeps its old rows there)."""
+    import torch
+    H, K, D = G2_HEADS
+    B, S, Sn = 8, 2048, 256
+    res = {}
+    for paged in (False, True):
+        name = "cache_update_paged" if paged else "cache_update"
+        kc, vc, index, table, _ = _rope_cache(paged, B, S, K, D,
+                                              torch.bfloat16, Sn, 6500)
+        q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, torch.bfloat16, 1.0,
+                                     index, 6500)
+        idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+        got, want = _rope_both(tfa, ref, paged, kc, vc, idx, table, q, kn,
+                               vn, c, s, 1.0)
+        # slot 2 writes rows 700..955: its rows 764..827 left as they were
+        # (dense), or its every written row's columns 128.. (both layouts:
+        # the kernel's k cache against the old cache where it kept it)
+        k_tile, k_cols = got[0].clone(), got[0].clone()
+        if paged:
+            rows = [(int(table[2, (700 + j) // 16]), (700 + j) % 16)
+                    for j in range(Sn)]
+            for j, (blk, off) in enumerate(rows):
+                if 64 <= j < 128:
+                    k_tile[blk, off] = kc[blk, off]
+                k_cols[blk, off, :, 128:] = kc[blk, off, :, 128:]
+        else:
+            k_tile[2, 764:828] = kc[2, 764:828]
+            k_cols[2, 700:956, :, 128:] = kc[2, 700:956, :, 128:]
+        res[name] = {"rejects_tile": not torch.equal(k_tile, want[0]),
+                     "rejects_cols": not torch.equal(k_cols, want[0])}
+        del kc, vc, got, want
+    print(f"[check] cache_update(_paged) D=256 planted faults (bf16, 256-row "
+          f"chunk, rot_dim 256): {res}", flush=True)
+    if not all(all(r.values()) for r in res.values()):
+        raise AssertionError(f"the head_dim 256 cache checks pass a planted "
+                             f"fault: {res}")
+    return res
+
+
+def check_gemma2_attention(tfa, ref):
+    """``flash_attention`` (out, lse) and ``flash_attention_bwd`` (dq, dk,
+    dv) at gemma2's heads and training shape (B = 2, S = 2048, H = 8, K =
+    4, D = 256), causal with softcap 50, without a window and with one of
+    1024 (acting at 2048 rows), bf16 and f32, entry by entry against
+    ``attention_naive`` and ``attention_bwd_ref`` (the backward on the
+    plain forward's out and lse).  Then the planted faults, bf16 causal:
+    one tile of the head_dim 256 tile sizes dropped (the last 64 rows of
+    v for the forward, the last 64-row query step of dout for dk/dv, the
+    last 128-row query tile of dout for dq; each must flag entries) and
+    each output's columns 128..255 dropped (more than half flagged, none
+    of columns 0..127)."""
+    import torch
+    (B, S), (H, K, D) = (TRAIN_B, TRAIN_S), G2_HEADS
+    checks = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for window in (None, 1024):
+            q, k, v, do = _attention_case(B, S, S, H, K, D, dtype,
+                                          6600 + len(checks))
+            kw = dict(causal=True, local_window=window, softcap=G2_CAP)
+            out, lse = tfa.flash_attention(q, k, v, **kw)
+            want_out, want_lse = ref.attention_naive(q, k, v,
+                                                     return_lse=True, **kw)
+            grads = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do,
+                                            **kw)
+            want = ref.attention_bwd_ref(q, k, v, want_out, want_lse, do,
+                                         **kw)
+            torch.cuda.synchronize()
+            for t in (out, lse, *grads):
+                if not torch.isfinite(t).all():
+                    raise AssertionError("flash_attention D=256: non-finite")
+            err = {"lse": (lse - want_lse).abs().max().item()}
+            ratio = {"lse": err["lse"] / LSE_TOL}
+            for n, got, w in (("out", out, want_out),
+                              *zip(("dq", "dk", "dv"), grads, want)):
+                err[n] = (got.float() - w.float()).abs().max().item()
+                ratio[n] = _entry_ratio(name, got, w).max().item()
+            checks.append({"dtype": name, "B": B, "Sq": S, "Sk": S, "H": H,
+                           "K": K, "D": D, "causal": True, "window": window,
+                           "softcap": G2_CAP, "max_abs_err": err,
+                           "worst_over_limit": ratio})
+            print(f"[check] flash_attention(_bwd) {name} B={B} S={S} H={H} "
+                  f"K={K} D={D} causal window={window} softcap={G2_CAP}: "
+                  "max|err| (worst entry / its limit) "
+                  + ", ".join(f"{n} {err[n]:.3e} ({ratio[n]:.3f})"
+                              for n in err), flush=True)
+            bad = [n for n in ratio if not ratio[n] <= 1.0]
+            if bad:
+                raise AssertionError(f"flash_attention at head_dim 256 "
+                                     f"disagrees on {bad}: {ratio}")
+            if dtype == torch.bfloat16 and window is None:
+                kept = (q, k, v, do, want_out, want_lse, want, out, grads)
+            del q, k, v, do, out, lse, grads, want, want_out, want_lse
+    q, k, v, do, want_out, want_lse, want, out, grads = kept
+    kw = dict(causal=True, softcap=G2_CAP)
+    v_cut, do_step, do_tile = v.clone(), do.clone(), do.clone()
+    v_cut[:, -G2_TILE["fwd"]:] = 0
+    do_step[:, -G2_TILE["kv_step"]:] = 0
+    do_tile[:, -G2_TILE["dq_tile"]:] = 0
+    cut_out, _ = tfa.flash_attention(q, k, v_cut, **kw)
+    _, cut_dk, cut_dv = tfa.flash_attention_bwd(q, k, v, want_out, want_lse,
+                                                do_step, **kw)
+    cut_dq, _, _ = tfa.flash_attention_bwd(q, k, v, want_out, want_lse,
+                                           do_tile, **kw)
+    faults = {}
+    for n, cut, got, w in (("out", cut_out, out, want_out),
+                           ("dq", cut_dq, grads[0], want[0]),
+                           ("dk", cut_dk, grads[1], want[1]),
+                           ("dv", cut_dv, grads[2], want[2])):
+        ratio = _entry_ratio("bfloat16", cut, w)
+        faults[n] = {"tile_flagged_share": (ratio > 1).float().mean().item(),
+                     **_cols_dropped(got, w, "bfloat16")}
+    print(f"[check] flash_attention(_bwd) D=256 planted faults B={B} S={S} "
+          f"H={H} K={K} D={D} causal softcap {G2_CAP} bf16 (out: last "
+          f"{G2_TILE['fwd']} rows of v zeroed; dk/dv: last "
+          f"{G2_TILE['kv_step']}-row query step of dout zeroed; dq: last "
+          f"{G2_TILE['dq_tile']}-row query tile of dout zeroed; and each "
+          f"output's columns 128..255 zeroed): {faults}", flush=True)
+    bad = [n for n, f in faults.items()
+           if not (f["tile_flagged_share"] > 0
+                   and f["flagged_share_cols_128_255"] > 0.5
+                   and f["flagged_cols_0_127"] == 0)]
+    if bad:
+        raise AssertionError(f"the head_dim 256 attention checks pass a "
+                             f"planted fault on {bad}: {faults}")
+    return checks, faults
+
+
+def _visible_rows(kv_len, Sq, S, window):
+    """Per slot, the kv rows [lo, hi) its Sq query rows see, and the
+    visible (query row, key) pairs of one query head."""
+    spans, pairs = [], 0
+    for n in kv_len:
+        hi = min(int(n), S)
+        first = int(n) - Sq
+        lo = max(0, first - window + 1) if window else 0
+        spans.append((lo, hi))
+        for t in range(Sq):
+            pos = first + t
+            top = min(pos + 1, S)
+            bot = max(0, pos - window + 1) if window else 0
+            pairs += max(0, top - bot)
+    return spans, pairs
+
+
+def time_gemma2_decode(tfa, ref, paged, B, Sq, kv_len):
+    """The decode kernel (dense or paged over 16-row blocks) at gemma2's
+    heads over 8192 rows, bf16, softcap 50, window 4096, beside its plain
+    version and its bound (the K/V rows its rows see, read once).  SDPA
+    has no softcap, so there is no library call of this function; SDPA's
+    time without the softcap (a length-and-window mask over the whole
+    dense cache) is kept beside as ``sdpa_no_softcap_ms``."""
+    import torch
+    import torch.nn.functional as F
+    (H, K, D), S, esz = G2_HEADS, G2_MAX_SEQ, 2
+    kw = dict(softcap=G2_CAP, local_window=G2_WINDOW)
+    spans, pairs1 = _visible_rows(kv_len, Sq, S, G2_WINDOW)
+    kv_bytes = sum(hi - lo for lo, hi in spans) * K * D * 2 * esz
+    n_copies = 2
+    cases = [_decode_case(B, S, H, K, D, Sq, torch.bfloat16, kv_len, 6800 + i)
+             for i in range(n_copies)]
+    if paged:
+        pools = [_pools_of(k, v, 16, 6800 + i)
+                 for i, (_, k, v, _) in enumerate(cases)]
+        kernel = [functools.partial(tfa.flash_decode_paged, c[0], kp, vp,
+                                    c[3], tab, **kw)
+                  for c, (kp, vp, tab) in zip(cases, pools)]
+        plain = [functools.partial(ref.decode_attention_paged_ref, c[0], kp,
+                                   vp, c[3], tab, **kw)
+                 for c, (kp, vp, tab) in zip(cases, pools)]
+    else:
+        kernel = [functools.partial(tfa.flash_decode, *c, **kw)
+                  for c in cases]
+        plain = [functools.partial(ref.decode_attention_ref, *c, **kw)
+                 for c in cases]
+    k_pos = torch.arange(S, device="cuda")
+    q_pos = (torch.tensor(kv_len, device="cuda")[:, None] - Sq
+             + torch.arange(Sq, device="cuda")[None])
+    mask = ((k_pos[None, None] <= q_pos[:, :, None])
+            & (k_pos[None, None] > q_pos[:, :, None] - G2_WINDOW))[:, None]
+    lib_cases = [(q.transpose(1, 2).contiguous(),
+                  k.transpose(1, 2).contiguous(),
+                  v.transpose(1, 2).contiguous()) for q, k, v, _ in cases]
+    library = [functools.partial(F.scaled_dot_product_attention, *c,
+                                 attn_mask=mask, enable_gqa=True,
+                                 scale=256 ** -0.5) for c in lib_cases]
+    ms = _time_graph_ms(kernel)
+    host_ms = _time_eager_ms(kernel, 10)
+    plain_ms = _time_eager_ms(plain, 2)
+    sdpa_ms = _time_graph_ms(library)
+    nbytes = kv_bytes + 2 * B * Sq * H * D * esz + 4 * B
+    if paged:
+        nbytes += 4 * sum(-(-(hi - lo) // 16) for lo, hi in spans)
+    bound_ms, bound_by = _bound(nbytes, 4.0 * D * pairs1 * H, BF16_OPS_PER_S)
+    rows = [min(int(n), S) for n in kv_len]
+    return {"shape": f"B={B} Sq={Sq} S={S} H={H} K={K} D={D} bf16 softcap "
+                     f"{G2_CAP} window {G2_WINDOW}, kv_len {min(rows)}.."
+                     f"{max(rows)}" + (", 16-row blocks" if paged else ""),
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": None, "sdpa_no_softcap_ms": sdpa_ms,
+            "library": "none: F.scaled_dot_product_attention has no "
+                       "softcap; sdpa_no_softcap_ms is SDPA without it "
+                       "(length and window mask over the dense cache)",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def serve_gemma2(tfa):
+    """Phase 3j: gemma2-2b at full width and depth (26 layers, bf16),
+    engine batch 8, max_seq 8192, prefill chunk 256, decode chunk 8,
+    graphed: the smoke's 16 requests plus two prompts of 4500..6000 rows,
+    whose every decode step reads past the local layers' window of 4096;
+    dense (``[serve:gemma2-dense]``) and paged (``[serve:gemma2-paged]``,
+    every stream equal to the dense arm's), exact launches, ms per decode
+    step and per 256 prompt rows."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.models import lm
+    from repro_torch.models.params import param_count
+    from repro_torch.serving.engine import Request
+
+    cfg = get_model_config(GEMMA2_ARCH)
+    run = get_run_config(GEMMA2_ARCH, remat="none")
+    _release_card()
+    t0 = time.perf_counter()
+    params = _card_weights(cfg, run)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers d{cfg.d_model} head_dim "
+          f"{cfg.head_dim} vocab {cfg.vocab}, "
+          f"{param_count(lm.model_decls(cfg)) / 1e9:.3f} B params, weights "
+          f"ready in {time.perf_counter() - t0:.1f}s; max_seq {G2_MAX_SEQ}, "
+          f"local window {cfg.local_window}", flush=True)
+    rng = np.random.default_rng(0)
+    specs = []
+    for _ in range(16):
+        plen = int(rng.integers(64, 1025))
+        specs.append((rng.integers(0, cfg.vocab, plen).tolist(),
+                      int(rng.integers(32, 129)), 0))
+    for _ in range(2):
+        plen = int(rng.integers(G2_LONG[0], G2_LONG[1] + 1))
+        specs.append((rng.integers(0, cfg.vocab, plen).tolist(),
+                      int(rng.integers(32, 129)), 0))
+    out, streams, stats_all = {}, None, {}
+    for name, paged in (("gemma2-dense", False), ("gemma2-paged", True)):
+        clock = PhaseClock()
+        engine = _engine(cfg, run, params, clock, max_seq=G2_MAX_SEQ,
+                         **(dict(paged=True, block_size=16) if paged else {}))
+        warm = Request(uid=-1, max_new_tokens=8,
+                       prompt=np.random.default_rng(5)
+                       .integers(0, cfg.vocab, WARM_LEN).tolist())
+        engine.generate([warm])               # first-call costs, not counted
+        torch.cuda.reset_peak_memory_stats()
+        done, wall, launches, joules = _serve(tfa, engine, clock, cfg, specs)
+        st = _arm_stats(engine, clock, done, wall, specs, joules)
+        _check_launches(name, launches, _serving_launches(
+            cfg, st["decode_steps"], specs, paged))
+        st["ms_per_decode_step"] = st["decode_s"] / st["decode_steps"] * 1e3
+        st["ms_per_256_prompt_rows"] = (st["prefill_s"] * 1e3 * 256
+                                        / st["prompt_tokens"])
+        st["long_prompts"] = [len(p) for p, _, _ in specs[16:]]
+        _print_arm(name, st, launches)
+        got = {r.uid: r.generated for r in done}
+        if streams is None:
+            streams = got
+        else:
+            same = sum(got[u] == streams[u] for u in streams)
+            st["streams_equal_dense"] = same
+            st.update(n_blocks=engine.n_blocks,
+                      peak_used_blocks=engine.peak_used_blocks)
+            if same != len(specs) or engine._alloc.used_blocks:
+                raise AssertionError(f"{name}: {same}/{len(specs)} streams "
+                                     "equal the dense arm's, or the pool "
+                                     "did not drain")
+        print(f"[serve:{name}] {cfg.name}: {st['tok_per_s']:.1f} tok/s, "
+              + (f"{st['j_per_token']:.4f} J per generated token, "
+                 if st["j_per_token"] is not None else "")
+              + f"{st['ms_per_decode_step']:.2f} ms per decode step, "
+              f"{st['ms_per_256_prompt_rows']:.2f} ms per 256 prompt rows; "
+              f"the long prompts {st['long_prompts']} rows (window "
+              f"{cfg.local_window})"
+              + (f"; {st['streams_equal_dense']}/{len(specs)} streams equal "
+                 "the dense arm's" if paged else ""), flush=True)
+        out[name], stats_all[name] = launches, st
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    _release_card()
+    return out, stats_all
+
+
+def gemma2_parity():
+    """[parity:gemma2]: gemma2-2b at full width and 2 layers (one local,
+    one global), card bf16 (kernels) against CPU f32 (plain), as
+    ``logits_parity``: the last prompt token's logits of four prompts
+    (37..300 rows) and the first decode step's, within PARITY_TOL."""
+    return logits_parity(GEMMA2_ARCH, "parity:gemma2")
+
+
+def train_dots(tfa):
+    """[train:dots]: llama3.2-3b at full width under remat="dots" in the
+    same call as ``[train]``'s "full": s and J a step and peak memory as
+    ratios over "full"'s, exact launches (the Functions' forwards run
+    again, as under "full"), one step under the profiler as ``[train]``'s
+    (device busy and idle ms a step beside "full"'s); the f32 loss and
+    gradients at 2 layers on the card under
+    "dots" against the same step under "full", its loss and each leaf's
+    gradient within TRAIN_PARITY_TOL (``train_dots_parity``); and olmoe
+    at 8 layers under "dots"."""
+    _, dots = train_full_width(tfa, ARCH, tag="train:dots", remat="dots")
+    dots["parity_vs_full"] = train_dots_parity(tfa)
+    dots["olmoe"] = train_full_width(tfa, MOE_ARCH, DOTS_OLMOE_LAYERS,
+                                     "train:dots-olmoe", remat="dots",
+                                     profile=False)[1]
+    return dots
+
+
+def train_dots_parity(tfa):
+    """llama3.2-3b at full width and 2 layers in f32 on the card, one
+    seeded batch: the loss and every parameter's gradient under "dots"
+    against "full".  The loss is the forward's, which no remat policy
+    changes; the gradients are what a wrong "dots" backward (a stale or
+    wrongly saved mm output, a recompute that differs) would move, so each
+    leaf's gradient is held to ``TRAIN_PARITY_TOL["grad_norm"]`` in
+    relative norm, and so is the grad norm.  A planted fault, the first
+    mm output the recompute takes from the saved ones scaled by 1.01,
+    must be flagged."""
+    import torch
+    from torch.utils._python_dispatch import (TorchDispatchMode,
+                                              _disable_current_modes)
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import leaves
+
+    class StaleMm(TorchDispatchMode):
+        """Scales the first saved mm output one recompute takes."""
+        done = False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in lm.DOTS_SAVED and not self.done:
+                self.done = True
+                with _disable_current_modes():    # no op of the recompute
+                    out = out * 1.01
+            return out
+
+    def planted_contexts(stale=StaleMm()):
+        fwd, rec = dots_contexts()
+
+        @contextlib.contextmanager
+        def recompute():
+            with rec, stale:
+                yield
+        return fwd, recompute()
+
+    cfg = dataclasses.replace(get_model_config(ARCH), n_layers=2)
+    host = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=1,
+                                  seq_len=256, seed=3)).batch(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    dots_contexts = lm._dots_contexts
+    res = {}
+    for arm, remat in (("full", "full"), ("dots", "dots"),
+                       ("planted", "dots")):
+        run = get_run_config(ARCH, remat=remat, compute_dtype="float32",
+                             logits_chunk=256)
+        params = init_params(lm.model_decls(cfg),
+                             torch.Generator().manual_seed(2), "cuda")
+        for p in leaves(params):
+            p.requires_grad_(True)
+        if arm == "planted":
+            lm._dots_contexts = planted_contexts
+        try:
+            loss, _ = make_loss_fn(cfg, run, Ctx(run, "cuda"))(params, batch)
+            loss.backward()
+        finally:
+            lm._dots_contexts = dots_contexts
+        torch.cuda.synchronize()
+        grads = [p.grad.detach() for p in leaves(params)]
+        res[arm] = (float(loss.detach()), math.sqrt(sum(
+            float(g.double().square().sum()) for g in grads)), grads)
+        del params, loss
+
+    def err(arm):
+        (l0, n0, g0), (l1, n1, g1) = res["full"], res[arm]
+        return {"loss": abs(l1 - l0) / abs(l0),
+                "grad_norm": abs(n1 - n0) / n0,
+                "grad": max(float((b - a).double().norm())
+                            / max(float(a.double().norm()), 1e-30)
+                            for a, b in zip(g0, g1))}
+
+    def bad(e):
+        return [k for k, v in e.items()
+                if not v <= TRAIN_PARITY_TOL["grad_norm" if k == "grad"
+                                             else k]]
+
+    e, e_planted = err("dots"), err("planted")
+    out = {"loss": [res["full"][0], res["dots"][0]],
+           "grad_norm": [res["full"][1], res["dots"][1]],
+           "relative_errors": e, "planted_relative_errors": e_planted,
+           "bit_equal": all(torch.equal(a, b) for a, b in
+                            zip(res["full"][2], res["dots"][2]))
+           and res["full"][:2] == res["dots"][:2]}
+    print(f"[train:dots] {cfg.name} 2 layers f32, loss and gradients of 1 x "
+          f"256 tokens on the card, remat full vs dots: loss {out['loss']}, "
+          f"grad_norm {out['grad_norm']}, relative errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+          + f" (tol loss {TRAIN_PARITY_TOL['loss']}, grad_norm and each "
+          f"leaf's grad {TRAIN_PARITY_TOL['grad_norm']}; bit for bit: "
+          f"{out['bit_equal']}); planted fault (first saved mm output the "
+          f"recompute takes x 1.01): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e_planted.items())
+          + f", flagged on {bad(e_planted)}", flush=True)
+    if bad(e):
+        raise AssertionError(f"[train:dots] the dots step disagrees with "
+                             f"full's on {bad(e)}: {e}")
+    if not bad(e_planted):
+        raise AssertionError(f"[train:dots] a stale saved mm output was not "
+                             f"flagged: {e_planted}")
+    del res
+    _release_card()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5658,6 +6262,10 @@ def _smoke(card) -> int:
     cu_rope_checks = check_rope_cache_update(tfa, ref, paged=False)
     cup_rope_checks = check_rope_cache_update(tfa, ref, paged=True)
     rope_faults = check_rope_faults(tfa, ref)
+    # gemma2's head_dim 256 (cache_update's bit-for-bit checks run at its
+    # heads above, ROPE_HEADS["gemma2"])
+    g2_decode_checks, g2_decode_faults = check_gemma2_decode(tfa, ref)
+    g2_cache_faults = check_gemma2_cache_faults(tfa, ref)
     rng = np.random.default_rng(3)
     decode_lens = rng.integers(96, 1153, 8).tolist()
     decode_index = [96, 140, 333, 512, 700, 911, 1100, 2048]   # one done
@@ -5702,10 +6310,17 @@ def _smoke(card) -> int:
         "cache_update_paged prefill D=64": time_cache_update_paged(
             tfa, ref, 1, 256, [512], K=32, D=64),
     }
+    # gemma2's heads over 8192 rows, softcap 50, window 4096
+    for paged in (False, True):
+        name = "flash_decode_paged" if paged else "flash_decode"
+        times[f"{name} decode D=256"] = time_gemma2_decode(
+            tfa, ref, paged, 8, 1, G2_DECODE_LENS)
+        times[f"{name} prefill D=256"] = time_gemma2_decode(
+            tfa, ref, paged, 1, 256, [5000])
     # the fused RoPE + cache write at each model's heads: a decode step (one
     # done slot) and a 256-row prefill chunk
     for model, suffix in (("llama", ""), ("olmoe", " g=1"),
-                          ("zamba2", " D=64")):
+                          ("zamba2", " D=64"), ("gemma2", " D=256")):
         for paged in (False, True):
             name = "cache_update_paged" if paged else "cache_update"
             times[f"{name} rope decode{suffix}"] = time_rope_cache_update(
@@ -5718,6 +6333,10 @@ def _smoke(card) -> int:
     fa_times = time_flash_attention(tfa, ref)
     times["flash_attention training"] = fa_times["fwd"]
     times["flash_attention_bwd training"] = fa_times["bwd"]
+    g2_fa_checks, g2_fa_faults = check_gemma2_attention(tfa, ref)
+    g2_fa_times = time_flash_attention(tfa, ref, G2_HEADS, G2_CAP)
+    times["flash_attention training D=256"] = g2_fa_times["fwd"]
+    times["flash_attention_bwd training D=256"] = g2_fa_times["bwd"]
     # nemotron-4-15b's heads: a GQA group of 6, half rotary
     H6, K6, _ = NEMOTRON_HEADS
     times["flash_decode decode g=6"] = time_flash_decode(
@@ -5754,6 +6373,9 @@ def _smoke(card) -> int:
     for name, t in times.items():
         lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
                else "none")
+        if "sdpa_no_softcap_ms" in t:
+            lib += (f" (SDPA without the softcap, not the same function: "
+                    f"{t['sdpa_no_softcap_ms']:.4f} ms)")
         print(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms "
               f"(eager with its host work {t['host_ms']:.4f} ms), plain "
               f"{t['plain_ms']:.4f} ms, library {lib}, "
@@ -5838,6 +6460,8 @@ def _smoke(card) -> int:
             tfa, arch, tag + "-")
         del shared
         _release_card()
+    # 3j: full-width gemma2-2b at max_seq 8192, dense and paged
+    g2_launches, g2_serving = serve_gemma2(tfa)
     # the profiles come after every serving arm: launches slow down once
     # the profiler has run; each model's seeded weights are made again
     for model, into, name, groups, kw in (
@@ -5860,6 +6484,7 @@ def _smoke(card) -> int:
         _release_card()
     time_ssd_bwd_passes(tssd, times)
     parity = logits_parity()
+    g2_serving["parity_max_abs_diff"] = gemma2_parity()
     moe_parity = olmoe_parity()
     mamba_parity = {SSM_ARCH: ssm_parity(SSM_ARCH, 2),
                     HYBRID_ARCH: ssm_parity(HYBRID_ARCH, 7)}
@@ -5871,6 +6496,35 @@ def _smoke(card) -> int:
     for name in ("olmoe", "mamba2"):
         training[name]["parity_rel_err"] = train_parity(
             tfa, TRAIN_ARMS[name][0], "train:parity-" + name)
+    # gemma2-2b at full width and depth, then remat="dots" beside [train]
+    training["gemma2"] = train_full_width(tfa, GEMMA2_ARCH,
+                                          tag="train:gemma2",
+                                          profile=False)[1]
+    training["gemma2"]["parity_rel_err"] = train_parity(
+        tfa, GEMMA2_ARCH, "train:parity-gemma2")
+    training["dots"] = train_dots(tfa)
+    ratio = {k: training["dots"][k] / training[k]
+             for k in ("median_step_s_after_first",
+                       "median_step_j_after_first", "peak_allocated_gb")}
+    training["dots"]["over_full"] = ratio
+
+    def busy_idle(prof):
+        busy = prof["profile_device_busy_ms_per_step"]
+        if busy is None:
+            return "device busy not measured"
+        return (f"{prof['profile_ms_per_step']:.2f} ms, device busy "
+                f"{busy:.2f} ms, idle {prof['profile_ms_per_step'] - busy:.2f}"
+                f" ms")
+    print(f"[train:dots] {ARCH} dots over full, same call: s/step "
+          f"{ratio['median_step_s_after_first']:.3f}x, J/step "
+          f"{ratio['median_step_j_after_first']:.3f}x, peak allocated "
+          f"{ratio['peak_allocated_gb']:.3f}x ({training['peak_allocated_gb']:.2f}"
+          f" -> {training['dots']['peak_allocated_gb']:.2f} GB); one step "
+          f"under the profiler: full {busy_idle(training['profile'])}, dots "
+          f"{busy_idle(training['dots']['profile'])}; olmoe "
+          f"{DOTS_OLMOE_LAYERS} layers under dots: peak "
+          f"{training['dots']['olmoe']['peak_allocated_gb']:.2f} GB",
+          flush=True)
     # 7: LSMS, the paper's own workload, on a card no model holds
     lsms = lsms_phases(card)
     print(json.dumps({"lsms": lsms}))
@@ -5896,6 +6550,17 @@ def _smoke(card) -> int:
               "launches_arm": "nemotron-dense"}
         g6.update({" ".join(k.split()[1:-1]): times[k] for k in times
                    if k.startswith(name + " ") and k.endswith("g=6")})
+        # gemma2 (H = 8, K = 4, D = 256, softcap 50, window 4096)
+        g2 = {"launches": g2_launches["gemma2-" + arm][name],
+              "launches_arm": "gemma2-" + arm}
+        g2.update({" ".join(k.split()[1:-1]): times[k] for k in times
+                   if k.startswith(name + " ") and k.endswith("D=256")})
+        g2["checks"] = (g2_decode_checks if "decode" in name
+                        else [c for c in (cup_rope_checks if "paged" in name
+                                          else cu_rope_checks)
+                              if c["model"] == "gemma2"])
+        g2["planted_fault"] = (g2_decode_faults if "decode" in name
+                               else g2_cache_faults[name])
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=err,
                     tolerance=tol, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -5905,6 +6570,7 @@ def _smoke(card) -> int:
                     host_ms=t["host_ms"], launches_per_decode_step=28,
                     launches_arm=arm, prefill_chunk=prefill, checks=checks,
                     olmoe_g1=g1, zamba2_d64=d64, nemotron_g6=g6,
+                    gemma2_d256=g2,
                     launches_fleet=fleet_st["launches"][name],
                     launches_static=serving["static"]["launches"][name],
                     **extra)
@@ -5948,6 +6614,15 @@ def _smoke(card) -> int:
     train_src = "src/repro/kernels/ref.py"
 
     def train_row(name, source, replaces, t, checks, **extra):
+        extra["gemma2_d256"] = {
+            "launches": training["gemma2"]["launches"][name],
+            "launches_arm": "train:gemma2",
+            "launches_dots": training["dots"]["launches"][name],
+            **times[name + " training D=256"],
+            "checks": g2_fa_checks,
+            "planted_fault": {n: g2_fa_faults[n] for n in (
+                ("out",) if name == "flash_attention" else ("dq", "dk",
+                                                            "dv"))}}
         worst = max(max(v for n, v in c["max_abs_err"].items()
                         if n != "lse") for c in checks
                     if c["dtype"] == "bfloat16")
@@ -6067,6 +6742,7 @@ def _smoke(card) -> int:
                       "mamba2_serving": ssm_serving,
                       "zamba2_serving": hyb_serving,
                       "nemotron_serving": nemo_serving,
+                      "gemma2_serving": g2_serving,
                       "training": training,
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,

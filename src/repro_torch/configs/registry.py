@@ -10,8 +10,9 @@ not fit one 80 GB card and wait for the distributed slice (ROADMAP queue
 
 from __future__ import annotations
 
-from repro_torch.configs import (llama32_3b, mamba2_370m, minitron_4b,
-                                 nemotron4_15b, olmoe, phi35_moe, zamba2_1p2b)
+from repro_torch.configs import (gemma2_2b, llama32_3b, mamba2_370m,
+                                 minitron_4b, nemotron4_15b, olmoe, phi35_moe,
+                                 zamba2_1p2b)
 from repro_torch.configs.base import ModelConfig, RunConfig
 
 _MODULES = {
@@ -22,12 +23,12 @@ _MODULES = {
     "zamba2-1.2b": zamba2_1p2b,
     "nemotron-4-15b": nemotron4_15b,
     "minitron-4b": minitron_4b,
+    "gemma2-2b": gemma2_2b,
 }
 
 #: Architectures of the JAX package not ported yet -> the ROADMAP item
 #: (queue 1, "Modules to port") that brings them.
 NOT_PORTED = {
-    "gemma2-2b": "queue 1 item 11 (gemma2 and nemotron/minitron)",
     "hubert-xlarge": "queue 1 item 12 (VLM and audio)",
     "qwen2-vl-72b": "queue 1 item 12 (VLM and audio)",
 }

@@ -50,6 +50,15 @@
 //   * rows past min(kv_len, S), before the window or after the block's last
 //     causal position are never read: done lanes (kv_len = S + 1) stop at
 //     the cache end.
+// head_dim 256 (gemma2): the same kernels, with two tile sizes cut so that
+// a block's staging fits its 227 KB of shared memory.  The tensor-core
+// chunk kernel walks 64-row kv tiles (the q tile and two stages of 128-row
+// tiles would take 288 KiB; with 64 rows, 160 KiB), its 64-row warpgroup
+// accumulator is 128 f32 registers a thread and P V one m64n256 wgmma per
+// k-step.  The CUDA-core kernel keeps 128-row tiles in bf16 (135 KiB) and
+// stages 64 rows a tile in f32 (two warps take rows; 128 rows would take
+// 258 KiB).  The split-KV spans stay DECODE_SPAN rows.  D = 32, 64 and 128
+// compile to the kernels they were.
 // What still bounds it: at decode, the per-block tile loads (a span's tiles
 // are staged one after another, from 16-byte cp.async, not TMA) and the
 // CUDA-core products; at a chunk, one warpgroup per block runs its

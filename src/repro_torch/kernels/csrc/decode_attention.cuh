@@ -129,6 +129,11 @@ constexpr int DECODE_ROWS = 4;   // query rows (Sq * g) of a kv head on the deco
 
 template <typename T, int D, int RW, bool Staged>
 struct Layout {
+  // kv rows staged per tile: TILE (one per lane of the four warps), and 64
+  // for rows of 1 KiB (f32 at D = 256), whose 128-row K and V tiles would
+  // take 258 KiB against the block's 227 KB; warps 2 and 3 then take no
+  // rows
+  static constexpr int TL = sizeof(T) * D >= 1024 ? 64 : TILE;
   static constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte vector
   static constexpr int VPR = D / EPV;          // vectors per row
   // K rows padded by 16 bytes: lane j reading row j with 16-byte loads hits
@@ -136,8 +141,8 @@ struct Layout {
   static constexpr int KSTRIDE = D + EPV;
   static constexpr int DPL = D / 32;           // output columns per lane
   static constexpr size_t tile_bytes =
-      (size_t)TILE * (KSTRIDE + D) * sizeof(T) + (size_t)RW * D * sizeof(float) +
-      (Staged ? (size_t)TILE * sizeof(size_t) : 0);
+      (size_t)TL * (KSTRIDE + D) * sizeof(T) + (size_t)RW * D * sizeof(float) +
+      (Staged ? (size_t)TL * sizeof(size_t) : 0);
   static constexpr size_t combine_bytes = (size_t)WARPS * RW * (D + 2) * sizeof(float);
   static constexpr size_t smem_bytes = tile_bytes > combine_bytes ? tile_bytes : combine_bytes;
 };
@@ -161,12 +166,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         float softcap, int window, int span, Rows rows) {
   using Lay = Layout<T, D, RW, Rows::kStaged>;
   constexpr int EPV = Lay::EPV, VPR = Lay::VPR, KSTRIDE = Lay::KSTRIDE, DPL = Lay::DPL;
+  constexpr int TL = Lay::TL;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                    // TILE x KSTRIDE
-  T* vs = ks + TILE * KSTRIDE;                           // TILE x D
-  float* qs = reinterpret_cast<float*>(vs + TILE * D);   // RW x D, pre-scaled
-  size_t* roff = reinterpret_cast<size_t*>(qs + RW * D); // TILE, if staged
+  T* ks = reinterpret_cast<T*>(smem);                    // TL x KSTRIDE
+  T* vs = ks + TL * KSTRIDE;                             // TL x D
+  float* qs = reinterpret_cast<float*>(vs + TL * D);     // RW x D, pre-scaled
+  size_t* roff = reinterpret_cast<size_t*>(qs + RW * D); // TL, if staged
   __shared__ int last;
 
   const int b = blockIdx.x, kh = blockIdx.y;
@@ -182,7 +188,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int qpos_max = len - Sq + r_last / g;
   const int k_hi = min(kv_eff, qpos_max + 1);
   const int k_lo = window > 0 ? max(0, qpos_min - window + 1) : 0;
-  int t_begin = (k_lo / TILE) * TILE, t_end = k_hi, s_lo = 0, n_live = 1;
+  int t_begin = (k_lo / TL) * TL, t_end = k_hi, s_lo = 0, n_live = 1;
   if (span > 0) {
     s_lo = k_hi > k_lo ? k_lo / span : 0;
     const int s_hi = k_hi > k_lo ? (k_hi + span - 1) / span : 1;
@@ -212,9 +218,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   __syncthreads();
 
-  for (int t0 = t_begin; t0 < t_end; t0 += TILE) {
+  for (int t0 = t_begin; t0 < t_end; t0 += TL) {
     if constexpr (Rows::kStaged) {
-      for (int r = threadIdx.x; r < TILE; r += THREADS)
+      for (int r = threadIdx.x; r < TL; r += THREADS)
         if (t0 + r < t_end) roff[r] = rows.offset(b, t0 + r, K, kh, D);
       __syncthreads();
     }
@@ -222,7 +228,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     // flight at once (a plain load/store loop waits out the memory
     // latency once per iteration); rows outside [t0, t_end) are
     // zero-filled, so no stale value (or NaN) can reach the P.V product
-    for (int i = threadIdx.x; i < TILE * VPR; i += THREADS) {
+    for (int i = threadIdx.x; i < TL * VPR; i += THREADS) {
       const int row = i / VPR, c = i % VPR, kpos = t0 + row;
       const bool live = kpos < t_end;
       size_t off = 0;
@@ -235,7 +241,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     __syncthreads();
 
     const int w0 = t0 + warp * 32;             // this warp's first kv row
-    if (w0 < t_end && w0 + 31 >= k_lo) {       // warp-uniform skip
+    if (warp * 32 < TL && w0 < t_end && w0 + 31 >= k_lo) {   // warp-uniform skip
       const int jrow = warp * 32 + lane;
       const int kpos = t0 + jrow;
       float s[RW];
@@ -392,39 +398,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_l
 // ---------------------------------------------------------------------------
 
 constexpr int TC_Q = 64;          // query rows per block: one warpgroup
-constexpr int TC_KV = 128;        // kv rows per tile
+constexpr int TC_KV = 128;        // kv rows per tile (tc_kv<D>())
 constexpr int TC_THR = 128;
 constexpr float DA_LOG2E = 1.4426950408889634f;
 
+// kv rows per tile: TC_KV, and 64 at D = 256, where the q tile and two
+// stages of 128-row K and V tiles would take 288 KiB against the block's
+// 227 KB (160 KiB with 64-row tiles)
 template <int D>
-constexpr size_t tc_smem() {   // the q tile, two stages of K and V, alignment
-  return (size_t)(TC_Q + 4 * TC_KV) * D * 2 + 1024;
+__host__ __device__ constexpr int tc_kv() {
+  return D > 128 ? 64 : TC_KV;
 }
 
-// rows [t0, t0 + TC_KV) of slot b's K and V into one stage: 16-byte chunks
+template <int D>
+constexpr size_t tc_smem() {   // the q tile, two stages of K and V, alignment
+  return (size_t)(TC_Q + 4 * tc_kv<D>()) * D * 2 + 1024;
+}
+
+// rows [t0, t0 + KV) of slot b's K and V into one stage: 16-byte chunks
 // by cp.async at their swizzled places (hopper.cuh's layout, 1024-byte
 // aligned, so the wgmma descriptors read them as they would a TMA tile);
 // rows at or past t_end are zero-filled.  Thread i copies chunk i % CPR of
 // rows i / CPR + j * (TC_THR / CPR); it resolves all its rows' offsets (for
 // PagedRows, table loads) before it issues its first copy.
-template <int D, typename Rows>
+template <int D, int KV, typename Rows>
 __device__ __forceinline__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                          const __nv_bfloat16* kc, const __nv_bfloat16* vc,
                                          int b, int kh, int K, int t0, int t_end,
                                          const Rows& rows) {
   constexpr int CPR = D / 8, RPP = TC_THR / CPR;   // chunks per row, rows per pass
+  constexpr int PASSES = KV / RPP;
   const int c = threadIdx.x % CPR, r1 = threadIdx.x / CPR;
-  size_t off[CPR];
+  size_t off[PASSES];
 #pragma unroll
-  for (int j = 0; j < CPR; ++j) {
+  for (int j = 0; j < PASSES; ++j) {
     const int kpos = t0 + r1 + j * RPP;
     off[j] = kpos < t_end ? rows.offset(b, kpos, K, kh, D) + (size_t)c * 8 : 0;
   }
 #pragma unroll
-  for (int j = 0; j < CPR; ++j) {
+  for (int j = 0; j < PASSES; ++j) {
     const int r = r1 + j * RPP;
     const bool live = t0 + r < t_end;
-    const uint32_t at = swizzled_byte<D>(TC_KV, r, c);
+    const uint32_t at = swizzled_byte<D>(KV, r, c);
     cp_async16(reinterpret_cast<unsigned char*>(ks) + at, kc + off[j], live);
     cp_async16(reinterpret_cast<unsigned char*>(vs) + at, vc + off[j], live);
   }
@@ -441,6 +456,7 @@ decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            int Sq, int H, int K, float scale, float softcap, int window,
                            Rows rows) {
   using bf16 = __nv_bfloat16;
+  constexpr int TC_KV = tc_kv<D>();
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));   // TC_Q x D
   bf16* ks = qs + TC_Q * D;                                    // 2 stages of TC_KV x D
@@ -469,7 +485,7 @@ decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async16(reinterpret_cast<unsigned char*>(qs) + swizzled_byte<D>(TC_Q, r, c), q + off,
                live);
   }
-  if (n > 0) stage_kv<D>(ks, vs, kc, vc, b, kh, K, t_begin, k_hi, rows);
+  if (n > 0) stage_kv<D, TC_KV>(ks, vs, kc, vc, b, kh, K, t_begin, k_hi, rows);
   cp_async_commit();
 
   // this thread's accumulator rows: row and row + 8 of the block, at
@@ -488,7 +504,7 @@ decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = t & 1, t0 = t_begin + t * TC_KV;
     // tile t + 1's copies go out before tile t's products
     if (t + 1 < n) {
-      stage_kv<D>(ks + (st ^ 1) * TC_KV * D, vs + (st ^ 1) * TC_KV * D, kc, vc, b, kh, K,
+      stage_kv<D, TC_KV>(ks + (st ^ 1) * TC_KV * D, vs + (st ^ 1) * TC_KV * D, kc, vc, b, kh, K,
                   t0 + TC_KV, k_hi, rows);
       cp_async_commit();
       cp_async_wait<1>();
@@ -661,6 +677,9 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* 
                                 softcap, window, span, rows, stream);
     case 128:
       return launch_rows<T, 128>(q, k, v, kv_len, out, part, counters, B, Sq, H, K, scale,
+                                 softcap, window, span, rows, stream);
+    case 256:   // gemma2
+      return launch_rows<T, 256>(q, k, v, kv_len, out, part, counters, B, Sq, H, K, scale,
                                  softcap, window, span, rows, stream);
     default:
       return cudaErrorInvalidValue;

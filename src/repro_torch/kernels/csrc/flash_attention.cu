@@ -38,9 +38,18 @@
 // with the next tile's product, no producer warp, one __syncthreads per
 // key tile), and the output is stored from registers.
 //
+// head_dim 256 (gemma2): the same kernel with 64-row key tiles.  At D =
+// 256 two stages of 128-row K and V tiles and the q tile would take
+// (128 + 4 * 128) * 256 * 2 B = 320 KiB of shared memory against the
+// block's 227 KB; with 64-row key tiles they take 192 KiB, still two
+// stages.  The accumulator of a warpgroup's 64 rows is 128 f32 registers
+// a thread, and P V is one m64n256 wgmma per k-step (hopper.cuh).  The
+// smaller key tile halves each S product's width, not its total work.
+//
 // float32 (the checks and the f32 parity step): attn_fwd_kernel on the CUDA
 // cores (tiling in flash_attention.cuh), f32 products throughout; TF32
-// would not meet the f32 checks' 1e-5.
+// would not meet the f32 checks' 1e-5.  At D = 256 its three 64-row tiles
+// and the score tile take 216,320 B, within the 227 KB.
 
 #include "flash_attention.cuh"
 #include "hopper.cuh"
@@ -174,6 +183,9 @@ cudaError_t launch_fwd_dim(const void* q, const void* k, const void* v, void* ou
     case 128:
       return launch_fwd<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
                                 window, st);
+    case 256:   // gemma2
+      return launch_fwd<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
+                                window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -184,13 +196,20 @@ cudaError_t launch_fwd_dim(const void* q, const void* k, const void* v, void* ou
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 256;                // two warpgroups
-constexpr int FW_BQ = 128, FW_BK = 128, FW_STAGES = 2;
+constexpr int FW_BQ = 128, FW_STAGES = 2;
+
+// key rows per tile: 128, and 64 at D = 256, where two stages of 128-row
+// K and V tiles (256 KiB) would not fit the block's 227 KB
+template <int D>
+__host__ __device__ constexpr int fw_bk() {
+  return D > 128 ? 64 : 128;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t fwd_tc_smem() {
-  return (size_t)(FW_BQ + 2 * FW_STAGES * FW_BK) * D * 2 + (1 + FW_STAGES) * 8 + 1024;
+  return (size_t)(FW_BQ + 2 * FW_STAGES * fw_bk<D>()) * D * 2 + (1 + FW_STAGES) * 8 + 1024;
 }
 
 template <int D>
@@ -201,6 +220,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                    float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
                    float scale, float softcap, int window) {
   using bf16 = __nv_bfloat16;
+  constexpr int FW_BK = fw_bk<D>();
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
   bf16* ks = qs + FW_BQ * D;                   // FW_STAGES key tiles
@@ -360,8 +380,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out
                           float softcap, int window, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   cudaError_t e = tile_map<D>(&qm, q, B, Sq, H, FW_BQ);
-  if (e == cudaSuccess) e = tile_map<D>(&km, k, B, Sk, K, FW_BK);
-  if (e == cudaSuccess) e = tile_map<D>(&vm, v, B, Sk, K, FW_BK);
+  if (e == cudaSuccess) e = tile_map<D>(&km, k, B, Sk, K, fw_bk<D>());
+  if (e == cudaSuccess) e = tile_map<D>(&vm, v, B, Sk, K, fw_bk<D>());
   if (e != cudaSuccess) return e;
   auto kern = attn_fwd_tc_kernel<D>;
   static bool configured = false;
@@ -386,6 +406,9 @@ cudaError_t launch_fwd_tc_dim(const void* q, const void* k, const void* v, void*
                                window, st);
     case 128:
       return launch_fwd_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
+                                window, st);
+    case 256:   // gemma2
+      return launch_fwd_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
                                 window, st);
     default:
       return cudaErrorInvalidValue;

@@ -53,9 +53,26 @@
 // What still bounds it: as the forward, the products and the elementwise
 // work of a step run in turn, and one __syncthreads per step.
 //
+// head_dim 256 (gemma2).  At D = 256 the D = 128 tiling would take 256 KiB
+// of shared memory in each pass (227 KB a block) and 256 accumulator
+// registers a thread in the dK/dV pass.  So:
+//   * dK/dV: a block owns 64 key rows, shared by its two warpgroups; each
+//     warpgroup owns 128 of the 256 columns of dK and dV (64 + 64 f32
+//     registers a thread, as at D = 128), computes the step's full S^T and
+//     dP^T (the price: 4 * D * pairs more operations than the minimum) and
+//     multiplies P^T and dS^T into its columns of dO and q (m64n128 wgmma
+//     on those columns' boxes).  K, V and two stages of q and dO: 192 KiB;
+//   * dQ: as at D = 128, 128 query rows as two warpgroups of 64, a
+//     warpgroup's dQ 128 registers a thread (one m64n256 wgmma per k-step),
+//     with one stage of 64-row K and V tiles (192 KiB in all), so a key
+//     tile's load no longer runs under the previous tile's products.
+// D = 32, 64 and 128 compile to the kernels they were.
+//
 // float32 (the checks and the f32 parity step): attn_bwd_dkdv_kernel and
 // attn_bwd_dq_kernel on the CUDA cores (tiling in flash_attention.cuh), with
-// the same structure and 64-row tiles, f32 products throughout.
+// the same structure and 64-row tiles, f32 products throughout.  At D = 256
+// their four staged tiles do not fit, and attn_bwd_{dkdv,dq}_restage_kernel
+// keep two, restaging them within a step.
 
 #include "flash_attention.cuh"
 #include "hopper.cuh"
@@ -77,17 +94,14 @@ __global__ void attn_delta_kernel(const T* __restrict__ out, const T* __restrict
   if (lane == 0) delta[((size_t)b * H + h) * Sq + qp] = s;
 }
 
-// P and dS of one (query tile) x (key tile) pair into ps / dss ([q][k])
-template <typename T, int D>
-__device__ __forceinline__ void probs_and_dscores(const T* qs, const T* ks, const T* dos,
-                                                  const T* vs, const float* lse_s,
-                                                  const float* dl_s, float* ps, float* dss,
-                                                  int q0, int k0, int Sq, int Sk, int causal,
-                                                  float scale, float softcap, int window) {
+// P and dS of a (query tile) x (key tile) pair into ps / dss ([q][k]),
+// from this thread's patches of S = Q K^T and dP = dO V^T
+__device__ __forceinline__ void write_probs(const float (&s)[4][4], const float (&dp)[4][4],
+                                            const float* lse_s, const float* dl_s, float* ps,
+                                            float* dss, int q0, int k0, int Sq, int Sk,
+                                            int causal, float scale, float softcap,
+                                            int window) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[4][4], dp[4][4];
-  dot_tile<T, D>(qs, ks, ty, tx, s);
-  dot_tile<T, D>(dos, vs, ty, tx, dp);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = ty * 4 + r;
@@ -104,6 +118,20 @@ __device__ __forceinline__ void probs_and_dscores(const T* qs, const T* ks, cons
       dss[i * FA_SSTRIDE + j] = ds;
     }
   }
+}
+
+// P and dS of one (query tile) x (key tile) pair, all four tiles staged
+template <typename T, int D>
+__device__ __forceinline__ void probs_and_dscores(const T* qs, const T* ks, const T* dos,
+                                                  const T* vs, const float* lse_s,
+                                                  const float* dl_s, float* ps, float* dss,
+                                                  int q0, int k0, int Sq, int Sk, int causal,
+                                                  float scale, float softcap, int window) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[4][4], dp[4][4];
+  dot_tile<T, D>(qs, ks, ty, tx, s);
+  dot_tile<T, D>(dos, vs, ty, tx, dp);
+  write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window);
 }
 
 // lse and delta of query rows [q0, q0 + 64) of head h (0 past Sq)
@@ -269,6 +297,171 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
+// float32 at D = 256: the four 64-row tiles of the kernels above take
+// 266,240 B with the score tiles, past the block's 227 KB.  These two
+// keep two staged tiles and restage what a step needs in turn (S from q
+// and k, then dP from dO and v, then the product's operand): the same
+// sums in the same order, more tile loads.  f32 is the checks' and the
+// parity step's dtype, not a training one.
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS)
+attn_bwd_dkdv_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
+                             int K, int causal, float scale, float softcap, int window) {
+  using Lay = FaLayout<T, D>;
+  constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ta = reinterpret_cast<T*>(smem);          // k, then v, then q
+  T* tb = ta + FA_TILE * ST;                   // q, then dO
+  float* ps = reinterpret_cast<float*>(tb + FA_TILE * ST);
+  float* dss = ps + FA_TILE * FA_SSTRIDE;
+  float* lse_s = dss + FA_TILE * FA_SSTRIDE;
+  float* dl_s = lse_s + FA_TILE;
+
+  const int k0 = blockIdx.x * FA_TILE, kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / K;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float adk[4][DPT], adv[4][DPT];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) adk[r][e] = adv[r][e] = 0.f;
+
+  int lo, hi;
+  query_range(k0, Sq, Sk, causal, window, lo, hi);
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    for (int q0 = lo; q0 < hi; q0 += FA_TILE) {
+      float s[4][4], dp[4][4];
+      stage_rows<T, D>(ta, k, b, k0, Sk, K, kh);
+      stage_rows<T, D>(tb, q, b, q0, Sq, H, h);
+      stage_row_stats(lse_s, dl_s, lse, delta, b, h, q0, Sq, H);
+      cp_async_wait_all();
+      __syncthreads();
+      dot_tile<T, D>(tb, ta, ty, tx, s);
+      __syncthreads();
+      stage_rows<T, D>(ta, v, b, k0, Sk, K, kh);
+      stage_rows<T, D>(tb, dout, b, q0, Sq, H, h);
+      cp_async_wait_all();
+      __syncthreads();
+      dot_tile<T, D>(tb, ta, ty, tx, dp);
+      write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window);
+      __syncthreads();
+      stage_rows<T, D>(ta, q, b, q0, Sq, H, h);
+      cp_async_wait_all();
+      __syncthreads();
+      // dV[j][:] += sum_i P[i][j] dO[i][:];  dK[j][:] += sum_i dS[i][j] Q[i][:]
+#pragma unroll 4
+      for (int i = 0; i < FA_TILE; ++i) {
+        float gf[DPT], qf[DPT];
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) {
+          gf[e] = to_f(tb[i * ST + tx * DPT + e]);
+          qf[e] = to_f(ta[i * ST + tx * DPT + e]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float p = ps[i * FA_SSTRIDE + ty * 4 + r];
+          const float ds = dss[i * FA_SSTRIDE + ty * 4 + r];
+#pragma unroll
+          for (int e = 0; e < DPT; ++e) {
+            adv[r][e] += p * gf[e];
+            adk[r][e] += ds * qf[e];
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kp = k0 + ty * 4 + r;
+    if (kp >= Sk) continue;
+    const size_t at = (((size_t)b * Sk + kp) * K + kh) * D + tx * DPT;
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) {
+      dk[at + e] = from_f<T>(adk[r][e] * scale);
+      dv[at + e] = from_f<T>(adv[r][e]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FA_THREADS)
+attn_bwd_dq_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dq, int Sq, int Sk, int H, int K, int causal,
+                           float scale, float softcap, int window) {
+  using Lay = FaLayout<T, D>;
+  constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ta = reinterpret_cast<T*>(smem);          // q, then dO
+  T* tb = ta + FA_TILE * ST;                   // k, then v, then k
+  float* ps = reinterpret_cast<float*>(tb + FA_TILE * ST);
+  float* dss = ps + FA_TILE * FA_SSTRIDE;
+  float* lse_s = dss + FA_TILE * FA_SSTRIDE;
+  float* dl_s = lse_s + FA_TILE;
+
+  const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / K);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  stage_row_stats(lse_s, dl_s, lse, delta, b, h, q0, Sq, H);
+  float adq[4][DPT];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) adq[r][e] = 0.f;
+
+  int lo, hi;
+  key_range(q0, Sq, Sk, causal, window, lo, hi);
+  for (int k0 = lo; k0 < hi; k0 += FA_TILE) {
+    float s[4][4], dp[4][4];
+    stage_rows<T, D>(ta, q, b, q0, Sq, H, h);
+    stage_rows<T, D>(tb, k, b, k0, Sk, K, kh);
+    cp_async_wait_all();
+    __syncthreads();
+    dot_tile<T, D>(ta, tb, ty, tx, s);
+    __syncthreads();
+    stage_rows<T, D>(ta, dout, b, q0, Sq, H, h);
+    stage_rows<T, D>(tb, v, b, k0, Sk, K, kh);
+    cp_async_wait_all();
+    __syncthreads();
+    dot_tile<T, D>(ta, tb, ty, tx, dp);
+    write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window);
+    __syncthreads();
+    stage_rows<T, D>(tb, k, b, k0, Sk, K, kh);
+    cp_async_wait_all();
+    __syncthreads();
+    // dQ[i][:] += sum_j dS[i][j] K[j][:]
+#pragma unroll 4
+    for (int j = 0; j < FA_TILE; ++j) {
+      float kf[DPT];
+#pragma unroll
+      for (int e = 0; e < DPT; ++e) kf[e] = to_f(tb[j * ST + tx * DPT + e]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float ds = dss[(ty * 4 + r) * FA_SSTRIDE + j];
+#pragma unroll
+        for (int e = 0; e < DPT; ++e) adq[r][e] += ds * kf[e];
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qp = q0 + ty * 4 + r;
+    if (qp >= Sq) continue;
+    T* o = dq + (((size_t)b * Sq + qp) * H + h) * D + tx * DPT;
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) o[e] = from_f<T>(adq[r][e] * scale);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -288,8 +481,15 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const size_t smem = 4 * Lay::tile_bytes + 2 * Lay::score_bytes + 2 * FA_TILE * sizeof(float);
-  auto kv_kern = attn_bwd_dkdv_kernel<T, D>;
+  // four staged tiles, or two where four do not fit (f32 at D = 256)
+  constexpr bool restage = 4 * Lay::tile_bytes + 2 * Lay::score_bytes > 227 * 1024;
+  const size_t smem = (restage ? 2 : 4) * Lay::tile_bytes + 2 * Lay::score_bytes +
+                      2 * FA_TILE * sizeof(float);
+  // only the kernels the dims take are instantiated
+  auto kv_kern = [] {
+    if constexpr (restage) return attn_bwd_dkdv_restage_kernel<T, D>;
+    else return attn_bwd_dkdv_kernel<T, D>;
+  }();
   static bool kv_configured = false;
   e = allow_smem(kv_kern, smem, kv_configured);
   if (e != cudaSuccess) return e;
@@ -300,7 +500,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto q_kern = attn_bwd_dq_kernel<T, D>;
+  auto q_kern = [] {
+    if constexpr (restage) return attn_bwd_dq_restage_kernel<T, D>;
+    else return attn_bwd_dq_kernel<T, D>;
+  }();
   static bool q_configured = false;
   e = allow_smem(q_kern, smem, q_configured);
   if (e != cudaSuccess) return e;
@@ -326,6 +529,9 @@ cudaError_t launch_bwd_dim(const void* q, const void* k, const void* v, const vo
     case 128:
       return launch_bwd<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
                                 causal, scale, softcap, window, st);
+    case 256:   // gemma2
+      return launch_bwd<T, 256>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
+                                causal, scale, softcap, window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -336,19 +542,41 @@ cudaError_t launch_bwd_dim(const void* q, const void* k, const void* v, const vo
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 256;                // two warpgroups
-constexpr int KV_BK = 128, KV_BQ = 64;         // dK/dV pass: key rows per block, query step
+constexpr int KV_BQ = 64;                      // dK/dV pass: query step
 constexpr int DQ_BQ = 128, DQ_BK = 64;         // dQ pass: query rows per block, key step
 constexpr int BW_STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The dK/dV pass at D = 256.  A warpgroup's dK and dV for 64 key rows
+// would be 128 + 128 f32 registers a thread.  So the two warpgroups share
+// the block's 64 key rows and each owns half of the 256 columns of dK and
+// dV (64 + 64 registers, as at D = 128): both compute the step's S^T and
+// dP^T over all 256 columns (twice the block's S^T and dP^T work), and each
+// multiplies P^T and dS^T into its own columns of dO and q.  Below D = 256
+// each warpgroup owns 64 of the block's 128 key rows and every column.
+template <int D>
+struct Dkdv {
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BK = SPLIT ? 64 : 128;   // key rows per block
+  static constexpr int DC = SPLIT ? D / 2 : D;  // dK/dV columns per warpgroup
+};
+
+// The dQ pass takes one stage at D = 256: two stages of 64-row K and V
+// tiles beside the 128-row q and dO tiles would take 256 KiB.
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D > 128 ? 1 : BW_STAGES;
+}
+
 template <int D>
 constexpr size_t dkdv_tc_smem() {
-  return (size_t)(2 * KV_BK + 2 * BW_STAGES * KV_BQ) * D * 2 + 2 * BW_STAGES * KV_BQ * 4 +
+  return (size_t)(2 * Dkdv<D>::BK + 2 * BW_STAGES * KV_BQ) * D * 2 + 2 * BW_STAGES * KV_BQ * 4 +
          (1 + BW_STAGES) * 8 + 1024;
 }
 template <int D>
 constexpr size_t dq_tc_smem() {
-  return (size_t)(2 * DQ_BQ + 2 * BW_STAGES * DQ_BK) * D * 2 + (1 + BW_STAGES) * 8 + 1024;
+  return (size_t)(2 * DQ_BQ + 2 * dq_stages<D>() * DQ_BK) * D * 2 + (1 + dq_stages<D>()) * 8 +
+         1024;
 }
 
 // p = exp(x - lse) on a visible entry (x the capped logit), and dS =
@@ -378,6 +606,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                         int Sk, int H, int K, int causal, float scale, float softcap,
                         int window) {
   using bf16 = __nv_bfloat16;
+  constexpr int KV_BK = Dkdv<D>::BK, DC = Dkdv<D>::DC;
   extern __shared__ unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(align1024(smem_raw));
   bf16* vs = ks + KV_BK * D;
@@ -390,7 +619,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * KV_BK;
   const int G = H / K;
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
-  const int kw = k0 + 64 * wg;                           // the warpgroup's first key row
+  const int kw = k0 + (Dkdv<D>::SPLIT ? 0 : 64 * wg);    // the warpgroup's first key row
+  const int c0 = Dkdv<D>::SPLIT ? DC * wg : 0;           // ... and first dK/dV column
   const int row = kw + 16 * warp + lane / 4;             // key rows row, row + 8
   const int col = 2 * (lane % 4);                        // + 8j + e: query in the step
 
@@ -430,9 +660,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   stage_stats(0);
   __syncthreads();
 
-  float adk[D / 2], adv[D / 2];
+  float adk[DC / 2], adv[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) adk[i] = adv[i] = 0.f;
   mbar_wait(&bars[0], 0);
 
   for (int t = 0; t < n; ++t) {
@@ -449,11 +679,11 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, kmajor_desc<D>(ks, KV_BK, 64 * wg, kk), kmajor_desc<D>(qt, KV_BQ, 0, kk),
+      wgmma_ss(s, kmajor_desc<D>(ks, KV_BK, kw - k0, kk), kmajor_desc<D>(qt, KV_BQ, 0, kk),
                kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, kmajor_desc<D>(vs, KV_BK, 64 * wg, kk), kmajor_desc<D>(dot, KV_BQ, 0, kk),
+      wgmma_ss(dp, kmajor_desc<D>(vs, KV_BK, kw - k0, kk), kmajor_desc<D>(dot, KV_BQ, 0, kk),
                kk > 0);
     wgmma_commit();
     stage_stats(t + 1);          // the next step's rows, under the products
@@ -494,8 +724,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KV_BQ / 16; ++kk) {
-      const uint64_t ddo = mnmajor_desc<D>(dot, KV_BQ, kk);
-      const uint64_t dq = mnmajor_desc<D>(qt, KV_BQ, kk);
+      // columns c0 .. c0 + DC of dO and q: the boxes from c0 / 64 on
+      const uint64_t ddo = mnmajor_desc<D>(dot + c0 * KV_BQ, KV_BQ, kk);
+      const uint64_t dq = mnmajor_desc<D>(qt + c0 * KV_BQ, KV_BQ, kk);
       wgmma_rs(adv, ph[kk], ddo, 1);
       wgmma_rs(adv, pl[kk], ddo, 1);
       wgmma_rs(adk, gh[kk], dq, 1);
@@ -520,9 +751,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 2; ++i) {
     const int kp = row + 8 * i;
     if (kp >= Sk) continue;
-    const size_t at = (((size_t)b * Sk + kp) * K + kh) * D + col;
+    const size_t at = (((size_t)b * Sk + kp) * K + kh) * D + c0 + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
           __floats2bfloat162_rn(adk[4 * j + 2 * i] * scale, adk[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
@@ -540,6 +771,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
                       int Sk, int H, int K, int causal, float scale, float softcap, int window) {
   using bf16 = __nv_bfloat16;
+  constexpr int BW_STAGES = dq_stages<D>();
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
   bf16* dos = qs + DQ_BQ * D;
@@ -676,7 +908,8 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
                           void* delta, int B, int Sq, int Sk, int H, int K, int causal,
                           float scale, float softcap, int window, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  constexpr int KV_BK = Dkdv<D>::BK;
+  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;   // k128, v128: KV_BK rows
   cudaError_t e = tile_map<D>(&q64, q, B, Sq, H, KV_BQ);
   if (e == cudaSuccess) e = tile_map<D>(&do64, dout, B, Sq, H, KV_BQ);
   if (e == cudaSuccess) e = tile_map<D>(&k128, k, B, Sk, K, KV_BK);
@@ -731,6 +964,9 @@ cudaError_t launch_bwd_tc_dim(const void* q, const void* k, const void* v, const
                                causal, scale, softcap, window, st);
     case 128:
       return launch_bwd_tc<128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
+                                causal, scale, softcap, window, st);
+    case 256:   // gemma2
+      return launch_bwd_tc<256>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
                                 causal, scale, softcap, window, st);
     default:
       return cudaErrorInvalidValue;

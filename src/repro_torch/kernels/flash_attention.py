@@ -37,6 +37,10 @@ from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_bwd)
 from repro_torch.kernels.ssd import ssd, ssd_bwd
 
+#: head dims the attention kernels are built for (gemma2's 256 with its
+#: own tile sizes: the .cu notes)
+HEAD_DIMS = (32, 64, 128, 256)
+
 #: query rows of a kv head (Sq * H / K) up to which a call takes the
 #: kernels' decode path, split-KV over spans of DECODE_SPAN kv rows (a
 #: multiple of their 128-row tile); more rows take the prefill-chunk path
@@ -98,8 +102,8 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
             or k_cache.shape[3] != D or H % K):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"caches {tuple(k_cache.shape)}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"flash_decode: head_dim {D} not in (32, 64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: head_dim {D} not in {HEAD_DIMS}")
     build.check_cuda("flash_decode", q.device, q=q, k_cache=k_cache,
                 v_cache=v_cache, kv_len=kv_len)
     out = torch.empty_like(q)
@@ -150,9 +154,9 @@ def flash_decode_paged(q, k_pool, v_pool, kv_len, block_tables, *,
     if k_pool.shape != v_pool.shape or k_pool.shape[3] != D or H % K:
         raise ValueError(f"flash_decode_paged: shapes q {tuple(q.shape)}, "
                          f"pools {tuple(k_pool.shape)}")
-    if D not in (32, 64, 128):
+    if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode_paged: head_dim {D} not in "
-                         "(32, 64, 128)")
+                         f"{HEAD_DIMS}")
     build.check_cuda("flash_decode_paged", q.device, q=q, k_pool=k_pool,
                 v_pool=v_pool, kv_len=kv_len, block_tables=block_tables)
     out = torch.empty_like(q)
@@ -341,8 +345,8 @@ def _check_attention(name, q, k, v):
             or k.shape[3] != D or H % k.shape[2]):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v "
                          f"{tuple(k.shape)}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"{name}: head_dim {D} not in (32, 64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
 
 
 def _flags(causal, local_window, softcap):

@@ -10,6 +10,8 @@ with per-phase power capping.
       --no-reduced --max-seq 2048 --batch-size 8 --prefill-chunk 256
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --no-reduced --max-seq 2048 --batch-size 8 --prefill-chunk 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+      --no-reduced --max-seq 8192 --batch-size 8 --prefill-chunk 256
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs the plain PyTorch path), and

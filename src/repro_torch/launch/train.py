@@ -5,6 +5,8 @@ the card.
       --device cpu                                   # plain path, CPU
   PYTHONPATH=src python -m repro_torch.launch.train --batch 2 --seq 2048 \\
       --steps 6                                      # full width, one H100
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --no-reduced --batch 2 --seq 2048 --steps 6    # gemma2, one H100
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given), and

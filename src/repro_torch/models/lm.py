@@ -7,18 +7,22 @@ a Python loop over the stacked ``layers`` leaves (the reference's
 ``lax.scan``):
   dense, moe  a pre-norm decoder; with ``n_experts > 0`` every layer's
               MLP is the MoE layer and ``forward`` returns the layers'
-              summed aux loss
+              summed aux loss; with ``post_norms`` the sandwich norms and
+              with ``layer_pattern="local_global"`` alternating (local,
+              global) layer pairs, each stack with its own cache (gemma2)
   ssm         pre-norm residual Mamba-2 blocks (mamba2)
   hybrid      Mamba-2 blocks with one SHARED attention block applied after
               every ``shared_attn_period`` of them, on concat(h, the
               embedding output), with per-invocation LoRA on q (zamba2)
-The vlm and audio families and the gemma2 local/global pattern raise,
-naming the ROADMAP item that ports them.
+The vlm and audio families raise, naming the ROADMAP item that ports
+them.
 
 Forward modes:
   forward(...)                     full-sequence hidden states (no cache);
                                    with grad enabled each layer is
                                    checkpointed under ``run.remat="full"``
+                                   (nothing saved) or ``"dots"`` (the 2-D
+                                   matrix products saved)
   forward(..., cache, cache_index) prefill chunk or decode step; the cache
                                    (dense ``init_cache`` or paged
                                    ``init_paged_cache``) is updated in place
@@ -36,6 +40,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
@@ -45,20 +51,34 @@ from repro_torch.models.params import PD
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """The families the port runs: dense and MoE decoders, Mamba-2 and the
+    """The families the port runs: dense and MoE decoders (gemma2's
+    local/global pairs and sandwich norms among them), Mamba-2 and the
     zamba2 hybrid."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         item = {"vlm": "12", "audio": "12"}.get(cfg.family, "?")
         raise NotImplementedError(
             f"{cfg.family} family: ROADMAP queue 1 item {item}")
-    if cfg.layer_pattern != "global" or cfg.post_norms:
-        raise NotImplementedError("gemma2 local/global layers and post-norms: "
-                                  "ROADMAP queue 1 item 11")
 
 
 # ===========================================================================
 # declarations
 # ===========================================================================
+
+def _tf_layer_decls(cfg: ModelConfig, n: int) -> dict:
+    """A stack of ``n`` transformer layers; with ``post_norms`` the
+    sandwich norms on the attention and MLP outputs."""
+    d = {
+        "ln1": L.norm_decls(cfg, layers=n),
+        "attn": L.attention_decls(cfg, layers=n),
+        "ln2": L.norm_decls(cfg, layers=n),
+        "mlp": (L.moe_decls(cfg, layers=n) if cfg.n_experts
+                else L.mlp_decls(cfg, layers=n)),
+    }
+    if cfg.post_norms:
+        d["post_ln1"] = L.norm_decls(cfg, layers=n)
+        d["post_ln2"] = L.norm_decls(cfg, layers=n)
+    return d
+
 
 def _shared_attn_decls(cfg: ModelConfig, n_inv: int) -> dict:
     """Zamba2 shared transformer block over concat(h, emb) (width
@@ -99,14 +119,11 @@ def model_decls(cfg: ModelConfig) -> dict:
                        "mamba": L.mamba_decls(cfg, layers=n)}
         if cfg.family == "hybrid":
             d["shared"] = _shared_attn_decls(cfg, zamba_structure(cfg)[0])
+    elif cfg.layer_pattern == "local_global":
+        d["layers_local"] = _tf_layer_decls(cfg, n // 2)
+        d["layers_global"] = _tf_layer_decls(cfg, n // 2)
     else:
-        d["layers"] = {
-            "ln1": L.norm_decls(cfg, layers=n),
-            "attn": L.attention_decls(cfg, layers=n),
-            "ln2": L.norm_decls(cfg, layers=n),
-            "mlp": (L.moe_decls(cfg, layers=n) if cfg.n_experts
-                    else L.mlp_decls(cfg, layers=n)),
-        }
+        d["layers"] = _tf_layer_decls(cfg, n)
     d["final_norm"] = L.norm_decls(cfg)
     ue = L.unembed_decls(cfg)
     if ue:
@@ -154,35 +171,71 @@ def _tf_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin, *,
               local_window=None, cache=None, cache_index=None,
               block_tables=None):
     """One transformer block; returns (h, cache, aux), aux the MoE
-    layer's load-balancing loss (None in a dense block)."""
+    layer's load-balancing loss (None in a dense block).  With the
+    sandwich norms (``post_ln1``, ``post_ln2``) the attention and MLP
+    outputs are normed before their residual adds
+    (``repro/models/lm.py:155-177``)."""
     a_in = L.apply_norm(cfg, p["ln1"], h)
     attn_out, cache = L.apply_attention(
         ctx, cfg, p["attn"], a_in, cos, sin, local_window=local_window,
         cache=cache, cache_index=cache_index, block_tables=block_tables)
+    if "post_ln1" in p:
+        attn_out = L.apply_norm(cfg, p["post_ln1"], attn_out)
     h = h + attn_out
     m_in = L.apply_norm(cfg, p["ln2"], h)
     if cfg.n_experts:
         mlp_out, aux = L.apply_moe(ctx, cfg, p["mlp"], m_in)
     else:
         mlp_out, aux = L.apply_mlp(ctx, cfg, p["mlp"], m_in), None
+    if "post_ln2" in p:
+        mlp_out = L.apply_norm(cfg, p["post_ln2"], mlp_out)
     return h + mlp_out, cache, aux
 
 
-def _remat_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin):
+def _remat_block(ctx: L.Ctx, cfg: ModelConfig, local_window, p, h, cos,
+                 sin):
     """A cache-free block for ``torch.utils.checkpoint``: (h, aux)."""
-    h, _, aux = _tf_block(ctx, cfg, p, h, cos, sin)
+    h, _, aux = _tf_block(ctx, cfg, p, h, cos, sin, local_window=local_window)
     return h, aux
+
+
+#: what ``remat="dots"`` saves: the outputs of 2-D matrix products, as
+#: ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` saves
+#: the ``dot_general``s without batch dimensions (the projections
+#: ``x @ W``, the router).  Everything else runs again in the backward
+#: pass: ``aten.bmm`` and the batched einsums (attention, the grouped
+#: expert product's plain version, the scan's), the elementwise work and
+#: the kernels' autograd Functions, whose ctypes launches are no aten op,
+#: as a ``pallas_call`` is no dot.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _remat(ctx: L.Ctx):
     """The reference's ``remat`` (``repro/models/lm.py:127-133``) for a
-    training forward: ``"full"`` keeps only each layer's input and runs
-    the layer again in the backward pass (``torch.utils.checkpoint``,
-    non-reentrant), ``"none"`` keeps every activation.  Returns True for
-    a checkpointed forward."""
+    training forward, as the keyword arguments of a non-reentrant
+    ``torch.utils.checkpoint`` of each layer: ``"full"`` keeps only each
+    layer's input and runs the layer again in the backward pass, ``"dots"``
+    also keeps the outputs of its 2-D matrix products (``DOTS_SAVED``).
+    None for ``"none"``, which keeps every activation."""
+    if ctx.run.remat == "full":
+        return {}
     if ctx.run.remat == "dots":
-        raise NotImplementedError('remat="dots": ROADMAP queue 1 item 15')
-    return ctx.run.remat == "full"
+        return {"context_fn": _dots_contexts}
+    return None
+
+
+def _checkpoint(remat: dict, fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **remat)
 
 
 def _unstack(tree, n: int) -> list:
@@ -238,7 +291,7 @@ def _shared_block(ctx: L.Ctx, cfg: ModelConfig, p, inv_idx: int, h, emb0, cos,
 
 
 def _ssm_forward(ctx: L.Ctx, cfg: ModelConfig, params, h, cos, sin, *,
-                 cache, cache_index, block_tables, remat: bool):
+                 cache, cache_index, block_tables, remat):
     """The Mamba-2 stack; for the hybrid, the shared block after every
     ``shared_attn_period`` layers (invocation i after layer (i+1)*period-1,
     its KV in ``kv_shared`` layer i), trailing layers after the last.
@@ -249,10 +302,9 @@ def _ssm_forward(ctx: L.Ctx, cfg: ModelConfig, params, h, cos, sin, *,
     per = zamba_structure(cfg)[1] if cfg.family == "hybrid" else 0
     emb0 = h
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        if remat:
-            h = torch.utils.checkpoint.checkpoint(
-                functools.partial(_mamba_layer, ctx, cfg), p, h,
-                use_reentrant=False)
+        if remat is not None:
+            h = _checkpoint(remat, functools.partial(_mamba_layer, ctx, cfg),
+                            p, h)
         else:
             h = _mamba_layer(ctx, cfg, p, h,
                              st["ssm"][i] if st is not None else None,
@@ -261,9 +313,8 @@ def _ssm_forward(ctx: L.Ctx, cfg: ModelConfig, params, h, cos, sin, *,
             inv = (i + 1) // per - 1
             block = functools.partial(_shared_block, ctx, cfg,
                                       params["shared"], inv)
-            if remat:
-                h = torch.utils.checkpoint.checkpoint(
-                    block, h, emb0, cos, sin, use_reentrant=False)
+            if remat is not None:
+                h = _checkpoint(remat, block, h, emb0, cos, sin)
             else:
                 h = block(h, emb0, cos, sin,
                           cache=({"k": kv["k"][inv], "v": kv["v"][inv]}
@@ -291,29 +342,54 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     cos, sin = (L.rope_cos_sin(cfg, positions) if cfg.use_rope
                 else (None, None))
     block_tables = cache.get("block_tables") if cache is not None else None
-    remat = cache is None and torch.is_grad_enabled() and _remat(ctx)
+    remat = (_remat(ctx) if cache is None and torch.is_grad_enabled()
+             else None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         h = _ssm_forward(ctx, cfg, params, h, cos, sin, cache=cache,
                          cache_index=cache_index, block_tables=block_tables,
                          remat=remat)
         return L.apply_norm(cfg, params["final_norm"], h), aux, cache
-    kv = cache["kv"] if cache is not None else None
-    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        if remat:
-            h, a = torch.utils.checkpoint.checkpoint(
-                functools.partial(_remat_block, ctx, cfg), p, h, cos, sin,
-                use_reentrant=False)
+    for p, kv, i, window in _tf_layers(cfg, params, cache):
+        if remat is not None:
+            h, a = _checkpoint(
+                remat, functools.partial(_remat_block, ctx, cfg, window),
+                p, h, cos, sin)
         else:
             layer_cache = ({"k": kv["k"][i], "v": kv["v"][i]}
                            if kv is not None else None)
             h, _, a = _tf_block(ctx, cfg, p, h, cos, sin,
-                                cache=layer_cache, cache_index=cache_index,
+                                local_window=window, cache=layer_cache,
+                                cache_index=cache_index,
                                 block_tables=block_tables)
         if a is not None:
             aux = aux + a
     h = L.apply_norm(cfg, params["final_norm"], h)
     return h, aux, cache
+
+
+def _tf_layers(cfg: ModelConfig, params, cache):
+    """The transformer layers in order, as (params, the stack's cache or
+    None, the layer's index in it, its attention window).  gemma2's
+    ``local_global`` runs (local, global) pairs, the local layer with
+    ``cfg.local_window`` and its own ``kv_local`` cache, the global one
+    unwindowed with ``kv_global`` (``repro/models/lm.py:259-280``);
+    every other decoder its ``layers`` stack with ``kv``.  The reference
+    checkpoints a pair as one body; the port checkpoints each block, the
+    same numbers."""
+    if cfg.layer_pattern != "local_global":
+        kv = cache["kv"] if cache is not None else None
+        for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            yield p, kv, i, None
+        return
+    half = cfg.n_layers // 2
+    kv_l = cache["kv_local"] if cache is not None else None
+    kv_g = cache["kv_global"] if cache is not None else None
+    pairs = zip(_unstack(params["layers_local"], half),
+                _unstack(params["layers_global"], half))
+    for i, (p_l, p_g) in enumerate(pairs):
+        yield p_l, kv_l, i, cfg.local_window
+        yield p_g, kv_g, i, None
 
 
 # ===========================================================================
@@ -341,7 +417,8 @@ def logits_for(ctx: L.Ctx, cfg: ModelConfig, params, h):
 
 def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
     """Decode state on ``ctx.device``: stacked (L, B, max_seq, K, hd) k/v
-    zeros in the compute dtype (``kv``); for the Mamba families the
+    zeros in the compute dtype (``kv``, or gemma2's ``kv_local`` and
+    ``kv_global``); for the Mamba families the
     recurrent state (``mamba``: ``ssm`` (L, B, H, P, N) float32 and
     ``conv`` (L, B, W-1, conv_dim)) and, for the hybrid, the shared
     block's k/v stacked over its ``n_super`` invocations (``kv_shared``)."""
@@ -355,8 +432,19 @@ def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
                 cfg, batch, max_seq, c, layers=zamba_structure(cfg)[0],
                 device=dev)
         return out
-    return {"kv": L.empty_kv_cache(cfg, batch, max_seq, c,
-                                   layers=cfg.n_layers, device=dev)}
+    return {key: L.empty_kv_cache(cfg, batch, max_seq, c, layers=n,
+                                  device=dev)
+            for key, n in _rows_stacks(cfg).items()}
+
+
+def _rows_stacks(cfg: ModelConfig) -> dict[str, int]:
+    """A decoder's KV cache keys and their layer counts: ``kv_local`` and
+    ``kv_global`` of ``n_layers // 2`` each for gemma2's local/global
+    pairs (``repro/models/lm.py:513-516``), else ``kv``."""
+    if cfg.layer_pattern == "local_global":
+        half = cfg.n_layers // 2
+        return {"kv_local": half, "kv_global": half}
+    return {"kv": cfg.n_layers}
 
 
 def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
@@ -388,9 +476,11 @@ def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
                     cfg, n_blocks, block_size, c,
                     layers=zamba_structure(cfg)[0], device=dev),
                 "block_tables": table}
-    return {"kv": L.empty_paged_kv_cache(cfg, n_blocks, block_size, c,
-                                         layers=cfg.n_layers, device=dev),
-            "block_tables": table}
+    out = {key: L.empty_paged_kv_cache(cfg, n_blocks, block_size, c,
+                                       layers=n, device=dev)
+           for key, n in _rows_stacks(cfg).items()}
+    out["block_tables"] = table
+    return out
 
 
 #: Slot semantics of a cache kind (as the reference): "rows" leaves carry
@@ -407,7 +497,7 @@ def cache_slot_spec(cfg: ModelConfig) -> dict[str, str]:
         return {"mamba": SLOT_STATE}
     if cfg.family == "hybrid":
         return {"mamba": SLOT_STATE, "kv_shared": SLOT_ROWS}
-    return {"kv": SLOT_ROWS}
+    return dict.fromkeys(_rows_stacks(cfg), SLOT_ROWS)
 
 
 # ===========================================================================

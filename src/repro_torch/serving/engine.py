@@ -398,6 +398,8 @@ class ServeEngine:
                  paged: bool = False, block_size: int = 16,
                  n_blocks: int | None = None, prefix_sharing: bool = False,
                  eager: bool = False):
+        if cfg.family == "audio":
+            raise ValueError("encoder-only arch has no decode path")
         if prefix_sharing and not paged:
             raise ValueError("prefix_sharing requires paged=True")
         if paged:

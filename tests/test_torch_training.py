@@ -343,8 +343,9 @@ def test_grad_accum_matches_full_batch():
 
 
 def test_remat_full_gives_the_same_step_and_dots_names_its_item():
-    """Checkpointed layers recompute the same forward: remat="full" and
-    "none" give the same gradients and update."""
+    """Checkpointed layers recompute the same forward: remat="full",
+    "dots" (the 2-D products saved, the rest recomputed) and "none" give
+    the same gradients and update."""
     run_full = RUN.replace(remat="full")
     batch = _batch(_itest_data(), 0)
     s1, m1 = make_train_step(CFG, RUN, Ctx(RUN, "cpu"))(_itest_state(), batch)
@@ -356,9 +357,13 @@ def test_remat_full_gives_the_same_step_and_dots_names_its_item():
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    atol=1e-6)
     run_dots = RUN.replace(remat="dots")
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        make_train_step(CFG, run_dots, Ctx(run_dots, "cpu"))(_itest_state(),
-                                                             batch)
+    s3, m3 = make_train_step(CFG, run_dots, Ctx(run_dots, "cpu"))(
+        _itest_state(), batch)
+    assert float(m1["grad_norm"]) == pytest.approx(float(m3["grad_norm"]),
+                                                   rel=1e-6)
+    for a, b in zip(leaves(s1["params"]), leaves(s3["params"])):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=1e-6)
 
 
 def test_deterministic_training_same_seed():

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""The serving engine's steady decode step on one card, compared across
-source trees in turns: ``python3 tools/decode_ab.py --trees OLD . . OLD``.
+"""The serving engine's steady decode step, or the attention kernels'
+times, on one card, compared across source trees in turns:
+``python3 tools/decode_ab.py [--kernels] --trees OLD . . OLD``.
 
 Each tree (a checkout's root, whose ``src/`` holds ``repro_torch``) runs in
-a process of its own, in the order given.  In each, the full-width dense
+a process of its own, in the order given, and builds its own kernels into
+its ``build/``.  Without ``--kernels``, in each, the full-width dense
 engines of llama3.2-3b, olmoe-1b-7b and zamba2-1.2b (seeded random
 weights, bf16, batch 8, prompts of 128 tokens) take one step (admission
 and the first decode chunk); then
@@ -20,11 +22,19 @@ and the first decode chunk); then
 
 Each tree's engine runs as that tree builds it: one whose ``ServeEngine``
 has no ``eager=`` runs every decode chunk eagerly, one that graphs the
-chunk by default replays its graph (``"graphed"`` in the line).  The
-measuring code is this checkout's ``chip_smoke.py`` in every process, so
-each tree is read the same way; only ``repro_torch`` differs.  One
-``[ab]`` line per tree and model, then a summary of the turns.  Needs one
-CUDA card.
+chunk by default replays its graph (``"graphed"`` in the line).  One
+``[ab]`` line per tree and model, then a summary of the turns.
+
+With ``--kernels``, each tree's attention kernels are timed instead at the
+main paths' D = 64 and D = 128 shapes by ``chip_smoke.py``'s timers
+(``time_flash_decode``, ``time_flash_decode_paged`` at llama's decode step
+and 256-row chunk and zamba2's D = 64 chunk; ``time_flash_attention`` at
+the training shape, forward and backward): one ``[kernel-ab]`` line per
+tree, then a ``[kernel-ab:summary]`` line per row.
+
+The measuring code is this checkout's ``chip_smoke.py`` in every process,
+so each tree is read the same way; only ``repro_torch`` differs (each line
+names the ``src`` it loaded).  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -56,20 +66,68 @@ def _steady_engine(cs, cfg, run, params):
     return engine
 
 
-def one(tree: str) -> None:
-    """Measure the tree ``tree`` (run in a process of its own)."""
+def _load(tree: str):
+    """This checkout's ``chip_smoke`` and the tree's ``repro_torch``
+    (``chip_smoke`` imports this checkout's on its way in: dropped)."""
     sys.path.insert(0, str(REPO))
-    import chip_smoke as cs                  # puts this checkout's src first
-    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import chip_smoke as cs
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    want = Path(tree).resolve() / "src"
+    sys.path.insert(0, str(want))
     import torch
     import repro_torch
-    from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as tfa
+    src = Path(repro_torch.__file__).resolve().parents[1]
+    if src != want:
+        raise SystemExit(f"decode_ab: loaded {src}, not {want}")
     if not torch.cuda.is_available():
         raise SystemExit("decode_ab: no CUDA device")
-    src = Path(repro_torch.__file__).resolve().parents[1]
     build.build_all()
+    return cs, src
+
+
+def kernels(tree: str) -> None:
+    """Time the tree ``tree``'s attention kernels (run in a process of
+    its own)."""
+    cs, src = _load(tree)
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lens = np.random.default_rng(3).integers(96, 1153, 8).tolist()
+    rows = {
+        "flash_decode decode": cs.time_flash_decode(tfa, ref, 8, 1, lens),
+        "flash_decode prefill": cs.time_flash_decode(tfa, ref, 1, 256,
+                                                     [768]),
+        "flash_decode prefill D=64": cs.time_flash_decode(
+            tfa, ref, 1, 256, [768], H=32, K=32, D=64),
+        "flash_decode_paged decode": cs.time_flash_decode_paged(
+            tfa, ref, 8, 1, lens),
+        "flash_decode_paged prefill": cs.time_flash_decode_paged(
+            tfa, ref, 1, 256, [768]),
+        "flash_decode_paged prefill D=64": cs.time_flash_decode_paged(
+            tfa, ref, 1, 256, [768], H=32, K=32, D=64),
+    }
+    fa = cs.time_flash_attention(tfa, ref)
+    rows["flash_attention training"] = fa["fwd"]
+    rows["flash_attention_bwd training"] = fa["bwd"]
+    print("[kernel-ab] " + json.dumps(
+        {"tree": tree, "src": str(src),
+         "ms": {k: v["ms"] for k, v in rows.items()}}), flush=True)
+    print(f"[kernel-ab] device {torch.cuda.get_device_name(0)} | "
+          f"nvidia-smi: {cs._smi_line()}", flush=True)
+
+
+def one(tree: str) -> None:
+    """Measure the tree ``tree``'s decode step (run in a process of its
+    own)."""
+    cs, src = _load(tree)
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import flash_attention as tfa
     models = {a: (get_model_config(a), get_run_config(a, remat="none"))
               for a in ARCHS}
     out = {a: {"tree": tree, "src": str(src), "arch": a} for a in ARCHS}
@@ -110,23 +168,33 @@ def one(tree: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="checkout roots, in turn")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the attention kernels, not the decode step")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        one(args.one)
+        (kernels if args.kernels else one)(args.one)
         return 0
     if not args.trees:
         ap.error("--trees: give at least one checkout root")
+    tag = "[kernel-ab] {" if args.kernels else "[ab] {"
     rows = []
     for tree in args.trees:
-        res = subprocess.run([sys.executable, __file__, "--one", tree],
+        res = subprocess.run([sys.executable, __file__, "--one", tree]
+                             + ["--kernels"] * args.kernels,
                              capture_output=True, text=True, timeout=900)
         sys.stdout.write(res.stdout)
         sys.stderr.write(res.stderr[-4000:])
         if res.returncode:
             return res.returncode
-        rows += [json.loads(line[5:]) for line in res.stdout.splitlines()
-                 if line.startswith("[ab] {")]
+        rows += [json.loads(line[len(tag) - 1:])
+                 for line in res.stdout.splitlines() if line.startswith(tag)]
+    if args.kernels:
+        for key in rows[0]["ms"]:
+            print(f"[kernel-ab:summary] {key}: " + ", ".join(
+                f"{r['tree']} {r['ms'][key]:.4f}" for r in rows), flush=True)
+        return 0
+
     def num(x, fmt):
         return "not measured" if x is None else format(x, fmt)
 
