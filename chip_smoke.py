@@ -85,7 +85,17 @@ caught):
      training shape (and, after the serving arms, by pass: the state
      pass, the chunk pass, torch.profiler's device time by kernel name);
      and the decode and RoPE cache kernels at nemotron-4-15b's heads (H =
-     48, K = 8: a GQA group of 6, half rotary), checked and timed;
+     48, K = 8: a GQA group of 6, half rotary), checked and timed; the
+     cache-free attention and its gradient at hubert-xlarge's head_dim 80
+     (``HUBERT_FA_CASES``: H = K = 16, B 4 x 1024 bidirectional, 1000
+     queries over 300 keys, one causal case, a small one; bf16 and f32)
+     against the plain versions entry by entry, shown to reject outputs
+     whose columns 64-79 are zeroed (what misread 160-byte rows would
+     give), then timed beside SDPA and the bound at D = 80; and
+     ``flash_decode`` and ``cache_update`` (M-RoPE's cos/sin of a 3-D
+     grid) at qwen2-vl-72b's heads (H = 64, K = 8: a group of 8) at a
+     decode step, a 256-row chunk and the vision prefill's 2048 rows,
+     checked and timed;
   2b. the power backend (``power/nvml.py``, ``power/metered.py``), the
      card's power session opened once by ``open_card`` for the whole
      script, which puts the limit back at its end (without
@@ -229,6 +239,20 @@ caught):
           (15.63 B; each f32 leaf cast to bf16 as it is drawn), dense and
           graphed, at the arms' traffic: exact launches, tok/s and J per
           generated token;
+       j. full-width gemma2-2b at max_seq 8192, dense and paged;
+       k. qwen2-vl-72b at full width and QWEN2VL_LAYERS of its 80 layers
+          (20.04 B params, 40.1 GB in bf16): ``[serve:qwen2vl-dense]``
+          (the arms' 16 requests, graphed; exact launches, tok/s, J per
+          generated token, ms per decode step and per 256 prompt rows),
+          then ``[prefill:qwen2vl-vision]``: ``make_prefill_step`` at
+          batch 1 over 2048 rows, the first 1024 seeded vision embeddings
+          on a 32 x 32 grid of M-RoPE positions, timed, with exact
+          launches, and M-RoPE shown to act (1-D positions move the
+          logits by more than MROPE_ACTS);
+       l. ``[encode:hubert]``: hubert-xlarge at full width and depth (48
+          layers) encoding 8 x 1024 seeded frames through
+          ``make_prefill_step``: 48 ``flash_attention`` launches an
+          encode, ms and J per encode over at least 2 s;
      then torch.profiler windows (every device launch per step counted;
      graph replays, and where the profiler does not see a graph's
      kernels the line says so) of steady decode, olmoe dense, mamba2
@@ -245,7 +269,9 @@ caught):
      layer), the same prefill chunks (256 + 64 rows: the state carried
      between SSD chunks and from one chunk into the next; 1-row chunks)
      and 3 decode steps, the card in f32 within SSM_PARITY_TOL of the
-     CPU in f32, the card in bf16 printed beside it;
+     CPU in f32, the card in bf16 printed beside it; gemma2-2b, qwen2-vl
+     (a prefill with 64 vision rows at grid positions and a decode step)
+     and hubert (every frame's logits) at 2 layers within PARITY_TOL;
   5. training, the second main path, after the serving arms have
      released their weights: full-width, full-depth llama3.2-3b (seeded
      f32 masters, bf16 compute, AdamW, remat="full", batch 2 x 2048)
@@ -256,7 +282,9 @@ caught):
      share of the bf16 peak; then the same loop as ``[train:olmoe]``
      (olmoe-1b-7b at full width, depth cut to 8 of 16 layers: its full
      depth's f32 state does not fit the card), ``[train:mamba2]`` and
-     ``[train:zamba2]`` (full depth), each with exact launches of every
+     ``[train:zamba2]`` (full depth), ``[train:gemma2]`` and
+     ``[train:hubert]`` (48 layers, 4 x 1024 seeded frames, labels over
+     its vocab of 504), each with exact launches of every
      kernel, ``grouped_matmul_bwd`` and ``ssd_bwd`` among them; after
      each arm's steps, on a fresh batch its cross-entropy stays near
      ln(vocab) (the repeated batch is learnt by heart, nothing leaks),
@@ -265,7 +293,8 @@ caught):
   6. training parity: one f32 step at full width and 2 layers on the card
      (kernels) against the CPU (plain versions) from the same weights and
      batch: loss, grad norm and the parameter update, for llama3.2-3b,
-     olmoe-1b-7b and mamba2-370m;
+     olmoe-1b-7b, mamba2-370m, gemma2-2b and hubert-xlarge (frames), and
+     for reduced qwen2-vl with vision rows at grid positions;
   7. LSMS, the paper's own workload (``models/lsms.py``, no kernel of
      the repo's: PyTorch's complex64 products and LU), on a card that no
      model holds any more: ``[lsms:parity]``, a reduced configuration
@@ -288,7 +317,9 @@ caught):
 
 It prints one ``{"migrate": ...}`` line, one ``{"lsms": ...}`` line, one
 ``{"kernels": [...]}`` line
-(ten kernels; the JSON also has ``power`` and ``fleet`` objects), the
+(ten kernels; the attention rows carry ``gemma2_d256`` and, for the
+training rows, ``hubert_d80`` objects, flash_decode's and cache_update's
+a ``qwen2vl_g8`` one; the JSON also has ``power`` and ``fleet`` objects), the
 nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
@@ -391,6 +422,16 @@ ROPE_HEADS = {"llama": (24, 8, 128), "olmoe": (16, 16, 128),
 #: half of each head (rotary_pct 0.5)
 NEMOTRON_HEADS = (48, 8, 128)
 MINITRON_ARCH, NEMOTRON_ARCH = "minitron-4b", "nemotron-4-15b"
+#: (H, K, D) of qwen2-vl-72b: 64 query heads over 8 kv heads, a GQA group
+#: of 8, so a decode step has 8 query rows a kv head and takes the
+#: kernel's chunk path (more than DECODE_ROWS = 4)
+QWEN2VL_HEADS = (64, 8, 128)
+
+
+def _heads(model):
+    """(H, K, D) of a model's attention in the cache-write checks."""
+    return {**ROPE_HEADS, "nemotron": NEMOTRON_HEADS,
+            "qwen2vl": QWEN2VL_HEADS}[model]
 F32_OPS_PER_S = PEAK_FLOPS_F32  # float32 outside the tensor cores, 67e12
 TRAIN_STEPS = 6
 #: the position after which the training arms' causality check replaces
@@ -1126,7 +1167,7 @@ def check_rope_cache_update(tfa, ref, paged):
               for nd in dts]
     checks = []
     for model, Sn, new_dt, cache_dt, rp in cases:
-        H, K, D = ROPE_HEADS.get(model, NEMOTRON_HEADS)
+        H, K, D = _heads(model)
         seed = 4000 + 100 * paged + len(checks)
         kc, vc, index, table, unmapped = _rope_cache(paged, B, S, K, D,
                                                      cache_dt, Sn, seed)
@@ -1222,9 +1263,11 @@ def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index,
     """The fused RoPE + cache write (bf16) at one serving shape, beside the
     plain composition run eagerly (two apply_rope passes and the scatter)
     and its byte bound; no single PyTorch call does both, so there is no
-    library time.  ``rotary_pct``: the share of each head rotated."""
+    library time.  ``rotary_pct``: the share of each head rotated.  At
+    qwen2-vl's heads the cos/sin are M-RoPE's of a 3-D grid
+    (``_mrope_cos_sin``)."""
     import torch
-    H, K, D = ROPE_HEADS.get(model, NEMOTRON_HEADS)
+    H, K, D = _heads(model)
     S, bs, esz = 2048, 16, 2
     kc, vc, _, table, _ = _rope_cache(paged, B, S, K, D, torch.bfloat16, Sn,
                                       4700)
@@ -1235,6 +1278,8 @@ def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index,
                              device="cuda")
     q, kn, vn, c, s = _rope_case(B, Sn, H, K, D, torch.bfloat16, rotary_pct,
                                  index, 4700)
+    if model == "qwen2vl":
+        c, s = _mrope_cos_sin(index, Sn)
     idx = torch.tensor(index, dtype=torch.int32, device="cuda")
     rope = dict(q=q, cos=c, sin=s, rotary_pct=rotary_pct)
     if paged:
@@ -1266,7 +1311,9 @@ def time_rope_cache_update(tfa, ref, paged, model, B, Sn, index,
                      f"of q and k"
                      + (f" (rotary_pct {rotary_pct})" if rotary_pct < 1
                         else "")
-                     + (f", {done} done slot" if done else ""),
+                     + (f", {done} done slot" if done else "")
+                     + (", M-RoPE cos/sin of a 3-D grid"
+                        if model == "qwen2vl" else ""),
             "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "library_ms": None,
             "library": "none: no single PyTorch call does RoPE and the "
@@ -1292,27 +1339,29 @@ def _entry_ratio(name, got, want):
     return (got - want).abs() / limit.clamp(min=1e-30)
 
 
-def check_flash_attention(tfa, ref):
+_FA_TRAIN, _FA_SMALL = (2, 24, 8, 128), (2, 4, 2, 32)
+#: ((B, H, K, D), Sq, Sk, causal, window, softcap) of the attention checks:
+#: the training shape and the reduced configs' D=32; causal, window +
+#: softcap, bidirectional (+ softcap), an odd length, Sq != Sk both ways
+FA_CHECK_CASES = [(_FA_TRAIN, 2048, 2048, True, None, None),
+                  (_FA_TRAIN, 2048, 2048, True, 512, 30.0),
+                  (_FA_TRAIN, 1000, 1000, False, None, 30.0),
+                  (_FA_TRAIN, 1000, 1000, True, None, None),
+                  (_FA_TRAIN, 300, 1000, True, None, None),
+                  (_FA_TRAIN, 1000, 300, True, None, None),
+                  (_FA_SMALL, 256, 256, True, None, None),
+                  (_FA_SMALL, 130, 77, False, 100, 20.0)]
+
+
+def check_flash_attention(tfa, ref, cases=FA_CHECK_CASES):
     """Forward (out and lse) and backward (dq, dk, dv) kernels against
     ``attention_naive`` (with its lse) and ``attention_bwd_ref`` on the
     same inputs, entry by entry; the backward on the plain forward's out
-    and lse.  The
-    training shape and the reduced configs' D=32; causal, window +
-    softcap, bidirectional (+ softcap), an odd length, Sq != Sk both ways;
-    bf16 and f32.  Every row sees at least one key (the reference's two
-    plain versions disagree on rows that see none)."""
+    and lse.  ``cases`` (FA_CHECK_CASES, or hubert's at D = 80), bf16 and
+    f32.  Every row sees at least one key (the reference's two plain
+    versions disagree on rows that see none)."""
     import torch
     checks = []
-    train = (2, 24, 8, 128)
-    small = (2, 4, 2, 32)
-    cases = [(train, 2048, 2048, True, None, None),
-             (train, 2048, 2048, True, 512, 30.0),
-             (train, 1000, 1000, False, None, 30.0),
-             (train, 1000, 1000, True, None, None),
-             (train, 300, 1000, True, None, None),
-             (train, 1000, 300, True, None, None),
-             (small, 256, 256, True, None, None),
-             (small, 130, 77, False, 100, 20.0)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         for (B, H, K, D), Sq, Sk, causal, window, cap in cases:
@@ -1450,20 +1499,24 @@ def check_bf16_shortcut(ref):
     return res
 
 
-def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None):
-    """Forward and backward kernel, plain and library times at the
-    training shape (bf16, causal; llama's heads, or ``heads`` with
-    ``softcap``), two input sets in turn (~67 MB each at llama's heads,
-    beyond the 50 MB L2).  Library yardsticks, never called by the port:
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` and
+def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None, B=2,
+                         S=2048, causal=True):
+    """Forward and backward kernel, plain and library times at a training
+    shape (bf16; llama's heads, B 2, S 2048, causal, or ``heads`` with
+    ``softcap``, or hubert's bidirectional B 4, S 1024), two input sets in
+    turn (~67 MB each at llama's heads, beyond the 50 MB L2).  Library
+    yardsticks, never called by the port:
+    ``scaled_dot_product_attention(is_causal=causal, enable_gqa=True)`` and
     its autograd backward.  SDPA has no softcap: with one there is no
     library call of the same function, and SDPA's time without the
-    softcap is kept beside as ``sdpa_no_softcap_ms``."""
+    softcap is kept beside as ``sdpa_no_softcap_ms``.  The bound is
+    reckoned at the tensors' D (at D = 80 the bf16 kernels run 128-wide
+    tiles: the row shows that price)."""
     import torch
     import torch.nn.functional as F
-    (B, S), (H, K, D) = (2, 2048), heads
+    H, K, D = heads
     esz = 2
-    cap = dict(softcap=softcap)
+    cap = dict(softcap=softcap, causal=causal)
     cases = [_attention_case(B, S, S, H, K, D, torch.bfloat16, 900 + i)
              for i in range(2)]
     saved = [tfa.flash_attention(q, k, v, **cap) for q, k, v, _ in cases]
@@ -1481,7 +1534,7 @@ def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None):
     lib_do = [c[3].transpose(1, 2).contiguous() for c in cases]
 
     def lib_fwd(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
     with torch.no_grad():
@@ -1508,7 +1561,8 @@ def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None):
                   for c, (o, l) in zip(cases, saved)], 1),
              "library_ms": _time_graph_ms(lib_b, min_calls=16,
                                           stream=lib_stream)}
-    pairs = B * H * S * (S + 1) // 2                  # causal (q, k) pairs
+    # the (q, k) pairs the mask leaves
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     q_bytes, kv_bytes = B * S * H * D * esz, B * S * K * D * esz
     lse_bytes = 4 * B * H * S
     # forward: reads q, k, v; writes out, lse
@@ -1519,11 +1573,12 @@ def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None):
     t_bwd["bound_ms"], t_bwd["bound_by"] = _bound(
         4 * q_bytes + 4 * kv_bytes + lse_bytes, 10.0 * D * pairs,
         BF16_OPS_PER_S)
-    shape = f"B={B} S={S} H={H} K={K} D={D} causal bf16" \
-        + (f" softcap {softcap}" if softcap else "")
+    shape = (f"B={B} S={S} H={H} K={K} D={D} "
+             f"{'causal' if causal else 'bidirectional'} bf16"
+             + (f" softcap {softcap}" if softcap else ""))
     t_fwd.update(shape=shape, ops=4.0 * D * pairs,
-                 library="F.scaled_dot_product_attention(is_causal=True, "
-                         "enable_gqa=True) on (B,H,S,D) copies",
+                 library=f"F.scaled_dot_product_attention(is_causal={causal}"
+                         ", enable_gqa=True) on (B,H,S,D) copies",
                  plain="ref.attention_naive(return_lse=True)")
     t_bwd.update(shape=shape, ops=10.0 * D * pairs,
                  library="torch.autograd.grad through the same SDPA call "
@@ -2975,11 +3030,12 @@ def _card_weights(cfg, run):
     return params
 
 
-def serve_full_width(tfa, arch=ARCH, tag=""):
+def serve_full_width(tfa, arch=ARCH, tag="", n_layers=None):
     """Phase 3a (llama), the first arm of 3d (``arch=MOE_ARCH``, arms
-    named ``olmoe-*``) and 3i (minitron-4b, nemotron-4-15b): the dense
-    arm.  Returns its launches and stats, and what the later arms reuse:
-    (cfg, run, card params, request specs, streams)."""
+    named ``olmoe-*``), 3i (minitron-4b, nemotron-4-15b) and 3k
+    (qwen2-vl-72b at ``n_layers`` of its 80): the dense arm.  Returns its
+    launches and stats, and what the later arms reuse: (cfg, run, card
+    params, request specs, streams)."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.models import lm
@@ -2987,6 +3043,8 @@ def serve_full_width(tfa, arch=ARCH, tag=""):
     from repro_torch.serving.engine import Request
 
     cfg = get_model_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     run = get_run_config(arch, remat="none")          # bf16 compute
     decls = lm.model_decls(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -5018,8 +5076,11 @@ def _train_launches(cfg, steps):
 
 
 def _active_params(cfg, n_params):
-    """Parameters a token's forward reads: all of them, but of an MoE
-    layer's experts only top_k of n_experts."""
+    """Parameters a token's forward multiplies: all of them, but of an MoE
+    layer's experts only top_k of n_experts, and not the audio encoder's
+    learned position table (a row read, not a product)."""
+    if cfg.family == "audio":
+        return n_params - cfg.max_wavelength_pos * cfg.d_model
     if not cfg.n_experts:
         return n_params
     experts = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
@@ -5027,7 +5088,7 @@ def _active_params(cfg, n_params):
 
 
 def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train",
-                     remat="full", profile=True):
+                     remat="full", profile=True, shape=(TRAIN_B, TRAIN_S)):
     """Phase 5, the training paths: full-width ``arch`` (full depth, or
     ``n_layers``; seeded f32 masters on the card, bf16 compute, AdamW,
     remat="full", batch TRAIN_B x TRAIN_S, logits_chunk 1024, 2 warmup
@@ -5038,7 +5099,9 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train",
     finite, the last loss below the first, and exactly
     ``_train_launches`` per step (the same under "dots": the kernels'
     autograd Functions run again in the backward pass).  ``profile``:
-    one more step under the profiler."""
+    one more step under the profiler.  ``shape``: the batch, (B, S); the
+    audio encoder (``[train:hubert]``) takes seeded frames
+    (``FrameSource``) and labels over its vocab."""
     import torch
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.data.pipeline import DataConfig, TokenSource
@@ -5047,7 +5110,7 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train",
     from repro_torch.models.params import param_count
     from repro_torch.train.step import init_state, make_train_step
 
-    B, S = TRAIN_B, TRAIN_S
+    B, S = shape
     cfg = get_model_config(arch)
     depth = ""
     if n_layers is not None:
@@ -5076,7 +5139,10 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train",
           f"{time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated{depth}",
           flush=True)
-    data = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=B, seq_len=S))
+    data = (FrameSource(B, S, cfg.frontend_dim, cfg.vocab)
+            if cfg.family == "audio"
+            else TokenSource(DataConfig(vocab=cfg.vocab, global_batch=B,
+                                        seq_len=S)))
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
     step_fn = make_train_step(cfg, run, Ctx(run, "cuda"))
     tfa.reset_launch_counts()
@@ -5101,7 +5167,8 @@ def train_full_width(tfa, arch=ARCH, n_layers=None, tag="train",
     step_s = float(np.median(secs[1:]))
     tokens = B * S
     attn_layers = want["flash_attention_bwd"] // TRAIN_STEPS
-    attn_fwd_ops = 4.0 * cfg.head_dim * B * cfg.n_heads * S * (S + 1) / 2
+    attn_fwd_ops = 4.0 * cfg.head_dim * B * cfg.n_heads \
+        * (S * (S + 1) / 2 if cfg.causal else S * S)
     # 6 N per token (forward 2, backward 4) over the params a token reads
     # plus the attention's forward and its 2.5x backward, per attention
     # layer; the remat recompute and the SSD scan are not counted
@@ -5165,7 +5232,9 @@ def _memorised_not_leaked(cfg, run, params, batch, data, tag):
     router (whose capacity cut couples tokens), the tokens after position
     CAUSAL_T are replaced, and the final hidden states at positions <=
     CAUSAL_T (in the middle of a 128-row SSD chunk) must stay bit-equal
-    while those after it change."""
+    while those after it change.  The audio encoder is bidirectional: its
+    frames are random and its labels uniform, and only the first check
+    applies."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import Ctx
@@ -5182,7 +5251,7 @@ def _memorised_not_leaked(cfg, run, params, batch, data, tag):
         line = (f"[{tag}] after the steps: cross-entropy {seen_ce:.4f} on "
                 f"the trained batch, {fresh_ce:.4f} on a fresh one (ln "
                 f"vocab {out['ln_vocab']:.4f})")
-        if not cfg.n_experts:
+        if not cfg.n_experts and cfg.causal:
             alt = batch["tokens"].clone()
             alt[:, t + 1:] = fresh["tokens"][:, t + 1:]
             h = lm.forward(ctx, cfg, params, {"tokens": batch["tokens"]})[0]
@@ -5210,20 +5279,24 @@ def _memorised_not_leaked(cfg, run, params, batch, data, tag):
     return out
 
 
-def train_parity(tfa, arch=ARCH, tag="train:parity"):
-    """Phase 6: one train step of ``arch`` at full width and 2 layers in
-    f32 from the same seeded weights and batch, on the card (kernels) and
-    on the CPU (plain versions): loss, grad norm and the parameter update
-    agree, and the card launched exactly ``_train_launches`` (llama as
-    ``[train:parity]``, then olmoe and mamba2)."""
+def train_parity(tfa, arch=ARCH, tag="train:parity", reduce=False):
+    """Phase 6: one train step of ``arch`` at full width and 2 layers (or
+    its reduced config with ``reduce``) in f32 from the same seeded
+    weights and batch (``_train_batch``: hubert's frames; qwen2-vl's
+    vision rows and grid positions), on the card (kernels) and on the CPU
+    (plain versions): loss, grad norm and the parameter update agree, and
+    the card launched exactly ``_train_launches`` (llama as
+    ``[train:parity]``, then olmoe, mamba2, gemma2, hubert and reduced
+    qwen2-vl)."""
     import torch
+    from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_model_config, get_run_config
-    from repro_torch.data.pipeline import DataConfig, TokenSource
     from repro_torch.models.layers import Ctx
     from repro_torch.train.step import init_state, make_train_step
     from repro_torch.tree import leaves, tree_map
 
-    cfg = dataclasses.replace(get_model_config(arch), n_layers=2)
+    cfg = (reduced(get_model_config(arch)) if reduce
+           else dataclasses.replace(get_model_config(arch), n_layers=2))
     run = get_run_config(arch, remat="full", compute_dtype="float32",
                          logits_chunk=256, warmup_steps=0, total_steps=1)
     cpu = init_state(cfg, run, torch.Generator().manual_seed(2), "cpu").tree()
@@ -5231,8 +5304,7 @@ def train_parity(tfa, arch=ARCH, tag="train:parity"):
     card = {"params": tree_map(lambda t: t.cuda(), cpu["params"]),
             "opt_state": tree_map(lambda t: t.cuda(), cpu["opt_state"]),
             "step": cpu["step"].clone()}
-    host = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=1,
-                                  seq_len=256, seed=3)).batch(0)
+    host = _train_batch(cfg, 1, 256, 3)
     tfa.reset_launch_counts()
     card, m_card = make_train_step(cfg, run, Ctx(run, "cuda"))(
         card, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
@@ -5250,8 +5322,11 @@ def train_parity(tfa, arch=ARCH, tag="train:parity"):
         u2 += float(u_cpu.double().square().sum())
     err["update"] = math.sqrt(du2 / u2)
     ran = {k: n for k, n in launches.items() if n}
-    print(f"[{tag}] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 "
-          f"layers, f32, one AdamW step on 1 x 256 tokens: card (kernels, "
+    print(f"[{tag}] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, "
+          f"{cfg.n_layers} layers, f32, one AdamW step on 1 x 256 "
+          f"{'frames' if cfg.family == 'audio' else 'tokens'}"
+          + (f" ({cfg.vision_tokens} of them vision rows at grid positions)"
+             if cfg.family == "vlm" else "") + ": card (kernels, "
           f"launches {ran}) vs CPU (plain): loss "
           f"{float(m_card['loss']):.6f} vs {float(m_cpu['loss']):.6f}, "
           f"grad_norm {float(m_card['grad_norm']):.6f} vs "
@@ -5854,6 +5929,465 @@ def train_dots_parity(tfa):
 
 
 # ---------------------------------------------------------------------------
+# hubert-xlarge and qwen2-vl-72b: the cache-free attention at head_dim 80
+# and the decode kernels at a GQA group of 8 (phase 2), qwen2-vl's serving
+# arm and vision prefill (phase 3k), hubert's encode (3l), their parity
+# (phase 4) and training (phases 5 and 6)
+# ---------------------------------------------------------------------------
+
+HUBERT_ARCH, QWEN2VL_ARCH = "hubert-xlarge", "qwen2-vl-72b"
+#: hubert-xlarge's attention: H, K, D (bidirectional)
+HUBERT_HEADS = (16, 16, 80)
+#: [encode:hubert]'s batch of frames of 512, and [train:hubert]'s: 4 x
+#: 1024 frames, the other training arms' 4096 a step
+HUBERT_ENCODE, HUBERT_TRAIN = (8, 1024), (4, 1024)
+#: hubert's attention checks, as FA_CHECK_CASES: its training shape, an
+#: odd pair of lengths (1000 queries over 300 keys), one causal case and a
+#: small one
+HUBERT_FA_CASES = [((4, 16, 16, 80), 1024, 1024, False, None, None),
+                   ((2, 16, 16, 80), 1000, 300, False, None, None),
+                   ((2, 16, 16, 80), 1024, 1024, True, None, None),
+                   ((1, 2, 2, 80), 130, 77, False, None, None)]
+#: the columns a D = 80 kernel would misread if it took its 160-byte rows
+#: as whole 128-byte swizzle boxes: the planted fault zeroes them
+D80_FAULT_COLS = slice(64, 80)
+#: [encode:hubert]: encodes repeat over at least this many seconds of the
+#: energy counter
+ENCODE_WINDOW_S = 2.0
+#: the layers of qwen2-vl-72b the card serves, of its 80: 20.04 B params,
+#: 40.1 GB in bf16 (the full depth's 145 GB waits for ROADMAP queue 1 item
+#: 14)
+QWEN2VL_LAYERS = 20
+#: [prefill:qwen2vl-vision]: a VISION_GRID x VISION_GRID grid of seeded
+#: patch embeddings at positions (0, i, j), then text at VISION_GRID + k in
+#: all three sections: VISION_S rows at batch 1, timed VISION_RUNS times
+VISION_GRID, VISION_S, VISION_RUNS = 32, 2048, 5
+#: M-RoPE must act: the vision prefill's logits with 1-D positions
+#: broadcast to the three sections differ from the grid's by more than this
+MROPE_ACTS = 1e-3
+
+
+class FrameSource:
+    """``batch(step)`` -> seeded audio frames (B, S, F) float32 and labels
+    (B, S) int32 uniform over the vocab: the audio encoder's counterpart
+    of ``TokenSource`` (its frontend is a stub, as in the reference)."""
+
+    def __init__(self, B, S, F, vocab, seed=0):
+        self.shape, self.vocab, self.seed = (B, S, F), vocab, seed
+
+    def batch(self, step):
+        B, S, F = self.shape
+        rng = np.random.default_rng([self.seed, step])
+        return {"frames": rng.standard_normal((B, S, F), dtype=np.float32),
+                "labels": rng.integers(0, self.vocab, (B, S),
+                                       dtype=np.int32)}
+
+
+def grid_positions(batch, n_vision, grid_w, seq):
+    """(3, batch, seq) int32 M-RoPE positions: ``n_vision`` patch rows of
+    a grid ``grid_w`` wide at (t 0, h r // grid_w, w r % grid_w), then
+    text at the grid's largest position + 1 + k in all three sections."""
+    pos = np.zeros((3, seq), np.int32)
+    r = np.arange(n_vision)
+    pos[1, :n_vision], pos[2, :n_vision] = r // grid_w, r % grid_w
+    start = int(pos[:, :n_vision].max()) + 1 if n_vision else 0
+    pos[:, n_vision:] = start + np.arange(seq - n_vision)
+    return np.broadcast_to(pos[:, None], (3, batch, seq)).copy()
+
+
+def _train_batch(cfg, B, S, seed):
+    """One seeded host batch of ``cfg``'s family: frames and labels for
+    the audio encoder; else ``TokenSource``'s tokens and labels, and for a
+    vlm also ``vision_embeds`` (its ``vision_tokens`` rows, at most S / 2)
+    at grid positions."""
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    if cfg.family == "audio":
+        return FrameSource(B, S, cfg.frontend_dim, cfg.vocab, seed).batch(0)
+    out = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=B,
+                                 seq_len=S, seed=seed)).batch(0)
+    if cfg.family == "vlm":
+        nv = min(cfg.vision_tokens, S // 2)
+        out["vision_embeds"] = np.random.default_rng(seed).standard_normal(
+            (B, nv, cfg.d_model), dtype=np.float32)
+        out["positions"] = grid_positions(B, nv, max(1, math.isqrt(nv)), S)
+    return out
+
+
+def _mrope_cos_sin(index, Sn):
+    """qwen2-vl's M-RoPE cos/sin (its config's ``rope_cos_sin``) of rows
+    index[b] + j on the vision prefill's layout (rows below VISION_GRID^2
+    on the patch grid, later rows text), on the card."""
+    import torch
+    from repro_torch.configs.registry import get_model_config
+    from repro_torch.models.layers import rope_cos_sin
+    rows = np.clip(np.asarray(index), 0, None)[:, None] + np.arange(Sn)
+    nv = VISION_GRID ** 2
+    grid = grid_positions(1, nv, VISION_GRID,
+                          max(int(rows.max()) + 1, nv + 1))[:, 0]
+    pos = torch.from_numpy(np.ascontiguousarray(grid[:, rows])).cuda()
+    return rope_cos_sin(get_model_config(QWEN2VL_ARCH), pos)
+
+
+def check_d80_faults(tfa, ref):
+    """The D = 80 checks must flag what the hazard of 160-byte rows would
+    do: the kernels' out, dq, dk and dv with columns 64-79 zeroed (a
+    second swizzle box read from the wrong place), at hubert's training
+    shape in bf16, against the plain versions of the intact inputs.
+    Raises if a check passes one; reports the share of entries flagged,
+    over the tensor and over those columns, and none flagged elsewhere."""
+    import torch
+    (B, S), (H, K, D) = HUBERT_TRAIN, HUBERT_HEADS
+    q, k, v, do = _attention_case(B, S, S, H, K, D, torch.bfloat16, 800)
+    kw = dict(causal=False)
+    out, _ = tfa.flash_attention(q, k, v, **kw)
+    want_out, want_lse = ref.attention_naive(q, k, v, return_lse=True, **kw)
+    grads = tfa.flash_attention_bwd(q, k, v, want_out, want_lse, do, **kw)
+    want = ref.attention_bwd_ref(q, k, v, want_out, want_lse, do, **kw)
+    faults = {}
+    for n, got, w in (("out", out, want_out),
+                      *zip(("dq", "dk", "dv"), grads, want)):
+        bad = got.clone()
+        bad[..., D80_FAULT_COLS] = 0
+        ratio = _entry_ratio("bfloat16", bad, w)
+        faults[n] = {
+            "flagged_share": (ratio > 1).float().mean().item(),
+            "flagged_share_of_cols": (ratio[..., D80_FAULT_COLS] > 1)
+            .float().mean().item(),
+            "flagged_elsewhere": bool((ratio[..., :D80_FAULT_COLS.start]
+                                       > 1).any())}
+        if not (ratio > 1).any() or faults[n]["flagged_elsewhere"]:
+            raise AssertionError(f"flash_attention D=80: the {n} check "
+                                 f"misjudges columns 64-79 zeroed: "
+                                 f"{faults[n]}")
+    print(f"[check] flash_attention planted faults D=80 B={B} S={S} H={H} "
+          f"K={K} bidirectional bf16 (columns 64-79 of each output zeroed):"
+          " share of entries beyond their limit, of those columns: "
+          + ", ".join(f"{n} {f['flagged_share']:.4f}, "
+                      f"{f['flagged_share_of_cols']:.4f}"
+                      for n, f in faults.items())
+          + "; none flagged in columns 0-63", flush=True)
+    return faults
+
+
+def check_qwen2vl_decode(tfa, ref):
+    """``flash_decode`` at qwen2-vl's heads (QWEN2VL_HEADS: 8 query rows a
+    kv head at a decode step, the chunk path) against the plain version
+    entry by entry: a decode step (B 8, ragged, a done lane), a 256-row
+    chunk over 768 rows and the vision prefill's 2048 rows (B 1), bf16
+    and f32; and ``cache_update`` with M-RoPE's cos/sin of a 3-D grid
+    (``_mrope_cos_sin``) bit for bit against the plain composition at the
+    same three row counts, bf16 and f32.  Returns both lists of checks."""
+    import torch
+    H, K, D = QWEN2VL_HEADS
+    S = VISION_S
+    rng = np.random.default_rng(29)
+    lens = rng.integers(1, S + 1, 8)
+    lens[-1] = S + 1                               # a done lane
+    cases = [(8, 1, lens.tolist()), (1, 256, [768]), (1, S, [S])]
+    checks, cache_checks = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for B, Sq, kv_len in cases:
+            q, k, v, kl = _decode_case(B, S, H, K, D, Sq, dtype, kv_len,
+                                       2900 + len(checks))
+            got = tfa.flash_decode(q, k, v, kl)
+            want = ref.decode_attention_ref(q, k, v, kl)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError("flash_decode: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            ratio = _entry_ratio(name, got, want).max().item()
+            tol = DECODE_TOL[name]
+            checks.append({"dtype": name, "B": B, "S": S, "H": H, "K": K,
+                           "D": D, "Sq": Sq, "max_abs_err": err, "tol": tol,
+                           "worst_over_limit": ratio})
+            print(f"[check] flash_decode qwen2vl {name} B={B} S={S} H={H} "
+                  f"K={K} D={D} Sq={Sq}: max|err| {err:.3e} (tol {tol}), "
+                  f"worst entry / its limit {ratio:.3f}", flush=True)
+            if not (err <= tol and ratio <= 1.0):
+                raise AssertionError(f"flash_decode at qwen2-vl's heads "
+                                     f"disagrees: {err}, {ratio}")
+            del q, k, v, got, want
+            seed = 3000 + len(cache_checks)
+            kc, vc, index, _, _ = _rope_cache(False, B, S, K, D, dtype, Sq,
+                                              seed)
+            q, kn, vn, _, _ = _rope_case(B, Sq, H, K, D, dtype, 1.0, index,
+                                         seed)
+            c, s = _mrope_cos_sin(index, Sq)
+            idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+            got, want = _rope_both(tfa, ref, False, kc, vc, idx, None, q, kn,
+                                   vn, c, s, 1.0)
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            cache_checks.append({"model": "qwen2vl", "dtype": name, "B": B,
+                                 "Sn": Sq, "index": index,
+                                 "cos_sin": "M-RoPE of a 3-D grid",
+                                 "max_abs_diff": _max_diff(got, want),
+                                 "bit_exact": exact})
+            print(f"[check] cache_update rope qwen2vl {cache_checks[-1]}",
+                  flush=True)
+            if not exact:
+                raise AssertionError("cache_update with M-RoPE cos/sin is "
+                                     "not bit for bit the plain composition")
+    return checks, cache_checks
+
+
+def encode_hubert(tfa):
+    """[encode:hubert], phase 3l: hubert-xlarge at full width and depth
+    (48 layers, 1.03 B params, seeded, bf16) encoding HUBERT_ENCODE seeded
+    frames of 512 through ``make_prefill_step`` (no cache: the last
+    frame's logits): one encode launches ``flash_attention`` exactly once
+    a layer and no other kernel, its logits are finite, and ms and J per
+    encode are read over at least ENCODE_WINDOW_S of the energy counter,
+    each encode ended by a synchronise."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import param_count
+    from repro_torch.serving.engine import make_prefill_step
+
+    cfg = get_model_config(HUBERT_ARCH)
+    run = get_run_config(HUBERT_ARCH, remat="none")      # bf16 compute
+    B, S = HUBERT_ENCODE
+    _release_card()
+    t0 = time.perf_counter()
+    params = _card_weights(cfg, run)
+    torch.cuda.synchronize()
+    n_params = param_count(lm.model_decls(cfg))
+    print(f"[encode] {cfg.name}: {cfg.n_layers} layers d{cfg.d_model} "
+          f"head_dim {cfg.head_dim}, {n_params / 1e9:.3f} B params, weights "
+          f"ready in {time.perf_counter() - t0:.1f}s", flush=True)
+    prefill = make_prefill_step(cfg, run, Ctx(run, "cuda"), S)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"frames": torch.randn((B, S, cfg.frontend_dim), generator=g,
+                                   device="cuda")}
+    with torch.no_grad():
+        cache, logits = prefill(params, batch)       # first-call costs
+        torch.cuda.synchronize()
+        if cache is not None \
+                or tuple(logits.shape) != (B, 1, cfg.vocab_padded) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"[encode:hubert] encode gave cache "
+                                 f"{cache}, logits {tuple(logits.shape)}")
+        tfa.reset_launch_counts()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        one = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+        want = {k: cfg.n_layers if k == "flash_attention" else 0
+                for k in one}
+        if one != want:
+            raise AssertionError(f"[encode:hubert] launches {one}, "
+                                 f"expected {want}")
+        tfa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        n, e0, t0 = 0, METER.energy_mj(), time.perf_counter()
+        while time.perf_counter() - t0 < ENCODE_WINDOW_S:
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            n += 1
+        wall = time.perf_counter() - t0
+        joules = (METER.energy_mj() - e0) / 1e3
+    _check_draw("[encode:hubert]", joules, wall)
+    if tfa.flash_attention.launches != n * cfg.n_layers:
+        raise AssertionError(f"[encode:hubert] {tfa.flash_attention.launches}"
+                             f" launches over {n} encodes")
+    H, D = cfg.n_heads, cfg.head_dim
+    ops = (2.0 * _active_params(cfg, n_params) * B * S
+           + 4.0 * D * B * H * S * S * cfg.n_layers)
+    ms = wall / n * 1e3
+    stats = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+             "batch": B, "frames": S, "encodes": n, "window_s": wall,
+             "ms_per_encode": ms, "j_per_encode": joules / n,
+             "frames_per_s": B * S / (wall / n),
+             "model_ops_per_encode": ops,
+             "bf16_peak_share": ops / (ms / 1e3 * BF16_OPS_PER_S),
+             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches_per_encode": one}
+    print(f"[encode:hubert] {cfg.name} {cfg.n_layers} layers, {B} x {S} "
+          f"frames of {cfg.frontend_dim}, bf16: {n} encodes over "
+          f"{wall:.2f} s: {ms:.2f} ms and {joules / n:.2f} J per encode, "
+          f"{stats['frames_per_s']:.0f} frames/s, "
+          f"{100 * stats['bf16_peak_share']:.1f}% of the bf16 peak "
+          f"({ops:.3e} model operations an encode), peak allocated "
+          f"{stats['peak_allocated_gb']:.2f} GB; launches per encode {one}",
+          flush=True)
+    del params
+    _release_card()
+    return one, stats
+
+
+def vision_prefill(tfa, cfg, run, params):
+    """[prefill:qwen2vl-vision]: ``make_prefill_step`` at batch 1 over
+    VISION_S rows whose first VISION_GRID^2 are seeded 8192-wide
+    ``vision_embeds`` at grid positions (0, i, j) and the rest text at
+    VISION_GRID + k (``grid_positions``): ms per prefill over VISION_RUNS
+    runs, each ended by a synchronise, exactly one ``flash_decode`` (the
+    chunk path, Sq = 2048) and one ``cache_update`` (M-RoPE's cos/sin
+    folded in) a layer; and M-RoPE acts: the same batch with 1-D
+    positions broadcast to the three sections gives last logits more than
+    MROPE_ACTS apart."""
+    import torch
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import make_prefill_step
+    ctx = Ctx(run, "cuda")
+    nv = VISION_GRID ** 2
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, VISION_S),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32),
+             "vision_embeds": torch.randn((1, nv, cfg.d_model), generator=g,
+                                          device="cuda").to(ctx.cdtype),
+             "positions": torch.from_numpy(grid_positions(
+                 1, nv, VISION_GRID, VISION_S)).cuda()}
+    flat = dict(batch, positions=torch.arange(
+        VISION_S, dtype=torch.int32, device="cuda")[None, None]
+        .expand(3, 1, VISION_S))
+    prefill = make_prefill_step(cfg, run, ctx, VISION_S)
+    with torch.no_grad():
+        prefill(params, batch)                       # first-call costs
+        torch.cuda.synchronize()
+        tfa.reset_launch_counts()
+        secs = []
+        for _ in range(VISION_RUNS):
+            t0 = time.perf_counter()
+            cache, logits = prefill(params, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            del cache
+        launches = {fn.__name__: fn.launches for fn in tfa.KERNELS}
+        _, flat_logits = prefill(params, flat)
+    diff = (logits.float() - flat_logits.float()).abs().max().item()
+    want = {k: cfg.n_layers * VISION_RUNS
+            if k in ("flash_decode", "cache_update") else 0 for k in launches}
+    stats = {"rows": VISION_S, "vision_rows": nv, "runs": VISION_RUNS,
+             "ms": [t * 1e3 for t in secs],
+             "median_ms": float(np.median(secs)) * 1e3,
+             "mrope_vs_1d_max_abs_diff": diff, "launches": launches}
+    print(f"[prefill:qwen2vl-vision] {cfg.name} {cfg.n_layers} layers, batch "
+          f"1 x {VISION_S} rows ({nv} vision rows on a {VISION_GRID} x "
+          f"{VISION_GRID} grid, then text): {stats['median_ms']:.2f} ms per "
+          f"prefill (median of {VISION_RUNS}: "
+          + ", ".join(f"{t:.2f}" for t in stats["ms"])
+          + f"); last logits with 1-D positions differ by {diff:.4g} (must "
+          f"exceed {MROPE_ACTS}); launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"[prefill:qwen2vl-vision] launches {launches},"
+                             f" expected {want}")
+    if not torch.isfinite(logits).all() or not diff > MROPE_ACTS:
+        raise AssertionError(f"[prefill:qwen2vl-vision] logits finite "
+                             f"{bool(torch.isfinite(logits).all())}, M-RoPE "
+                             f"moved them by {diff}")
+    return stats
+
+
+def serve_qwen2vl(tfa):
+    """Phase 3k: qwen2-vl-72b at full width and QWEN2VL_LAYERS of its 80
+    layers (seeded, bf16): ``[serve:qwen2vl-dense]``, ``serve_full_width``'s
+    dense arm (batch 8, max_seq 2048, graphed, the 16 requests: text, at
+    the default positions, M-RoPE's three equal rows), with ms per decode
+    step and per 256 prompt rows; then ``vision_prefill`` on its weights."""
+    launches, stats, shared = serve_full_width(tfa, QWEN2VL_ARCH, "qwen2vl-",
+                                               QWEN2VL_LAYERS)
+    cfg = shared[0]
+    stats["ms_per_decode_step"] = stats["decode_s"] / stats["decode_steps"] \
+        * 1e3
+    stats["ms_per_256_prompt_rows"] = (stats["prefill_s"] * 1e3 * 256
+                                       / stats["prompt_tokens"])
+    print(f"[serve:qwen2vl-dense] {cfg.name} at {cfg.n_layers} of 80 layers: "
+          f"{stats['tok_per_s']:.1f} tok/s, "
+          + (f"{stats['j_per_token']:.4f} J per generated token, "
+             if stats["j_per_token"] is not None else "")
+          + f"{stats['ms_per_decode_step']:.2f} ms per decode step, "
+          f"{stats['ms_per_256_prompt_rows']:.2f} ms per 256 prompt rows",
+          flush=True)
+    stats["vision"] = vision_prefill(tfa, *shared[:3])
+    del shared
+    _release_card()
+    return launches, stats
+
+
+def item12_parity(arch, tag):
+    """[parity:hubert] and [parity:qwen2vl]: the model at full width and 2
+    layers, card bf16 (kernels) against CPU f32 (plain) from the same
+    seeded f32 weights (drawn on the card, copied to the host): hubert's
+    logits of every frame of two 300-frame encodes; qwen2-vl's last-row
+    logits of ``make_prefill_step`` on a 300-row prompt whose first 64
+    rows are vision embeddings at grid positions, and of one
+    ``make_decode_step`` after it (its M-RoPE positions the index, as the
+    reference's), both against one CPU forward over the 301 rows; within
+    PARITY_TOL."""
+    import torch
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import make_decode_step, make_prefill_step
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_model_config(arch), n_layers=2)
+    run = get_run_config(arch, remat="none")
+    ctx = Ctx(run, "cuda")
+    cpu_ctx = Ctx(run.replace(compute_dtype="float32"), "cpu")
+    master = init_params(lm.model_decls(cfg),
+                         torch.Generator(device="cuda").manual_seed(1), "cuda")
+    params = tree_map(lambda t: t.cpu(), master)
+    card = lm.prepare_params(ctx, master)
+    del master
+    _release_card()
+    rng = np.random.default_rng(1)
+    S = 300
+    tfa.reset_launch_counts()
+    with torch.no_grad():
+        if cfg.family == "audio":
+            frames = torch.from_numpy(rng.standard_normal(
+                (2, S, cfg.frontend_dim), dtype=np.float32))
+            h = lm.forward(ctx, cfg, card, {"frames": frames.cuda()})[0]
+            got = lm.logits_for(ctx, cfg, card, h).float().cpu()
+            hc = lm.forward(cpu_ctx, cfg, params, {"frames": frames})[0]
+            want = lm.logits_for(cpu_ctx, cfg, params, hc)
+            worst = (got - want)[..., :cfg.vocab].abs().max().item()
+            what = "every frame's logits of two 300-frame encodes"
+        else:
+            nv = 64
+            host = {"tokens": rng.integers(0, cfg.vocab, (1, S),
+                                           dtype=np.int32),
+                    "vision_embeds": rng.standard_normal(
+                        (1, nv, cfg.d_model), dtype=np.float32),
+                    "positions": grid_positions(1, nv, 8, S)}
+            cache, first = make_prefill_step(cfg, run, ctx, 512)(
+                card, {k: torch.from_numpy(v).cuda() for k, v in host.items()})
+            nxt = int(first[0, -1].argmax())
+            _, dec = make_decode_step(cfg, run, ctx)(
+                card, cache, torch.tensor([[nxt]], dtype=torch.int32,
+                                          device="cuda"), S)
+            # one CPU forward over the 301 rows: row S at position S in all
+            # three sections, as the decode step put it
+            full = {"tokens": np.concatenate([host["tokens"], [[nxt]]], 1),
+                    "vision_embeds": host["vision_embeds"],
+                    "positions": np.concatenate(
+                        [host["positions"], np.full((3, 1, 1), S, np.int32)],
+                        2)}
+            hc = lm.forward(cpu_ctx, cfg, params,
+                            {k: torch.from_numpy(v) for k, v in full.items()})[0]
+            want = lm.logits_for(cpu_ctx, cfg, params, hc[:, -2:])[0]
+            worst = max((first[0, -1].float().cpu() - want[0]).abs().max().item(),
+                        (dec[0].float().cpu() - want[1]).abs().max().item())
+            what = (f"the last-row logits of a {S}-row prefill ({nv} vision "
+                    "rows at grid positions) and of one decode step")
+    launches = {k: fn.launches for k, fn in
+                ((fn.__name__, fn) for fn in tfa.KERNELS) if fn.launches}
+    print(f"[{tag}] {cfg.name} d{cfg.d_model} vocab {cfg.vocab}, 2 layers: "
+          f"card bf16 (kernels, launches {launches}) vs CPU f32 (plain), "
+          f"{what}: max|diff| {worst:.4f} (tol {PARITY_TOL})", flush=True)
+    if not worst <= PARITY_TOL:
+        raise AssertionError(f"[{tag}] logits parity {worst} > {PARITY_TOL}")
+    del card, params
+    _release_card()
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 7: LSMS, the paper's own workload (models/lsms.py)
 # ---------------------------------------------------------------------------
 
@@ -6337,6 +6871,26 @@ def _smoke(card) -> int:
     g2_fa_times = time_flash_attention(tfa, ref, G2_HEADS, G2_CAP)
     times["flash_attention training D=256"] = g2_fa_times["fwd"]
     times["flash_attention_bwd training D=256"] = g2_fa_times["bwd"]
+    # hubert-xlarge's head_dim 80, bidirectional
+    hub_fa_checks = check_flash_attention(tfa, ref, HUBERT_FA_CASES)
+    hub_fa_faults = check_d80_faults(tfa, ref)
+    hub_fa_times = time_flash_attention(tfa, ref, HUBERT_HEADS,
+                                        B=HUBERT_TRAIN[0], S=HUBERT_TRAIN[1],
+                                        causal=False)
+    times["flash_attention training D=80"] = hub_fa_times["fwd"]
+    times["flash_attention_bwd training D=80"] = hub_fa_times["bwd"]
+    # qwen2-vl-72b's heads (a GQA group of 8) with M-RoPE's cos/sin: a
+    # decode step, a 256-row chunk and the vision prefill's 2048 rows
+    qwen_decode_checks, qwen_cache_checks = check_qwen2vl_decode(tfa, ref)
+    Hq, Kq, Dq = QWEN2VL_HEADS
+    for step, B, Sq, lens, index in (
+            ("decode", 8, 1, decode_lens, decode_index),
+            ("prefill", 1, 256, [768], [512]),
+            ("vision", 1, VISION_S, [VISION_S], [0])):
+        times[f"flash_decode {step} qwen2vl"] = time_flash_decode(
+            tfa, ref, B, Sq, lens, H=Hq, K=Kq, D=Dq)
+        times[f"cache_update rope {step} qwen2vl"] = time_rope_cache_update(
+            tfa, ref, False, "qwen2vl", B, Sq, index)
     # nemotron-4-15b's heads: a GQA group of 6, half rotary
     H6, K6, _ = NEMOTRON_HEADS
     times["flash_decode decode g=6"] = time_flash_decode(
@@ -6462,6 +7016,10 @@ def _smoke(card) -> int:
         _release_card()
     # 3j: full-width gemma2-2b at max_seq 8192, dense and paged
     g2_launches, g2_serving = serve_gemma2(tfa)
+    # 3k: qwen2-vl-72b at 20 of its 80 layers and its vision prefill; 3l:
+    # hubert-xlarge's encode
+    qwen_launches, qwen_serving = serve_qwen2vl(tfa)
+    hub_encode_launches, hub_encode = encode_hubert(tfa)
     # the profiles come after every serving arm: launches slow down once
     # the profiler has run; each model's seeded weights are made again
     for model, into, name, groups, kw in (
@@ -6485,6 +7043,10 @@ def _smoke(card) -> int:
     time_ssd_bwd_passes(tssd, times)
     parity = logits_parity()
     g2_serving["parity_max_abs_diff"] = gemma2_parity()
+    qwen_serving["parity_max_abs_diff"] = item12_parity(QWEN2VL_ARCH,
+                                                        "parity:qwen2vl")
+    hub_encode["parity_max_abs_diff"] = item12_parity(HUBERT_ARCH,
+                                                      "parity:hubert")
     moe_parity = olmoe_parity()
     mamba_parity = {SSM_ARCH: ssm_parity(SSM_ARCH, 2),
                     HYBRID_ARCH: ssm_parity(HYBRID_ARCH, 7)}
@@ -6502,6 +7064,15 @@ def _smoke(card) -> int:
                                           profile=False)[1]
     training["gemma2"]["parity_rel_err"] = train_parity(
         tfa, GEMMA2_ARCH, "train:parity-gemma2")
+    # hubert-xlarge at full width and depth (4 x 1024 frames), then one f32
+    # step of it at 2 layers and of reduced qwen2-vl against the CPU
+    training["hubert"] = train_full_width(tfa, HUBERT_ARCH, tag="train:hubert",
+                                          profile=False,
+                                          shape=HUBERT_TRAIN)[1]
+    training["hubert"]["parity_rel_err"] = train_parity(
+        tfa, HUBERT_ARCH, "train:parity-hubert")
+    training["qwen2vl_parity_rel_err"] = train_parity(
+        tfa, QWEN2VL_ARCH, "train:parity-qwen2vl", reduce=True)
     training["dots"] = train_dots(tfa)
     ratio = {k: training["dots"][k] / training[k]
              for k in ("median_step_s_after_first",
@@ -6575,6 +7146,15 @@ def _smoke(card) -> int:
                     launches_static=serving["static"]["launches"][name],
                     **extra)
 
+    def qwen2vl(name, checks):
+        # qwen2-vl-72b (H = 64, K = 8: a group of 8), dense, 20 layers
+        return {"launches": qwen_launches[name],
+                "launches_arm": "qwen2vl-dense",
+                "launches_vision": qwen_serving["vision"]["launches"][name],
+                **{k.split()[-2]: times[k] for k in times
+                   if k.startswith(name + " ") and k.endswith("qwen2vl")},
+                "checks": checks}
+
     csrc = "src/repro_torch/kernels/csrc/"
     fa = "src/repro/kernels/flash_attention.py"
     kernels = [
@@ -6583,7 +7163,8 @@ def _smoke(card) -> int:
             DECODE_TOL["bfloat16"], times["flash_decode decode"],
             times["flash_decode prefill"], fd_checks, "dense",
             worst_over_limit=max(c["worst_over_limit"] for c in fd_checks),
-            planted_fault=fd_faults, bf16_shortcut=fd_shortcut),
+            planted_fault=fd_faults, bf16_shortcut=fd_shortcut,
+            qwen2vl_g8=qwen2vl("flash_decode", qwen_decode_checks)),
         row("cache_update", csrc + "cache_update.cu", fa + ":394",
             dense_launches["cache_update"],
             max(c["max_abs_diff"] for c in cu_rope_checks), 0.0,
@@ -6591,7 +7172,8 @@ def _smoke(card) -> int:
             times["cache_update rope prefill"], cu_rope_checks, "dense",
             scatter_only={"decode": times["cache_update decode"],
                           "checks": cu_checks},
-            planted_fault=rope_faults),
+            planted_fault=rope_faults,
+            qwen2vl_g8=qwen2vl("cache_update", qwen_cache_checks)),
         row("flash_decode_paged", csrc + "decode_attention_paged.cu",
             fa + ":318", paged_launches["flash_decode_paged"],
             bf16_err(fdp_checks), DECODE_TOL["bfloat16"],
@@ -6614,6 +7196,18 @@ def _smoke(card) -> int:
     train_src = "src/repro/kernels/ref.py"
 
     def train_row(name, source, replaces, t, checks, **extra):
+        extra["hubert_d80"] = {
+            "launches": training["hubert"]["launches"][name],
+            "launches_arm": "train:hubert",
+            "launches_encode": hub_encode_launches[name],
+            **times[name + " training D=80"],
+            "checks": [dict(c, max_abs_err={
+                n: c["max_abs_err"][n] for n in (
+                    ("out", "lse") if name == "flash_attention"
+                    else ("dq", "dk", "dv"))}) for c in hub_fa_checks],
+            "planted_fault": {n: hub_fa_faults[n] for n in (
+                ("out",) if name == "flash_attention" else ("dq", "dk",
+                                                            "dv"))}}
         extra["gemma2_d256"] = {
             "launches": training["gemma2"]["launches"][name],
             "launches_arm": "train:gemma2",
@@ -6743,6 +7337,8 @@ def _smoke(card) -> int:
                       "zamba2_serving": hyb_serving,
                       "nemotron_serving": nemo_serving,
                       "gemma2_serving": g2_serving,
+                      "qwen2vl_serving": qwen_serving,
+                      "hubert_encode": hub_encode,
                       "training": training,
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,
@@ -6755,7 +7351,7 @@ def _smoke(card) -> int:
                              f"{smi!r} at the start, {smi_end!r} at the end")
     print(smi_end)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

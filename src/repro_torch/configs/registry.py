@@ -1,48 +1,40 @@
 """Architecture registry of the port: ``--arch <id>`` -> (ModelConfig, RunConfig).
 
-Only the architectures whose layers and kernels are ported are listed.
-Every other id of the JAX package's registry raises, naming the ROADMAP
-item that ports it.  ``phi3.5-moe-42b-a6.6b`` is listed and runs at
-reduced size; at full width its 41.87 B parameters (83.7 GB in bf16) do
-not fit one 80 GB card and wait for the distributed slice (ROADMAP queue
-1 item 14).
+Every architecture of the JAX package's registry is listed, in its
+order, so ``ARCH_IDS`` equals the reference's.  Two do not
+fit one 80 GB card whole and wait for the distributed slice (ROADMAP
+queue 1 item 14): ``phi3.5-moe-42b-a6.6b`` (41.87 B parameters, 83.7 GB
+in bf16) runs at reduced size, and ``qwen2-vl-72b`` (72.7 B, 145 GB)
+serves on the card at 20 of its 80 layers.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import (gemma2_2b, llama32_3b, mamba2_370m,
-                                 minitron_4b, nemotron4_15b, olmoe, phi35_moe,
-                                 zamba2_1p2b)
+from repro_torch.configs import (gemma2_2b, hubert_xlarge, llama32_3b,
+                                 mamba2_370m, minitron_4b, nemotron4_15b,
+                                 olmoe, phi35_moe, qwen2_vl_72b, zamba2_1p2b)
 from repro_torch.configs.base import ModelConfig, RunConfig
 
-_MODULES = {
-    "llama3.2-3b": llama32_3b,
-    "olmoe-1b-7b": olmoe,
+_MODULES = {      # the reference's order
     "phi3.5-moe-42b-a6.6b": phi35_moe,
+    "olmoe-1b-7b": olmoe,
     "mamba2-370m": mamba2_370m,
     "zamba2-1.2b": zamba2_1p2b,
-    "nemotron-4-15b": nemotron4_15b,
     "minitron-4b": minitron_4b,
+    "llama3.2-3b": llama32_3b,
     "gemma2-2b": gemma2_2b,
-}
-
-#: Architectures of the JAX package not ported yet -> the ROADMAP item
-#: (queue 1, "Modules to port") that brings them.
-NOT_PORTED = {
-    "hubert-xlarge": "queue 1 item 12 (VLM and audio)",
-    "qwen2-vl-72b": "queue 1 item 12 (VLM and audio)",
+    "nemotron-4-15b": nemotron4_15b,
+    "hubert-xlarge": hubert_xlarge,
+    "qwen2-vl-72b": qwen2_vl_72b,
 }
 
 ARCH_IDS = list(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _MODULES:
-        return _MODULES[arch]
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP {NOT_PORTED[arch]}")
-    raise KeyError(f"unknown arch {arch!r}; ported: {ARCH_IDS}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; ported: {ARCH_IDS}")
+    return _MODULES[arch]
 
 
 def get_model_config(arch: str) -> ModelConfig:

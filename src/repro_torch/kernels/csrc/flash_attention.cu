@@ -46,10 +46,25 @@
 // a thread, and P V is one m64n256 wgmma per k-step (hopper.cuh).  The
 // smaller key tile halves each S product's width, not its total work.
 //
+// head_dim 80 (hubert-xlarge, bidirectional).  A bf16 row of 80 columns is
+// 160 bytes, not a whole number of the 128-byte swizzle's boxes, and the
+// descriptors' k-steps assume whole boxes.  Of the two layouts that are
+// right -- five 16-column boxes under the 32-byte swizzle, with new
+// descriptor code and an m64n80 P V; or the rows read as 128-wide tiles
+// -- the kernel takes the second: the tensor map is 80 columns wide, TMA
+// zero-fills columns 80-127 of each tile's second box, the D = 128 kernel
+// runs on them unchanged (zero columns add nothing to S; P V's columns
+// 80-127 come out zero) and only the 80 columns are stored.  It reuses
+// the descriptors and tiles every D = 128 check has held, with no new
+// swizzle mode whose misreading would pass silently, at 128/80 = 1.6x the
+// operations (S and P V both run 128 wide); the bound is reckoned at D =
+// 80, so the time shows that price.
+//
 // float32 (the checks and the f32 parity step): attn_fwd_kernel on the CUDA
 // cores (tiling in flash_attention.cuh), f32 products throughout; TF32
 // would not meet the f32 checks' 1e-5.  At D = 256 its three 64-row tiles
-// and the score tile take 216,320 B, within the 227 KB.
+// and the score tile take 216,320 B, within the 227 KB.  At D = 80 a thread
+// owns 5 output columns (D / 16), and a row 20 16-byte vectors.
 
 #include "flash_attention.cuh"
 #include "hopper.cuh"
@@ -180,6 +195,9 @@ cudaError_t launch_fwd_dim(const void* q, const void* k, const void* v, void* ou
     case 64:
       return launch_fwd<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
                                window, st);
+    case 80:    // hubert
+      return launch_fwd<T, 80>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
+                               window, st);
     case 128:
       return launch_fwd<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
                                 window, st);
@@ -212,7 +230,8 @@ constexpr size_t fwd_tc_smem() {
   return (size_t)(FW_BQ + 2 * FW_STAGES * fw_bk<D>()) * D * 2 + (1 + FW_STAGES) * 8 + 1024;
 }
 
-template <int D>
+// D the tile's columns, DG <= D the tensors' (hubert: 80 in 128-wide tiles)
+template <int D, int DG>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -364,9 +383,9 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     const int qp = row + 8 * i;
     if (qp >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    bf16* dst = out + (((size_t)b * Sq + qp) * H + h) * D + col;
+    bf16* dst = out + (((size_t)b * Sq + qp) * H + h) * DG + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DG / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     if (lane % 4 == 0)
@@ -374,16 +393,16 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
+template <int D, int DG = D>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
                           int B, int Sq, int Sk, int H, int K, int causal, float scale,
                           float softcap, int window, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  cudaError_t e = tile_map<D>(&qm, q, B, Sq, H, FW_BQ);
-  if (e == cudaSuccess) e = tile_map<D>(&km, k, B, Sk, K, fw_bk<D>());
-  if (e == cudaSuccess) e = tile_map<D>(&vm, v, B, Sk, K, fw_bk<D>());
+  cudaError_t e = tile_map<D>(&qm, q, B, Sq, H, FW_BQ, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&km, k, B, Sk, K, fw_bk<D>(), DG);
+  if (e == cudaSuccess) e = tile_map<D>(&vm, v, B, Sk, K, fw_bk<D>(), DG);
   if (e != cudaSuccess) return e;
-  auto kern = attn_fwd_tc_kernel<D>;
+  auto kern = attn_fwd_tc_kernel<D, DG>;
   static bool configured = false;
   e = allow_smem(kern, fwd_tc_smem<D>(), configured);
   if (e != cudaSuccess) return e;
@@ -404,6 +423,9 @@ cudaError_t launch_fwd_tc_dim(const void* q, const void* k, const void* v, void*
     case 64:
       return launch_fwd_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
                                window, st);
+    case 80:    // hubert: 128-wide tiles, 80 columns read and stored
+      return launch_fwd_tc<128, 80>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale,
+                                    softcap, window, st);
     case 128:
       return launch_fwd_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
                                 window, st);

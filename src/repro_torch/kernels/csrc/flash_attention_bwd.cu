@@ -68,11 +68,20 @@
 //     tile's load no longer runs under the previous tile's products.
 // D = 32, 64 and 128 compile to the kernels they were.
 //
+// head_dim 80 (hubert-xlarge).  As the forward (flash_attention.cu's note):
+// q, k, v and dO are read as 128-wide tiles whose columns 80-127 TMA
+// zero-fills, the D = 128 kernels run unchanged (the zero columns add
+// nothing to S or dP, and dQ's, dK's and dV's columns 80-127 come out
+// zero) and only 80 columns are stored.  Simpler than five 32-byte-swizzled
+// boxes and new descriptors, at 1.6x the operations of every product; the
+// bound is reckoned at D = 80.
+//
 // float32 (the checks and the f32 parity step): attn_bwd_dkdv_kernel and
 // attn_bwd_dq_kernel on the CUDA cores (tiling in flash_attention.cuh), with
 // the same structure and 64-row tiles, f32 products throughout.  At D = 256
 // their four staged tiles do not fit, and attn_bwd_{dkdv,dq}_restage_kernel
-// keep two, restaging them within a step.
+// keep two, restaging them within a step.  At D = 80 the four tiles fit
+// (119,296 B with the score tiles), a thread owning 5 columns.
 
 #include "flash_attention.cuh"
 #include "hopper.cuh"
@@ -526,6 +535,9 @@ cudaError_t launch_bwd_dim(const void* q, const void* k, const void* v, const vo
     case 64:
       return launch_bwd<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
                                causal, scale, softcap, window, st);
+    case 80:    // hubert
+      return launch_bwd<T, 80>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
+                               causal, scale, softcap, window, st);
     case 128:
       return launch_bwd<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
                                 causal, scale, softcap, window, st);
@@ -595,7 +607,8 @@ __device__ __forceinline__ void probs_grad(float& s, float& dp, float scale, flo
   dp = ds;
 }
 
-template <int D>
+// D the tiles' columns, DG <= D the tensors' (hubert: 80 in 128-wide tiles)
+template <int D, int DG>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
@@ -607,6 +620,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                         int window) {
   using bf16 = __nv_bfloat16;
   constexpr int KV_BK = Dkdv<D>::BK, DC = Dkdv<D>::DC;
+  static_assert(DG == D || !Dkdv<D>::SPLIT, "narrow tensors only in unsplit tiles");
+  constexpr int DCS = Dkdv<D>::SPLIT ? DC : DG;          // dK/dV columns stored
   extern __shared__ unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(align1024(smem_raw));
   bf16* vs = ks + KV_BK * D;
@@ -751,9 +766,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 2; ++i) {
     const int kp = row + 8 * i;
     if (kp >= Sk) continue;
-    const size_t at = (((size_t)b * Sk + kp) * K + kh) * D + c0 + col;
+    const size_t at = (((size_t)b * Sk + kp) * K + kh) * DG + c0 + col;
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
+    for (int j = 0; j < DCS / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
           __floats2bfloat162_rn(adk[4 * j + 2 * i] * scale, adk[4 * j + 2 * i + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
@@ -762,7 +777,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
+template <int D, int DG>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
@@ -894,15 +909,15 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < 2; ++i) {
     const int qp = row + 8 * i;
     if (qp >= Sq) continue;
-    bf16* dst = dq + (((size_t)b * Sq + qp) * H + h) * D + col;
+    bf16* dst = dq + (((size_t)b * Sq + qp) * H + h) * DG + col;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DG / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(adq[4 * j + 2 * i] * scale, adq[4 * j + 2 * i + 1] * scale);
   }
 }
 
-template <int D>
+template <int D, int DG = D>
 cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
                           const void* lse, const void* dout, void* dq, void* dk, void* dv,
                           void* delta, int B, int Sq, int Sk, int H, int K, int causal,
@@ -910,25 +925,25 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   using bf16 = __nv_bfloat16;
   constexpr int KV_BK = Dkdv<D>::BK;
   CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;   // k128, v128: KV_BK rows
-  cudaError_t e = tile_map<D>(&q64, q, B, Sq, H, KV_BQ);
-  if (e == cudaSuccess) e = tile_map<D>(&do64, dout, B, Sq, H, KV_BQ);
-  if (e == cudaSuccess) e = tile_map<D>(&k128, k, B, Sk, K, KV_BK);
-  if (e == cudaSuccess) e = tile_map<D>(&v128, v, B, Sk, K, KV_BK);
-  if (e == cudaSuccess) e = tile_map<D>(&q128, q, B, Sq, H, DQ_BQ);
-  if (e == cudaSuccess) e = tile_map<D>(&do128, dout, B, Sq, H, DQ_BQ);
-  if (e == cudaSuccess) e = tile_map<D>(&k64, k, B, Sk, K, DQ_BK);
-  if (e == cudaSuccess) e = tile_map<D>(&v64, v, B, Sk, K, DQ_BK);
+  cudaError_t e = tile_map<D>(&q64, q, B, Sq, H, KV_BQ, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&do64, dout, B, Sq, H, KV_BQ, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&k128, k, B, Sk, K, KV_BK, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&v128, v, B, Sk, K, KV_BK, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&q128, q, B, Sq, H, DQ_BQ, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&do128, dout, B, Sq, H, DQ_BQ, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&k64, k, B, Sk, K, DQ_BK, DG);
+  if (e == cudaSuccess) e = tile_map<D>(&v64, v, B, Sk, K, DQ_BK, DG);
   if (e != cudaSuccess) return e;
   const float* lse_ = static_cast<const float*>(lse);
   float* delta_ = static_cast<float*>(delta);
 
   const int rows = B * Sq * H;
   attn_delta_kernel<bf16><<<(rows + 7) / 8, 256, 0, stream>>>(
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta_, rows, Sq, H, D);
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta_, rows, Sq, H, DG);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto kv_kern = attn_bwd_dkdv_tc_kernel<D>;
+  auto kv_kern = attn_bwd_dkdv_tc_kernel<D, DG>;
   static bool kv_configured = false;
   e = allow_smem(kv_kern, dkdv_tc_smem<D>(), kv_configured);
   if (e != cudaSuccess) return e;
@@ -939,7 +954,7 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto q_kern = attn_bwd_dq_tc_kernel<D>;
+  auto q_kern = attn_bwd_dq_tc_kernel<D, DG>;
   static bool q_configured = false;
   e = allow_smem(q_kern, dq_tc_smem<D>(), q_configured);
   if (e != cudaSuccess) return e;
@@ -962,6 +977,9 @@ cudaError_t launch_bwd_tc_dim(const void* q, const void* k, const void* v, const
     case 64:
       return launch_bwd_tc<64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
                                causal, scale, softcap, window, st);
+    case 80:    // hubert: 128-wide tiles, 80 columns read and stored
+      return launch_bwd_tc<128, 80>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
+                                    K, causal, scale, softcap, window, st);
     case 128:
       return launch_bwd_tc<128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
                                 causal, scale, softcap, window, st);

@@ -91,17 +91,22 @@ inline cudaError_t sm_count(int* n) {
 // D = 64, 128, 256: 128 bytes)
 __host__ __device__ constexpr int swizzle_bytes(int D) { return 2 * D < 128 ? 2 * D : 128; }
 
-// A map of a (B, S, NH, D) bf16 tensor, seen as 4-D (D, NH, S, B), read in
-// boxes of `rows` rows x SW bytes of one head; rows past S are zero-filled
+// A map of a (B, S, NH, dg) bf16 tensor, seen as 4-D (dg, NH, S, B), read
+// in boxes of `rows` rows x SW bytes of one head, SW that of a D-wide tile;
+// rows past S are zero-filled, and so are the columns past dg of a tensor
+// narrower than the tile (dg < D: hubert's head_dim 80 in 128-wide tiles,
+// whose boxes count their zero-filled bytes on the mbarrier as any other)
 template <int D>
-cudaError_t tile_map(CUtensorMap* map, const void* base, int B, int S, int NH, int rows) {
+cudaError_t tile_map(CUtensorMap* map, const void* base, int B, int S, int NH, int rows,
+                     int dg = D) {
   constexpr int SW = swizzle_bytes(D);
-  static_assert(SW == 128 || SW == 64, "head_dim 32, 64, 128 or 256");
+  static_assert(SW == 128 || SW == 64, "tiles of 32, 64, 128 or 256 columns");
+  if (dg > D || dg % 8 != 0) return cudaErrorInvalidValue;   // 16-byte row strides
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
-                                 (cuuint64_t)S * NH * D * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)dg, (cuuint64_t)NH, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dg * 2, (cuuint64_t)NH * dg * 2,
+                                 (cuuint64_t)S * NH * dg * 2};
   const cuuint32_t box[4] = {SW / 2, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw = SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;

@@ -37,9 +37,13 @@ from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_bwd)
 from repro_torch.kernels.ssd import ssd, ssd_bwd
 
-#: head dims the attention kernels are built for (gemma2's 256 with its
-#: own tile sizes: the .cu notes)
+#: head dims the decode and cache kernels are built for (gemma2's 256
+#: with its own tile sizes: the .cu notes)
 HEAD_DIMS = (32, 64, 128, 256)
+#: head dims of the cache-free attention and its gradient: also hubert's
+#: 80, which no decode path reaches (the encoder has no cache); the bf16
+#: kernels read its rows as 128-wide tiles (csrc/flash_attention.cu)
+ATTENTION_HEAD_DIMS = (32, 64, 80, 128, 256)
 
 #: query rows of a kv head (Sq * H / K) up to which a call takes the
 #: kernels' decode path, split-KV over spans of DECODE_SPAN kv rows (a
@@ -345,8 +349,9 @@ def _check_attention(name, q, k, v):
             or k.shape[3] != D or H % k.shape[2]):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v "
                          f"{tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if D not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in "
+                         f"{ATTENTION_HEAD_DIMS}")
 
 
 def _flags(causal, local_window, softcap):

@@ -69,7 +69,10 @@ def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
-    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    # contiguous as the kernel's: at one query head per kv head (hubert's,
+    # olmoe's) the reshape is a strided view, which flash_attention_bwd,
+    # given this output, refuses
+    out = out.reshape(B, Sq, H, D).to(q.dtype).contiguous()
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
     return out
@@ -110,7 +113,8 @@ def attention_blockwise(q, k, v, *, causal=True, local_window=None,
         acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vc)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype) \
+        .contiguous()                   # as attention_naive's
     if return_lse:
         return out, (m + torch.log(l)).reshape(B, H, Sq)
     return out

@@ -68,10 +68,12 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_model_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if cfg.family == "audio":      # as repro/launch/serve.py:49-50
+        raise SystemExit("encoder-only arch has no decode path")
+    device = resolve_device(args.device)
     with contextlib.ExitStack() as stack:
         pm, model, nvml = _power_session(args, cfg, device, stack)
         print(f"[caps:{args.power_metric}] "

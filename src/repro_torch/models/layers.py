@@ -91,10 +91,6 @@ def apply_norm(cfg: ModelConfig, p: dict, x, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
-# ===========================================================================
-# rotary position embeddings (plain RoPE and partial rotary)
-# ===========================================================================
-
 def rmsnorm_gated(scale, y, z, eps: float = 1e-6):
     """Mamba-2 RMSNormGated: rmsnorm(y * silu(z)) * scale."""
     yf = y.float() * F.silu(z.float())
@@ -102,16 +98,35 @@ def rmsnorm_gated(scale, y, z, eps: float = 1e-6):
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
+# ===========================================================================
+# rotary position embeddings (plain RoPE, partial rotary, M-RoPE)
+# ===========================================================================
+
 def rope_cos_sin(cfg: ModelConfig, positions):
-    """positions: (B, S) int.  Returns cos/sin of shape (B, S, rot_half)."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE: ROADMAP queue 1 item 12")
+    """positions: (B, S) int for RoPE, or (3, B, S) for M-RoPE
+    (``cfg.mrope_sections``: section i of the rotary half takes its slice
+    of the frequencies and position row i, ``repro/models/layers.py:
+    100-117``).  Returns cos/sin of shape (B, S, rot_half).  Each angle is
+    the same float32 product as plain RoPE's, so three equal position rows
+    give plain RoPE's cos/sin bit for bit."""
     rot_dim = int(cfg.head_dim * cfg.rotary_pct) // 2 * 2
     half = rot_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32,
                              device=positions.device) / half
     inv_freq = cfg.rope_theta ** exponent
-    ang = positions.float()[..., None] * inv_freq[None, None]
+    if cfg.mrope_sections is not None:
+        if sum(cfg.mrope_sections) != half or positions.ndim != 3:
+            raise ValueError(f"M-RoPE sections {cfg.mrope_sections} over a "
+                             f"rotary half of {half} take (3, B, S) "
+                             f"positions, got {tuple(positions.shape)}")
+        parts, start = [], 0
+        for i, sec in enumerate(cfg.mrope_sections):
+            parts.append(positions[i].float()[..., None]
+                         * inv_freq[start:start + sec][None, None])
+            start += sec
+        ang = torch.cat(parts, dim=-1)
+    else:
+        ang = positions.float()[..., None] * inv_freq[None, None]
     return torch.cos(ang), torch.sin(ang)
 
 

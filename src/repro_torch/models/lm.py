@@ -1,5 +1,6 @@
 """LM assembly, ported from ``repro/models/lm.py``: the dense and MoE
-decoders, the Mamba-2 stack (``ssm``) and the zamba2 hybrid.
+decoders, the Mamba-2 stack (``ssm``), the zamba2 hybrid, the audio
+encoder and the vision-language decoder.
 
 One declarative parameter tree (the reference's keys and shapes, so the
 JAX package's weights load unchanged) and one forward whose layers run in
@@ -14,8 +15,14 @@ a Python loop over the stacked ``layers`` leaves (the reference's
   hybrid      Mamba-2 blocks with one SHARED attention block applied after
               every ``shared_attn_period`` of them, on concat(h, the
               embedding output), with per-invocation LoRA on q (zamba2)
-The vlm and audio families raise, naming the ROADMAP item that ports
-them.
+  audio       an encoder-only, bidirectional transformer over precomputed
+              frame embeddings: ``frontend`` projects them and adds a
+              learned position table (hubert; the frontend is a stub, as
+              in the reference); it has no decode cache
+  vlm         a decoder with M-RoPE over (3, B, S) positions, precomputed
+              patch embeddings (``vision_embeds``) overwriting the leading
+              token rows (qwen2-vl; the vision tower is a stub); its cache
+              is the dense decoder's
 
 Forward modes:
   forward(...)                     full-sequence hidden states (no cache);
@@ -50,14 +57,11 @@ from repro_torch.models import layers as L
 from repro_torch.models.params import PD
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """The families the port runs: dense and MoE decoders (gemma2's
-    local/global pairs and sandwich norms among them), Mamba-2 and the
-    zamba2 hybrid."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        item = {"vlm": "12", "audio": "12"}.get(cfg.family, "?")
-        raise NotImplementedError(
-            f"{cfg.family} family: ROADMAP queue 1 item {item}")
+def _require_cache(cfg: ModelConfig) -> None:
+    """The audio encoder has no decode cache: the reference's error
+    (``repro/models/lm.py:524``)."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.family} has no decode cache (encoder-only)")
 
 
 # ===========================================================================
@@ -111,9 +115,19 @@ def zamba_structure(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 def model_decls(cfg: ModelConfig) -> dict:
-    _require_ported(cfg)
     n = cfg.n_layers
-    d: dict[str, Any] = {"embed": L.embed_decls(cfg)}
+    if cfg.family == "audio":
+        # the frontend stub: a projection of the frames and a learned
+        # position table (``repro/models/lm.py:88-93``)
+        d: dict[str, Any] = {"frontend": {
+            "proj": PD((cfg.frontend_dim, cfg.d_model),
+                       ("frontend", "embed")),
+            "pos": PD((cfg.max_wavelength_pos, cfg.d_model),
+                      (None, "embed"), "embed", scale=0.02)}}
+    else:
+        d = {"embed": L.embed_decls(cfg)}
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
+        raise ValueError(cfg.family)
     if cfg.family in ("ssm", "hybrid"):
         d["layers"] = {"ln": L.norm_decls(cfg, layers=n),
                        "mamba": L.mamba_decls(cfg, layers=n)}
@@ -331,16 +345,37 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     slot's table row and, for the hybrid, its Mamba lane views), and is
     written in place; the same dict comes back.  A paged cache's top-level
     ``block_tables`` addresses every layer's pools; the model never remaps
-    blocks."""
-    _require_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    h = L.apply_embed(ctx, cfg, params["embed"], tokens)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = _positions_default(B, S, tokens.device, cache_index)
-    cos, sin = (L.rope_cos_sin(cfg, positions) if cfg.use_rope
-                else (None, None))
+    blocks.
+
+    The audio encoder reads ``batch["frames"]`` (B, S, frontend_dim): h =
+    frames @ proj + pos[:S].  A vlm batch may carry ``vision_embeds`` (B,
+    Nv, d), which overwrite the first Nv rows of the token embeddings,
+    and ``positions`` (3, B, S); without them the default positions are
+    broadcast to the three M-RoPE sections (``repro/models/lm.py:
+    217-240``)."""
+    c = ctx.cdtype
+    if cfg.family == "audio":
+        frames = batch["frames"].to(c)
+        B, S = frames.shape[:2]
+        fe = params["frontend"]
+        h = frames @ fe["proj"].to(c) + fe["pos"][:S].to(c)[None]
+        device = frames.device
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = L.apply_embed(ctx, cfg, params["embed"], tokens)
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(c)
+            h = torch.cat([ve, h[:, ve.shape[1]:]], dim=1)
+        device = tokens.device
+    cos = sin = None
+    if cfg.use_rope:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _positions_default(B, S, device, cache_index)
+            if cfg.mrope_sections is not None:
+                positions = positions[None].expand(3, B, S)
+        cos, sin = L.rope_cos_sin(cfg, positions)
     block_tables = cache.get("block_tables") if cache is not None else None
     remat = (_remat(ctx) if cache is None and torch.is_grad_enabled()
              else None)
@@ -421,8 +456,9 @@ def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
     ``kv_global``); for the Mamba families the
     recurrent state (``mamba``: ``ssm`` (L, B, H, P, N) float32 and
     ``conv`` (L, B, W-1, conv_dim)) and, for the hybrid, the shared
-    block's k/v stacked over its ``n_super`` invocations (``kv_shared``)."""
-    _require_ported(cfg)
+    block's k/v stacked over its ``n_super`` invocations (``kv_shared``).
+    A vlm's cache is the dense decoder's; the audio encoder has none."""
+    _require_cache(cfg)
     c, dev = ctx.cdtype, ctx.device
     if cfg.family in ("ssm", "hybrid"):
         out = {"mamba": L.empty_mamba_state(cfg, batch, c,
@@ -458,7 +494,7 @@ def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
     reference's: an unmapped entry aliases block 0, harmless since reads
     past kv_len are masked and writes only reach mapped entries.
     ``n_blocks`` defaults to ``batch * max_blocks`` (the dense capacity)."""
-    _require_ported(cfg)
+    _require_cache(cfg)
     if max_seq % block_size:
         raise ValueError(f"max_seq {max_seq} must be a multiple of "
                          f"block_size {block_size}")
@@ -492,7 +528,7 @@ SLOT_ROWS, SLOT_STATE = "rows", "state"
 
 def cache_slot_spec(cfg: ModelConfig) -> dict[str, str]:
     """Per-top-level-key slot schema of ``init_cache``'s dict."""
-    _require_ported(cfg)
+    _require_cache(cfg)
     if cfg.family == "ssm":
         return {"mamba": SLOT_STATE}
     if cfg.family == "hybrid":

@@ -85,6 +85,9 @@ def init_params(decls, generator: torch.Generator, device="cuda",
                             device=generator.device, dtype=torch.float32)
             t = t.to(dev).mul_(std).to(pd.dtype)
         _set(out, path, t if prepare is None else prepare(path, t))
+        # let a prepared leaf's f32 draw go before the next is made: one
+        # stacked MLP leaf of qwen2-vl's 20 layers is 18 GiB in f32
+        del t
     return out
 
 

@@ -122,9 +122,16 @@ def serve_phase_tasks(cfg: ModelConfig, batch: int, prompt: int,
 
 def make_prefill_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
                       max_seq: int):
-    """prefill(params, batch) -> (cache, last_logits (B, 1, V))."""
+    """prefill(params, batch) -> (cache, last_logits (B, 1, V)).  A vlm
+    batch may carry ``vision_embeds`` and (3, B, S) ``positions``.  For
+    the audio encoder, which has no cache, "prefill" is the whole encode
+    of ``batch["frames"]``: (None, the last frame's logits), as the
+    reference's (``repro/serving/engine.py:80-95``)."""
 
     def prefill(params, batch):
+        if cfg.family == "audio":
+            h, _, _ = lm.forward(ctx, cfg, params, batch)
+            return None, lm.logits_for(ctx, cfg, params, h[:, -1:, :])
         B = batch["tokens"].shape[0]
         cache = lm.init_cache(ctx, cfg, B, max_seq)
         h, _, cache = lm.forward(ctx, cfg, params, batch, cache=cache,
@@ -136,10 +143,19 @@ def make_prefill_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
 
 def make_decode_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
     """decode(params, cache, tokens (B,1), index) -> (cache, logits (B, V)).
-    ``index`` is a scalar (shared offset) or a (B,) per-slot tensor."""
+    ``index`` is a scalar (shared offset) or a (B,) per-slot tensor.  Under
+    M-RoPE the index is each section's position, (3, B, 1)
+    (``repro/serving/engine.py:104-108``)."""
 
     def decode(params, cache, tokens, index):
-        h, _, cache = lm.forward(ctx, cfg, params, {"tokens": tokens},
+        batch = {"tokens": tokens}
+        if cfg.mrope_sections is not None:
+            B = tokens.shape[0]
+            pos = torch.as_tensor(index, dtype=torch.int32,
+                                  device=tokens.device)
+            batch["positions"] = pos.reshape(-1, 1).expand(B, 1)[None] \
+                .expand(3, B, 1)
+        h, _, cache = lm.forward(ctx, cfg, params, batch,
                                  cache=cache, cache_index=index)
         return cache, lm.logits_for(ctx, cfg, params, h)[:, 0]
 

@@ -77,7 +77,9 @@ def make_loss_fn(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
     """Returns train_step(state_tree, batch) -> (state_tree, metrics);
-    ``batch`` holds (B, S) int tensors ``tokens`` and ``labels`` on the
+    ``batch`` holds (B, S) int tensors ``tokens`` (``frames`` (B, S,
+    frontend_dim) for the audio encoder; a vlm batch may add
+    ``vision_embeds`` and ``positions``) and ``labels`` on the
     parameters' device.  Metrics are 0-d tensors: ``loss``, ``ce``,
     ``grad_norm`` (and ``tokens`` without accumulation)."""
     opt = make_optimizer(run)
@@ -92,9 +94,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
         # batch.reshape(grad_accum, b // grad_accum, ...); autograd sums
         # each microbatch's gradients into .grad
         n = run.grad_accum
-        mb = batch["tokens"].shape[0] // n
+        mb = batch["labels"].shape[0] // n
         loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
+                               device=batch["labels"].device)
         for i in range(n):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, _ = loss_fn(params, micro)

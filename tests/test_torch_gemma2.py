@@ -304,8 +304,8 @@ def test_int8_payload_round_trip_equals_the_reference(f32_pair):
                                           np.asarray(jout[key][k]))
 
 
-#: hubert-xlarge's config (``repro/configs/hubert_xlarge.py``), which the
-#: port's registry does not list yet
+#: hubert-xlarge's config (``repro/configs/hubert_xlarge.py``), as the
+#: port's registry lists it
 HUBERT = dict(name="hubert-xlarge", family="audio", n_layers=48,
               d_model=1280, n_heads=16, n_kv_heads=16, head_dim=80,
               d_ff=5120, vocab=504, mlp="gelu", norm="layernorm",
@@ -314,12 +314,12 @@ HUBERT = dict(name="hubert-xlarge", family="audio", n_layers=48,
 
 
 def test_engine_refuses_the_audio_family_as_the_reference():
-    """A reduced hubert-xlarge config, passed to the engine directly (the
-    registry refuses the arch first), is refused before anything is built,
-    with the JAX engine's error."""
+    """A reduced hubert-xlarge config is refused by the engine before
+    anything is built, with the JAX engine's error."""
     from repro.configs.base import ModelConfig as JModelConfig
     assert dataclasses.asdict(JModelConfig(**HUBERT)) \
-        == dataclasses.asdict(jget_cfg("hubert-xlarge"))
+        == dataclasses.asdict(jget_cfg("hubert-xlarge")) \
+        == dataclasses.asdict(get_model_config("hubert-xlarge"))
     cfg = reduced(ModelConfig(**HUBERT))
     jcfg = jreduced(JModelConfig(**HUBERT))
     run = get_run_config("llama3.2-3b", compute_dtype="float32")

@@ -128,16 +128,23 @@ def test_prefill_and_decode_steps_match_reference(dtype, tol):
 
 
 def test_other_families_name_their_roadmap_item():
+    """Every family of the reference is ported now (ROADMAP queue 1 item
+    12 brought the vlm and audio ones): the port's ``ARCH_IDS`` equal the
+    reference's, and no architecture's config, run config or declarations
+    raise ``NotImplementedError``; the reduced config of each declares the
+    same parameters as the reference's."""
+    from repro.configs.registry import ARCH_IDS as JARCH_IDS
+    from repro_torch.configs.registry import ARCH_IDS
+    assert ARCH_IDS == JARCH_IDS
+    for arch in ARCH_IDS:
+        cfg = reduced(get_model_config(arch))
+        get_run_config(arch)
+        assert param_count(lm.model_decls(cfg)) \
+            == param_count(jlm.model_decls(jreduced(jget_cfg(arch))))
     for family in ("vlm", "audio"):
         cfg = dataclasses.replace(reduced(get_model_config(ARCH)),
                                   family=family)
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            lm.model_decls(cfg)
-    from repro_torch.configs.registry import get_model_config as get
-    # gemma2 is ported (its local/global layers and sandwich norms):
-    # tests/test_torch_gemma2.py; hubert and qwen2-vl still name item 12
-    assert get("gemma2-2b").layer_pattern == "local_global"
-    for arch in ("hubert-xlarge", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 12"):
-            get(arch)
+        lm.model_decls(cfg)
+    with pytest.raises(ValueError):
+        lm.model_decls(dataclasses.replace(reduced(get_model_config(ARCH)),
+                                           family="unknown"))
