@@ -119,6 +119,24 @@ caught):
      window's mean draw must lie between 10 W and 1.05 x the limit, the
      counter must never go backwards, and the limit nvidia-smi reads at
      the end must be the one it read at the start;
+  2c. the distributed layer, while this process holds little of the
+     card (``tools/dist_probe.py`` runs it alone; sizes and gates at
+     ``DIST_TRAIN_GATES``): two
+     gloo ranks sharing the card, their collectives staged
+     through the host; ``[dist:decode]`` (llama's sequence-sharded decode
+     over mesh (1, 2), bf16 at full depth and f32 at 2 layers, whose
+     streams must equal the unsharded ones), ``[dist:train]`` (one step
+     on (1, 2) and on (2, 1) against the one-device step, each rank's
+     gradients and parameters against its shard of that step's, and a
+     planted fault per mesh that must fail every gate; the elastic
+     restart on (1, 1)) and ``[dist:train-olmoe]`` (expert parallelism over
+     the bf16 and int8 wires at a capacity that drops nothing, with its
+     planted fault; one MoE layer's output against the local path; a
+     decode step of all 16 layers under the mesh); each rank's kernels
+     launched (``launches_dist`` in the kernels line).  After phase 2's
+     ``flash_decode`` checks, ``[check] flash_decode lse`` lines (the
+     log-sum-exp output the combine needs, with its planted fault) and
+     ``[time] flash_decode lse`` (beside ``flex_attention``'s lse);
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times.  Every
@@ -319,7 +337,9 @@ It prints one ``{"migrate": ...}`` line, one ``{"lsms": ...}`` line, one
 ``{"kernels": [...]}`` line
 (ten kernels; the attention rows carry ``gemma2_d256`` and, for the
 training rows, ``hubert_d80`` objects, flash_decode's and cache_update's
-a ``qwen2vl_g8`` one; the JSON also has ``power`` and ``fleet`` objects), the
+a ``qwen2vl_g8`` one, flash_decode's an ``lse`` object, the rows of the
+kernels a ``[dist:*]`` phase ran a ``launches_dist`` one; the JSON also has
+``power``, ``fleet`` and ``dist`` objects), the
 nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside it, it exits non-zero and
@@ -347,6 +367,9 @@ from pathlib import Path
 # ran out of memory with 21 GB reserved but unallocated.  Read when CUDA
 # starts, so set before anything touches the card
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# the library call timed beside flash_decode's lse is torch.compile'd:
+# compile in this process, so that no pool of compile workers outlives it
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import numpy as np  # noqa: E402
 
@@ -4843,8 +4866,8 @@ def _moe_steps(ctx, cfg, params, prompts, nxt=None):
     routes = []
     real = L._moe_router
 
-    def tap(cfg_, p_, xf):
-        out = real(cfg_, p_, xf)
+    def tap(cfg_, p_, xf, mesh=None):
+        out = real(cfg_, p_, xf, mesh)
         routes.append(out[1])
         return out
 
@@ -6739,6 +6762,1012 @@ def lsms_phases(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: the distributed layer (``tools/dist_probe.py`` runs it alone)
+# ---------------------------------------------------------------------------
+#
+# The card's host has one H100, and NCCL refuses two ranks on one device,
+# so every [dist:*] phase runs two ranks that share the card over the
+# ``gloo`` backend: their collectives are copied to the host and back
+# (``sharding/collectives.py`` counts the bytes).  The numbers show that
+# the sharded paths run the port's kernels on the card and give the right
+# results; their times are those of two ranks time-slicing one card, not
+# of two cards.  Each rank is a spawned process that imports this module.
+
+LLAMA_HEADS = (24, 8, 128)
+DIST_DECODE = dict(B=8, prompt=1024, max_seq=2048, steps=32)
+DIST_TRAIN = dict(layers=4, B=2, S=2048)
+#: olmoe's train step at one row of 2048: without drops its all-to-alls
+#: carry 8x the default capacity's rows (~6.6 GB a step through the host
+#: at two rows); its MoE layer check at two
+DIST_MOE = dict(layers=2, train_B=1, B=2, S=2048, decode_steps=4)
+#: gates of a sharded bf16 step against the one-device step from the same
+#: seed, read on each rank's shard, the worst rank counting: the loss and
+#: the gradient norm relative; ``grad_rel`` the worst leaf's
+#: |g - g_one| / |g_one| (the gradients the step clips, summed over the
+#: data-parallel ranks); ``params_apart`` the share of parameter entries
+#: more than 1e-3 lr apart after the step.  In bf16 a gradient entry near
+#: zero changes sign under another order of sums, and AdamW's first step
+#: moves every entry by about lr * sign(g), so a few per cent of entries
+#: land 2 lr apart on a sound run.  Each gate lies between the sound runs'
+#: largest reading and the reading of a planted fault
+#: (``DIST_FAULTS``), which must fail it.
+#: Read on an H100 (sound; planted fault), llama (1, 2): 1.03e-5, 2.14e-4,
+#: 1.49e-2, 6.8e-2; 1.85e-3, 2e9, 5e9, 1.0; (2, 1): 0, 3.1e-5, 2.4e-3,
+#: 3.0e-2; 0.50, 0.31, 0.75, 0.72.
+DIST_TRAIN_GATES = {"loss_rel": 2e-4, "grad_norm_rel": 5e-3,
+                    "grad_rel": 0.1, "params_apart": 0.2}
+#: olmoe's step with a capacity that drops nothing (expert parallelism
+#: counts each rank's tokens, one device all of them: with drops the two
+#: drop different tokens).  Its experts' gradients sum their rows in
+#: another tiling on each side (EP's 2 x cap rows against one device's
+#: cap), so more near-zero entries flip: read (sound; planted fault)
+#: 1.08e-4, 6.7e-4, 0.126 (the router), 0.248; 3.7e-3, 0.19, 1.24, 0.77.
+#: The int8 wire (1.3e-5, 2.9e-4) is held to the bf16 wire's loss and
+#: norm gates.
+DIST_MOE_GATES = {"bf16": {"loss_rel": 6e-4, "grad_norm_rel": 5e-3,
+                           "grad_rel": 0.5, "params_apart": 0.45},
+                  "int8": {"loss_rel": 6e-4, "grad_norm_rel": 5e-3}}
+#: the planted faults, one per sharded path: the all-reduce after the
+#: row-parallel projections dropped (tensor parallelism), the gradients
+#: not summed over ``data`` (data parallelism), the all-to-all's chunks
+#: exchanged in reverse order (expert parallelism)
+DIST_FAULTS = {"1x2": "reduce_from dropped", "2x1": "data psum dropped",
+               "olmoe": "all_to_all order reversed"}
+DIST_ELASTIC_RTOL = 1e-5   # f32, reduced
+DIST_SPAWN_TIMEOUT_S = 480
+
+
+def _dist_lse_case(B, S, H, K, D, dtype, kv_len, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, 1, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, K, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, K, D), generator=g, device="cuda").to(dtype)
+    return q, k, v, torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+
+
+def lse_flagged(got, want):
+    """Entries of an lse outside the rule: -inf where the plain version
+    has -inf, else within LSE_TOL (1 + |want|)."""
+    import torch
+    inf_w, inf_g = torch.isinf(want), torch.isinf(got)
+    bad = inf_w != inf_g
+    fin = ~inf_w & ~inf_g
+    bad |= fin & ((got - want).abs() > LSE_TOL * (1 + want.abs()))
+    return bad
+
+
+def check_flash_decode_lse(tfa, ref):
+    """``flash_decode(..., return_lse=True)`` against
+    ``ref.decode_attention_lse_ref``, bf16 and f32, at llama's heads over a
+    slice of 2048 rows (B = 8, one slot with kv_len 0, a window),
+    qwen2-vl's group of 8 (the chunk kernels) and the reduced D = 32: out
+    entry by entry (``_entry_ratio``), lse by LSE_TOL with -inf where no
+    key is visible (kv_len 0: output 0), and out bit for bit the call
+    without lse.  Then the planted fault: the plain lse of the
+    neighbouring slice (kv_len of the next slot) must be flagged."""
+    import torch
+    rng = np.random.default_rng(5)
+    checks = []
+    shapes = [(8, 2048, *LLAMA_HEADS), (8, 2048, *QWEN2VL_HEADS),
+              (3, 64, 4, 2, 32)]
+    fault = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for B, S, H, K, D in shapes:
+            for window in (None, 512 if S > 512 else 16):
+                kv_len = rng.integers(1, S + 1, B)
+                kv_len[0], kv_len[-1] = 0, S       # an empty slice, a full one
+                q, k, v, kl = _dist_lse_case(B, S, H, K, D, dtype,
+                                             kv_len.tolist(), len(checks))
+                out, lse = tfa.flash_decode(q, k, v, kl, local_window=window,
+                                            return_lse=True)
+                plain = tfa.flash_decode(q, k, v, kl, local_window=window)
+                want, wlse = ref.decode_attention_lse_ref(
+                    q, k, v, kl, local_window=window)
+                torch.cuda.synchronize()
+                ratio = _entry_ratio(name, out, want).max().item()
+                lse_bad = int(lse_flagged(lse, wlse).sum())
+                lse_err = (lse - wlse)[torch.isfinite(wlse)].abs().max().item()
+                same = torch.equal(out, plain)
+                empty = (out[0].abs().max().item(),
+                         bool(torch.isneginf(lse[0]).all()))
+                checks.append({"dtype": name, "B": B, "S": S, "H": H, "K": K,
+                               "D": D, "window": window,
+                               "out_worst_over_limit": ratio,
+                               "lse_max_abs_err": lse_err,
+                               "lse_flagged": lse_bad,
+                               "out_equals_no_lse_call": same,
+                               "empty_slot_out_max": empty[0],
+                               "empty_slot_lse_neg_inf": empty[1]})
+                print(f"[check] flash_decode lse {name} B={B} S={S} H={H} "
+                      f"K={K} D={D} window={window}: out worst entry / its "
+                      f"limit {ratio:.3f}, lse max|err| {lse_err:.3e} (tol "
+                      f"{LSE_TOL} (1 + |want|)), {lse_bad} flagged; out == "
+                      f"the call without lse: {same}; kv_len 0: out max "
+                      f"{empty[0]}, lse -inf {empty[1]}", flush=True)
+                if not (ratio <= 1.0 and lse_bad == 0 and same
+                        and empty == (0.0, True)):
+                    raise AssertionError(f"flash_decode lse disagrees: "
+                                         f"{checks[-1]}")
+                if fault is None and H == LLAMA_HEADS[0] and name == "bfloat16":
+                    # the planted fault: the lse of the neighbouring slice
+                    other = torch.roll(kl, 1)
+                    _, wrong = ref.decode_attention_lse_ref(
+                        q, k, v, other, local_window=window)
+                    rows = (kl != other)
+                    flagged = lse_flagged(lse, wrong).any(-1).any(-1)
+                    share = (flagged & rows).sum().item() / max(
+                        rows.sum().item(), 1)
+                    fault = {"slots_moved": int(rows.sum()),
+                             "share_flagged": share}
+                    print(f"[check] flash_decode lse planted fault (the lse "
+                          f"of the neighbouring slot's slice): "
+                          f"{share:.3f} of {int(rows.sum())} slots flagged",
+                          flush=True)
+                    if share <= 0.5:
+                        raise AssertionError(f"lse fault not caught: {fault}")
+    return checks, fault
+
+
+def _flex_decode_lse(kv_len, window, B, S):
+    """The library call of a masked decode step with its log-sum-exp:
+    ``flex_attention`` compiled, GQA on, a block mask of each slot's
+    visible rows (``kv_len`` and the window counted back from it), the
+    lse asked for through ``AuxRequest``.  Returns (call(q, k, v) -> (out,
+    lse) in the decode layout, the mask's build s)."""
+    import torch
+    from torch.nn.attention.flex_attention import (AuxRequest,
+                                                   create_block_mask,
+                                                   flex_attention)
+
+    def visible(b, h, q_idx, kv_idx):
+        q_pos = kv_len[b] - 1 + q_idx
+        m = kv_idx <= q_pos
+        if window is not None:
+            m = m & (q_pos - kv_idx < window)
+        return m
+    t0 = time.perf_counter()
+    mask = create_block_mask(visible, B, None, 1, S, device="cuda")
+    built = time.perf_counter() - t0
+    flex = torch.compile(flex_attention, fullgraph=True)
+
+    def call(q, k, v):
+        out, aux = flex(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), block_mask=mask, enable_gqa=True,
+                        return_aux=AuxRequest(lse=True))
+        return out.transpose(1, 2), aux.lse
+    return call, built
+
+
+def time_flash_decode_lse(tfa, ref, B=8, S=2048):
+    """``flash_decode`` at llama's decode step over a 2048-row slice, with
+    and without the lse, in one call, both graph-timed (alternated
+    without, with, with, without); the plain version; the library call
+    (``_flex_decode_lse``, held to the plain version on the first case
+    first); the bound (the cache rows read, q, out and lse)."""
+    import torch
+    H, K, D = LLAMA_HEADS
+    rng = np.random.default_rng(9)
+    kv_len = rng.integers(96, S + 1, B).tolist()
+    kv_bytes = sum(kv_len) * K * D * 2 * 2
+    n = max(2, min(8, math.ceil(100e6 / kv_bytes)))
+    cases = [_dist_lse_case(B, S, H, K, D, torch.bfloat16, kv_len, 200 + i)
+             for i in range(n)]
+    no = [functools.partial(tfa.flash_decode, *c) for c in cases]
+    yes = [functools.partial(tfa.flash_decode, *c, return_lse=True)
+           for c in cases]
+    turns = [_time_graph_ms(f) for f in (no, yes, yes, no)]
+    plain = [functools.partial(ref.decode_attention_lse_ref, *c)
+             for c in cases]
+    plain_ms = _time_eager_ms(plain, 2)
+    flex, mask_s = _flex_decode_lse(cases[0][3], None, B, S)
+    t0 = time.perf_counter()
+    got, glse = flex(*cases[0][:3])
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    want, wlse = ref.decode_attention_lse_ref(*cases[0])
+    # the same function: the lse within LSE_TOL, the output within 2e-2 of
+    # its largest entry (the library rounds P to bf16 before P @ V, which
+    # the plain version and the kernel do not)
+    lib_rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+    lib_lse_err = (glse - wlse).abs().max().item()
+    if not (lib_rel <= 2e-2 and lib_lse_err <= LSE_TOL * (
+            1 + wlse.abs().max().item())):
+        raise AssertionError(f"flex_attention is not the same function: "
+                             f"out {lib_rel}, lse {lib_lse_err}")
+    library_ms = _time_graph_ms([functools.partial(flex, *c[:3])
+                                 for c in cases])
+    nbytes = kv_bytes + 2 * B * H * D * 2 + 4 * B * H + 4 * B
+    ops = 4.0 * D * H * sum(kv_len)
+    bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+    t = {"shape": f"B={B} Sq=1 S={S} H={H} K={K} D={D} bf16, kv_len "
+                  f"{min(kv_len)}..{max(kv_len)}",
+         "ms": (turns[1] + turns[2]) / 2, "ms_without_lse":
+         (turns[0] + turns[3]) / 2, "turns_ms": turns, "plain_ms": plain_ms,
+         "library_ms": library_ms,
+         "library": "torch.compile(flex_attention) with a kv_len block "
+                    "mask, enable_gqa, AuxRequest(lse=True)",
+         "library_vs_plain": {"out_max_abs_err_over_max": lib_rel,
+                              "lse_max_abs_err": lib_lse_err},
+         "library_compile_s": compile_s, "library_mask_s": mask_s,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[time] flash_decode lse {t['shape']}: with lse {t['ms']:.4f} ms, "
+          f"without {t['ms_without_lse']:.4f} ms (turns without, with, with, "
+          f"without: {', '.join(f'{x:.4f}' for x in turns)}), plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (flex_attention "
+          f"compiled in {compile_s:.1f} s; vs plain: out max|err| "
+          f"{lib_rel:.2e} of max|out|, lse max|err| {lib_lse_err:.2e}), bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return t
+
+
+# --- the ranks' programs (each rank a spawned process; the card is cuda:0)
+
+def _dist_rank_setup():
+    import torch
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _dist_launches(tfa):
+    return {fn.__name__: fn.launches for fn in tfa.KERNELS if fn.launches}
+
+
+def _dist_sync_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dist_draw(cfg, ctx, seed, specs=None, mesh=None):
+    """Weights drawn whole from ``seed`` on the card, each leaf cast as
+    ``lm.prepare_leaf`` casts it and, with ``specs``, cut to this rank's
+    shard as it is drawn."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import local_slice
+    from repro_torch.tree import leaves_with_paths
+    flat = dict(leaves_with_paths(specs)) if specs is not None else None
+
+    def prepare(path, t):
+        if flat is not None:
+            t = local_slice(mesh, flat[path], t).clone()
+        return lm.prepare_leaf(ctx, path, t)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return init_params(lm.model_decls(cfg), gen, "cuda", prepare=prepare)
+
+
+def _dist_param_specs(cfg, ctx, decls=None):
+    from repro_torch.models import lm
+    from repro_torch.models.params import abstract_params, logical_axes
+    from repro_torch.sharding import tree_shardings
+    decls = lm.model_decls(cfg) if decls is None else decls
+    return tree_shardings(ctx.rules, ctx.mesh, logical_axes(decls),
+                          abstract_params(decls))
+
+
+class _planted:
+    """A planted fault in one rank, for the ``with`` block: ``where``'s
+    collectives module (``C``) replaced by a copy with ``swap``'s
+    functions in place of its own."""
+
+    def __init__(self, where, **swap):
+        import types
+        from repro_torch.sharding import collectives
+        self.where = where
+        self.fake = types.SimpleNamespace(**{**vars(collectives), **swap})
+
+    def __enter__(self):
+        self.real, self.where.C = self.where.C, self.fake
+
+    def __exit__(self, *exc):
+        self.where.C = self.real
+
+
+def _fault(name):
+    """The planted fault ``DIST_FAULTS[name]`` as a context manager."""
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train import step as S
+    if name == "1x2":
+        return _planted(L, reduce_from=lambda x, axes, mesh: x)
+    if name == "2x1":
+        def psum(x, axes, mesh):
+            return x.clone() if "data" in mesh.present(axes) else C.psum(
+                x, axes, mesh)
+        return _planted(S, psum=psum)
+    return _planted(
+        L, all_to_all=lambda x, axes, mesh: C.all_to_all(
+            x.flip(0).contiguous(), axes, mesh),
+        all_to_all_grad=lambda x, axes, mesh: C.all_to_all_grad(
+            x.flip(0).contiguous(), axes, mesh))
+
+
+def _dist_decode_run(cfg, dtype, seed, prompt_tokens, feed_steps, mesh, rank):
+    """One [dist:decode] arm on this rank: prefill on one device (each rank
+    its own copy), rank 0 also the unsharded steps (the other waits); then
+    the sharded steps teacher-forced by rank 0's stream.  Returns the
+    numbers rank 0 compares."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_run_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import make_decode_step, make_prefill_step
+    from repro_torch.sharding import RULE_SETS, collectives as C
+    run = get_run_config(ARCH, rules_name="default", compute_dtype=dtype)
+    ctx0 = Ctx(run, "cuda")
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    params = _dist_draw(cfg, ctx0, seed)
+    P, S = DIST_DECODE["prompt"], DIST_DECODE["max_seq"]
+    tokens = torch.from_numpy(prompt_tokens).cuda()
+    with torch.no_grad():
+        cache, first = make_prefill_step(cfg, run, ctx0, S)(
+            params, {"tokens": tokens})
+    shard = lm.shard_cache(ctx, cfg, cache)
+    B = tokens.shape[0]
+    stream = torch.zeros((feed_steps, B), dtype=torch.int64)
+    full_logits, full_ms = [], []
+    if rank == 0:
+        step = make_decode_step(cfg, run, ctx0)
+        tok = first[:, 0].argmax(-1)
+        with torch.no_grad():
+            for i in range(feed_steps):
+                stream[i] = tok.cpu()
+                (cache, lg), ms = _dist_sync_ms(
+                    lambda: step(params, cache, tok[:, None], P + i))
+                full_logits.append(lg.float().cpu())
+                full_ms.append(ms)
+                tok = lg.argmax(-1)
+    del cache
+    dist.broadcast(stream, src=0)
+    params = shard_params(params, _dist_param_specs(cfg, ctx), mesh)
+    torch.cuda.empty_cache()
+    step = make_decode_step(cfg, run, ctx)
+    tfa.reset_launch_counts()
+    C.reset_staged()
+    sharded_ms, worst, equal = [], 0.0, torch.ones(B, dtype=torch.bool)
+    max_diff = 0.0
+    with torch.no_grad():
+        for i in range(feed_steps):
+            tok = stream[i].cuda()[:, None]
+            (shard, lg), ms = _dist_sync_ms(
+                lambda: step(params, shard, tok, P + i))
+            sharded_ms.append(ms)
+            if rank == 0:
+                got, want = lg.float().cpu(), full_logits[i]
+                name = "float32" if dtype == "float32" else "bfloat16"
+                limit = (ATTN_RTOL[name] * want.abs()
+                         + ATTN_ATOL * want.abs().max())
+                worst = max(worst, ((got - want).abs() / limit).max().item())
+                max_diff = max(max_diff, (got - want).abs().max().item())
+                equal &= got.argmax(-1) == want.argmax(-1)
+                if not torch.isfinite(got).all():
+                    raise AssertionError("[dist:decode] non-finite logits")
+    out = {"launches": _dist_launches(tfa), "staged_bytes": C.staged_total(),
+           "sharded_ms_per_step": float(np.median(sharded_ms))}
+    if rank == 0:
+        out.update(unsharded_ms_per_step=float(np.median(full_ms)),
+                   streams_equal=int(equal.sum()), streams=B,
+                   logits_worst_over_limit=worst, logits_max_abs_diff=max_diff)
+    return out
+
+
+def _dist_phase_decode(rank, mesh):
+    """[dist:decode] on mesh (1, 2): llama bf16 at full depth, then f32 at
+    2 layers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_model_config
+    cfg = get_model_config(ARCH)
+    rng = np.random.default_rng(21)
+    prompts = rng.integers(0, cfg.vocab, (DIST_DECODE["B"],
+                                          DIST_DECODE["prompt"]))
+    out = {"bf16": _dist_decode_run(cfg, "bfloat16", 3, prompts,
+                                    DIST_DECODE["steps"], mesh, rank)}
+    torch.cuda.empty_cache()
+    out["f32"] = _dist_decode_run(dataclasses.replace(cfg, n_layers=2),
+                                  "float32", 4, prompts, DIST_DECODE["steps"],
+                                  mesh, rank)
+    return out
+
+
+def _dist_batch(cfg, B, S, seed):
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).cuda(),
+            "labels": torch.from_numpy(toks[:, 1:]).cuda()}
+
+
+def _dist_step(cfg, run, ctx, state, batch):
+    """``make_train_step``'s step, with the gradients it clips (summed
+    over the data-parallel ranks) copied out on their way: (state,
+    metrics, grads)."""
+    from repro_torch.train import step as S
+    from repro_torch.tree import tree_map
+    seen, clip = {}, S.clip_by_global_norm
+
+    def copying(grads, *a, **k):
+        seen["grads"] = tree_map(lambda g: g.detach().clone(), grads)
+        return clip(grads, *a, **k)
+    fn = S.make_train_step(cfg, run, ctx)
+    S.clip_by_global_norm = copying
+    try:
+        state, m = fn(state, batch)
+    finally:
+        S.clip_by_global_norm = clip
+    return state, m, seen["grads"]
+
+
+def _dist_reference(cfg, run, mesh, batch, seed):
+    """The one-device step from ``seed`` on the whole batch, taken by each
+    rank in turn (one at a time on the card): its loss and grad norm, and
+    this rank's shard of its gradients and new parameters."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.layers import Ctx
+    from repro_torch.sharding import RULE_SETS, local_slice
+    from repro_torch.train.step import init_state, state_specs
+    from repro_torch.tree import leaves
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    specs = leaves(state_specs(cfg, run, ctx)["params"])
+    ref = None
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            state = init_state(cfg, run, gen, "cuda").tree()
+            state, m, grads = _dist_step(cfg, run, Ctx(run, "cuda"), state,
+                                         batch)
+            ref = {"loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "grads": [local_slice(mesh, s, g).clone()
+                             for s, g in zip(specs, leaves(grads))],
+                   "params": [local_slice(mesh, s, p).detach().clone()
+                              for s, p in zip(specs,
+                                              leaves(state["params"]))]}
+            del state, grads
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return ref
+
+
+def _dist_train_case(cfg, run, mesh, batch, seed, ref, fault=None):
+    """One step on this rank of ``mesh`` from ``seed`` (under ``fault``, if
+    given, the planted fault ``DIST_FAULTS[fault]``) against ``ref``, this
+    rank's shard of the one-device step (``_dist_reference``).  Each entry
+    of the result is this rank's reading of a ``DIST_TRAIN_GATES`` gate,
+    or its launches, staged bytes and seconds."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.layers import Ctx
+    from repro_torch.sharding import RULE_SETS, collectives as C
+    from repro_torch.train.step import init_state
+    from repro_torch.tree import leaves, leaves_with_paths
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_state(cfg, run, gen, "cuda", ctx).tree()
+    dp = mesh.axis_size(("pod", "data"))
+    n = batch["tokens"].shape[0] // dp
+    d = mesh.index(("pod", "data"))
+    local = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+    tfa.reset_launch_counts()
+    C.reset_staged()
+    with _fault(fault) if fault else contextlib.nullcontext():
+        (state, m, grads), ms = _dist_sync_ms(
+            lambda: _dist_step(cfg, run, ctx, state, local))
+    launches, staged = _dist_launches(tfa), C.staged_total()
+    lr = run.learning_rate
+    grad_rel, grad_leaf, worst, apart, total = 0.0, None, 0.0, 0, 0
+    for (path, g), g1, p, p1 in zip(leaves_with_paths(grads), ref["grads"],
+                                    leaves(state["params"]), ref["params"]):
+        rel = ((g.float() - g1.float()).norm()
+               / g1.float().norm().clamp(min=1e-30)).item()
+        if rel >= grad_rel:
+            grad_rel, grad_leaf = rel, "/".join(path)
+        diff = (p.detach().float() - p1.float()).abs()
+        worst = max(worst, diff.max().item())
+        apart += int((diff > 1e-3 * lr).sum())
+        total += diff.numel()
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    out = {"loss": loss, "ref_loss": ref["loss"], "grad_norm": gn,
+           "ref_grad_norm": ref["grad_norm"],
+           "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "grad_norm_rel": abs(gn - ref["grad_norm"]) / ref["grad_norm"],
+           "grad_rel": grad_rel, "grad_rel_leaf": grad_leaf,
+           "params_apart": apart / total,
+           "max_param_diff": worst, "lr": lr, "launches": launches,
+           "staged_bytes": staged, "step_s": ms / 1e3}
+    del state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_train_setup():
+    import dataclasses
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    cfg = dataclasses.replace(get_model_config(ARCH),
+                              n_layers=DIST_TRAIN["layers"])
+    run = get_run_config(ARCH, rules_name="default", warmup_steps=0,
+                         total_steps=10)
+    return cfg, run, _dist_batch(cfg, DIST_TRAIN["B"], DIST_TRAIN["S"], 31)
+
+
+def _dist_phase_train(rank, mesh, key):
+    """[dist:train] on ``mesh``: llama at full width, 4 layers, the sound
+    step and the planted fault's, each against the one-device step."""
+    cfg, run, batch = _dist_train_setup()
+    ref = _dist_reference(cfg, run, mesh, batch, 5)
+    return {"sound": _dist_train_case(cfg, run, mesh, batch, 5, ref),
+            "fault": _dist_train_case(cfg, run, mesh, batch, 5, ref, key)}
+
+
+def _dist_reduced_train():
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    cfg = reduced(get_model_config(ARCH), n_heads=4, n_kv_heads=2)
+    run = get_run_config(ARCH, rules_name="default", warmup_steps=0,
+                         compute_dtype="float32", remat="none",
+                         logits_chunk=64)
+    return cfg, run
+
+
+def _dist_phase_elastic(rank, mesh, ckpt_dir):
+    """Reduced llama, f32, on (2, 1): two steps, a checkpoint (saved
+    full), and the third step straight through."""
+    import torch
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.models.layers import Ctx
+    from repro_torch.sharding import RULE_SETS
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        state_specs)
+    cfg, run = _dist_reduced_train()
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    state = init_state(cfg, run, torch.Generator(device="cuda").manual_seed(6),
+                       "cuda", ctx).tree()
+    step = make_train_step(cfg, run, ctx)
+    d = mesh.coord("data")
+    for i in range(2):
+        b = _dist_batch(cfg, 4, 256, 40 + i)
+        state, _ = step(state, {k: v[2 * d:2 * d + 2] for k, v in b.items()})
+    checkpoint.save(state, 2, ckpt_dir, shardings=state_specs(cfg, run, ctx),
+                    mesh=mesh)
+    b = _dist_batch(cfg, 4, 256, 42)
+    _, m = step(state, {k: v[2 * d:2 * d + 2] for k, v in b.items()})
+    return {"loss": float(m["loss"])}
+
+
+def dist_elastic_restore(ckpt_dir):
+    """The restart on ``plan_mesh_shape(1, model_parallel=1)``'s (1, 1),
+    in this process (a mesh of one rank needs no process group)."""
+    import torch
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.runtime.supervisor import plan_mesh_shape
+    from repro_torch.sharding import RULE_SETS
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        state_specs)
+    from repro_torch.tree import leaves
+    shape, names = plan_mesh_shape(1, model_parallel=1)
+    mesh = Mesh(shape, names, rank=0, backend="gloo")
+    cfg, run = _dist_reduced_train()
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    state = init_state(cfg, run, torch.Generator(device="cuda").manual_seed(0),
+                       "cuda", ctx).tree()
+    restored, start = checkpoint.restore(
+        ckpt_dir, state, shardings=state_specs(cfg, run, ctx), mesh=mesh)
+    with torch.no_grad():
+        for dst, src in zip(leaves(state), leaves(restored)):
+            dst.copy_(src)
+    b = _dist_batch(cfg, 4, 256, 40 + start)
+    _, m = make_train_step(cfg, run, ctx)(state, b)
+    return {"shape": shape, "start": start, "loss": float(m["loss"])}
+
+
+def _dist_moe_layer(cfg, run, mesh):
+    """One MoE layer of olmoe at full width, bf16, with a capacity that
+    drops nothing: expert parallelism over the bf16 wire against the
+    local path's output on the same rows (every rank computing the whole
+    layer), entry by entry; the planted fault (the all-to-all's order
+    reversed) flagged; and q_rel, the int8 wire's output against the
+    bf16 wire's."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import Ctx
+    from repro_torch.sharding import RULE_SETS
+    ctx0 = Ctx(run, "cuda")
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    decls = L.moe_decls(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import local_slice
+    from repro_torch.tree import leaves_with_paths
+    full = init_params(decls, gen, "cuda")
+    specs = dict(leaves_with_paths(_dist_param_specs(cfg, ctx, decls)))
+    mine = {k: local_slice(mesh, specs[(k,)], v).clone()
+            for k, v in full.items()}
+    g = torch.Generator(device="cuda").manual_seed(72)
+    x = (torch.randn((DIST_MOE["B"], DIST_MOE["S"], cfg.d_model),
+                     generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    with torch.no_grad():
+        want = L.apply_moe(ctx0, cfg, full, x)[0]
+        ys = {a: L.apply_moe(Ctx(run.replace(moe_a2a_dtype=a), "cuda",
+                                 RULE_SETS["default"], mesh), cfg, mine,
+                             x)[0] for a in ("bf16", "int8")}
+        with _fault("olmoe"):
+            bad = L.apply_moe(ctx, cfg, mine, x)[0]
+    ratio = _entry_ratio("bfloat16", ys["bf16"], want)
+    q_rel = ((ys["int8"].float() - ys["bf16"].float()).norm()
+             / ys["bf16"].float().norm()).item()
+    return {"ep_worst_over_limit": ratio.max().item(),
+            "ep_max_abs_diff": (ys["bf16"].float() - want.float()).abs()
+            .max().item(),
+            "fault_share_flagged": (_entry_ratio("bfloat16", bad, want) > 1)
+            .float().mean().item(), "q_rel": q_rel}
+
+
+def _dist_phase_olmoe(rank, mesh):
+    """[dist:train-olmoe] on (1, 2): 2 layers of olmoe at full width with
+    a capacity that drops nothing, expert parallelism over the bf16 wire,
+    the int8 wire and the planted fault, each step against the one-device
+    step; one MoE layer's output, EP against the local path; then decode
+    steps of all 16 layers under the mesh (experts sharded; a sequence of
+    one token takes the branch without expert parallelism)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import make_decode_step
+    from repro_torch.sharding import RULE_SETS, collectives as C
+    full_cfg = get_model_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        full_cfg, n_layers=DIST_MOE["layers"],
+        capacity_factor=full_cfg.n_experts / full_cfg.top_k)
+    batch = _dist_batch(cfg, DIST_MOE["train_B"], DIST_MOE["S"], 51)
+    out, ref = {}, None
+    for arm, a2a, fault in (("bf16", "bf16", None), ("int8", "int8", None),
+                            ("fault", "bf16", "olmoe")):
+        run = get_run_config(MOE_ARCH, rules_name="default", warmup_steps=0,
+                             total_steps=10, moe_a2a_dtype=a2a)
+        if ref is None:         # the wire is no part of the one-device step
+            ref = _dist_reference(cfg, run, mesh, batch, 7)
+        out[arm] = _dist_train_case(cfg, run, mesh, batch, 7, ref, fault)
+    out["layer"] = _dist_moe_layer(cfg, get_run_config(MOE_ARCH), mesh)
+    torch.cuda.empty_cache()
+    # the decode step of all 16 layers: experts sharded, no EP (S = 1)
+    run = get_run_config(MOE_ARCH, rules_name="default")
+    ctx0 = Ctx(run, "cuda")
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    B, S = 8, 256
+    toks = np.random.default_rng(61).integers(0, full_cfg.vocab,
+                                              (DIST_MOE["decode_steps"], B))
+    ref_logits = []
+    if rank == 0:
+        params = _dist_draw(full_cfg, ctx0, 8)
+        cache = lm.init_cache(ctx0, full_cfg, B, S)
+        step = make_decode_step(full_cfg, run, ctx0)
+        with torch.no_grad():
+            for i in range(DIST_MOE["decode_steps"]):
+                cache, lg = step(params, cache,
+                                 torch.from_numpy(toks[i][:, None]).cuda(), i)
+                ref_logits.append(lg.float().cpu())
+        del params, cache
+        torch.cuda.empty_cache()
+    dist.barrier()
+    params = _dist_draw(full_cfg, ctx, 8, _dist_param_specs(full_cfg, ctx),
+                        mesh)
+    cache = lm.shard_cache(ctx, full_cfg, lm.init_cache(ctx0, full_cfg, B, S))
+    step = make_decode_step(full_cfg, run, ctx)
+    tfa.reset_launch_counts()
+    C.reset_staged()
+    diffs, agree = [], 0
+    with torch.no_grad():
+        for i in range(DIST_MOE["decode_steps"]):
+            cache, lg = step(params, cache,
+                             torch.from_numpy(toks[i][:, None]).cuda(), i)
+            lg = lg.float().cpu()
+            if not torch.isfinite(lg).all() or lg.shape != (
+                    B, full_cfg.vocab_padded):
+                raise AssertionError(f"olmoe decode under the mesh: "
+                                     f"{lg.shape}")
+            if rank == 0:
+                diffs.append((lg - ref_logits[i]).abs().max().item())
+                agree += int((lg.argmax(-1) == ref_logits[i].argmax(-1)).sum())
+    out["decode"] = {"launches": _dist_launches(tfa),
+                     "staged_bytes": C.staged_total(), "layers":
+                     full_cfg.n_layers, "steps": DIST_MOE["decode_steps"],
+                     "B": B}
+    if rank == 0:
+        out["decode"].update(max_abs_logit_diff=max(diffs),
+                             argmax_equal=agree,
+                             argmax_total=B * DIST_MOE["decode_steps"])
+    return out
+
+
+def dist_rank_all(rank, world, ckpt_dir):
+    """Every [dist:*] phase on this rank, in one process: mesh (1, 2) and
+    (2, 1) over the same two ranks (two sets of groups), each phase's
+    memory released before the next."""
+    import torch
+    import torch.distributed as dist
+    _dist_rank_setup()
+    from repro_torch.launch.mesh import make_mesh_for
+    tp = make_mesh_for((1, 2), ("data", "model"), device_type="cpu")
+    dp = make_mesh_for((2, 1), ("data", "model"), device_type="cpu")
+    out, secs = {}, {}
+    for name, fn in (("decode", lambda: _dist_phase_decode(rank, tp)),
+                     ("train_1x2", lambda: _dist_phase_train(rank, tp, "1x2")),
+                     ("train_2x1", lambda: _dist_phase_train(rank, dp, "2x1")),
+                     ("elastic", lambda: _dist_phase_elastic(rank, dp,
+                                                             ckpt_dir)),
+                     ("olmoe", lambda: _dist_phase_olmoe(rank, tp))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        secs[name] = time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def dist_rank_reduced(rank, world):
+    """Reduced llama on the card, f32, mesh (1, 2): two sharded decode
+    steps against the unsharded ones (each rank computes both) and one
+    sharded train step against the one-device step, with each part's
+    launches.  ``tests/test_torch_distributed_card.py`` runs it."""
+    import torch
+    _dist_rank_setup()
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import make_decode_step, make_prefill_step
+    from repro_torch.sharding import RULE_SETS
+    mesh = make_mesh_for((1, 2), ("data", "model"), device_type="cpu")
+    cfg, run = _dist_reduced_train()
+    ctx0 = Ctx(run, "cuda")
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    params = _dist_draw(cfg, ctx0, 12)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 40))).cuda()
+    with torch.no_grad():
+        cache, _ = make_prefill_step(cfg, run, ctx0, 128)(
+            params, {"tokens": toks[:, :32]})
+        shard = lm.shard_cache(ctx, cfg, cache)
+        sharded = shard_params(params, _dist_param_specs(cfg, ctx), mesh)
+        full_step = make_decode_step(cfg, run, ctx0)
+        mesh_step = make_decode_step(cfg, run, ctx)
+        tfa.reset_launch_counts()
+        got = [mesh_step(sharded, shard, toks[:, 32 + i:33 + i], 32 + i)[1]
+               for i in range(2)]
+        decode_launches = _dist_launches(tfa)
+        want = [full_step(params, cache, toks[:, 32 + i:33 + i], 32 + i)[1]
+                for i in range(2)]
+        diffs = [((g - w).abs().max() / w.abs().max()).item()
+                 for g, w in zip(got, want)]
+    batch = _dist_batch(cfg, 2, 128, 14)
+    train = _dist_train_case(cfg, run, mesh, batch, 15,
+                             _dist_reference(cfg, run, mesh, batch, 15))
+    return {"decode_rel_diff": max(diffs), "decode_launches": decode_launches,
+            **{k: train[k] for k in ("loss_rel", "grad_norm_rel", "grad_rel",
+                                     "params_apart", "launches")}}
+
+
+# --- the phases (in the calling process, which spawns the ranks)
+
+def _dist_need(launches_by_rank, names, tag):
+    for r, got in enumerate(launches_by_rank):
+        missing = [n for n in names if not got.get(n)]
+        if missing:
+            raise AssertionError(f"[{tag}] rank {r} launched no {missing}")
+
+
+def _dist_gate(cases, gates):
+    """The worst rank's reading of each gate, and the gates it fails."""
+    worst = {k: max(c[k] for c in cases) for k in gates}
+    if "grad_rel" in gates:
+        worst["grad_rel_leaf"] = max(cases, key=lambda c: c["grad_rel"])[
+            "grad_rel_leaf"]
+    return worst, [k for k, lim in gates.items() if not worst[k] <= lim]
+
+
+def _dist_gate_text(worst, gates):
+    return ", ".join(
+        f"{k} {worst[k]:.2e}" + (f" at {worst['grad_rel_leaf']}"
+                                 if k == "grad_rel" else "")
+        + f" (gate {gates[k]})" for k in gates)
+
+
+def dist_report_decode(ranks, secs):
+    res = [r["decode"] for r in ranks]
+    out = {"phase_s": secs}
+    for arm in ("bf16", "f32"):
+        r0 = res[0][arm]
+        launches = [r[arm]["launches"] for r in res]
+        _dist_need(launches, ("flash_decode", "cache_update"), "dist:decode")
+        layers = 28 if arm == "bf16" else 2
+        print(f"[dist:decode] {ARCH} {arm}, {layers} layers, mesh (1, 2) over "
+              f"gloo (two ranks sharing the card; collectives staged through "
+              f"the host: {res[0][arm]['staged_bytes']} / "
+              f"{res[1][arm]['staged_bytes']} bytes by rank), B="
+              f"{DIST_DECODE['B']} prompts of {DIST_DECODE['prompt']}, cache "
+              f"{DIST_DECODE['max_seq']} rows cut by sequence, "
+              f"{DIST_DECODE['steps']} steps teacher-forced by the unsharded "
+              f"stream: logits max|diff| {r0['logits_max_abs_diff']:.3e}, "
+              f"worst entry / its limit {r0['logits_worst_over_limit']:.3f}, "
+              f"{r0['streams_equal']}/{r0['streams']} greedy streams equal; "
+              f"ms per step: unsharded {r0['unsharded_ms_per_step']:.2f} "
+              f"(one rank alone), sharded {r0['sharded_ms_per_step']:.2f} / "
+              f"{res[1][arm]['sharded_ms_per_step']:.2f} by rank; launches "
+              f"by rank {launches}", flush=True)
+        out[arm] = {"rank0": r0, "rank1": res[1][arm], "launches": launches}
+    failed = []
+    if out["f32"]["rank0"]["streams_equal"] != DIST_DECODE["B"]:
+        failed.append("[dist:decode] f32 streams differ from the unsharded "
+                      "ones")
+    return out, failed
+
+
+def _dist_train_lines(tag, what, cases, faults, gates, fault_name):
+    """Print a sharded step's sound and planted-fault readings against
+    ``gates``; returns (the phase's record, its failures).  The sound
+    step must pass every gate and the fault fail every one."""
+    worst, fails = _dist_gate(cases, gates)
+    r0 = cases[0]
+    print(f"[{tag}] {what}: loss {r0['loss']:.6f} vs one device "
+          f"{r0['ref_loss']:.6f}, grad norm {r0['grad_norm']:.5f} vs "
+          f"{r0['ref_grad_norm']:.5f}; worst rank: "
+          f"{_dist_gate_text(worst, gates)}; max param diff "
+          f"{max(c['max_param_diff'] for c in cases):.3e} (lr "
+          f"{r0['lr']}); step {r0['step_s']:.2f} / {cases[1]['step_s']:.2f} "
+          f"s by rank, {r0['staged_bytes']} / {cases[1]['staged_bytes']} "
+          f"bytes staged; launches by rank "
+          f"{[c['launches'] for c in cases]}", flush=True)
+    failed = [f"[{tag}] {what}: {k} {worst[k]} > {gates[k]}" for k in fails]
+    rec = {"worst": worst, "rank0": r0, "rank1": cases[1]}
+    if faults is not None:
+        fworst, ffails = _dist_gate(faults, gates)
+        held = [k for k in gates if k not in ffails]
+        print(f"[{tag}] {what}, planted fault ({DIST_FAULTS[fault_name]}): "
+              f"{_dist_gate_text(fworst, gates)}; gates failed "
+              f"{len(ffails)}/{len(gates)}", flush=True)
+        failed += [f"[{tag}] planted fault {DIST_FAULTS[fault_name]!r} "
+                   f"passes {k}" for k in held]
+        rec["fault"] = {"name": DIST_FAULTS[fault_name], "worst": fworst,
+                        "gates_failed": ffails}
+    return rec, failed
+
+
+def dist_report_train(ranks, secs, restored):
+    out, failed = {}, []
+    for key, shape in (("1x2", (1, 2)), ("2x1", (2, 1))):
+        res = [r["train_" + key] for r in ranks]
+        launches = [r["sound"]["launches"] for r in res]
+        _dist_need(launches, ("flash_attention", "flash_attention_bwd"),
+                   "dist:train")
+        rec, f = _dist_train_lines(
+            "dist:train", f"{ARCH} {DIST_TRAIN['layers']} of 28 layers, "
+            f"batch {DIST_TRAIN['B']} x {DIST_TRAIN['S']}, bf16, mesh "
+            f"{shape} over gloo (two ranks sharing the card), "
+            f"{secs['train_' + key]:.1f} s",
+            [r["sound"] for r in res], [r["fault"] for r in res],
+            DIST_TRAIN_GATES, key)
+        out[key], failed = dict(rec, launches=launches), failed + f
+    res = [r["elastic"] for r in ranks]
+    back = restored
+    rel = abs(back["loss"] - res[0]["loss"]) / abs(res[0]["loss"])
+    print(f"[dist:train] elastic: reduced {ARCH} f32, two steps on (2, 1), a "
+          f"checkpoint saved full, restored on plan_mesh_shape(1, "
+          f"model_parallel=1) = {back['shape']} at step {back['start']}: "
+          f"third step loss {back['loss']:.7f} vs straight through "
+          f"{res[0]['loss']:.7f} (rel {rel:.2e}, tol {DIST_ELASTIC_RTOL})",
+          flush=True)
+    if not (back["start"] == 2 and rel <= DIST_ELASTIC_RTOL):
+        failed.append(f"[dist:train] elastic restart apart: {back}")
+    out["elastic"] = {"restart_loss": back["loss"],
+                      "straight_loss": res[0]["loss"], "rel": rel}
+    return out, failed
+
+
+def dist_report_olmoe(ranks, secs):
+    res = [r["olmoe"] for r in ranks]
+    out, failed = {}, []
+    what = (f"{MOE_ARCH} {DIST_MOE['layers']} of 16 layers, batch "
+            f"{DIST_MOE['train_B']} x {DIST_MOE['S']}, bf16, capacity factor 8 "
+            f"(no drops), mesh (1, 2), expert parallelism over the")
+    for arm in ("bf16", "int8"):
+        launches = [r[arm]["launches"] for r in res]
+        _dist_need(launches, ("grouped_matmul", "grouped_matmul_bwd"),
+                   "dist:train-olmoe")
+        rec, f = _dist_train_lines(
+            "dist:train-olmoe", f"{what} {arm} wire",
+            [r[arm] for r in res],
+            [r["fault"] for r in res] if arm == "bf16" else None,
+            DIST_MOE_GATES[arm], "olmoe")
+        out[arm], failed = dict(rec, launches=launches), failed + f
+    lay = [r["layer"] for r in res]
+    ep = max(x["ep_worst_over_limit"] for x in lay)
+    flt = min(x["fault_share_flagged"] for x in lay)
+    q_rel = max(x["q_rel"] for x in lay)
+    print(f"[dist:train-olmoe] one MoE layer at full width, bf16, "
+          f"{DIST_MOE['B']} x {DIST_MOE['S']} rows, no drops: expert "
+          f"parallelism vs the local path, worst entry / its limit {ep:.3f} "
+          f"(max|diff| {max(x['ep_max_abs_diff'] for x in lay):.3e}, gate "
+          f"<= 1); planted fault ({DIST_FAULTS['olmoe']}): {flt:.3f} of "
+          f"entries flagged (gate > 0.5); q_rel int8 vs bf16 wire "
+          f"{q_rel:.4f} (gate < 0.05)", flush=True)
+    if not ep <= 1.0:
+        failed.append(f"[dist:train-olmoe] EP layer vs local: {ep}")
+    if not flt > 0.5:
+        failed.append(f"[dist:train-olmoe] planted a2a fault flagged on "
+                      f"{flt} of entries only")
+    if not q_rel < 0.05:
+        failed.append(f"[dist:train-olmoe] q_rel {q_rel}")
+    out["layer"] = {"ep_worst_over_limit": ep, "fault_share_flagged": flt,
+                    "q_rel": q_rel}
+    dec = res[0]["decode"]
+    _dist_need([r["decode"]["launches"] for r in res],
+               ("grouped_matmul", "flash_decode", "cache_update"),
+               "dist:train-olmoe decode")
+    print(f"[dist:train-olmoe] decode under the mesh, all {dec['layers']} "
+          f"layers, experts sharded (no EP at one token), B={dec['B']}, "
+          f"{dec['steps']} steps: max|logit diff| vs one device "
+          f"{dec['max_abs_logit_diff']:.3e} (bf16, not gated), argmax equal "
+          f"{dec['argmax_equal']}/{dec['argmax_total']}; launches by rank "
+          f"{[r['decode']['launches'] for r in res]}; {secs:.1f} s for the "
+          f"phase", flush=True)
+    out["decode"] = {"rank0": dec, "rank1": res[1]["decode"]}
+    return out, failed
+
+
+def dist_phases():
+    """Every [dist:*] phase: one spawn of two ranks runs them all
+    (``dist_rank_all``), then the elastic restart in this process; the
+    caller has built the kernels, so the ranks load them and none builds.
+    Every phase prints before any failed gate raises."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dist-ckpt-") as ckpt:
+        ranks = spawn_ranks(dist_rank_all, 2, "gloo", args=(ckpt,),
+                            timeout_s=DIST_SPAWN_TIMEOUT_S,
+                            collective_timeout_s=300)
+        wall = time.perf_counter() - t0
+        restored = dist_elastic_restore(ckpt)
+    secs = ranks[0]["seconds"]
+    out, failed = {"spawn_s": wall, "phase_s": secs}, []
+    for key, (rec, f) in (
+            ("decode", dist_report_decode(ranks, secs["decode"])),
+            ("train", dist_report_train(ranks, secs, restored)),
+            ("train_olmoe", dist_report_olmoe(ranks, secs["olmoe"]))):
+        out[key], failed = rec, failed + f
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[dist] phases in {out['seconds']:.1f} s (the ranks' spawn "
+          f"{wall:.1f} s; by phase, rank 0: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")",
+          flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6788,6 +7817,9 @@ def _smoke(card) -> int:
     print(f"[device] {kind} | nvidia-smi: {smi}", flush=True)
 
     fd_checks = check_flash_decode(tfa, ref)
+    # the log-sum-exp output of the sequence-sharded decode's combine
+    lse_checks, lse_fault = check_flash_decode_lse(tfa, ref)
+    lse_time = time_flash_decode_lse(tfa, ref)
     cu_checks = check_cache_update(tfa, ref)
     fdp_checks = check_flash_decode_paged(tfa, ref)
     fd_faults = check_decode_faults(tfa, ref)
@@ -6935,6 +7967,28 @@ def _smoke(card) -> int:
               f"{t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
 
+    # 2c: the distributed layer: two gloo ranks sharing the card, run
+    # while this process holds little of it (each rank needs a context of
+    # its own, and [dist:train] ~40 GB between them)
+    _release_card()
+    print(f"[dist] this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
+    dist = dist_phases()
+    dist_launches = {
+        "decode": dist["decode"]["bf16"]["launches"],
+        "train_1x2": dist["train"]["1x2"]["launches"],
+        "train_2x1": dist["train"]["2x1"]["launches"],
+        "train_olmoe_bf16": dist["train_olmoe"]["bf16"]["launches"],
+        "decode_olmoe": [dist["train_olmoe"]["decode"][r]["launches"]
+                         for r in ("rank0", "rank1")]}
+
+    def by_rank(name):
+        """Each rank's launches of ``name`` in each [dist:*] phase."""
+        return {ph: [r.get(name, 0) for r in ranks]
+                for ph, ranks in dist_launches.items()
+                if any(r.get(name, 0) for r in ranks)}
     # 2b: the power backend, before the serving arms; the cap table and
     # the metered arm need llama's weights and its dense arm's streams
     power = {"nvml": power_nvml(card),
@@ -7164,7 +8218,13 @@ def _smoke(card) -> int:
             times["flash_decode prefill"], fd_checks, "dense",
             worst_over_limit=max(c["worst_over_limit"] for c in fd_checks),
             planted_fault=fd_faults, bf16_shortcut=fd_shortcut,
-            qwen2vl_g8=qwen2vl("flash_decode", qwen_decode_checks)),
+            qwen2vl_g8=qwen2vl("flash_decode", qwen_decode_checks),
+            lse={**lse_time, "checks": lse_checks,
+                 "planted_fault": lse_fault,
+                 "tolerance": f"out by the per-entry rule; lse "
+                              f"{LSE_TOL} (1 + |want|), -inf "
+                              f"where no key is visible"},
+            launches_dist=by_rank("flash_decode")),
         row("cache_update", csrc + "cache_update.cu", fa + ":394",
             dense_launches["cache_update"],
             max(c["max_abs_diff"] for c in cu_rope_checks), 0.0,
@@ -7173,7 +8233,8 @@ def _smoke(card) -> int:
             scatter_only={"decode": times["cache_update decode"],
                           "checks": cu_checks},
             planted_fault=rope_faults,
-            qwen2vl_g8=qwen2vl("cache_update", qwen_cache_checks)),
+            qwen2vl_g8=qwen2vl("cache_update", qwen_cache_checks),
+            launches_dist=by_rank("cache_update")),
         row("flash_decode_paged", csrc + "decode_attention_paged.cu",
             fa + ":318", paged_launches["flash_decode_paged"],
             bf16_err(fdp_checks), DECODE_TOL["bfloat16"],
@@ -7220,6 +8281,7 @@ def _smoke(card) -> int:
         worst = max(max(v for n, v in c["max_abs_err"].items()
                         if n != "lse") for c in checks
                     if c["dtype"] == "bfloat16")
+        extra["launches_dist"] = by_rank(name)
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=train_launches[name],
                     max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -7263,7 +8325,8 @@ def _smoke(card) -> int:
         library_ms=t["library_ms"], library=t["library"], shape=t["shape"],
         host_ms=t["host_ms"], times=gmm_times, checks=gmm_checks,
         planted_fault=gmm_faults,
-        launches_train=training["olmoe"]["launches"]["grouped_matmul"]))
+        launches_train=training["olmoe"]["launches"]["grouped_matmul"],
+        launches_dist=by_rank("grouped_matmul")))
     t = times[f"grouped_matmul_bwd M={GMM_TRAIN_M} 2048x1024"]
     kernels.append(dict(
         name="grouped_matmul_bwd", route="cuda",
@@ -7282,7 +8345,8 @@ def _smoke(card) -> int:
         host_ms=t["host_ms"],
         times={k: v for k, v in times.items()
                if k.startswith("grouped_matmul_bwd")},
-        checks=gmm_bwd_checks, planted_fault=gmm_bwd_faults))
+        checks=gmm_bwd_checks, planted_fault=gmm_bwd_faults,
+        launches_dist=by_rank("grouped_matmul_bwd")))
     t = times["ssd prefill mamba2"]
     kernels.append(dict(
         name="ssd", route="cuda", source=csrc + "ssd.cu",
@@ -7343,7 +8407,7 @@ def _smoke(card) -> int:
                       "parity_max_abs_diff": parity,
                       "olmoe_parity": moe_parity,
                       "ssm_parity": mamba_parity, "ptxas": ptxas,
-                      "power": power, "fleet": fleet_st,
+                      "power": power, "fleet": fleet_st, "dist": dist,
                       "total_s": time.perf_counter() - t_start}))
     smi_end = _smi_line()
     if smi_end != smi:

@@ -14,7 +14,13 @@ Fault-tolerance properties:
   * atomic rename => a crash mid-save never yields a half checkpoint that
     restore would pick up;
   * sha256 per leaf => bit-rot / truncation detected at restore; corrupt
-    checkpoints are skipped and the previous valid one used.
+    checkpoints are skipped and the previous valid one used;
+  * reshardable: a sharded state (``shardings``, a tree of
+    ``PartitionSpec``s, and its ``mesh``) is saved as full leaves
+    (gathered over the mesh, written by rank 0 while the others wait) and
+    restored as the slices of whatever mesh the restart runs on, so a job
+    restarted on a different mesh reshard-restores (the reference's
+    ``restore(..., shardings=)``, ``repro/ckpt/checkpoint.py:124``).
 """
 
 from __future__ import annotations
@@ -51,10 +57,21 @@ def _sha256(raw: np.ndarray) -> str:
 
 
 def save(state, step: int, directory: str, blocking: bool = True,
-         extra_meta: dict | None = None) -> threading.Thread | None:
+         extra_meta: dict | None = None, *, shardings=None,
+         mesh=None) -> threading.Thread | None:
     """Write checkpoint for ``step``.  blocking=False returns the writer
     thread (async checkpointing: the caller continues training while the
-    host thread serializes)."""
+    host thread serializes).  With ``shardings`` every rank of ``mesh``
+    calls it: the full leaves are gathered, rank 0 writes them (blocking)
+    and the other ranks wait until it has."""
+    if shardings is not None:
+        import torch.distributed as dist
+        from repro_torch.models.params import gather_params
+        state = gather_params(state, shardings, mesh)
+        if mesh.rank == 0:
+            save(state, step, directory, True, extra_meta)
+        dist.barrier()
+        return None
     # snapshot to host memory synchronously, write async
     flat = {k: (_raw(v), list(v.shape), _dtype_name(v.dtype))
             for k, v in _flatten(state).items()}
@@ -120,10 +137,14 @@ def _validate(path: str) -> dict | None:
         return None
 
 
-def restore(directory: str, template, step: int | None = None):
+def restore(directory: str, template, step: int | None = None,
+            shardings=None, mesh=None):
     """Restore into the structure of ``template`` (a tree of tensors).
     Skips corrupt checkpoints, falling back to older ones.  Returns
-    (tree of CPU tensors, step); the caller places them."""
+    (tree of CPU tensors, step); the caller places them.  With
+    ``shardings`` (a tree of ``PartitionSpec``s matching ``template``) and
+    ``mesh``, each leaf is this rank's slice of the full leaf: the elastic
+    reshard-restore."""
     steps = available_steps(directory)
     if step is not None:
         steps = [s for s in steps if s <= step]
@@ -143,5 +164,8 @@ def restore(directory: str, template, step: int | None = None):
             for p in parents:
                 node = node.setdefault(p, {})
             node[last] = _load_leaf(os.path.join(path, spec["file"]), spec)[1]
+        if shardings is not None:
+            from repro_torch.models.params import shard_params
+            out = shard_params(out, shardings, mesh)
         return out, s
     raise FileNotFoundError(f"no valid checkpoint in {directory}")

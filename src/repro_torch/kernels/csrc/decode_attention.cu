@@ -50,6 +50,11 @@
 //   * rows past min(kv_len, S), before the window or after the block's last
 //     causal position are never read: done lanes (kv_len = S + 1) stop at
 //     the cache end.
+// The log-sum-exp of each query row (the combine statistic of the
+// sequence-sharded decode, each rank's slice of the cache one call) comes
+// from the softmax state every path already holds, M + log L at the
+// output's write (the tensor-core kernel's m in log2 units, over log2 e);
+// a null lse pointer writes none, so the serving path is unchanged.
 // head_dim 256 (gemma2): the same kernels, with two tile sizes cut so that
 // a block's staging fits its 227 KB of shared memory.  The tensor-core
 // chunk kernel walks 64-row kv tiles (the q tile and two stages of 128-row
@@ -68,12 +73,14 @@
 
 // caches (B, S, K, D); part: float32 scratch of B * K * ceil(S / span) *
 // DECODE_ROWS * (D + 2) entries and counters: B * K int32, all 0, for the
-// decode path (Sq * H / K <= 4).  Returns the cudaError_t of the launch (0 on
-// success).
+// decode path (Sq * H / K <= 4); lse: null, or float32 (B, H, Sq), each
+// query row's log-sum-exp of its visible logits (-inf where it sees none:
+// a rank's slice of a sequence-sharded cache that holds no visible row).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                            const void* kv_len, void* out, void* part, void* counters, int B,
-                            int Sq, int H, int S, int K, int D, int dtype, float scale,
-                            float softcap, int window, int span, void* stream) {
-  return decode_attention(q, k_cache, v_cache, kv_len, out, part, counters, B, Sq, H, K, D,
-                          dtype, scale, softcap, window, span, DenseRows{S}, stream);
+                            const void* kv_len, void* out, void* part, void* counters,
+                            void* lse, int B, int Sq, int H, int S, int K, int D, int dtype,
+                            float scale, float softcap, int window, int span, void* stream) {
+  return decode_attention(q, k_cache, v_cache, kv_len, out, lse, part, counters, B, Sq, H, K,
+                          D, dtype, scale, softcap, window, span, DenseRows{S}, stream);
 }

@@ -127,6 +127,13 @@ struct PagedRows {
 
 constexpr int DECODE_ROWS = 4;   // query rows (Sq * g) of a kv head on the decode path
 
+// log-sum-exp of a row's visible logits from its softmax state (max M,
+// sum L of e^(x - M)); -inf when the row sees no key (L = 0), which the
+// sequence-sharded decode's combine weighs 0
+__device__ __forceinline__ float row_lse(float M, float L) {
+  return L > 0.f ? M + logf(L) : -INFINITY;
+}
+
 template <typename T, int D, int RW, bool Staged>
 struct Layout {
   // kv rows staged per tile: TILE (one per lane of the four warps), and 64
@@ -161,7 +168,7 @@ template <typename T, int D, int RW, typename Rows>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ kv_len,
-                        T* __restrict__ out, float* __restrict__ part,
+                        T* __restrict__ out, float* __restrict__ lse, float* __restrict__ part,
                         int* __restrict__ counters, int Sq, int H, int K, float scale,
                         float softcap, int window, int span, Rows rows) {
   using Lay = Layout<T, D, RW, Rows::kStaged>;
@@ -336,6 +343,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     if (n_live == 1) {
       const int t = rr / g, h = kh * g + rr % g;
       out[(((size_t)b * Sq + t) * H + h) * D + d] = from_f<T>(O / fmaxf(L, 1e-30f));
+      if (lse != nullptr && d == 0) lse[((size_t)b * H + h) * Sq + t] = row_lse(M, L);
     } else {
       const size_t at = at0 + (size_t)blockIdx.z * RW + r;
       po[at * D + d] = O;
@@ -367,13 +375,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
     const int t = rr / g, h = kh * g + rr % g;
     out[(((size_t)b * Sq + t) * H + h) * D + d] = from_f<T>(O / fmaxf(L, 1e-30f));
+    if (lse != nullptr && d == 0) lse[((size_t)b * H + h) * Sq + t] = row_lse(M, L);
   }
   if (threadIdx.x == 0) counters[b * K + kh] = 0;   // ready for the next launch
 }
 
 template <typename T, int D, int RW, typename Rows>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_len,
-                   void* out, float* part, int* counters, dim3 grid, int Sq, int H, int K,
+                   void* out, float* lse, float* part, int* counters, dim3 grid, int Sq, int H,
+                   int K,
                    float scale, float softcap, int window, int span, Rows rows,
                    cudaStream_t stream) {
   auto kern = decode_attention_kernel<T, D, RW, Rows>;
@@ -388,8 +398,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_l
   }
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), part, counters, Sq, H, K, scale,
-      softcap, window, span, rows);
+      static_cast<const int*>(kv_len), static_cast<T*>(out), lse, part, counters, Sq, H, K,
+      scale, softcap, window, span, rows);
   return cudaGetLastError();
 }
 
@@ -453,8 +463,8 @@ decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ kc,
                            const __nv_bfloat16* __restrict__ vc,
                            const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
-                           int Sq, int H, int K, float scale, float softcap, int window,
-                           Rows rows) {
+                           float* __restrict__ lse, int Sq, int H, int K, float scale,
+                           float softcap, int window, Rows rows) {
   using bf16 = __nv_bfloat16;
   constexpr int TC_KV = tc_kv<D>();
   extern __shared__ unsigned char smem_raw[];
@@ -604,6 +614,9 @@ decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int rr = r0 + row + 8 * i;
     if (rr >= R) continue;
+    if (lse != nullptr && lane % 4 == 0)   // m2 in log2 units
+      lse[((size_t)b * H + kh * g + rr % g) * Sq + rr / g] =
+          l[i] > 0.f ? (m2[i] + log2f(l[i])) / DA_LOG2E : -INFINITY;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     bf16* dst = out + (((size_t)b * Sq + rr / g) * H + kh * g + rr % g) * D + col;
 #pragma unroll
@@ -615,7 +628,8 @@ decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, typename Rows>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* kv_len,
-                      void* out, int B, int Sq, int H, int K, float scale, float softcap,
+                      void* out, float* lse, int B, int Sq, int H, int K, float scale,
+                      float softcap,
                       int window, Rows rows, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   auto kern = decode_attention_tc_kernel<D, Rows>;
@@ -629,7 +643,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
   dim3 grid(B, K, (Sq * (H / K) + TC_Q - 1) / TC_Q);
   kern<<<grid, TC_THR, tc_smem<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(kv_len), static_cast<bf16*>(out), Sq, H, K, scale, softcap,
+      static_cast<const int*>(kv_len), static_cast<bf16*>(out), lse, Sq, H, K, scale, softcap,
       window, rows);
   return cudaGetLastError();
 }
@@ -640,7 +654,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* k
 
 template <typename T, int D, typename Rows>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, const void* kv_len,
-                        void* out, float* part, int* counters, int B, int Sq, int H, int K,
+                        void* out, float* lse, float* part, int* counters, int B, int Sq,
+                        int H, int K,
                         float scale, float softcap, int window, int span, Rows rows,
                         cudaStream_t stream) {
   const int R = Sq * (H / K);
@@ -648,38 +663,39 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, const void*
     if (part == nullptr || counters == nullptr || span <= 0 || span % TILE != 0)
       return cudaErrorInvalidValue;
     dim3 grid(B, K, (rows.limit() + span - 1) / span);
-    return launch<T, D, DECODE_ROWS>(q, k, v, kv_len, out, part, counters, grid, Sq, H, K,
-                                     scale, softcap, window, span, rows, stream);
+    return launch<T, D, DECODE_ROWS>(q, k, v, kv_len, out, lse, part, counters, grid, Sq, H,
+                                     K, scale, softcap, window, span, rows, stream);
   }
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return launch_tc<D>(q, k, v, kv_len, out, B, Sq, H, K, scale, softcap, window, rows,
-                        stream);
+    return launch_tc<D>(q, k, v, kv_len, out, lse, B, Sq, H, K, scale, softcap, window,
+                        rows, stream);
   } else {
     // f32 prefill chunks: 16 query rows per block, so each staged tile
     // feeds more of them
     dim3 grid(B, K, (R + 15) / 16);
-    return launch<T, D, 16>(q, k, v, kv_len, out, nullptr, nullptr, grid, Sq, H, K, scale,
-                            softcap, window, 0, rows, stream);
+    return launch<T, D, 16>(q, k, v, kv_len, out, lse, nullptr, nullptr, grid, Sq, H, K,
+                            scale, softcap, window, 0, rows, stream);
   }
 }
 
 template <typename T, typename Rows>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* kv_len,
-                       void* out, float* part, int* counters, int B, int Sq, int H, int K,
+                       void* out, float* lse, float* part, int* counters, int B, int Sq,
+                       int H, int K,
                        int D, float scale, float softcap, int window, int span, Rows rows,
                        cudaStream_t stream) {
   switch (D) {
     case 32:   // the reduced configs
-      return launch_rows<T, 32>(q, k, v, kv_len, out, part, counters, B, Sq, H, K, scale,
+      return launch_rows<T, 32>(q, k, v, kv_len, out, lse, part, counters, B, Sq, H, K, scale,
                                 softcap, window, span, rows, stream);
     case 64:   // zamba2's shared attention
-      return launch_rows<T, 64>(q, k, v, kv_len, out, part, counters, B, Sq, H, K, scale,
+      return launch_rows<T, 64>(q, k, v, kv_len, out, lse, part, counters, B, Sq, H, K, scale,
                                 softcap, window, span, rows, stream);
     case 128:
-      return launch_rows<T, 128>(q, k, v, kv_len, out, part, counters, B, Sq, H, K, scale,
+      return launch_rows<T, 128>(q, k, v, kv_len, out, lse, part, counters, B, Sq, H, K, scale,
                                  softcap, window, span, rows, stream);
     case 256:   // gemma2
-      return launch_rows<T, 256>(q, k, v, kv_len, out, part, counters, B, Sq, H, K, scale,
+      return launch_rows<T, 256>(q, k, v, kv_len, out, lse, part, counters, B, Sq, H, K, scale,
                                  softcap, window, span, rows, stream);
     default:
       return cudaErrorInvalidValue;
@@ -687,24 +703,28 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, const void* 
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  softcap <= 0 and window <= 0 mean none.
+// lse: null, or float32 (B, H, Sq): each query row's log-sum-exp of its
+// visible logits (after scale and softcap), -inf for a row that sees none.
 // part, counters, span: the decode path's scratch (see
 // decode_attention_kernel; counters all 0 on entry, and left so), unused
 // when Sq * (H / K) > DECODE_ROWS.  Returns the cudaError_t of the launch (0
 // on success).
 template <typename Rows>
 int decode_attention(const void* q, const void* k, const void* v, const void* kv_len,
-                     void* out, void* part, void* counters, int B, int Sq, int H, int K,
+                     void* out, void* lse, void* part, void* counters, int B, int Sq, int H,
+                     int K,
                      int D, int dtype, float scale, float softcap, int window, int span,
                      Rows rows, void* stream) {
   if (B <= 0 || Sq <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   int* ct = static_cast<int*>(counters);
   if (dtype == 0)
-    return (int)launch_dim<float>(q, k, v, kv_len, out, pf, ct, B, Sq, H, K, D, scale,
+    return (int)launch_dim<float>(q, k, v, kv_len, out, ls, pf, ct, B, Sq, H, K, D, scale,
                                   softcap, window, span, rows, st);
   if (dtype == 1)
-    return (int)launch_dim<__nv_bfloat16>(q, k, v, kv_len, out, pf, ct, B, Sq, H, K, D, scale,
+    return (int)launch_dim<__nv_bfloat16>(q, k, v, kv_len, out, ls, pf, ct, B, Sq, H, K, D, scale,
                                           softcap, window, span, rows, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -37,8 +37,8 @@ extern "C" int flash_decode_paged(const void* q, const void* k_pool, const void*
                                   int max_blocks, int pool_blocks, int dtype, float scale,
                                   float softcap, int window, int span, void* stream) {
   if (bs <= 0 || max_blocks <= 0 || pool_blocks <= 0) return (int)cudaErrorInvalidValue;
-  return decode_attention(q, k_pool, v_pool, kv_len, out, part, counters, B, Sq, H, K, D,
-                          dtype, scale, softcap, window, span,
+  return decode_attention(q, k_pool, v_pool, kv_len, out, nullptr, part, counters, B, Sq, H,
+                          K, D, dtype, scale, softcap, window, span,
                           PagedRows{static_cast<const int*>(table), max_blocks, bs, pool_blocks},
                           stream);
 }

@@ -84,15 +84,22 @@ def _ptr(t):
 
 
 def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
-                 local_window=None, scale=None):
+                 local_window=None, scale=None, return_lse=False):
     """q: (B, Sq, H, D); caches: (B, S, K, D); kv_len: (B,) int32 valid
     length INCLUDING the Sq new tokens, per slot (ragged; a done lane's
     S + 1 reads the S cache rows and nothing past them).  Returns
-    (B, Sq, H, D) in q's dtype."""
+    (B, Sq, H, D) in q's dtype; with ``return_lse`` also the float32
+    log-sum-exp (B, H, Sq) of each query row's visible logits (after scale
+    and softcap), -inf for a row that sees no key (whose output is 0): the
+    statistic the sequence-sharded decode combines ranks' slices by."""
     B, Sq, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else D ** -0.5
     if not q.is_cuda:
+        if return_lse:
+            return ref.decode_attention_lse_ref(q, k_cache, v_cache, kv_len,
+                                                scale=scale, softcap=softcap,
+                                                local_window=local_window)
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_len,
                                         scale=scale, softcap=softcap,
                                         local_window=local_window)
@@ -111,19 +118,21 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, softcap=None,
     build.check_cuda("flash_decode", q.device, q=q, k_cache=k_cache,
                 v_cache=v_cache, kv_len=kv_len)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.library("decode_attention")
     part, counters = _decode_scratch(q, K, D, S)
     err = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), _ptr(part), _ptr(counters), B, Sq,
-        H, S, K, D,
+        kv_len.data_ptr(), out.data_ptr(), _ptr(part), _ptr(counters),
+        _ptr(lse), B, Sq, H, S, K, D,
         build.DTYPE_CODE[q.dtype], float(scale),
         float(softcap) if softcap is not None else 0.0,
         int(local_window) if local_window is not None else 0, DECODE_SPAN,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_decode", err)
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

@@ -64,13 +64,14 @@ def attention(q, k, v, *, causal=True, local_window=None, softcap=None,
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap=None,
-                     local_window=None, scale=None):
+                     local_window=None, scale=None, return_lse=False):
     """Decode-step (Sq=1) or chunked-prefill (Sq>1) attention over a
-    (B,S,K,D) cache with per-slot valid lengths kv_len (B,)."""
+    (B,S,K,D) cache with per-slot valid lengths kv_len (B,); with
+    ``return_lse`` also each row's f32 log-sum-exp (B, H, Sq)."""
     return flash_attention.flash_decode(q, k_cache, v_cache, kv_len,
                                         softcap=softcap,
                                         local_window=local_window,
-                                        scale=scale)
+                                        scale=scale, return_lse=return_lse)
 
 
 def kv_cache_update(k_cache, v_cache, k_new, v_new, index, **rope):

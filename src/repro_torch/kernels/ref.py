@@ -225,6 +225,29 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len, *, scale=None,
                            scale=scale, kv_len=kv_len)
 
 
+def decode_attention_lse_ref(q, k_cache, v_cache, kv_len, *, scale=None,
+                             softcap=None, local_window=None):
+    """``flash_decode(..., return_lse=True)``'s plain version: the output
+    and the float32 log-sum-exp (B, H, Sq) of each row's visible logits.
+    A row that sees no key (kv_len 0, or a window past every row) gives
+    output 0 and lse -inf, as the kernels do (``decode_attention_ref``'s
+    softmax over all-masked logits would average the rows instead)."""
+    B, Sq, H, D = q.shape
+    K = k_cache.shape[2]
+    s, mask = _decode_logits(q, k_cache, kv_len, scale, softcap,
+                             local_window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m) * mask
+    l = e.sum(-1)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", e, v_cache.float())
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l),
+                      torch.full_like(l, float("-inf")))
+    return out.contiguous(), lse.reshape(B, H, Sq)
+
+
 def _decode_logits(q, k_cache, kv_len, scale, softcap, local_window):
     """(B, K, G, Sq, S) f32 logits of the decode layout (q at the END of
     each slot's kv_len window) after scale and softcap, and their mask, as

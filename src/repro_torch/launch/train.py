@@ -7,6 +7,9 @@ the card.
       --steps 6                                      # full width, one H100
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
       --no-reduced --batch 2 --seq 2048 --steps 6    # gemma2, one H100
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \\
+      olmoe-1b-7b --reduced --mesh 2x2 --backend gloo --device cpu \\
+      --steps 3                                      # a 2x2 mesh, CPU
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given), and
@@ -20,9 +23,19 @@ step reads 0 or one update), beside the modelled saving of the
 ``--power-metric`` schedule on the H100 model (``hw/h100.py``); with
 ``--device cpu``, the reference's modelled step energy on the TPU model.
 ``--pod-budget-frac`` splits a pod budget over the chips as the
-reference does; the port trains on one device, so that branch does not
-run.  Left out until its slice: ``--mesh`` (ROADMAP queue 1 item 14,
-distributed).
+reference does, with the chips the world size of a ``--mesh`` run.
+
+``--mesh`` (e.g. ``2x2``: data x model) runs one rank of a sharded run
+per process: the process group starts from the environment, as
+``torchrun`` sets it (``launch.mesh.init_distributed``; ``--backend``
+nccl when every rank has its own card, gloo when ranks share a card or
+run on the CPU), the state is sharded by the arch's rule set
+(``rules_name``; only ``default`` executes yet, the others raise naming
+ROADMAP item 14b), each data-parallel rank takes its rows of the step's
+global batch (host id = its data coordinate, so the losses are the one
+device's), checkpoints are saved full and restored as the mesh's slices,
+and rank 0 prints.  On the card each rank uses card ``LOCAL_RANK`` modulo
+the cards present, and only rank 0 reads NVML.
 """
 
 from __future__ import annotations
@@ -39,13 +52,15 @@ from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.configs.registry import (ARCH_IDS, get_model_config,
                                           get_run_config)
 from repro_torch.data.pipeline import DataConfig, TokenSource
-from repro_torch.models.layers import Ctx
+from repro_torch.launch.mesh import init_distributed, make_mesh_for
+from repro_torch.models.layers import DP_AXES, Ctx
 from repro_torch.models.params import resolve_device
 from repro_torch.power import PodPowerArbiter, PowerManager, available_metrics
 from repro_torch.runtime.supervisor import (PreemptionGuard,
                                             StragglerWatchdog, Supervisor)
+from repro_torch.sharding import executed_rules
 from repro_torch.train.phases import training_phase_tasks
-from repro_torch.train.step import init_state, make_train_step
+from repro_torch.train.step import init_state, make_train_step, state_specs
 from repro_torch.tree import leaves
 
 
@@ -66,21 +81,51 @@ def main(argv=None) -> None:
                     help="pod power budget as a fraction of N x p_max")
     ap.add_argument("--max-restarts", type=int, default=2)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 2x2 (data x model) or 2x2x2 (pod x data x "
+                         "model): one rank per process, from the "
+                         "environment")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="collectives of a --mesh run: nccl (a card per "
+                         "rank) or gloo (shared card, or CPU)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_model_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     run = get_run_config(args.arch, total_steps=args.steps,
                          remat="none" if args.reduced else "full",
                          logits_chunk=min(args.seq, 1024))
-    ctx = Ctx(run, device)
+    mesh, rank0, dp = None, True, 1
+    device_arg = args.device
+    if args.mesh:
+        rules = executed_rules(run.rules_name)   # before the group starts
+        init_distributed(args.backend)
+        if device_arg == "cuda" and torch.cuda.is_available():
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            device_arg = f"cuda:{local % torch.cuda.device_count()}"
+        mesh = make_mesh_for(args.mesh)
+        rank0 = mesh.rank == 0
+    device = resolve_device(device_arg)
+    if mesh is not None:
+        ctx = Ctx(run, device, rules, mesh)
+        dp = mesh.axis_size(DP_AXES)
+        host = mesh.index(DP_AXES)
+        if args.batch % dp:
+            raise ValueError(f"--batch {args.batch} does not divide over "
+                             f"{dp} data-parallel ranks")
+        rows = slice(host * (args.batch // dp), (host + 1) * (args.batch // dp))
+        specs = state_specs(cfg, run, ctx)
+    else:
+        ctx = Ctx(run, device)
+        rows = slice(None)
+        specs = None
     data = TokenSource(DataConfig(vocab=cfg.vocab, global_batch=args.batch,
                                   seq_len=args.seq))
     os.makedirs(args.ckpt_dir, exist_ok=True)
+    say = print if rank0 else (lambda *a, **k: None)
 
-    chips = 1                       # one device: no --mesh yet
+    chips = mesh.size if mesh is not None else 1
     on_card = device.type == "cuda"
     if on_card:
         from repro_torch.hw.h100 import H100_SUPERCHIP as spec
@@ -99,25 +144,27 @@ def main(argv=None) -> None:
             budget_w=args.pod_budget_frac * chips * spec.p_max, spec=spec)
         grants = arbiter.split_phase(
             {f"chip{i}": pm.schedule for i in range(chips)}, phase0)
-        pm.set_grant(grants["chip0"])
-        print(f"[pod] budget {arbiter.budget_w:.0f}W over {chips} chips; "
-              f"{phase0}-phase grant {grants['chip0']:.0f}W (installed as "
-              f"cap ceiling)")
+        my_grant = grants[f"chip{mesh.rank % chips}"]
+        pm.set_grant(my_grant)
+        say(f"[pod] budget {arbiter.budget_w:.0f}W over {chips} chips; "
+            f"{phase0}-phase grant {my_grant:.0f}W (installed as cap "
+            f"ceiling)")
     meter = None
-    if on_card:
+    if on_card and rank0:      # ranks that share a card: one reads NVML
         from repro_torch.power.nvml import NvmlBackend
         meter = NvmlBackend(device.index or 0)
 
     def train_once(restart: int) -> str:
         gen = torch.Generator(device=device).manual_seed(0)
-        state = init_state(cfg, run, gen, device).tree()
+        state = init_state(cfg, run, gen, device, ctx).tree()
         start = 0
         if checkpoint.available_steps(args.ckpt_dir):
-            restored, start = checkpoint.restore(args.ckpt_dir, state)
+            restored, start = checkpoint.restore(args.ckpt_dir, state,
+                                                 shardings=specs, mesh=mesh)
             with torch.no_grad():
                 for dst, src in zip(leaves(state), leaves(restored)):
                     dst.copy_(src)
-            print(f"[restore] step {start} (restart #{restart})")
+            say(f"[restore] step {start} (restart #{restart})")
         step_fn = make_train_step(cfg, run, ctx)
         watchdog = StragglerWatchdog()
         tokens, t_loop = 0, time.perf_counter()
@@ -125,12 +172,12 @@ def main(argv=None) -> None:
         with PreemptionGuard() as guard:
             for i in range(start, args.steps):
                 t0 = time.perf_counter()
-                batch = {k: torch.from_numpy(v).to(device)
+                batch = {k: torch.from_numpy(v[rows]).to(device)
                          for k, v in data.batch(i).items()}
                 state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])         # waits for the step
                 slow = watchdog.observe(i, time.perf_counter() - t0)
-                tokens += batch["tokens"].numel()
+                tokens += batch["tokens"].numel() * dp
                 e = pm.account_step()
                 if meter is not None:
                     e_now = meter.energy_mj()
@@ -140,18 +187,20 @@ def main(argv=None) -> None:
                 else:
                     energy = (f"E={e['energy_j']:.2f}J "
                               f"(-{e['energy_saving_pct']:.1f}%)")
-                print(f"step {i:5d} loss={loss:.4f} "
-                      f"grad_norm={float(metrics['grad_norm']):.4f} {energy}"
-                      f"{' [STRAGGLER]' if slow else ''}", flush=True)
+                say(f"step {i:5d} loss={loss:.4f} "
+                    f"grad_norm={float(metrics['grad_norm']):.4f} {energy}"
+                    f"{' [STRAGGLER]' if slow else ''}", flush=True)
                 if (i + 1) % args.ckpt_every == 0 or guard.should_stop:
-                    checkpoint.save(state, i + 1, args.ckpt_dir)
+                    checkpoint.save(state, i + 1, args.ckpt_dir,
+                                    shardings=specs, mesh=mesh)
                 if guard.should_stop:
                     raise SystemExit(143)
         wall = time.perf_counter() - t_loop
         if tokens:
-            print(f"[throughput] {tokens} tokens in {wall:.2f}s "
-                  f"({tokens / wall:.1f} tokens/s) on {device}")
-        checkpoint.save(state, args.steps, args.ckpt_dir)
+            say(f"[throughput] {tokens} tokens in {wall:.2f}s "
+                f"({tokens / wall:.1f} tokens/s) on {device}")
+        checkpoint.save(state, args.steps, args.ckpt_dir, shardings=specs,
+                        mesh=mesh)
         return f"completed at step {args.steps}"
 
     try:
@@ -159,7 +208,9 @@ def main(argv=None) -> None:
     finally:
         if meter is not None:
             meter.close()
-    print(f"[supervisor] {result}")
+    say(f"[supervisor] {result}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -3,18 +3,41 @@ ported from ``repro/models/layers.py``.
 
 Every ``*_decls`` returns a nested dict of PD declarations with the
 reference's keys and shapes; the matching ``apply_*`` consumes the
-materialized tensors.  ``Ctx`` holds the run config and the device; the
-port has no sharding.  Weights are cast to the compute dtype at use with
-``.to(c)``, a no-op once ``lm.prepare_params`` has cast them at load.  In
-training the parameters stay f32 masters with ``requires_grad``: the cast
-at use is differentiable, so autograd returns f32 gradients, as JAX
-does.
+materialized tensors.  ``Ctx`` holds the run config, the device and,
+for a sharded run, the logical rules and the mesh.  Weights are cast to
+the compute dtype at use with ``.to(c)``, a no-op once
+``lm.prepare_params`` has cast them at load.  In training the parameters
+stay f32 masters with ``requires_grad``: the cast at use is
+differentiable, so autograd returns f32 gradients, as JAX does.
 
 The MoE layer is the reference's local path (token-choice top-k router,
-capacity dispatch, grouped expert FFN, weighted combine).  Its
-expert-parallel ``shard_map`` path and the int8 all-to-all
-(``repro/models/layers.py:546-640``) need a mesh, which the port does not
-have yet: ROADMAP queue 1 item 14.
+capacity dispatch, grouped expert FFN, weighted combine).
+
+Under a mesh (``ctx.mesh``) every layer is one rank's program of the
+reference's sharded execution, Megatron-style: the weights are this
+rank's shards (``sharding.rules.local_slice`` of the reference's specs),
+activations are replicated over ``model`` and split over the
+data-parallel axes, and each layer reads its local sizes from its local
+weights and issues its own collectives (``sharding/collectives.py``):
+  attention   q/k/v columns sharded by heads (``qkv_flat``/``kv_flat``),
+              this rank's heads through the kernels, ``wo`` row-parallel
+              and summed over ``model``; a decode step over a cache
+              sharded by sequence over ``model`` is the reference's
+              ``_decode_attention_seqsharded`` (``:293-384``): each rank
+              writes the new row only if it owns it and attends over its
+              slice, and the slices combine by their log-sum-exp;
+  MLP         ``w_up``/``w_gate`` column-, ``w_down`` row-parallel;
+  MoE         with experts sharded over ``model`` and the sequence
+              divisible by it, the reference's expert parallelism
+              (``_moe_shard_map``, ``:580-640``): each rank dispatches its
+              sequence slice, one all-to-all (bf16 or the int8 wire of
+              ``_A2AInt8``) takes each expert's rows to its rank, the
+              local experts run, a second all-to-all brings the rows back;
+              otherwise (a decode step) each rank runs its experts on the
+              common dispatch and the outputs are summed over ``model``.
+A leaf the rules leave replicated (its dim not divisible) is computed
+whole on every rank, with no collective.  A cut inside a head, or q
+sharded while kv is not, raises.
 
 The Mamba-2 block runs its prefill chunks through ``ops.ssd`` (the
 ``ssd`` kernel on CUDA) and its single-token decode through the plain
@@ -26,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -33,16 +57,46 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.params import PD
+from repro_torch.sharding import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     run: RunConfig
     device: str | torch.device = "cuda"
+    rules: Any = None    # sharding.LogicalRules | None
+    mesh: Any = None     # launch.mesh.Mesh | None: this rank's program
 
     @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.run.compute_dtype)
+
+
+MODEL = "model"
+DP_AXES = ("pod", "data")
+
+
+def _n_model(ctx: Ctx) -> int:
+    return ctx.mesh.axis_size(MODEL) if ctx.mesh is not None else 1
+
+
+def _model_index(ctx: Ctx) -> int:
+    return ctx.mesh.coord(MODEL) if _n_model(ctx) > 1 else 0
+
+
+def _local_heads(ctx: Ctx, what: str, total: int, cols: int, hd: int) -> int:
+    """Heads of a projection whose local columns are ``cols`` of
+    ``total * hd``: ``total`` when replicated, ``total / n`` when sharded
+    on whole heads; a cut inside a head raises."""
+    if cols == total * hd:
+        return total
+    n = _n_model(ctx)
+    if total % n or cols * n != total * hd:
+        raise NotImplementedError(
+            f"{what}: {cols} local columns of {total} heads x {hd} cut a "
+            f"head on a {n}-way model axis; the port shards attention by "
+            f"whole heads")
+    return total // n
 
 
 def _stack(shape, layers):
@@ -169,6 +223,14 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     ``repro/models/lm.py:372``).  Without a cache RoPE is ``apply_rope``
     and attention the differentiable ``ops.attention``.  Returns (y,
     cache)."""
+    if ctx.mesh is not None:
+        if q_delta is not None:
+            raise NotImplementedError(
+                "the hybrid's shared attention under a mesh: ROADMAP item 14b")
+        return _attention_sharded(ctx, cfg, p, x, cos, sin,
+                                  local_window=local_window, cache=cache,
+                                  cache_index=cache_index,
+                                  block_tables=block_tables)
     c = ctx.cdtype
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -222,6 +284,128 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     return y, cache
 
 
+def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
+                       local_window, cache, cache_index, block_tables):
+    """``apply_attention`` on one rank of a mesh: this rank's heads (q/k/v
+    columns sharded by the rules, or all of them where a projection is
+    replicated), ``wo`` row-parallel and summed over ``model``.  With a
+    cache, the sequence-sharded decode step; prefill and the per-slot
+    index under a mesh are ROADMAP item 14b."""
+    c, mesh = ctx.cdtype, ctx.mesh
+    B, S = x.shape[:2]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H_l = _local_heads(ctx, "wq", H, p["wq"].shape[-1], hd)
+    K_l = _local_heads(ctx, "wk", K, p["wk"].shape[-1], hd)
+    if (H_l == H) != (K_l == K):
+        raise NotImplementedError(
+            f"{H_l} of {H} query heads and {K_l} of {K} kv heads on this "
+            f"rank: the port shards q and kv together or neither")
+    sharded = H_l != H
+    # column-parallel projections: their input's gradient sums over model
+    x_in = C.copy_to(x, MODEL, mesh) if sharded else x
+    q = (x_in @ p["wq"].to(c)).reshape(B, S, H_l, hd)
+    k = (x_in @ p["wk"].to(c)).reshape(B, S, K_l, hd)
+    v = (x_in @ p["wv"].to(c)).reshape(B, S, K_l, hd)
+    scale = (cfg.query_scale ** -0.5 if cfg.query_scale is not None
+             else cfg.head_dim ** -0.5)
+    if cache is None:
+        if cfg.use_rope:
+            q = ref.apply_rope(q, cos, sin, cfg.rotary_pct)
+            k = ref.apply_rope(k, cos, sin, cfg.rotary_pct)
+        out = ops.attention(q, k, v, causal=cfg.causal,
+                            local_window=local_window,
+                            softcap=cfg.attn_softcap, scale=scale,
+                            naive_below=ctx.run.naive_attn_below)
+    else:
+        if block_tables is not None or S != 1 or (
+                torch.is_tensor(cache_index) and cache_index.ndim >= 1):
+            raise NotImplementedError(
+                "under a mesh only the single-token decode step with a "
+                "scalar index runs (paged caches, prefill and per-slot "
+                "indices under a mesh: ROADMAP item 14b)")
+        out = _decode_seqsharded(ctx, cfg, q, k, v, cache, int(cache_index),
+                                 cos, sin, scale=scale,
+                                 local_window=local_window)
+        if sharded:
+            m = _model_index(ctx)
+            out = out[:, :, m * H_l:(m + 1) * H_l]
+    y = out.reshape(B, S, H_l * hd) @ p["wo"].to(c)
+    return C.reduce_from(y, MODEL, mesh) if sharded else y, cache
+
+
+def seq_shard_window(index: int, rank: int, rows: int, window=None):
+    """This rank's (kv_len, window) for a decode step at global position
+    ``index`` over its cache slice [rank * rows, (rank + 1) * rows): the
+    kernel counts the window back from kv_len - 1, so a slice that ends
+    before ``index`` takes the window shortened by the rows between them,
+    and one the window does not reach (or that starts after ``index``)
+    takes kv_len 0, which gives output 0 and log-sum-exp -inf.  Together
+    they are the reference's mask ``k_pos <= index``, ``k_pos > index -
+    window`` (``repro/models/layers.py:361-364``)."""
+    end = index + 1 - rank * rows          # local rows up to and with index
+    if end <= 0:
+        return 0, window
+    if end <= rows:
+        return end, window
+    if window is None:
+        return rows, None
+    w = window - (end - rows)
+    return (rows, w) if w > 0 else (0, window)
+
+
+def _decode_seqsharded(ctx: Ctx, cfg: ModelConfig, q, k, v, cache,
+                       index: int, cos, sin, *, scale, local_window):
+    """The reference's ``_decode_attention_seqsharded``
+    (``repro/models/layers.py:307-384``) on one rank: the cache (B, S_l,
+    K, hd) is this rank's slice of the sequence over ``model``, all kv
+    heads; q, k, v are gathered to all heads, and one ``cache_update``
+    launch rotates q and k and writes the new row at the local index
+    ``index - rank * S_l``, which only the owning rank holds (the others'
+    writes fall outside their slice and are dropped).  ``flash_decode``
+    over the slice gives each rank's partial output and log-sum-exp, and
+    ``m = pmax(lse)``, ``o = psum(o_l e^(lse - m)) / psum(e^(lse - m))``
+    over ``model`` combine them (the reference's ``:371-375`` in lse
+    form).  Returns (B, 1, H, hd) in the compute dtype, every head."""
+    c, mesh = ctx.cdtype, ctx.mesh
+    B, n = q.shape[0], _n_model(ctx)
+    H_l, K_l = q.shape[2], k.shape[2]
+    if K_l != cfg.n_kv_heads:           # q, k, v gathered in one exchange
+        qkv = C.all_gather(torch.cat([q, k, v], dim=2), MODEL, mesh, dim=2)
+        qkv = qkv.reshape(B, 1, n, H_l + 2 * K_l, -1)
+        q, k, v = (qkv[:, :, :, a:b].flatten(2, 3) for a, b in (
+            (0, H_l), (H_l, H_l + K_l), (H_l + K_l, H_l + 2 * K_l)))
+    ck, cv = cache["k"], cache["v"]
+    rows, r = ck.shape[1], _model_index(ctx)
+    idx = torch.full((B,), index - r * rows, dtype=torch.int32,
+                     device=q.device)
+    rope = (dict(q=q.contiguous(), cos=cos, sin=sin,
+                 rotary_pct=cfg.rotary_pct) if cfg.use_rope else {})
+    written = ops.kv_cache_update(ck, cv, k.contiguous(), v.contiguous(),
+                                  idx, **rope)
+    if rope:
+        q = written[2]
+    kv_len, window = seq_shard_window(index, r, rows, local_window)
+    o, lse = ops.decode_attention(
+        q.contiguous(), ck.to(c), cv.to(c),
+        torch.full((B,), kv_len, dtype=torch.int32, device=q.device),
+        softcap=cfg.attn_softcap, local_window=window, scale=scale,
+        return_lse=True)
+    if _n_model(ctx) == 1:
+        return o
+    m = C.pmax(lse, MODEL, mesh)
+    w = torch.exp(lse - m).permute(0, 2, 1)[..., None]   # (B, 1, H, 1)
+    both = C.psum(torch.cat([o.float() * w, w], dim=-1), MODEL, mesh)
+    return (both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)).to(c)
+
+
+#: logical axes of the stacked KV cache and Mamba state leaves
+#: (``repro/models/layers.py:265, 656``)
+KV_CACHE_AXES = {"k": ("layers", "act_batch", "act_kv_seq", None, None),
+                 "v": ("layers", "act_batch", "act_kv_seq", None, None)}
+MAMBA_STATE_AXES = {"ssm": ("layers", "act_batch", "ssm_heads", None, None),
+                    "conv": ("layers", "act_batch", None, "act_ssm")}
+
+
 def empty_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                    layers: int = 0, device="cpu"):
     shape = _stack((batch, max_seq, cfg.n_kv_heads, cfg.head_dim), layers)
@@ -256,7 +440,12 @@ def mlp_decls(cfg: ModelConfig, layers: int = 0) -> dict:
 
 
 def apply_mlp(ctx: Ctx, cfg: ModelConfig, p: dict, x):
+    """The dense MLP; under a mesh with ``mlp`` sharded, ``w_up``/``w_gate``
+    column- and ``w_down`` row-parallel, summed over ``model``."""
     c = ctx.cdtype
+    sharded = ctx.mesh is not None and p["w_up"].shape[-1] != cfg.d_ff
+    if sharded:
+        x = C.copy_to(x, MODEL, ctx.mesh)
     up = x @ p["w_up"].to(c)
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["w_gate"].to(c)) * up
@@ -269,7 +458,8 @@ def apply_mlp(ctx: Ctx, cfg: ModelConfig, p: dict, x):
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(cfg.mlp)
-    return h @ p["w_down"].to(c)
+    y = h @ p["w_down"].to(c)
+    return C.reduce_from(y, MODEL, ctx.mesh) if sharded else y
 
 
 # ===========================================================================
@@ -293,30 +483,49 @@ def moe_decls(cfg: ModelConfig, layers: int = 0) -> dict:
     }
 
 
-def _moe_router(cfg: ModelConfig, p: dict, xf):
+def _moe_router(cfg: ModelConfig, p: dict, xf, mesh=None):
     """Router probabilities, top-k and the Switch load-balancing aux loss,
     in float32 from the float32 router (``lm.prepare_params`` keeps it
     f32, as the reference reads its masters).  xf: (T, D).  Returns
-    top_p (T, K) renormalised, top_e (T, K) and aux ()."""
+    top_p (T, K) renormalised, top_e (T, K) and aux ().
+
+    Under a mesh the tokens are this rank's share of the data-parallel
+    batch, and the aux is this rank's term of the global one: the mean
+    probabilities over the global token count times the global dispatch
+    fractions (a sum over the data-parallel ranks, without gradient), so
+    the ranks' terms sum to the reference's aux and their gradients, summed
+    as every gradient is, to its gradient."""
     E, K = cfg.n_experts, cfg.top_k
     T = xf.shape[0]
     logits = xf.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, K, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
-    me = probs.mean(dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=xf.device).index_add_(
+    if mesh is None or mesh.axis_size(DP_AXES) == 1:
+        me = probs.mean(dim=0)
+        ce = torch.zeros((E,), dtype=torch.float32,
+                         device=xf.device).index_add_(
+            0, top_e.reshape(-1),
+            torch.full((T * K,), 1.0 / (T * K), dtype=torch.float32,
+                       device=xf.device))
+        return top_p, top_e, E * torch.sum(me * ce)
+    counts = torch.zeros((E + 1,), dtype=torch.float32,
+                         device=xf.device).index_add_(
         0, top_e.reshape(-1),
-        torch.full((T * K,), 1.0 / (T * K), dtype=torch.float32,
-                   device=xf.device))
-    aux = E * torch.sum(me * ce)
-    return top_p, top_e, aux
+        torch.ones((T * K,), dtype=torch.float32, device=xf.device))
+    counts[E] = T
+    counts = C.psum(counts, DP_AXES, mesh)     # global counts and tokens
+    me = probs.sum(dim=0) / counts[E]
+    ce = counts[:E] / (counts[E] * K)
+    return top_p, top_e, E * torch.sum(me * ce)
 
 
-def _moe_dispatch_local(cfg: ModelConfig, xf, top_e, capacity: int):
+def _moe_dispatch_local(cfg: ModelConfig, xf, top_e, capacity: int,
+                        offset=None):
     """Capacity dispatch of the call's tokens into (E, capacity, D), with
     the combine indices.  Each (token, k) assignment, in row-major order,
-    takes the next position of its expert (a cumulative count); positions
+    takes the next position of its expert (a cumulative count, after
+    ``offset[e]`` positions taken by earlier tokens elsewhere); positions
     past ``capacity`` go to an overflow row ``capacity`` that is cut off.
     Returns (expert_in, flat_e, slot, keep).  Nothing here reads a device
     value on the host."""
@@ -326,6 +535,8 @@ def _moe_dispatch_local(cfg: ModelConfig, xf, top_e, capacity: int):
     onehot = (flat_e[:, None]
               == torch.arange(E, device=xf.device)[None]).int()
     pos_in_e = torch.cumsum(onehot, dim=0) - 1
+    if offset is not None:
+        pos_in_e = pos_in_e + offset[None]
     pos = pos_in_e.gather(1, flat_e[:, None])[:, 0]
     keep = pos < capacity
     slot = torch.where(keep, pos, capacity)
@@ -363,17 +574,128 @@ def apply_moe(ctx: Ctx, cfg: ModelConfig, p: dict, x):
     reference's local path.  The capacity comes from the call's own token
     count, ``ceil(T * top_k * capacity_factor / E)``, so a token's output
     depends on the other tokens of the call (done decode lanes included).
-    x: (B, S, D).  Returns (y, aux_loss)."""
+    x: (B, S, D).  Returns (y, aux_loss).
+
+    Under a mesh with the experts sharded over ``model`` (``E`` divisible
+    by it): expert parallelism when ``S`` divides too (``_moe_ep``),
+    else each rank's experts on the common dispatch (``_moe_local_experts``).
+    The router runs on every rank's whole (data-parallel) share of the
+    tokens; its aux is that rank's term (``_moe_router``)."""
     c = ctx.cdtype
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, D)
-    top_p, top_e, aux = _moe_router(cfg, p, xf)
+    top_p, top_e, aux = _moe_router(cfg, p, xf, ctx.mesh)
+    n = _n_model(ctx)
+    if n > 1 and p["w_gate"].shape[0] != E:
+        if S % n == 0:
+            return _moe_ep(ctx, cfg, p, x, top_p, top_e), aux
+        return _moe_local_experts(ctx, cfg, p, x, top_p, top_e), aux
     capacity = int(max(1, math.ceil(B * S * K * cfg.capacity_factor / E)))
     expert_in, flat_e, slot, keep = _moe_dispatch_local(cfg, xf, top_e,
                                                         capacity)
     out = _moe_expert_ffn(ctx, cfg, p, expert_in.to(c))
     return _moe_combine_local(out, flat_e, slot, keep, top_p, B, S), aux
+
+
+class _A2AInt8(torch.autograd.Function):
+    """The int8-wire all-to-all over ``model`` (the reference's
+    ``_a2a_int8``, ``repro/models/layers.py:554-578``).  Forward: each row
+    (the last dim) quantized to int8 with a float32 scale
+    (``ref.int8_quantize``), both exchanged, then dequantized to the
+    input's dtype: a quarter of f32's bytes, half of bf16's, plus the
+    scales.  Backward: the cotangent rides a plain all-to-all."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        q, scale = ref.int8_quantize(t)
+        q_x = C.all_to_all(q, MODEL, mesh)
+        s_x = C.all_to_all(scale, MODEL, mesh)
+        return ref.int8_dequantize(q_x, s_x, t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_to_all(g.contiguous(), MODEL, ctx.mesh), None
+
+
+def _a2a(ctx: Ctx, t):
+    if ctx.run.moe_a2a_dtype == "int8":
+        return _A2AInt8.apply(t, ctx.mesh)
+    return C.all_to_all_grad(t, MODEL, ctx.mesh)
+
+
+def _moe_ep(ctx: Ctx, cfg: ModelConfig, p: dict, x, top_p, top_e):
+    """Expert parallelism (the reference's ``_moe_shard_map``,
+    ``repro/models/layers.py:580-640``) on one rank: its slice of the
+    sequence is dispatched locally into (E, cap, D) with cap from its own
+    (B_l * S / n) tokens, as each shard's in the reference; the
+    all-to-all sends expert e's rows to the rank holding e, the rank's
+    ``E / n`` experts run on their ``n * cap`` rows (three
+    ``grouped_matmul``), the all-to-all brings them back, and the rank
+    combines its slice; the slices are gathered over ``model``."""
+    c, mesh = ctx.cdtype, ctx.mesh
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    n = _n_model(ctx)
+    e_local = p["w_gate"].shape[0]
+    S_l = S // n
+    cap = int(max(1, math.ceil(B * S_l * K * cfg.capacity_factor / E)))
+    x_l = C.scatter_to(x, MODEL, mesh, 1)                 # (B, S_l, D)
+    tp_l = C.scatter_to(top_p.reshape(B, S, K), MODEL, mesh, 1)
+    m = _model_index(ctx)
+    te_l = top_e.reshape(B, S, K)[:, m * S_l:(m + 1) * S_l]
+    disp, flat_e, slot, keep = _moe_dispatch_local(
+        cfg, x_l.reshape(B * S_l, D).to(c), te_l.reshape(B * S_l, K), cap)
+    recv = _a2a(ctx, disp.reshape(n, e_local, cap, D).contiguous())
+    # recv[i]: source rank i's rows for this rank's experts
+    recv = recv.permute(1, 0, 2, 3).reshape(e_local, n * cap, D)
+    out = _moe_expert_ffn(ctx, cfg, p, recv.contiguous())
+    out = out.reshape(e_local, n, cap, D).permute(1, 0, 2, 3).contiguous()
+    back = _a2a(ctx, out).reshape(E, cap, D)
+    y_l = _moe_combine_local(back, flat_e, slot, keep,
+                             tp_l.reshape(B * S_l, K), B, S_l)
+    return C.gather_from(y_l, MODEL, mesh, 1)
+
+
+def _moe_local_experts(ctx: Ctx, cfg: ModelConfig, p: dict, x, top_p,
+                       top_e):
+    """Experts sharded over ``model`` where expert parallelism does not
+    divide the sequence (a decode step): the reference's GSPMD dispatch of
+    the global batch, cut by rank.  The capacity counts the global tokens
+    (this rank's times the data-parallel ranks), and this rank's
+    assignments take their expert's positions after those of the
+    data-parallel ranks before it (their per-expert counts, gathered), so
+    a token is dropped exactly where one device drops it.  The ``model``
+    ranks of a data-parallel rank dispatch the same tokens, each runs its
+    ``E / n`` experts on their rows, and the combined outputs are summed
+    over ``model``."""
+    c, mesh = ctx.cdtype, ctx.mesh
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    e_local = p["w_gate"].shape[0]
+    dp = mesh.axis_size(DP_AXES)
+    capacity = int(max(1, math.ceil(B * S * dp * K * cfg.capacity_factor
+                                    / E)))
+    offset = None
+    if dp > 1:
+        counts = torch.zeros((E,), dtype=torch.int64,
+                             device=x.device).index_add_(
+            0, top_e.reshape(-1), torch.ones((B * S * K,), dtype=torch.int64,
+                                             device=x.device))
+        counts = C.all_gather(counts[None], DP_AXES, mesh, 0)    # (dp, E)
+        offset = counts[:mesh.index(DP_AXES)].sum(0)
+    xf = C.copy_to(x, MODEL, mesh).reshape(B * S, D)
+    expert_in, flat_e, slot, keep = _moe_dispatch_local(cfg, xf, top_e,
+                                                        capacity, offset)
+    e0 = _model_index(ctx) * e_local
+    out_l = _moe_expert_ffn(ctx, cfg, p,
+                            expert_in[e0:e0 + e_local].to(c).contiguous())
+    out = torch.cat([out_l.new_zeros((e0,) + out_l.shape[1:]), out_l,
+                     out_l.new_zeros((E - e0 - e_local,) + out_l.shape[1:])])
+    y = _moe_combine_local(out, flat_e, slot, keep,
+                           C.copy_to(top_p, MODEL, mesh), B, S)
+    return C.reduce_from(y, MODEL, mesh)
 
 
 # ===========================================================================
@@ -510,7 +832,19 @@ def embed_decls(cfg: ModelConfig) -> dict:
 
 
 def apply_embed(ctx: Ctx, cfg: ModelConfig, p: dict, tokens):
-    emb = p["table"].to(ctx.cdtype)[tokens.long()]
+    """The table lookup; under a mesh with the table's rows (the vocab)
+    sharded over ``model``, each rank looks up the tokens its rows hold,
+    zeros elsewhere, and the lookups are summed over ``model``."""
+    table = p["table"].to(ctx.cdtype)
+    if ctx.mesh is not None and table.shape[0] != cfg.vocab_padded:
+        lo = _model_index(ctx) * table.shape[0]
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < table.shape[0])
+        emb = table[ids.clamp(0, table.shape[0] - 1)] \
+            * mine[..., None].to(table.dtype)
+        emb = C.reduce_from(emb, MODEL, ctx.mesh)
+    else:
+        emb = table[tokens.long()]
     if cfg.embed_scale_by_sqrt_dim:      # gemma-style input scaling
         emb = emb * torch.tensor(cfg.d_model ** 0.5, dtype=ctx.cdtype)
     return emb

@@ -354,6 +354,12 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     broadcast to the three M-RoPE sections (``repro/models/lm.py:
     217-240``)."""
     c = ctx.cdtype
+    if ctx.mesh is not None:
+        from repro_torch.sharding import executed_rules
+        executed_rules(ctx.rules.name)      # fsdp/seqparallel: item 14b
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.family} layers under a mesh: ROADMAP item 14b")
     if cfg.family == "audio":
         frames = batch["frames"].to(c)
         B, S = frames.shape[:2]
@@ -437,16 +443,32 @@ def unembed_matrix(cfg: ModelConfig, params, dtype):
     return params["unembed"]["w"].to(dtype)
 
 
+def vocab_shard(ctx: L.Ctx, cfg: ModelConfig, w) -> tuple[int, bool]:
+    """(first vocab column, sharded?) of this rank's unembedding columns
+    ``w`` (D, V_l): under a mesh the rules shard ``vocab`` over ``model``
+    (``vocab_padded`` divides it)."""
+    if ctx.mesh is None or w.shape[-1] == cfg.vocab_padded:
+        return 0, False
+    return L._model_index(ctx) * w.shape[-1], True
+
+
 def logits_for(ctx: L.Ctx, cfg: ModelConfig, params, h):
     """Full float32 logits (decode path; small S).  Pad-vocab columns
-    masked."""
+    masked.  Under a mesh each rank computes its vocab columns and the
+    logits are gathered over ``model``, so every rank holds all of them
+    (the reference's ``:494``, whose logits GSPMD leaves vocab-sharded)."""
     w = unembed_matrix(cfg, params, ctx.cdtype)
+    lo, sharded = vocab_shard(ctx, cfg, w)
+    if sharded:
+        h = L.C.copy_to(h, L.MODEL, ctx.mesh)
     logits = (h @ w).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, -1e30)
+        cols = lo + torch.arange(w.shape[-1], device=logits.device)
+        logits = logits.masked_fill(cols >= cfg.vocab, -1e30)
+    if sharded:
+        logits = L.C.gather_from(logits, L.MODEL, ctx.mesh, logits.ndim - 1)
     return logits
 
 
@@ -516,6 +538,41 @@ def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
                                        layers=n, device=dev)
            for key, n in _rows_stacks(cfg).items()}
     out["block_tables"] = table
+    return out
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """Logical axes of ``init_cache``'s leaves (``repro/models/lm.py:
+    573``): KV rows (layers, act_batch, act_kv_seq, None, None), the batch
+    over the data-parallel axes and the sequence over ``model``; Mamba
+    state (layers, act_batch, ssm_heads, ...)."""
+    _require_cache(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"mamba": dict(L.MAMBA_STATE_AXES)}
+        if cfg.family == "hybrid":
+            out["kv_shared"] = dict(L.KV_CACHE_AXES)
+        return out
+    return {key: dict(L.KV_CACHE_AXES) for key in _rows_stacks(cfg)}
+
+
+def shard_cache(ctx: L.Ctx, cfg: ModelConfig, cache):
+    """This rank's shard of a full (unsharded) decode cache, by
+    ``cache_logical_axes`` under ``ctx.rules``: the batch over the
+    data-parallel axes and the KV rows over ``model`` where they divide.
+    A KV cache whose rows do not divide the model axis raises: the
+    decode step under a mesh reads its cache sharded by sequence."""
+    from repro_torch.sharding import local_slice, resolve_spec
+    out = {}
+    for key, axes in cache_logical_axes(cfg).items():
+        out[key] = {}
+        for k, a in cache[key].items():
+            spec = resolve_spec(ctx.rules, ctx.mesh, axes[k], tuple(a.shape))
+            if key != "mamba" and L._n_model(ctx) > 1 and (
+                    len(spec) < 3 or spec[2] != L.MODEL):
+                raise ValueError(f"{key}/{k}: {a.shape[2]} rows do not "
+                                 f"divide the {L._n_model(ctx)}-way model "
+                                 f"axis")
+            out[key][k] = local_slice(ctx.mesh, spec, a).clone()
     return out
 
 

@@ -123,3 +123,52 @@ def load_numpy_state(tree, device):
     out["step"] = torch.tensor(int(np.asarray(tree["step"])),
                                dtype=torch.int32)
     return out
+
+
+# ===========================================================================
+# sharding: logical axes, local shards and full leaves
+# ===========================================================================
+
+def logical_axes(decls):
+    """Tree of logical-axis tuples, same structure as the params
+    (``repro/models/params.py:79``)."""
+    out: dict = {}
+    for path, pd in _leaves(decls):
+        _set(out, path, pd.axes)
+    return out
+
+
+def abstract_params(decls):
+    """The params as meta-device tensors: shapes and dtypes, no storage
+    (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    out: dict = {}
+    for path, pd in _leaves(decls):
+        _set(out, path, torch.empty(pd.shape, dtype=pd.dtype, device="meta"))
+    return out
+
+
+def shard_params(tree, specs, mesh):
+    """This rank's shard of every full leaf of ``tree`` (a copy of its own,
+    so the full leaf can go), cut by the matching ``PartitionSpec`` of
+    ``specs`` (``sharding.tree_shardings``)."""
+    from repro_torch.sharding.rules import local_slice
+    out: dict = {}
+    flat = dict(_leaves(specs))
+    for path, t in _leaves(tree):
+        _set(out, path, local_slice(mesh, flat[path], t).clone())
+    return out
+
+
+def gather_params(tree, specs, mesh):
+    """The full leaves of a tree of local shards: every rank calls it, and
+    every rank gets every full leaf (an all-gather per sharded dim)."""
+    from repro_torch.sharding import collectives as C
+    out: dict = {}
+    flat = dict(_leaves(specs))
+    for path, t in _leaves(tree):
+        full = t
+        for d, part in enumerate(flat[path]):
+            if part is not None:
+                full = C.all_gather(full.contiguous(), part, mesh, dim=d)
+        _set(out, path, full)
+    return out

@@ -24,11 +24,16 @@ from repro_torch.tree import leaves, tree_map
 CHUNK = 1 << 24      # elements per AdamW update chunk (64 MB in f32)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sq_norm=None):
     """Scale every gradient IN PLACE by min(1, max_norm / global norm).
-    Returns (grads, the global norm as a 0-d f32 tensor)."""
+    Returns (grads, the global norm as a 0-d f32 tensor).  ``sq_norm``,
+    if given, computes the squared global norm from the list of leaves (a
+    sharded state's, ``train/step.py``)."""
     gs = leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+    if sq_norm is not None:
+        gn = torch.sqrt(sq_norm(gs))
+    else:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     with torch.no_grad():
         for g in gs:

@@ -7,9 +7,9 @@ checkpoint directory (the usual pattern for TPU pod slices, where the
 scheduler restarts the whole slice on any chip failure).
 
 A copy of ``PreemptionGuard``, ``StragglerWatchdog``, ``Supervisor`` and
-``StepwiseSupervisor`` from ``repro.runtime.supervisor`` (standard library
-only; the port imports nothing of ``repro``).  ``plan_mesh_shape`` comes
-with the distributed slice (ROADMAP queue 1 item 14).
+``StepwiseSupervisor`` and ``plan_mesh_shape`` from
+``repro.runtime.supervisor`` (standard library only; the port imports
+nothing of ``repro``).
 """
 
 from __future__ import annotations
@@ -155,3 +155,23 @@ class StepwiseSupervisor(Supervisor):
 
     def completed(self, reason: str) -> None:
         self.history.append(("completed", reason))
+
+
+def plan_mesh_shape(n_devices: int, model_parallel: int = 16,
+                    multi_pod_chips: int = 256) -> tuple[tuple[int, ...],
+                                                         tuple[str, ...]]:
+    """Elastic mesh planning: given the SURVIVING device count, keep the
+    model axis fixed (parameter sharding must still fit) and shrink the
+    data/pod axes.  Returns (shape, axis_names)."""
+    if n_devices % model_parallel:
+        raise ValueError(f"{n_devices} devices not divisible by "
+                         f"model_parallel={model_parallel}")
+    rest = n_devices // model_parallel
+    pods = n_devices // multi_pod_chips
+    if pods >= 2:
+        while rest % pods:
+            pods -= 1
+        if pods >= 2:
+            return ((pods, rest // pods, model_parallel),
+                    ("pod", "data", "model"))
+    return ((rest, model_parallel), ("data", "model"))

@@ -9,6 +9,13 @@ when gradients are on, so autograd keeps only each chunk's inputs and
 recomputes its (B, chunk, vocab) f32 logits in the backward pass --
 otherwise every chunk's logits would stay alive (1.05 GB per chunk of
 1024 at B=2 and vocab 128256).
+
+Under a mesh (``ctx.mesh``) the vocab is sharded over ``model``: each rank
+computes its vocab columns' logits, and the log-sum-exp and the gold logit
+come from a max and two sums over ``model`` (the reference's ``act_vocab``
+reductions, which GSPMD inserts).  Each data-parallel rank's loss is its
+tokens' summed cross-entropy over the global token count, so the ranks'
+losses sum to the reference's mean (``train/step.py`` sums the gradients).
 """
 
 from __future__ import annotations
@@ -18,19 +25,35 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx
+from repro_torch.sharding import collectives as C
 
 
-def _chunk_terms(cfg: ModelConfig, hh, W, ll):
-    """Per-token (lse - gold logit) and lse of one chunk."""
+def _chunk_terms(cfg: ModelConfig, hh, W, ll, mesh=None, lo=0):
+    """Per-token (lse - gold logit) and lse of one chunk.  With ``mesh``,
+    ``W`` holds vocab columns [lo, lo + V_l) of this rank: the max is
+    taken over ``model`` (without gradient: lse does not depend on it), the
+    exponentials and the gold logit (held by one rank) are summed over it,
+    each sum an all-reduce whose gradient is this rank's own."""
     logits = (hh @ W).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ll[..., None])[..., 0]
+        cols = lo + torch.arange(W.shape[-1], device=logits.device)
+        logits = logits.masked_fill(cols >= cfg.vocab, -1e30)
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ll[..., None])[..., 0]
+        return lse - gold, lse
+    m = C.pmax(logits.detach().amax(-1), L.MODEL, mesh)
+    total = C.reduce_from(torch.exp(logits - m[..., None]).sum(-1), L.MODEL,
+                          mesh)
+    lse = m + torch.log(total)
+    ids = ll - lo
+    mine = (ids >= 0) & (ids < W.shape[-1])
+    gold = torch.gather(logits, -1, ids.clamp(0, W.shape[-1] - 1)[..., None])
+    gold = C.reduce_from(gold[..., 0] * mine, L.MODEL, mesh)
     return lse - gold, lse
 
 
@@ -40,6 +63,10 @@ def chunked_cross_entropy(ctx: Ctx, cfg: ModelConfig, params, h, labels,
     Returns (mean_ce, metrics_dict)."""
     B, S, D = h.shape
     W = lm.unembed_matrix(cfg, params, ctx.cdtype)
+    lo, sharded = lm.vocab_shard(ctx, cfg, W)
+    mesh = ctx.mesh if sharded else None
+    if sharded:                 # a column-parallel product: dh sums over model
+        h = C.copy_to(h, L.MODEL, ctx.mesh)
     chunk = min(ctx.run.logits_chunk, S)
     while S % chunk:
         chunk -= 1
@@ -54,13 +81,19 @@ def chunked_cross_entropy(ctx: Ctx, cfg: ModelConfig, params, h, labels,
         mm = maskf[:, c0:c0 + chunk]
         if grad:
             nll, lse = torch.utils.checkpoint.checkpoint(
-                _chunk_terms, cfg, hh, W, ll, use_reentrant=False)
+                _chunk_terms, cfg, hh, W, ll, mesh, lo, use_reentrant=False)
         else:
-            nll, lse = _chunk_terms(cfg, hh, W, ll)
+            nll, lse = _chunk_terms(cfg, hh, W, ll, mesh, lo)
         tot = tot + torch.sum(nll * mm)
         zt = zt + torch.sum(lse * lse * mm)
         cnt = cnt + torch.sum(mm)
+    dp = ctx.mesh is not None and ctx.mesh.axis_size(L.DP_AXES) > 1
+    if dp:                      # the global token count (no gradient)
+        cnt = C.psum(cnt, L.DP_AXES, ctx.mesh)
     cnt = torch.clamp(cnt, min=1.0)
     ce = tot / cnt
     loss = ce + z_loss * zt / cnt
+    if dp:                      # this rank's share; the metric is the sum
+        return loss, {"ce": C.psum(ce.detach(), L.DP_AXES, ctx.mesh),
+                      "tokens": cnt}
     return loss, {"ce": ce, "tokens": cnt}

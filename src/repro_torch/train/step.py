@@ -6,9 +6,20 @@ The state is the reference's tree ``{"params", "opt_state", "step"}``:
 f32 master parameters on the device, the optimizer state mirroring them,
 and ``step`` a 0-d int32 tensor kept on the host.  ``train_step`` updates
 it IN PLACE (gradients by autograd into ``.grad``, then the optimizer's
-in-place update) and returns the same dict.  The reference's
-``abstract_state`` and ``state_logical_axes`` serve sharding and the
-dry-run only and have no counterpart here.
+in-place update) and returns the same dict.
+
+Under a mesh (``ctx.mesh``, ``ctx.rules``) every leaf is this rank's
+shard, cut by ``state_logical_axes`` under the rules (``state_specs``);
+``init_state`` draws each full leaf from the seed and keeps its slice, so
+the shards are the one-device weights'.  The step is the reference's
+pjit step as one rank runs it: the layers' collectives make the forward
+and backward, each data-parallel rank's loss is its share of the global
+loss (``train/loss.py``), and its gradients are summed over the
+data-parallel axes.  ``grad_compression="int8"`` then acts on the reduced
+gradients, with each leaf's scale from its global max, as the
+reference's acts on pjit's global gradients; the global norm of the clip
+sums each leaf's squared norm over the axes the leaf is sharded on and
+counts a replicated leaf once.
 """
 
 from __future__ import annotations
@@ -20,12 +31,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm
-from repro_torch.models.layers import Ctx
-from repro_torch.models.params import init_params
+from repro_torch.models.layers import DP_AXES, Ctx
+from repro_torch.models.params import (abstract_params, init_params,
+                                       logical_axes)
 from repro_torch.optim import Adafactor, AdamW, clip_by_global_norm, \
     warmup_cosine
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import local_slice, spec_axes, tree_shardings
 from repro_torch.train.loss import chunked_cross_entropy
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
 @dataclasses.dataclass
@@ -53,12 +67,52 @@ def make_optimizer(run: RunConfig):
 
 
 def init_state(cfg: ModelConfig, run: RunConfig, generator: torch.Generator,
-               device="cuda") -> TrainState:
+               device="cuda", ctx: Ctx | None = None) -> TrainState:
     """Seeded f32 parameters on ``device`` (drawn from ``generator``),
-    zero optimizer state beside them, step 0 on the host."""
-    params = init_params(lm.model_decls(cfg), generator, device)
+    zero optimizer state beside them, step 0 on the host.  With a mesh
+    (``ctx.mesh``), each leaf is drawn whole, as on one device, and only
+    this rank's shard is kept."""
+    prepare = None
+    if ctx is not None and ctx.mesh is not None:
+        specs = dict(leaves_with_paths(state_specs(cfg, run, ctx)["params"]))
+        prepare = lambda path, t: local_slice(ctx.mesh, specs[path],
+                                              t).clone()
+    params = init_params(lm.model_decls(cfg), generator, device,
+                         prepare=prepare)
     return TrainState(params=params, opt_state=make_optimizer(run).init(params),
                       step=torch.zeros((), dtype=torch.int32))
+
+
+def abstract_state(cfg: ModelConfig, run: RunConfig) -> dict:
+    """The state tree as meta-device tensors (shapes and dtypes, no
+    storage), the reference's ``ShapeDtypeStruct`` tree."""
+    params = abstract_params(lm.model_decls(cfg))
+    return {"params": params, "opt_state": make_optimizer(run).init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def state_logical_axes(cfg: ModelConfig, run: RunConfig | None = None) -> dict:
+    """Logical axes of every state leaf (``repro/train/step.py:70-85``):
+    the optimizer's moments take their parameter's; Adafactor's factored
+    rows and columns drop the last or the second-to-last axis."""
+    axes = logical_axes(lm.model_decls(cfg))
+    if run is not None and run.optimizer == "adafactor":
+        def f_axes(a):
+            if len(a) >= 2:
+                return {"vr": tuple(a[:-1]), "vc": tuple(a[:-2]) + (a[-1],)}
+            return {"v": tuple(a)}
+        opt_axes = {"f": tree_map(f_axes, axes)}
+    else:
+        opt_axes = {"m": axes, "v": axes}
+    return {"params": axes, "opt_state": opt_axes, "step": ()}
+
+
+def state_specs(cfg: ModelConfig, run: RunConfig, ctx: Ctx) -> dict:
+    """Each state leaf's ``PartitionSpec`` under ``ctx.rules`` on
+    ``ctx.mesh`` (``sharding.tree_shardings`` of the logical axes and the
+    global shapes)."""
+    return tree_shardings(ctx.rules, ctx.mesh, state_logical_axes(cfg, run),
+                          abstract_state(cfg, run))
 
 
 def make_loss_fn(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
@@ -84,6 +138,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
     ``grad_norm`` (and ``tokens`` without accumulation)."""
     opt = make_optimizer(run)
     loss_fn = make_loss_fn(cfg, run, ctx)
+    mesh = ctx.mesh
+    axes = None
+    if mesh is not None:
+        axes = [spec_axes(s) for s in
+                leaves(state_specs(cfg, run, ctx)["params"])]
 
     def compute_grads(params, batch):
         if run.grad_accum <= 1:
@@ -118,10 +177,21 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
             p.grad = None
         loss, metrics = compute_grads(params, batch)
         grads = tree_map(lambda p: p.grad, params)
+        if mesh is not None and mesh.axis_size(DP_AXES) > 1:
+            with torch.no_grad():
+                for g in leaves(grads):
+                    g.copy_(C.psum(g, DP_AXES, mesh))
+            loss = C.psum(loss, DP_AXES, mesh)
+            if "aux" in metrics:
+                metrics["aux"] = C.psum(metrics["aux"], DP_AXES, mesh)
         if run.grad_compression == "int8":
             from repro_torch.train.compression import int8_compress_decompress
-            int8_compress_decompress(grads)
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+            int8_compress_decompress(grads, absmax=None if mesh is None else
+                                     _sharded_absmax(mesh, leaves(grads),
+                                                     axes))
+        grads, gnorm = clip_by_global_norm(
+            grads, run.grad_clip, sq_norm=None if mesh is None else
+            lambda gs: _sharded_sq_norm(mesh, gs, axes))
         opt.update(grads, opt_state, params, step)
         for p in ps:
             p.grad = None
@@ -129,4 +199,28 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
+
+
+def _sharded_sq_norm(mesh, gs, axes):
+    """The squared global norm of sharded gradients: each leaf's squared
+    norm summed over the mesh axes it is sharded on (one all-reduce per
+    distinct set of axes), a replicated leaf counted once."""
+    by_axes: dict = {}
+    for g, ax in zip(gs, axes):
+        sq = torch.sum(torch.square(g.float()))
+        by_axes[ax] = by_axes.get(ax, 0) + sq
+    total = 0
+    for ax, sq in sorted(by_axes.items()):
+        total = total + (C.psum(sq, ax, mesh) if ax else sq)
+    return total
+
+
+def _sharded_absmax(mesh, gs, axes):
+    """Each gradient leaf's max |entry| over the whole (global) leaf."""
+    of = {id(g): ax for g, ax in zip(gs, axes)}
+
+    def absmax(g):
+        m = torch.max(torch.abs(g.float()))
+        return C.pmax(m, of[id(g)], mesh) if of[id(g)] else m
+    return absmax
 

@@ -1,0 +1,166 @@
+"""The JAX package's sharded paths on a (2, 2) mesh of forced host
+devices, for ``tests/test_torch_distributed.py``:
+
+    python tests/_jax_mesh_oracle.py INPUTS.npz OUTPUTS.npz
+
+Run in a subprocess of its own, since the device count must be set before
+JAX starts.  The mesh is a ``jax.sharding.Mesh`` built here, whose axes
+are Auto: ``repro.launch.mesh.make_mesh_for`` calls ``jax.make_mesh``,
+whose Explicit axes ``with_sharding_constraint`` rejects under jax 0.9.
+Nothing of ``repro`` is changed.  Inputs (weights, batches, gradients)
+come from the test, so the port computes on the same numbers; outputs
+are flat ``/``-joined keys.
+"""
+
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import Mesh, NamedSharding  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro.configs.base import reduced  # noqa: E402
+from repro.configs.registry import get_model_config, get_run_config  # noqa: E402
+from repro.models import layers as L  # noqa: E402
+from repro.models.layers import Ctx  # noqa: E402
+from repro.models.params import logical_axes  # noqa: E402
+from repro.serving.engine import make_decode_step, make_prefill_step  # noqa: E402
+from repro.sharding import RULE_SETS, tree_shardings  # noqa: E402
+from repro.train.compression import compressed_psum  # noqa: E402
+from repro.train.step import (abstract_state, make_loss_fn,  # noqa: E402
+                              make_optimizer, make_train_step,
+                              state_logical_axes)
+
+RULES = RULE_SETS["default"]
+F32 = dict(compute_dtype="float32", remat="none")
+
+
+def tree_of(flat, prefix):
+    out = {}
+    for key, a in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node = out
+        *parents, last = key[len(prefix) + 1:].split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = jnp.asarray(a)
+    return out
+
+
+def flat_of(tree, prefix, out):
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(p, "key", p)) for p in path)
+        out[f"{prefix}/{key}"] = np.asarray(leaf, np.float32)
+
+
+def train(inp, mesh, out):
+    cfg = reduced(get_model_config("llama3.2-3b"), n_heads=4, n_kv_heads=2)
+    run = get_run_config("llama3.2-3b", logits_chunk=16, rules_name="default",
+                         warmup_steps=0, **F32)
+    params = tree_of(inp, "train/params")
+    batch = {k: jnp.asarray(inp[f"train/batch/{k}"]) for k in ("tokens",
+                                                               "labels")}
+    state = {"params": params, "opt_state": make_optimizer(run).init(params),
+             "step": jnp.zeros((), jnp.int32)}
+    sh = tree_shardings(RULES, mesh, state_logical_axes(cfg),
+                        abstract_state(cfg, run))
+    state = jax.device_put(state, sh)
+    ctx = Ctx(run, RULES, mesh)
+    grads, _ = jax.jit(jax.grad(make_loss_fn(cfg, run, ctx), has_aux=True))(
+        state["params"], batch)
+    new, m = jax.jit(make_train_step(cfg, run, ctx))(state, batch)
+    out["train/loss"] = np.float32(m["loss"])
+    out["train/grad_norm"] = np.float32(m["grad_norm"])
+    flat_of(grads, "train/grads", out)
+    flat_of(new["params"], "train/new_params", out)
+
+
+DECODE = {
+    "llama": ("llama3.2-3b", {}),
+    "qwen2vl": ("qwen2-vl-72b", {}),
+    "gemma2": ("gemma2-2b", {"local_window": 8}),
+    "olmoe": ("olmoe-1b-7b", {}),
+}
+
+
+def decode(inp, mesh, out, name):
+    arch, over = DECODE[name]
+    cfg = reduced(get_model_config(arch), **over)
+    run = get_run_config(arch, logits_chunk=16, **F32)
+    params = tree_of(inp, f"decode/{name}/params")
+    batch = {k[len(f"decode/{name}/batch/"):]: jnp.asarray(a)
+             for k, a in inp.items()
+             if k.startswith(f"decode/{name}/batch/")}
+    max_seq = int(inp[f"decode/{name}/max_seq"])
+    ctx0, ctx_m = Ctx(run, RULES, None), Ctx(run, RULES, mesh)
+    cache0, lg0 = jax.jit(make_prefill_step(cfg, run, ctx0, max_seq))(
+        params, batch)
+    S = batch["tokens"].shape[1]
+    dec0 = jax.jit(make_decode_step(cfg, run, ctx0))
+    dec1 = jax.jit(make_decode_step(cfg, run, ctx_m))
+    sh = NamedSharding(mesh, P(None, "data", "model", None, None))
+    cache1 = jax.tree.map(lambda a: jax.device_put(a, sh), cache0)
+    out[f"decode/{name}/prefill_logits"] = np.asarray(lg0[:, 0])
+    for i in range(2):
+        idx = jnp.asarray(S + i, jnp.int32)
+        tok = jnp.asarray(inp[f"decode/{name}/tok{i}"])
+        cache0, o0 = dec0(params, cache0, tok, idx)
+        cache1, o1 = dec1(params, cache1, tok, idx)
+        out[f"decode/{name}/logits0_{i}"] = np.asarray(o0)
+        out[f"decode/{name}/logits1_{i}"] = np.asarray(o1)
+
+
+def moe(inp, mesh, out):
+    cfg = dataclasses.replace(reduced(get_model_config("olmoe-1b-7b")),
+                              capacity_factor=8.0)
+    decls = L.moe_decls(cfg)
+    params = tree_of(inp, "moe/params")
+    x = jnp.asarray(inp["moe/x"])
+    p_sh = tree_shardings(RULES, mesh, logical_axes(decls), params)
+    params_s = jax.device_put(params, p_sh)
+    x_s = jax.device_put(x, NamedSharding(mesh, P("data", None, None)))
+    run = get_run_config("olmoe-1b-7b", **F32)
+    run_q = get_run_config("olmoe-1b-7b", moe_a2a_dtype="int8", **F32)
+    y0, _ = L.apply_moe(Ctx(run, RULES, None), cfg, params, x)
+    y1, _ = jax.jit(lambda p, xx: L.apply_moe(Ctx(run, RULES, mesh), cfg, p,
+                                              xx))(params_s, x_s)
+    yq, _ = jax.jit(lambda p, xx: L.apply_moe(Ctx(run_q, RULES, mesh), cfg,
+                                              p, xx))(params_s, x_s)
+    out["moe/y0"] = np.asarray(y0)
+    out["moe/y1"] = np.asarray(y1)
+    out["moe/yq"] = np.asarray(yq)
+    out["moe/q_rel"] = np.float32(jnp.linalg.norm(yq - y1)
+                                  / jnp.linalg.norm(y1))
+
+
+def psum_int8(inp, mesh, out):
+    g = jnp.asarray(inp["psum/g"])            # (4, ...): rank r's gradient
+    for name, axes in (("data_model", ("data", "model")), ("data", ("data",))):
+        spec = P(("data", "model"))
+        f = jax.shard_map(lambda t: compressed_psum({"g": t[0]}, axes)["g"][None],
+                          mesh=mesh, in_specs=spec, out_specs=spec)
+        out[f"psum/{name}"] = np.asarray(jax.jit(f)(g))
+
+
+def main():
+    inp = dict(np.load(sys.argv[1]))
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    out: dict = {}
+    train(inp, mesh, out)
+    for name in DECODE:
+        decode(inp, mesh, out, name)
+    moe(inp, mesh, out)
+    psum_int8(inp, mesh, out)
+    np.savez(sys.argv[2], **out)
+
+
+if __name__ == "__main__":
+    main()
