@@ -30,7 +30,13 @@ caught):
      same checks shown to reject kernels that drop one tile of the bf16
      kernels' sizes and the plain version with P and dS rounded to bf16
      once (the shortcut the hi/lo split avoids), then timed at the
-     training shape beside SDPA and its autograd backward;
+     training shape beside SDPA and its autograd backward; the same
+     checks at a query offset (``FA_OFFSET_CASES``: the sequence-parallel
+     rank 1's 1024 rows at positions 1024.. over 2048 keys, gemma2's D =
+     256 with a window there, offsets no tile divides), shown to reject a
+     backward that ignores the offset, and both kernels timed at the two
+     ranks' shapes (``SEQPAR_RANKS``) beside SDPA with
+     ``causal_lower_right``;
      the four decode and cache kernels also at olmoe's H = K = 16 (one
      query head per kv head), checked and timed; ``grouped_matmul``
      against ``ref.grouped_matmul`` entry by entry at the olmoe path's
@@ -129,7 +135,14 @@ caught):
      on (1, 2) and on (2, 1) against the one-device step, each rank's
      gradients and parameters against its shard of that step's, and a
      planted fault per mesh that must fail every gate; the elastic
-     restart on (1, 1)) and ``[dist:train-olmoe]`` (expert parallelism over
+     restart on (1, 1)), ``[dist:decode-seqpar]`` (llama f32 at 2 layers
+     under its serve rules, ``seqparallel``: every head on every rank
+     over the cache cut by sequence; 8/8 streams), ``[dist:train-seqpar]``
+     (one step on (1, 2) under llama's own ``seqparallel``) and
+     ``[dist:train-fsdp]`` (on (2, 1) under ``fsdp``), each against the
+     one-device step beside a planted fault of its gradients'
+     collectives that must fail every gate a backward fault can reach
+     (``DIST_FAULT_GATES``), and ``[dist:train-olmoe]`` (expert parallelism over
      the bf16 and int8 wires at a capacity that drops nothing, with its
      planted fault; one MoE layer's output against the local path; a
      decode step of all 16 layers under the mesh); each rank's kernels
@@ -1363,6 +1376,10 @@ def _entry_ratio(name, got, want):
 
 
 _FA_TRAIN, _FA_SMALL = (2, 24, 8, 128), (2, 4, 2, 32)
+#: llama's training sequence over two model ranks (sequence parallelism):
+#: each rank's query rows, and each rank's (keys gathered, q_offset)
+SEQPAR_ROWS = 1024
+SEQPAR_RANKS = ((1024, 0), (2048, 1024))
 #: ((B, H, K, D), Sq, Sk, causal, window, softcap) of the attention checks:
 #: the training shape and the reduced configs' D=32; causal, window +
 #: softcap, bidirectional (+ softcap), an odd length, Sq != Sk both ways
@@ -1374,23 +1391,36 @@ FA_CHECK_CASES = [(_FA_TRAIN, 2048, 2048, True, None, None),
                   (_FA_TRAIN, 1000, 300, True, None, None),
                   (_FA_SMALL, 256, 256, True, None, None),
                   (_FA_SMALL, 130, 77, False, 100, 20.0)]
+#: the query offset (``q_offset``): rank 1 of llama's training shape cut
+#: over two model ranks by sequence parallelism (its 1024 query rows at
+#: positions 1024.. over the 2048 keys gathered up to its last row);
+#: gemma2's D = 256 there with a window that acts (300 rows) and its
+#: softcap; an offset and lengths no tile divides; the reduced configs'
+#: D = 32 with a window.  Tuples as FA_CHECK_CASES's, then q_offset.
+FA_OFFSET_CASES = [(_FA_TRAIN, 1024, 2048, True, None, None, 1024),
+                   ((2, 8, 4, 256), 1024, 2048, True, 300, 50.0, 1024),
+                   (_FA_TRAIN, 1000, 1700, True, None, None, 700),
+                   (_FA_SMALL, 77, 200, True, 100, 20.0, 123)]
 
 
 def check_flash_attention(tfa, ref, cases=FA_CHECK_CASES):
     """Forward (out and lse) and backward (dq, dk, dv) kernels against
     ``attention_naive`` (with its lse) and ``attention_bwd_ref`` on the
     same inputs, entry by entry; the backward on the plain forward's out
-    and lse.  ``cases`` (FA_CHECK_CASES, or hubert's at D = 80), bf16 and
-    f32.  Every row sees at least one key (the reference's two plain
-    versions disagree on rows that see none)."""
+    and lse.  ``cases`` (FA_CHECK_CASES, hubert's at D = 80, or
+    FA_OFFSET_CASES with a query offset), bf16 and f32.  Every row sees at
+    least one key (the reference's two plain versions disagree on rows
+    that see none)."""
     import torch
     checks = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
-        for (B, H, K, D), Sq, Sk, causal, window, cap in cases:
+        for (B, H, K, D), Sq, Sk, causal, window, cap, *off in cases:
             q, k, v, do = _attention_case(B, Sq, Sk, H, K, D, dtype,
                                           500 + len(checks))
             kw = dict(causal=causal, local_window=window, softcap=cap)
+            if off:
+                kw["q_offset"] = off[0]
             out, lse = tfa.flash_attention(q, k, v, **kw)
             want_out, want_lse = ref.attention_naive(q, k, v,
                                                      return_lse=True, **kw)
@@ -1412,10 +1442,13 @@ def check_flash_attention(tfa, ref, cases=FA_CHECK_CASES):
             checks.append({"dtype": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
                            "K": K, "D": D, "causal": causal,
                            "window": window, "softcap": cap,
+                           **({"q_offset": off[0]} if off else {}),
                            "max_abs_err": err, "worst_over_limit": ratio})
             print(f"[check] flash_attention {name} B={B} Sq={Sq} Sk={Sk} "
                   f"H={H} K={K} D={D} causal={causal} window={window} "
-                  f"softcap={cap}: max|err| (worst entry / its limit) "
+                  f"softcap={cap}"
+                  + (f" q_offset={off[0]}" if off else "")
+                  + ": max|err| (worst entry / its limit) "
                   + ", ".join(f"{n} {err[n]:.3e} ({ratio[n]:.3f})"
                               for n in err), flush=True)
             bad = [n for n in ratio if not ratio[n] <= 1.0]
@@ -1483,6 +1516,44 @@ def check_planted_faults(tfa, ref):
     return faults
 
 
+def check_offset_fault(tfa, ref):
+    """The q_offset checks must reject a backward that ignores the offset:
+    at the first FA_OFFSET_CASES case (rank 1 of llama's training shape,
+    bf16), the kernel's gradient with q_offset 0 against the plain
+    gradient at the true offset, on the plain forward's out and lse (the
+    forward is right).  Raises unless each of dq, dk, dv has entries past
+    their limit.  Returns each tensor's share of entries beyond it."""
+    import torch
+    (B, H, K, D), Sq, Sk, causal, window, cap, off = FA_OFFSET_CASES[0]
+    q, k, v, do = _attention_case(B, Sq, Sk, H, K, D, torch.bfloat16, 701)
+    kw = dict(causal=causal, local_window=window, softcap=cap)
+    out, lse = ref.attention_naive(q, k, v, return_lse=True, q_offset=off,
+                                   **kw)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, do, q_offset=off, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    faults = {}
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        faults[n] = (_entry_ratio("bfloat16", g, w) > 1).float().mean().item()
+    print(f"[check] flash_attention q_offset planted fault B={B} Sq={Sq} "
+          f"Sk={Sk} H={H} K={K} D={D} causal bf16 (the backward with the "
+          f"offset {off} ignored): share of entries beyond their limit "
+          + ", ".join(f"{n} {f:.4f}" for n, f in faults.items()), flush=True)
+    missed = [n for n, f in faults.items() if not f > 0]
+    if missed:
+        raise AssertionError(f"flash_attention q_offset: the {missed} check "
+                             f"passes a backward that ignores the offset")
+    return faults
+
+
+def _attention_pairs(B, H, Sq, Sk, causal, window=None, q_offset=0):
+    """The (query, key) pairs the mask leaves: what the attention kernels'
+    operations scale with."""
+    rows = np.arange(Sq) + q_offset
+    hi = np.minimum(rows + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(Sq)
+    return int(B * H * np.maximum(hi - lo, 0).sum())
+
+
 def check_bf16_shortcut(ref):
     """The per-entry rule must reject the shortcut a bf16 tensor-core
     product invites: P (for out) and dS (for dq) rounded to bf16 once
@@ -1523,24 +1594,34 @@ def check_bf16_shortcut(ref):
 
 
 def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None, B=2,
-                         S=2048, causal=True):
+                         S=2048, causal=True, Sk=None, q_offset=0):
     """Forward and backward kernel, plain and library times at a training
     shape (bf16; llama's heads, B 2, S 2048, causal, or ``heads`` with
     ``softcap``, or hubert's bidirectional B 4, S 1024), two input sets in
-    turn (~67 MB each at llama's heads, beyond the 50 MB L2).  Library
-    yardsticks, never called by the port:
-    ``scaled_dot_product_attention(is_causal=causal, enable_gqa=True)`` and
-    its autograd backward.  SDPA has no softcap: with one there is no
-    library call of the same function, and SDPA's time without the
-    softcap is kept beside as ``sdpa_no_softcap_ms``.  The bound is
-    reckoned at the tensors' D (at D = 80 the bf16 kernels run 128-wide
-    tiles: the row shows that price)."""
+    turn (~67 MB each at llama's heads, beyond the 50 MB L2).  With ``Sk``
+    and ``q_offset``: a sequence-parallel rank's S query rows at positions
+    q_offset.. over the Sk keys gathered up to its last row (q_offset + S
+    = Sk).  Library yardsticks, never called by the port:
+    ``scaled_dot_product_attention(is_causal=causal, enable_gqa=True)``
+    (with an offset, ``attn_mask=causal_lower_right(S, Sk)``, the same
+    function when the keys end at the last query row) and its autograd
+    backward.  SDPA has no softcap: with one there is no library call of
+    the same function, and SDPA's time without the softcap is kept beside
+    as ``sdpa_no_softcap_ms``.  The bound is reckoned at the tensors' D
+    (at D = 80 the bf16 kernels run 128-wide tiles: the row shows that
+    price)."""
     import torch
     import torch.nn.functional as F
     H, K, D = heads
     esz = 2
+    Sk = S if Sk is None else Sk
     cap = dict(softcap=softcap, causal=causal)
-    cases = [_attention_case(B, S, S, H, K, D, torch.bfloat16, 900 + i)
+    if q_offset:
+        if not causal or q_offset + S != Sk:
+            raise ValueError("the offset's library call needs the keys to "
+                             "end at the last query row")
+        cap["q_offset"] = q_offset
+    cases = [_attention_case(B, S, Sk, H, K, D, torch.bfloat16, 900 + i)
              for i in range(2)]
     saved = [tfa.flash_attention(q, k, v, **cap) for q, k, v, _ in cases]
     fwd = [functools.partial(tfa.flash_attention, *c[:3], **cap)
@@ -1557,6 +1638,11 @@ def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None, B=2,
     lib_do = [c[3].transpose(1, 2).contiguous() for c in cases]
 
     def lib_fwd(q, k, v):
+        if q_offset:
+            from torch.nn.attention.bias import causal_lower_right
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=causal_lower_right(S, Sk),
+                enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
@@ -1585,8 +1671,8 @@ def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None, B=2,
              "library_ms": _time_graph_ms(lib_b, min_calls=16,
                                           stream=lib_stream)}
     # the (q, k) pairs the mask leaves
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    q_bytes, kv_bytes = B * S * H * D * esz, B * S * K * D * esz
+    pairs = _attention_pairs(B, H, S, Sk, causal, q_offset=q_offset)
+    q_bytes, kv_bytes = B * S * H * D * esz, B * Sk * K * D * esz
     lse_bytes = 4 * B * H * S
     # forward: reads q, k, v; writes out, lse
     t_fwd["bound_ms"], t_fwd["bound_by"] = _bound(
@@ -1597,11 +1683,14 @@ def time_flash_attention(tfa, ref, heads=(24, 8, 128), softcap=None, B=2,
         4 * q_bytes + 4 * kv_bytes + lse_bytes, 10.0 * D * pairs,
         BF16_OPS_PER_S)
     shape = (f"B={B} S={S} H={H} K={K} D={D} "
-             f"{'causal' if causal else 'bidirectional'} bf16"
+             + (f"Sk={Sk} q_offset={q_offset} " if q_offset else "")
+             + f"{'causal' if causal else 'bidirectional'} bf16"
              + (f" softcap {softcap}" if softcap else ""))
+    lib = (f"attn_mask=causal_lower_right({S}, {Sk})" if q_offset
+           else f"is_causal={causal}")
     t_fwd.update(shape=shape, ops=4.0 * D * pairs,
-                 library=f"F.scaled_dot_product_attention(is_causal={causal}"
-                         ", enable_gqa=True) on (B,H,S,D) copies",
+                 library=f"F.scaled_dot_product_attention({lib}, "
+                         "enable_gqa=True) on (B,H,S,D) copies",
                  plain="ref.attention_naive(return_lse=True)")
     t_bwd.update(shape=shape, ops=10.0 * D * pairs,
                  library="torch.autograd.grad through the same SDPA call "
@@ -4866,8 +4955,8 @@ def _moe_steps(ctx, cfg, params, prompts, nxt=None):
     routes = []
     real = L._moe_router
 
-    def tap(cfg_, p_, xf, mesh=None):
-        out = real(cfg_, p_, xf, mesh)
+    def tap(*args, **kwargs):
+        out = real(*args, **kwargs)
         routes.append(out[1])
         return out
 
@@ -6811,9 +6900,28 @@ DIST_MOE_GATES = {"bf16": {"loss_rel": 6e-4, "grad_norm_rel": 5e-3,
 #: the planted faults, one per sharded path: the all-reduce after the
 #: row-parallel projections dropped (tensor parallelism), the gradients
 #: not summed over ``data`` (data parallelism), the all-to-all's chunks
-#: exchanged in reverse order (expert parallelism)
+#: exchanged in reverse order (expert parallelism), the K/V gather's
+#: backward slicing the rank's own cotangent instead of reduce-scattering
+#: the ranks' partial sums (sequence parallelism), the data-parallel sum
+#: applied again to the leaves fsdp's gathers reduce-scattered (ZeRO-3)
 DIST_FAULTS = {"1x2": "reduce_from dropped", "2x1": "data psum dropped",
-               "olmoe": "all_to_all order reversed"}
+               "olmoe": "all_to_all order reversed",
+               "seqpar": "K/V gather's backward sliced (gather_from)",
+               "fsdp": "data psum applied to the fsdp leaves too"}
+#: the gates a planted fault must fail, where not all of them: the two
+#: faults of the gradients' collectives act in the backward pass only, so
+#: the step's loss (the forward's) is the sound one's and loss_rel cannot
+#: see them.  Read on an H100 (sound; planted fault: loss_rel,
+#: grad_norm_rel, grad_rel, params_apart): seqparallel (1, 2) 0, 1.5e-5,
+#: 6.2e-3, 1.3e-2; 0, 0.24, 0.68, 0.60; fsdp (2, 1) 0, 3.1e-5, 2.4e-3,
+#: 3.0e-2; 0, 0.42, 1.06, 0.71.
+DIST_FAULT_GATES = {"seqpar": ("grad_norm_rel", "grad_rel", "params_apart"),
+                    "fsdp": ("grad_norm_rel", "grad_rel", "params_apart")}
+#: [dist:decode-seqpar]: llama f32 at 2 layers under its serve rules
+#: (seqparallel): every rank gathers the layers' weights whole each step
+#: (~0.8 GB in f32 at 2 layers, staged through the host), so fewer steps
+#: than [dist:decode]
+DIST_SEQ_DECODE_STEPS = 4
 DIST_ELASTIC_RTOL = 1e-5   # f32, reduced
 DIST_SPAWN_TIMEOUT_S = 480
 
@@ -7055,22 +7163,28 @@ def _dist_param_specs(cfg, ctx, decls=None):
                           abstract_params(decls))
 
 
-class _planted:
-    """A planted fault in one rank, for the ``with`` block: ``where``'s
-    collectives module (``C``) replaced by a copy with ``swap``'s
-    functions in place of its own."""
+class _swapped:
+    """A planted fault in one rank, for the ``with`` block: ``module.name``
+    replaced by ``fn``."""
 
-    def __init__(self, where, **swap):
-        import types
-        from repro_torch.sharding import collectives
-        self.where = where
-        self.fake = types.SimpleNamespace(**{**vars(collectives), **swap})
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
 
     def __enter__(self):
-        self.real, self.where.C = self.where.C, self.fake
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
 
     def __exit__(self, *exc):
-        self.where.C = self.real
+        setattr(self.module, self.name, self.real)
+
+
+def _planted(where, **swap):
+    """``where``'s collectives module (``C``) replaced by a copy with
+    ``swap``'s functions in place of its own."""
+    import types
+    from repro_torch.sharding import collectives
+    return _swapped(where, "C", types.SimpleNamespace(
+        **{**vars(collectives), **swap}))
 
 
 def _fault(name):
@@ -7080,6 +7194,11 @@ def _fault(name):
     from repro_torch.train import step as S
     if name == "1x2":
         return _planted(L, reduce_from=lambda x, axes, mesh: x)
+    if name == "seqpar":
+        return _planted(L, gather_sum=C.gather_from)
+    if name == "fsdp":
+        return _swapped(S, "grad_sum_axes", lambda split, ax: tuple(
+            a for a in split if a not in ax or a in ("pod", "data")))
     if name == "2x1":
         def psum(x, axes, mesh):
             return x.clone() if "data" in mesh.present(axes) else C.psum(
@@ -7092,11 +7211,12 @@ def _fault(name):
             x.flip(0).contiguous(), axes, mesh))
 
 
-def _dist_decode_run(cfg, dtype, seed, prompt_tokens, feed_steps, mesh, rank):
+def _dist_decode_run(cfg, dtype, seed, prompt_tokens, feed_steps, mesh, rank,
+                     rules="default"):
     """One [dist:decode] arm on this rank: prefill on one device (each rank
     its own copy), rank 0 also the unsharded steps (the other waits); then
-    the sharded steps teacher-forced by rank 0's stream.  Returns the
-    numbers rank 0 compares."""
+    the sharded steps under ``rules`` teacher-forced by rank 0's stream.
+    Returns the numbers rank 0 compares."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.registry import get_run_config
@@ -7106,9 +7226,9 @@ def _dist_decode_run(cfg, dtype, seed, prompt_tokens, feed_steps, mesh, rank):
     from repro_torch.models.params import shard_params
     from repro_torch.serving.engine import make_decode_step, make_prefill_step
     from repro_torch.sharding import RULE_SETS, collectives as C
-    run = get_run_config(ARCH, rules_name="default", compute_dtype=dtype)
+    run = get_run_config(ARCH, rules_name=rules, compute_dtype=dtype)
     ctx0 = Ctx(run, "cuda")
-    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    ctx = Ctx(run, "cuda", RULE_SETS[rules], mesh)
     params = _dist_draw(cfg, ctx0, seed)
     P, S = DIST_DECODE["prompt"], DIST_DECODE["max_seq"]
     tokens = torch.from_numpy(prompt_tokens).cuda()
@@ -7183,6 +7303,20 @@ def _dist_phase_decode(rank, mesh):
     return out
 
 
+def _dist_phase_decode_seqpar(rank, mesh):
+    """[dist:decode-seqpar] on mesh (1, 2): llama f32 at 2 layers under
+    its serve rules (``seqparallel``), the weights gathered whole on each
+    rank, every head over the sequence-sharded cache."""
+    import dataclasses
+    from repro_torch.configs.registry import get_model_config
+    cfg = get_model_config(ARCH)
+    prompts = np.random.default_rng(22).integers(
+        0, cfg.vocab, (DIST_DECODE["B"], DIST_DECODE["prompt"]))
+    return _dist_decode_run(dataclasses.replace(cfg, n_layers=2), "float32",
+                            9, prompts, DIST_SEQ_DECODE_STEPS, mesh, rank,
+                            rules="seqparallel")
+
+
 def _dist_batch(cfg, B, S, seed):
     import torch
     rng = np.random.default_rng(seed)
@@ -7221,7 +7355,7 @@ def _dist_reference(cfg, run, mesh, batch, seed):
     from repro_torch.sharding import RULE_SETS, local_slice
     from repro_torch.train.step import init_state, state_specs
     from repro_torch.tree import leaves
-    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    ctx = Ctx(run, "cuda", RULE_SETS[run.rules_name], mesh)
     specs = leaves(state_specs(cfg, run, ctx)["params"])
     ref = None
     for turn in range(mesh.size):
@@ -7256,7 +7390,7 @@ def _dist_train_case(cfg, run, mesh, batch, seed, ref, fault=None):
     from repro_torch.sharding import RULE_SETS, collectives as C
     from repro_torch.train.step import init_state
     from repro_torch.tree import leaves, leaves_with_paths
-    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    ctx = Ctx(run, "cuda", RULE_SETS[run.rules_name], mesh)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     state = init_state(cfg, run, gen, "cuda", ctx).tree()
     dp = mesh.axis_size(("pod", "data"))
@@ -7295,20 +7429,21 @@ def _dist_train_case(cfg, run, mesh, batch, seed, ref, fault=None):
     return out
 
 
-def _dist_train_setup():
+def _dist_train_setup(rules="default"):
     import dataclasses
     from repro_torch.configs.registry import get_model_config, get_run_config
     cfg = dataclasses.replace(get_model_config(ARCH),
                               n_layers=DIST_TRAIN["layers"])
-    run = get_run_config(ARCH, rules_name="default", warmup_steps=0,
+    run = get_run_config(ARCH, rules_name=rules, warmup_steps=0,
                          total_steps=10)
     return cfg, run, _dist_batch(cfg, DIST_TRAIN["B"], DIST_TRAIN["S"], 31)
 
 
-def _dist_phase_train(rank, mesh, key):
-    """[dist:train] on ``mesh``: llama at full width, 4 layers, the sound
-    step and the planted fault's, each against the one-device step."""
-    cfg, run, batch = _dist_train_setup()
+def _dist_phase_train(rank, mesh, key, rules="default"):
+    """[dist:train] on ``mesh`` under ``rules``: llama at full width, 4
+    layers, the sound step and the planted fault ``key``'s, each against
+    the one-device step."""
+    cfg, run, batch = _dist_train_setup(rules)
     ref = _dist_reference(cfg, run, mesh, batch, 5)
     return {"sound": _dist_train_case(cfg, run, mesh, batch, 5, ref),
             "fault": _dist_train_case(cfg, run, mesh, batch, 5, ref, key)}
@@ -7512,8 +7647,14 @@ def dist_rank_all(rank, world, ckpt_dir):
     dp = make_mesh_for((2, 1), ("data", "model"), device_type="cpu")
     out, secs = {}, {}
     for name, fn in (("decode", lambda: _dist_phase_decode(rank, tp)),
+                     ("decode_seqpar",
+                      lambda: _dist_phase_decode_seqpar(rank, tp)),
                      ("train_1x2", lambda: _dist_phase_train(rank, tp, "1x2")),
                      ("train_2x1", lambda: _dist_phase_train(rank, dp, "2x1")),
+                     ("train_seqpar", lambda: _dist_phase_train(
+                         rank, tp, "seqpar", "seqparallel")),
+                     ("train_fsdp", lambda: _dist_phase_train(
+                         rank, dp, "fsdp", "fsdp")),
                      ("elastic", lambda: _dist_phase_elastic(rank, dp,
                                                              ckpt_dir)),
                      ("olmoe", lambda: _dist_phase_olmoe(rank, tp))):
@@ -7570,6 +7711,25 @@ def dist_rank_reduced(rank, world):
                                      "params_apart", "launches")}}
 
 
+def dist_rank_reduced_rules(rank, world):
+    """Reduced llama on the card, f32: one train step under
+    ``seqparallel`` on mesh (1, 2) and one under ``fsdp`` on (2, 1), each
+    against the one-device step, with its launches.
+    ``tests/test_torch_distributed_card.py`` runs it."""
+    _dist_rank_setup()
+    from repro_torch.launch.mesh import make_mesh_for
+    out = {}
+    for rules, shape in (("seqparallel", (1, 2)), ("fsdp", (2, 1))):
+        mesh = make_mesh_for(shape, ("data", "model"), device_type="cpu")
+        cfg, run = _dist_reduced_train()
+        run = run.replace(rules_name=rules)
+        batch = _dist_batch(cfg, 2, 128, 16)
+        out[rules] = _dist_train_case(
+            cfg, run, mesh, batch, 17,
+            _dist_reference(cfg, run, mesh, batch, 17))
+    return out
+
+
 # --- the phases (in the calling process, which spawns the ranks)
 
 def _dist_need(launches_by_rank, names, tag):
@@ -7622,6 +7782,33 @@ def dist_report_decode(ranks, secs):
     if out["f32"]["rank0"]["streams_equal"] != DIST_DECODE["B"]:
         failed.append("[dist:decode] f32 streams differ from the unsharded "
                       "ones")
+    res = [r["decode_seqpar"] for r in ranks]
+    r0 = res[0]
+    launches = [r["launches"] for r in res]
+    _dist_need(launches, ("flash_decode", "cache_update"),
+               "dist:decode-seqpar")
+    print(f"[dist:decode-seqpar] {ARCH} f32, 2 layers, serve rules "
+          f"seqparallel: the layers' weights gathered whole on each rank, "
+          f"every head over the cache cut by sequence, the embedding and "
+          f"logits vocab-parallel; mesh (1, 2) over gloo (staged "
+          f"through the host: {r0['staged_bytes']} / "
+          f"{res[1]['staged_bytes']} bytes by rank), B={DIST_DECODE['B']} "
+          f"prompts of {DIST_DECODE['prompt']}, {DIST_SEQ_DECODE_STEPS} "
+          f"steps teacher-forced by the unsharded stream: logits max|diff| "
+          f"{r0['logits_max_abs_diff']:.3e}, worst entry / its limit "
+          f"{r0['logits_worst_over_limit']:.3f}, {r0['streams_equal']}/"
+          f"{r0['streams']} greedy streams equal; ms per step: unsharded "
+          f"{r0['unsharded_ms_per_step']:.2f} (one rank alone), sharded "
+          f"{r0['sharded_ms_per_step']:.2f} / "
+          f"{res[1]['sharded_ms_per_step']:.2f} by rank; launches by rank "
+          f"{launches}", flush=True)
+    out["seqpar"] = {"rank0": r0, "rank1": res[1], "launches": launches}
+    if r0["streams_equal"] != DIST_DECODE["B"]:
+        failed.append("[dist:decode-seqpar] f32 streams differ from the "
+                      "unsharded ones")
+    if not r0["logits_worst_over_limit"] <= 1.0:
+        failed.append(f"[dist:decode-seqpar] logits apart: "
+                      f"{r0['logits_worst_over_limit']}")
     return out, failed
 
 
@@ -7644,28 +7831,36 @@ def _dist_train_lines(tag, what, cases, faults, gates, fault_name):
     rec = {"worst": worst, "rank0": r0, "rank1": cases[1]}
     if faults is not None:
         fworst, ffails = _dist_gate(faults, gates)
-        held = [k for k in gates if k not in ffails]
+        must = DIST_FAULT_GATES.get(fault_name, tuple(gates))
+        held = [k for k in must if k not in ffails]
         print(f"[{tag}] {what}, planted fault ({DIST_FAULTS[fault_name]}): "
               f"{_dist_gate_text(fworst, gates)}; gates failed "
-              f"{len(ffails)}/{len(gates)}", flush=True)
+              f"{len(ffails)}/{len(gates)}"
+              + (f" (must fail {', '.join(must)}: the fault acts in the "
+                 f"backward only)" if len(must) < len(gates) else ""),
+              flush=True)
         failed += [f"[{tag}] planted fault {DIST_FAULTS[fault_name]!r} "
                    f"passes {k}" for k in held]
         rec["fault"] = {"name": DIST_FAULTS[fault_name], "worst": fworst,
-                        "gates_failed": ffails}
+                        "gates_failed": ffails, "must_fail": list(must)}
     return rec, failed
 
 
 def dist_report_train(ranks, secs, restored):
     out, failed = {}, []
-    for key, shape in (("1x2", (1, 2)), ("2x1", (2, 1))):
+    for key, shape, tag, rules in (
+            ("1x2", (1, 2), "dist:train", "default"),
+            ("2x1", (2, 1), "dist:train", "default"),
+            ("seqpar", (1, 2), "dist:train-seqpar", "seqparallel"),
+            ("fsdp", (2, 1), "dist:train-fsdp", "fsdp")):
         res = [r["train_" + key] for r in ranks]
         launches = [r["sound"]["launches"] for r in res]
-        _dist_need(launches, ("flash_attention", "flash_attention_bwd"),
-                   "dist:train")
+        _dist_need(launches, ("flash_attention", "flash_attention_bwd"), tag)
         rec, f = _dist_train_lines(
-            "dist:train", f"{ARCH} {DIST_TRAIN['layers']} of 28 layers, "
-            f"batch {DIST_TRAIN['B']} x {DIST_TRAIN['S']}, bf16, mesh "
-            f"{shape} over gloo (two ranks sharing the card), "
+            tag, f"{ARCH} {DIST_TRAIN['layers']} of 28 layers, "
+            f"batch {DIST_TRAIN['B']} x {DIST_TRAIN['S']}, bf16, rules "
+            f"{rules}, mesh {shape} over gloo (two ranks sharing the card; "
+            f"collectives staged through the host, not a multi-card time), "
             f"{secs['train_' + key]:.1f} s",
             [r["sound"] for r in res], [r["fault"] for r in res],
             DIST_TRAIN_GATES, key)
@@ -7754,7 +7949,8 @@ def dist_phases():
     secs = ranks[0]["seconds"]
     out, failed = {"spawn_s": wall, "phase_s": secs}, []
     for key, (rec, f) in (
-            ("decode", dist_report_decode(ranks, secs["decode"])),
+            ("decode", dist_report_decode(ranks, secs["decode"]
+                                          + secs["decode_seqpar"])),
             ("train", dist_report_train(ranks, secs, restored)),
             ("train_olmoe", dist_report_olmoe(ranks, secs["olmoe"]))):
         out[key], failed = rec, failed + f
@@ -7899,6 +8095,14 @@ def _smoke(card) -> int:
     fa_times = time_flash_attention(tfa, ref)
     times["flash_attention training"] = fa_times["fwd"]
     times["flash_attention_bwd training"] = fa_times["bwd"]
+    # the query offset of the sequence-parallel forward: llama's training
+    # shape over two model ranks, rank 0's 1024 rows and rank 1's
+    off_checks = check_flash_attention(tfa, ref, FA_OFFSET_CASES)
+    off_fault = check_offset_fault(tfa, ref)
+    for rank, (Sk, off) in enumerate(SEQPAR_RANKS):
+        t = time_flash_attention(tfa, ref, S=SEQPAR_ROWS, Sk=Sk, q_offset=off)
+        times[f"flash_attention seqpar rank {rank}"] = t["fwd"]
+        times[f"flash_attention_bwd seqpar rank {rank}"] = t["bwd"]
     g2_fa_checks, g2_fa_faults = check_gemma2_attention(tfa, ref)
     g2_fa_times = time_flash_attention(tfa, ref, G2_HEADS, G2_CAP)
     times["flash_attention training D=256"] = g2_fa_times["fwd"]
@@ -7978,8 +8182,11 @@ def _smoke(card) -> int:
     dist = dist_phases()
     dist_launches = {
         "decode": dist["decode"]["bf16"]["launches"],
+        "decode_seqpar": dist["decode"]["seqpar"]["launches"],
         "train_1x2": dist["train"]["1x2"]["launches"],
         "train_2x1": dist["train"]["2x1"]["launches"],
+        "train_seqpar": dist["train"]["seqpar"]["launches"],
+        "train_fsdp": dist["train"]["fsdp"]["launches"],
         "train_olmoe_bf16": dist["train_olmoe"]["bf16"]["launches"],
         "decode_olmoe": [dist["train_olmoe"]["decode"][r]["launches"]
                          for r in ("rank0", "rank1")]}
@@ -8278,6 +8485,17 @@ def _smoke(card) -> int:
             "planted_fault": {n: g2_fa_faults[n] for n in (
                 ("out",) if name == "flash_attention" else ("dq", "dk",
                                                             "dv"))}}
+        names = ("out", "lse") if name == "flash_attention" else ("dq", "dk",
+                                                                  "dv")
+        extra["q_offset"] = {
+            "ranks": {f"rank {r}": times[f"{name} seqpar rank {r}"]
+                      for r in range(len(SEQPAR_RANKS))},
+            "checks": [dict(c, max_abs_err={n: c["max_abs_err"][n]
+                                            for n in names})
+                       for c in off_checks],
+            "planted_fault": ("the backward with the offset ignored: "
+                              f"{off_fault}" if name != "flash_attention"
+                              else None)}
         worst = max(max(v for n, v in c["max_abs_err"].items()
                         if n != "lse") for c in checks
                     if c["dtype"] == "bfloat16")

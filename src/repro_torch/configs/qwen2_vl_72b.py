@@ -4,10 +4,11 @@ precomputed patch embeddings merged into the token stream.
 [arXiv:2409.12191; hf]
 
 A copy of ``repro/configs/qwen2_vl_72b.py``.  ``RUN_OVERRIDES`` is the
-reference's (ZeRO-3 sharding of the big matrices), which the port does
-not execute yet (ROADMAP queue 1 item 14b); the full depth does not fit
-one card: 72.7 B params, 145 GB in bf16, waiting for a host with two or
-more cards."""
+reference's (ZeRO-3 sharding of the big matrices), which the port
+executes under a mesh (``models/layers.py``: weights gathered at use);
+the full depth does not fit one card: 72.7 B params, 145 GB in bf16,
+waiting for a host with two or more cards (ROADMAP queue 1 item 14b
+(f))."""
 
 from repro_torch.configs.base import ModelConfig
 

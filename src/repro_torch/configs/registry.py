@@ -3,7 +3,7 @@
 Every architecture of the JAX package's registry is listed, in its
 order, so ``ARCH_IDS`` equals the reference's.  Two do not
 fit one 80 GB card whole and wait for a host with two or more cards
-(ROADMAP queue 1 item 14b): ``phi3.5-moe-42b-a6.6b`` (41.87 B
+(ROADMAP queue 1 item 14b (f)): ``phi3.5-moe-42b-a6.6b`` (41.87 B
 parameters, 83.7 GB in bf16) runs at reduced size, and ``qwen2-vl-72b``
 (72.7 B, 145 GB) serves on the card at 20 of its 80 layers.
 """

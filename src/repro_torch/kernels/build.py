@@ -55,10 +55,10 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_fwd",
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _P]),
+                         _F, _F, _I, _I, _P]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+                             _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "grouped_matmul": ("grouped_matmul", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "grouped_matmul_bwd": ("grouped_matmul_bwd",
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -10,6 +10,15 @@
 // lse (B, H, Sq) = m + log(l) of each query row, which the backward
 // (flash_attention_bwd.cu) recomputes the probabilities from.
 //
+// Query offset: query row i sits at position qoff + i over keys 0..Sk-1,
+// and causality and the window count from that position.  A rank of the
+// sequence-parallel forward holds query rows [r S/n, (r+1) S/n) and the
+// keys gathered up to its last row, so it passes qoff = r S/n.  The
+// offset shifts the visible key tiles and the masked edge tiles (the
+// mask is flash_attention.cuh's).  The bf16 kernels are compiled with and
+// without the offset's arithmetic (OFF), and qoff = 0 runs the kernel as
+// it was: the same code, outputs bit for bit and the same time.
+//
 // What bounds it on the card: operations.  At the training shape (B=2,
 // S=2048, H=24, K=8, D=128, causal) the QK and PV products are
 // 4 * D * (causal pairs) = 5.2e10 operations, 0.052 ms at the bf16
@@ -75,7 +84,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int K,
-                int causal, float scale, float softcap, int window) {
+                int causal, float scale, float softcap, int window, int qoff) {
   using Lay = FaLayout<T, D>;
   constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -99,7 +108,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   int lo, hi;
-  key_range(q0, Sq, Sk, causal, window, lo, hi);
+  key_range(q0, Sq, Sk, causal, window, qoff, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += FA_TILE) {
     stage_rows<T, D>(ks, k, b, k0, Sk, K, kh);
     stage_rows<T, D>(vs, v, b, k0, Sk, K, kh);
@@ -116,7 +125,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float t;
-        ok[c] = visible(qp, k0 + tx + 16 * c, Sq, Sk, causal, window);
+        ok[c] = visible(qp, k0 + tx + 16 * c, Sq, Sk, causal, window, qoff);
         x[c] = cap_logit(s[r][c], scale, softcap, &t);
         if (ok[c]) tmax = fmaxf(tmax, x[c]);
       }
@@ -169,7 +178,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                        int B, int Sq, int Sk, int H, int K, int causal, float scale,
-                       float softcap, int window, cudaStream_t stream) {
+                       float softcap, int window, int qoff, cudaStream_t stream) {
   using Lay = FaLayout<T, D>;
   auto kern = attn_fwd_kernel<T, D>;
   const size_t smem = 3 * Lay::tile_bytes + Lay::score_bytes;
@@ -180,30 +189,30 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
   kern<<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H, K, causal, scale, softcap,
-      window);
+      window, qoff);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_fwd_dim(const void* q, const void* k, const void* v, void* out, void* lse,
                            int B, int Sq, int Sk, int H, int K, int D, int causal, float scale,
-                           float softcap, int window, cudaStream_t st) {
+                           float softcap, int window, int qoff, cudaStream_t st) {
   switch (D) {
     case 32:    // the reduced configs
       return launch_fwd<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                               window, st);
+                               window, qoff, st);
     case 64:
       return launch_fwd<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                               window, st);
+                               window, qoff, st);
     case 80:    // hubert
       return launch_fwd<T, 80>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                               window, st);
+                               window, qoff, st);
     case 128:
       return launch_fwd<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                                window, st);
+                                window, qoff, st);
     case 256:   // gemma2
       return launch_fwd<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                                window, st);
+                                window, qoff, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -230,15 +239,19 @@ constexpr size_t fwd_tc_smem() {
   return (size_t)(FW_BQ + 2 * FW_STAGES * fw_bk<D>()) * D * 2 + (1 + FW_STAGES) * 8 + 1024;
 }
 
-// D the tile's columns, DG <= D the tensors' (hubert: 80 in 128-wide tiles)
-template <int D, int DG>
+// D the tile's columns, DG <= D the tensors' (hubert: 80 in 128-wide tiles).
+// OFF: the launch has a query offset; without one the kernel compiles with
+// qoff the constant 0, the code it was before the offset (the backward's
+// kernels spilled more with the offset's arithmetic: flash_attention_bwd.cu)
+template <int D, int DG, bool OFF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
                    float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal,
-                   float scale, float softcap, int window) {
+                   float scale, float softcap, int window, int qoff_in) {
   using bf16 = __nv_bfloat16;
+  const int qoff = OFF ? qoff_in : 0;
   constexpr int FW_BK = fw_bk<D>();
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
@@ -254,9 +267,9 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int row = qw + 16 * warp + lane / 4;             // rows row, row + 8
   const int col = 2 * (lane % 4);                        // + 8j + e
 
-  const int q_last = min(q0 + FW_BQ, Sq) - 1;
+  const int q_last = min(q0 + FW_BQ, Sq) - 1 + qoff;         // positions, not rows
   const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q0 - window + 1) / FW_BK * FW_BK : 0;
+  const int lo = window > 0 ? max(0, q0 + qoff - window + 1) / FW_BK * FW_BK : 0;
   const int n = hi > lo ? (hi - lo + FW_BK - 1) / FW_BK : 0;
   constexpr uint32_t KV_BYTES = 2u * FW_BK * D * 2;
 
@@ -302,8 +315,8 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // logits in log2 units; masked ones -inf (m2 starts finite, so no
     // inf - inf)
-    const bool edge = k0 + FW_BK > Sk || (causal && k0 + FW_BK - 1 > qw) ||
-                      (window > 0 && qw + 63 - k0 >= window);
+    const bool edge = k0 + FW_BK > Sk || (causal && k0 + FW_BK - 1 > qw + qoff) ||
+                      (window > 0 && qw + qoff + 63 - k0 >= window);
     float tmax[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < FW_BK / 8; ++j)
@@ -314,7 +327,7 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
           float x = s[4 * j + 2 * i + e] * scale;
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
           x *= LOG2E;
-          if (edge && !visible(row + 8 * i, k0 + 8 * j + col + e, Sq, Sk, causal, window))
+          if (edge && !visible(row + 8 * i, k0 + 8 * j + col + e, Sq, Sk, causal, window, qoff))
             x = -INFINITY;
           s[4 * j + 2 * i + e] = x;
           tmax[i] = fmaxf(tmax[i], x);
@@ -396,42 +409,42 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int D, int DG = D>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
                           int B, int Sq, int Sk, int H, int K, int causal, float scale,
-                          float softcap, int window, cudaStream_t stream) {
+                          float softcap, int window, int qoff, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   cudaError_t e = tile_map<D>(&qm, q, B, Sq, H, FW_BQ, DG);
   if (e == cudaSuccess) e = tile_map<D>(&km, k, B, Sk, K, fw_bk<D>(), DG);
   if (e == cudaSuccess) e = tile_map<D>(&vm, v, B, Sk, K, fw_bk<D>(), DG);
   if (e != cudaSuccess) return e;
-  auto kern = attn_fwd_tc_kernel<D, DG>;
-  static bool configured = false;
-  e = allow_smem(kern, fwd_tc_smem<D>(), configured);
+  auto kern = qoff ? attn_fwd_tc_kernel<D, DG, true> : attn_fwd_tc_kernel<D, DG, false>;
+  static bool configured[2] = {false, false};
+  e = allow_smem(kern, fwd_tc_smem<D>(), configured[qoff != 0]);
   if (e != cudaSuccess) return e;
   dim3 grid(H, B, (Sq + FW_BQ - 1) / FW_BQ);
   kern<<<grid, TC_THREADS, fwd_tc_smem<D>(), stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, Sk, H, K,
-      causal, scale, softcap, window);
+      causal, scale, softcap, window, qoff);
   return cudaGetLastError();
 }
 
 cudaError_t launch_fwd_tc_dim(const void* q, const void* k, const void* v, void* out, void* lse,
                               int B, int Sq, int Sk, int H, int K, int D, int causal,
-                              float scale, float softcap, int window, cudaStream_t st) {
+                              float scale, float softcap, int window, int qoff, cudaStream_t st) {
   switch (D) {
     case 32:    // the reduced configs
       return launch_fwd_tc<32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                               window, st);
+                               window, qoff, st);
     case 64:
       return launch_fwd_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                               window, st);
+                               window, qoff, st);
     case 80:    // hubert: 128-wide tiles, 80 columns read and stored
       return launch_fwd_tc<128, 80>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale,
-                                    softcap, window, st);
+                                    softcap, window, qoff, st);
     case 128:
       return launch_fwd_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                                window, st);
+                                window, qoff, st);
     case 256:   // gemma2
       return launch_fwd_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, softcap,
-                                window, st);
+                                window, qoff, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -441,19 +454,21 @@ cudaError_t launch_fwd_tc_dim(const void* q, const void* k, const void* v, void*
 
 // q (B, Sq, H, D), k/v (B, Sk, K, D) -> out (B, Sq, H, D), lse (B, H, Sq) f32.
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  softcap
-// <= 0 and window <= 0 mean none.  Returns the cudaError_t of the launch
-// (0 on success).
+// <= 0 and window <= 0 mean none.  qoff >= 0 is the position of query row 0
+// (flash_attention.cuh).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int B, int Sq, int Sk, int H, int K, int D,
                                    int dtype, int causal, float scale, float softcap,
-                                   int window, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+                                   int window, int qoff, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0 || qoff < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_fwd_dim<float>(q, k, v, out, lse, B, Sq, Sk, H, K, D, causal, scale,
-                                      softcap, window, st);
+                                      softcap, window, qoff, st);
   if (dtype == 1)
     return (int)launch_fwd_tc_dim(q, k, v, out, lse, B, Sq, Sk, H, K, D, causal, scale, softcap,
-                                  window, st);
+                                  window, qoff, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,11 @@
 //
 // Tensors keep the reference's layout: q, out, dout (B, Sq, H, D); k, v
 // (B, Sk, K, D); the log-sum-exp and delta (B, H, Sq) float32.  Query head
-// h reads kv head h / (H / K).  Query row i and key row j are positions i
-// and j (no offset), as in the reference's cache-free attention.
+// h reads kv head h / (H / K).  Query row i and key row j are positions
+// qoff + i and j: qoff = 0 is the reference's cache-free attention, and a
+// rank of the sequence-sharded forward passes the first global row of its
+// queries over keys that start at row 0 (causality and the window count
+// from the global rows).
 //
 // An f32 block works on 64 x 64 tiles of (query rows) x (key rows) with 256
 // threads, a 16 x 16 grid: thread (ty, tx) owns the 4 x 4 patch of rows
@@ -78,26 +81,29 @@ __device__ __forceinline__ void dot_tile(const T* A, const T* Bt, int ty, int tx
   }
 }
 
-// the reference's mask: padding rows, causality, sliding window
-__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk, int causal, int window) {
-  return qp < Sq && kp < Sk && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+// the reference's mask: padding rows, causality, sliding window, with
+// query row qp at position qp + qoff
+__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk, int causal, int window,
+                                        int qoff) {
+  const int qg = qp + qoff;
+  return qp < Sq && kp < Sk && (!causal || qg >= kp) && (window <= 0 || qg - kp < window);
 }
 
 // key tiles [lo, hi) that query tile [q0, q0 + 64) can see; the rest are
 // skipped, as the reference's fully masked kv blocks
 __device__ __forceinline__ void key_range(int q0, int Sq, int Sk, int causal, int window,
-                                          int& lo, int& hi) {
-  const int q_last = min(q0 + FA_TILE, Sq) - 1;
+                                          int qoff, int& lo, int& hi) {
+  const int q_last = min(q0 + FA_TILE, Sq) - 1 + qoff;
   hi = causal ? min(Sk, q_last + 1) : Sk;
-  lo = window > 0 ? max(0, q0 - window + 1) / FA_TILE * FA_TILE : 0;
+  lo = window > 0 ? max(0, q0 + qoff - window + 1) / FA_TILE * FA_TILE : 0;
 }
 
 // query tiles [lo, hi) that can see key tile [k0, k0 + 64)
 __device__ __forceinline__ void query_range(int k0, int Sq, int Sk, int causal, int window,
-                                            int& lo, int& hi) {
+                                            int qoff, int& lo, int& hi) {
   const int k_last = min(k0 + FA_TILE, Sk) - 1;
-  lo = causal ? k0 / FA_TILE * FA_TILE : 0;
-  hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  lo = causal ? max(0, k0 - qoff) / FA_TILE * FA_TILE : 0;
+  hi = window > 0 ? min(Sq, k_last + window - qoff) : Sq;
 }
 
 // logit after scale and softcap; *t gets tanh(x / softcap) for the

@@ -11,7 +11,11 @@
 //   dP = dO V^T                              dS = P * (dP - delta),
 //   delta = rowsum(dO * O),  times 1 - tanh^2(s / c) under a softcap,
 //   dQ = dS K * scale                        dK = dS^T Q * scale,
-// dK and dV summed over the G query heads of each kv head.
+// dK and dV summed over the G query heads of each kv head.  With the
+// forward's query offset (flash_attention.cu) query row i sits at position
+// qoff + i: the dK/dV pass's first query tile for a key tile is the one
+// holding position k0 (not row k0), the dQ pass's key range ends at
+// position qoff + its last row, and the window counts from the positions.
 //
 // What bounds it on the card: operations.  At the training shape (B=2,
 // S=2048, H=24, K=8, D=128, causal) it needs 10 * D * (causal pairs) =
@@ -109,7 +113,7 @@ __device__ __forceinline__ void write_probs(const float (&s)[4][4], const float 
                                             const float* lse_s, const float* dl_s, float* ps,
                                             float* dss, int q0, int k0, int Sq, int Sk,
                                             int causal, float scale, float softcap,
-                                            int window) {
+                                            int window, int qoff) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -119,7 +123,7 @@ __device__ __forceinline__ void write_probs(const float (&s)[4][4], const float 
       const int j = tx + 16 * c;
       float t;
       const float x = cap_logit(s[r][c], scale, softcap, &t);
-      const bool ok = visible(q0 + i, k0 + j, Sq, Sk, causal, window);
+      const bool ok = visible(q0 + i, k0 + j, Sq, Sk, causal, window, qoff);
       const float p = ok ? expf(x - lse_s[i]) : 0.f;
       float ds = p * (dp[r][c] - dl_s[i]);
       if (softcap > 0.f) ds *= 1.f - t * t;
@@ -135,12 +139,13 @@ __device__ __forceinline__ void probs_and_dscores(const T* qs, const T* ks, cons
                                                   const T* vs, const float* lse_s,
                                                   const float* dl_s, float* ps, float* dss,
                                                   int q0, int k0, int Sq, int Sk, int causal,
-                                                  float scale, float softcap, int window) {
+                                                  float scale, float softcap, int window,
+                                                  int qoff) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4], dp[4][4];
   dot_tile<T, D>(qs, ks, ty, tx, s);
   dot_tile<T, D>(dos, vs, ty, tx, dp);
-  write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window);
+  write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window, qoff);
 }
 
 // lse and delta of query rows [q0, q0 + 64) of head h (0 past Sq)
@@ -162,7 +167,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int Sq, int Sk, int H, int K, int causal, float scale, float softcap,
-                     int window) {
+                     int window, int qoff) {
   using Lay = FaLayout<T, D>;
   constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -188,7 +193,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int e = 0; e < DPT; ++e) adk[r][e] = adv[r][e] = 0.f;
 
   int lo, hi;
-  query_range(k0, Sq, Sk, causal, window, lo, hi);
+  query_range(k0, Sq, Sk, causal, window, qoff, lo, hi);
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
     for (int q0 = lo; q0 < hi; q0 += FA_TILE) {
@@ -198,7 +203,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       cp_async_wait_all();
       __syncthreads();
       probs_and_dscores<T, D>(qs, ks, dos, vs, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal,
-                              scale, softcap, window);
+                              scale, softcap, window, qoff);
       __syncthreads();
       // dV[j][:] += sum_i P[i][j] dO[i][:];  dK[j][:] += sum_i dS[i][j] Q[i][:]
 #pragma unroll 4
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
-                   int K, int causal, float scale, float softcap, int window) {
+                   int K, int causal, float scale, float softcap, int window, int qoff) {
   using Lay = FaLayout<T, D>;
   constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -270,14 +275,14 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int e = 0; e < DPT; ++e) adq[r][e] = 0.f;
 
   int lo, hi;
-  key_range(q0, Sq, Sk, causal, window, lo, hi);
+  key_range(q0, Sq, Sk, causal, window, qoff, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += FA_TILE) {
     stage_rows<T, D>(ks, k, b, k0, Sk, K, kh);
     stage_rows<T, D>(vs, v, b, k0, Sk, K, kh);
     cp_async_wait_all();
     __syncthreads();
     probs_and_dscores<T, D>(qs, ks, dos, vs, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal,
-                            scale, softcap, window);
+                            scale, softcap, window, qoff);
     __syncthreads();
     // dQ[i][:] += sum_j dS[i][j] K[j][:]
 #pragma unroll 4
@@ -318,7 +323,7 @@ attn_bwd_dkdv_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
-                             int K, int causal, float scale, float softcap, int window) {
+                             int K, int causal, float scale, float softcap, int window, int qoff) {
   using Lay = FaLayout<T, D>;
   constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -339,7 +344,7 @@ attn_bwd_dkdv_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DPT; ++e) adk[r][e] = adv[r][e] = 0.f;
 
   int lo, hi;
-  query_range(k0, Sq, Sk, causal, window, lo, hi);
+  query_range(k0, Sq, Sk, causal, window, qoff, lo, hi);
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
     for (int q0 = lo; q0 < hi; q0 += FA_TILE) {
@@ -356,7 +361,8 @@ attn_bwd_dkdv_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait_all();
       __syncthreads();
       dot_tile<T, D>(tb, ta, ty, tx, dp);
-      write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window);
+      write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window,
+                  qoff);
       __syncthreads();
       stage_rows<T, D>(ta, q, b, q0, Sq, H, h);
       cp_async_wait_all();
@@ -404,7 +410,7 @@ attn_bwd_dq_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            T* __restrict__ dq, int Sq, int Sk, int H, int K, int causal,
-                           float scale, float softcap, int window) {
+                           float scale, float softcap, int window, int qoff) {
   using Lay = FaLayout<T, D>;
   constexpr int ST = Lay::STRIDE, DPT = Lay::DPT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -426,7 +432,7 @@ attn_bwd_dq_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DPT; ++e) adq[r][e] = 0.f;
 
   int lo, hi;
-  key_range(q0, Sq, Sk, causal, window, lo, hi);
+  key_range(q0, Sq, Sk, causal, window, qoff, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += FA_TILE) {
     float s[4][4], dp[4][4];
     stage_rows<T, D>(ta, q, b, q0, Sq, H, h);
@@ -440,7 +446,7 @@ attn_bwd_dq_restage_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();
     dot_tile<T, D>(ta, tb, ty, tx, dp);
-    write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window);
+    write_probs(s, dp, lse_s, dl_s, ps, dss, q0, k0, Sq, Sk, causal, scale, softcap, window, qoff);
     __syncthreads();
     stage_rows<T, D>(tb, k, b, k0, Sk, K, kh);
     cp_async_wait_all();
@@ -475,7 +481,7 @@ template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* lse, const void* dout, void* dq, void* dk, void* dv,
                        void* delta, int B, int Sq, int Sk, int H, int K, int causal,
-                       float scale, float softcap, int window, cudaStream_t stream) {
+                       float scale, float softcap, int window, int qoff, cudaStream_t stream) {
   using Lay = FaLayout<T, D>;
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
@@ -505,7 +511,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   dim3 kv_grid((Sk + FA_TILE - 1) / FA_TILE, K, B);
   kv_kern<<<kv_grid, FA_THREADS, smem, stream>>>(q_, k_, v_, g_, lse_, delta_,
                                                  static_cast<T*>(dk), static_cast<T*>(dv), Sq,
-                                                 Sk, H, K, causal, scale, softcap, window);
+                                                 Sk, H, K, causal, scale, softcap, window, qoff);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
@@ -519,7 +525,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   dim3 q_grid((Sq + FA_TILE - 1) / FA_TILE, H, B);
   q_kern<<<q_grid, FA_THREADS, smem, stream>>>(q_, k_, v_, g_, lse_, delta_,
                                                static_cast<T*>(dq), Sq, Sk, H, K, causal,
-                                               scale, softcap, window);
+                                               scale, softcap, window, qoff);
   return cudaGetLastError();
 }
 
@@ -527,23 +533,23 @@ template <typename T>
 cudaError_t launch_bwd_dim(const void* q, const void* k, const void* v, const void* out,
                            const void* lse, const void* dout, void* dq, void* dk, void* dv,
                            void* delta, int B, int Sq, int Sk, int H, int K, int D, int causal,
-                           float scale, float softcap, int window, cudaStream_t st) {
+                           float scale, float softcap, int window, int qoff, cudaStream_t st) {
   switch (D) {
     case 32:    // the reduced configs
       return launch_bwd<T, 32>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                               causal, scale, softcap, window, st);
+                               causal, scale, softcap, window, qoff, st);
     case 64:
       return launch_bwd<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                               causal, scale, softcap, window, st);
+                               causal, scale, softcap, window, qoff, st);
     case 80:    // hubert
       return launch_bwd<T, 80>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                               causal, scale, softcap, window, st);
+                               causal, scale, softcap, window, qoff, st);
     case 128:
       return launch_bwd<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                                causal, scale, softcap, window, st);
+                                causal, scale, softcap, window, qoff, st);
     case 256:   // gemma2
       return launch_bwd<T, 256>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                                causal, scale, softcap, window, st);
+                                causal, scale, softcap, window, qoff, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -607,8 +613,13 @@ __device__ __forceinline__ void probs_grad(float& s, float& dp, float scale, flo
   dp = ds;
 }
 
-// D the tiles' columns, DG <= D the tensors' (hubert: 80 in 128-wide tiles)
-template <int D, int DG>
+// D the tiles' columns, DG <= D the tensors' (hubert: 80 in 128-wide tiles).
+// OFF: the launch has a query offset (qoff_in > 0).  The offset's mask
+// arithmetic costs this kernel registers it has none of to spare (at D =
+// 128: 56 bytes spilled a thread against 44, and the pass 10 % slower), so
+// without an offset the kernel compiles with qoff the constant 0: the
+// code, registers and time it had before the offset.
+template <int D, int DG, bool OFF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
@@ -617,8 +628,9 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
                         int Sk, int H, int K, int causal, float scale, float softcap,
-                        int window) {
+                        int window, int qoff_in) {
   using bf16 = __nv_bfloat16;
+  const int qoff = OFF ? qoff_in : 0;
   constexpr int KV_BK = Dkdv<D>::BK, DC = Dkdv<D>::DC;
   static_assert(DG == D || !Dkdv<D>::SPLIT, "narrow tensors only in unsplit tiles");
   constexpr int DCS = Dkdv<D>::SPLIT ? DC : DG;          // dK/dV columns stored
@@ -640,8 +652,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int col = 2 * (lane % 4);                        // + 8j + e: query in the step
 
   const int k_last = min(k0 + KV_BK, Sk) - 1;
-  const int qlo = causal ? k0 : 0;
-  const int qhi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int qlo = causal ? (OFF ? max(0, k0 - qoff) / KV_BQ * KV_BQ : k0) : 0;
+  const int qhi = window > 0 ? min(Sq, k_last + window - qoff) : Sq;
   const int nq = qhi > qlo ? (qhi - qlo + KV_BQ - 1) / KV_BQ : 0;
   const int n = G * nq;                                  // steps: (head, query tile)
   constexpr uint32_t STEP_BYTES = 2u * KV_BQ * D * 2;
@@ -706,8 +718,8 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(s);
     reg_fence(dp);
 
-    const bool edge = kw + 63 >= Sk || q0 + KV_BQ > Sq || (causal && q0 < kw + 63) ||
-                      (window > 0 && q0 + KV_BQ - 1 - kw >= window);
+    const bool edge = kw + 63 >= Sk || q0 + KV_BQ > Sq || (causal && q0 + qoff < kw + 63) ||
+                      (window > 0 && q0 + qoff + KV_BQ - 1 - kw >= window);
     const float* ls = lse_s + st * KV_BQ;
     const float* ds = dl_s + st * KV_BQ;
 #pragma unroll
@@ -718,7 +730,7 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + col + e;
           const bool ok =
-              !edge || visible(q0 + c, row + 8 * i, Sq, Sk, causal, window);
+              !edge || visible(q0 + c, row + 8 * i, Sq, Sk, causal, window, qoff);
           probs_grad(s[4 * j + 2 * i + e], dp[4 * j + 2 * i + e], scale, softcap, ls[c], ds[c],
                      ok);
         }
@@ -777,15 +789,18 @@ attn_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D, int DG>
+// OFF as the dK/dV pass's: without an offset, the kernel it was before
+template <int D, int DG, bool OFF>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
                       const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
-                      int Sk, int H, int K, int causal, float scale, float softcap, int window) {
+                      int Sk, int H, int K, int causal, float scale, float softcap, int window,
+                      int qoff_in) {
   using bf16 = __nv_bfloat16;
+  const int qoff = OFF ? qoff_in : 0;
   constexpr int BW_STAGES = dq_stages<D>();
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(align1024(smem_raw));
@@ -802,9 +817,9 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int row = qw + 16 * warp + lane / 4;             // query rows row, row + 8
   const int col = 2 * (lane % 4);                        // + 8j + e: key in the step
 
-  const int q_last = min(q0 + DQ_BQ, Sq) - 1;
+  const int q_last = min(q0 + DQ_BQ, Sq) - 1 + qoff;         // positions, not rows
   const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q0 - window + 1) / DQ_BK * DQ_BK : 0;
+  const int lo = window > 0 ? max(0, q0 + qoff - window + 1) / DQ_BK * DQ_BK : 0;
   const int n = hi > lo ? (hi - lo + DQ_BK - 1) / DQ_BK : 0;
   constexpr uint32_t KV_BYTES = 2u * DQ_BK * D * 2;
 
@@ -862,8 +877,8 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     reg_fence(s);
     reg_fence(dp);
 
-    const bool edge = k0 + DQ_BK > Sk || (causal && k0 + DQ_BK - 1 > qw) ||
-                      (window > 0 && qw + 63 - k0 >= window);
+    const bool edge = k0 + DQ_BK > Sk || (causal && k0 + DQ_BK - 1 > qw + qoff) ||
+                      (window > 0 && qw + qoff + 63 - k0 >= window);
 #pragma unroll
     for (int j = 0; j < DQ_BK / 8; ++j)
 #pragma unroll
@@ -871,7 +886,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const bool ok =
-              !edge || visible(row + 8 * i, k0 + 8 * j + col + e, Sq, Sk, causal, window);
+              !edge || visible(row + 8 * i, k0 + 8 * j + col + e, Sq, Sk, causal, window, qoff);
           probs_grad(s[4 * j + 2 * i + e], dp[4 * j + 2 * i + e], scale, softcap, lse2[i], dl[i],
                      ok);
         }
@@ -921,7 +936,7 @@ template <int D, int DG = D>
 cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
                           const void* lse, const void* dout, void* dq, void* dk, void* dv,
                           void* delta, int B, int Sq, int Sk, int H, int K, int causal,
-                          float scale, float softcap, int window, cudaStream_t stream) {
+                          float scale, float softcap, int window, int qoff, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int KV_BK = Dkdv<D>::BK;
   CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;   // k128, v128: KV_BK rows
@@ -943,49 +958,51 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto kv_kern = attn_bwd_dkdv_tc_kernel<D, DG>;
-  static bool kv_configured = false;
-  e = allow_smem(kv_kern, dkdv_tc_smem<D>(), kv_configured);
+  auto kv_kern = qoff ? attn_bwd_dkdv_tc_kernel<D, DG, true>
+                      : attn_bwd_dkdv_tc_kernel<D, DG, false>;
+  static bool kv_configured[2] = {false, false};
+  e = allow_smem(kv_kern, dkdv_tc_smem<D>(), kv_configured[qoff != 0]);
   if (e != cudaSuccess) return e;
   dim3 kv_grid(K, B, (Sk + KV_BK - 1) / KV_BK);   // key tile 0 (most query tiles) first
   kv_kern<<<kv_grid, TC_THREADS, dkdv_tc_smem<D>(), stream>>>(
       q64, k128, v128, do64, lse_, delta_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
-      Sk, H, K, causal, scale, softcap, window);
+      Sk, H, K, causal, scale, softcap, window, qoff);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto q_kern = attn_bwd_dq_tc_kernel<D, DG>;
-  static bool q_configured = false;
-  e = allow_smem(q_kern, dq_tc_smem<D>(), q_configured);
+  auto q_kern = qoff ? attn_bwd_dq_tc_kernel<D, DG, true>
+                     : attn_bwd_dq_tc_kernel<D, DG, false>;
+  static bool q_configured[2] = {false, false};
+  e = allow_smem(q_kern, dq_tc_smem<D>(), q_configured[qoff != 0]);
   if (e != cudaSuccess) return e;
   dim3 q_grid(H, B, (Sq + DQ_BQ - 1) / DQ_BQ);
   q_kern<<<q_grid, TC_THREADS, dq_tc_smem<D>(), stream>>>(
       q128, k64, v64, do128, lse_, delta_, static_cast<bf16*>(dq), Sq, Sk, H, K, causal, scale,
-      softcap, window);
+      softcap, window, qoff);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bwd_tc_dim(const void* q, const void* k, const void* v, const void* out,
                               const void* lse, const void* dout, void* dq, void* dk, void* dv,
                               void* delta, int B, int Sq, int Sk, int H, int K, int D,
-                              int causal, float scale, float softcap, int window,
+                              int causal, float scale, float softcap, int window, int qoff,
                               cudaStream_t st) {
   switch (D) {
     case 32:    // the reduced configs
       return launch_bwd_tc<32>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                               causal, scale, softcap, window, st);
+                               causal, scale, softcap, window, qoff, st);
     case 64:
       return launch_bwd_tc<64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                               causal, scale, softcap, window, st);
+                               causal, scale, softcap, window, qoff, st);
     case 80:    // hubert: 128-wide tiles, 80 columns read and stored
       return launch_bwd_tc<128, 80>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
-                                    K, causal, scale, softcap, window, st);
+                                    K, causal, scale, softcap, window, qoff, st);
     case 128:
       return launch_bwd_tc<128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                                causal, scale, softcap, window, st);
+                                causal, scale, softcap, window, qoff, st);
     case 256:   // gemma2
       return launch_bwd_tc<256>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K,
-                                causal, scale, softcap, window, st);
+                                causal, scale, softcap, window, qoff, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -996,20 +1013,23 @@ cudaError_t launch_bwd_tc_dim(const void* q, const void* k, const void* v, const
 // Inputs q/out/dout (B, Sq, H, D), k/v (B, Sk, K, D), lse (B, H, Sq) f32
 // from the forward; outputs dq/dk/dv shaped and typed like q/k/v; delta is
 // (B, H, Sq) f32 scratch.  dtype: 0 = float32 (CUDA cores), 1 = bfloat16
-// (tensor cores).  softcap <= 0 and window <= 0 mean none.  Returns the
-// first cudaError_t of the launches (0 on success).
+// (tensor cores).  softcap <= 0 and window <= 0 mean none.  qoff >= 0 is
+// the position of query row 0 (flash_attention.cuh).  Returns the first
+// cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* lse, const void* dout,
                                    void* dq, void* dk, void* dv, void* delta, int B, int Sq,
                                    int Sk, int H, int K, int D, int dtype, int causal,
-                                   float scale, float softcap, int window, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+                                   float scale, float softcap, int window, int qoff,
+                                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0 || qoff < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_bwd_dim<float>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk,
-                                      H, K, D, causal, scale, softcap, window, st);
+                                      H, K, D, causal, scale, softcap, window, qoff, st);
   if (dtype == 1)
     return (int)launch_bwd_tc_dim(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, K, D,
-                                  causal, scale, softcap, window, st);
+                                  causal, scale, softcap, window, qoff, st);
   return (int)cudaErrorInvalidValue;
 }

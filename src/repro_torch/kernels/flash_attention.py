@@ -368,18 +368,28 @@ def _flags(causal, local_window, softcap):
             int(local_window) if local_window is not None else 0)
 
 
+def _check_offset(name, q_offset):
+    if int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset} must be an int >= 0")
+    return int(q_offset)
+
+
 def flash_attention(q, k, v, *, causal=True, local_window=None, softcap=None,
-                    scale=None):
+                    scale=None, q_offset=0):
     """Cache-free GQA attention forward.  q: (B, Sq, H, D); k/v: (B, Sk, K,
-    D).  Returns ``out`` (B, Sq, H, D) in q's dtype and the f32 log-sum-exp
-    ``lse`` (B, H, Sq) of each query row's visible logits (the statistic
+    D).  Query row i sits at position ``q_offset + i`` over keys 0..Sk-1
+    (causality and the window count from it): a rank of the
+    sequence-parallel forward passes its first global row.  Returns ``out``
+    (B, Sq, H, D) in q's dtype and the f32 log-sum-exp ``lse`` (B, H, Sq)
+    of each query row's visible logits (the statistic
     ``flash_attention_bwd`` needs)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
+    q_offset = _check_offset("flash_attention", q_offset)
     if not q.is_cuda:
         kw = dict(causal=causal, local_window=local_window, softcap=softcap,
-                  scale=scale)
+                  scale=scale, q_offset=q_offset)
         return ref.attention_naive(q, k, v, return_lse=True, **kw)
     _check_attention("flash_attention", q, k, v)
     build.check_cuda("flash_attention", q.device, q=q, k=k, v=v)
@@ -389,7 +399,7 @@ def flash_attention(q, k, v, *, causal=True, local_window=None, softcap=None,
     err = build.library("flash_attention").flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, Sq, Sk, H, K, D, build.DTYPE_CODE[q.dtype],
-        causal_i, float(scale), cap, window,
+        causal_i, float(scale), cap, window, q_offset,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_attention", err)
     flash_attention.launches += 1
@@ -400,18 +410,22 @@ flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
-                        local_window=None, softcap=None, scale=None):
+                        local_window=None, softcap=None, scale=None,
+                        q_offset=0):
     """Gradient of ``flash_attention`` from its saved ``out`` and ``lse``
-    and the output's cotangent ``dout`` (q's shape and dtype).  Returns
-    (dq, dk, dv) shaped and typed like q, k, v; dk and dv sum over the
-    query heads of each kv head, in a fixed order (no atomics)."""
+    and the output's cotangent ``dout`` (q's shape and dtype), at the
+    forward's ``q_offset``.  Returns (dq, dk, dv) shaped and typed like q,
+    k, v; dk and dv sum over the query heads of each kv head, in a fixed
+    order (no atomics)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
+    q_offset = _check_offset("flash_attention_bwd", q_offset)
     if not q.is_cuda:
         return ref.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                      local_window=local_window,
-                                     softcap=softcap, scale=scale)
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
     _check_attention("flash_attention_bwd", q, k, v)
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -430,7 +444,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, K, D,
         build.DTYPE_CODE[q.dtype], causal_i, float(scale), cap, window,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q_offset, torch.cuda.current_stream(q.device).cuda_stream)
     build.raise_on("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

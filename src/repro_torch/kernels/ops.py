@@ -26,9 +26,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, local_window, softcap, scale,
-                naive_below):
+                naive_below, q_offset):
         kw = dict(causal=causal, local_window=local_window, softcap=softcap,
-                  scale=scale)
+                  scale=scale, q_offset=q_offset)
         if q.is_cuda:
             out, lse = flash_attention.flash_attention(q, k, v, **kw)
         else:
@@ -47,20 +47,20 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention.flash_attention_bwd(
             q, k, v, out, lse, dout.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def attention(q, k, v, *, causal=True, local_window=None, softcap=None,
-              scale=None, naive_below=2049):
-    """Cache-free GQA attention, differentiable. q: (B,S,H,D); k/v:
-    (B,S,K,D).  On CUDA the ``flash_attention`` kernel (and
-    ``flash_attention_bwd`` for the gradient); on the CPU the plain
-    versions, full-matrix below ``naive_below`` rows and blockwise
-    above."""
+              scale=None, naive_below=2049, q_offset=0):
+    """Cache-free GQA attention, differentiable. q: (B,Sq,H,D); k/v:
+    (B,Sk,K,D), query row i at position ``q_offset + i``.  On CUDA the
+    ``flash_attention`` kernel (and ``flash_attention_bwd`` for the
+    gradient); on the CPU the plain versions, full-matrix below
+    ``naive_below`` rows and blockwise above."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal, local_window,
-                                softcap, scale, naive_below)
+                                softcap, scale, naive_below, q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, softcap=None,

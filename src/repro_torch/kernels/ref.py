@@ -27,6 +27,12 @@ def _softcap(x, cap):
     return cap * torch.tanh(x / cap) if cap is not None else x
 
 
+def _positions(Sq: int, q_offset: int, device):
+    """Positions of query rows 0..Sq-1: q_offset + i."""
+    pos = torch.arange(Sq, device=device)
+    return pos + q_offset if q_offset else pos
+
+
 def _mask(q_pos, k_pos, causal: bool, local_window):
     m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                    device=q_pos.device)
@@ -38,7 +44,7 @@ def _mask(q_pos, k_pos, causal: bool, local_window):
 
 
 def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
-                    scale=None, kv_len=None, return_lse=False):
+                    scale=None, kv_len=None, return_lse=False, q_offset=0):
     """Full-matrix GQA attention.
 
     q: (B, Sq, H, D); k/v: (B, Sk, K, D) with H % K == 0.
@@ -46,6 +52,8 @@ def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
     positions are laid at the END of the kv window.
     return_lse: also return the f32 log-sum-exp (B, H, Sq) of each row's
     visible logits, the statistic the backward recomputes P from.
+    q_offset: without kv_len, query row i sits at position q_offset + i
+    (a sequence-parallel rank's rows over keys from position 0).
     """
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -56,7 +64,7 @@ def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
     vf = v.float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
     logits = _softcap(logits, softcap)
-    q_pos = torch.arange(Sq, device=q.device)
+    q_pos = _positions(Sq, q_offset, q.device)
     k_pos = torch.arange(Sk, device=q.device)
     if kv_len is not None:
         q_pos = q_pos[None, :] + kv_len.long()[:, None] - Sq    # (B, Sq)
@@ -80,11 +88,11 @@ def attention_naive(q, k, v, *, causal=True, local_window=None, softcap=None,
 
 def attention_blockwise(q, k, v, *, causal=True, local_window=None,
                         softcap=None, scale=None, block_kv=1024,
-                        return_lse=False):
+                        return_lse=False, q_offset=0):
     """Online-softmax attention over kv blocks of ``block_kv`` rows: the
     reference's memory-safe path for long sequences (O(Sq * block_kv)
-    logits instead of O(Sq * Sk)).  ``return_lse`` as ``attention_naive``
-    (m + log l of the online softmax)."""
+    logits instead of O(Sq * Sk)).  ``return_lse`` and ``q_offset`` as
+    ``attention_naive``'s (lse: m + log l of the online softmax)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -95,7 +103,7 @@ def attention_blockwise(q, k, v, *, causal=True, local_window=None,
     qf = (q.float() * scale).reshape(B, Sq, K, G, D)
     kb = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
     vb = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
-    q_pos = torch.arange(Sq, device=q.device)
+    q_pos = _positions(Sq, q_offset, q.device)
     m = torch.full((B, K, G, Sq), NEG_INF, device=q.device)
     l = torch.zeros((B, K, G, Sq), device=q.device)
     acc = torch.zeros((B, K, G, Sq, D), device=q.device)
@@ -120,7 +128,7 @@ def attention_blockwise(q, k, v, *, causal=True, local_window=None,
     return out
 
 
-def _logits(q, k, causal, local_window, softcap, scale):
+def _logits(q, k, causal, local_window, softcap, scale, q_offset=0):
     """(B, K, G, Sq, Sk) f32 logits after scale and softcap, the raw
     tanh(s / softcap) (for the softcap's derivative) and the mask: what
     ``attention_bwd_ref`` recomputes P from."""
@@ -132,24 +140,27 @@ def _logits(q, k, causal, local_window, softcap, scale):
     if softcap is not None:
         t = torch.tanh(s / softcap)
         s = softcap * t
-    mask = _mask(torch.arange(Sq, device=q.device),
+    mask = _mask(_positions(Sq, q_offset, q.device),
                  torch.arange(Sk, device=q.device), causal, local_window)
     return s, t, mask
 
 
 def attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
-                      local_window=None, softcap=None, scale=None):
+                      local_window=None, softcap=None, scale=None,
+                      q_offset=0):
     """Gradient of the cache-free attention, by the FlashAttention
     formulas: P = exp(S - lse) on the visible keys, dV = P^T dO,
     dP = dO V^T, dS = P * (dP - rowsum(dO * O)), times the softcap's
     1 - tanh^2(s / c), dQ = dS K * scale, dK = dS^T Q * scale; dK and dV
-    sum over the G query heads of each kv head.  f32 maths; each gradient
-    in its input's dtype."""
+    sum over the G query heads of each kv head.  ``q_offset`` as
+    ``attention_naive``'s.  f32 maths; each gradient in its input's
+    dtype."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     scale = scale if scale is not None else D ** -0.5
-    s, t, mask = _logits(q, k, causal, local_window, softcap, scale)
+    s, t, mask = _logits(q, k, causal, local_window, softcap, scale,
+                         q_offset)
     p = torch.where(mask, torch.exp(s - lse.reshape(B, K, G, Sq, 1)),
                     torch.zeros_like(s))
     of = out.float().reshape(B, Sq, K, G, D)

@@ -29,12 +29,15 @@ reference does, with the chips the world size of a ``--mesh`` run.
 per process: the process group starts from the environment, as
 ``torchrun`` sets it (``launch.mesh.init_distributed``; ``--backend``
 nccl when every rank has its own card, gloo when ranks share a card or
-run on the CPU), the state is sharded by the arch's rule set
-(``rules_name``; only ``default`` executes yet, the others raise naming
-ROADMAP item 14b), each data-parallel rank takes its rows of the step's
-global batch (host id = its data coordinate, so the losses are the one
-device's), checkpoints are saved full and restored as the mesh's slices,
-and rank 0 prints.  On the card each rank uses card ``LOCAL_RANK`` modulo
+run on the CPU), the state is sharded by the arch's own rule set
+(``rules_name``: llama, minitron, gemma2 and phi3.5-moe train under
+``seqparallel``, qwen2-vl under ``fsdp``, the others under ``default``),
+each data-parallel rank takes its rows of the step's global batch (host
+id = its data coordinate, so the losses are the one device's; under
+``seqparallel`` the model ranks then split its sequence), checkpoints
+are saved full and restored as the mesh's slices, and rank 0 prints.
+The Mamba-2 stack and the hybrid raise, naming ROADMAP item 14b, before
+the process group starts.  On the card each rank uses card ``LOCAL_RANK`` modulo
 the cards present, and only rank 0 reads NVML.
 """
 
@@ -53,6 +56,7 @@ from repro_torch.configs.registry import (ARCH_IDS, get_model_config,
                                           get_run_config)
 from repro_torch.data.pipeline import DataConfig, TokenSource
 from repro_torch.launch.mesh import init_distributed, make_mesh_for
+from repro_torch.models.lm import require_mesh_family
 from repro_torch.models.layers import DP_AXES, Ctx
 from repro_torch.models.params import resolve_device
 from repro_torch.power import PodPowerArbiter, PowerManager, available_metrics
@@ -100,6 +104,7 @@ def main(argv=None) -> None:
     device_arg = args.device
     if args.mesh:
         rules = executed_rules(run.rules_name)   # before the group starts
+        require_mesh_family(cfg)
         init_distributed(args.backend)
         if device_arg == "cuda" and torch.cuda.is_available():
             local = int(os.environ.get("LOCAL_RANK", 0))

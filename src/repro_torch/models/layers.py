@@ -14,11 +14,20 @@ The MoE layer is the reference's local path (token-choice top-k router,
 capacity dispatch, grouped expert FFN, weighted combine).
 
 Under a mesh (``ctx.mesh``) every layer is one rank's program of the
-reference's sharded execution, Megatron-style: the weights are this
-rank's shards (``sharding.rules.local_slice`` of the reference's specs),
-activations are replicated over ``model`` and split over the
-data-parallel axes, and each layer reads its local sizes from its local
-weights and issues its own collectives (``sharding/collectives.py``):
+reference's sharded execution under its rule set (``ctx.rules``).  The
+stored weights are this rank's shards (``sharding.rules.local_slice`` of
+the reference's specs).  Where the rules shard a dim that the rank's
+program needs whole, ``use_weights`` all-gathers the leaf just before its
+use, cast to the compute dtype, with a reduce-scatter for its gradient
+(``collectives.gather_dims``): the ``embed`` dim over the data-parallel
+axes under ``fsdp`` (ZeRO-3), every ``model``-sharded dim but the
+experts' under the sequence-parallel rule sets.  The optimizer, the
+checkpoint and the gradient sums keep seeing the shards.
+
+``default`` and ``fsdp`` run the Megatron program: activations are
+replicated over ``model`` and split over the data-parallel axes, and each
+layer reads its local sizes from its local weights and issues its own
+collectives (``sharding/collectives.py``):
   attention   q/k/v columns sharded by heads (``qkv_flat``/``kv_flat``),
               this rank's heads through the kernels, ``wo`` row-parallel
               and summed over ``model``; a decode step over a cache
@@ -39,6 +48,18 @@ A leaf the rules leave replicated (its dim not divisible) is computed
 whole on every rank, with no collective.  A cut inside a head, or q
 sharded while kv is not, raises.
 
+``seqparallel`` and ``fsdp_seqparallel`` (``act_seq`` on ``model``) run
+the sequence-parallel program: a training forward's activations are this
+rank's rows [r S/n, (r+1) S/n) of the sequence (``ctx.seq_shard``), every
+head and the full MLP width, on whole weights.  Attention computes q, k
+and v of its rows, gathers k and v over ``model`` along the sequence
+(``_attention_seq``) and runs the kernels with the query offset of its
+first row; the MLP runs on its rows with no collective; the MoE layer is
+expert parallelism over the rank's own rows.  A decode step (one row:
+``act_seq`` resolves to replicated) keeps the sequence-sharded cache with
+every head computed on every rank; its embedding and logits stay
+vocab-parallel, as the rows are the same on every rank.
+
 The Mamba-2 block runs its prefill chunks through ``ops.ssd`` (the
 ``ssd`` kernel on CUDA) and its single-token decode through the plain
 one-step recurrence, as the reference does; its SSM and conv states are
@@ -58,6 +79,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.params import PD
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import resolve_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +88,9 @@ class Ctx:
     device: str | torch.device = "cuda"
     rules: Any = None    # sharding.LogicalRules | None
     mesh: Any = None     # launch.mesh.Mesh | None: this rank's program
+    #: the activations are this rank's rows of the sequence (set by
+    #: ``lm.forward`` for a sequence-parallel training forward)
+    seq_shard: bool = False
 
     @property
     def cdtype(self) -> torch.dtype:
@@ -74,6 +99,9 @@ class Ctx:
 
 MODEL = "model"
 DP_AXES = ("pod", "data")
+#: parameter leaves that stay float32 on the compute path
+#: (``lm.prepare_params``); gathered at use in float32
+F32_LEAVES = ("scale", "bias", "router", "A_log", "D", "dt_bias", "norm")
 
 
 def _n_model(ctx: Ctx) -> int:
@@ -82,6 +110,76 @@ def _n_model(ctx: Ctx) -> int:
 
 def _model_index(ctx: Ctx) -> int:
     return ctx.mesh.coord(MODEL) if _n_model(ctx) > 1 else 0
+
+
+def seq_parallel(ctx: Ctx) -> bool:
+    """The rules split activations over the sequence on ``model``
+    (``seqparallel``, ``fsdp_seqparallel``) and the mesh has more than one
+    model rank."""
+    return (ctx.mesh is not None and _n_model(ctx) > 1
+            and ctx.rules.get("act_seq") == MODEL)
+
+
+def token_axes(seq: bool) -> tuple[str, ...]:
+    """The mesh axes a call's tokens are split over: the data-parallel
+    axes, and ``model`` when each rank holds its rows of the sequence."""
+    return DP_AXES + ((MODEL,) if seq else ())
+
+
+def seq_rows(ctx: Ctx, S: int) -> slice:
+    """This rank's rows [r S/n, (r+1) S/n) of a sequence of ``S`` rows
+    split over ``model``.  The reference replicates a sequence that does
+    not divide; the sequence-parallel program refuses it."""
+    n = _n_model(ctx)
+    if S % n:
+        raise NotImplementedError(
+            f"a sequence of {S} rows over a {n}-way model axis: the "
+            f"sequence-parallel program needs S divisible by the axis")
+    r = _model_index(ctx)
+    return slice(r * (S // n), (r + 1) * (S // n))
+
+
+def _gather_parts(ctx: Ctx, axes, dims) -> tuple:
+    """The (dim, mesh axes) a leaf of logical ``axes`` and global ``dims``
+    is all-gathered over before use: every dim the rules shard, but the
+    ``model`` shards the program consumes as they lie (the Megatron
+    program's heads, MLP columns and vocab; the experts under expert
+    parallelism; the vocab of a sequence-parallel call whose rows are
+    replicated, a decode step's, which the vocab-parallel lookup and
+    logits take as the Megatron program does)."""
+    seq = seq_parallel(ctx)
+    parts = []
+    for d, (part, ax) in enumerate(zip(resolve_spec(ctx.rules, ctx.mesh,
+                                                    axes, dims), axes)):
+        flat = (part,) if isinstance(part, str) else (part or ())
+        kept = not seq or ax == "expert" or (ax == "vocab"
+                                             and not ctx.seq_shard)
+        if not flat or (MODEL in flat and kept):
+            continue
+        parts.append((d, part))
+    return tuple(parts)
+
+
+def use_weights(ctx: Ctx, p: dict, decls: dict) -> dict:
+    """The layer's weights ``p`` (one layer's, matching ``decls``) as this
+    rank's program uses them: a leaf whose spec shards a dim the program
+    needs whole is cast (float32 for ``F32_LEAVES``, else the compute
+    dtype) and all-gathered (``C.gather_dims``: its gradient is the
+    reduce-scatter, in float32, onto the shard); the others come back as
+    they are.  Without a mesh, ``p`` itself."""
+    if ctx.mesh is None:
+        return p
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out[k] = use_weights(ctx, v, decls[k])
+            continue
+        parts = _gather_parts(ctx, decls[k].axes, decls[k].shape)
+        if parts:
+            dtype = torch.float32 if k in F32_LEAVES else ctx.cdtype
+            v = C.gather_dims(v, parts, ctx.mesh, dtype)
+        out[k] = v
+    return out
 
 
 def _local_heads(ctx: Ctx, what: str, total: int, cols: int, hd: int) -> int:
@@ -227,6 +325,9 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
         if q_delta is not None:
             raise NotImplementedError(
                 "the hybrid's shared attention under a mesh: ROADMAP item 14b")
+        if ctx.seq_shard:
+            return _attention_seq(ctx, cfg, p, x, cos, sin,
+                                  local_window=local_window), cache
         return _attention_sharded(ctx, cfg, p, x, cos, sin,
                                   local_window=local_window, cache=cache,
                                   cache_index=cache_index,
@@ -331,6 +432,42 @@ def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
             out = out[:, :, m * H_l:(m + 1) * H_l]
     y = out.reshape(B, S, H_l * hd) @ p["wo"].to(c)
     return C.reduce_from(y, MODEL, mesh) if sharded else y, cache
+
+
+def _attention_seq(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
+                   local_window):
+    """Cache-free attention of the sequence-parallel program on one rank:
+    ``x`` (B, S_l, d) holds rows [a, a + S_l) of the sequence, a = r S_l,
+    and ``cos``/``sin`` their global positions.  q, k and v of those rows
+    with every head (``use_weights`` gathered the projections whole), k
+    and v gathered over ``model`` along the sequence in one exchange
+    (``C.gather_sum``: each rank's gradient of the gathered rows is a
+    partial sum, reduce-scattered back) and cut to the rows the rank's
+    queries can see -- up to its last row when causal, from its first
+    row's window start -- then ``ops.attention`` at the query offset of
+    its first row over them, and ``wo`` on the rank's rows, with no
+    reduction."""
+    c = ctx.cdtype
+    B, S_l = x.shape[:2]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(c)).reshape(B, S_l, H, hd)
+    k = (x @ p["wk"].to(c)).reshape(B, S_l, K, hd)
+    v = (x @ p["wv"].to(c)).reshape(B, S_l, K, hd)
+    if cfg.use_rope:
+        q = ref.apply_rope(q, cos, sin, cfg.rotary_pct)
+        k = ref.apply_rope(k, cos, sin, cfg.rotary_pct)
+    scale = (cfg.query_scale ** -0.5 if cfg.query_scale is not None
+             else cfg.head_dim ** -0.5)
+    a = _model_index(ctx) * S_l
+    kv = C.gather_sum(torch.cat([k, v], dim=2), MODEL, ctx.mesh, 1)
+    hi = a + S_l if cfg.causal else kv.shape[1]
+    lo = max(0, a - local_window + 1) if local_window is not None else 0
+    kv = kv[:, lo:hi]
+    out = ops.attention(q, kv[:, :, :K], kv[:, :, K:], causal=cfg.causal,
+                        local_window=local_window, softcap=cfg.attn_softcap,
+                        scale=scale, naive_below=ctx.run.naive_attn_below,
+                        q_offset=a - lo)
+    return out.reshape(B, S_l, H * hd) @ p["wo"].to(c)
 
 
 def seq_shard_window(index: int, rank: int, rows: int, window=None):
@@ -483,17 +620,18 @@ def moe_decls(cfg: ModelConfig, layers: int = 0) -> dict:
     }
 
 
-def _moe_router(cfg: ModelConfig, p: dict, xf, mesh=None):
+def _moe_router(cfg: ModelConfig, p: dict, xf, mesh=None, axes=DP_AXES):
     """Router probabilities, top-k and the Switch load-balancing aux loss,
     in float32 from the float32 router (``lm.prepare_params`` keeps it
     f32, as the reference reads its masters).  xf: (T, D).  Returns
     top_p (T, K) renormalised, top_e (T, K) and aux ().
 
-    Under a mesh the tokens are this rank's share of the data-parallel
-    batch, and the aux is this rank's term of the global one: the mean
-    probabilities over the global token count times the global dispatch
-    fractions (a sum over the data-parallel ranks, without gradient), so
-    the ranks' terms sum to the reference's aux and their gradients, summed
+    Under a mesh the tokens are this rank's share of the tokens split over
+    ``axes`` (the data-parallel axes, and ``model`` under sequence
+    parallelism), and the aux is this rank's term of the global one: the
+    mean probabilities over the global token count times the global
+    dispatch fractions (a sum over ``axes``, without gradient), so the
+    ranks' terms sum to the reference's aux and their gradients, summed
     as every gradient is, to its gradient."""
     E, K = cfg.n_experts, cfg.top_k
     T = xf.shape[0]
@@ -501,7 +639,7 @@ def _moe_router(cfg: ModelConfig, p: dict, xf, mesh=None):
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, K, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
-    if mesh is None or mesh.axis_size(DP_AXES) == 1:
+    if mesh is None or mesh.axis_size(axes) == 1:
         me = probs.mean(dim=0)
         ce = torch.zeros((E,), dtype=torch.float32,
                          device=xf.device).index_add_(
@@ -514,7 +652,7 @@ def _moe_router(cfg: ModelConfig, p: dict, xf, mesh=None):
         0, top_e.reshape(-1),
         torch.ones((T * K,), dtype=torch.float32, device=xf.device))
     counts[E] = T
-    counts = C.psum(counts, DP_AXES, mesh)     # global counts and tokens
+    counts = C.psum(counts, axes, mesh)        # global counts and tokens
     me = probs.sum(dim=0) / counts[E]
     ce = counts[:E] / (counts[E] * K)
     return top_p, top_e, E * torch.sum(me * ce)
@@ -577,18 +715,24 @@ def apply_moe(ctx: Ctx, cfg: ModelConfig, p: dict, x):
     x: (B, S, D).  Returns (y, aux_loss).
 
     Under a mesh with the experts sharded over ``model`` (``E`` divisible
-    by it): expert parallelism when ``S`` divides too (``_moe_ep``),
-    else each rank's experts on the common dispatch (``_moe_local_experts``).
-    The router runs on every rank's whole (data-parallel) share of the
-    tokens; its aux is that rank's term (``_moe_router``)."""
+    by it): expert parallelism when ``S`` divides too, or when the rows
+    are already this rank's share of the sequence (``_moe_ep``), else
+    each rank's experts on the common dispatch (``_moe_local_experts``).
+    The router runs on every rank's whole share of the tokens; its aux is
+    that rank's term (``_moe_router``).  With the experts replicated (E
+    not divisible by the axis) under sequence parallelism, each rank
+    dispatches its own rows at their own capacity, where the reference's
+    GSPMD dispatch counts the global tokens: with a binding capacity the
+    two drop other tokens."""
     c = ctx.cdtype
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, D)
-    top_p, top_e, aux = _moe_router(cfg, p, xf, ctx.mesh)
+    top_p, top_e, aux = _moe_router(cfg, p, xf, ctx.mesh,
+                                    token_axes(ctx.seq_shard))
     n = _n_model(ctx)
     if n > 1 and p["w_gate"].shape[0] != E:
-        if S % n == 0:
+        if ctx.seq_shard or S % n == 0:
             return _moe_ep(ctx, cfg, p, x, top_p, top_e), aux
         return _moe_local_experts(ctx, cfg, p, x, top_p, top_e), aux
     capacity = int(max(1, math.ceil(B * S * K * cfg.capacity_factor / E)))
@@ -633,18 +777,24 @@ def _moe_ep(ctx: Ctx, cfg: ModelConfig, p: dict, x, top_p, top_e):
     all-to-all sends expert e's rows to the rank holding e, the rank's
     ``E / n`` experts run on their ``n * cap`` rows (three
     ``grouped_matmul``), the all-to-all brings them back, and the rank
-    combines its slice; the slices are gathered over ``model``."""
+    combines its slice; the slices are gathered over ``model``.  Under
+    sequence parallelism (``ctx.seq_shard``) ``x`` is the rank's slice
+    already, and its output stays so: no scatter, no gather."""
     c, mesh = ctx.cdtype, ctx.mesh
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     n = _n_model(ctx)
     e_local = p["w_gate"].shape[0]
-    S_l = S // n
+    if ctx.seq_shard:
+        S_l, x_l, tp_l = S, x, top_p.reshape(B, S, K)
+        te_l = top_e.reshape(B, S, K)
+    else:
+        S_l = S // n
+        x_l = C.scatter_to(x, MODEL, mesh, 1)             # (B, S_l, D)
+        tp_l = C.scatter_to(top_p.reshape(B, S, K), MODEL, mesh, 1)
+        m = _model_index(ctx)
+        te_l = top_e.reshape(B, S, K)[:, m * S_l:(m + 1) * S_l]
     cap = int(max(1, math.ceil(B * S_l * K * cfg.capacity_factor / E)))
-    x_l = C.scatter_to(x, MODEL, mesh, 1)                 # (B, S_l, D)
-    tp_l = C.scatter_to(top_p.reshape(B, S, K), MODEL, mesh, 1)
-    m = _model_index(ctx)
-    te_l = top_e.reshape(B, S, K)[:, m * S_l:(m + 1) * S_l]
     disp, flat_e, slot, keep = _moe_dispatch_local(
         cfg, x_l.reshape(B * S_l, D).to(c), te_l.reshape(B * S_l, K), cap)
     recv = _a2a(ctx, disp.reshape(n, e_local, cap, D).contiguous())
@@ -655,7 +805,7 @@ def _moe_ep(ctx: Ctx, cfg: ModelConfig, p: dict, x, top_p, top_e):
     back = _a2a(ctx, out).reshape(E, cap, D)
     y_l = _moe_combine_local(back, flat_e, slot, keep,
                              tp_l.reshape(B * S_l, K), B, S_l)
-    return C.gather_from(y_l, MODEL, mesh, 1)
+    return y_l if ctx.seq_shard else C.gather_from(y_l, MODEL, mesh, 1)
 
 
 def _moe_local_experts(ctx: Ctx, cfg: ModelConfig, p: dict, x, top_p,
@@ -833,9 +983,12 @@ def embed_decls(cfg: ModelConfig) -> dict:
 
 def apply_embed(ctx: Ctx, cfg: ModelConfig, p: dict, tokens):
     """The table lookup; under a mesh with the table's rows (the vocab)
-    sharded over ``model``, each rank looks up the tokens its rows hold,
-    zeros elsewhere, and the lookups are summed over ``model``."""
-    table = p["table"].to(ctx.cdtype)
+    sharded over ``model`` (the Megatron program), each rank looks up the
+    tokens its rows hold, zeros elsewhere, and the lookups are summed over
+    ``model``; where ``use_weights`` gathers the table (the vocab under
+    sequence parallelism, the embed dim under fsdp) the lookup is on the
+    gathered table."""
+    table = use_weights(ctx, p, embed_decls(cfg))["table"].to(ctx.cdtype)
     if ctx.mesh is not None and table.shape[0] != cfg.vocab_padded:
         lo = _model_index(ctx) * table.shape[0]
         ids = tokens.long() - lo

@@ -41,6 +41,7 @@ batch size and ``max_seq``: the serving engine's drain and restore.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any
 
@@ -55,6 +56,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models.params import PD
+
+
+def require_mesh_family(cfg: ModelConfig) -> None:
+    """The Mamba-2 stack and the hybrid have no per-rank program yet."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.family} layers under a mesh: ROADMAP item 14b")
 
 
 def _require_cache(cfg: ModelConfig) -> None:
@@ -145,10 +153,6 @@ def model_decls(cfg: ModelConfig) -> dict:
     return d
 
 
-#: parameter leaves that stay float32 on the compute path
-_F32_LEAVES = ("scale", "bias", "router", "A_log", "D", "dt_bias", "norm")
-
-
 def prepare_params(ctx: L.Ctx, params):
     """The params on ``ctx.device`` with the matrices and the embedding
     table cast ONCE to the compute dtype.  The reference casts its f32
@@ -169,10 +173,10 @@ def prepare_params(ctx: L.Ctx, params):
 
 def prepare_leaf(ctx: L.Ctx, path, t):
     """One leaf of ``prepare_params``, named by its key ``path``: on
-    ``ctx.device``, float32 if its last key is in ``_F32_LEAVES``, else in
+    ``ctx.device``, float32 if its last key is in ``L.F32_LEAVES``, else in
     the compute dtype.  ``init_params(..., prepare=...)`` applies it to
     each leaf as it is drawn, so the f32 masters never exist whole."""
-    if path[-1] in _F32_LEAVES:
+    if path[-1] in L.F32_LEAVES:
         return t.to(ctx.device)
     return t.to(device=ctx.device, dtype=ctx.cdtype)
 
@@ -188,7 +192,11 @@ def _tf_block(ctx: L.Ctx, cfg: ModelConfig, p, h, cos, sin, *,
     layer's load-balancing loss (None in a dense block).  With the
     sandwich norms (``post_ln1``, ``post_ln2``) the attention and MLP
     outputs are normed before their residual adds
-    (``repro/models/lm.py:155-177``)."""
+    (``repro/models/lm.py:155-177``).  Under a mesh the layer's weights
+    are first gathered where the program needs them whole
+    (``L.use_weights``)."""
+    if ctx.mesh is not None:
+        p = L.use_weights(ctx, p, _tf_layer_decls(cfg, 0))
     a_in = L.apply_norm(cfg, p["ln1"], h)
     attn_out, cache = L.apply_attention(
         ctx, cfg, p["attn"], a_in, cos, sin, local_window=local_window,
@@ -352,26 +360,38 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     Nv, d), which overwrite the first Nv rows of the token embeddings,
     and ``positions`` (3, B, S); without them the default positions are
     broadcast to the three M-RoPE sections (``repro/models/lm.py:
-    217-240``)."""
+    217-240``).
+
+    Under a sequence-parallel rule set a cache-free forward runs on this
+    rank's rows of the sequence (``L.seq_rows``) from the embedding to the
+    final norm, at their global positions, and returns them (B, S / n,
+    D)."""
     c = ctx.cdtype
+    rows = slice(None)
     if ctx.mesh is not None:
         from repro_torch.sharding import executed_rules
-        executed_rules(ctx.rules.name)      # fsdp/seqparallel: item 14b
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.family} layers under a mesh: ROADMAP item 14b")
+        executed_rules(ctx.rules.name)
+        require_mesh_family(cfg)
+        if cache is None and L.seq_parallel(ctx):
+            seq = batch["frames" if cfg.family == "audio" else "tokens"]
+            rows = L.seq_rows(ctx, seq.shape[1])
+            ctx = dataclasses.replace(ctx, seq_shard=True)
     if cfg.family == "audio":
         frames = batch["frames"].to(c)
         B, S = frames.shape[:2]
         fe = params["frontend"]
-        h = frames @ fe["proj"].to(c) + fe["pos"][:S].to(c)[None]
+        if ctx.mesh is not None:
+            fe = L.use_weights(ctx, fe, model_decls(cfg)["frontend"])
+        h = (frames[:, rows] @ fe["proj"].to(c)
+             + fe["pos"][:S][rows].to(c)[None])
         device = frames.device
     else:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h = L.apply_embed(ctx, cfg, params["embed"], tokens)
+        h = L.apply_embed(ctx, cfg, params["embed"], tokens[:, rows])
         if cfg.family == "vlm" and "vision_embeds" in batch:
-            ve = batch["vision_embeds"].to(c)
+            # the patch embeddings of the rows this rank holds
+            ve = batch["vision_embeds"][:, rows].to(c)
             h = torch.cat([ve, h[:, ve.shape[1]:]], dim=1)
         device = tokens.device
     cos = sin = None
@@ -381,7 +401,7 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
             positions = _positions_default(B, S, device, cache_index)
             if cfg.mrope_sections is not None:
                 positions = positions[None].expand(3, B, S)
-        cos, sin = L.rope_cos_sin(cfg, positions)
+        cos, sin = L.rope_cos_sin(cfg, positions[..., rows])
     block_tables = cache.get("block_tables") if cache is not None else None
     remat = (_remat(ctx) if cache is None and torch.is_grad_enabled()
              else None)
@@ -405,7 +425,8 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
                                 block_tables=block_tables)
         if a is not None:
             aux = aux + a
-    h = L.apply_norm(cfg, params["final_norm"], h)
+    h = L.apply_norm(cfg, L.use_weights(ctx, params["final_norm"],
+                                        L.norm_decls(cfg)), h)
     return h, aux, cache
 
 
@@ -443,10 +464,22 @@ def unembed_matrix(cfg: ModelConfig, params, dtype):
     return params["unembed"]["w"].to(dtype)
 
 
+def unembed_weight(ctx: L.Ctx, cfg: ModelConfig, params):
+    """``unembed_matrix`` in the compute dtype as this rank's program uses
+    it: under a mesh the table (or ``w``) first gathered where the program
+    needs it whole (``L.use_weights``: the embed dim under fsdp, the vocab
+    under sequence parallelism)."""
+    if cfg.tie_embeddings:
+        p = L.use_weights(ctx, params["embed"], L.embed_decls(cfg))
+        return p["table"].to(ctx.cdtype).T
+    p = L.use_weights(ctx, params["unembed"], L.unembed_decls(cfg))
+    return p["w"].to(ctx.cdtype)
+
+
 def vocab_shard(ctx: L.Ctx, cfg: ModelConfig, w) -> tuple[int, bool]:
     """(first vocab column, sharded?) of this rank's unembedding columns
-    ``w`` (D, V_l): under a mesh the rules shard ``vocab`` over ``model``
-    (``vocab_padded`` divides it)."""
+    ``w`` (D, V_l): under the Megatron program the rules shard ``vocab``
+    over ``model`` (``vocab_padded`` divides it)."""
     if ctx.mesh is None or w.shape[-1] == cfg.vocab_padded:
         return 0, False
     return L._model_index(ctx) * w.shape[-1], True
@@ -457,7 +490,7 @@ def logits_for(ctx: L.Ctx, cfg: ModelConfig, params, h):
     masked.  Under a mesh each rank computes its vocab columns and the
     logits are gathered over ``model``, so every rank holds all of them
     (the reference's ``:494``, whose logits GSPMD leaves vocab-sharded)."""
-    w = unembed_matrix(cfg, params, ctx.cdtype)
+    w = unembed_weight(ctx, cfg, params)
     lo, sharded = vocab_shard(ctx, cfg, w)
     if sharded:
         h = L.C.copy_to(h, L.MODEL, ctx.mesh)

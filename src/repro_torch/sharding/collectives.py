@@ -17,6 +17,15 @@ replicated activation the whole gradient (Megatron's convention):
   gather_from   all-gather forward, this rank's slice backward;
   AllToAll      all-to-all forward, all-to-all backward (an exchange of
                 equal chunks along dim 0 is its own inverse).
+``gather_from``'s backward is right only where every rank's cotangent of
+the gathered tensor is the same (the Megatron case).  Where each rank's
+cotangent is a different partial sum -- K and V gathered over the
+sequence, a weight shard gathered before use (ZeRO-3, sequence
+parallelism) -- the pair is:
+  gather_sum    all-gather forward (over one or several dims, optionally
+                of the input cast to the compute dtype), reduce-scatter
+                backward: the cotangent summed in float32 over the axes,
+                then this rank's slice, in the input's dtype.
 Over the data-parallel axes each rank's loss is its share of the global
 loss, and gradients are summed (``train/step.py``).
 
@@ -169,6 +178,31 @@ class _GatherFrom(torch.autograd.Function):
         return _slice(g, ctx.axes, ctx.mesh, ctx.dim), None, None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    """All-gather of ``x`` (cast to ``dtype`` first) along each (dim, axes)
+    of ``parts`` in turn; the backward is the reduce-scatter: one f32 sum
+    of the cotangent over every axis of ``parts``, then this rank's slice
+    along each dim, in ``x``'s dtype (an f32 master's gradient stays
+    f32)."""
+
+    @staticmethod
+    def forward(ctx, x, parts, mesh, dtype):
+        ctx.parts, ctx.mesh, ctx.dtype = parts, mesh, x.dtype
+        y = x.to(dtype)
+        for dim, axes in parts:
+            y = all_gather(y.contiguous(), axes, mesh, dim)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        axes = tuple(a for _, part in ctx.parts
+                     for a in ((part,) if isinstance(part, str) else part))
+        g = psum(g.float().contiguous(), axes, ctx.mesh)
+        for dim, part in ctx.parts:
+            g = _slice(g, part, ctx.mesh, dim)
+        return g.to(ctx.dtype), None, None, None
+
+
 class AllToAll(torch.autograd.Function):
     """``all_to_all`` with its gradient, the same exchange of the
     cotangent."""
@@ -201,6 +235,23 @@ def gather_from(x, axes, mesh, dim):
     if mesh.axis_size(axes) == 1:
         return x
     return _GatherFrom.apply(x, axes, mesh, dim)
+
+
+def gather_sum(x, axes, mesh, dim):
+    """``x`` gathered over ``axes`` along ``dim``, whose gradient is the
+    reduce-scatter of the ranks' cotangents (``_GatherSum``)."""
+    return gather_dims(x, ((dim, axes),), mesh)
+
+
+def gather_dims(x, parts, mesh, dtype=None):
+    """``x`` cast to ``dtype`` (default its own) and gathered along every
+    (dim, axes) of ``parts``; the gradient is summed over all those axes
+    and sliced back (``_GatherSum``).  Parts over one rank drop out."""
+    parts = tuple((d, a) for d, a in parts if mesh.axis_size(a) > 1)
+    dtype = x.dtype if dtype is None else dtype
+    if not parts:
+        return x.to(dtype)
+    return _GatherSum.apply(x, parts, mesh, dtype)
 
 
 def all_to_all_grad(x, axes, mesh):

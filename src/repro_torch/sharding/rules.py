@@ -110,20 +110,18 @@ RULE_SETS = {"default": DEFAULT_RULES, "fsdp": FSDP_RULES,
                  name="fsdp_seqparallel", act_heads=None, act_kv_heads=None,
                  act_seq="model")}
 
-#: the rule sets the explicit per-rank program executes; the others (ZeRO
-#: weight sharding over data, sequence-parallel activations) wait for
-#: ROADMAP item 14b
-EXECUTED_RULE_SETS = ("default",)
+#: the rule sets the explicit per-rank program executes: all four
+#: (``models/layers.py``: the Megatron program under ``default`` and
+#: ``fsdp``, the sequence-parallel one under the other two; ``fsdp``'s
+#: weights gathered at use)
+EXECUTED_RULE_SETS = tuple(RULE_SETS)
 
 
 def executed_rules(name: str) -> LogicalRules:
-    """``RULE_SETS[name]``, or a NotImplementedError naming ROADMAP item
-    14b for a rule set the port does not execute yet."""
+    """``RULE_SETS[name]``; a name that is none of them raises."""
     if name not in EXECUTED_RULE_SETS:
         raise NotImplementedError(
-            f"rule set {name!r} is not executed by the port yet (ROADMAP "
-            f"item 14b: fsdp and seqparallel execution); pass "
-            f"rules_name='default'")
+            f"rule set {name!r} is none of {EXECUTED_RULE_SETS}")
     return RULE_SETS[name]
 
 

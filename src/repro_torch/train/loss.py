@@ -10,15 +10,21 @@ recomputes its (B, chunk, vocab) f32 logits in the backward pass --
 otherwise every chunk's logits would stay alive (1.05 GB per chunk of
 1024 at B=2 and vocab 128256).
 
-Under a mesh (``ctx.mesh``) the vocab is sharded over ``model``: each rank
-computes its vocab columns' logits, and the log-sum-exp and the gold logit
-come from a max and two sums over ``model`` (the reference's ``act_vocab``
-reductions, which GSPMD inserts).  Each data-parallel rank's loss is its
-tokens' summed cross-entropy over the global token count, so the ranks'
-losses sum to the reference's mean (``train/step.py`` sums the gradients).
+Under a mesh (``ctx.mesh``) with the vocab sharded over ``model`` (the
+Megatron program) each rank computes its vocab columns' logits, and the
+log-sum-exp and the gold logit come from a max and two sums over
+``model`` (the reference's ``act_vocab`` reductions, which GSPMD
+inserts).  Under sequence parallelism the unembedding is gathered whole
+and each rank takes its rows of the sequence, whole logits per row.  Each
+rank's loss is its tokens' summed cross-entropy over the global token
+count (over the data-parallel axes, and ``model`` when the rows are
+split over it), so the ranks' losses sum to the reference's mean
+(``train/step.py`` sums the gradients).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.utils.checkpoint
@@ -59,10 +65,17 @@ def _chunk_terms(cfg: ModelConfig, hh, W, ll, mesh=None, lo=0):
 
 def chunked_cross_entropy(ctx: Ctx, cfg: ModelConfig, params, h, labels,
                           mask=None, z_loss: float = 0.0):
-    """h: (B, S, D); labels: (B, S) int, -1 = padding.
+    """h: (B, S, D); labels: (B, S) int, -1 = padding; under sequence
+    parallelism h is this rank's rows and the labels are cut to them.
     Returns (mean_ce, metrics_dict)."""
     B, S, D = h.shape
-    W = lm.unembed_matrix(cfg, params, ctx.cdtype)
+    seq = L.seq_parallel(ctx)
+    if seq:
+        rows = L.seq_rows(ctx, labels.shape[1])
+        labels = labels[:, rows]
+        mask = mask[:, rows] if mask is not None else None
+        ctx = dataclasses.replace(ctx, seq_shard=True)
+    W = lm.unembed_weight(ctx, cfg, params)
     lo, sharded = lm.vocab_shard(ctx, cfg, W)
     mesh = ctx.mesh if sharded else None
     if sharded:                 # a column-parallel product: dh sums over model
@@ -87,13 +100,14 @@ def chunked_cross_entropy(ctx: Ctx, cfg: ModelConfig, params, h, labels,
         tot = tot + torch.sum(nll * mm)
         zt = zt + torch.sum(lse * lse * mm)
         cnt = cnt + torch.sum(mm)
-    dp = ctx.mesh is not None and ctx.mesh.axis_size(L.DP_AXES) > 1
+    axes = L.token_axes(seq)
+    dp = ctx.mesh is not None and ctx.mesh.axis_size(axes) > 1
     if dp:                      # the global token count (no gradient)
-        cnt = C.psum(cnt, L.DP_AXES, ctx.mesh)
+        cnt = C.psum(cnt, axes, ctx.mesh)
     cnt = torch.clamp(cnt, min=1.0)
     ce = tot / cnt
     loss = ce + z_loss * zt / cnt
     if dp:                      # this rank's share; the metric is the sum
-        return loss, {"ce": C.psum(ce.detach(), L.DP_AXES, ctx.mesh),
+        return loss, {"ce": C.psum(ce.detach(), axes, ctx.mesh),
                       "tokens": cnt}
     return loss, {"ce": ce, "tokens": cnt}

@@ -13,9 +13,15 @@ shard, cut by ``state_logical_axes`` under the rules (``state_specs``);
 ``init_state`` draws each full leaf from the seed and keeps its slice, so
 the shards are the one-device weights'.  The step is the reference's
 pjit step as one rank runs it: the layers' collectives make the forward
-and backward, each data-parallel rank's loss is its share of the global
-loss (``train/loss.py``), and its gradients are summed over the
-data-parallel axes.  ``grad_compression="int8"`` then acts on the reduced
+and backward, and each rank's loss is its share of the global loss
+(``train/loss.py``).  A leaf's gradient is summed over the axes its
+tokens are split over (the data-parallel axes, and ``model`` under
+sequence parallelism) but those its spec shards it over: a leaf
+gathered at use over an axis (``fsdp``'s embed dim over data, a weight
+over ``model`` under sequence parallelism) was already reduce-scattered
+over it by the gather's backward, and a ``model`` shard the program
+consumes as it lies (Megatron's, the experts') holds its whole gradient.
+``grad_compression="int8"`` then acts on the reduced
 gradients, with each leaf's scale from its global max, as the
 reference's acts on pjit's global gradients; the global norm of the clip
 sums each leaf's squared norm over the axes the leaf is sharded on and
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import lm
-from repro_torch.models.layers import DP_AXES, Ctx
+from repro_torch.models.layers import Ctx, seq_parallel, token_axes
 from repro_torch.models.params import (abstract_params, init_params,
                                        logical_axes)
 from repro_torch.optim import Adafactor, AdamW, clip_by_global_norm, \
@@ -139,10 +145,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
     opt = make_optimizer(run)
     loss_fn = make_loss_fn(cfg, run, ctx)
     mesh = ctx.mesh
-    axes = None
+    axes = sums = None
     if mesh is not None:
         axes = [spec_axes(s) for s in
                 leaves(state_specs(cfg, run, ctx)["params"])]
+        split = mesh.present(token_axes(seq_parallel(ctx)))
+        sums = [grad_sum_axes(split, ax) for ax in axes]
 
     def compute_grads(params, batch):
         if run.grad_accum <= 1:
@@ -177,13 +185,14 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
             p.grad = None
         loss, metrics = compute_grads(params, batch)
         grads = tree_map(lambda p: p.grad, params)
-        if mesh is not None and mesh.axis_size(DP_AXES) > 1:
+        if mesh is not None and mesh.axis_size(split) > 1:
             with torch.no_grad():
-                for g in leaves(grads):
-                    g.copy_(C.psum(g, DP_AXES, mesh))
-            loss = C.psum(loss, DP_AXES, mesh)
+                for g, ax in zip(leaves(grads), sums):
+                    if mesh.axis_size(ax) > 1:
+                        g.copy_(C.psum(g, ax, mesh))
+            loss = C.psum(loss, split, mesh)
             if "aux" in metrics:
-                metrics["aux"] = C.psum(metrics["aux"], DP_AXES, mesh)
+                metrics["aux"] = C.psum(metrics["aux"], split, mesh)
         if run.grad_compression == "int8":
             from repro_torch.train.compression import int8_compress_decompress
             int8_compress_decompress(grads, absmax=None if mesh is None else
@@ -199,6 +208,13 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
+
+
+def grad_sum_axes(split, spec_ax) -> tuple[str, ...]:
+    """The axes a leaf's gradient is summed over after the backward: those
+    of the token axes ``split`` its spec does not shard it over
+    (``spec_ax``)."""
+    return tuple(a for a in split if a not in spec_ax)
 
 
 def _sharded_sq_norm(mesh, gs, axes):

@@ -1,8 +1,9 @@
 """The port's side of ``tests/test_torch_distributed.py``: the cases'
-configs and inputs, the programs each gloo rank runs on a (2, 2) mesh,
-and the one-device runs they are held against.  It imports no JAX (the
-ranks are spawned processes; the JAX oracle is
-``tests/_jax_mesh_oracle.py``)."""
+configs and inputs, the programs each gloo rank runs on a (2, 2) mesh
+(and, over the same ranks, a (1, 4) one), and the one-device runs they
+are held against.  It imports no JAX (the ranks are spawned processes;
+the JAX oracle is ``tests/_jax_mesh_oracle.py``, which reads the cases'
+archs and rule sets from the inputs file)."""
 
 from __future__ import annotations
 
@@ -20,10 +21,12 @@ from repro_torch.models.layers import Ctx
 from repro_torch.models.params import (gather_params, init_params,
                                        logical_axes, shard_params)
 from repro_torch.serving.engine import make_decode_step, make_prefill_step
-from repro_torch.sharding import RULE_SETS, collectives as C, tree_shardings
+from repro_torch.sharding import (RULE_SETS, collectives as C, spec_axes,
+                                  tree_shardings)
 from repro_torch.train.compression import compressed_psum
-from repro_torch.train.step import (make_loss_fn, make_optimizer,
-                                    make_train_step, state_specs)
+from repro_torch.train.step import (grad_sum_axes, make_loss_fn,
+                                    make_optimizer, make_train_step,
+                                    state_specs)
 from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 RULES = RULE_SETS["default"]
@@ -37,6 +40,19 @@ PROMPT, MAX_SEQ, DECODE_B = 32, 64, 2
 # divide over model); at 8 rows its capacity, 3, binds, and counting only
 # a data-parallel rank's 4 rows would give 2
 DECODE_BATCH = {"olmoe": 8}
+#: the train steps under the other rule sets: (arch, rule set, the
+#: inputs' prefix).  The llama cases take the default case's weights and
+#: batch (``train/``), so the one-device step is the same; phi3.5-moe's
+#: MoE is expert parallelism over each rank's rows at a capacity factor
+#: of 8, so nothing drops on either side; qwen2-vl's batch carries
+#: ``vision_embeds`` and (3, B, S) positions
+RULE_CASES = {
+    "seq_llama": ("llama3.2-3b", "seqparallel", "train"),
+    "seq_phi": ("phi3.5-moe-42b-a6.6b", "seqparallel", "rule/seq_phi"),
+    "fsdp_qwen2vl": ("qwen2-vl-72b", "fsdp", "rule/fsdp_qwen2vl"),
+    "fsdpseq_llama": ("llama3.2-3b", "fsdp_seqparallel", "train")}
+#: llama's decode step under its serve rules
+SEQ_DECODE = "seqparallel"
 
 
 def train_cfg():
@@ -44,6 +60,26 @@ def train_cfg():
     run = get_run_config("llama3.2-3b", logits_chunk=16,
                          rules_name="default", warmup_steps=0, **F32)
     return cfg, run
+
+
+def rule_cfg(case):
+    """(cfg, run) of a ``RULE_CASES`` entry, f32."""
+    arch, rules, _ = RULE_CASES[case]
+    if arch == "llama3.2-3b":
+        cfg, run = train_cfg()
+    else:
+        cfg = reduced(get_model_config(arch))
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        run = get_run_config(arch, logits_chunk=16, warmup_steps=0, **F32)
+    return cfg, run.replace(rules_name=rules)
+
+
+def _batch(inp, prefix):
+    return {k[len(prefix) + 7:]: torch.from_numpy(np.array(a)).long()
+            if k.endswith(("tokens", "labels", "positions"))
+            else torch.from_numpy(np.array(a))
+            for k, a in inp.items() if k.startswith(prefix + "/batch/")}
 
 
 def decode_cfg(name):
@@ -118,6 +154,28 @@ def make_inputs(path) -> dict:
     out["moe/x"] = (rng.normal(size=(4, 16, cfg.d_model)) * 0.3).astype(
         np.float32)
     out["psum/g"] = rng.normal(size=(4, 3, 40)).astype(np.float32)
+    for i, (case, (arch, rules, prefix)) in enumerate(RULE_CASES.items()):
+        out[f"case/{case}/arch"] = np.array(arch)
+        out[f"case/{case}/rules"] = np.array(rules)
+        out[f"case/{case}/prefix"] = np.array(prefix)
+        if prefix == "train":
+            continue
+        cfg, _ = rule_cfg(case)
+        out.update(_flat(init_params(lm.model_decls(cfg),
+                                     torch.Generator().manual_seed(20 + i),
+                                     "cpu"), f"{prefix}/params"))
+        for k, v in train_batches(cfg)[0].items():
+            out[f"{prefix}/batch/{k}"] = v.astype(np.int32)
+        if cfg.family == "vlm":
+            B, S = v.shape
+            out[f"{prefix}/batch/vision_embeds"] = rng.normal(
+                size=(B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+            out[f"{prefix}/batch/positions"] = rng.integers(
+                0, S, (3, B, S), dtype=np.int32)
+    # the gather pair's case: rank r's cotangent weights of the gathered
+    # (8, 6) rows
+    out["pair/x"] = rng.normal(size=(8, 6)).astype(np.float32)
+    out["pair/w"] = rng.normal(size=(4, 8, 6)).astype(np.float32)
     np.savez(path, **out)
     return out
 
@@ -165,12 +223,30 @@ def one_device(inp) -> dict:
     y.sum().backward()
     out["moe/y0"] = y.detach()
     out["moe/grads"] = tree_map(lambda t: t.grad, ps)
+    for case, (_, _, prefix) in RULE_CASES.items():
+        if prefix == "train":
+            continue
+        cfg, run = rule_cfg(case)
+        ctx = Ctx(run, "cpu")
+        batch = _batch(inp, prefix)
+        out[f"{prefix}/grads"] = _grads(cfg, run, ctx,
+                                        tree_of(inp, f"{prefix}/params"),
+                                        batch)
+        params = tree_of(inp, f"{prefix}/params")
+        state = {"params": params,
+                 "opt_state": make_optimizer(run).init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        state, m = make_train_step(cfg, run, ctx)(state, batch)
+        out[f"{prefix}/loss"] = float(m["loss"])
+        out[f"{prefix}/grad_norm"] = float(m["grad_norm"])
+        out[f"{prefix}/new_params"] = state["params"]
     return out
 
 
-def _decode(inp, name, mesh):
+def _decode(inp, name, mesh, rules=RULES):
     """Prefill on one device, then two decode steps of the fixed tokens:
-    unsharded (``mesh`` None) or on this rank's shard of the cache."""
+    unsharded (``mesh`` None) or on this rank's shard of the cache, under
+    ``rules``."""
     cfg, run = decode_cfg(name)
     params = tree_of(inp, f"decode/{name}/params")
     batch = {k[len(f"decode/{name}/batch/"):]: torch.from_numpy(np.array(a))
@@ -180,8 +256,8 @@ def _decode(inp, name, mesh):
         cache, _ = make_prefill_step(cfg, run, ctx0, MAX_SEQ)(params, batch)
     ctx, rows = ctx0, slice(None)
     if mesh is not None:
-        ctx = Ctx(run, "cpu", RULES, mesh)
-        specs = tree_shardings(RULES, mesh, logical_axes(lm.model_decls(cfg)),
+        ctx = Ctx(run, "cpu", rules, mesh)
+        specs = tree_shardings(rules, mesh, logical_axes(lm.model_decls(cfg)),
                                params)
         params = shard_params(params, specs, mesh)
         cache = lm.shard_cache(ctx, cfg, cache)
@@ -204,6 +280,56 @@ def _decode(inp, name, mesh):
 def _mesh():
     torch.set_num_threads(1)
     return make_mesh_for(MESH, ("data", "model"))
+
+
+def _rule_step(rank, inp, case, mesh, rules=None) -> dict:
+    """One train step of ``RULE_CASES[case]`` (under ``rules`` if given)
+    on this rank of ``mesh`` from the full weights' shards: loss and grad
+    norm, and on rank 0 the reduced gradients (each leaf summed as
+    ``train_step`` sums it) and the new parameters, gathered whole."""
+    _, own, prefix = RULE_CASES[case]
+    rules = rules or own
+    cfg, run = rule_cfg(case)
+    ctx = Ctx(run, "cpu", RULE_SETS[rules], mesh)
+    specs = state_specs(cfg, run, ctx)["params"]
+    full = tree_of(inp, f"{prefix}/params")
+    dp, d = mesh.axis_size(L.DP_AXES), mesh.index(L.DP_AXES)
+    batch = {k: v[:, d * 4 // dp:(d + 1) * 4 // dp] if k == "positions"
+             else v[d * 4 // dp:(d + 1) * 4 // dp]
+             for k, v in _batch(inp, prefix).items()}
+    params = shard_params(full, specs, mesh)
+    grads = _grads(cfg, run, ctx, params, batch)
+    split = mesh.present(L.token_axes(L.seq_parallel(ctx)))
+    for g, spec in zip(leaves(grads), leaves(specs)):
+        ax = grad_sum_axes(split, spec_axes(spec))
+        if mesh.axis_size(ax) > 1:
+            g.copy_(C.psum(g, ax, mesh))
+    grads = gather_params(grads, specs, mesh)
+    state = {"params": params, "opt_state": make_optimizer(run).init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state, m = make_train_step(cfg, run, ctx)(state, batch)
+    new = gather_params(state["params"], specs, mesh)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    if rank == 0:
+        out.update(grads=grads, new_params=new)
+    return out
+
+
+def _pair_grads(rank, inp, mesh) -> dict:
+    """x's rows split over ``model``, gathered, and rank r's loss
+    sum(y * w_r): the gradient of the summed loss w.r.t. x is sum_r w_r,
+    which ``gather_sum`` gives each rank's rows and ``gather_from`` (one
+    rank's cotangent, sliced) does not."""
+    x = torch.from_numpy(inp["pair/x"])
+    w = torch.from_numpy(inp["pair/w"])[rank]
+    rows = L.seq_rows(Ctx(None, "cpu", RULE_SETS["seqparallel"], mesh), 8)
+    out = {}
+    for name, fn in (("gather_sum", C.gather_sum),
+                     ("gather_from", C.gather_from)):
+        xl = x[rows].clone().requires_grad_(True)
+        (fn(xl, "model", mesh, 0) * w).sum().backward()
+        out[f"pair/{name}"] = xl.grad
+    return out
 
 
 def rank_cases(rank, world, inp) -> dict:
@@ -270,6 +396,21 @@ def rank_cases(rank, world, inp) -> dict:
     g = torch.from_numpy(inp["psum/g"])[rank]
     for name, axes in (("data_model", ("data", "model")), ("data", ("data",))):
         out[f"psum/{name}"] = compressed_psum({"g": g}, axes, mesh)["g"]
+    for case in RULE_CASES:
+        out[f"rule/{case}"] = _rule_step(rank, inp, case, mesh)
+    for k, v in _decode(inp, "llama", mesh, RULE_SETS[SEQ_DECODE]).items():
+        out["seqdecode/" + k.rsplit("/", 1)[1]] = v
+    out.update(_pair_grads(rank, inp, mesh))
+    # (1, 4) over the same ranks: reduced llama's 2 kv heads cut in
+    # storage (half a head a rank); the Megatron program refuses the cut,
+    # the sequence-parallel one gathers the weights whole
+    wide = make_mesh_for((1, 4), ("data", "model"))
+    try:
+        _rule_step(rank, inp, "seq_llama", wide, rules="default")
+        out["wide/default"] = "ran"
+    except NotImplementedError as e:
+        out["wide/default"] = str(e)
+    out["wide/seq_llama"] = _rule_step(rank, inp, "seq_llama", wide)
     return out
 
 

@@ -4,7 +4,10 @@ devices, for ``tests/test_torch_distributed.py``:
     python tests/_jax_mesh_oracle.py INPUTS.npz OUTPUTS.npz
 
 Run in a subprocess of its own, since the device count must be set before
-JAX starts.  The mesh is a ``jax.sharding.Mesh`` built here, whose axes
+JAX starts.  Besides the ``default`` rule set's paths it runs the train
+step under each rule set of the inputs' ``case/<name>/rules`` (its arch
+in ``case/<name>/arch``, its weights and batch under ``case/<name>/
+prefix``) and llama's decode step under ``seqparallel``.  The mesh is a ``jax.sharding.Mesh`` built here, whose axes
 are Auto: ``repro.launch.mesh.make_mesh_for`` calls ``jax.make_mesh``,
 whose Explicit axes ``with_sharding_constraint`` rejects under jax 0.9.
 Nothing of ``repro`` is changed.  Inputs (weights, batches, gradients)
@@ -40,6 +43,7 @@ from repro.train.step import (abstract_state, make_loss_fn,  # noqa: E402
 
 RULES = RULE_SETS["default"]
 F32 = dict(compute_dtype="float32", remat="none")
+LLAMA_HEADS = dict(n_heads=4, n_kv_heads=2)
 
 
 def tree_of(flat, prefix):
@@ -61,26 +65,35 @@ def flat_of(tree, prefix, out):
         out[f"{prefix}/{key}"] = np.asarray(leaf, np.float32)
 
 
-def train(inp, mesh, out):
-    cfg = reduced(get_model_config("llama3.2-3b"), n_heads=4, n_kv_heads=2)
-    run = get_run_config("llama3.2-3b", logits_chunk=16, rules_name="default",
+def train(inp, mesh, out, key="train", arch="llama3.2-3b", rules="default",
+          prefix="train"):
+    """The pjit train step of ``arch`` (reduced, f32) under ``rules`` on
+    the weights and batch under ``prefix``: outputs under ``key``."""
+    if arch == "llama3.2-3b":
+        cfg = reduced(get_model_config(arch), **LLAMA_HEADS)
+    else:
+        cfg = reduced(get_model_config(arch))
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    run = get_run_config(arch, logits_chunk=16, rules_name=rules,
                          warmup_steps=0, **F32)
-    params = tree_of(inp, "train/params")
-    batch = {k: jnp.asarray(inp[f"train/batch/{k}"]) for k in ("tokens",
-                                                               "labels")}
+    lr = RULE_SETS[rules]
+    params = tree_of(inp, f"{prefix}/params")
+    batch = {k[len(prefix) + 7:]: jnp.asarray(a) for k, a in inp.items()
+             if k.startswith(f"{prefix}/batch/")}
     state = {"params": params, "opt_state": make_optimizer(run).init(params),
              "step": jnp.zeros((), jnp.int32)}
-    sh = tree_shardings(RULES, mesh, state_logical_axes(cfg),
+    sh = tree_shardings(lr, mesh, state_logical_axes(cfg),
                         abstract_state(cfg, run))
     state = jax.device_put(state, sh)
-    ctx = Ctx(run, RULES, mesh)
+    ctx = Ctx(run, lr, mesh)
     grads, _ = jax.jit(jax.grad(make_loss_fn(cfg, run, ctx), has_aux=True))(
         state["params"], batch)
     new, m = jax.jit(make_train_step(cfg, run, ctx))(state, batch)
-    out["train/loss"] = np.float32(m["loss"])
-    out["train/grad_norm"] = np.float32(m["grad_norm"])
-    flat_of(grads, "train/grads", out)
-    flat_of(new["params"], "train/new_params", out)
+    out[f"{key}/loss"] = np.float32(m["loss"])
+    out[f"{key}/grad_norm"] = np.float32(m["grad_norm"])
+    flat_of(grads, f"{key}/grads", out)
+    flat_of(new["params"], f"{key}/new_params", out)
 
 
 DECODE = {
@@ -91,7 +104,10 @@ DECODE = {
 }
 
 
-def decode(inp, mesh, out, name):
+def decode(inp, mesh, out, name, rules=RULES, key=None):
+    """Prefill, then two decode steps unsharded and on the mesh under
+    ``rules``; outputs under ``key`` (default ``decode/<name>``)."""
+    key = key or f"decode/{name}"
     arch, over = DECODE[name]
     cfg = reduced(get_model_config(arch), **over)
     run = get_run_config(arch, logits_chunk=16, **F32)
@@ -100,7 +116,7 @@ def decode(inp, mesh, out, name):
              for k, a in inp.items()
              if k.startswith(f"decode/{name}/batch/")}
     max_seq = int(inp[f"decode/{name}/max_seq"])
-    ctx0, ctx_m = Ctx(run, RULES, None), Ctx(run, RULES, mesh)
+    ctx0, ctx_m = Ctx(run, rules, None), Ctx(run, rules, mesh)
     cache0, lg0 = jax.jit(make_prefill_step(cfg, run, ctx0, max_seq))(
         params, batch)
     S = batch["tokens"].shape[1]
@@ -108,14 +124,14 @@ def decode(inp, mesh, out, name):
     dec1 = jax.jit(make_decode_step(cfg, run, ctx_m))
     sh = NamedSharding(mesh, P(None, "data", "model", None, None))
     cache1 = jax.tree.map(lambda a: jax.device_put(a, sh), cache0)
-    out[f"decode/{name}/prefill_logits"] = np.asarray(lg0[:, 0])
+    out[f"{key}/prefill_logits"] = np.asarray(lg0[:, 0])
     for i in range(2):
         idx = jnp.asarray(S + i, jnp.int32)
         tok = jnp.asarray(inp[f"decode/{name}/tok{i}"])
         cache0, o0 = dec0(params, cache0, tok, idx)
         cache1, o1 = dec1(params, cache1, tok, idx)
-        out[f"decode/{name}/logits0_{i}"] = np.asarray(o0)
-        out[f"decode/{name}/logits1_{i}"] = np.asarray(o1)
+        out[f"{key}/logits0_{i}"] = np.asarray(o0)
+        out[f"{key}/logits1_{i}"] = np.asarray(o1)
 
 
 def moe(inp, mesh, out):
@@ -159,6 +175,13 @@ def main():
         decode(inp, mesh, out, name)
     moe(inp, mesh, out)
     psum_int8(inp, mesh, out)
+    for k in inp:
+        if k.startswith("case/") and k.endswith("/arch"):
+            case = k[len("case/"):-len("/arch")]
+            train(inp, mesh, out, f"rule/{case}", str(inp[k]),
+                  str(inp[f"case/{case}/rules"]),
+                  str(inp[f"case/{case}/prefix"]))
+    decode(inp, mesh, out, "llama", RULE_SETS["seqparallel"], "seqdecode")
     np.savez(sys.argv[2], **out)
 
 

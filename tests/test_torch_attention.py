@@ -279,3 +279,114 @@ def test_bf16_parts_carry_x_to_two_to_the_minus_16():
     assert ((hi + lo - x).abs() <= 2.0 ** -16 * x.abs()).all()
     assert ((hi - x).abs() > 2.0 ** -12 * x.abs()).any()
 
+
+
+# ===========================================================================
+# the query offset: a sequence-parallel rank's rows over keys from row 0
+# ===========================================================================
+
+# (causal, local_window, softcap, G, S, offset, Sq): query rows [o, o + Sq)
+# of a sequence of S, over keys [0, o + Sq) when causal (the gathered rows
+# a rank of the sequence-parallel forward sees) and all S otherwise
+OFFSET_CASES = [
+    (True, None, None, 2, 48, 16, 16),
+    (True, 7, 5.0, 3, 40, 24, 16),
+    (True, 9, None, 1, 33, 11, 11),
+    (False, 9, 5.0, 2, 30, 10, 10),
+]
+
+
+def _offset_id(c):
+    causal, win, cap, g, S, o, sq = c
+    return (f"{'causal' if causal else 'bidir'}-w{win}-cap{cap}-g{g}-"
+            f"rows{o}-{o + sq}of{S}")
+
+
+def _offset_inputs(case, seed=5):
+    """The whole sequence's q, k, v, dout, and the rank's slices: its query
+    rows and cotangent, and the key rows it attends over."""
+    causal, win, cap, G, S, o, Sq = case
+    q, k, v, do = _inputs(G, S, S, seed)
+    Sk = o + Sq if causal else S
+    return (q, k, v, do), (q[:, o:o + Sq], k[:, :Sk], v[:, :Sk],
+                           do[:, o:o + Sq])
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=_offset_id)
+def test_offset_forward_is_the_sliced_rows_of_the_jax_oracle(case):
+    """With ``q_offset=o`` the plain forwards (and the wrapper's CPU path)
+    on the rank's rows equal rows [o, o + Sq) of the JAX oracle over the
+    whole sequence, out and lse."""
+    causal, win, cap, G, S, o, Sq = case
+    (q, k, v, _), (qs, ks, vs, _) = _offset_inputs(case)
+    kw = dict(causal=causal, local_window=win, softcap=cap)
+    want = np.asarray(jref.attention_naive(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), **kw))[:, o:o + Sq]
+    _, want_lse = ref.attention_naive(*_t(q, k, v), return_lse=True, **kw)
+    tq, tk, tv = _t(qs, ks, vs)
+    for out, lse in (ref.attention_naive(tq, tk, tv, return_lse=True,
+                                         q_offset=o, **kw),
+                     ref.attention_blockwise(tq, tk, tv, block_kv=8,
+                                             return_lse=True, q_offset=o,
+                                             **kw),
+                     tfa.flash_attention(tq, tk, tv, q_offset=o, **kw)):
+        np.testing.assert_allclose(out.numpy(), want, atol=TOL)
+        np.testing.assert_allclose(lse.numpy(),
+                                   want_lse[:, :, o:o + Sq].numpy(),
+                                   atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=_offset_id)
+def test_offset_backward_matches_jax_vjp(case):
+    """``flash_attention_bwd`` (CPU: ``attention_bwd_ref``) at ``q_offset``
+    and ``ops.attention``'s autograd against ``jax.vjp`` of the oracle over
+    the whole sequence with the rank's query rows as the variable (the
+    other rows zero, their outputs cut away)."""
+    causal, win, cap, G, S, o, Sq = case
+    _, (qs, ks, vs, dos) = _offset_inputs(case, seed=6)
+    kw = dict(causal=causal, local_window=win, softcap=cap)
+    Sk = ks.shape[1]
+
+    def oracle(qq, kk, vv):
+        full = jnp.zeros((B, Sk) + qq.shape[2:], qq.dtype)
+        full = full.at[:, o:o + Sq].set(qq)
+        return jref.attention_naive(full, kk, vv, **kw)[:, o:o + Sq]
+
+    _, vjp = jax.vjp(oracle, jnp.asarray(qs), jnp.asarray(ks),
+                     jnp.asarray(vs))
+    want = vjp(jnp.asarray(dos))
+    tq, tk, tv, tdo = _t(qs, ks, vs, dos)
+    out, lse = tfa.flash_attention(tq, tk, tv, q_offset=o, **kw)
+    got = tfa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, q_offset=o,
+                                  **kw)
+    a = [t.requires_grad_() for t in _t(qs, ks, vs)]
+    y = ops.attention(*a, q_offset=o, **kw)
+    auto = torch.autograd.grad(y, a, tdo)
+    for g_t, g_a, w_a in zip(got, auto, want):
+        np.testing.assert_allclose(g_t.numpy(), np.asarray(w_a), atol=TOL)
+        np.testing.assert_allclose(g_a.numpy(), np.asarray(w_a), atol=TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_offset_zero_is_bit_for_bit_the_call_without_it(case):
+    """``q_offset=0`` gives every plain version's output bit for bit as the
+    call without the argument."""
+    causal, win, cap, G, Sq, Sk = case
+    q, k, v, do = _t(*_inputs(G, Sq, Sk, seed=7))
+    kw = dict(causal=causal, local_window=win, softcap=cap)
+    for fn in (ref.attention_naive, ref.attention_blockwise):
+        a = fn(q, k, v, return_lse=True, **kw)
+        b = fn(q, k, v, return_lse=True, q_offset=0, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    out, lse = a
+    a = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    b = ref.attention_bwd_ref(q, k, v, out, lse, do, q_offset=0, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_offset_must_be_a_non_negative_int():
+    q = torch.zeros((1, 8, 4, 32))
+    kv = torch.zeros((1, 8, 2, 32))
+    for bad in (-1, 1.5):
+        with pytest.raises(ValueError, match="q_offset"):
+            tfa.flash_attention(q, kv, kv, q_offset=bad)

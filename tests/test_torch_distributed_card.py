@@ -2,8 +2,12 @@
 without a card): ``flash_decode``'s log-sum-exp output against its plain
 version on the decode path and both chunk kernels, with empty slices and
 a window; the fused RoPE of q rotating every slot, so a rank that does not
-own the new row returns the owner's q; and two ranks sharing the card over
-gloo (reduced llama, f32): sharded decode steps and a sharded train step
+own the new row returns the owner's q; ``flash_attention`` and its
+gradient at a query offset (the sequence-parallel ranks' rows) against
+their plain versions, the offset ignored in the backward flagged, and
+``q_offset=0`` bit for bit the call without it; and two ranks sharing the
+card over gloo (reduced llama, f32): sharded decode steps and sharded
+train steps (``default``, ``seqparallel`` on (1, 2), ``fsdp`` on (2, 1))
 against the one-device ones, each rank launching the kernels.  The CPU
 tests against the JAX package are in ``tests/test_torch_distributed.py``;
 this file imports no JAX."""
@@ -95,3 +99,63 @@ def test_two_ranks_on_the_card_match_one_device(card):
         assert r["params_apart"] <= 1e-3
         for name in ("flash_attention", "flash_attention_bwd"):
             assert r["launches"].get(name, 0) > 0
+
+
+#: the query offset at small shapes: ((B, H, K, D), Sq, Sk, causal,
+#: window, softcap, q_offset), as chip_smoke.FA_OFFSET_CASES
+OFFSET_CASES = [((2, 4, 2, 32), 128, 256, True, None, None, 128),
+                ((1, 8, 4, 256), 96, 300, True, 50, 50.0, 204),
+                ((2, 24, 8, 128), 200, 333, True, None, None, 133),
+                ((1, 4, 2, 64), 64, 64, False, 30, None, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_flash_attention_offset_matches_plain(card, dtype, case):
+    (B, H, K, D), Sq, Sk, causal, window, cap, off = case
+    q, k, v, do = cs._attention_case(B, Sq, Sk, H, K, D, dtype, 31)
+    kw = dict(causal=causal, local_window=window, softcap=cap, q_offset=off)
+    out, lse = tfa.flash_attention(q, k, v, **kw)
+    want, wlse = ref.attention_naive(q, k, v, return_lse=True, **kw)
+    grads = tfa.flash_attention_bwd(q, k, v, want, wlse, do, **kw)
+    wgrads = ref.attention_bwd_ref(q, k, v, want, wlse, do, **kw)
+    name = str(dtype).split(".")[1]
+    for got, w in ((out, want), *zip(grads, wgrads)):
+        assert cs._entry_ratio(name, got, w).max().item() <= 1.0
+    assert (lse - wlse).abs().max().item() <= cs.LSE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_offset_zero_is_the_call_without_it(card):
+    q, k, v, do = cs._attention_case(2, 300, 300, 24, 8, 128, torch.bfloat16,
+                                     32)
+    a = tfa.flash_attention(q, k, v)
+    b = tfa.flash_attention(q, k, v, q_offset=0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ga = tfa.flash_attention_bwd(q, k, v, *a, do)
+    gb = tfa.flash_attention_bwd(q, k, v, *a, do, q_offset=0)
+    assert all(torch.equal(x, y) for x, y in zip(ga, gb))
+
+
+@pytest.mark.cuda
+def test_offset_ignored_in_the_backward_is_flagged(card):
+    faults = cs.check_offset_fault(tfa, ref)
+    assert all(f > 0 for f in faults.values())
+
+
+@pytest.mark.cuda
+def test_two_ranks_under_seqparallel_and_fsdp_match_one_device(card):
+    from repro_torch.kernels import build
+    build.build_all()
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(cs.dist_rank_reduced_rules, 2, "gloo", timeout_s=300)
+    for r in res:
+        for rules in ("seqparallel", "fsdp"):
+            got = r[rules]
+            assert got["loss_rel"] <= 1e-5, (rules, got["loss_rel"])
+            assert got["grad_norm_rel"] <= 1e-4, (rules, got)
+            assert got["grad_rel"] <= 1e-4, (rules, got)
+            assert got["params_apart"] <= 1e-3, (rules, got)
+            for name in ("flash_attention", "flash_attention_bwd"):
+                assert got["launches"].get(name, 0) > 0

@@ -189,7 +189,7 @@ def test_weights_cast_as_drawn_equal_the_cast_masters(arch):
     """``init_params(..., prepare=lm.prepare_leaf)`` (each f32 leaf cast as
     soon as it is drawn, so the masters never exist whole) gives exactly
     ``lm.prepare_params`` of the masters from the same seed: bf16
-    matrices, the ``_F32_LEAVES`` kept float32."""
+    matrices, the ``layers.F32_LEAVES`` kept float32."""
     cfg = reduced(get_model_config(arch))
     ctx = Ctx(get_run_config(arch, remat="none"), "cpu")
     decls = lm.model_decls(cfg)

@@ -30,7 +30,11 @@ main paths' D = 64 and D = 128 shapes by ``chip_smoke.py``'s timers
 (``time_flash_decode``, ``time_flash_decode_paged`` at llama's decode step
 and 256-row chunk and zamba2's D = 64 chunk; ``time_flash_attention`` at
 the training shape, forward and backward): one ``[kernel-ab]`` line per
-tree, then a ``[kernel-ab:summary]`` line per row.
+tree, then a ``[kernel-ab:summary]`` line per row.  Each line also
+carries a digest of ``flash_attention``'s and ``flash_attention_bwd``'s
+outputs on fixed seeded inputs (``_digests``), and a
+``[kernel-ab:digest]`` line says whether every tree's are equal: equal
+digests are outputs equal bit for bit.
 
 The measuring code is this checkout's ``chip_smoke.py`` in every process,
 so each tree is read the same way; only ``repro_torch`` differs (each line
@@ -88,6 +92,31 @@ def _load(tree: str):
     return cs, src
 
 
+def _digests(cs, tfa) -> dict:
+    """sha256 (16 hex digits) of the cache-free attention's outputs (out,
+    lse, dq, dk, dv) on seeded inputs, bf16 and f32: llama's heads at the
+    causal training shape, and a windowed, softcapped case of 1000 rows.
+    The call passes no query offset, so a tree without one reads the same
+    inputs the same way."""
+    import hashlib
+    import torch
+    out = {}
+    cases = {"causal S=2048": (2048, {}),
+             "window 300 softcap 30 S=1000": (1000, dict(local_window=300,
+                                                          softcap=30.0))}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (S, kw) in cases.items():
+            q, k, v, do = cs._attention_case(2, S, S, 24, 8, 128, dtype, 77)
+            o, lse = tfa.flash_attention(q, k, v, **kw)
+            grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            h = hashlib.sha256()
+            for t in (o, lse, *grads):
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            out[f"{name} {str(dtype).split('.')[1]}"] = h.hexdigest()[:16]
+    return out
+
+
 def kernels(tree: str) -> None:
     """Time the tree ``tree``'s attention kernels (run in a process of
     its own)."""
@@ -114,9 +143,13 @@ def kernels(tree: str) -> None:
     fa = cs.time_flash_attention(tfa, ref)
     rows["flash_attention training"] = fa["fwd"]
     rows["flash_attention_bwd training"] = fa["bwd"]
+    from repro_torch.kernels import build
+    ptxas = {k: v for k, v in build.kernel_resources().items()
+             if "attn_" in k}
     print("[kernel-ab] " + json.dumps(
         {"tree": tree, "src": str(src),
-         "ms": {k: v["ms"] for k, v in rows.items()}}), flush=True)
+         "ms": {k: v["ms"] for k, v in rows.items()},
+         "digest": _digests(cs, tfa), "ptxas": ptxas}), flush=True)
     print(f"[kernel-ab] device {torch.cuda.get_device_name(0)} | "
           f"nvidia-smi: {cs._smi_line()}", flush=True)
 
@@ -193,6 +226,9 @@ def main() -> int:
         for key in rows[0]["ms"]:
             print(f"[kernel-ab:summary] {key}: " + ", ".join(
                 f"{r['tree']} {r['ms'][key]:.4f}" for r in rows), flush=True)
+        same = all(r["digest"] == rows[0]["digest"] for r in rows)
+        print(f"[kernel-ab:digest] attention outputs bit for bit equal "
+              f"across the trees: {same} ({rows[0]['digest']})", flush=True)
         return 0
 
     def num(x, fmt):
