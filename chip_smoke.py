@@ -130,8 +130,17 @@ caught):
      ``DIST_TRAIN_GATES``): two
      gloo ranks sharing the card, their collectives staged
      through the host; ``[dist:decode]`` (llama's sequence-sharded decode
-     over mesh (1, 2), bf16 at full depth and f32 at 2 layers, whose
-     streams must equal the unsharded ones), ``[dist:train]`` (one step
+     over mesh (1, 2), bf16 at 8 of 28 layers and f32 at 2, whose
+     streams must equal the unsharded ones), ``[dist:decode-ssm]``
+     (mamba2 f32 at 2 layers and zamba2 f32 at 7, prefilled on one
+     device, the cache cut to the head-parallel program's layout, 8/8
+     streams each), ``[dist:train-mamba2]`` and ``[dist:train-zamba2]``
+     (the head-parallel Mamba-2 program at full width, 4 of 48 and 7 of
+     38 layers, ``ssd`` and ``ssd_bwd`` on each rank's half of the heads,
+     each against the one-device step beside a planted backward fault:
+     the gated norm's all-reduce with an identity backward, ``a_in @
+     lora_a`` without its ``copy_to``), ``[dist:train]`` (one step of
+     llama at 2 of 28 layers
      on (1, 2) and on (2, 1) against the one-device step, each rank's
      gradients and parameters against its shard of that step's, and a
      planted fault per mesh that must fail every gate; the elastic
@@ -149,7 +158,11 @@ caught):
      launched (``launches_dist`` in the kernels line).  After phase 2's
      ``flash_decode`` checks, ``[check] flash_decode lse`` lines (the
      log-sum-exp output the combine needs, with its planted fault) and
-     ``[time] flash_decode lse`` (beside ``flex_attention``'s lse);
+     ``[time] flash_decode lse`` (beside ``flex_attention``'s lse); the
+     ``ssd`` and ``ssd_bwd`` checks and ``[time]`` lines also at the
+     heads of one of two model ranks (``SSD_RANK_HEADS``), and
+     ``flash_attention`` at zamba2's shared block on one rank (16 of 32
+     heads, D = 64);
   3. the main path: full-width llama3.2-3b (28 layers, seeded random
      weights) served by ``ServeEngine`` (batch 8, max_seq 2048, prefill
      chunk 256, decode chunk 8) on 16 seeded requests, three times.  Every
@@ -349,9 +362,10 @@ caught):
 It prints one ``{"migrate": ...}`` line, one ``{"lsms": ...}`` line, one
 ``{"kernels": [...]}`` line
 (ten kernels; the attention rows carry ``gemma2_d256`` and, for the
-training rows, ``hubert_d80`` objects, flash_decode's and cache_update's
-a ``qwen2vl_g8`` one, flash_decode's an ``lse`` object, the rows of the
-kernels a ``[dist:*]`` phase ran a ``launches_dist`` one; the JSON also has
+training rows, ``hubert_d80`` and ``zamba2_rank`` objects,
+flash_decode's and cache_update's a ``qwen2vl_g8`` one, flash_decode's an
+``lse`` object, the rows of the kernels a ``[dist:*]`` phase ran (``ssd``
+and ``ssd_bwd`` among them) a ``launches_dist`` one; the JSON also has
 ``power``, ``fleet`` and ``dist`` objects), the
 nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -512,6 +526,14 @@ SSD_BWD_PASSES = {
     "chunk": ("ssd_bwd_chunk_tc_kernel",)}
 #: the ssd kernel's serving shapes, (H, P, N) of each Mamba-2 model
 SSD_HEADS = {"mamba2": (32, 64, 128), "zamba2": (64, 64, 64)}
+#: the heads one of two model ranks runs under the head-parallel Mamba-2
+#: program ([dist:train-mamba2], [dist:train-zamba2]): half of each model's
+SSD_RANK_HEADS = {"mamba2 rank": (16, 64, 128), "zamba2 rank": (32, 64, 64)}
+#: zamba2's shared block on one of two model ranks: 16 of its 32 heads at
+#: D = 64, at the training shape (causal)
+ZAMBA2_RANK_FA = (16, 16, 64)
+ZAMBA2_RANK_FA_CASES = [((TRAIN_B,) + ZAMBA2_RANK_FA, TRAIN_S, TRAIN_S, True,
+                         None, None)]
 #: the prefill chunks timed: a 256-row chunk and every tail ``chunk_plan``
 #: cuts that takes the kernel (two rows or more)
 SSD_TIME_S = (256, 128, 64, 32, 16, 8, 4, 2)
@@ -1823,7 +1845,16 @@ def _ssd_case(Bb, S, H, P, G, N, dtype, seed, dt_shift=-3.0):
     return x, dt, A, B, C, D, h0
 
 
-def check_ssd(tssd, ref):
+def ssd_rank_cases(dtype):
+    """``check_ssd``'s cases at the training shape and the heads of one of
+    two model ranks (``SSD_RANK_HEADS``), at dt_shift -3 and 0."""
+    return [(dtype, model, H, P, N, TRAIN_S, 1, False, shift, False, 128,
+             TRAIN_B)
+            for model, (H, P, N) in SSD_RANK_HEADS.items()
+            for shift in (-3.0, 0.0)]
+
+
+def check_ssd(tssd, ref, cases=None):
     """The kernel against ``ref.ssd_chunked`` on the same card inputs,
     entry by entry (``_entry_ratio``: y in its dtype, the final state by
     the float32 rule), at mamba2's and zamba2's heads, S = 256 (two
@@ -1835,9 +1866,12 @@ def check_ssd(tssd, ref):
     37) and 1 (S = 131, a prime); the edges of the kernel's contract (P =
     48, N = 96, G = 2; P = 16, N = 32, chunk 48); and the training arms'
     shape, Bb = 2, S = 2048, chunk 128 (16 chunks), at both models' heads,
-    with and without h0, at dt_shift -3 and at the models' dt scale; bf16
-    and f32."""
+    with and without h0, at dt_shift -3 and at the models' dt scale, and
+    at the heads of one of two model ranks (``SSD_RANK_HEADS``); bf16
+    and f32.  ``cases``, if given, in their place."""
     import torch
+    if cases is not None:
+        return _check_ssd_cases(tssd, ref, cases)
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for model, (H, P, N) in SSD_HEADS.items():
@@ -1850,6 +1884,7 @@ def check_ssd(tssd, ref):
                        128, TRAIN_B)
                       for h0, shift in ((True, -3.0), (False, -3.0),
                                         (False, 0.0))]
+        cases += ssd_rank_cases(dtype)
         H, P, N = SSD_HEADS["mamba2"]
         cases.append((dtype, "mamba2", H, P, N, 256, 2, True, -3.0, False,
                       128))
@@ -1861,6 +1896,11 @@ def check_ssd(tssd, ref):
         # fill no whole tile of the bf16 kernel, two groups
         cases += [(dtype, "edges", 8, 48, 96, 256, 2, True, -3.0, False, 128),
                   (dtype, "edges", 4, 16, 32, 96, 1, True, -3.0, False, 48)]
+    return _check_ssd_cases(tssd, ref, cases)
+
+
+def _check_ssd_cases(tssd, ref, cases):
+    import torch
     checks = []
     for dtype, model, H, P, N, S, G, use_h0, shift, inplace, Q, *bb in cases:
         Bb = bb[0] if bb else 1
@@ -2226,7 +2266,8 @@ def time_grouped_matmul_bwd(gmm, ref, G, M, K, N):
 #: the ssd_bwd cases: (model, H, P, N, G, Bb, S, chunk, h0, D, dstate,
 #: dt_shift): the training shapes (no h0, no final-state gradient) at
 #: mamba2's and zamba2's heads, chunks no power of two (37) and 1, G = 2
-#: with h0 and the final state's gradient, the contract's edges
+#: with h0 and the final state's gradient, the contract's edges, and the
+#: training shapes at the heads of one of two model ranks
 SSD_BWD_CASES = (
     [(m, *SSD_HEADS[m], 1, 2, 2048, 128, False, True, False, 0.0)
      for m in SSD_HEADS]
@@ -2239,7 +2280,9 @@ SSD_BWD_CASES = (
        ("zamba2", *SSD_HEADS["zamba2"], 1, 1, 131, 1, True, True, True,
         -3.0),
        ("edges", 8, 48, 96, 2, 1, 256, 128, True, True, True, -3.0),
-       ("edges", 4, 16, 32, 1, 2, 96, 48, False, False, True, -3.0)])
+       ("edges", 4, 16, 32, 1, 2, 96, 48, False, False, True, -3.0)]
+    + [(m, *SSD_RANK_HEADS[m], 1, 2, 2048, 128, False, True, False, 0.0)
+       for m in SSD_RANK_HEADS])
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 
 
@@ -2272,16 +2315,16 @@ def _ssd_bwd_ratios(name, got, want):
             for n, a, w in zip(SSD_BWD_NAMES, got, want) if w is not None}
 
 
-def check_ssd_bwd(tssd, ref):
+def check_ssd_bwd(tssd, ref, cases=SSD_BWD_CASES):
     """The gradient kernels against ``ref.ssd_chunked_bwd`` on the same
-    card inputs, entry by entry, every gradient: SSD_BWD_CASES, bf16 and
-    f32; each case twice, bit for bit."""
+    card inputs, entry by entry, every gradient: ``cases``
+    (SSD_BWD_CASES), bf16 and f32; each case twice, bit for bit."""
     import torch
     checks = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         for (model, H, P, N, G, Bb, S, Q, use_h0, use_D, use_ds,
-             shift) in SSD_BWD_CASES:
+             shift) in cases:
             args = _ssd_bwd_case(H, P, N, G, Bb, S, dtype,
                                  5400 + len(checks), use_h0, use_D, use_ds,
                                  shift)
@@ -2435,7 +2478,7 @@ def _ssd_train_case(model, seed):
     """mamba2's or zamba2's heads at the training shape (TRAIN_B x
     TRAIN_S, chunk 128, bf16, D, no h0), at the models' dt scale."""
     import torch
-    H, P, N = SSD_HEADS[model]
+    H, P, N = {**SSD_HEADS, **SSD_RANK_HEADS}[model]
     return _ssd_bwd_case(H, P, N, 1, TRAIN_B, TRAIN_S, torch.bfloat16, seed,
                          False, True, False, 0.0)
 
@@ -2453,8 +2496,9 @@ def time_ssd_train(tssd, ref, model):
     """The forward kernel and the gradient kernels at the training shape
     (bf16): kernel, plain and bound; no single PyTorch call computes
     either, so the library column is none.  Two input sets in turn (the
-    split by pass is ``time_ssd_bwd_passes``, after the serving arms)."""
-    H, P, N = SSD_HEADS[model]
+    split by pass is ``time_ssd_bwd_passes``, after the serving arms).
+    ``model`` names SSD_HEADS' or SSD_RANK_HEADS' heads."""
+    H, P, N = {**SSD_HEADS, **SSD_RANK_HEADS}[model]
     G, Q, Bb, S = 1, 128, TRAIN_B, TRAIN_S
     cases = [_ssd_train_case(model, 5600 + i) for i in range(2)]
     fwd = [functools.partial(tssd.ssd, *c[:7], chunk=Q) for c in cases]
@@ -6864,8 +6908,25 @@ def lsms_phases(card):
 # of two cards.  Each rank is a spawned process that imports this module.
 
 LLAMA_HEADS = (24, 8, 128)
-DIST_DECODE = dict(B=8, prompt=1024, max_seq=2048, steps=32)
-DIST_TRAIN = dict(layers=4, B=2, S=2048)
+#: [dist:decode]: the bf16 arm at 8 of llama's 28 layers (every layer runs
+#: the same program; 28 until PR 32) and the f32 arm at 2
+DIST_DECODE = dict(B=8, prompt=1024, max_seq=2048, steps=32,
+                   layers={"bf16": 8, "f32": 2})
+#: the llama [dist:train*] steps at 2 of 28 layers (4 until PR 32)
+DIST_TRAIN = dict(layers=2, B=2, S=2048)
+#: [dist:train-mamba2] and [dist:train-zamba2]: the head-parallel Mamba-2
+#: program at full width and cut depth, bf16: mamba2 at 4 of 48 layers;
+#: zamba2 at 7 of 38, six Mamba-2 layers, the shared block's first
+#: invocation and one trailing layer
+DIST_SSM_TRAIN = dict(B=2, S=2048, layers={SSM_ARCH: 4, HYBRID_ARCH: 7})
+#: [dist:decode-ssm]: f32, mamba2 at 2 layers and zamba2 at 7 (the shared
+#: block's first invocation over its sequence-sharded cache), 8 prompts
+#: of DIST_DECODE's length, 4 steps
+DIST_SSM_DECODE = dict(layers={SSM_ARCH: 2, HYBRID_ARCH: 7}, steps=4)
+#: zamba2's ``lora_b`` is drawn ~N(0, DIST_LORA_B_STD^2) in every [dist:*]
+#: phase of the hybrid: its init is zeros, which leaves ``q_delta`` zero
+#: and ``lora_a``'s gradient zero, so a fault on that path would not show
+DIST_LORA_B_STD = 0.05
 #: olmoe's train step at one row of 2048: without drops its all-to-alls
 #: carry 8x the default capacity's rows (~6.6 GB a step through the host
 #: at two rows); its MoE layer check at two
@@ -6897,6 +6958,22 @@ DIST_TRAIN_GATES = {"loss_rel": 2e-4, "grad_norm_rel": 5e-3,
 DIST_MOE_GATES = {"bf16": {"loss_rel": 6e-4, "grad_norm_rel": 5e-3,
                            "grad_rel": 0.5, "params_apart": 0.45},
                   "int8": {"loss_rel": 6e-4, "grad_norm_rel": 5e-3}}
+#: the head-parallel Mamba-2 steps' gates.  A planted backward fault of
+#: these paths moves the gradients by a few per cent outside the leaves
+#: it reaches first, and AdamW's first step moves an entry by about
+#: lr * sign(g), so it flips about as many signs as bf16's order of sums
+#: does on a sound run: params_apart cannot tell them apart, and its gate
+#: only bounds the sound run.  Read on an H100 (sound; planted fault:
+#: loss_rel, grad_norm_rel, grad_rel, params_apart): mamba2 (1, 2) 5.0e-6,
+#: 5.5e-5, 2.6e-2 (A_log), 0.138; 5.0e-6, 1.4e-2, 0.30 (conv_b), 0.202;
+#: zamba2 (1, 2) 1.3e-6, 3.1e-5, 3.9e-2 (lora_a), 0.176; 1.3e-6, 2.9e-4,
+#: 0.71 (lora_a), 0.180.  zamba2's grad_norm_rel gate is the one between
+#: those two readings.
+DIST_SSM_GATES = {
+    "mamba2": {"loss_rel": 2e-4, "grad_norm_rel": 5e-3, "grad_rel": 0.1,
+               "params_apart": 0.3},
+    "zamba2": {"loss_rel": 2e-4, "grad_norm_rel": 1e-4, "grad_rel": 0.1,
+               "params_apart": 0.3}}
 #: the planted faults, one per sharded path: the all-reduce after the
 #: row-parallel projections dropped (tensor parallelism), the gradients
 #: not summed over ``data`` (data parallelism), the all-to-all's chunks
@@ -6907,7 +6984,10 @@ DIST_MOE_GATES = {"bf16": {"loss_rel": 6e-4, "grad_norm_rel": 5e-3,
 DIST_FAULTS = {"1x2": "reduce_from dropped", "2x1": "data psum dropped",
                "olmoe": "all_to_all order reversed",
                "seqpar": "K/V gather's backward sliced (gather_from)",
-               "fsdp": "data psum applied to the fsdp leaves too"}
+               "fsdp": "data psum applied to the fsdp leaves too",
+               "mamba2": "the gated norm's all-reduce with an identity "
+                         "backward (reduce_from)",
+               "zamba2": "a_in @ lora_a without its copy_to"}
 #: the gates a planted fault must fail, where not all of them: the two
 #: faults of the gradients' collectives act in the backward pass only, so
 #: the step's loss (the forward's) is the sound one's and loss_rel cannot
@@ -6916,7 +6996,9 @@ DIST_FAULTS = {"1x2": "reduce_from dropped", "2x1": "data psum dropped",
 #: 6.2e-3, 1.3e-2; 0, 0.24, 0.68, 0.60; fsdp (2, 1) 0, 3.1e-5, 2.4e-3,
 #: 3.0e-2; 0, 0.42, 1.06, 0.71.
 DIST_FAULT_GATES = {"seqpar": ("grad_norm_rel", "grad_rel", "params_apart"),
-                    "fsdp": ("grad_norm_rel", "grad_rel", "params_apart")}
+                    "fsdp": ("grad_norm_rel", "grad_rel", "params_apart"),
+                    "mamba2": ("grad_norm_rel", "grad_rel"),
+                    "zamba2": ("grad_norm_rel", "grad_rel")}
 #: [dist:decode-seqpar]: llama f32 at 2 layers under its serve rules
 #: (seqparallel): every rank gathers the layers' weights whole each step
 #: (~0.8 GB in f32 at 2 layers, staged through the host), so fewer steps
@@ -7151,7 +7233,46 @@ def _dist_draw(cfg, ctx, seed, specs=None, mesh=None):
         return lm.prepare_leaf(ctx, path, t)
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return init_params(lm.model_decls(cfg), gen, "cuda", prepare=prepare)
+    params = init_params(lm.model_decls(cfg), gen, "cuda", prepare=prepare)
+    _dist_lora(cfg, params, seed,
+               flat.get(("shared", "lora_b")) if flat else None, mesh)
+    return params
+
+
+def _dist_lora(cfg, params, seed, spec=None, mesh=None):
+    """For the hybrid, ``lora_b`` drawn whole ~N(0, DIST_LORA_B_STD^2) from
+    ``seed`` (this rank's shard of it with ``spec``) in place of its zero
+    init, in its own dtype; other families are left as they are."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.sharding import local_slice
+    if cfg.family != "hybrid":
+        return
+    lb = params["shared"]["lora_b"]
+    shape = lm.model_decls(cfg)["shared"]["lora_b"].shape
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    full = torch.randn(shape, generator=g, device="cuda") * DIST_LORA_B_STD
+    if spec is not None:
+        full = local_slice(mesh, spec, full)
+    with torch.no_grad():
+        lb.copy_(full)
+
+
+def _dist_init(cfg, run, seed, ctx=None):
+    """``init_state`` from ``seed`` on the card (this rank's shards with a
+    mesh ``ctx``), ``lora_b`` drawn by ``_dist_lora``."""
+    import torch
+    from repro_torch.tree import leaves_with_paths
+    from repro_torch.train.step import init_state, state_specs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = init_state(cfg, run, gen, "cuda", ctx).tree()
+    spec = None
+    if ctx is not None and ctx.mesh is not None and cfg.family == "hybrid":
+        spec = dict(leaves_with_paths(state_specs(cfg, run, ctx)["params"]))[
+            ("shared", "lora_b")]
+    _dist_lora(cfg, state["params"], seed, spec,
+               ctx.mesh if ctx is not None else None)
+    return state
 
 
 def _dist_param_specs(cfg, ctx, decls=None):
@@ -7190,10 +7311,15 @@ def _planted(where, **swap):
 def _fault(name):
     """The planted fault ``DIST_FAULTS[name]`` as a context manager."""
     from repro_torch.models import layers as L
+    from repro_torch.models import lm
     from repro_torch.sharding import collectives as C
     from repro_torch.train import step as S
     if name == "1x2":
         return _planted(L, reduce_from=lambda x, axes, mesh: x)
+    if name == "mamba2":
+        return _planted(L, all_reduce=C.reduce_from)
+    if name == "zamba2":
+        return _planted(lm, copy_to=lambda x, axes, mesh: x)
     if name == "seqpar":
         return _planted(L, gather_sum=C.gather_from)
     if name == "fsdp":
@@ -7212,11 +7338,11 @@ def _fault(name):
 
 
 def _dist_decode_run(cfg, dtype, seed, prompt_tokens, feed_steps, mesh, rank,
-                     rules="default"):
-    """One [dist:decode] arm on this rank: prefill on one device (each rank
-    its own copy), rank 0 also the unsharded steps (the other waits); then
-    the sharded steps under ``rules`` teacher-forced by rank 0's stream.
-    Returns the numbers rank 0 compares."""
+                     rules="default", arch=ARCH):
+    """One [dist:decode] arm of ``arch`` on this rank: prefill on one
+    device (each rank its own copy), rank 0 also the unsharded steps (the
+    other waits); then the sharded steps under ``rules`` teacher-forced by
+    rank 0's stream.  Returns the numbers rank 0 compares."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.registry import get_run_config
@@ -7226,7 +7352,7 @@ def _dist_decode_run(cfg, dtype, seed, prompt_tokens, feed_steps, mesh, rank,
     from repro_torch.models.params import shard_params
     from repro_torch.serving.engine import make_decode_step, make_prefill_step
     from repro_torch.sharding import RULE_SETS, collectives as C
-    run = get_run_config(ARCH, rules_name=rules, compute_dtype=dtype)
+    run = get_run_config(arch, rules_name=rules, compute_dtype=dtype)
     ctx0 = Ctx(run, "cuda")
     ctx = Ctx(run, "cuda", RULE_SETS[rules], mesh)
     params = _dist_draw(cfg, ctx0, seed)
@@ -7294,12 +7420,35 @@ def _dist_phase_decode(rank, mesh):
     rng = np.random.default_rng(21)
     prompts = rng.integers(0, cfg.vocab, (DIST_DECODE["B"],
                                           DIST_DECODE["prompt"]))
-    out = {"bf16": _dist_decode_run(cfg, "bfloat16", 3, prompts,
-                                    DIST_DECODE["steps"], mesh, rank)}
-    torch.cuda.empty_cache()
-    out["f32"] = _dist_decode_run(dataclasses.replace(cfg, n_layers=2),
-                                  "float32", 4, prompts, DIST_DECODE["steps"],
-                                  mesh, rank)
+    out = {}
+    for arm, dtype, seed in (("bf16", "bfloat16", 3), ("f32", "float32", 4)):
+        out[arm] = _dist_decode_run(
+            dataclasses.replace(cfg, n_layers=DIST_DECODE["layers"][arm]),
+            dtype, seed, prompts, DIST_DECODE["steps"], mesh, rank)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_phase_decode_ssm(rank, mesh):
+    """[dist:decode-ssm] on mesh (1, 2): mamba2 f32 at 2 layers and zamba2
+    f32 at 7, each prefilled on one device, its cache cut by
+    ``lm.shard_cache`` (the SSM state by heads, the conv state to the
+    head-parallel program's channels, the shared block's KV rows by
+    sequence), then the decode steps under ``default``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_model_config
+    out = {}
+    for i, arch in enumerate((SSM_ARCH, HYBRID_ARCH)):
+        cfg = get_model_config(arch)
+        prompts = np.random.default_rng(23 + i).integers(
+            0, cfg.vocab, (DIST_DECODE["B"], DIST_DECODE["prompt"]))
+        out[arch] = _dist_decode_run(
+            dataclasses.replace(cfg,
+                                n_layers=DIST_SSM_DECODE["layers"][arch]),
+            "float32", 33 + i, prompts, DIST_SSM_DECODE["steps"], mesh, rank,
+            arch=arch)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -7353,15 +7502,14 @@ def _dist_reference(cfg, run, mesh, batch, seed):
     import torch.distributed as dist
     from repro_torch.models.layers import Ctx
     from repro_torch.sharding import RULE_SETS, local_slice
-    from repro_torch.train.step import init_state, state_specs
+    from repro_torch.train.step import state_specs
     from repro_torch.tree import leaves
     ctx = Ctx(run, "cuda", RULE_SETS[run.rules_name], mesh)
     specs = leaves(state_specs(cfg, run, ctx)["params"])
     ref = None
     for turn in range(mesh.size):
         if turn == mesh.rank:
-            gen = torch.Generator(device="cuda").manual_seed(seed)
-            state = init_state(cfg, run, gen, "cuda").tree()
+            state = _dist_init(cfg, run, seed)
             state, m, grads = _dist_step(cfg, run, Ctx(run, "cuda"), state,
                                          batch)
             ref = {"loss": float(m["loss"]),
@@ -7388,11 +7536,9 @@ def _dist_train_case(cfg, run, mesh, batch, seed, ref, fault=None):
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.models.layers import Ctx
     from repro_torch.sharding import RULE_SETS, collectives as C
-    from repro_torch.train.step import init_state
     from repro_torch.tree import leaves, leaves_with_paths
     ctx = Ctx(run, "cuda", RULE_SETS[run.rules_name], mesh)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    state = init_state(cfg, run, gen, "cuda", ctx).tree()
+    state = _dist_init(cfg, run, seed, ctx)
     dp = mesh.axis_size(("pod", "data"))
     n = batch["tokens"].shape[0] // dp
     d = mesh.index(("pod", "data"))
@@ -7447,6 +7593,23 @@ def _dist_phase_train(rank, mesh, key, rules="default"):
     ref = _dist_reference(cfg, run, mesh, batch, 5)
     return {"sound": _dist_train_case(cfg, run, mesh, batch, 5, ref),
             "fault": _dist_train_case(cfg, run, mesh, batch, 5, ref, key)}
+
+
+def _dist_phase_train_ssm(rank, mesh, arch):
+    """[dist:train-mamba2] / [dist:train-zamba2] on ``mesh`` under the
+    arch's own ``default``: full width, DIST_SSM_TRAIN's depth, the sound
+    step and the planted fault ``DIST_FAULTS[<family>]``'s, each against
+    the one-device step."""
+    import dataclasses
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    cfg = dataclasses.replace(get_model_config(arch),
+                              n_layers=DIST_SSM_TRAIN["layers"][arch])
+    run = get_run_config(arch, warmup_steps=0, total_steps=10)
+    batch = _dist_batch(cfg, DIST_SSM_TRAIN["B"], DIST_SSM_TRAIN["S"], 35)
+    key = "mamba2" if arch == SSM_ARCH else "zamba2"
+    ref = _dist_reference(cfg, run, mesh, batch, 9)
+    return {"sound": _dist_train_case(cfg, run, mesh, batch, 9, ref),
+            "fault": _dist_train_case(cfg, run, mesh, batch, 9, ref, key)}
 
 
 def _dist_reduced_train():
@@ -7649,6 +7812,11 @@ def dist_rank_all(rank, world, ckpt_dir):
     for name, fn in (("decode", lambda: _dist_phase_decode(rank, tp)),
                      ("decode_seqpar",
                       lambda: _dist_phase_decode_seqpar(rank, tp)),
+                     ("decode_ssm", lambda: _dist_phase_decode_ssm(rank, tp)),
+                     ("train_mamba2", lambda: _dist_phase_train_ssm(
+                         rank, tp, SSM_ARCH)),
+                     ("train_zamba2", lambda: _dist_phase_train_ssm(
+                         rank, tp, HYBRID_ARCH)),
                      ("train_1x2", lambda: _dist_phase_train(rank, tp, "1x2")),
                      ("train_2x1", lambda: _dist_phase_train(rank, dp, "2x1")),
                      ("train_seqpar", lambda: _dist_phase_train(
@@ -7730,6 +7898,31 @@ def dist_rank_reduced_rules(rank, world):
     return out
 
 
+def dist_rank_reduced_ssm(rank, world):
+    """Reduced mamba2 and zamba2 on the card, f32, mesh (1, 2) under their
+    ``default`` (the SSM state and head sizes raised to 32, the ``ssd``
+    kernel's contract): for each one train step against the one-device
+    step, and the step under its planted fault (``DIST_FAULTS``), with
+    their launches.  ``tests/test_torch_distributed_card.py`` runs it."""
+    _dist_rank_setup()
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.launch.mesh import make_mesh_for
+    mesh = make_mesh_for((1, 2), ("data", "model"), device_type="cpu")
+    out = {}
+    for arch, key in ((SSM_ARCH, "mamba2"), (HYBRID_ARCH, "zamba2")):
+        cfg = reduced(get_model_config(arch), ssm_state=32, ssm_headdim=32)
+        run = get_run_config(arch, rules_name="default", warmup_steps=0,
+                             compute_dtype="float32", remat="none",
+                             logits_chunk=64)
+        batch = _dist_batch(cfg, 2, 128, 18)
+        ref = _dist_reference(cfg, run, mesh, batch, 19)
+        out[key] = {"sound": _dist_train_case(cfg, run, mesh, batch, 19, ref),
+                    "fault": _dist_train_case(cfg, run, mesh, batch, 19, ref,
+                                              key)}
+    return out
+
+
 # --- the phases (in the calling process, which spawns the ranks)
 
 def _dist_need(launches_by_rank, names, tag):
@@ -7762,8 +7955,9 @@ def dist_report_decode(ranks, secs):
         r0 = res[0][arm]
         launches = [r[arm]["launches"] for r in res]
         _dist_need(launches, ("flash_decode", "cache_update"), "dist:decode")
-        layers = 28 if arm == "bf16" else 2
-        print(f"[dist:decode] {ARCH} {arm}, {layers} layers, mesh (1, 2) over "
+        layers = DIST_DECODE["layers"][arm]
+        print(f"[dist:decode] {ARCH} {arm}, {layers} of 28 layers, mesh "
+              f"(1, 2) over "
               f"gloo (two ranks sharing the card; collectives staged through "
               f"the host: {res[0][arm]['staged_bytes']} / "
               f"{res[1][arm]['staged_bytes']} bytes by rank), B="
@@ -7837,7 +8031,9 @@ def _dist_train_lines(tag, what, cases, faults, gates, fault_name):
               f"{_dist_gate_text(fworst, gates)}; gates failed "
               f"{len(ffails)}/{len(gates)}"
               + (f" (must fail {', '.join(must)}: the fault acts in the "
-                 f"backward only)" if len(must) < len(gates) else ""),
+                 f"backward only" + ("" if "params_apart" in must else
+                                     ", and flips no more signs than bf16")
+                 + ")" if len(must) < len(gates) else ""),
               flush=True)
         failed += [f"[{tag}] planted fault {DIST_FAULTS[fault_name]!r} "
                    f"passes {k}" for k in held]
@@ -7878,6 +8074,66 @@ def dist_report_train(ranks, secs, restored):
         failed.append(f"[dist:train] elastic restart apart: {back}")
     out["elastic"] = {"restart_loss": back["loss"],
                       "straight_loss": res[0]["loss"], "rel": rel}
+    return out, failed
+
+
+def dist_report_ssm(ranks, secs):
+    """[dist:decode-ssm], [dist:train-mamba2] and [dist:train-zamba2]."""
+    out, failed = {}, []
+    res = [r["decode_ssm"] for r in ranks]
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        r0, r1 = res[0][arch], res[1][arch]
+        launches = [r[arch]["launches"] for r in res]
+        if arch == HYBRID_ARCH:
+            _dist_need(launches, ("flash_decode", "cache_update"),
+                       "dist:decode-ssm")
+        layers = DIST_SSM_DECODE["layers"][arch]
+        print(f"[dist:decode-ssm] {arch} f32, {layers} layers, rules "
+              f"default: each rank steps its heads of the SSM state and "
+              f"rolls its conv channels (x of its heads, B and C whole)"
+              + (", the shared block over its cache cut by sequence"
+                 if arch == HYBRID_ARCH else "")
+              + f"; mesh (1, 2) over gloo (staged through the host: "
+              f"{r0['staged_bytes']} / {r1['staged_bytes']} bytes by rank), "
+              f"B={DIST_DECODE['B']} prompts of {DIST_DECODE['prompt']} "
+              f"prefilled on one device, {DIST_SSM_DECODE['steps']} steps "
+              f"teacher-forced by the unsharded stream: logits max|diff| "
+              f"{r0['logits_max_abs_diff']:.3e}, worst entry / its limit "
+              f"{r0['logits_worst_over_limit']:.3f}, {r0['streams_equal']}/"
+              f"{r0['streams']} greedy streams equal; ms per step: "
+              f"unsharded {r0['unsharded_ms_per_step']:.2f} (one rank "
+              f"alone), sharded {r0['sharded_ms_per_step']:.2f} / "
+              f"{r1['sharded_ms_per_step']:.2f} by rank (not a multi-card "
+              f"time); launches by rank {launches}", flush=True)
+        out[f"decode_{arch}"] = {"rank0": r0, "rank1": r1,
+                                 "launches": launches}
+        if r0["streams_equal"] != DIST_DECODE["B"]:
+            failed.append(f"[dist:decode-ssm] {arch} streams differ from "
+                          f"the unsharded ones")
+        if not r0["logits_worst_over_limit"] <= 1.0:
+            failed.append(f"[dist:decode-ssm] {arch} logits apart: "
+                          f"{r0['logits_worst_over_limit']}")
+    print(f"[dist:decode-ssm] {secs['decode_ssm']:.1f} s for the phase",
+          flush=True)
+    for key, arch, tag in (("mamba2", SSM_ARCH, "dist:train-mamba2"),
+                           ("zamba2", HYBRID_ARCH, "dist:train-zamba2")):
+        res = [r["train_" + key] for r in ranks]
+        launches = [r["sound"]["launches"] for r in res]
+        _dist_need(launches, ("ssd", "ssd_bwd") + (
+            ("flash_attention", "flash_attention_bwd")
+            if arch == HYBRID_ARCH else ()), tag)
+        full = 48 if arch == SSM_ARCH else 38
+        rec, f = _dist_train_lines(
+            tag, f"{arch} {DIST_SSM_TRAIN['layers'][arch]} of {full} "
+            f"layers, batch {DIST_SSM_TRAIN['B']} x {DIST_SSM_TRAIN['S']}, "
+            f"bf16, rules default (head-parallel: each rank's ssd and "
+            f"ssd_bwd on half the heads), mesh (1, 2) over gloo (two ranks "
+            f"sharing the card; collectives staged through the host, not a "
+            f"multi-card time), {secs['train_' + key]:.1f} s",
+            [r["sound"] for r in res], [r["fault"] for r in res],
+            DIST_SSM_GATES[key], key)
+        out["train_" + key], failed = dict(rec, launches=launches), \
+            failed + f
     return out, failed
 
 
@@ -7952,6 +8208,7 @@ def dist_phases():
             ("decode", dist_report_decode(ranks, secs["decode"]
                                           + secs["decode_seqpar"])),
             ("train", dist_report_train(ranks, secs, restored)),
+            ("ssm", dist_report_ssm(ranks, secs)),
             ("train_olmoe", dist_report_olmoe(ranks, secs["olmoe"]))):
         out[key], failed = rec, failed + f
     out["seconds"] = time.perf_counter() - t0
@@ -8156,10 +8413,15 @@ def _smoke(card) -> int:
     ssd_bwd_checks = check_ssd_bwd(tssd, ref)
     ssd_bwd_faults = check_ssd_bwd_faults(tssd, ref)
     ssd_bwd_shortcut = check_ssd_bwd_shortcut(ref)
-    for model in SSD_HEADS:
+    for model in (*SSD_HEADS, *SSD_RANK_HEADS):
         t = time_ssd_train(tssd, ref, model)
         times[f"ssd train {model}"] = t["fwd"]
         times[f"ssd_bwd train {model}"] = t["bwd"]
+    # zamba2's shared block on one of two model ranks
+    z2_fa_checks = check_flash_attention(tfa, ref, ZAMBA2_RANK_FA_CASES)
+    t = time_flash_attention(tfa, ref, ZAMBA2_RANK_FA)
+    times["flash_attention zamba2 rank"] = t["fwd"]
+    times["flash_attention_bwd zamba2 rank"] = t["bwd"]
     for name, t in times.items():
         lib = (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
                else "none")
@@ -8187,6 +8449,9 @@ def _smoke(card) -> int:
         "train_2x1": dist["train"]["2x1"]["launches"],
         "train_seqpar": dist["train"]["seqpar"]["launches"],
         "train_fsdp": dist["train"]["fsdp"]["launches"],
+        "train_mamba2": dist["ssm"]["train_mamba2"]["launches"],
+        "train_zamba2": dist["ssm"]["train_zamba2"]["launches"],
+        "decode_zamba2": dist["ssm"][f"decode_{HYBRID_ARCH}"]["launches"],
         "train_olmoe_bf16": dist["train_olmoe"]["bf16"]["launches"],
         "decode_olmoe": [dist["train_olmoe"]["decode"][r]["launches"]
                          for r in ("rank0", "rank1")]}
@@ -8496,6 +8761,11 @@ def _smoke(card) -> int:
             "planted_fault": ("the backward with the offset ignored: "
                               f"{off_fault}" if name != "flash_attention"
                               else None)}
+        extra["zamba2_rank"] = {
+            "heads": ZAMBA2_RANK_FA, **times[f"{name} zamba2 rank"],
+            "checks": [dict(c, max_abs_err={n: c["max_abs_err"][n]
+                                            for n in names})
+                       for c in z2_fa_checks]}
         worst = max(max(v for n, v in c["max_abs_err"].items()
                         if n != "lse") for c in checks
                     if c["dtype"] == "bfloat16")
@@ -8586,7 +8856,8 @@ def _smoke(card) -> int:
         checks=ssd_checks, planted_fault=ssd_faults,
         bf16_shortcut=ssd_shortcut,
         launches_train={m: training[m]["launches"]["ssd"]
-                        for m in ("mamba2", "zamba2")}))
+                        for m in ("mamba2", "zamba2")},
+        launches_dist=by_rank("ssd")))
     t = times["ssd_bwd train mamba2"]
     kernels.append(dict(
         name="ssd_bwd", route="cuda", source=csrc + "ssd_bwd.cu",
@@ -8610,7 +8881,7 @@ def _smoke(card) -> int:
         times={k: v for k, v in times.items() if k.startswith("ssd")
                and "train" in k},
         checks=ssd_bwd_checks, planted_fault=ssd_bwd_faults,
-        bf16_shortcut=ssd_bwd_shortcut))
+        bf16_shortcut=ssd_bwd_shortcut, launches_dist=by_rank("ssd_bwd")))
     serving.update(paged=paged_serving, prefix_sharing=prefix_serving)
     moe_serving["paged"] = moe_paged
     print(json.dumps({"kernels": kernels, "serving": serving,

@@ -92,7 +92,12 @@
 //
 // float32 (the checks and the f32 parity arms): the first port's two
 // kernels on the CUDA cores, f32 products throughout (TF32 would not meet
-// the f32 checks).
+// the f32 checks).  Their log-decay a_cs is a float64 cumsum, and every
+// exponent (L's a_cs[i] - a_cs[j], dec's, exp(a_cs)) is taken of a float64
+// difference: at dt ~ 0.8 a chunk's a_cs reaches ~-100, where an f32 a_cs
+// holds each difference only to ~1e-5 absolute, a relative error of L that
+// put ddt beyond the f32 per-entry rule against the exact gradient (1.4x
+// at zamba2's training shape on an H100).
 //   1. ssd_bwd_state_kernel, a block per (b, h, 16 head dims p), walks the
 //      chunks forward from h0 and writes the state entering each chunk
 //      (h_prev, Bb x nc x H x P x N f32), then backward from the final
@@ -135,30 +140,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// inclusive cumsum of acs[0..Q) in place, by warp 0: each lane sums a run
-// of rows, the lanes' totals are scanned with shuffles (as ssd.cu)
-__device__ __forceinline__ void scan_rows(float* acs, int Q, int lane) {
+// inclusive cumsum of A dt over rows [0, Q) into acs in float64, by warp
+// 0 (the f32 kernels' log-decay): each lane sums a run of rows, the
+// lanes' totals are scanned with shuffles (as ssd.cu)
+__device__ __forceinline__ void scan_rows_f64(const float* dts, float Ah, double* acs,
+                                              int Q, int lane) {
   const int per = (Q + 31) / 32;
   const int lo = min(lane * per, Q), hi = min(lo + per, Q);
-  float run = 0.f;
+  double run = 0.0;
   for (int i = lo; i < hi; ++i) {
-    run += acs[i];
+    run += (double)Ah * (double)dts[i];
     acs[i] = run;
   }
-  float tot = run;
+  double tot = run;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, tot, o);
+    const double v = __shfl_up_sync(0xffffffffu, tot, o);
     if (lane >= o) tot += v;
   }
   // the lanes before this one's run: the previous lane's inclusive
   // total, so a row's a_cs sums the rows up to it and no later one
   // (tot - run rounds with the run's later rows: an output would
   // depend on later inputs in its last bits)
-  float before = __shfl_up_sync(0xffffffffu, tot, 1);
-  if (lane == 0) before = 0.f;
+  double before = __shfl_up_sync(0xffffffffu, tot, 1);
+  if (lane == 0) before = 0.0;
   for (int i = lo; i < hi; ++i) acs[i] += before;
 }
+
+// exp of a float64 log-decay difference, the exponent rounded once
+__device__ __forceinline__ float exp_f64(double v) { return expf((float)v); }
 
 // the sum of every thread's v in a fixed order; red holds WARPS floats
 __device__ float block_sum(float v, float* red, int tid) {
@@ -190,19 +200,19 @@ struct Args {
 
 __host__ __device__ inline size_t state_smem_floats(int Q, int N) {
   const size_t Qp = padded_rows(Q);
-  return Qp * (N + 1) + Qp * PS + (size_t)PS * (N + 1) + 3 * Qp;
+  return 2 * Qp + Qp * (N + 1) + Qp * PS + (size_t)PS * (N + 1) + 2 * Qp;
 }
 
 __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
   extern __shared__ __align__(16) float sm[];
   const int Q = a.Q, N = a.N, P = a.P, H = a.H, S = a.S, G = a.G;
   const int Qp = padded_rows(Q), ldn = N + 1, nc = S / Q;
-  float* Vs = sm;                  // Qp x ldn: B (forward), C (backward)
+  double* acs = reinterpret_cast<double*>(sm);   // Qp: a_cs, float64
+  float* Vs = sm + 2 * Qp;         // Qp x ldn: B (forward), C (backward)
   float* Xs = Vs + Qp * ldn;       // Qp x PS: x (forward), dy (backward)
   float* St = Xs + Qp * PS;        // PS x ldn
   float* dts = St + PS * ldn;
-  float* acs = dts + Qp;
-  float* ws = acs + Qp;
+  float* ws = dts + Qp;
 
   const int b = blockIdx.x, h = blockIdx.y, p0 = blockIdx.z * PS;
   const int g = h / (H / G);
@@ -227,11 +237,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
     for (int t = 0; t < nc; ++t) {
       const int c = pass == 0 ? t : nc - 1 - t;
       const int s0 = c * Q;
-      for (int i = tid; i < Qp; i += THREADS) {
-        const float d = i < Q ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
-        dts[i] = d;
-        acs[i] = Ah * d;
-      }
+      for (int i = tid; i < Qp; i += THREADS)
+        dts[i] = i < Q ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
       for (int i = tid; i < Qp * N; i += THREADS) {
         const int q = i / N, n = i % N;
         Vs[q * ldn + n] = q < Q ? V[(((size_t)b * S + s0 + q) * G + g) * N + n] : 0.f;
@@ -241,12 +248,12 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
         Xs[i] = q < Q ? X[(((size_t)b * S + s0 + q) * H + h) * P + p0 + p] : 0.f;
       }
       __syncthreads();
-      if (warp == 0) scan_rows(acs, Q, lane);
+      if (warp == 0) scan_rows_f64(dts, Ah, acs, Q, lane);
       __syncthreads();
-      const float a_last = acs[Q - 1];
+      const double a_last = acs[Q - 1];
       // forward: x's weight dt exp(a_last - a_cs); backward: dy's exp(a_cs)
       for (int i = tid; i < Qp; i += THREADS)
-        ws[i] = i >= Q ? 0.f : pass == 0 ? dts[i] * expf(a_last - acs[i]) : expf(acs[i]);
+        ws[i] = i >= Q ? 0.f : pass == 0 ? dts[i] * exp_f64(a_last - acs[i]) : exp_f64(acs[i]);
       // the state entering chunk c (forward) or the gradient leaving it
       const size_t out_base = ((((size_t)b * nc + c) * H + h) * P + p0) * N;
       for (int i = tid; i < PS * N; i += THREADS) out[out_base + i] = St[(i / N) * ldn + i % N];
@@ -272,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_state_kernel(Args a) {
             for (int k = 0; k < PK; ++k) acc[k][m] = fmaf(xw[k], v, acc[k][m]);
           }
       }
-      const float decay = expf(a_last);
+      const float decay = exp_f64(a_last);
 #pragma unroll
       for (int k = 0; k < PK; ++k)
 #pragma unroll
@@ -296,7 +303,7 @@ __host__ __device__ inline size_t chunk_smem_floats(int Q, int P, int N) {
   const size_t Qp = padded_rows(Q);
   const size_t rows2 = Qp > (size_t)P ? Qp : P;
   const size_t ldr = (N > P ? N : P) + 1;
-  return Qp * (N + 1) + rows2 * ldr + Qp * (Qp + 1) + 9 * Qp + WARPS * Qp + WARPS;
+  return 2 * Qp + Qp * (N + 1) + rows2 * ldr + Qp * (Qp + 1) + 8 * Qp + WARPS * Qp + WARPS;
 }
 
 __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
@@ -304,12 +311,12 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
   const int Q = a.Q, N = a.N, P = a.P, H = a.H, S = a.S, G = a.G;
   const int Qp = padded_rows(Q), ldn = N + 1, ldm = Qp + 1;
   const int ldr = max(N, P) + 1, rows2 = max(Qp, P);
-  float* Bs = sm;                  // Qp x ldn: B, then C
+  double* acs = reinterpret_cast<double*>(sm);   // Qp: a_cs, float64
+  float* Bs = sm + 2 * Qp;         // Qp x ldn: B, then C
   float* R2 = Bs + Qp * ldn;       // rows2 x ldr: C, dh_next, x dt, h_prev, dh_next
   float* Ms = R2 + rows2 * ldr;    // Qp x ldm: S o L, then dS
   float* dts = Ms + Qp * ldm;
-  float* acs = dts + Qp;
-  float* eas = acs + Qp;           // exp(a_cs)
+  float* eas = dts + Qp;           // exp(a_cs)
   float* dec = eas + Qp;           // exp(a_cs[Q-1] - a_cs)
   float* roww = dec + Qp;          // d a_cs from L, rows
   float* colw = roww + Qp;         // ... columns
@@ -337,9 +344,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
 
   // 0. dt, the log-decay, B and C
   for (int i = tid; i < Qp; i += THREADS) {
-    const float d = i < Q ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
-    dts[i] = d;
-    acs[i] = Ah * d;
+    dts[i] = i < Q ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
     roww[i] = colw[i] = dda[i] = ddx[i] = rv[i] = 0.f;
   }
   for (int i = tid; i < Qp * N; i += THREADS) {
@@ -348,12 +353,12 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
     R2[q * ldr + n] = q < Q ? Cm[row_gn(q) + n] : 0.f;
   }
   __syncthreads();
-  if (warp == 0) scan_rows(acs, Q, lane);
+  if (warp == 0) scan_rows_f64(dts, Ah, acs, Q, lane);
   __syncthreads();
-  const float a_last = acs[Q - 1];
+  const double a_last = acs[Q - 1];
   for (int i = tid; i < Qp; i += THREADS) {
-    eas[i] = i < Q ? expf(acs[i]) : 0.f;
-    dec[i] = i < Q ? expf(a_last - acs[i]) : 0.f;
+    eas[i] = i < Q ? exp_f64(acs[i]) : 0.f;
+    dec[i] = i < Q ? exp_f64(a_last - acs[i]) : 0.f;
   }
 
   // 1. Ms[i][j] = (C_i . B_j) L_ij for j <= i < Q, zero elsewhere: 4-row
@@ -384,7 +389,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = i0 + r;
-          Ms[i * ldm + j] = (i < Q && j <= i) ? acc[r][cc] * expf(acs[i] - acs[j]) : 0.f;
+          Ms[i * ldm + j] = (i < Q && j <= i) ? acc[r][cc] * exp_f64(acs[i] - acs[j]) : 0.f;
         }
     }
   }
@@ -494,7 +499,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
             if (i < Q && j <= i) {
               const float gij = acc[r][cc];
               const float w = Ms[i * ldm + j] * gij;
-              Ms[i * ldm + j] = expf(acs[i] - acs[j]) * gij;
+              Ms[i * ldm + j] = exp_f64(acs[i] - acs[j]) * gij;
               rs[r] += w;
               colacc[cc] += w;
             }
@@ -651,7 +656,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk_kernel(Args a) {
     float* ddt = static_cast<float*>(a.ddt);
     for (int k = Q - 1; k >= 0; --k) {
       float dacs = roww[k] - colw[k] + dda[k];
-      if (k == Q - 1) dacs += rsum + expf(a_last) * hd_sum;
+      if (k == Q - 1) dacs += rsum + exp_f64(a_last) * hd_sum;
       da += dacs;
       ddt[((size_t)b * S + s0 + k) * H + h] = ddx[k] + Ah * da;
       dA = fmaf(dts[k], da, dA);

@@ -36,8 +36,9 @@ each data-parallel rank takes its rows of the step's global batch (host
 id = its data coordinate, so the losses are the one device's; under
 ``seqparallel`` the model ranks then split its sequence), checkpoints
 are saved full and restored as the mesh's slices, and rank 0 prints.
-The Mamba-2 stack and the hybrid raise, naming ROADMAP item 14b, before
-the process group starts.  On the card each rank uses card ``LOCAL_RANK`` modulo
+mamba2 and zamba2 train head-parallel under their own ``default``; the
+Mamba-2 stack and the hybrid under a sequence-parallel rule set raise,
+naming ROADMAP item 14b (c2), before the process group starts.  On the card each rank uses card ``LOCAL_RANK`` modulo
 the cards present, and only rank 0 reads NVML.
 """
 
@@ -104,7 +105,7 @@ def main(argv=None) -> None:
     device_arg = args.device
     if args.mesh:
         rules = executed_rules(run.rules_name)   # before the group starts
-        require_mesh_family(cfg)
+        require_mesh_family(cfg, rules)
         init_distributed(args.backend)
         if device_arg == "cuda" and torch.cuda.is_available():
             local = int(os.environ.get("LOCAL_RANK", 0))

@@ -63,7 +63,25 @@ vocab-parallel, as the rows are the same on every rank.
 The Mamba-2 block runs its prefill chunks through ``ops.ssd`` (the
 ``ssd`` kernel on CUDA) and its single-token decode through the plain
 one-step recurrence, as the reference does; its SSM and conv states are
-the cache's views and are updated in place.
+the cache's views and are updated in place.  Under ``default`` and
+``fsdp`` (``ssm_inner``, ``ssm_heads`` and ``act_ssm`` on ``model``) it
+is head-parallel: rank r of n runs heads [r H/n, (r+1) H/n).  The stored
+``in_proj``, ``conv_w`` and ``conv_b`` shards are the reference's
+contiguous cuts of packed layouts ([z | x | B | C | dt] columns, [x | B |
+C] channels) that do not fall on heads, so ``use_weights`` gathers them
+whole (``MODEL_GATHERED``) and the rank indexes its z, x and dt and all of
+B and C (one group: every head reads them; the gather's reduce-scatter
+sums the ranks' partial gradients of those columns).  The input goes
+through ``copy_to``, the conv and ``ssd`` run on the rank's channels and
+heads (``A_log``, ``D``, ``dt_bias`` and ``norm`` are head-aligned
+shards), the gated norm all-reduces its sum of squares over ``model``
+with an all-reduce backward (``C.all_reduce``), and ``out_proj`` is
+row-parallel, summed with ``reduce_from``.  A decode step rolls the
+rank's conv channels, whose cache lane ``lm.shard_cache`` cuts to this
+layout (x of its heads, B and C whole), and steps its heads of the SSM
+state.  zamba2's shared block is the Megatron attention with its
+``q_delta`` on the rank's heads and the Megatron MLP
+(``lm._shared_block``).
 """
 
 from __future__ import annotations
@@ -102,6 +120,10 @@ DP_AXES = ("pod", "data")
 #: parameter leaves that stay float32 on the compute path
 #: (``lm.prepare_params``); gathered at use in float32
 F32_LEAVES = ("scale", "bias", "router", "A_log", "D", "dt_bias", "norm")
+#: leaves whose ``model`` shard the Megatron program does not consume as
+#: it lies, gathered whole at use: the Mamba-2 block's packed projection
+#: and conv, cut contiguously across the z/x/B/C/dt and x/B/C boundaries
+MODEL_GATHERED = ("in_proj", "conv_w", "conv_b")
 
 
 def _n_model(ctx: Ctx) -> int:
@@ -139,21 +161,22 @@ def seq_rows(ctx: Ctx, S: int) -> slice:
     return slice(r * (S // n), (r + 1) * (S // n))
 
 
-def _gather_parts(ctx: Ctx, axes, dims) -> tuple:
+def _gather_parts(ctx: Ctx, axes, dims, whole: bool = False) -> tuple:
     """The (dim, mesh axes) a leaf of logical ``axes`` and global ``dims``
     is all-gathered over before use: every dim the rules shard, but the
     ``model`` shards the program consumes as they lie (the Megatron
     program's heads, MLP columns and vocab; the experts under expert
     parallelism; the vocab of a sequence-parallel call whose rows are
     replicated, a decode step's, which the vocab-parallel lookup and
-    logits take as the Megatron program does)."""
+    logits take as the Megatron program does).  With ``whole`` (a
+    ``MODEL_GATHERED`` leaf) the ``model`` shard is gathered too."""
     seq = seq_parallel(ctx)
     parts = []
     for d, (part, ax) in enumerate(zip(resolve_spec(ctx.rules, ctx.mesh,
                                                     axes, dims), axes)):
         flat = (part,) if isinstance(part, str) else (part or ())
-        kept = not seq or ax == "expert" or (ax == "vocab"
-                                             and not ctx.seq_shard)
+        kept = not whole and (not seq or ax == "expert" or (
+            ax == "vocab" and not ctx.seq_shard))
         if not flat or (MODEL in flat and kept):
             continue
         parts.append((d, part))
@@ -174,7 +197,8 @@ def use_weights(ctx: Ctx, p: dict, decls: dict) -> dict:
         if isinstance(v, dict):
             out[k] = use_weights(ctx, v, decls[k])
             continue
-        parts = _gather_parts(ctx, decls[k].axes, decls[k].shape)
+        parts = _gather_parts(ctx, decls[k].axes, decls[k].shape,
+                              k in MODEL_GATHERED)
         if parts:
             dtype = torch.float32 if k in F32_LEAVES else ctx.cdtype
             v = C.gather_dims(v, parts, ctx.mesh, dtype)
@@ -243,10 +267,20 @@ def apply_norm(cfg: ModelConfig, p: dict, x, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
-def rmsnorm_gated(scale, y, z, eps: float = 1e-6):
-    """Mamba-2 RMSNormGated: rmsnorm(y * silu(z)) * scale."""
+def rmsnorm_gated(scale, y, z, eps: float = 1e-6, mesh=None,
+                  width: int | None = None):
+    """Mamba-2 RMSNormGated: rmsnorm(y * silu(z)) * scale.  With ``mesh``
+    the last dim is this rank's slice of ``width`` over ``model``: the
+    float32 sums of squares are all-reduced with an all-reduce backward
+    (``C.all_reduce``: every rank's output reads every rank's sum, so
+    each rank's gradient of its sum is all the ranks' summed) and divided
+    by the whole ``width``."""
     yf = y.float() * F.silu(z.float())
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if mesh is None:
+        var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        var = C.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True), MODEL,
+                           mesh) / width
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
@@ -322,16 +356,17 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     and attention the differentiable ``ops.attention``.  Returns (y,
     cache)."""
     if ctx.mesh is not None:
-        if q_delta is not None:
-            raise NotImplementedError(
-                "the hybrid's shared attention under a mesh: ROADMAP item 14b")
         if ctx.seq_shard:
+            if q_delta is not None:
+                raise NotImplementedError(
+                    "the hybrid's shared attention under a sequence-"
+                    "parallel rule set: ROADMAP item 14b (c2)")
             return _attention_seq(ctx, cfg, p, x, cos, sin,
                                   local_window=local_window), cache
         return _attention_sharded(ctx, cfg, p, x, cos, sin,
                                   local_window=local_window, cache=cache,
                                   cache_index=cache_index,
-                                  block_tables=block_tables)
+                                  block_tables=block_tables, q_delta=q_delta)
     c = ctx.cdtype
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -386,12 +421,14 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
 
 
 def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
-                       local_window, cache, cache_index, block_tables):
+                       local_window, cache, cache_index, block_tables,
+                       q_delta=None):
     """``apply_attention`` on one rank of a mesh: this rank's heads (q/k/v
     columns sharded by the rules, or all of them where a projection is
-    replicated), ``wo`` row-parallel and summed over ``model``.  With a
-    cache, the sequence-sharded decode step; prefill and the per-slot
-    index under a mesh are ROADMAP item 14b."""
+    replicated), ``wo`` row-parallel and summed over ``model``; ``q_delta``
+    (B, S, H_l, hd), the rank's heads of zamba2's LoRA, is added to q
+    before RoPE.  With a cache, the sequence-sharded decode step; prefill
+    and the per-slot index under a mesh are ROADMAP item 14b (d)."""
     c, mesh = ctx.cdtype, ctx.mesh
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -405,6 +442,8 @@ def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     # column-parallel projections: their input's gradient sums over model
     x_in = C.copy_to(x, MODEL, mesh) if sharded else x
     q = (x_in @ p["wq"].to(c)).reshape(B, S, H_l, hd)
+    if q_delta is not None:
+        q = q + q_delta
     k = (x_in @ p["wk"].to(c)).reshape(B, S, K_l, hd)
     v = (x_in @ p["wv"].to(c)).reshape(B, S, K_l, hd)
     scale = (cfg.query_scale ** -0.5 if cfg.query_scale is not None
@@ -887,13 +926,52 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
-def _split_mamba(cfg: ModelConfig, zxbcdt):
-    din, N = cfg.d_inner, cfg.ssm_state
+def _split_mamba(cfg: ModelConfig, zxbcdt, din: int | None = None):
+    """(z, xBC, dt) of the packed projection; ``din`` the d_inner it
+    holds (a rank's share under a mesh, default the whole)."""
+    N = cfg.ssm_state
+    din = cfg.d_inner if din is None else din
     G = 1
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:din + din + 2 * G * N]
     dt = zxbcdt[..., din + din + 2 * G * N:]
     return z, xbc, dt
+
+
+def mamba_spans(cfg: ModelConfig, rank: int, n: int):
+    """The column spans rank ``rank`` of ``n`` over ``model`` computes in
+    the Mamba-2 block's packed layouts, for heads [r H/n, (r+1) H/n):
+    ``in_proj``'s [z | x | B | C | dt] gives its z, x and dt and all of B
+    and C (one group: every head reads them), the conv's [x | B | C] its
+    x and all of B and C.  Returns (projection spans, conv spans), each a
+    tuple of (start, stop)."""
+    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    dl, hl = din // n, H // n
+    x, bc = (rank * dl, (rank + 1) * dl), (din, din + 2 * N)
+    dt0 = 2 * din + 2 * N
+    proj = ((rank * dl, (rank + 1) * dl), (din + x[0], din + x[1]),
+            (2 * din, dt0), (dt0 + rank * hl, dt0 + (rank + 1) * hl))
+    return proj, (x, bc)
+
+
+def take_spans(t, spans, dim: int = -1):
+    """The ``spans`` of ``t`` along ``dim``, concatenated in order."""
+    return torch.cat([t.narrow(dim, a, b - a) for a, b in spans], dim=dim)
+
+
+def _mamba_heads(cfg: ModelConfig, p: dict) -> int:
+    """The heads of this rank's Mamba-2 program: ``H / n`` when the rules
+    split ``ssm_heads`` over an n-way ``model`` axis, else ``H``; the
+    head-aligned leaves (``norm``, ``out_proj``'s rows) must be split
+    alike, or the call raises."""
+    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    H_l = p["A_log"].shape[-1]
+    if p["norm"].shape[-1] != H_l * P or p["out_proj"].shape[0] != H_l * P:
+        raise NotImplementedError(
+            f"Mamba-2 block with {H_l} of {H} heads and {p['norm'].shape[-1]}"
+            f" of {cfg.d_inner} d_inner on this rank: the port splits the "
+            f"block by whole heads")
+    return H_l
 
 
 def apply_mamba(ctx: Ctx, cfg: ModelConfig, p: dict, x, *, ssm_state=None,
@@ -909,17 +987,39 @@ def apply_mamba(ctx: Ctx, cfg: ModelConfig, p: dict, x, *, ssm_state=None,
         window rolls by one row and the recurrence takes one step.
     ``ssm_state`` (B, H, P, N) float32 and ``conv_state`` (B, W-1, conv)
     are one layer's views of the cache and are updated IN PLACE.
+
+    Under a mesh whose rules split the heads over ``model`` (``p`` from
+    ``use_weights``: ``in_proj``, ``conv_w`` and ``conv_b`` whole, the
+    others this rank's shards) the rank runs its heads (``mamba_spans``):
+    the input through ``copy_to``, the states its heads' and its conv
+    channels' (``lm.shard_cache``), the gated norm's sum all-reduced and
+    ``out_proj``'s partial product summed with ``reduce_from``.  Prefill
+    into a cache under a mesh is ROADMAP item 14b (d).
     Returns (y, (ssm_state, conv_state))."""
     c = ctx.cdtype
     B, S, _ = x.shape
-    din, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    N, P = cfg.ssm_state, cfg.ssm_headdim
     G = 1
-    zxbcdt = x @ p["in_proj"].to(c)
-    z, xbc, dt_raw = _split_mamba(cfg, zxbcdt)
-
-    conv_w = p["conv_w"].to(c)
-    conv_b = p["conv_b"].to(c)
+    H = _mamba_heads(cfg, p)
+    n = cfg.ssm_heads // H
+    din = H * P
+    in_proj, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
     decode = S == 1 and ssm_state is not None
+    if n > 1:
+        if conv_state is not None and not decode:
+            raise NotImplementedError(
+                "prefill of the Mamba-2 block into a cache under a mesh: "
+                "ROADMAP item 14b (d)")
+        proj, conv = mamba_spans(cfg, _model_index(ctx), n)
+        in_proj = take_spans(in_proj, proj)
+        conv_w, conv_b = take_spans(conv_w, conv), take_spans(conv_b, conv)
+        # column-parallel: the input's gradient sums over model
+        x = C.copy_to(x, MODEL, ctx.mesh)
+    zxbcdt = x @ in_proj.to(c)
+    z, xbc, dt_raw = _split_mamba(cfg, zxbcdt, din)
+
+    conv_w = conv_w.to(c)
+    conv_b = conv_b.to(c)
     if decode:
         # decode: roll the window, apply the conv at the newest position
         window = torch.cat([conv_state, xbc], dim=1)           # (B, W, C)
@@ -956,8 +1056,12 @@ def apply_mamba(ctx: Ctx, cfg: ModelConfig, p: dict, x, *, ssm_state=None,
         y, _ = ops.ssd(xs, dt.to(c), A, Bm, Cm, D=D, h0=ssm_state,
                        chunk=chunk, state_out=ssm_state)
     y = y.reshape(B, S, din)
-    y = rmsnorm_gated(p["norm"], y, z)
-    return y @ p["out_proj"].to(c), (ssm_state, conv_state)
+    if n == 1:
+        y = rmsnorm_gated(p["norm"], y, z)
+        return y @ p["out_proj"].to(c), (ssm_state, conv_state)
+    y = rmsnorm_gated(p["norm"], y, z, mesh=ctx.mesh, width=cfg.d_inner)
+    return (C.reduce_from(y @ p["out_proj"].to(c), MODEL, ctx.mesh),
+            (ssm_state, conv_state))
 
 
 def empty_mamba_state(cfg: ModelConfig, batch: int, dtype, layers: int = 0,

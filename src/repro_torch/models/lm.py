@@ -46,7 +46,6 @@ import functools
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
@@ -56,13 +55,19 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref
 from repro_torch.models import layers as L
 from repro_torch.models.params import PD
+from repro_torch.sharding import collectives as C
 
 
-def require_mesh_family(cfg: ModelConfig) -> None:
-    """The Mamba-2 stack and the hybrid have no per-rank program yet."""
-    if cfg.family in ("ssm", "hybrid"):
+def require_mesh_family(cfg: ModelConfig, rules) -> None:
+    """The Mamba-2 stack and the hybrid run head-parallel under
+    ``default`` and ``fsdp``; under a sequence-parallel rule set
+    (``act_seq`` on ``model``, where the reference's ``act_ssm`` resolves
+    to replicated and GSPMD decides how the scan crosses ranks) they have
+    no per-rank program yet."""
+    if cfg.family in ("ssm", "hybrid") and rules.get("act_seq") == L.MODEL:
         raise NotImplementedError(
-            f"{cfg.family} layers under a mesh: ROADMAP item 14b")
+            f"{cfg.family} layers under the sequence-parallel rule set "
+            f"{rules.name!r}: ROADMAP item 14b (c2)")
 
 
 def _require_cache(cfg: ModelConfig) -> None:
@@ -286,7 +291,12 @@ def _positions_default(batch: int, seq: int, device, cache_index=None):
 def _mamba_layer(ctx: L.Ctx, cfg: ModelConfig, p, h, ssm_state=None,
                  conv_state=None):
     """One pre-norm residual Mamba-2 layer; the states (one layer's cache
-    views) are updated in place."""
+    views) are updated in place.  Under a mesh the layer's weights are
+    first gathered where the program needs them whole
+    (``L.use_weights``)."""
+    if ctx.mesh is not None:
+        p = L.use_weights(ctx, p, {"ln": L.norm_decls(cfg),
+                                   "mamba": L.mamba_decls(cfg)})
     out, _ = L.apply_mamba(ctx, cfg, p["mamba"], L.apply_norm(cfg, p["ln"], h),
                            ssm_state=ssm_state, conv_state=conv_state)
     return h + out
@@ -295,21 +305,32 @@ def _mamba_layer(ctx: L.Ctx, cfg: ModelConfig, p, h, ssm_state=None,
 def _shared_block(ctx: L.Ctx, cfg: ModelConfig, p, inv_idx: int, h, emb0, cos,
                   sin, *, cache=None, cache_index=None, block_tables=None):
     """Zamba2 shared attention block on concat(h, emb0), with invocation
-    ``inv_idx``'s LoRA on q (``repro/models/lm.py:344-369``)."""
+    ``inv_idx``'s LoRA on q (``repro/models/lm.py:344-369``).  Under a
+    mesh it is the Megatron block: ``lora_b`` is split by heads in line
+    with ``wq`` (``qkv_flat``), so the rank's ``q_delta`` is
+    ``copy_to(a_in @ lora_a) @ lora_b_r`` (``copy_to``: each rank's heads
+    read the replicated ``a_in @ lora_a``, whose gradient sums them), the
+    attention runs on the rank's heads and the MLP is ``L.apply_mlp``'s
+    column- and row-parallel pair; ``emb0`` and the concatenated inputs
+    are replicated, so ``ln1`` and ``ln2`` run whole."""
     c = ctx.cdtype
+    if ctx.mesh is not None:
+        p = L.use_weights(ctx, p, _shared_attn_decls(
+            cfg, zamba_structure(cfg)[0]))
     a_in = L.apply_norm(cfg, p["ln1"], torch.cat([h, emb0], dim=-1))
     la = p["lora_a"][inv_idx].to(c)
     lb = p["lora_b"][inv_idx].to(c)
     B, S = a_in.shape[:2]
-    q_delta = (a_in @ la @ lb).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    low = a_in @ la
+    if ctx.mesh is not None and lb.shape[-1] != cfg.n_heads * cfg.head_dim:
+        low = C.copy_to(low, L.MODEL, ctx.mesh)
+    q_delta = (low @ lb).reshape(B, S, -1, cfg.head_dim)
     out, _ = L.apply_attention(ctx, cfg, p["attn"], a_in, cos, sin,
                                cache=cache, cache_index=cache_index,
                                block_tables=block_tables, q_delta=q_delta)
     h = h + out
     m_in = L.apply_norm(cfg, p["ln2"], torch.cat([h, emb0], dim=-1))
-    gate = m_in @ p["mlp"]["w_gate"].to(c)
-    up = m_in @ p["mlp"]["w_up"].to(c)
-    return h + (F.silu(gate) * up) @ p["mlp"]["w_down"].to(c)
+    return h + L.apply_mlp(ctx, cfg, p["mlp"], m_in)
 
 
 def _ssm_forward(ctx: L.Ctx, cfg: ModelConfig, params, h, cos, sin, *,
@@ -371,7 +392,7 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     if ctx.mesh is not None:
         from repro_torch.sharding import executed_rules
         executed_rules(ctx.rules.name)
-        require_mesh_family(cfg)
+        require_mesh_family(cfg, ctx.rules)
         if cache is None and L.seq_parallel(ctx):
             seq = batch["frames" if cfg.family == "audio" else "tokens"]
             rows = L.seq_rows(ctx, seq.shape[1])
@@ -410,7 +431,8 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
         h = _ssm_forward(ctx, cfg, params, h, cos, sin, cache=cache,
                          cache_index=cache_index, block_tables=block_tables,
                          remat=remat)
-        return L.apply_norm(cfg, params["final_norm"], h), aux, cache
+        norm = L.use_weights(ctx, params["final_norm"], L.norm_decls(cfg))
+        return L.apply_norm(cfg, norm, h), aux, cache
     for p, kv, i, window in _tf_layers(cfg, params, cache):
         if remat is not None:
             h, a = _checkpoint(
@@ -578,7 +600,11 @@ def cache_logical_axes(cfg: ModelConfig):
     """Logical axes of ``init_cache``'s leaves (``repro/models/lm.py:
     573``): KV rows (layers, act_batch, act_kv_seq, None, None), the batch
     over the data-parallel axes and the sequence over ``model``; Mamba
-    state (layers, act_batch, ssm_heads, ...)."""
+    state (layers, act_batch, ssm_heads, ...).  The conv state's channels
+    are ``act_ssm``, a contiguous cut of [x | B | C] in the reference; the
+    port's head-parallel program reads x of its heads and all of B and C,
+    so ``shard_cache`` cuts that leaf to the program's layout instead
+    (``L.mamba_spans``), B and C replicated over ``model``."""
     _require_cache(cfg)
     if cfg.family in ("ssm", "hybrid"):
         out = {"mamba": dict(L.MAMBA_STATE_AXES)}
@@ -591,9 +617,13 @@ def cache_logical_axes(cfg: ModelConfig):
 def shard_cache(ctx: L.Ctx, cfg: ModelConfig, cache):
     """This rank's shard of a full (unsharded) decode cache, by
     ``cache_logical_axes`` under ``ctx.rules``: the batch over the
-    data-parallel axes and the KV rows over ``model`` where they divide.
-    A KV cache whose rows do not divide the model axis raises: the
-    decode step under a mesh reads its cache sharded by sequence."""
+    data-parallel axes, the KV rows over ``model`` where they divide, the
+    SSM state by heads.  The conv state is cut to the head-parallel
+    program's layout: its batch as the rules cut it, and on a rank whose
+    heads are split over ``model`` the channels of ``L.mamba_spans`` (x of
+    its heads, B and C whole).  A KV cache whose rows do not divide the
+    model axis raises: the decode step under a mesh reads its cache
+    sharded by sequence."""
     from repro_torch.sharding import local_slice, resolve_spec
     out = {}
     for key, axes in cache_logical_axes(cfg).items():
@@ -605,8 +635,26 @@ def shard_cache(ctx: L.Ctx, cfg: ModelConfig, cache):
                 raise ValueError(f"{key}/{k}: {a.shape[2]} rows do not "
                                  f"divide the {L._n_model(ctx)}-way model "
                                  f"axis")
+            if key == "mamba" and k == "conv":
+                out[key][k] = _conv_shard(ctx, cfg, cache[key], spec)
+                continue
             out[key][k] = local_slice(ctx.mesh, spec, a).clone()
     return out
+
+
+def _conv_shard(ctx: L.Ctx, cfg: ModelConfig, mamba, spec):
+    """This rank's conv-state lane (``shard_cache``): the batch as ``spec``
+    cuts it, and with the SSM heads split over ``model`` the channels the
+    rank's program convolves."""
+    from repro_torch.sharding import local_slice, resolve_spec
+    conv = local_slice(ctx.mesh, spec[:2], mamba["conv"])
+    ssm = resolve_spec(ctx.rules, ctx.mesh, L.MAMBA_STATE_AXES["ssm"],
+                       tuple(mamba["ssm"].shape))
+    if len(ssm) > 2 and ssm[2] == L.MODEL:
+        n = L._n_model(ctx)
+        conv = L.take_spans(conv, L.mamba_spans(cfg, L._model_index(ctx),
+                                                n)[1])
+    return conv.clone()
 
 
 #: Slot semantics of a cache kind (as the reference): "rows" leaves carry

@@ -15,6 +15,10 @@ replicated activation the whole gradient (Megatron's convention):
                 row-parallel product, a vocab-parallel lookup);
   scatter_to    this rank's slice forward, all-gather backward;
   gather_from   all-gather forward, this rank's slice backward;
+  all_reduce    all-reduce forward, all-reduce backward (a partial sum
+                that every rank's output reads: the Mamba-2 gated norm's
+                sum of squares over a ``d_inner`` split by heads, whose
+                true cotangent is every rank's summed);
   AllToAll      all-to-all forward, all-to-all backward (an exchange of
                 equal chunks along dim 0 is its own inverse).
 ``gather_from``'s backward is right only where every rank's cotangent of
@@ -155,6 +159,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return psum(x.contiguous(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.axes, ctx.mesh), None, None
+
+
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh, dim):
@@ -223,6 +238,10 @@ def copy_to(x, axes, mesh):
 
 def reduce_from(x, axes, mesh):
     return x if mesh.axis_size(axes) == 1 else _ReduceFrom.apply(x, axes, mesh)
+
+
+def all_reduce(x, axes, mesh):
+    return x if mesh.axis_size(axes) == 1 else _AllReduce.apply(x, axes, mesh)
 
 
 def scatter_to(x, axes, mesh, dim):

@@ -34,7 +34,8 @@ F32 = dict(compute_dtype="float32", remat="none")
 MESH = (2, 2)
 DECODE = {"llama": ("llama3.2-3b", {}), "qwen2vl": ("qwen2-vl-72b", {}),
           "gemma2": ("gemma2-2b", {"local_window": 8}),
-          "olmoe": ("olmoe-1b-7b", {})}
+          "olmoe": ("olmoe-1b-7b", {}), "mamba2": ("mamba2-370m", {}),
+          "zamba2": ("zamba2-1.2b", {})}
 PROMPT, MAX_SEQ, DECODE_B = 32, 64, 2
 # olmoe's decode step takes the experts-sharded branch (one token does not
 # divide over model); at 8 rows its capacity, 3, binds, and counting only
@@ -45,12 +46,22 @@ DECODE_BATCH = {"olmoe": 8}
 #: batch (``train/``), so the one-device step is the same; phi3.5-moe's
 #: MoE is expert parallelism over each rank's rows at a capacity factor
 #: of 8, so nothing drops on either side; qwen2-vl's batch carries
-#: ``vision_embeds`` and (3, B, S) positions
+#: ``vision_embeds`` and (3, B, S) positions; the Mamba-2 stack runs
+#: head-parallel under ``default`` and ``fsdp`` on one set of weights
+#: (reduced mamba2's 560 ``in_proj`` columns split 280 / 280, across the
+#: z/x boundary), and reduced zamba2 (4 layers, two shared invocations)
+#: under ``default`` with ``lora_b`` drawn nonzero (its init is zeros,
+#: which would leave ``lora_a``'s gradient zero)
 RULE_CASES = {
     "seq_llama": ("llama3.2-3b", "seqparallel", "train"),
     "seq_phi": ("phi3.5-moe-42b-a6.6b", "seqparallel", "rule/seq_phi"),
     "fsdp_qwen2vl": ("qwen2-vl-72b", "fsdp", "rule/fsdp_qwen2vl"),
-    "fsdpseq_llama": ("llama3.2-3b", "fsdp_seqparallel", "train")}
+    "fsdpseq_llama": ("llama3.2-3b", "fsdp_seqparallel", "train"),
+    "mamba2": ("mamba2-370m", "default", "rule/mamba2"),
+    "fsdp_mamba2": ("mamba2-370m", "fsdp", "rule/mamba2"),
+    "zamba2": ("zamba2-1.2b", "default", "rule/zamba2")}
+#: the gated norm's case: (B, S) rows of reduced mamba2's d_inner
+NORM_ROWS = (2, 8)
 #: llama's decode step under its serve rules
 SEQ_DECODE = "seqparallel"
 
@@ -133,6 +144,10 @@ def make_inputs(path) -> dict:
         out.update(_flat(init_params(lm.model_decls(cfg),
                                      torch.Generator().manual_seed(10 + i),
                                      "cpu"), f"decode/{name}/params"))
+        if cfg.family == "hybrid":         # lora_b's init is zeros
+            lb = out[f"decode/{name}/params/shared/lora_b"]
+            out[f"decode/{name}/params/shared/lora_b"] = (
+                rng.normal(size=lb.shape) * 0.05).astype(np.float32)
         B = DECODE_BATCH.get(name, DECODE_B)
         out[f"decode/{name}/batch/tokens"] = rng.integers(
             0, cfg.vocab, (B, PROMPT), dtype=np.int32)
@@ -158,12 +173,16 @@ def make_inputs(path) -> dict:
         out[f"case/{case}/arch"] = np.array(arch)
         out[f"case/{case}/rules"] = np.array(rules)
         out[f"case/{case}/prefix"] = np.array(prefix)
-        if prefix == "train":
+        if prefix == "train" or f"{prefix}/batch/tokens" in out:
             continue
         cfg, _ = rule_cfg(case)
         out.update(_flat(init_params(lm.model_decls(cfg),
                                      torch.Generator().manual_seed(20 + i),
                                      "cpu"), f"{prefix}/params"))
+        if cfg.family == "hybrid":
+            lb = out[f"{prefix}/params/shared/lora_b"]
+            out[f"{prefix}/params/shared/lora_b"] = (
+                rng.normal(size=lb.shape) * 0.05).astype(np.float32)
         for k, v in train_batches(cfg)[0].items():
             out[f"{prefix}/batch/{k}"] = v.astype(np.int32)
         if cfg.family == "vlm":
@@ -176,6 +195,12 @@ def make_inputs(path) -> dict:
     # (8, 6) rows
     out["pair/x"] = rng.normal(size=(8, 6)).astype(np.float32)
     out["pair/w"] = rng.normal(size=(4, 8, 6)).astype(np.float32)
+    din = rule_cfg("mamba2")[0].d_inner
+    for k in ("y", "z", "g"):
+        out[f"norm/{k}"] = rng.normal(size=NORM_ROWS + (din,)).astype(
+            np.float32)
+    out["norm/scale"] = (1 + 0.1 * rng.normal(size=(din,))).astype(
+        np.float32)
     np.savez(path, **out)
     return out
 
@@ -224,7 +249,7 @@ def one_device(inp) -> dict:
     out["moe/y0"] = y.detach()
     out["moe/grads"] = tree_map(lambda t: t.grad, ps)
     for case, (_, _, prefix) in RULE_CASES.items():
-        if prefix == "train":
+        if prefix == "train" or f"{prefix}/loss" in out:
             continue
         cfg, run = rule_cfg(case)
         ctx = Ctx(run, "cpu")
@@ -240,6 +265,11 @@ def one_device(inp) -> dict:
         out[f"{prefix}/loss"] = float(m["loss"])
         out[f"{prefix}/grad_norm"] = float(m["grad_norm"])
         out[f"{prefix}/new_params"] = state["params"]
+    y, z = (torch.from_numpy(inp[f"norm/{k}"]).requires_grad_(True)
+            for k in ("y", "z"))
+    (L.rmsnorm_gated(torch.from_numpy(inp["norm/scale"]), y, z)
+     * torch.from_numpy(inp["norm/g"])).sum().backward()
+    out["norm/grad_y"], out["norm/grad_z"] = y.grad, z.grad
     return out
 
 
@@ -332,6 +362,30 @@ def _pair_grads(rank, inp, mesh) -> dict:
     return out
 
 
+def _norm_grads(inp, mesh) -> dict:
+    """The gated norm over reduced mamba2's d_inner split over ``model``,
+    loss sum(out * g): this rank's gradients of its y and z slices with
+    the all-reduce pair (``C.all_reduce``) and with ``reduce_from`` (an
+    identity backward) in its place."""
+    n, m = mesh.axis_size("model"), mesh.coord("model")
+    din = inp["norm/y"].shape[-1]
+    cols = slice(m * din // n, (m + 1) * din // n)
+    out = {}
+    real = C.all_reduce
+    for name, fn in (("all_reduce", real), ("reduce_from", C.reduce_from)):
+        y, z = (torch.from_numpy(inp[f"norm/{k}"][..., cols]).clone()
+                .requires_grad_(True) for k in ("y", "z"))
+        C.all_reduce = fn
+        try:
+            o = L.rmsnorm_gated(torch.from_numpy(inp["norm/scale"][cols]),
+                                y, z, mesh=mesh, width=din)
+        finally:
+            C.all_reduce = real
+        (o * torch.from_numpy(inp["norm/g"][..., cols])).sum().backward()
+        out[f"norm/{name}"] = {"y": y.grad, "z": z.grad, "cols": cols}
+    return out
+
+
 def rank_cases(rank, world, inp) -> dict:
     """Every case on this rank of the (2, 2) mesh; rank 0 also returns the
     gathered gradients and parameters."""
@@ -401,6 +455,7 @@ def rank_cases(rank, world, inp) -> dict:
     for k, v in _decode(inp, "llama", mesh, RULE_SETS[SEQ_DECODE]).items():
         out["seqdecode/" + k.rsplit("/", 1)[1]] = v
     out.update(_pair_grads(rank, inp, mesh))
+    out.update(_norm_grads(inp, mesh))
     # (1, 4) over the same ranks: reduced llama's 2 kv heads cut in
     # storage (half a head a rank); the Megatron program refuses the cut,
     # the sequence-parallel one gathers the weights whole

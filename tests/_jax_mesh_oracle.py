@@ -7,7 +7,10 @@ Run in a subprocess of its own, since the device count must be set before
 JAX starts.  Besides the ``default`` rule set's paths it runs the train
 step under each rule set of the inputs' ``case/<name>/rules`` (its arch
 in ``case/<name>/arch``, its weights and batch under ``case/<name>/
-prefix``) and llama's decode step under ``seqparallel``.  The mesh is a ``jax.sharding.Mesh`` built here, whose axes
+prefix``: among them reduced mamba2 under ``default`` and ``fsdp`` and
+reduced zamba2 under ``default``) and llama's decode step under
+``seqparallel``; the Mamba-2 families' decode caches are placed by
+``cache_logical_axes``.  The mesh is a ``jax.sharding.Mesh`` built here, whose axes
 are Auto: ``repro.launch.mesh.make_mesh_for`` calls ``jax.make_mesh``,
 whose Explicit axes ``with_sharding_constraint`` rejects under jax 0.9.
 Nothing of ``repro`` is changed.  Inputs (weights, batches, gradients)
@@ -33,6 +36,7 @@ from repro.configs.base import reduced  # noqa: E402
 from repro.configs.registry import get_model_config, get_run_config  # noqa: E402
 from repro.models import layers as L  # noqa: E402
 from repro.models.layers import Ctx  # noqa: E402
+from repro.models.lm import cache_logical_axes  # noqa: E402
 from repro.models.params import logical_axes  # noqa: E402
 from repro.serving.engine import make_decode_step, make_prefill_step  # noqa: E402
 from repro.sharding import RULE_SETS, tree_shardings  # noqa: E402
@@ -101,6 +105,8 @@ DECODE = {
     "qwen2vl": ("qwen2-vl-72b", {}),
     "gemma2": ("gemma2-2b", {"local_window": 8}),
     "olmoe": ("olmoe-1b-7b", {}),
+    "mamba2": ("mamba2-370m", {}),
+    "zamba2": ("zamba2-1.2b", {}),
 }
 
 
@@ -122,8 +128,14 @@ def decode(inp, mesh, out, name, rules=RULES, key=None):
     S = batch["tokens"].shape[1]
     dec0 = jax.jit(make_decode_step(cfg, run, ctx0))
     dec1 = jax.jit(make_decode_step(cfg, run, ctx_m))
-    sh = NamedSharding(mesh, P(None, "data", "model", None, None))
-    cache1 = jax.tree.map(lambda a: jax.device_put(a, sh), cache0)
+    if cfg.family in ("ssm", "hybrid"):
+        # the Mamba state by its own axes: heads and conv channels over
+        # model (the shared block's KV rows as every KV cache)
+        cache1 = jax.device_put(cache0, tree_shardings(
+            rules, mesh, cache_logical_axes(cfg), cache0))
+    else:
+        sh = NamedSharding(mesh, P(None, "data", "model", None, None))
+        cache1 = jax.tree.map(lambda a: jax.device_put(a, sh), cache0)
     out[f"{key}/prefill_logits"] = np.asarray(lg0[:, 0])
     for i in range(2):
         idx = jnp.asarray(S + i, jnp.int32)

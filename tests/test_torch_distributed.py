@@ -1,10 +1,12 @@
 """The port's distributed layer on the CPU: four gloo ranks on a (2, 2)
 (data x model) mesh, held against the port's one-device runs and against
 the JAX package's sharded paths (pjit's train step under each of the four
-rule sets, the ``shard_map`` sequence-sharded decode under ``default``
-and ``seqparallel``, expert parallelism, ``compressed_psum``) on the same
-numbers; and the same ranks as a (1, 4) mesh, where reduced llama's kv
-heads are cut in storage.
+rule sets, the head-parallel Mamba-2 stack under ``default`` and ``fsdp``
+and the zamba2 hybrid under ``default`` among them, the ``shard_map``
+sequence-sharded decode under ``default`` and ``seqparallel``, the
+Mamba-2 families' decode steps, expert parallelism, ``compressed_psum``)
+on the same numbers; and the same ranks as a (1, 4) mesh, where reduced
+llama's kv heads are cut in storage.
 
 The JAX oracle runs once for the module, in a subprocess with eight
 forced host devices and an Auto-axis ``jax.sharding.Mesh`` of four of them
@@ -318,11 +320,34 @@ def test_launcher_mesh_prints_the_one_device_losses(tmp_path):
 def test_rule_sets_not_executed_raise_naming_14b(tmp_path):
     """The rule sets item 14b (a)-(b) left unexecuted now execute:
     ``executed_rules`` takes all four, and reduced llama's launcher run
-    under its own ``seqparallel`` on ``--mesh 1x1`` prints its loss.  What
-    14b still leaves, the Mamba-2 stack under a mesh, raises naming it."""
+    under its own ``seqparallel`` on ``--mesh 1x1`` prints its loss.  The
+    Mamba-2 stack and the hybrid run under ``default`` and ``fsdp`` (item
+    14b (c)); what 14b still leaves for them, a sequence-parallel rule
+    set, raises naming its sub-item (c2), in ``lm.forward`` as in the
+    launcher's check."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import init_params
     from repro_torch.sharding import RULE_SETS, executed_rules
     for name in ("default", "fsdp", "seqparallel", "fsdp_seqparallel"):
         assert executed_rules(name) is RULE_SETS[name]
+    mesh = Mesh((1, 1), ("data", "model"), rank=0, backend="gloo")
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        cfg = reduced(get_model_config(arch))
+        for name in ("default", "fsdp"):
+            lm.require_mesh_family(cfg, RULE_SETS[name])
+        params = init_params(lm.model_decls(cfg),
+                             torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.zeros((1, 8), dtype=torch.long)
+        for name in ("seqparallel", "fsdp_seqparallel"):
+            run = get_run_config(arch, rules_name=name,
+                                 compute_dtype="float32")
+            with pytest.raises(NotImplementedError, match=r"14b \(c2\)"):
+                lm.forward(Ctx(run, "cpu", RULE_SETS[name], mesh), cfg,
+                           params, {"tokens": tokens})
 
     def launch(arch, sub):
         env = dict(os.environ, PYTHONPATH=str(REPO / "src"), WORLD_SIZE="1",
@@ -338,8 +363,6 @@ def test_rule_sets_not_executed_raise_naming_14b(tmp_path):
     out = launch("llama3.2-3b", "llama")
     assert out.returncode == 0, out.stderr[-3000:]
     assert len(_losses(out.stdout)) == 1, out.stdout
-    out = launch("mamba2-370m", "mamba2")
-    assert out.returncode != 0 and "14b" in out.stderr
 
 
 def test_launcher_seqparallel_mesh_prints_the_one_device_losses(tmp_path):
@@ -356,6 +379,42 @@ def test_launcher_seqparallel_mesh_prints_the_one_device_losses(tmp_path):
         assert abs(a - b) <= LAUNCH_LOSS_RTOL * abs(b), (got, one)
 
 
+def test_launcher_mesh_trains_zamba2(tmp_path):
+    """Reduced zamba2 under its own rule set (``default``) on ``--mesh
+    2x2`` in the run's bf16: the head-parallel Mamba-2 layers and the
+    Megatron shared block; rank 0 prints one device's losses within
+    LAUNCH_LOSS_RTOL (no capacity here: only the order of sums
+    differs)."""
+    args = ["--arch", "zamba2-1.2b"]
+    one = _losses(_launcher(tmp_path / "one", args, 1)[0])
+    mesh = _launcher(tmp_path / "mesh", args + ["--mesh", "2x2", "--backend",
+                                                "gloo"], 4)
+    got = _losses(mesh[0])
+    assert len(one) == 2 and len(got) == 2, (one, mesh[0])
+    for a, b in zip(got, one):
+        assert abs(a - b) <= LAUNCH_LOSS_RTOL * abs(b), (got, one)
+    assert all(not _losses(o) for o in mesh[1:])     # rank 0 prints
+
+
+def test_gated_norm_all_reduce_pair_gives_the_one_device_gradient(ranks,
+                                                                   single):
+    """The Mamba-2 gated norm over a d_inner split over ``model``: with
+    the all-reduce pair (``C.all_reduce``, an all-reduce backward) each
+    rank's gradients of its y and z slices are the one-device gradients';
+    with ``reduce_from`` in its place (an identity backward) each rank
+    sees only its own sum's term, and they are not, while the output is
+    the same."""
+    for r in ranks:
+        for name, ok in (("all_reduce", True), ("reduce_from", False)):
+            got = r[f"norm/{name}"]
+            cols = got["cols"]
+            for k in ("y", "z"):
+                want = single[f"norm/grad_{k}"][..., cols]
+                close = np.abs(_np(got[k]) - _np(want)).max() \
+                    <= GRAD_TOL * np.abs(_np(want)).max()
+                assert close == ok, (name, k, r["coords"])
+
+
 def _rule_case(ranks, case):
     return [r[f"rule/{case}"] for r in ranks]
 
@@ -369,9 +428,10 @@ def _one_device(single, case, what):
 def test_rule_set_step_loss_matches_one_device_and_jax(ranks, single, oracle,
                                                        case):
     """loss and grad norm of the train step under each rule set
-    (``seqparallel``: llama, phi3.5-moe; ``fsdp``: qwen2-vl;
-    ``fsdp_seqparallel``: llama) on every rank, against one device and
-    JAX's sharded step under the same rules."""
+    (``seqparallel``: llama, phi3.5-moe; ``fsdp``: qwen2-vl, mamba2;
+    ``fsdp_seqparallel``: llama; ``default``: mamba2, zamba2) on every
+    rank, against one device and JAX's sharded step under the same
+    rules."""
     jax_out = oracle.result()
     loss, gn = (_one_device(single, case, w) for w in ("loss", "grad_norm"))
     for r in _rule_case(ranks, case):

@@ -2,8 +2,11 @@
 """The distributed layer on one card, alone: ``chip_smoke.py``'s
 ``flash_decode`` log-sum-exp checks and times, its ``flash_attention``
 query-offset checks, planted fault and times (the sequence-parallel
-ranks' shapes), then its ``[dist:*]`` phases (two gloo ranks sharing the
-card; sizes, gates and planted faults at ``chip_smoke.DIST_TRAIN_GATES``).
+ranks' shapes), its ``ssd`` and ``ssd_bwd`` checks and times at the heads
+of one of two model ranks and ``flash_attention`` at zamba2's shared
+block's (the head-parallel Mamba-2 program's shapes), then its
+``[dist:*]`` phases (two gloo ranks sharing the card; sizes, gates and
+planted faults at ``chip_smoke.DIST_TRAIN_GATES``).
 
     python3 tools/dist_probe.py [--checks-only]
 
@@ -27,6 +30,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as tssd
     if not torch.cuda.is_available():
         raise SystemExit("dist_probe: no CUDA device")
     t0 = time.perf_counter()
@@ -52,6 +56,26 @@ def main() -> int:
                   f"{x['plain_ms']:.4f} ms, library {x['library_ms']:.4f} "
                   f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']})",
                   flush=True)
+    cs.check_ssd(tssd, ref, [c for dt in (torch.bfloat16, torch.float32)
+                             for c in cs.ssd_rank_cases(dt)])
+    cs.check_ssd_bwd(tssd, ref, [c for c in cs.SSD_BWD_CASES
+                                 if c[0] in cs.SSD_RANK_HEADS])
+    cs.check_flash_attention(tfa, ref, cs.ZAMBA2_RANK_FA_CASES)
+    times = {}
+    for model in cs.SSD_RANK_HEADS:
+        t = cs.time_ssd_train(tssd, ref, model)
+        times[f"ssd train {model}"] = t["fwd"]
+        times[f"ssd_bwd train {model}"] = t["bwd"]
+    t = cs.time_flash_attention(tfa, ref, cs.ZAMBA2_RANK_FA)
+    times["flash_attention zamba2 rank"] = t["fwd"]
+    times["flash_attention_bwd zamba2 rank"] = t["bwd"]
+    for name, x in times.items():
+        lib = (f"{x['library_ms']:.4f} ms" if x["library_ms"] is not None
+               else "none")
+        print(f"[time] {name} {x['shape']}: kernel {x['ms']:.4f} ms (eager "
+              f"{x['host_ms']:.4f}), plain {x['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {x['bound_ms']:.4f} ms ({x['bound_by']})",
+              flush=True)
     if "--checks-only" not in sys.argv:
         cs.dist_phases()
     print(f"[probe] done in {time.perf_counter() - t0:.1f}s; {cs._smi_line()}")
