@@ -154,8 +154,21 @@ caught):
      (``DIST_FAULT_GATES``), and ``[dist:train-olmoe]`` (expert parallelism over
      the bf16 and int8 wires at a capacity that drops nothing, with its
      planted fault; one MoE layer's output against the local path; a
-     decode step of all 16 layers under the mesh); each rank's kernels
-     launched (``launches_dist`` in the kernels line).  After phase 2's
+     decode step of all 16 layers under the mesh), ``[dist:prefill]``
+     (the serving step functions on the mesh: 8 prompts of 1100-1900
+     rows, each one chunk across the 1024-row slice edge of a 2048-row
+     cache, then per-slot decode steps; llama bf16 at 4 of 28 layers
+     under ``seqparallel`` and ``default``, f32 at 2 layers, zamba2 f32 at
+     7; last logits, both ranks' cache rows and the steps against one
+     device, ``DIST_BF16_DRIFT`` in bf16; two planted faults, the
+     whole-slot write and a combine without the other slice) and
+     ``[dist:serve-engine]`` (the eager ``ServeEngine`` on both ranks,
+     dense and paged, 16/16 streams equal one device's); each rank's
+     kernels launched (``launches_dist`` in the kernels line).  After the
+     ``cache_update`` checks, ``[check] cache_update clip`` lines (the
+     dense write's row-level clip, bit for bit its plain version, and the
+     whole-slot rule's planted fault); after the ``ssd`` checks,
+     ``[check] ssd f32 vs float64`` lines.  After phase 2's
      ``flash_decode`` checks, ``[check] flash_decode lse`` lines (the
      log-sum-exp output the combine needs, with its planted fault) and
      ``[time] flash_decode lse`` (beside ``flex_attention``'s lse); the
@@ -737,6 +750,71 @@ def check_cache_update(tfa, ref):
             if not exact:
                 raise AssertionError("cache_update is not bit-exact")
     return checks
+
+
+#: [check] cache_update clip: local offsets of a rank's 1024-row slice of
+#: a 2048-row cache cut by sequence: before it, across its start, inside,
+#: across its end, at it and past it (a done lane's max_seq)
+CLIP_SLICE = 1024
+CLIP_INDEX = [-300, -100, 0, 900, 1000, 1023, 1024, 2048]
+
+
+def check_cache_update_clip(tfa, ref):
+    """The write's row-level clip (``clip_rows``: only the sharded path of
+    ``models/layers.py`` sets it): the kernel against its plain version,
+    bit for bit (cache and rotated q), on a rank's 1024-row slice at the
+    local offsets CLIP_INDEX, chunks of 1 and 256 rows, bare and with RoPE
+    of q and k, at llama's (24, 8, 128) and zamba2's (32, 32, 64) heads,
+    bf16 and f32.  The planted fault: the same calls under the whole-slot
+    rule (``clip_rows=False``), held to the clipped plain version, must
+    leave rows unwritten in every 256-row case (each has chunks that
+    straddle the slice's ends).  Returns (checks, fault)."""
+    import torch
+    B, S = len(CLIP_INDEX), CLIP_SLICE
+    checks, fault = [], []
+    for dtype, (H, K, D), Sn, rope in itertools.product(
+            (torch.bfloat16, torch.float32), ((24, 8, 128), (32, 32, 64)),
+            (1, 256), (False, True)):
+        g = torch.Generator(device="cuda").manual_seed(len(checks))
+        kc, vc = (torch.randn((B, S, K, D), generator=g,
+                              device="cuda").to(dtype) for _ in range(2))
+        kn, vn = (torch.randn((B, Sn, K, D), generator=g,
+                              device="cuda").to(dtype) for _ in range(2))
+        idx = torch.tensor(CLIP_INDEX, dtype=torch.int32, device="cuda")
+        kw = {}
+        if rope:
+            ang = torch.rand((B, Sn, D // 2), generator=g, device="cuda") * 6
+            kw = dict(q=torch.randn((B, Sn, H, D), generator=g,
+                                    device="cuda").to(dtype),
+                      cos=torch.cos(ang), sin=torch.sin(ang))
+        got = tfa.cache_update(kc.clone(), vc.clone(), kn, vn, idx,
+                               clip_rows=True, **kw)
+        want = ref.rope_kv_cache_update_ref(
+            kc.clone(), vc.clone(), kn, vn, idx, clip_rows=True,
+            **kw) if rope else ref.kv_cache_update_ref(
+                kc.clone(), vc.clone(), kn, vn, idx, clip_rows=True)
+        whole = tfa.cache_update(kc.clone(), vc.clone(), kn, vn, idx,
+                                 clip_rows=False, **kw)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        # rows of the slice the clipped write fills and the whole-slot one
+        # leaves as they were
+        missed = (whole[0] != want[0]).any(-1).any(-1).sum().item()
+        case = {"dtype": str(dtype).split(".")[1], "heads": (H, K, D),
+                "Sn": Sn, "rope": rope, "bit_exact": exact}
+        checks.append(case)
+        fault.append(dict(case, rows_missed=missed))
+        print(f"[check] cache_update clip {case}", flush=True)
+        if not exact:
+            raise AssertionError(f"cache_update clip_rows disagrees: {case}")
+    missed = [f["rows_missed"] for f in fault if f["Sn"] > 1]
+    print(f"[check] cache_update clip planted fault (the whole-slot rule on "
+          f"the straddling chunks): rows the clipped write fills and it "
+          f"misses, by 256-row case: {missed} (each must be > 0)",
+          flush=True)
+    if not all(m > 0 for m in missed):
+        raise AssertionError("the whole-slot rule passes the clip's check")
+    return checks, fault
 
 
 def _paged_case(B, S, H, K, D, Sq, bs, dtype, kv_len, seed):
@@ -1897,6 +1975,55 @@ def check_ssd(tssd, ref, cases=None):
         cases += [(dtype, "edges", 8, 48, 96, 256, 2, True, -3.0, False, 128),
                   (dtype, "edges", 4, 16, 32, 96, 1, True, -3.0, False, 48)]
     return _check_ssd_cases(tssd, ref, cases)
+
+
+#: seeds of the f32 ``ssd`` forward against the float64 plain version
+SSD_F64_SEEDS = (9100, 9101, 9102)
+
+
+def check_ssd_f32_exact(tssd, ref, models=None):
+    """The f32 ``ssd`` forward (its prefill chunks run from a cache lane's
+    h0, on a rank's heads under the head-parallel program) against the
+    plain version in float64 of the same inputs, by the f32 per-entry rule
+    of y and of the final state: the training shape (Bb 2, S 2048, chunk
+    128) with h0, at the models' dt scale and at dt_shift -3, at mamba2's
+    and zamba2's heads whole and on one of two model ranks (``models``, if
+    given, names some of them), SSD_F64_SEEDS each.  Each line also gives
+    the f32 plain version's distance, the bound a kernel of f32 sums can
+    be held to."""
+    import torch
+    heads = {**SSD_HEADS, **SSD_RANK_HEADS}
+    checks = []
+    for model in models or heads:
+        H, P, N = heads[model]
+        worst = {"y": 0.0, "state": 0.0, "plain_y": 0.0, "plain_state": 0.0}
+        for seed in SSD_F64_SEEDS:
+            for shift in (0.0, -3.0):
+                args = _ssd_case(TRAIN_B, TRAIN_S, H, P, 1, N, torch.float32,
+                                 seed, shift)
+                got = tssd.ssd(*args, chunk=128)
+                plain = ref.ssd_chunked(*args, chunk=128)
+                exact = ref.ssd_chunked(*(t.double() for t in args),
+                                        chunk=128)
+                for key, (a, p, w) in (("y", (got[0], plain[0], exact[0])),
+                                       ("state", (got[1], plain[1],
+                                                  exact[1]))):
+                    worst[key] = max(worst[key], _entry_ratio(
+                        "float32", a, w).max().item())
+                    worst["plain_" + key] = max(
+                        worst["plain_" + key],
+                        _entry_ratio("float32", p, w).max().item())
+        checks.append({"model": model, "H": H, "P": P, "N": N, **worst})
+        print(f"[check] ssd f32 vs float64 {model} H={H} P={P} N={N} "
+              f"Bb={TRAIN_B} S={TRAIN_S} chunk=128 h0, dt_shift 0 and -3, "
+              f"{len(SSD_F64_SEEDS)} seeds: worst entry / the f32 rule: y "
+              f"{worst['y']:.3f}, state {worst['state']:.3f} (the f32 plain "
+              f"version: {worst['plain_y']:.3f}, "
+              f"{worst['plain_state']:.3f})", flush=True)
+        if not (worst["y"] <= 1.0 and worst["state"] <= 1.0):
+            raise AssertionError(f"ssd f32 off the exact forward: "
+                                 f"{checks[-1]}")
+    return checks
 
 
 def _check_ssd_cases(tssd, ref, cases):
@@ -3286,7 +3413,7 @@ def serve_arm(tfa, cfg, run, params, specs, dense_streams, name, paged,
     return launches, stats
 
 
-AB_PAIRS, AB_CHUNKS = 10, 2     # [serve:graph-ab]: pairs, chunks a turn
+AB_PAIRS, AB_CHUNKS = 5, 2      # [serve:graph-ab]: pairs, chunks a turn
 
 
 def _steps_ms(engine, chunks):
@@ -3441,7 +3568,7 @@ def graph_ab(tfa, cfg, run, params):
     return out
 
 
-PREFILL_AB_PAIRS = 10     # [serve:prefill-ab]: alternating pairs
+PREFILL_AB_PAIRS = 3      # [serve:prefill-ab]: alternating pairs
 
 
 def _prefill_turn(engine, prompts):
@@ -6910,7 +7037,7 @@ def lsms_phases(card):
 LLAMA_HEADS = (24, 8, 128)
 #: [dist:decode]: the bf16 arm at 8 of llama's 28 layers (every layer runs
 #: the same program; 28 until PR 32) and the f32 arm at 2
-DIST_DECODE = dict(B=8, prompt=1024, max_seq=2048, steps=32,
+DIST_DECODE = dict(B=8, prompt=1024, max_seq=2048, steps=16,
                    layers={"bf16": 8, "f32": 2})
 #: the llama [dist:train*] steps at 2 of 28 layers (4 until PR 32)
 DIST_TRAIN = dict(layers=2, B=2, S=2048)
@@ -7798,10 +7925,381 @@ def _dist_phase_olmoe(rank, mesh):
     return out
 
 
-def dist_rank_all(rank, world, ckpt_dir):
-    """Every [dist:*] phase on this rank, in one process: mesh (1, 2) and
-    (2, 1) over the same two ranks (two sets of groups), each phase's
-    memory released before the next."""
+#: [dist:prefill]: the serving step functions on the mesh (item 14b (d)).
+#: Eight prompts of 1100-1900 rows, each prefilled on the mesh as one
+#: chunk into its slot of a 2048-row cache, so every chunk crosses the
+#: 1024-row slice edge (the write's row-level clip, the log-sum-exp
+#: combine over a whole chunk), then DIST_PREFILL["steps"] per-slot decode
+#: steps teacher-forced by the unsharded stream.  Arms: (tag, dtype, rules,
+#: arch, layers): llama at full width, 4 of 28 layers in bf16 under its
+#: serve rules (seqparallel: each chunk gathers the layers' weights whole
+#: through the host) and default,
+#: 2 layers in f32 under default (streams gated); zamba2 f32 at 7 layers
+#: under default (the Mamba-2 prefill on each rank's heads, the shared
+#: block's q_delta path)
+DIST_PREFILL = dict(B=8, lens=(1100, 1900), max_seq=2048, steps=4,
+                    arms=(("bf16-seqpar", "bfloat16", "seqparallel", ARCH, 4),
+                          ("bf16-default", "bfloat16", "default", ARCH, 4),
+                          ("f32-default", "float32", "default", ARCH, 2),
+                          ("zamba2-f32", "float32", "default", HYBRID_ARCH,
+                           7)))
+#: the planted faults of [dist:prefill], each run on the bf16 default
+#: arm's first DIST_PREFILL_FAULT_PROMPTS prompts, whose last logits must
+#: then differ from one device's by at least DIST_BF16_DRIFT
+DIST_PREFILL_FAULTS = {
+    "clip": "the straddling chunk written with the whole-slot rule "
+            "(dropped on both ranks)",
+    "combine": "the log-sum-exp combine without the other rank's slice"}
+DIST_PREFILL_FAULT_PROMPTS = 2
+#: [dist:prefill]'s gate in bf16: the reference's bf16 bound on decode
+#: logits (max|diff| < 0.15, ``repro``'s tests/test_serving.py:63, "bf16
+#: cache drift"), on logits and cache rows alike.  The per-entry rule
+#: (ATTN_RTOL) holds one kernel to its plain version; four layers whose
+#: row-parallel sums round in another order on the mesh drift past it on
+#: entries near zero (read 276-587x it, max|diff| 0.031 on the logits, on
+#: an NVIDIA H100 80GB HBM3 at 700 W).  f32 arms keep the per-entry rule.
+DIST_BF16_DRIFT = 0.15
+#: [dist:serve-engine]: the eager ServeEngine on both ranks against one
+#: device's eager engine, llama f32 at 2 layers under default (under
+#: seqparallel every step gathers the weights whole through the host,
+#: ~0.4 GB a step at f32; tests/test_torch_distributed.py runs the engine
+#: under seqparallel on the CPU), dense and paged, 16 requests
+DIST_ENGINE = dict(requests=16, lens=(100, 600), new=16, batch_size=8,
+                   max_seq=2048, prefill_chunk=256, decode_chunk=8,
+                   block_size=16, layers=2)
+
+
+def _dist_prompts(cfg, seed, B, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, int(n)).tolist()
+            for n in rng.integers(lens[0], lens[1] + 1, B)]
+
+
+def _dist_worst(got, want, dtype):
+    """The worst entry's |got - want| over its per-entry limit."""
+    got, want = got.float(), want.float()
+    limit = (ATTN_RTOL[dtype] * want.abs()
+             + ATTN_ATOL * want.abs().max())
+    return ((got - want).abs() / limit).max().item()
+
+
+def _dist_prefill_chunks(step, params, cache, prompts, idx=None):
+    """Each prompt (its first ``idx`` of them) prefilled as one chunk into
+    its slot; returns (their last logits (B, V), ms per chunk)."""
+    import torch
+    logits, ms = [], []
+    with torch.no_grad():
+        for b, p in enumerate(prompts[:idx]):
+            tok = torch.tensor([p], dtype=torch.int64, device="cuda")
+            (_, lg), t = _dist_sync_ms(lambda: step(params, cache, tok, b, 0))
+            logits.append(lg)
+            ms.append(t)
+    return torch.cat(logits), ms
+
+
+def _dist_prefill_run(arm, dtype, rules, arch, layers, seed, mesh, rank):
+    """One [dist:prefill] arm on this rank: the prompts prefilled on one
+    device (each rank its own copy, so each holds the unsharded cache its
+    slice is compared with), rank 0 also the unsharded decode steps (the
+    other waits); then the prefill on the mesh, chunk by chunk, and the
+    per-slot decode steps teacher-forced by rank 0's stream.  Returns the
+    numbers rank 0 reports."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import (make_decode_step,
+                                            make_prefill_chunk_step)
+    from repro_torch.sharding import RULE_SETS, collectives as C
+    cfg = dataclasses.replace(get_model_config(arch), n_layers=layers)
+    run = get_run_config(arch, rules_name=rules, compute_dtype=dtype)
+    ctx0 = Ctx(run, "cuda")
+    ctx = Ctx(run, "cuda", RULE_SETS[rules], mesh)
+    B, S, steps = DIST_PREFILL["B"], DIST_PREFILL["max_seq"], \
+        DIST_PREFILL["steps"]
+    prompts = _dist_prompts(cfg, seed, B, DIST_PREFILL["lens"])
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    params = _dist_draw(cfg, ctx0, seed)
+    cache = lm.init_cache(ctx0, cfg, B, S)
+    want, full_ms = _dist_prefill_chunks(make_prefill_chunk_step(
+        cfg, run, ctx0), params, cache, prompts)
+    want_shard = lm.shard_cache(ctx, cfg, cache)
+    stream = torch.zeros((steps, B), dtype=torch.int64)
+    full_logits = []
+    if rank == 0:
+        step = make_decode_step(cfg, run, ctx0)
+        tok = want.argmax(-1)
+        with torch.no_grad():
+            for i in range(steps):
+                stream[i] = tok.cpu()
+                cache, lg = step(params, cache, tok[:, None],
+                                 (lens + i).cuda())
+                full_logits.append(lg.float().cpu())
+                tok = lg.argmax(-1)
+    dist.broadcast(stream, src=0)
+    del cache
+    sp = shard_params(params, _dist_param_specs(cfg, ctx), mesh)
+    del params
+    torch.cuda.empty_cache()
+    shard = lm.init_cache(ctx, cfg, B, S)
+    tfa.reset_launch_counts()
+    C.reset_staged()
+    got, ms = _dist_prefill_chunks(make_prefill_chunk_step(cfg, run, ctx),
+                                   sp, shard, prompts)
+    staged_prefill = C.staged_total()
+    name = "float32" if dtype == "float32" else "bfloat16"
+    out = {"prefill_ms_per_chunk": float(np.median(ms)),
+           "unsharded_ms_per_chunk": float(np.median(full_ms)),
+           "staged_gb_per_chunk": staged_prefill / len(prompts) / 1e9,
+           "rows": [len(p) for p in prompts],
+           "logits_worst_over_limit": _dist_worst(got, want, name),
+           "logits_max_abs_diff": (got.float() - want.float()).abs()
+           .max().item()}
+    pairs = []
+    for key, leaves in want_shard.items():
+        for k, w in leaves.items():
+            if key == "mamba":
+                # the recurrent state: the chunk's final state by heads
+                pairs.append((shard[key][k], w))
+                continue
+            for b, n in enumerate(out["rows"]):
+                r0 = mesh.coord("model") * w.shape[2]
+                hi = max(0, min(n - r0, w.shape[2]))
+                if hi:
+                    pairs.append((shard[key][k][:, b, :hi], w[:, b, :hi]))
+    out["cache_worst_over_limit"] = max(_dist_worst(a, w, name)
+                                        for a, w in pairs)
+    out["cache_max_abs_diff"] = max((a.float() - w.float()).abs().max()
+                                    .item() for a, w in pairs)
+    del want_shard, pairs
+    step = make_decode_step(cfg, run, ctx)
+    equal, worst, dec_ms = torch.ones(B, dtype=torch.bool), 0.0, []
+    diff = 0.0
+    with torch.no_grad():
+        for i in range(steps):
+            tok = stream[i].cuda()[:, None]
+            (shard, lg), t = _dist_sync_ms(
+                lambda: step(sp, shard, tok, (lens + i).cuda()))
+            dec_ms.append(t)
+            if rank == 0:
+                worst = max(worst, _dist_worst(lg.float().cpu(),
+                                               full_logits[i], name))
+                diff = max(diff, (lg.float().cpu() - full_logits[i]).abs()
+                           .max().item())
+                equal &= lg.argmax(-1).cpu() == full_logits[i].argmax(-1)
+                if not torch.isfinite(lg).all():
+                    raise AssertionError("[dist:prefill] non-finite logits")
+    out.update(launches=_dist_launches(tfa),
+               staged_bytes=C.staged_total(), staged_prefill=staged_prefill,
+               decode_ms_per_step=float(np.median(dec_ms)),
+               decode_worst_over_limit=worst, decode_max_abs_diff=diff,
+               streams_equal=int(equal.sum()), streams=B)
+    if arm == "bf16-default":
+        out["faults"] = _dist_prefill_faults(cfg, run, ctx, sp, prompts,
+                                             want, name)
+    return out
+
+
+def _dist_prefill_faults(cfg, run, ctx, params, prompts, want, dtype):
+    """The planted faults of [dist:prefill] on the first prompts, each on
+    a fresh cache: the worst logit entry over its limit (must be > 1)."""
+    import types
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import make_prefill_chunk_step
+    n = DIST_PREFILL_FAULT_PROMPTS
+
+    def whole_slot(*args, clip_rows=False, **kw):
+        return ops.kv_cache_update(*args, **kw)
+
+    out = {}
+    for key, fault in (
+            ("clip", _swapped(L, "ops", types.SimpleNamespace(
+                **{**vars(ops), "kv_cache_update": whole_slot}))),
+            ("combine", _planted(L, psum=lambda x, axes, mesh: x.clone()))):
+        cache = lm.init_cache(ctx, cfg, DIST_PREFILL["B"],
+                              DIST_PREFILL["max_seq"])
+        with fault:
+            got, _ = _dist_prefill_chunks(make_prefill_chunk_step(
+                cfg, run, ctx), params, cache, prompts, n)
+        out[key] = {"worst_over_limit": _dist_worst(got, want[:n], dtype),
+                    "max_abs_diff": (got.float() - want[:n].float()).abs()
+                    .max().item()}
+        del cache
+    return out
+
+
+def _dist_phase_prefill(rank, mesh):
+    """[dist:prefill] on mesh (1, 2): every arm of DIST_PREFILL."""
+    import torch
+    out = {}
+    for i, (arm, dtype, rules, arch, layers) in enumerate(
+            DIST_PREFILL["arms"]):
+        out[arm] = _dist_prefill_run(arm, dtype, rules, arch, layers, 41 + i,
+                                     mesh, rank)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_phase_engine(rank, mesh):
+    """[dist:serve-engine] on mesh (1, 2): the eager engine on both ranks
+    over their shards, dense and paged, and on rank 0 one device's eager
+    engine over the same weights and requests."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_model_config, get_run_config
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.sharding import RULE_SETS, collectives as C
+    E = DIST_ENGINE
+    cfg = dataclasses.replace(get_model_config(ARCH), n_layers=E["layers"])
+    run = get_run_config(ARCH, rules_name="default", compute_dtype="float32")
+    ctx0 = Ctx(run, "cuda")
+    ctx = Ctx(run, "cuda", RULE_SETS["default"], mesh)
+    params = _dist_draw(cfg, ctx0, 51)
+    prompts = _dist_prompts(cfg, 52, E["requests"], E["lens"])
+    kw = {k: E[k] for k in ("batch_size", "max_seq", "prefill_chunk",
+                            "decode_chunk")}
+
+    def serve(c, p, paged):
+        eng = ServeEngine(cfg, run, c, p, eager=True, paged=paged,
+                          block_size=E["block_size"], **kw)
+        reqs = [Request(uid=i, prompt=q, max_new_tokens=E["new"])
+                for i, q in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.generate(reqs)
+        torch.cuda.synchronize()
+        return {r.uid: list(r.generated) for r in done}, \
+            time.perf_counter() - t0, eng.sync_count
+
+    out = {}
+    for mode, paged in (("dense", False), ("paged", True)):
+        want = serve(ctx0, params, paged)[0] if rank == 0 else None
+        dist.barrier()
+        sp = shard_params(params, _dist_param_specs(cfg, ctx), mesh)
+        tfa.reset_launch_counts()
+        C.reset_staged()
+        got, secs, syncs = serve(ctx, sp, paged)
+        out[mode] = {"launches": _dist_launches(tfa), "seconds": secs,
+                     "staged_bytes": C.staged_total(), "host_syncs": syncs,
+                     "tokens": E["requests"] * E["new"]}
+        if rank == 0:
+            out[mode]["streams_equal"] = sum(got[u] == want[u] for u in want)
+        del sp
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_report_prefill(ranks, secs):
+    """[dist:prefill] and [dist:serve-engine]."""
+    out, failed = {}, []
+    card = _smi_line()
+    res = [r["prefill"] for r in ranks]
+    for arm, dtype, rules, arch, layers in DIST_PREFILL["arms"]:
+        r0, r1 = res[0][arm], res[1][arm]
+        launches = [r[arm]["launches"] for r in res]
+        _dist_need(launches, ("cache_update", "flash_decode")
+                   + (("ssd",) if arch == HYBRID_ARCH else ()),
+                   "dist:prefill")
+        full = 38 if arch == HYBRID_ARCH else 28
+        worst = max(r0["cache_worst_over_limit"],
+                    r1["cache_worst_over_limit"])
+        cdiff = max(r0["cache_max_abs_diff"], r1["cache_max_abs_diff"])
+        gate = ("the per-entry rule" if dtype == "float32" else
+                f"bf16: max|diff| < {DIST_BF16_DRIFT}")
+        print(f"[dist:prefill] {arch} {arm}, {layers} of {full} layers, "
+              f"rules {rules}, mesh (1, 2) over gloo (two ranks sharing the "
+              f"card; collectives staged through the host, not a "
+              f"multi-card time): {DIST_PREFILL['B']} prompts of "
+              f"{min(r0['rows'])}-{max(r0['rows'])} rows, each one chunk "
+              f"into a {DIST_PREFILL['max_seq']}-row cache cut at "
+              f"{DIST_PREFILL['max_seq'] // 2}: last logits worst entry / "
+              f"its limit {r0['logits_worst_over_limit']:.3f} (max|diff| "
+              f"{r0['logits_max_abs_diff']:.3e}), cache rows worst "
+              f"{worst:.3f} (max|diff| {cdiff:.3e}; both ranks' slices); "
+              f"gate {gate}; ms per chunk sharded "
+              f"{r0['prefill_ms_per_chunk']:.1f} / "
+              f"{r1['prefill_ms_per_chunk']:.1f} by rank (unsharded "
+              f"{r0['unsharded_ms_per_chunk']:.1f}), "
+              f"{r0['staged_gb_per_chunk']:.3f} / "
+              f"{r1['staged_gb_per_chunk']:.3f} GB staged a rank a chunk; "
+              f"{DIST_PREFILL['steps']} per-slot decode steps "
+              f"teacher-forced: worst {r0['decode_worst_over_limit']:.3f} "
+              f"(max|diff| {r0['decode_max_abs_diff']:.3e}), "
+              f"{r0['streams_equal']}/{r0['streams']} greedy streams equal, "
+              f"{r0['decode_ms_per_step']:.1f} ms a step; launches by rank "
+              f"{launches}; {card}", flush=True)
+        out[arm] = {"rank0": r0, "rank1": r1, "launches": launches}
+        for what, x, d in (
+                ("last logits", r0["logits_worst_over_limit"],
+                 r0["logits_max_abs_diff"]),
+                ("cache rows", worst, cdiff),
+                ("decode logits", r0["decode_worst_over_limit"],
+                 r0["decode_max_abs_diff"])):
+            if not (x <= 1.0 if dtype == "float32" else d < DIST_BF16_DRIFT):
+                failed.append(f"[dist:prefill] {arm} {what} apart: {x} of "
+                              f"the per-entry rule, max|diff| {d}")
+        if dtype == "float32" and r0["streams_equal"] != DIST_PREFILL["B"]:
+            failed.append(f"[dist:prefill] {arm} streams differ from the "
+                          f"unsharded ones")
+    faults = res[0]["bf16-default"]["faults"]
+    for key, x in faults.items():
+        print(f"[dist:prefill] planted fault ({DIST_PREFILL_FAULTS[key]}), "
+              f"{DIST_PREFILL_FAULT_PROMPTS} prompts, bf16 default: last "
+              f"logits max|diff| {x['max_abs_diff']:.3g} (must be >= "
+              f"{DIST_BF16_DRIFT}), worst entry / its limit "
+              f"{x['worst_over_limit']:.3g}", flush=True)
+        if not x["max_abs_diff"] >= DIST_BF16_DRIFT:
+            failed.append(f"[dist:prefill] planted fault {key!r} passes: "
+                          f"{x}")
+    out["faults"] = faults
+    print(f"[dist:prefill] {secs['prefill']:.1f} s for the phase",
+          flush=True)
+    res = [r["engine"] for r in ranks]
+    E = DIST_ENGINE
+    for mode in ("dense", "paged"):
+        r0, r1 = res[0][mode], res[1][mode]
+        launches = [r[mode]["launches"] for r in res]
+        names = (("cache_update_paged", "flash_decode_paged") if
+                 mode == "paged" else ("cache_update", "flash_decode"))
+        _dist_need(launches, names, "dist:serve-engine")
+        print(f"[dist:serve-engine] {ARCH} f32, {E['layers']} layers, rules "
+              f"default, {mode}: the eager ServeEngine on both ranks of mesh "
+              f"(1, 2) over gloo (not a multi-card time), {E['requests']} "
+              f"requests of {E['lens'][0]}-{E['lens'][1]} rows x "
+              f"{E['new']} tokens, batch {E['batch_size']}: "
+              f"{r0['streams_equal']}/{E['requests']} streams equal one "
+              f"device's eager engine; {r0['seconds']:.2f} / "
+              f"{r1['seconds']:.2f} s by rank, "
+              f"{r0['tokens'] / r0['seconds']:.1f} tok/s, "
+              f"{r0['host_syncs']} host syncs, "
+              f"{r0['staged_bytes'] / 1e9:.3f} GB staged a rank; launches "
+              f"by rank {launches}; {card}", flush=True)
+        out["engine_" + mode] = {"rank0": r0, "rank1": r1,
+                                 "launches": launches}
+        if r0["streams_equal"] != E["requests"]:
+            failed.append(f"[dist:serve-engine] {mode}: "
+                          f"{r0['streams_equal']}/{E['requests']} streams "
+                          f"equal")
+    print(f"[dist:serve-engine] {secs['engine']:.1f} s for the phase",
+          flush=True)
+    return out, failed
+
+
+def dist_rank_all(rank, world, ckpt_dir, only=None):
+    """Every [dist:*] phase on this rank (those named in ``only``, if
+    given), in one process: mesh (1, 2) and (2, 1) over the same two ranks
+    (two sets of groups), each phase's memory released before the
+    next."""
     import torch
     import torch.distributed as dist
     _dist_rank_setup()
@@ -7825,7 +8323,11 @@ def dist_rank_all(rank, world, ckpt_dir):
                          rank, dp, "fsdp", "fsdp")),
                      ("elastic", lambda: _dist_phase_elastic(rank, dp,
                                                              ckpt_dir)),
-                     ("olmoe", lambda: _dist_phase_olmoe(rank, tp))):
+                     ("olmoe", lambda: _dist_phase_olmoe(rank, tp)),
+                     ("prefill", lambda: _dist_phase_prefill(rank, tp)),
+                     ("engine", lambda: _dist_phase_engine(rank, tp))):
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         out[name] = fn()
         torch.cuda.empty_cache()
@@ -7877,6 +8379,74 @@ def dist_rank_reduced(rank, world):
     return {"decode_rel_diff": max(diffs), "decode_launches": decode_launches,
             **{k: train[k] for k in ("loss_rel", "grad_norm_rel", "grad_rel",
                                      "params_apart", "launches")}}
+
+
+def dist_rank_reduced_serve(rank, world):
+    """Reduced llama on the card, f32, mesh (1, 2), under ``default`` and
+    ``seqparallel``: a 40-row prompt prefilled into slot 1 of a 64-row
+    cache in chunks of 24 and 16 rows (the second straddling the slices'
+    edge at 32), a per-slot decode step with a done lane, the same chunks
+    through a paged pool, and the eager engine over three requests, each
+    against one device; with the launches of the sharded parts.
+    ``tests/test_torch_distributed_card.py`` runs it."""
+    import torch
+    _dist_rank_setup()
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import (Request, ServeEngine,
+                                            make_decode_step,
+                                            make_prefill_chunk_step,
+                                            make_prefill_chunk_step_paged)
+    from repro_torch.sharding import RULE_SETS
+    mesh = make_mesh_for((1, 2), ("data", "model"), device_type="cpu")
+    cfg, run = _dist_reduced_train()
+    ctx0 = Ctx(run, "cuda")
+    params = _dist_draw(cfg, ctx0, 12)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 41))).cuda()
+    index = torch.tensor([40, 64], dtype=torch.int32, device="cuda")
+
+    def steps(ctx, p):
+        out = {}
+        with torch.no_grad():
+            cache = lm.init_cache(ctx, cfg, 2, 64)
+            chunk = make_prefill_chunk_step(cfg, run, ctx)
+            for j, (o, n) in enumerate(((0, 24), (24, 16))):
+                _, out[f"chunk{j}"] = chunk(p, cache, toks[1:, o:o + n], 1, o)
+            _, out["decode"] = make_decode_step(cfg, run, ctx)(
+                p, cache, toks[:, 40:], index)
+            pc = lm.init_paged_cache(ctx, cfg, 2, 64, 16)
+            pc["block_tables"].copy_(torch.tensor([[4, 5, 6, 7],
+                                                   [3, 0, 2, 1]]))
+            paged = make_prefill_chunk_step_paged(cfg, run, ctx)
+            for j, (o, n) in enumerate(((0, 24), (24, 16))):
+                _, out[f"paged{j}"] = paged(p, pc, toks[1:, o:o + n], 1, o)
+            eng = ServeEngine(cfg, run, ctx, p, batch_size=2, max_seq=64,
+                              prefill_chunk=16, decode_chunk=4, eager=True)
+            done = eng.generate([Request(uid=i, prompt=toks[0, :n].tolist(),
+                                         max_new_tokens=6)
+                                 for i, n in enumerate((40, 17, 9))])
+            out["streams"] = {r.uid: list(r.generated) for r in done}
+        return out
+
+    want = steps(ctx0, params)
+    res = {}
+    for rules in ("default", "seqparallel"):
+        ctx = Ctx(run.replace(rules_name=rules), "cuda", RULE_SETS[rules],
+                  mesh)
+        sp = shard_params(params, _dist_param_specs(cfg, ctx), mesh)
+        tfa.reset_launch_counts()
+        got = steps(ctx, sp)
+        res[rules] = {
+            "rel_diff": max(((got[k] - want[k]).abs().max()
+                             / want[k].abs().max()).item()
+                            for k in want if k != "streams"),
+            "streams_equal": got["streams"] == want["streams"],
+            "launches": _dist_launches(tfa)}
+    return res
 
 
 def dist_rank_reduced_rules(rank, world):
@@ -8188,28 +8758,40 @@ def dist_report_olmoe(ranks, secs):
     return out, failed
 
 
-def dist_phases():
-    """Every [dist:*] phase: one spawn of two ranks runs them all
-    (``dist_rank_all``), then the elastic restart in this process; the
-    caller has built the kernels, so the ranks load them and none builds.
-    Every phase prints before any failed gate raises."""
+def dist_phases(only=None):
+    """Every [dist:*] phase (with ``only``, the ``dist_rank_all`` phases it
+    names): one spawn of two ranks runs them all, then the elastic restart
+    in this process; the caller has built the kernels, so the ranks load
+    them and none builds.  Every phase prints before any failed gate
+    raises."""
     import tempfile
     from repro_torch.launch.mesh import spawn_ranks
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dist-ckpt-") as ckpt:
-        ranks = spawn_ranks(dist_rank_all, 2, "gloo", args=(ckpt,),
+        ranks = spawn_ranks(dist_rank_all, 2, "gloo", args=(ckpt, only),
                             timeout_s=DIST_SPAWN_TIMEOUT_S,
                             collective_timeout_s=300)
         wall = time.perf_counter() - t0
-        restored = dist_elastic_restore(ckpt)
+        restored = (dist_elastic_restore(ckpt)
+                    if only is None or "elastic" in only else None)
     secs = ranks[0]["seconds"]
     out, failed = {"spawn_s": wall, "phase_s": secs}, []
-    for key, (rec, f) in (
-            ("decode", dist_report_decode(ranks, secs["decode"]
-                                          + secs["decode_seqpar"])),
-            ("train", dist_report_train(ranks, secs, restored)),
-            ("ssm", dist_report_ssm(ranks, secs)),
-            ("train_olmoe", dist_report_olmoe(ranks, secs["olmoe"]))):
+    reports = (
+        ("decode", ("decode", "decode_seqpar"), lambda: dist_report_decode(
+            ranks, secs["decode"] + secs["decode_seqpar"])),
+        ("train", ("train_1x2", "train_2x1", "train_seqpar", "train_fsdp",
+                   "elastic"), lambda: dist_report_train(ranks, secs,
+                                                         restored)),
+        ("ssm", ("decode_ssm", "train_mamba2", "train_zamba2"),
+         lambda: dist_report_ssm(ranks, secs)),
+        ("train_olmoe", ("olmoe",), lambda: dist_report_olmoe(
+            ranks, secs["olmoe"])),
+        ("prefill", ("prefill", "engine"), lambda: dist_report_prefill(
+            ranks, secs)))
+    for key, phases, report in reports:
+        if not all(p in secs for p in phases):
+            continue
+        rec, f = report()
         out[key], failed = rec, failed + f
     out["seconds"] = time.perf_counter() - t0
     print(f"[dist] phases in {out['seconds']:.1f} s (the ranks' spawn "
@@ -8274,6 +8856,7 @@ def _smoke(card) -> int:
     lse_checks, lse_fault = check_flash_decode_lse(tfa, ref)
     lse_time = time_flash_decode_lse(tfa, ref)
     cu_checks = check_cache_update(tfa, ref)
+    clip_checks, clip_fault = check_cache_update_clip(tfa, ref)
     fdp_checks = check_flash_decode_paged(tfa, ref)
     fd_faults = check_decode_faults(tfa, ref)
     fd_shortcut = check_decode_shortcut(ref)
@@ -8405,6 +8988,7 @@ def _smoke(card) -> int:
         times[f"grouped_matmul_bwd M={GMM_TRAIN_M} {K}x{N}"] = \
             time_grouped_matmul_bwd(gmm, ref, 64, GMM_TRAIN_M, K, N)
     ssd_checks = check_ssd(tssd, ref)
+    ssd_f64 = check_ssd_f32_exact(tssd, ref)
     ssd_faults = check_ssd_faults(tssd, ref)
     ssd_shortcut = check_ssd_shortcut(ref)
     for model in SSD_HEADS:
@@ -8454,7 +9038,11 @@ def _smoke(card) -> int:
         "decode_zamba2": dist["ssm"][f"decode_{HYBRID_ARCH}"]["launches"],
         "train_olmoe_bf16": dist["train_olmoe"]["bf16"]["launches"],
         "decode_olmoe": [dist["train_olmoe"]["decode"][r]["launches"]
-                         for r in ("rank0", "rank1")]}
+                         for r in ("rank0", "rank1")],
+        **{"prefill_" + arm: dist["prefill"][arm]["launches"]
+           for arm, *_ in DIST_PREFILL["arms"]},
+        "engine_dense": dist["prefill"]["engine_dense"]["launches"],
+        "engine_paged": dist["prefill"]["engine_paged"]["launches"]}
 
     def by_rank(name):
         """Each rank's launches of ``name`` in each [dist:*] phase."""
@@ -8704,6 +9292,7 @@ def _smoke(card) -> int:
             times["cache_update rope prefill"], cu_rope_checks, "dense",
             scatter_only={"decode": times["cache_update decode"],
                           "checks": cu_checks},
+            row_clip={"checks": clip_checks, "planted_fault": clip_fault},
             planted_fault=rope_faults,
             qwen2vl_g8=qwen2vl("cache_update", qwen_cache_checks),
             launches_dist=by_rank("cache_update")),
@@ -8854,7 +9443,7 @@ def _smoke(card) -> int:
         shape=t["shape"], host_ms=t["host_ms"],
         times={k: v for k, v in times.items() if k.startswith("ssd")},
         checks=ssd_checks, planted_fault=ssd_faults,
-        bf16_shortcut=ssd_shortcut,
+        bf16_shortcut=ssd_shortcut, f32_vs_float64=ssd_f64,
         launches_train={m: training[m]["launches"]["ssd"]
                         for m in ("mamba2", "zamba2")},
         launches_dist=by_rank("ssd")))

@@ -47,9 +47,7 @@ SIGNATURES = {
     "decode_attention_paged": ("flash_decode_paged",
                                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
-    "cache_update": ("cache_update",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _I, _P]),
+    "cache_update": ("cache_update", [_P] * 9 + [_I] * 10 + [_P]),
     "cache_update_paged": ("cache_update_paged",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

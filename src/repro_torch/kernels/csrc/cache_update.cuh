@@ -20,7 +20,11 @@
 // The two entry points differ only in where the row lands, which the
 // ``Dest`` policy answers, as DenseRows/PagedRows do for the decode kernels:
 //   DenseDest  a (B, S, K, D) cache; the whole slot is dropped when
-//              index < 0 or index + Sn > S (the done-slot convention);
+//              index < 0 or index + Sn > S (the done-slot convention), or,
+//              with clip (the sequence-sharded cache's slice: only
+//              models/layers.py's sharded path sets it), each row on its
+//              own: row j lands iff 0 <= index + j < S, so a prefill chunk
+//              that straddles two ranks' slices leaves each rank its rows;
 //   PagedDest  a (pool_blocks, bs, K, D) pool through block_tables; the
 //              whole slot is dropped when index < 0 or index + Sn crosses
 //              the table's max_blocks * bs rows, and a row whose table entry
@@ -91,8 +95,13 @@ struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) Vec {
 
 struct DenseDest {
   int S;
-  // the cache row of slot b's new row j, or -1 when the slot is dropped
+  int clip;   // 1: the row-level rule; 0: the whole-slot rule
+  // the cache row of slot b's new row j, or -1 when it is dropped
   __device__ __forceinline__ long long row(int b, int j, int idx, int Sn) const {
+    if (clip) {
+      const long long pos = (long long)idx + j;
+      return pos < 0 || pos >= S ? -1 : (long long)b * S + pos;
+    }
     if (idx < 0 || (long long)idx + Sn > S) return -1;
     return (long long)b * S + idx + j;
   }
@@ -201,7 +210,7 @@ cache_update_kernel(Args a, Dest dest) {
       rope_unit<V>(static_cast<const Tn*>(a.q) + off, static_cast<Tn*>(a.q_out) + off, u, D,
                    half, cs, cs + MAX_HALF);
     } else if (dst < 0) {
-      break;                                       // a dropped slot's rows
+      break;                                       // a dropped row
     } else if (u < nq + nk) {
       if (rope)
         rope_unit<V>(kn, kc, u - nq, D, half, cs, cs + MAX_HALF);

@@ -241,11 +241,14 @@ def _check_scatter(name, k_cache, v_cache, k_new, v_new, index):
 
 
 def cache_update(k_cache, v_cache, k_new, v_new, index, *, q=None, cos=None,
-                 sin=None, rotary_pct=1.0):
+                 sin=None, rotary_pct=1.0, clip_rows=False):
     """Write k/v_new (B, Sn, K, D) into the caches (B, S, K, D) IN PLACE at
     per-slot offsets ``index`` (B,) int32, cast to the cache dtype.  A slot
     with index < 0 or index + Sn > S is dropped whole (done-slot
-    semantics).  Returns (k_cache, v_cache).
+    semantics); with ``clip_rows`` each row is kept or dropped on its own,
+    row j landing iff 0 <= index + j < S (a rank's slice of a cache cut by
+    sequence, ``models/layers.py``'s sharded path: a chunk that straddles
+    two slices leaves each its rows).  Returns (k_cache, v_cache).
 
     With ``q`` (B, Sn, H, D) and ``cos``/``sin`` (B, Sn, rot_dim / 2)
     float32 (``rope_cos_sin``'s), the same launch first applies RoPE to q
@@ -256,9 +259,10 @@ def cache_update(k_cache, v_cache, k_new, v_new, index, *, q=None, cos=None,
     if not k_cache.is_cuda:
         if rot_dim is None:
             return ref.kv_cache_update_ref(k_cache, v_cache, k_new, v_new,
-                                           index)
+                                           index, clip_rows=clip_rows)
         return ref.rope_kv_cache_update_ref(k_cache, v_cache, k_new, v_new,
-                                            index, q, cos, sin, rotary_pct)
+                                            index, q, cos, sin, rotary_pct,
+                                            clip_rows=clip_rows)
     _refuse_grad("cache_update", q, k_new, v_new)
     B, Sn, K, D = k_new.shape
     S = k_cache.shape[1]
@@ -279,7 +283,7 @@ def cache_update(k_cache, v_cache, k_new, v_new, index, *, q=None, cos=None,
         k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), index.data_ptr(), _ptr(q), _ptr(q_out),
         _ptr(cos), _ptr(sin), B, Sn, S, 0 if q is None else q.shape[2], K,
-        D, rot_dim or 0, build.DTYPE_CODE[k_new.dtype],
+        D, rot_dim or 0, int(bool(clip_rows)), build.DTYPE_CODE[k_new.dtype],
         build.DTYPE_CODE[k_cache.dtype],
         torch.cuda.current_stream(k_cache.device).cuda_stream)
     build.raise_on("cache_update", err)

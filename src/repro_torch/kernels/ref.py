@@ -349,21 +349,29 @@ def apply_rope(x, cos, sin, rotary_pct: float = 1.0):
     return torch.cat([rotated.to(x.dtype), xp], -1)
 
 
-def kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index):
+def kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index,
+                        clip_rows=False):
     """Per-slot-offset cache write: scatter k/v_new (B, Sn, K, D) into
     (B, S, K, D) at row offsets ``index`` (B,).  A slot whose write would
     cross the cache end (or start before it) is dropped WHOLE, not
-    element-wise clipped.  Unlike the functional JAX oracle this writes
+    element-wise clipped; with ``clip_rows`` each row is kept or dropped
+    on its own, row j landing iff 0 <= index + j < S (a rank's slice of a
+    cache cut by sequence).  Unlike the functional JAX oracle this writes
     IN PLACE, as the port's caches are updated in place; it returns the
     two caches."""
     Sn = k_new.shape[1]
     S = k_cache.shape[1]
     index = index.long()
+    pos = index[:, None] + torch.arange(Sn, device=index.device)[None]
+    if clip_rows:
+        b, j = torch.nonzero((pos >= 0) & (pos < S), as_tuple=True)
+        k_cache[b, pos[b, j]] = k_new[b, j].to(k_cache.dtype)
+        v_cache[b, pos[b, j]] = v_new[b, j].to(v_cache.dtype)
+        return k_cache, v_cache
     ok = (index >= 0) & (index + Sn <= S)
     rows = torch.nonzero(ok).flatten()
-    pos = index[rows][:, None] + torch.arange(Sn, device=index.device)[None]
-    k_cache[rows[:, None], pos] = k_new[rows].to(k_cache.dtype)
-    v_cache[rows[:, None], pos] = v_new[rows].to(v_cache.dtype)
+    k_cache[rows[:, None], pos[rows]] = k_new[rows].to(k_cache.dtype)
+    v_cache[rows[:, None], pos[rows]] = v_new[rows].to(v_cache.dtype)
     return k_cache, v_cache
 
 
@@ -414,7 +422,8 @@ def kv_cache_update_paged_ref(k_pool, v_pool, k_new, v_new, index,
 
 
 def rope_kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index, q, cos,
-                             sin, rotary_pct=1.0, block_tables=None):
+                             sin, rotary_pct=1.0, block_tables=None,
+                             clip_rows=False):
     """The serving step's RoPE and cache write as separate passes: q and
     k_new rotated by ``apply_rope``, then ``kv_cache_update_ref`` (or, with
     ``block_tables``, ``kv_cache_update_paged_ref``) of the rotated k and
@@ -423,7 +432,8 @@ def rope_kv_cache_update_ref(k_cache, v_cache, k_new, v_new, index, q, cos,
     q = apply_rope(q, cos, sin, rotary_pct)
     k = apply_rope(k_new, cos, sin, rotary_pct)
     if block_tables is None:
-        kv_cache_update_ref(k_cache, v_cache, k, v_new, index)
+        kv_cache_update_ref(k_cache, v_cache, k, v_new, index,
+                            clip_rows=clip_rows)
     else:
         kv_cache_update_paged_ref(k_cache, v_cache, k, v_new, index,
                                   block_tables)

@@ -30,11 +30,17 @@ layer reads its local sizes from its local weights and issues its own
 collectives (``sharding/collectives.py``):
   attention   q/k/v columns sharded by heads (``qkv_flat``/``kv_flat``),
               this rank's heads through the kernels, ``wo`` row-parallel
-              and summed over ``model``; a decode step over a cache
-              sharded by sequence over ``model`` is the reference's
-              ``_decode_attention_seqsharded`` (``:293-384``): each rank
-              writes the new row only if it owns it and attends over its
-              slice, and the slices combine by their log-sum-exp;
+              and summed over ``model``; with a cache the step's q, k
+              and v are gathered to every head (``_cache_attention``): a
+              dense cache is cut by sequence over ``model``, each rank
+              writes the rows of the chunk or step that fall in its slice
+              (the write's row-level clip) and attends every query over
+              its slice, and the slices combine by their log-sum-exp (the
+              reference's ``_decode_attention_seqsharded``, ``:293-384``,
+              for one row; GSPMD gathers the prefix rows for a prefill
+              instead); a paged pool is whole on every rank, which writes
+              every kv head (every slot's, gathered over the data-parallel
+              axes) so the ranks' pools stay equal;
   MLP         ``w_up``/``w_gate`` column-, ``w_down`` row-parallel;
   MoE         with experts sharded over ``model`` and the sequence
               divisible by it, the reference's expert parallelism
@@ -55,10 +61,16 @@ head and the full MLP width, on whole weights.  Attention computes q, k
 and v of its rows, gathers k and v over ``model`` along the sequence
 (``_attention_seq``) and runs the kernels with the query offset of its
 first row; the MLP runs on its rows with no collective; the MoE layer is
-expert parallelism over the rank's own rows.  A decode step (one row:
-``act_seq`` resolves to replicated) keeps the sequence-sharded cache with
-every head computed on every rank; its embedding and logits stay
-vocab-parallel, as the rows are the same on every rank.
+expert parallelism over the rank's own rows.  With a cache, a chunk
+whose rows divide the axis runs on the rank's rows too: q, k and v of its
+rows with every head are gathered along the sequence and take the cache
+path above with every head (the rank's rows of the output kept), and
+``lm.forward`` gathers the hidden rows at the end, so the last row is on
+every rank.  A decode step (one row: ``act_seq`` resolves to replicated),
+or any chunk whose rows do not divide, runs replicated: the
+sequence-sharded cache with every head computed on every rank; its
+embedding and logits stay vocab-parallel, as the rows are the same on
+every rank.
 
 The Mamba-2 block runs its prefill chunks through ``ops.ssd`` (the
 ``ssd`` kernel on CUDA) and its single-token decode through the plain
@@ -76,12 +88,14 @@ through ``copy_to``, the conv and ``ssd`` run on the rank's channels and
 heads (``A_log``, ``D``, ``dt_bias`` and ``norm`` are head-aligned
 shards), the gated norm all-reduces its sum of squares over ``model``
 with an all-reduce backward (``C.all_reduce``), and ``out_proj`` is
-row-parallel, summed with ``reduce_from``.  A decode step rolls the
-rank's conv channels, whose cache lane ``lm.shard_cache`` cuts to this
-layout (x of its heads, B and C whole), and steps its heads of the SSM
-state.  zamba2's shared block is the Megatron attention with its
-``q_delta`` on the rank's heads and the Megatron MLP
-(``lm._shared_block``).
+row-parallel, summed with ``reduce_from``.  With a cache (``lm.init_cache``
+under the mesh, or ``lm.shard_cache``: the conv lane in this layout, x of
+its heads and B and C whole, the SSM state by heads) a prefill chunk
+carries the rank's conv window and runs ``ssd`` from its heads' state,
+writing the new state in place, and a decode step rolls the rank's conv
+channels and steps its heads of the SSM state.  zamba2's shared block
+is the Megatron attention with its ``q_delta`` on the rank's heads and
+the Megatron MLP (``lm._shared_block``).
 """
 
 from __future__ import annotations
@@ -107,8 +121,13 @@ class Ctx:
     rules: Any = None    # sharding.LogicalRules | None
     mesh: Any = None     # launch.mesh.Mesh | None: this rank's program
     #: the activations are this rank's rows of the sequence (set by
-    #: ``lm.forward`` for a sequence-parallel training forward)
+    #: ``lm.forward`` for a sequence-parallel forward)
     seq_shard: bool = False
+    #: the batch rows (of the activations and of a cache's slots) are this
+    #: rank's share over the data-parallel axes; False where every
+    #: data-parallel rank holds the same rows (a serving engine's one-slot
+    #: prefill chunk, which the reference runs replicated over ``data``)
+    dp_batch: bool = True
 
     @property
     def cdtype(self) -> torch.dtype:
@@ -142,10 +161,19 @@ def seq_parallel(ctx: Ctx) -> bool:
             and ctx.rules.get("act_seq") == MODEL)
 
 
-def token_axes(seq: bool) -> tuple[str, ...]:
+def token_axes(seq: bool, dp: bool = True) -> tuple[str, ...]:
     """The mesh axes a call's tokens are split over: the data-parallel
-    axes, and ``model`` when each rank holds its rows of the sequence."""
-    return DP_AXES + ((MODEL,) if seq else ())
+    axes (unless ``dp`` is False: rows replicated over them), and
+    ``model`` when each rank holds its rows of the sequence."""
+    return (DP_AXES if dp else ()) + ((MODEL,) if seq else ())
+
+
+def dp_size(ctx: Ctx) -> int:
+    """The data-parallel ranks the call's batch is split over: 1 without a
+    mesh or with ``ctx.dp_batch`` False."""
+    if ctx.mesh is None or not ctx.dp_batch:
+        return 1
+    return ctx.mesh.axis_size(DP_AXES)
 
 
 def seq_rows(ctx: Ctx, S: int) -> slice:
@@ -362,7 +390,9 @@ def apply_attention(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
                     "the hybrid's shared attention under a sequence-"
                     "parallel rule set: ROADMAP item 14b (c2)")
             return _attention_seq(ctx, cfg, p, x, cos, sin,
-                                  local_window=local_window), cache
+                                  local_window=local_window, cache=cache,
+                                  cache_index=cache_index,
+                                  block_tables=block_tables), cache
         return _attention_sharded(ctx, cfg, p, x, cos, sin,
                                   local_window=local_window, cache=cache,
                                   cache_index=cache_index,
@@ -427,8 +457,10 @@ def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     columns sharded by the rules, or all of them where a projection is
     replicated), ``wo`` row-parallel and summed over ``model``; ``q_delta``
     (B, S, H_l, hd), the rank's heads of zamba2's LoRA, is added to q
-    before RoPE.  With a cache, the sequence-sharded decode step; prefill
-    and the per-slot index under a mesh are ROADMAP item 14b (d)."""
+    before RoPE.  With a cache (a prefill chunk at a scalar offset, a (B,)
+    per-slot index, a paged pool) q, k and v are gathered to every head
+    and ``_cache_attention`` gives every head's output, of which the rank
+    keeps its own."""
     c, mesh = ctx.cdtype, ctx.mesh
     B, S = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -457,15 +489,15 @@ def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
                             softcap=cfg.attn_softcap, scale=scale,
                             naive_below=ctx.run.naive_attn_below)
     else:
-        if block_tables is not None or S != 1 or (
-                torch.is_tensor(cache_index) and cache_index.ndim >= 1):
-            raise NotImplementedError(
-                "under a mesh only the single-token decode step with a "
-                "scalar index runs (paged caches, prefill and per-slot "
-                "indices under a mesh: ROADMAP item 14b)")
-        out = _decode_seqsharded(ctx, cfg, q, k, v, cache, int(cache_index),
-                                 cos, sin, scale=scale,
-                                 local_window=local_window)
+        if sharded:                    # q, k, v gathered in one exchange
+            n = _n_model(ctx)
+            qkv = C.all_gather(torch.cat([q, k, v], dim=2), MODEL, mesh,
+                               dim=2).reshape(B, S, n, H_l + 2 * K_l, hd)
+            q, k, v = (qkv[:, :, :, a:b].flatten(2, 3) for a, b in (
+                (0, H_l), (H_l, H_l + K_l), (H_l + K_l, H_l + 2 * K_l)))
+        out = _cache_attention(ctx, cfg, q, k, v, cache, cache_index,
+                               block_tables, cos, sin, scale=scale,
+                               local_window=local_window)
         if sharded:
             m = _model_index(ctx)
             out = out[:, :, m * H_l:(m + 1) * H_l]
@@ -474,30 +506,44 @@ def _attention_sharded(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
 
 
 def _attention_seq(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
-                   local_window):
-    """Cache-free attention of the sequence-parallel program on one rank:
-    ``x`` (B, S_l, d) holds rows [a, a + S_l) of the sequence, a = r S_l,
-    and ``cos``/``sin`` their global positions.  q, k and v of those rows
-    with every head (``use_weights`` gathered the projections whole), k
-    and v gathered over ``model`` along the sequence in one exchange
-    (``C.gather_sum``: each rank's gradient of the gathered rows is a
-    partial sum, reduce-scattered back) and cut to the rows the rank's
-    queries can see -- up to its last row when causal, from its first
-    row's window start -- then ``ops.attention`` at the query offset of
-    its first row over them, and ``wo`` on the rank's rows, with no
-    reduction."""
+                   local_window, cache=None, cache_index=None,
+                   block_tables=None):
+    """Attention of the sequence-parallel program on one rank: ``x`` (B,
+    S_l, d) holds rows [a, a + S_l) of the sequence (a chunk's rows, with
+    a cache), a = r S_l, and ``cos``/``sin`` their global positions.  q, k
+    and v of those rows with every head (``use_weights`` gathered the
+    projections whole).  Without a cache k and v are gathered over
+    ``model`` along the sequence in one exchange (``C.gather_sum``: each
+    rank's gradient of the gathered rows is a partial sum, reduce-scattered
+    back) and cut to the rows the rank's queries can see -- up to its last
+    row when causal, from its first row's window start -- then
+    ``ops.attention`` runs at the query offset of its first row over them.
+    With a cache q, k, v and cos/sin are gathered along the sequence (the
+    whole chunk on every rank), ``_cache_attention`` writes the cache and
+    attends every row, and the rank keeps its rows.  ``wo`` on the rank's
+    rows, with no reduction."""
     c = ctx.cdtype
     B, S_l = x.shape[:2]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].to(c)).reshape(B, S_l, H, hd)
     k = (x @ p["wk"].to(c)).reshape(B, S_l, K, hd)
     v = (x @ p["wv"].to(c)).reshape(B, S_l, K, hd)
-    if cfg.use_rope:
-        q = ref.apply_rope(q, cos, sin, cfg.rotary_pct)
-        k = ref.apply_rope(k, cos, sin, cfg.rotary_pct)
     scale = (cfg.query_scale ** -0.5 if cfg.query_scale is not None
              else cfg.head_dim ** -0.5)
     a = _model_index(ctx) * S_l
+    if cache is not None:
+        qkv = C.all_gather(torch.cat([q, k, v], dim=2), MODEL, ctx.mesh, 1)
+        if cfg.use_rope:
+            cos, sin = C.all_gather(torch.stack([cos, sin]), MODEL,
+                                    ctx.mesh, 2)
+        out = _cache_attention(
+            ctx, cfg, qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:],
+            cache, cache_index, block_tables, cos, sin, scale=scale,
+            local_window=local_window)[:, a:a + S_l]
+        return out.reshape(B, S_l, H * hd) @ p["wo"].to(c)
+    if cfg.use_rope:
+        q = ref.apply_rope(q, cos, sin, cfg.rotary_pct)
+        k = ref.apply_rope(k, cos, sin, cfg.rotary_pct)
     kv = C.gather_sum(torch.cat([k, v], dim=2), MODEL, ctx.mesh, 1)
     hi = a + S_l if cfg.causal else kv.shape[1]
     lo = max(0, a - local_window + 1) if local_window is not None else 0
@@ -509,67 +555,112 @@ def _attention_seq(ctx: Ctx, cfg: ModelConfig, p: dict, x, cos, sin, *,
     return out.reshape(B, S_l, H * hd) @ p["wo"].to(c)
 
 
-def seq_shard_window(index: int, rank: int, rows: int, window=None):
-    """This rank's (kv_len, window) for a decode step at global position
-    ``index`` over its cache slice [rank * rows, (rank + 1) * rows): the
-    kernel counts the window back from kv_len - 1, so a slice that ends
-    before ``index`` takes the window shortened by the rows between them,
-    and one the window does not reach (or that starts after ``index``)
-    takes kv_len 0, which gives output 0 and log-sum-exp -inf.  Together
-    they are the reference's mask ``k_pos <= index``, ``k_pos > index -
-    window`` (``repro/models/layers.py:361-364``)."""
-    end = index + 1 - rank * rows          # local rows up to and with index
-    if end <= 0:
-        return 0, window
-    if end <= rows:
-        return end, window
-    if window is None:
-        return rows, None
-    w = window - (end - rows)
-    return (rows, w) if w > 0 else (0, window)
+def seq_shard_kv_len(index, rank: int, rows: int, S: int = 1):
+    """The kv_len rank ``rank`` passes the decode kernels for query rows
+    [index, index + S) over its cache slice [rank * rows, (rank + 1) *
+    rows): ``index + S - rank * rows``, or 0 where that is <= 0.  The
+    kernels place query row i at ``kv_len - S + i``, the slice's local
+    position of global ``index + i``, and read at most the slice's
+    ``rows`` rows, so with the GLOBAL window (counted back from each
+    query's position) this is the reference's mask ``k_pos <= q_pos``,
+    ``k_pos > q_pos - window`` (``repro/models/layers.py:361-364``)
+    restricted to the slice: a query before the slice, or one whose window
+    ends before it, sees no key there (output 0, log-sum-exp -inf).
+    ``index`` is an int or a (B,) tensor."""
+    if torch.is_tensor(index):
+        return torch.clamp(index + (S - rank * rows), min=0).to(torch.int32)
+    return max(0, index + S - rank * rows)
 
 
-def _decode_seqsharded(ctx: Ctx, cfg: ModelConfig, q, k, v, cache,
-                       index: int, cos, sin, *, scale, local_window):
-    """The reference's ``_decode_attention_seqsharded``
-    (``repro/models/layers.py:307-384``) on one rank: the cache (B, S_l,
-    K, hd) is this rank's slice of the sequence over ``model``, all kv
-    heads; q, k, v are gathered to all heads, and one ``cache_update``
-    launch rotates q and k and writes the new row at the local index
-    ``index - rank * S_l``, which only the owning rank holds (the others'
-    writes fall outside their slice and are dropped).  ``flash_decode``
-    over the slice gives each rank's partial output and log-sum-exp, and
-    ``m = pmax(lse)``, ``o = psum(o_l e^(lse - m)) / psum(e^(lse - m))``
-    over ``model`` combine them (the reference's ``:371-375`` in lse
-    form).  Returns (B, 1, H, hd) in the compute dtype, every head."""
+def _cache_attention(ctx: Ctx, cfg: ModelConfig, q, k, v, cache,
+                     cache_index, block_tables, cos, sin, *, scale,
+                     local_window):
+    """The cache write and attention of one rank's step or chunk under a
+    mesh, every head: q (B, S, H, hd), k and v (B, S, K, hd), S rows at a
+    scalar ``cache_index`` (a prefill chunk, broadcast to (B,)) or a (B,)
+    per-slot index (continuous batching: done lanes at max_seq).  Returns
+    (B, S, H, hd) in the compute dtype.
+
+    A dense cache (B, R, K, hd) is this rank's slice [r R, (r+1) R) of
+    the sequence over ``model``.  One ``cache_update`` launch rotates q
+    and k and writes, at the local index ``index - r R`` with the row-level
+    clip, exactly the rows that fall in the slice (a chunk that straddles
+    two slices leaves each its rows; a done lane's max_seq lies past every
+    slice, so it is dropped on every rank).  ``flash_decode`` then runs
+    every query over the slice (``seq_shard_kv_len``, the global window)
+    and returns its output and log-sum-exp, and ``m = pmax(lse)``, ``o =
+    psum(o_l e^(lse - m)) / psum(e^(lse - m))`` over ``model`` combine the
+    slices (the reference's ``_decode_attention_seqsharded``,
+    ``repro/models/layers.py:307-384``, for any number of rows).  Staged
+    for the combine: lse (B, H, S) and o with its weight (B, S, H, hd + 1)
+    in float32, not the prefix rows GSPMD gathers.
+
+    A paged pool (``block_tables``) is whole on every rank (the reference's
+    ``PAGED_KV_CACHE_AXES``): each rank writes every kv head of every slot
+    (``cache_update_paged``), so the ranks' pools stay equal; when the
+    batch is split over the data-parallel axes the step's q, k, v, cos,
+    sin, index and table rows are first gathered over them, every slot's
+    rows written, and the rank's slots attended (``flash_decode_paged``)."""
     c, mesh = ctx.cdtype, ctx.mesh
-    B, n = q.shape[0], _n_model(ctx)
-    H_l, K_l = q.shape[2], k.shape[2]
-    if K_l != cfg.n_kv_heads:           # q, k, v gathered in one exchange
-        qkv = C.all_gather(torch.cat([q, k, v], dim=2), MODEL, mesh, dim=2)
-        qkv = qkv.reshape(B, 1, n, H_l + 2 * K_l, -1)
-        q, k, v = (qkv[:, :, :, a:b].flatten(2, 3) for a, b in (
-            (0, H_l), (H_l, H_l + K_l), (H_l + K_l, H_l + 2 * K_l)))
+    B, S = q.shape[:2]
     ck, cv = cache["k"], cache["v"]
-    rows, r = ck.shape[1], _model_index(ctx)
-    idx = torch.full((B,), index - r * rows, dtype=torch.int32,
-                     device=q.device)
-    rope = (dict(q=q.contiguous(), cos=cos, sin=sin,
-                 rotary_pct=cfg.rotary_pct) if cfg.use_rope else {})
+    rope = (dict(cos=cos, sin=sin, rotary_pct=cfg.rotary_pct)
+            if cfg.use_rope else {})
+    attn = dict(softcap=cfg.attn_softcap, local_window=local_window,
+                scale=scale)
+    if torch.is_tensor(cache_index) and cache_index.ndim >= 1:
+        idx = cache_index.to(torch.int32)
+    else:
+        start = int(cache_index)
+        rows = (block_tables.shape[1] * ck.shape[1] if block_tables is not None
+                else ck.shape[1] * _n_model(ctx))
+        if start < 0 or start + S > rows:
+            raise ValueError(f"prefill rows [{start}, {start + S}) outside "
+                             f"the cache's {rows} rows")
+        idx = torch.full((B,), start, dtype=torch.int32, device=q.device)
+    if block_tables is not None:
+        mine = slice(None)
+        dp = dp_size(ctx)
+        if dp > 1:
+            d = mesh.index(DP_AXES)
+            mine = slice(d * B, (d + 1) * B)
+            H = q.shape[2]
+            qkv = C.all_gather(torch.cat([q, k, v], dim=2), DP_AXES, mesh, 0)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + k.shape[2]], \
+                qkv[:, :, H + k.shape[2]:]
+            idx = C.all_gather(idx, DP_AXES, mesh, 0)
+            block_tables = C.all_gather(block_tables, DP_AXES, mesh, 0)
+            if rope:
+                rope["cos"], rope["sin"] = C.all_gather(
+                    torch.stack([cos, sin]), DP_AXES, mesh, 1)
+        if rope:
+            rope["q"] = q.contiguous()
+        written = ops.kv_cache_update_paged(ck, cv, k.contiguous(),
+                                            v.contiguous(), idx,
+                                            block_tables, **rope)
+        if rope:
+            q = written[2]
+        return ops.decode_attention_paged(
+            q[mine].contiguous(), ck.to(c), cv.to(c), (idx + S)[mine],
+            block_tables[mine].contiguous(), **attn)
+    n, r = _n_model(ctx), _model_index(ctx)
+    R = ck.shape[1]
+    local = idx - r * R
+    if rope:
+        rope["q"] = q.contiguous()
     written = ops.kv_cache_update(ck, cv, k.contiguous(), v.contiguous(),
-                                  idx, **rope)
+                                  local, clip_rows=True, **rope)
     if rope:
         q = written[2]
-    kv_len, window = seq_shard_window(index, r, rows, local_window)
-    o, lse = ops.decode_attention(
-        q.contiguous(), ck.to(c), cv.to(c),
-        torch.full((B,), kv_len, dtype=torch.int32, device=q.device),
-        softcap=cfg.attn_softcap, local_window=window, scale=scale,
-        return_lse=True)
-    if _n_model(ctx) == 1:
+    o, lse = ops.decode_attention(q.contiguous(), ck.to(c), cv.to(c),
+                                  seq_shard_kv_len(idx, r, R, S),
+                                  return_lse=True, **attn)
+    if n == 1:
         return o
-    m = C.pmax(lse, MODEL, mesh)
-    w = torch.exp(lse - m).permute(0, 2, 1)[..., None]   # (B, 1, H, 1)
+    # a row no slice shows a key (a done lane under a window of 1) takes
+    # weight 0 everywhere, not exp(-inf + inf)
+    m = C.pmax(lse, MODEL, mesh).clamp(min=torch.finfo(torch.float32).min)
+    w = torch.exp(lse - m).permute(0, 2, 1)[..., None]   # (B, S, H, 1)
     both = C.psum(torch.cat([o.float() * w, w], dim=-1), MODEL, mesh)
     return (both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)).to(c)
 
@@ -754,7 +845,8 @@ def apply_moe(ctx: Ctx, cfg: ModelConfig, p: dict, x):
     x: (B, S, D).  Returns (y, aux_loss).
 
     Under a mesh with the experts sharded over ``model`` (``E`` divisible
-    by it): expert parallelism when ``S`` divides too, or when the rows
+    by it): expert parallelism when ``S`` divides too and the batch is
+    split over the data-parallel axes (or there is one), or when the rows
     are already this rank's share of the sequence (``_moe_ep``), else
     each rank's experts on the common dispatch (``_moe_local_experts``).
     The router runs on every rank's whole share of the tokens; its aux is
@@ -768,10 +860,14 @@ def apply_moe(ctx: Ctx, cfg: ModelConfig, p: dict, x):
     E, K = cfg.n_experts, cfg.top_k
     xf = x.reshape(B * S, D)
     top_p, top_e, aux = _moe_router(cfg, p, xf, ctx.mesh,
-                                    token_axes(ctx.seq_shard))
+                                    token_axes(ctx.seq_shard, ctx.dp_batch))
     n = _n_model(ctx)
     if n > 1 and p["w_gate"].shape[0] != E:
-        if ctx.seq_shard or S % n == 0:
+        # the reference's ``use_ep`` also needs the batch to divide the
+        # data-parallel axes: rows replicated over them (a one-slot
+        # prefill chunk) take the common dispatch
+        if ctx.seq_shard or S % n == 0 and (
+                ctx.dp_batch or ctx.mesh.axis_size(DP_AXES) == 1):
             return _moe_ep(ctx, cfg, p, x, top_p, top_e), aux
         return _moe_local_experts(ctx, cfg, p, x, top_p, top_e), aux
     capacity = int(max(1, math.ceil(B * S * K * cfg.capacity_factor / E)))
@@ -863,7 +959,7 @@ def _moe_local_experts(ctx: Ctx, cfg: ModelConfig, p: dict, x, top_p,
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     e_local = p["w_gate"].shape[0]
-    dp = mesh.axis_size(DP_AXES)
+    dp = dp_size(ctx)
     capacity = int(max(1, math.ceil(B * S * dp * K * cfg.capacity_factor
                                     / E)))
     offset = None
@@ -993,8 +1089,9 @@ def apply_mamba(ctx: Ctx, cfg: ModelConfig, p: dict, x, *, ssm_state=None,
     others this rank's shards) the rank runs its heads (``mamba_spans``):
     the input through ``copy_to``, the states its heads' and its conv
     channels' (``lm.shard_cache``), the gated norm's sum all-reduced and
-    ``out_proj``'s partial product summed with ``reduce_from``.  Prefill
-    into a cache under a mesh is ROADMAP item 14b (d).
+    ``out_proj``'s partial product summed with ``reduce_from``; a prefill
+    chunk into a cache carries the rank's conv window and runs ``ssd``
+    from its heads' state, writing it in place.
     Returns (y, (ssm_state, conv_state))."""
     c = ctx.cdtype
     B, S, _ = x.shape
@@ -1006,10 +1103,6 @@ def apply_mamba(ctx: Ctx, cfg: ModelConfig, p: dict, x, *, ssm_state=None,
     in_proj, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
     decode = S == 1 and ssm_state is not None
     if n > 1:
-        if conv_state is not None and not decode:
-            raise NotImplementedError(
-                "prefill of the Mamba-2 block into a cache under a mesh: "
-                "ROADMAP item 14b (d)")
         proj, conv = mamba_spans(cfg, _model_index(ctx), n)
         in_proj = take_spans(in_proj, proj)
         conv_w, conv_b = take_spans(conv_w, conv), take_spans(conv_b, conv)

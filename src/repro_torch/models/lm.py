@@ -383,20 +383,28 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     broadcast to the three M-RoPE sections (``repro/models/lm.py:
     217-240``).
 
+    Under a mesh ``cache`` is this rank's state (``init_cache``'s or
+    ``init_paged_cache``'s under the same ``ctx``, or ``shard_cache``'s).
     Under a sequence-parallel rule set a cache-free forward runs on this
-    rank's rows of the sequence (``L.seq_rows``) from the embedding to the
-    final norm, at their global positions, and returns them (B, S / n,
-    D)."""
+    rank's rows of the sequence (``L.seq_rows``; the rows must divide the
+    model axis) from the embedding to the final norm, at their global
+    positions, and returns them (B, S / n, D).  With a cache, a chunk
+    whose rows divide the axis runs on the rank's rows likewise, and the
+    normed rows are gathered over ``model`` at the end, so the whole chunk
+    (B, S, D), its last row included, comes back on every rank; a chunk
+    whose rows do not divide (a decode step's one row) runs replicated, as
+    the reference replicates ``act_seq`` where it does not divide."""
     c = ctx.cdtype
     rows = slice(None)
     if ctx.mesh is not None:
         from repro_torch.sharding import executed_rules
         executed_rules(ctx.rules.name)
         require_mesh_family(cfg, ctx.rules)
-        if cache is None and L.seq_parallel(ctx):
+        if L.seq_parallel(ctx):
             seq = batch["frames" if cfg.family == "audio" else "tokens"]
-            rows = L.seq_rows(ctx, seq.shape[1])
-            ctx = dataclasses.replace(ctx, seq_shard=True)
+            if cache is None or seq.shape[1] % L._n_model(ctx) == 0:
+                rows = L.seq_rows(ctx, seq.shape[1])
+                ctx = dataclasses.replace(ctx, seq_shard=True)
     if cfg.family == "audio":
         frames = batch["frames"].to(c)
         B, S = frames.shape[:2]
@@ -409,7 +417,14 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
     else:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h = L.apply_embed(ctx, cfg, params["embed"], tokens[:, rows])
+        if cache is not None and ctx.seq_shard:
+            # a chunk's tokens are on every rank: the vocab-parallel lookup
+            # of all of them, then the rank's rows, keeps the table cut
+            # (the cache-free program gathers it whole)
+            h = L.apply_embed(dataclasses.replace(ctx, seq_shard=False), cfg,
+                              params["embed"], tokens)[:, rows]
+        else:
+            h = L.apply_embed(ctx, cfg, params["embed"], tokens[:, rows])
         if cfg.family == "vlm" and "vision_embeds" in batch:
             # the patch embeddings of the rows this rank holds
             ve = batch["vision_embeds"][:, rows].to(c)
@@ -449,6 +464,8 @@ def forward(ctx: L.Ctx, cfg: ModelConfig, params, batch: dict, *,
             aux = aux + a
     h = L.apply_norm(cfg, L.use_weights(ctx, params["final_norm"],
                                         L.norm_decls(cfg)), h)
+    if cache is not None and ctx.seq_shard:
+        h = C.all_gather(h, L.MODEL, ctx.mesh, 1)
     return h, aux, cache
 
 
@@ -534,9 +551,22 @@ def init_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int):
     recurrent state (``mamba``: ``ssm`` (L, B, H, P, N) float32 and
     ``conv`` (L, B, W-1, conv_dim)) and, for the hybrid, the shared
     block's k/v stacked over its ``n_super`` invocations (``kv_shared``).
-    A vlm's cache is the dense decoder's; the audio encoder has none."""
+    A vlm's cache is the dense decoder's; the audio encoder has none.
+
+    Under a mesh ``batch`` and ``max_seq`` are the global sizes and the
+    cache is this rank's state, allocated at its shard's size: its batch
+    rows over the data-parallel axes (``ctx.dp_batch``; the batch must
+    divide them), its slice of the rows over ``model`` (which must divide
+    too: the sharded steps read the cache cut by sequence), its heads of
+    the SSM state and the conv lane in the head-parallel program's layout
+    (x of its heads, B and C whole: ``_conv_shard``'s).  ``shard_cache``
+    of the unsharded cache gives the same shapes."""
     _require_cache(cfg)
     c, dev = ctx.cdtype, ctx.device
+    if ctx.mesh is not None:
+        full = init_cache(dataclasses.replace(ctx, mesh=None, device="meta"),
+                          cfg, batch, max_seq)
+        return _local_zeros(ctx, cfg, full, batch)
     if cfg.family in ("ssm", "hybrid"):
         out = {"mamba": L.empty_mamba_state(cfg, batch, c,
                                             layers=cfg.n_layers, device=dev)}
@@ -570,7 +600,12 @@ def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
     ``ssm`` cache has no rows and raises.  Tables start at zero, as the
     reference's: an unmapped entry aliases block 0, harmless since reads
     past kv_len are masked and writes only reach mapped entries.
-    ``n_blocks`` defaults to ``batch * max_blocks`` (the dense capacity)."""
+    ``n_blocks`` defaults to ``batch * max_blocks`` (the dense capacity).
+
+    Under a mesh the pools stay whole on every rank, as the reference's
+    ``PAGED_KV_CACHE_AXES`` keep them; the rank holds the table rows of
+    its own slots (the batch over the data-parallel axes) and, for the
+    hybrid, its Mamba lanes as ``init_cache`` cuts them."""
     _require_cache(cfg)
     if max_seq % block_size:
         raise ValueError(f"max_seq {max_seq} must be a multiple of "
@@ -581,10 +616,10 @@ def init_paged_cache(ctx: L.Ctx, cfg: ModelConfig, batch: int, max_seq: int,
     max_blocks = max_seq // block_size
     if n_blocks is None:
         n_blocks = batch * max_blocks
-    table = torch.zeros((batch, max_blocks), dtype=torch.int32, device=dev)
+    table = torch.zeros((_local_batch(ctx, batch), max_blocks),
+                        dtype=torch.int32, device=dev)
     if cfg.family == "hybrid":
-        return {"mamba": L.empty_mamba_state(cfg, batch, c,
-                                             layers=cfg.n_layers, device=dev),
+        return {"mamba": _mamba_lanes(ctx, cfg, batch),
                 "kv_shared": L.empty_paged_kv_cache(
                     cfg, n_blocks, block_size, c,
                     layers=zamba_structure(cfg)[0], device=dev),
@@ -624,17 +659,12 @@ def shard_cache(ctx: L.Ctx, cfg: ModelConfig, cache):
     its heads, B and C whole).  A KV cache whose rows do not divide the
     model axis raises: the decode step under a mesh reads its cache
     sharded by sequence."""
-    from repro_torch.sharding import local_slice, resolve_spec
+    from repro_torch.sharding import local_slice
     out = {}
     for key, axes in cache_logical_axes(cfg).items():
         out[key] = {}
         for k, a in cache[key].items():
-            spec = resolve_spec(ctx.rules, ctx.mesh, axes[k], tuple(a.shape))
-            if key != "mamba" and L._n_model(ctx) > 1 and (
-                    len(spec) < 3 or spec[2] != L.MODEL):
-                raise ValueError(f"{key}/{k}: {a.shape[2]} rows do not "
-                                 f"divide the {L._n_model(ctx)}-way model "
-                                 f"axis")
+            spec = _leaf_spec(ctx, cfg, key, k, axes[k], tuple(a.shape))
             if key == "mamba" and k == "conv":
                 out[key][k] = _conv_shard(ctx, cfg, cache[key], spec)
                 continue
@@ -642,18 +672,83 @@ def shard_cache(ctx: L.Ctx, cfg: ModelConfig, cache):
     return out
 
 
-def _conv_shard(ctx: L.Ctx, cfg: ModelConfig, mamba, spec):
-    """This rank's conv-state lane (``shard_cache``): the batch as ``spec``
-    cuts it, and with the SSM heads split over ``model`` the channels the
-    rank's program convolves."""
-    from repro_torch.sharding import local_slice, resolve_spec
-    conv = local_slice(ctx.mesh, spec[:2], mamba["conv"])
+def _mamba_lanes(ctx: L.Ctx, cfg: ModelConfig, batch: int):
+    """``init_cache``'s ``mamba`` state alone: the paged cache's lanes."""
+    if ctx.mesh is None:
+        return L.empty_mamba_state(cfg, batch, ctx.cdtype,
+                                   layers=cfg.n_layers, device=ctx.device)
+    full = L.empty_mamba_state(cfg, batch, ctx.cdtype, layers=cfg.n_layers,
+                               device="meta")
+    return _local_zeros(ctx, cfg, {"mamba": full}, batch)["mamba"]
+
+
+def _local_batch(ctx: L.Ctx, batch: int) -> int:
+    """This rank's batch rows of a cache of ``batch`` slots: the batch
+    over the data-parallel axes when ``ctx.dp_batch`` (it must divide
+    them), else all of it."""
+    dp = L.dp_size(ctx)
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} over {dp} data-parallel "
+                         f"ranks: the caches under a mesh split it evenly")
+    return batch // dp
+
+
+def _local_zeros(ctx: L.Ctx, cfg: ModelConfig, full, batch: int):
+    """Zeros of this rank's shard of each leaf of ``full`` (meta tensors of
+    the unsharded cache, or of some of its keys): ``shard_cache``'s cuts,
+    the batch by ``_local_batch``."""
+    from repro_torch.sharding import shard_shape
+    out = {}
+    for key, leaves in full.items():
+        axes = cache_logical_axes(cfg)[key]
+        out[key] = {}
+        for k, a in leaves.items():
+            spec = _leaf_spec(ctx, cfg, key, k, axes[k], tuple(a.shape))
+            shape = list(shard_shape(ctx.mesh, spec, a.shape))
+            shape[1] = _local_batch(ctx, batch)
+            spans = (_conv_spans(ctx, cfg, full[key])
+                     if key == "mamba" and k == "conv" else None)
+            if spans is not None:
+                shape[3] = sum(b - a for a, b in spans)
+            out[key][k] = torch.zeros(shape, dtype=a.dtype,
+                                      device=ctx.device)
+    return out
+
+
+def _leaf_spec(ctx: L.Ctx, cfg: ModelConfig, key: str, k: str, axes, shape):
+    """The spec of one cache leaf under ``ctx``'s rules; KV rows that do
+    not divide the model axis raise: the decode step under a mesh reads
+    its cache sharded by sequence."""
+    from repro_torch.sharding import resolve_spec
+    spec = resolve_spec(ctx.rules, ctx.mesh, axes, shape)
+    if key != "mamba" and L._n_model(ctx) > 1 and (
+            len(spec) < 3 or spec[2] != L.MODEL):
+        raise ValueError(f"{key}/{k}: {shape[2]} rows do not divide the "
+                         f"{L._n_model(ctx)}-way model axis")
+    return spec
+
+
+def _conv_spans(ctx: L.Ctx, cfg: ModelConfig, mamba):
+    """The conv lane's channel spans on this rank, ``L.mamba_spans``' (x
+    of its heads, B and C whole), when the SSM heads are split over
+    ``model``; else None (every channel)."""
+    from repro_torch.sharding import resolve_spec
     ssm = resolve_spec(ctx.rules, ctx.mesh, L.MAMBA_STATE_AXES["ssm"],
                        tuple(mamba["ssm"].shape))
     if len(ssm) > 2 and ssm[2] == L.MODEL:
-        n = L._n_model(ctx)
-        conv = L.take_spans(conv, L.mamba_spans(cfg, L._model_index(ctx),
-                                                n)[1])
+        return L.mamba_spans(cfg, L._model_index(ctx), L._n_model(ctx))[1]
+    return None
+
+
+def _conv_shard(ctx: L.Ctx, cfg: ModelConfig, mamba, spec):
+    """This rank's conv-state lane (``shard_cache``): the batch as ``spec``
+    cuts it, and the channels the rank's program convolves
+    (``_conv_spans``)."""
+    from repro_torch.sharding import local_slice
+    conv = local_slice(ctx.mesh, spec[:2], mamba["conv"])
+    spans = _conv_spans(ctx, cfg, mamba)
+    if spans is not None:
+        conv = L.take_spans(conv, spans)
     return conv.clone()
 
 

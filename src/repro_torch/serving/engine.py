@@ -53,6 +53,21 @@ prefill and decode run under their own phase caps, entered once per
 admitted request / decode chunk; ``serve_phase_tasks`` gives their
 roofline tasks.
 
+Under a mesh (``ctx.mesh``) every program is one rank's, as in
+``models/layers.py``: the cache is the rank's state (``lm.init_cache``:
+its slots over the data-parallel axes, its rows over ``model``; a paged
+engine's pools whole on every rank), the batch-wide programs run on the
+rank's slots, and a one-slot prefill chunk runs on every rank (the
+reference replicates a batch of one over ``data``): the slot's owners
+write its lane, the other data-parallel ranks a scratch lane whose
+writes are dropped, and the owners' logits come back on every rank.  The
+engine runs eagerly on every rank with the same requests and the same
+host scheduling, and its streams are one device's.  A gloo collective
+cannot be captured in a CUDA graph, so on the card an engine with a mesh
+and ``eager=False`` raises (graphing the sharded step waits for NCCL,
+ROADMAP item 14b (f)); ``drain``, ``restore`` and ``checkpoint`` under a
+mesh raise (ROADMAP item 24).
+
 Preemption is lossless and proportional, as in the reference
 (``repro/serving/engine.py:703-986``): ``drain()`` stops the stream and
 returns every request as a ``SlotSnapshot`` (an in-flight slot warm, its
@@ -78,6 +93,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.tasks import Task
+from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import resolve_device
@@ -86,6 +102,7 @@ from repro_torch.serving import graphs
 from repro_torch.serving.scheduler import (BlockAllocator, PrefixRegistry,
                                            Request, SlotScheduler, chunk_plan,
                                            fewest_remaining)
+from repro_torch.sharding import collectives as C
 from repro_torch.tree import tree_map
 
 __all__ = ["Request", "ServeEngine", "SlotSnapshot", "serve_phase_tasks",
@@ -126,13 +143,15 @@ def make_prefill_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
     batch may carry ``vision_embeds`` and (3, B, S) ``positions``.  For
     the audio encoder, which has no cache, "prefill" is the whole encode
     of ``batch["frames"]``: (None, the last frame's logits), as the
-    reference's (``repro/serving/engine.py:80-95``)."""
+    reference's (``repro/serving/engine.py:80-95``).  Under a mesh the
+    batch is this rank's rows over the data-parallel axes, and the cache
+    this rank's state (``lm.init_cache`` of the global batch)."""
 
     def prefill(params, batch):
         if cfg.family == "audio":
             h, _, _ = lm.forward(ctx, cfg, params, batch)
             return None, lm.logits_for(ctx, cfg, params, h[:, -1:, :])
-        B = batch["tokens"].shape[0]
+        B = batch["tokens"].shape[0] * L.dp_size(ctx)
         cache = lm.init_cache(ctx, cfg, B, max_seq)
         h, _, cache = lm.forward(ctx, cfg, params, batch, cache=cache,
                                  cache_index=0)
@@ -145,7 +164,8 @@ def make_decode_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
     """decode(params, cache, tokens (B,1), index) -> (cache, logits (B, V)).
     ``index`` is a scalar (shared offset) or a (B,) per-slot tensor.  Under
     M-RoPE the index is each section's position, (3, B, 1)
-    (``repro/serving/engine.py:104-108``)."""
+    (``repro/serving/engine.py:104-108``).  Under a mesh the tokens, the
+    index and the cache are this rank's slots'."""
 
     def decode(params, cache, tokens, index):
         batch = {"tokens": tokens}
@@ -185,17 +205,63 @@ def _reset_state_slot(cache, slot: int) -> None:
         a[:, slot].zero_()
 
 
+def _slot_owner(ctx: Ctx, cache, slot: int):
+    """(this rank's index of global slot ``slot`` in ``cache``'s batch, or
+    None when another data-parallel rank holds it; the holder's
+    data-parallel index).  Without a split batch every rank holds every
+    slot."""
+    dp = L.dp_size(ctx)
+    if dp == 1:
+        return slot, 0
+    local = (cache["block_tables"].shape[0] if "block_tables" in cache
+             else next(iter(next(iter(cache.values())).values())).shape[1])
+    d, owner = ctx.mesh.index(L.DP_AXES), slot // local
+    return (slot - d * local if owner == d else None), owner
+
+
+def _scratch_lanes(store: dict, cache, keys, index: int) -> dict:
+    """One slot's lanes of ``cache``'s ``keys`` for a rank that does not
+    hold the slot: kept in ``store`` across the chunks of one prefill, so
+    the rank computes what the slot's owners compute (their writes into a
+    paged pool included), and its state zeroed at a prefill's first chunk
+    (row 0), as the engine zeroes a slot's state at admission."""
+    if store.get("cache") is not cache:
+        store["cache"] = cache
+        store["lanes"] = {key: {k: torch.zeros_like(a[:, :1])
+                                for k, a in cache[key].items()}
+                          for key in keys}
+    elif index == 0:
+        _reset_state_slot(store["lanes"], 0)
+    return store["lanes"]
+
+
+def _owners_logits(ctx: Ctx, logits, owner: int):
+    """The slot owner's logits on every data-parallel rank (the others'
+    ran on a scratch lane)."""
+    if L.dp_size(ctx) == 1:
+        return logits
+    return C.all_gather(logits[None], L.DP_AXES, ctx.mesh, 0)[owner]
+
+
 def make_prefill_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx):
     """prefill_chunk(params, cache, tokens (1,chunk), slot, index)
     -> (cache, logits (1,V)).  Writes the chunk's KV rows into ONE slot of
-    the batch cache, in place."""
+    the batch cache, in place.  Under a mesh ``slot`` is the global slot
+    and the chunk runs on every rank with its rows replicated over the
+    data-parallel axes: the slot's owners write their lane, every other
+    rank a scratch lane (``_scratch_lanes``), and every rank returns the
+    owners' logits."""
+    ctx1 = dataclasses.replace(ctx, dp_batch=False)
+    store: dict = {}
 
     def prefill_chunk(params, cache, tokens, slot: int, index: int):
-        h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
-                             cache=_slot_views(cache, slot),
-                             cache_index=index)
-        logits = lm.logits_for(ctx, cfg, params, h[:, -1:, :])
-        return cache, logits[:, 0]
+        local, owner = _slot_owner(ctx, cache, slot)
+        lane = (_slot_views(cache, local) if local is not None else
+                _scratch_lanes(store, cache, tuple(cache), index))
+        h, _, _ = lm.forward(ctx1, cfg, params, {"tokens": tokens},
+                             cache=lane, cache_index=index)
+        logits = lm.logits_for(ctx1, cfg, params, h[:, -1:, :])
+        return cache, _owners_logits(ctx, logits[:, 0], owner)
 
     return prefill_chunk
 
@@ -207,23 +273,37 @@ def make_prefill_chunk_step_paged(cfg: ModelConfig, run: RunConfig,
     ``block_tables[slot:slot+1]``): the paged write reaches only blocks
     that row maps, so every other slot's blocks are untouched -- the same
     isolation, enforced by block ownership instead of lane slicing.  State
-    keys (the hybrid's Mamba lanes) are passed as the slot's lane views."""
+    keys (the hybrid's Mamba lanes) are passed as the slot's lane views.
+    Under a mesh every rank writes the chunk into its whole pool through
+    the slot's table row (gathered over the data-parallel axes when the
+    batch is split over them), so the ranks' pools stay equal; a rank
+    that does not hold the slot's state lanes runs on scratch lanes, and
+    every rank returns the owners' logits."""
 
     spec = lm.cache_slot_spec(cfg)
+    ctx1 = dataclasses.replace(ctx, dp_batch=False)
+    store: dict = {}
 
     def prefill_chunk(params, cache, tokens, slot: int, index: int):
+        local, owner = _slot_owner(ctx, cache, slot)
+        state = tuple(k for k in spec if spec[k] == lm.SLOT_STATE)
+        scratch = (_scratch_lanes(store, cache, state, index)
+                   if local is None else None)
         sub = {}
         for key, leaves in cache.items():
             if key == "block_tables":
-                sub[key] = leaves[slot:slot + 1]
+                sub[key] = (C.all_gather(leaves, L.DP_AXES, ctx.mesh, 0)
+                            if L.dp_size(ctx) > 1 else leaves)[slot:slot + 1]
             elif spec[key] == lm.SLOT_STATE:
-                sub[key] = {k: a[:, slot:slot + 1] for k, a in leaves.items()}
+                sub[key] = ({k: a[:, local:local + 1]
+                             for k, a in leaves.items()}
+                            if local is not None else scratch[key])
             else:
                 sub[key] = leaves                   # pool: passed whole
-        h, _, _ = lm.forward(ctx, cfg, params, {"tokens": tokens},
+        h, _, _ = lm.forward(ctx1, cfg, params, {"tokens": tokens},
                              cache=sub, cache_index=index)
-        logits = lm.logits_for(ctx, cfg, params, h[:, -1:, :])
-        return cache, logits[:, 0]
+        logits = lm.logits_for(ctx1, cfg, params, h[:, -1:, :])
+        return cache, _owners_logits(ctx, logits[:, 0], owner)
 
     return prefill_chunk
 
@@ -258,7 +338,8 @@ def make_decode_chunk_step(cfg: ModelConfig, run: RunConfig, ctx: Ctx,
     ``index`` its cache write offset, ``rem`` tokens still owed, ``done``
     the mask for finished or empty slots.  ``out`` (B, chunk) int32
     collects emitted tokens (-1 where a slot was done; every column is
-    written), the only value the host needs per chunk.  The cache, the
+    written), the only value the host needs per chunk.  Under a mesh the
+    vectors, ``out`` and the cache are this rank's slots'.  The cache, the
     four vectors and ``out`` are updated IN PLACE (the vectors copied
     back at the end), so the same storage serves every call and a CUDA
     graph of the body.  Nothing here reads a device value on the host."""
@@ -404,6 +485,13 @@ class ServeEngine:
     ``completion_s`` maps each finished uid to its wall seconds since its
     stream came up, read after the finishing chunk's host sync;
     ``capacity_hint(rows)`` says how many ``rows``-row requests fit now.
+
+    With a mesh in ``ctx`` every rank builds its own engine over its
+    shards of the weights and serves the same requests with the same host
+    scheduling (see the module docstring): the rank holds its slots' lane
+    vectors and cache (``batch_size`` must divide the data-parallel
+    axes), each decode chunk's ``out`` is gathered over the data-parallel
+    axes before its one host sync, and the engine is eager.
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, ctx: Ctx, params,
@@ -437,6 +525,13 @@ class ServeEngine:
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.device = resolve_device(ctx.device)
+        if ctx.mesh is not None and not eager \
+                and self.device.type == "cuda":
+            raise NotImplementedError(
+                "ServeEngine with a mesh on the card takes eager=True: a "
+                "gloo collective cannot be captured in a CUDA graph, and "
+                "graphing the sharded step waits for NCCL (ROADMAP item "
+                "14b (f))")
         self.cfg, self.run, self.ctx = cfg, run, ctx
         self.params = lm.prepare_params(ctx, params)
         self.batch_size, self.max_seq = batch_size, max_seq
@@ -500,6 +595,17 @@ class ServeEngine:
         return torch.tensor([toks], dtype=torch.int32).to(self.device,
                                                           non_blocking=True)
 
+    def _local(self, sid: int):
+        """This rank's lane index of slot ``sid``, or None when another
+        data-parallel rank holds it (always ``sid`` without a mesh)."""
+        return _slot_owner(self.ctx, self._cache, sid)[0]
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self.ctx.mesh is not None:
+            raise NotImplementedError(
+                f"ServeEngine.{what} under a mesh: slot migration across a "
+                f"mesh's shards is ROADMAP item 24")
+
     def _prefill_rows(self, tokens, sid: int, idx0: int):
         """Chunked prefill of ``tokens`` into rows [idx0, idx0 + len) of
         slot ``sid``, its Mamba state zeroed first; returns the last-token
@@ -509,7 +615,9 @@ class ServeEngine:
         slot (a dense prefill starts at row 0, so the lane's rows [0, len)
         are the request's)."""
         if self.eager:
-            _reset_state_slot(self._cache, sid)
+            local = self._local(sid)
+            if local is not None:
+                _reset_state_slot(self._cache, local)
         else:
             _reset_state_slot(self._lane, 0)
             if self.paged:
@@ -601,8 +709,11 @@ class ServeEngine:
         """Map slot ``sid``'s table row to ``blocks``, the rest of the row
         to the parking block.  non_blocking: the runtime stages the host
         row, so the host does not wait for the device's queue."""
+        local = self._local(sid)
+        if local is None:
+            return
         row = list(blocks) + [self._parking] * (self.max_blocks - len(blocks))
-        self._cache["block_tables"][sid].copy_(
+        self._cache["block_tables"][local].copy_(
             torch.tensor(row, dtype=torch.int32), non_blocking=True)
 
     def _copy_block(self, src: int, dst: int) -> None:
@@ -714,19 +825,23 @@ class ServeEngine:
 
     def _alloc_state(self) -> None:
         """The engine's device state, once: the cache, the lane vectors
-        and the decode chunk's ``out`` buffer."""
-        B, dev = self.batch_size, self.device
+        and the decode chunk's ``out`` buffer (under a mesh, the rank's
+        slots' only)."""
+        dev = self.device
         if self.paged:
             # the pool holds one PARKING block beyond the allocator's
             # arena: free and released table entries point at it, never at
             # an allocatable block
             self._parking = self.n_blocks
             self._cache = lm.init_paged_cache(
-                self.ctx, self.cfg, B, self.max_seq, self.block_size,
-                n_blocks=self.n_blocks + 1)
+                self.ctx, self.cfg, self.batch_size, self.max_seq,
+                self.block_size, n_blocks=self.n_blocks + 1)
             self._cache["block_tables"].fill_(self._parking)
+            B = self._cache["block_tables"].shape[0]
         else:
-            self._cache = lm.init_cache(self.ctx, self.cfg, B, self.max_seq)
+            self._cache = lm.init_cache(self.ctx, self.cfg, self.batch_size,
+                                        self.max_seq)
+            B = next(iter(next(iter(self._cache.values())).values())).shape[1]
         self._cur = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._index = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._rem = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -903,9 +1018,11 @@ class ServeEngine:
                     logits = self._admit_paged(req, slot.sid)
                 else:
                     logits = self._prefill_rows(req.prompt, slot.sid, 0)
-            _admit_step(self._cur, self._index, self._rem, self._done,
-                        logits, slot.sid, len(req.prompt),
-                        req.max_new_tokens)
+            local = self._local(slot.sid)
+            if local is not None:
+                _admit_step(self._cur, self._index, self._rem, self._done,
+                            logits, local, len(req.prompt),
+                            req.max_new_tokens)
             if tr is not None:
                 m = getattr(rec, "modeled", None)
                 dt = m.runtime if m is not None else 1.0
@@ -929,7 +1046,10 @@ class ServeEngine:
             self._vt += dt
             tr.span("engine.chunk", chunk_t0, self._vt, self.trace_track,
                     cat="chunk", args={"active": len(uids)})
-        out_host = self._fetch(self._out)     # the chunk's ONE sync
+        out = self._out
+        if L.dp_size(self.ctx) > 1:           # every rank's slots
+            out = C.all_gather(out, L.DP_AXES, self.ctx.mesh, 0)
+        out_host = self._fetch(out)           # the chunk's ONE sync
         self.sync_count += 1
         now = time.perf_counter() - self._t0
         newly: list[Request] = []
@@ -1070,6 +1190,7 @@ class ServeEngine:
         slot decodes on bit-identically, since per-slot cache state is
         independent.  The stream stays up; pair with ``set_slot_limit``
         to keep the shed lanes empty."""
+        self._refuse_mesh("drain")
         sched = self._sched
         if sched is None:
             return []
@@ -1101,6 +1222,7 @@ class ServeEngine:
         cannot reach the checkpoint.  Nothing is released; decoding
         continues untouched, and restoring the checkpoint replays from
         this boundary bit-identically."""
+        self._refuse_mesh("checkpoint")
         sched = self._sched
         if sched is None:
             return []
@@ -1126,6 +1248,7 @@ class ServeEngine:
         slot frees, ahead of fresh admissions; cold ones join the FCFS
         queue.  A snapshot this engine cannot hold raises before any
         device work."""
+        self._refuse_mesh("restore")
         for s in snaps:
             need = s.kv_len + s.rem if s.warm \
                 else len(s.request.prompt) + s.request.max_new_tokens

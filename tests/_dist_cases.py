@@ -20,7 +20,11 @@ from repro_torch.models import lm
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import (gather_params, init_params,
                                        logical_axes, shard_params)
-from repro_torch.serving.engine import make_decode_step, make_prefill_step
+from repro_torch.serving.engine import (Request, ServeEngine,
+                                        make_decode_step,
+                                        make_prefill_chunk_step,
+                                        make_prefill_chunk_step_paged,
+                                        make_prefill_step)
 from repro_torch.sharding import (RULE_SETS, collectives as C, spec_axes,
                                   tree_shardings)
 from repro_torch.train.compression import compressed_psum
@@ -64,6 +68,28 @@ RULE_CASES = {
 NORM_ROWS = (2, 8)
 #: llama's decode step under its serve rules
 SEQ_DECODE = "seqparallel"
+#: the serving step functions under a mesh (item 14b (d)), each arch under
+#: its serve rules and llama under ``default`` too, on the ``decode/<name>``
+#: weights: a 40-row prompt over MAX_SEQ 64 (slices of 32 rows, so it
+#: crosses the edge), chunks of 24 and 16 rows at offsets 0 and 24 (the
+#: second straddles it), two per-slot decode steps at offsets on each side
+#: of it with one done lane, and for llama the paged pool.  olmoe's
+#: whole-batch prefill is expert parallelism, which counts each rank's
+#: tokens for its capacity (queue 3's quirk), so it is held against JAX's
+#: sharded step alone
+SERVE_CASES = (("llama", "default"), ("llama", "seqparallel"),
+               ("gemma2", "seqparallel"), ("mamba2", "default"),
+               ("zamba2", "default"), ("olmoe", "default"))
+#: llama under the fsdp rule sets, held against one device
+SERVE_FSDP = (("llama", "fsdp"), ("llama", "fsdp_seqparallel"))
+SERVE_B, SERVE_ROWS = 4, 40
+SERVE_CHUNKS = ((0, 24), (24, 16))
+SERVE_INDEX = ((40, 28, MAX_SEQ, 35), (41, 29, MAX_SEQ, 36))
+SERVE_BLOCK = 16
+#: the eager engine on the mesh: reduced llama under its serve rules,
+#: dense and paged (prefix sharing), against one device's engine
+ENGINE = dict(batch_size=4, max_seq=64, prefill_chunk=16, decode_chunk=4,
+              block_size=8)
 
 
 def train_cfg():
@@ -191,6 +217,24 @@ def make_inputs(path) -> dict:
                 size=(B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
             out[f"{prefix}/batch/positions"] = rng.integers(
                 0, S, (3, B, S), dtype=np.int32)
+    for name in dict(SERVE_CASES):
+        cfg, _ = decode_cfg(name)
+        out[f"serve/{name}/tokens"] = rng.integers(
+            0, cfg.vocab, (SERVE_B, SERVE_ROWS), dtype=np.int32)
+        for j in range(len(SERVE_INDEX)):
+            out[f"serve/{name}/tok{j}"] = rng.integers(
+                0, cfg.vocab, (SERVE_B, 1), dtype=np.int32)
+    out["serve/table"] = rng.permutation(
+        SERVE_B * MAX_SEQ // SERVE_BLOCK).reshape(SERVE_B, -1).astype(
+            np.int32)
+    out["serve/cases"] = np.array([f"{n}/{r}" for n, r in SERVE_CASES])
+    cfg, _ = decode_cfg("llama")
+    shared = rng.integers(0, cfg.vocab, 20)
+    for i in range(10):
+        p = rng.integers(0, cfg.vocab, int(rng.integers(5, 40)))
+        out[f"engine/prompt{i}"] = (np.concatenate([shared, p[:10]])
+                                    if i % 3 == 0 else p).astype(np.int32)
+        out[f"engine/new{i}"] = np.int32(rng.integers(3, 12))
     # the gather pair's case: rank r's cotangent weights of the gathered
     # (8, 6) rows
     out["pair/x"] = rng.normal(size=(8, 6)).astype(np.float32)
@@ -265,6 +309,9 @@ def one_device(inp) -> dict:
         out[f"{prefix}/loss"] = float(m["loss"])
         out[f"{prefix}/grad_norm"] = float(m["grad_norm"])
         out[f"{prefix}/new_params"] = state["params"]
+    for name in dict(SERVE_CASES):
+        out[f"serve/{name}"] = serve_steps(inp, name, None, None)
+    out["engine"] = engine_streams(inp, None)
     y, z = (torch.from_numpy(inp[f"norm/{k}"]).requires_grad_(True)
             for k in ("y", "z"))
     (L.rmsnorm_gated(torch.from_numpy(inp["norm/scale"]), y, z)
@@ -300,6 +347,92 @@ def _decode(inp, name, mesh, rules=RULES):
             tok = torch.from_numpy(inp[f"decode/{name}/tok{i}"])[rows]
             cache, logits = step(params, cache, tok, PROMPT + i)
             out[f"decode/{name}/logits_{i}"] = logits
+    return out
+
+
+def serve_steps(inp, name, rules, mesh) -> dict:
+    """The serving step functions on ``decode/<name>``'s weights, on one
+    device (``mesh`` None) or on this rank under ``rules``: the
+    whole-batch prefill (last logits and the cache), two per-slot decode
+    steps, two prefill chunks into slot 1 of a fresh cache (their logits
+    and the cache) and, for llama, the paged pool (chunks into slots 1
+    and 0, a per-slot decode step; logits and the pool).  Caches come back
+    as this rank's state."""
+    cfg, run = decode_cfg(name)
+    params = tree_of(inp, f"decode/{name}/params")
+    tokens = torch.from_numpy(inp[f"serve/{name}/tokens"]).long()
+    ctx, rows = Ctx(run, "cpu"), slice(None)
+    if mesh is not None:
+        ctx = Ctx(run, "cpu", RULE_SETS[rules], mesh)
+        params = shard_params(params, tree_shardings(
+            ctx.rules, mesh, logical_axes(lm.model_decls(cfg)), params),
+            mesh)
+        n = SERVE_B // mesh.shape["data"]
+        rows = slice(mesh.coord("data") * n, (mesh.coord("data") + 1) * n)
+    out: dict = {}
+    with torch.no_grad():
+        cache, lg = make_prefill_step(cfg, run, ctx, MAX_SEQ)(
+            params, {"tokens": tokens[rows]})
+        out["prefill"], out["cache"] = lg, _np_tree(cache)
+        step = make_decode_step(cfg, run, ctx)
+        for j, idx in enumerate(SERVE_INDEX):
+            tok = torch.from_numpy(inp[f"serve/{name}/tok{j}"]).long()[rows]
+            cache, out[f"decode{j}"] = step(
+                params, cache, tok, torch.tensor(idx, dtype=torch.int32)[rows])
+        fresh = lm.init_cache(ctx, cfg, SERVE_B, MAX_SEQ)
+        chunk = make_prefill_chunk_step(cfg, run, ctx)
+        for j, (o, n) in enumerate(SERVE_CHUNKS):
+            _, out[f"chunk{j}"] = chunk(params, fresh, tokens[1:2, o:o + n],
+                                        1, o)
+        out["chunk_cache"] = _np_tree(fresh)
+        if name == "llama":
+            pc = lm.init_paged_cache(ctx, cfg, SERVE_B, MAX_SEQ, SERVE_BLOCK)
+            pc["block_tables"].copy_(torch.from_numpy(inp["serve/table"])[
+                rows if pc["block_tables"].shape[0] < SERVE_B
+                else slice(None)])
+            paged = make_prefill_chunk_step_paged(cfg, run, ctx)
+            for j, (o, n) in enumerate(SERVE_CHUNKS):
+                _, out[f"paged{j}"] = paged(params, pc, tokens[1:2, o:o + n],
+                                            1, o)
+            _, out["paged2"] = paged(params, pc, tokens[0:1], 0, 0)
+            _, out["paged_decode"] = step(
+                params, pc, torch.from_numpy(inp["serve/llama/tok0"]).long()[
+                    rows], torch.tensor(SERVE_INDEX[0], dtype=torch.int32)[
+                        rows])
+            out["pool"] = _np_tree({"kv": pc["kv"]})
+    return out
+
+
+def _np_tree(cache):
+    return {f"{key}/{k}": a.numpy().copy() for key, leaves in cache.items()
+            if key != "block_tables" for k, a in leaves.items()}
+
+
+def engine_streams(inp, mesh) -> dict:
+    """The eager engine on reduced llama (``decode/llama``'s weights)
+    under its serve rules, dense and paged with prefix sharing, on one
+    device (``mesh`` None) or on this rank: each request's stream."""
+    cfg, run = decode_cfg("llama")
+    params = tree_of(inp, "decode/llama/params")
+    ctx = Ctx(run, "cpu")
+    if mesh is not None:
+        ctx = Ctx(run, "cpu", RULE_SETS[SEQ_DECODE], mesh)
+        params = shard_params(params, tree_shardings(
+            ctx.rules, mesh, logical_axes(lm.model_decls(cfg)), params),
+            mesh)
+    out = {}
+    for mode, kw in (("dense", {}), ("paged", dict(paged=True,
+                                                   prefix_sharing=True))):
+        eng = ServeEngine(cfg, run, ctx, params, eager=True, **ENGINE, **kw)
+        done = eng.generate([
+            Request(uid=i, prompt=inp[f"engine/prompt{i}"].tolist(),
+                    max_new_tokens=int(inp[f"engine/new{i}"]),
+                    prefix_len=20 if i % 3 == 0 else 0)
+            for i in range(10)])
+        out[mode] = {r.uid: list(r.generated) for r in done}
+        if kw:
+            out["pool"] = eng._cache["kv"]["k"].clone()
+            out["skipped"] = eng.prefill_tokens_skipped
     return out
 
 
@@ -454,6 +587,9 @@ def rank_cases(rank, world, inp) -> dict:
         out[f"rule/{case}"] = _rule_step(rank, inp, case, mesh)
     for k, v in _decode(inp, "llama", mesh, RULE_SETS[SEQ_DECODE]).items():
         out["seqdecode/" + k.rsplit("/", 1)[1]] = v
+    for name, rules in SERVE_CASES + SERVE_FSDP:
+        out[f"serve/{name}/{rules}"] = serve_steps(inp, name, rules, mesh)
+    out["engine"] = engine_streams(inp, mesh)
     out.update(_pair_grads(rank, inp, mesh))
     out.update(_norm_grads(inp, mesh))
     # (1, 4) over the same ranks: reduced llama's 2 kv heads cut in

@@ -10,7 +10,13 @@ in ``case/<name>/arch``, its weights and batch under ``case/<name>/
 prefix``: among them reduced mamba2 under ``default`` and ``fsdp`` and
 reduced zamba2 under ``default``) and llama's decode step under
 ``seqparallel``; the Mamba-2 families' decode caches are placed by
-``cache_logical_axes``.  The mesh is a ``jax.sharding.Mesh`` built here, whose axes
+``cache_logical_axes``.  For the serving step functions under a mesh it
+runs the reference's own ``make_prefill_step``, ``make_prefill_chunk_step``,
+``make_prefill_chunk_step_paged`` (llama under its serve rules) and
+``make_decode_step`` with a (B,) index, each jitted on ``Ctx(run, rules,
+mesh)`` under the case's rules, every cache placed by
+``cache_logical_axes`` and the paged pool replicated (``serve/cases``).
+The mesh is a ``jax.sharding.Mesh`` built here, whose axes
 are Auto: ``repro.launch.mesh.make_mesh_for`` calls ``jax.make_mesh``,
 whose Explicit axes ``with_sharding_constraint`` rejects under jax 0.9.
 Nothing of ``repro`` is changed.  Inputs (weights, batches, gradients)
@@ -25,6 +31,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import dataclasses  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -36,9 +43,13 @@ from repro.configs.base import reduced  # noqa: E402
 from repro.configs.registry import get_model_config, get_run_config  # noqa: E402
 from repro.models import layers as L  # noqa: E402
 from repro.models.layers import Ctx  # noqa: E402
+from repro.models import lm  # noqa: E402
 from repro.models.lm import cache_logical_axes  # noqa: E402
 from repro.models.params import logical_axes  # noqa: E402
-from repro.serving.engine import make_decode_step, make_prefill_step  # noqa: E402
+from repro.serving.engine import (make_decode_step,  # noqa: E402
+                                  make_prefill_chunk_step,
+                                  make_prefill_chunk_step_paged,
+                                  make_prefill_step)
 from repro.sharding import RULE_SETS, tree_shardings  # noqa: E402
 from repro.train.compression import compressed_psum  # noqa: E402
 from repro.train.step import (abstract_state, make_loss_fn,  # noqa: E402
@@ -146,6 +157,60 @@ def decode(inp, mesh, out, name, rules=RULES, key=None):
         out[f"{key}/logits1_{i}"] = np.asarray(o1)
 
 
+MAX_SEQ, SERVE_CHUNKS, SERVE_BLOCK = 64, ((0, 24), (24, 16)), 16
+SERVE_INDEX = ((40, 28, MAX_SEQ, 35), (41, 29, MAX_SEQ, 36))
+
+
+def _placed(cache, cfg, rules, mesh):
+    return jax.device_put(cache, tree_shardings(
+        rules, mesh, cache_logical_axes(cfg), cache))
+
+
+def serve(inp, mesh, out, name, rules_name):
+    """The serving step functions of ``decode/<name>`` under
+    ``rules_name`` on the mesh (``_dist_cases.serve_steps``' sequence):
+    outputs under ``serve/<name>/<rules_name>``."""
+    key = f"serve/{name}/{rules_name}"
+    arch, over = DECODE[name]
+    cfg = reduced(get_model_config(arch), **over)
+    run = get_run_config(arch, logits_chunk=16, **F32)
+    rules = RULE_SETS[rules_name]
+    ctx = Ctx(run, rules, mesh)
+    params = tree_of(inp, f"decode/{name}/params")
+    tokens = jnp.asarray(inp[f"serve/{name}/tokens"])
+    B = tokens.shape[0]
+    cache, lg = jax.jit(make_prefill_step(cfg, run, ctx, MAX_SEQ))(
+        params, {"tokens": tokens})
+    out[f"{key}/prefill"] = np.asarray(lg)
+    flat_of(cache, f"{key}/cache", out)
+    dec = jax.jit(make_decode_step(cfg, run, ctx))
+    for j, idx in enumerate(SERVE_INDEX):
+        cache, lg = dec(params, cache, jnp.asarray(inp[f"serve/{name}/tok{j}"]),
+                        jnp.asarray(idx, jnp.int32))
+        out[f"{key}/decode{j}"] = np.asarray(lg)
+    fresh = _placed(lm.init_cache(ctx, cfg, B, MAX_SEQ), cfg, rules, mesh)
+    chunk = jax.jit(make_prefill_chunk_step(cfg, run, ctx))
+    for j, (o, n) in enumerate(SERVE_CHUNKS):
+        fresh, lg = chunk(params, fresh, tokens[1:2, o:o + n],
+                          jnp.asarray(1, jnp.int32), jnp.asarray(o, jnp.int32))
+        out[f"{key}/chunk{j}"] = np.asarray(lg)
+    flat_of(fresh, f"{key}/chunk_cache", out)
+    if (name, rules_name) != ("llama", "seqparallel"):
+        return
+    pc = lm.init_paged_cache(ctx, cfg, B, MAX_SEQ, SERVE_BLOCK)
+    pc["block_tables"] = jnp.asarray(inp["serve/table"])
+    pc = jax.device_put(pc, NamedSharding(mesh, P()))
+    paged = jax.jit(make_prefill_chunk_step_paged(cfg, run, ctx))
+    for j, (slot, o, n) in enumerate(((1, 0, 24), (1, 24, 16), (0, 0, 40))):
+        pc, lg = paged(params, pc, tokens[slot:slot + 1, o:o + n],
+                       jnp.asarray(slot, jnp.int32), jnp.asarray(o, jnp.int32))
+        out[f"{key}/paged{j}"] = np.asarray(lg)
+    pc, lg = dec(params, pc, jnp.asarray(inp["serve/llama/tok0"]),
+                 jnp.asarray(SERVE_INDEX[0], jnp.int32))
+    out[f"{key}/paged_decode"] = np.asarray(lg)
+    flat_of({"kv": pc["kv"]}, f"{key}/pool", out)
+
+
 def moe(inp, mesh, out):
     cfg = dataclasses.replace(reduced(get_model_config("olmoe-1b-7b")),
                               capacity_factor=8.0)
@@ -183,8 +248,6 @@ def main():
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     out: dict = {}
     train(inp, mesh, out)
-    for name in DECODE:
-        decode(inp, mesh, out, name)
     moe(inp, mesh, out)
     psum_int8(inp, mesh, out)
     for k in inp:
@@ -194,6 +257,14 @@ def main():
                   str(inp[f"case/{case}/rules"]),
                   str(inp[f"case/{case}/prefix"]))
     decode(inp, mesh, out, "llama", RULE_SETS["seqparallel"], "seqdecode")
+    # the decode and serving cases in threads, whose programs XLA compiles
+    # side by side (the results are the same as one after another)
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(decode, inp, mesh, out, name) for name in DECODE]
+        jobs += [pool.submit(serve, inp, mesh, out, *str(case).split("/"))
+                 for case in inp["serve/cases"]]
+        for job in jobs:
+            job.result()
     np.savez(sys.argv[2], **out)
 
 

@@ -5,8 +5,12 @@ rule sets, the head-parallel Mamba-2 stack under ``default`` and ``fsdp``
 and the zamba2 hybrid under ``default`` among them, the ``shard_map``
 sequence-sharded decode under ``default`` and ``seqparallel``, the
 Mamba-2 families' decode steps, expert parallelism, ``compressed_psum``)
-on the same numbers; and the same ranks as a (1, 4) mesh, where reduced
-llama's kv heads are cut in storage.
+on the same numbers; the serving step functions under a mesh (the
+whole-batch prefill, prefill chunks across the cache slices' edge,
+per-slot decode with a done lane, the paged pool) against one device and
+JAX's own step functions under each arch's serve rules, and the eager
+``ServeEngine`` on every rank against one device's; and the same ranks as
+a (1, 4) mesh, where reduced llama's kv heads are cut in storage.
 
 The JAX oracle runs once for the module, in a subprocess with eight
 forced host devices and an Auto-axis ``jax.sharding.Mesh`` of four of them
@@ -207,15 +211,242 @@ def test_seqsharded_decode_matches_unsharded_and_jax(ranks, single, oracle,
 
 
 def test_seqsharded_decode_window_spans_both_slices():
-    """The per-rank (kv_len, window) rule at gemma2's reduced window 8:
-    a step at 33 over slices of 32 rows sees rows 26..33, 26..31 on rank
-    0 (its slice ends before the index) and 32..33 on rank 1."""
-    from repro_torch.models.layers import seq_shard_window
-    assert seq_shard_window(33, 0, 32, 8) == (32, 6)
-    assert seq_shard_window(33, 1, 32, 8) == (2, 8)
-    assert seq_shard_window(45, 0, 32, 8) == (0, 8)
-    assert seq_shard_window(10, 1, 32, None) == (0, None)
-    assert seq_shard_window(40, 0, 32, None) == (32, None)
+    """The per-rank kv_len rule with the global window, at gemma2's
+    reduced window 8: a step at 33 over slices of 32 rows sees rows
+    26..33, 26..31 on rank 0 (kv_len 34 reads its 32 rows, the query at
+    local position 33) and 32..33 on rank 1 (kv_len 2); rank 0 sees
+    nothing of a step at 45 (its window starts at 38), rank 1 nothing of
+    one at 10; and a 16-row chunk at 24 puts its queries at the slices'
+    local positions.  Combined by their log-sum-exp, the slices give the
+    unsliced attention."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import seq_shard_kv_len
+    assert seq_shard_kv_len(33, 0, 32) == 34
+    assert seq_shard_kv_len(33, 1, 32) == 2
+    assert seq_shard_kv_len(10, 1, 32) == 0
+    assert seq_shard_kv_len(24, 1, 32, 16) == 8
+    assert seq_shard_kv_len(torch.tensor([40, 64, 3]), 1, 32).tolist() == [
+        9, 33, 0]
+    g = torch.Generator().manual_seed(0)
+    k, v = (torch.randn((1, 64, 2, 16), generator=g) for _ in range(2))
+    for index, S in ((33, 1), (45, 1), (10, 1), (24, 16)):
+        q = torch.randn((1, S, 4, 16), generator=g)
+        want = ref.decode_attention_ref(q, k, v, torch.tensor([index + S]),
+                                        local_window=8)
+        parts = [ref.decode_attention_lse_ref(
+            q, k[:, r * 32:(r + 1) * 32], v[:, r * 32:(r + 1) * 32],
+            torch.tensor([seq_shard_kv_len(index, r, 32, S)]),
+            local_window=8) for r in range(2)]
+        m = torch.maximum(parts[0][1], parts[1][1])
+        w = [torch.exp(lse - m).permute(0, 2, 1)[..., None]
+             for _, lse in parts]
+        got = sum(o * wi for (o, _), wi in zip(parts, w)) / sum(w)
+        assert (got - want).abs().max() < 1e-6, (index, S)
+
+
+def test_cache_update_row_clip_plain_version():
+    """The write's row-level clip (a rank's slice of a cache cut by
+    sequence): row j of a slot lands iff 0 <= index + j < S, where the
+    whole-slot rule drops a slot whose rows cross either end.  A chunk
+    straddling two slices leaves each its rows."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(1)
+    k_new, v_new = (torch.randn((4, 8, 2, 16), generator=g) for _ in range(2))
+    index = torch.tensor([-5, 3, 12, 16], dtype=torch.int32)
+    for clip in (False, True):
+        kc, vc = torch.zeros((4, 16, 2, 16)), torch.zeros((4, 16, 2, 16))
+        ref.kv_cache_update_ref(kc, vc, k_new, v_new, index, clip_rows=clip)
+        for b, i in enumerate(index.tolist()):
+            for j in range(8):
+                lands = 0 <= i + j < 16 if clip else 0 <= i and i + 8 <= 16
+                if lands:
+                    assert torch.equal(kc[b, i + j], k_new[b, j])
+                    assert torch.equal(vc[b, i + j], v_new[b, j])
+            kept = {i + j for j in range(8)} if (clip or 0 <= i <= 8) \
+                else set()
+            for row in set(range(16)) - kept:
+                assert not kc[b, row].any() and not vc[b, row].any()
+    # the two 16-row slices of a 32-row cache take a 16-row chunk at 8
+    # between them: rows 8..15 on the first, 16..23 on the second
+    full, halves = torch.zeros((1, 32, 2, 16)), torch.zeros((2, 1, 16, 2, 16))
+    kn = torch.randn((1, 16, 2, 16), generator=g)
+    ref.kv_cache_update_ref(full, full.clone(), kn, kn,
+                            torch.tensor([8], dtype=torch.int32))
+    for r in range(2):
+        ref.kv_cache_update_ref(halves[r], halves[r].clone(), kn, kn,
+                                torch.tensor([8 - 16 * r], dtype=torch.int32),
+                                clip_rows=True)
+    assert torch.equal(torch.cat([halves[0], halves[1]], dim=1), full)
+
+
+def _rank_ctx(run, rules, coords):
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.sharding import RULE_SETS
+    rank = coords["data"] * 2 + coords["model"]
+    return Ctx(run, "cpu", RULE_SETS[rules], Mesh(DC.MESH, ("data", "model"),
+                                                  rank=rank))
+
+
+def _flat_cache(flat):
+    """The cache dict of a flat ``<key>/<leaf>`` map."""
+    out: dict = {}
+    for k, a in flat.items():
+        key, leaf = k.split("/")
+        out.setdefault(key, {})[leaf] = torch.from_numpy(np.array(a))
+    return out
+
+
+def _rank_cache(got, full, name, rules, coords, what):
+    """This rank's cache ``got`` (flat) against ``lm.shard_cache`` of the
+    unsharded ``full`` (flat) on its coordinates."""
+    from repro_torch.models import lm
+    cfg, run = DC.decode_cfg(name)
+    want = lm.shard_cache(_rank_ctx(run, rules, coords), cfg,
+                          _flat_cache(full))
+    for key, leaves in want.items():
+        for k, w in leaves.items():
+            _close(got[f"{key}/{k}"], w, OUT_TOL,
+                   f"{name} {rules} {what} {key}/{k} {coords}")
+
+
+def _jax_flat(jax_out, prefix):
+    return {k[len(prefix) + 1:]: a for k, a in jax_out.items()
+            if k.startswith(prefix + "/")}
+
+
+@pytest.mark.parametrize("case", [f"{n}/{r}" for n, r in DC.SERVE_CASES])
+def test_serve_steps_under_a_mesh_match_one_device_and_jax(ranks, single,
+                                                           oracle, case):
+    """Item 14b (d): the whole-batch prefill of a 40-row prompt over
+    slices of 32 rows (last logits, every rank's cache), two per-slot
+    decode steps at offsets on each side of the slices' edge with a done
+    lane, prefill chunks of 24 and 16 rows at 0 and 24 (the second
+    straddling the edge; logits and the cache) and, for llama, the paged
+    pool (chunks, a per-slot decode step, the pool whole and equal on
+    every rank; against JAX under llama's serve rules),
+    on every rank under the arch's serve rules against the port's one
+    device and JAX's own step functions on its mesh.  olmoe's prefill is
+    expert parallelism (each rank's tokens count for its capacity), so it
+    and the steps after it are held against JAX alone."""
+    name, rules = case.split("/")
+    jax_out = oracle.result()
+    one = single[f"serve/{name}"]
+    jx = _jax_flat(jax_out, f"serve/{case}")
+    ep = name == "olmoe"
+    for r in ranks:
+        got = r[f"serve/{case}"]
+        d, coords = r["coords"]["data"], r["coords"]
+        n = DC.SERVE_B // 2
+        rows = slice(d * n, (d + 1) * n)
+        wants = [("JAX", jx)] + ([] if ep else [("one device", one)])
+        for what, want in wants:
+            _close(got["prefill"], want["prefill"][rows], OUT_TOL,
+                   f"{case} prefill vs {what}")
+            for j in range(len(DC.SERVE_INDEX)):
+                _close(got[f"decode{j}"], want[f"decode{j}"][rows], OUT_TOL,
+                       f"{case} decode {j} vs {what}")
+        _rank_cache(got["cache"], _jax_flat(jx, "cache"), name, rules,
+                    coords, "prefill cache vs JAX")
+        if not ep:
+            _rank_cache(got["cache"], one["cache"], name, rules, coords,
+                        "prefill cache vs one device")
+        for what, want in (("JAX", jx), ("one device", one)):
+            for j in range(len(DC.SERVE_CHUNKS)):
+                _close(got[f"chunk{j}"], want[f"chunk{j}"], OUT_TOL,
+                       f"{case} chunk {j} vs {what}")
+        _rank_cache(got["chunk_cache"], _jax_flat(jx, "chunk_cache"), name,
+                    rules, coords, "chunk cache vs JAX")
+        _rank_cache(got["chunk_cache"], one["chunk_cache"], name, rules,
+                    coords, "chunk cache vs one device")
+        if name != "llama":
+            continue
+        # the paged pool against JAX under llama's serve rules
+        pools = [("one device", one)] + ([("JAX", jx)]
+                                         if rules == "seqparallel" else [])
+        for what, want in pools:
+            for j in range(3):
+                _close(got[f"paged{j}"], want[f"paged{j}"], OUT_TOL,
+                       f"{case} paged chunk {j} vs {what}")
+            _close(got["paged_decode"], want["paged_decode"][rows], OUT_TOL,
+                   f"{case} paged decode vs {what}")
+            for k in ("kv/k", "kv/v"):
+                _close(got["pool"][k], _jax_flat(want, "pool")[k]
+                       if what == "JAX" else want["pool"][k], OUT_TOL,
+                       f"{case} {k} vs {what}")
+        for k in ("kv/k", "kv/v"):
+            assert np.array_equal(got["pool"][k],
+                                  ranks[0][f"serve/{case}"]["pool"][k])
+
+
+@pytest.mark.parametrize("case", [f"{n}/{r}" for n, r in DC.SERVE_FSDP])
+def test_serve_steps_under_fsdp_match_one_device(ranks, single, case):
+    """The same steps of reduced llama under ``fsdp`` (the Megatron
+    program with its weights gathered over ``data`` at use) and
+    ``fsdp_seqparallel`` against the port's one device."""
+    name, rules = case.split("/")
+    one = single[f"serve/{name}"]
+    for r in ranks:
+        got, coords = r[f"serve/{case}"], r["coords"]
+        n = DC.SERVE_B // 2
+        rows = slice(coords["data"] * n, (coords["data"] + 1) * n)
+        for k in ("prefill", "decode0", "decode1", "paged_decode"):
+            _close(got[k], one[k][rows], OUT_TOL, f"{case} {k}")
+        for k in ("chunk0", "chunk1", "paged0", "paged1", "paged2"):
+            _close(got[k], one[k], OUT_TOL, f"{case} {k}")
+        for k in ("cache", "chunk_cache"):
+            _rank_cache(got[k], one[k], name, rules, coords, k)
+
+
+def test_mesh_engine_streams_equal_one_device(ranks, single):
+    """The eager ``ServeEngine`` on every rank of (2, 2) under llama's
+    serve rules, dense and paged with prefix sharing, serving the same
+    ten requests: every rank's streams equal one device's engine's, the
+    paged ranks' pools are equal, and the prefix registry skipped the same
+    rows."""
+    want = single["engine"]
+    for r in ranks:
+        got = r["engine"]
+        assert got["dense"] == want["dense"]
+        assert got["paged"] == want["paged"]
+        assert got["skipped"] == want["skipped"] > 0
+        assert torch.equal(got["pool"], ranks[0]["engine"]["pool"])
+
+
+def test_cache_init_under_a_mesh_is_the_rank_shard():
+    """``lm.init_cache`` under a mesh allocates this rank's shard: the
+    shapes ``lm.shard_cache`` cuts from the unsharded cache, on every rank
+    of (2, 2) and under each rule set; ``init_paged_cache`` keeps the
+    pools whole and the rank's table rows; a batch that does not divide
+    the data-parallel axes raises."""
+    from repro_torch.models import lm
+    for name in ("llama", "gemma2", "mamba2", "zamba2"):
+        cfg, run = DC.decode_cfg(name)
+        full = lm.init_cache(DC.Ctx(run, "cpu"), cfg, 4, DC.MAX_SEQ)
+        for rules in ("default", "fsdp", "seqparallel", "fsdp_seqparallel"):
+            if cfg.family in ("ssm", "hybrid") and "seq" in rules:
+                continue
+            for d in range(2):
+                for m in range(2):
+                    ctx = _rank_ctx(run, rules, {"data": d, "model": m})
+                    got = lm.init_cache(ctx, cfg, 4, DC.MAX_SEQ)
+                    want = lm.shard_cache(ctx, cfg, full)
+                    for key, leaves in want.items():
+                        for k, w in leaves.items():
+                            assert got[key][k].shape == w.shape, (
+                                name, rules, key, k)
+                            assert not got[key][k].any()
+                    if cfg.family == "ssm":
+                        continue
+                    pc = lm.init_paged_cache(ctx, cfg, 4, DC.MAX_SEQ, 16)
+                    assert pc["block_tables"].shape == (2, 4)
+                    pool = next(v for key, v in pc.items()
+                                if key not in ("block_tables", "mamba"))
+                    assert pool["k"].shape[1:3] == (16, 16)
+            with pytest.raises(ValueError, match="data-parallel"):
+                lm.init_cache(_rank_ctx(run, "default",
+                                        {"data": 0, "model": 0}), cfg, 3,
+                              DC.MAX_SEQ)
 
 
 def test_moe_expert_parallel_matches_local_path_and_jax(ranks, single,
@@ -324,7 +555,11 @@ def test_rule_sets_not_executed_raise_naming_14b(tmp_path):
     Mamba-2 stack and the hybrid run under ``default`` and ``fsdp`` (item
     14b (c)); what 14b still leaves for them, a sequence-parallel rule
     set, raises naming its sub-item (c2), in ``lm.forward`` as in the
-    launcher's check."""
+    launcher's check.  What (d) left unexecuted runs: on a (1, 1) mesh
+    reduced llama's whole-batch prefill, a per-slot decode step and a
+    paged prefill chunk give one device's logits, and the mesh engine
+    serves; its migration (``drain``, ``checkpoint``, ``restore``) raises
+    naming ROADMAP item 24."""
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_model_config, get_run_config
     from repro_torch.launch.mesh import Mesh
@@ -348,6 +583,36 @@ def test_rule_sets_not_executed_raise_naming_14b(tmp_path):
             with pytest.raises(NotImplementedError, match=r"14b \(c2\)"):
                 lm.forward(Ctx(run, "cpu", RULE_SETS[name], mesh), cfg,
                            params, {"tokens": tokens})
+    from repro_torch.serving.engine import (
+        Request, ServeEngine, make_decode_step, make_prefill_chunk_step_paged,
+        make_prefill_step)
+    cfg, run = DC.decode_cfg("llama")
+    params = init_params(lm.model_decls(cfg),
+                         torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    got, want = {}, {}
+    for out, ctx in ((want, Ctx(run, "cpu")),
+                     (got, Ctx(run, "cpu", RULE_SETS["default"], mesh))):
+        with torch.no_grad():
+            cache, out["prefill"] = make_prefill_step(cfg, run, ctx, 32)(
+                params, {"tokens": tokens})
+            _, out["decode"] = make_decode_step(cfg, run, ctx)(
+                params, cache, tokens[:, :1],
+                torch.tensor([12, 32], dtype=torch.int32))
+            pc = lm.init_paged_cache(ctx, cfg, 2, 32, 16)
+            pc["block_tables"].copy_(torch.tensor([[2, 3], [0, 1]]))
+            _, out["paged"] = make_prefill_chunk_step_paged(cfg, run, ctx)(
+                params, pc, tokens[1:], 1, 0)
+    for k in want:
+        _close(got[k], want[k], OUT_TOL, f"(1, 1) {k}")
+    eng = ServeEngine(cfg, run, Ctx(run, "cpu", RULE_SETS["default"], mesh),
+                      params, batch_size=2, max_seq=32)
+    eng.generate([Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2)])
+    for what, call in (("drain", eng.drain), ("checkpoint", eng.checkpoint),
+                       ("restore", lambda: eng.restore([]))):
+        with pytest.raises(NotImplementedError, match="item 24"):
+            call()
 
     def launch(arch, sub):
         env = dict(os.environ, PYTHONPATH=str(REPO / "src"), WORLD_SIZE="1",

@@ -12,7 +12,13 @@ against the one-device ones, each rank launching the kernels; ``ssd`` and
 ``ssd_bwd`` at the heads of one of two model ranks (the head-parallel
 Mamba-2 program) against their plain versions, and two ranks training
 reduced mamba2 and zamba2 head-parallel against one device, each planted
-fault (``chip_smoke.DIST_FAULTS``) moving the gradients.  The CPU tests
+fault (``chip_smoke.DIST_FAULTS``) moving the gradients; the dense
+write's row-level clip against its plain version, the whole-slot rule on
+a straddling chunk flagged; the f32 ``ssd`` forward against its float64
+plain version; two ranks serving reduced llama under ``default`` and
+``seqparallel`` (prefill chunks across the slices' edge, per-slot decode,
+the paged pool, the eager engine) against one device; and the mesh
+engine on the card refusing ``eager=False``.  The CPU tests
 against the JAX package are in ``tests/test_torch_distributed.py``; this
 file imports no JAX."""
 
@@ -228,3 +234,54 @@ def test_ssd_bwd_f32_is_within_the_rule_of_the_exact_gradient(card, model):
             if name in ("dx", "ddt", "dB", "dC"):
                 assert cs._entry_ratio("float32", a, w).max().item() <= 1.0, (
                     model, seed, name)
+
+
+@pytest.mark.cuda
+def test_cache_update_row_clip_matches_plain(card):
+    """The dense write's row-level clip (the sharded path's) bit for bit
+    its plain version at local offsets before, across and past a rank's
+    slice; the whole-slot rule on the straddling chunks misses rows."""
+    checks, fault = cs.check_cache_update_clip(tfa, ref)
+    assert all(c["bit_exact"] for c in checks)
+    assert all(f["rows_missed"] > 0 for f in fault if f["Sn"] > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [*cs.SSD_HEADS, *cs.SSD_RANK_HEADS])
+def test_ssd_f32_is_within_the_rule_of_the_exact_forward(card, model):
+    """The f32 ``ssd`` forward at the training shape with h0, whole and on
+    a rank's heads, against the plain version in float64 of the same
+    inputs, by the f32 per-entry rule of y and the final state."""
+    from repro_torch.kernels import ssd as tssd
+    (c,) = cs.check_ssd_f32_exact(tssd, ref, [model])
+    assert c["y"] <= 1.0 and c["state"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_two_ranks_serve_on_the_card_like_one_device(card):
+    from repro_torch.kernels import build
+    build.build_all()
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(cs.dist_rank_reduced_serve, 2, "gloo", timeout_s=300)
+    for r in res:
+        for rules, got in r.items():
+            assert got["rel_diff"] < 1e-5, (rules, got)
+            assert got["streams_equal"], rules
+            for name in ("cache_update", "flash_decode",
+                         "cache_update_paged", "flash_decode_paged"):
+                assert got["launches"].get(name, 0) > 0, (rules, name)
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_the_card_refuses_graphs(card):
+    """A gloo collective cannot be captured in a CUDA graph: an engine with
+    a mesh on the card and ``eager=False`` raises, naming item 14b (f)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.sharding import RULE_SETS
+    cfg, run = cs._dist_reduced_train()
+    mesh = Mesh((1, 1), ("data", "model"), rank=0, backend="gloo")
+    with pytest.raises(NotImplementedError, match=r"14b \(f\)"):
+        ServeEngine(cfg, run, Ctx(run, "cuda", RULE_SETS["default"], mesh),
+                    {}, eager=False)

@@ -6,9 +6,13 @@ ranks' shapes), its ``ssd`` and ``ssd_bwd`` checks and times at the heads
 of one of two model ranks and ``flash_attention`` at zamba2's shared
 block's (the head-parallel Mamba-2 program's shapes), then its
 ``[dist:*]`` phases (two gloo ranks sharing the card; sizes, gates and
-planted faults at ``chip_smoke.DIST_TRAIN_GATES``).
+planted faults at ``chip_smoke.DIST_TRAIN_GATES``).  ``--serve`` runs
+the mesh serving paths alone instead: the dense write's row-level clip
+check and its planted fault, the f32 ``ssd`` forward against its float64
+plain version, then only the ``[dist:prefill]`` and
+``[dist:serve-engine]`` phases.
 
-    python3 tools/dist_probe.py [--checks-only]
+    python3 tools/dist_probe.py [--checks-only | --serve]
 
 Any failed check or gate raises.
 """
@@ -38,6 +42,13 @@ def main() -> int:
     print(f"[probe] build {time.perf_counter() - t0:.1f}s; {cs._smi_line()}; "
           f"torch {torch.__version__}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--serve" in sys.argv:
+        cs.check_cache_update_clip(tfa, ref)
+        cs.check_ssd_f32_exact(tssd, ref)
+        cs.dist_phases(only=("prefill", "engine"))
+        print(f"[probe] done in {time.perf_counter() - t0:.1f}s; "
+              f"{cs._smi_line()}")
+        return 0
     cs.check_flash_decode_lse(tfa, ref)
     cs.time_flash_decode_lse(tfa, ref)
     cs.check_flash_attention(tfa, ref, cs.FA_OFFSET_CASES)
